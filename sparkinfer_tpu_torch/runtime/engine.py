@@ -1,0 +1,206 @@
+"""Generation engine, the port of sparkinfer_tpu/runtime/engine.py for the
+dense and the sparse pipelined paths.
+
+Prefill runs the whole prompt through one forward (chunked when it is longer
+than `prefill_chunk`); decode runs one token per step; sampling happens on
+the device and the host reads one token id per step. The JAX engine's TPU
+tunings have no counterpart here: prefill length buckets (the port runs
+eagerly, so no shape needs a compile), the fused multi-step decode scan and
+batched token readback (a local card answers a read in microseconds).
+
+Tiering, split files, self-extend, context shift, iSWA and MoE come later.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import TYPE_CHECKING, Iterator
+
+import torch
+
+from ..device import resolve_device
+from ..models.loader import LoadedModel
+from ..models.transformer import make_forward
+from .kv_cache import KVCache, init_cache
+from .sampling import SamplerConfig, sample
+
+if TYPE_CHECKING:
+    from ..sparse.config import SparseConfig
+
+
+@dataclass
+class PerfCounters:
+    """Analogue of llama_perf_context (include/llama.h:1371-1391)."""
+
+    t_prefill_s: float = 0.0
+    n_prefill: int = 0
+    t_decode_s: float = 0.0
+    n_decode: int = 0
+
+    @property
+    def prefill_tps(self) -> float:
+        return self.n_prefill / self.t_prefill_s if self.t_prefill_s > 0 else 0.0
+
+    @property
+    def decode_tps(self) -> float:
+        return self.n_decode / self.t_decode_s if self.t_decode_s > 0 else 0.0
+
+    def summary(self) -> dict:
+        return {
+            "prefill_tokens": self.n_prefill,
+            "prefill_tps": round(self.prefill_tps, 2),
+            "decode_tokens": self.n_decode,
+            "decode_tps": round(self.decode_tps, 2),
+        }
+
+
+class Engine:
+    """Single-sequence generation engine.
+
+    sparse=None runs the dense model. With a SparseConfig, prefill runs the
+    masked-dense FFN and decode the one-layer-ahead pipelined sparse FFN;
+    sparse_decode_mode "kernel" goes through the hand-written CUDA kernel
+    on the card (its plain version on the CPU), "gather" through the plain
+    torch version on any device. The model's params must lie on `device`
+    (None: the card). After each prefill or decode step, `last_logits` holds
+    the (1, V) f32 logits the token was sampled from."""
+
+    def __init__(
+        self,
+        model: LoadedModel,
+        max_seq: int = 2048,
+        sampler: SamplerConfig | None = None,
+        kv_dtype=torch.bfloat16,
+        sparse: "SparseConfig | None" = None,
+        sparse_decode_mode: str = "kernel",
+        device=None,
+        split=None,
+        self_extend: tuple[int, int] | None = None,
+        kv_iswa: bool = False,
+    ):
+        self.device = resolve_device(device)
+        if split is not None or self_extend is not None or kv_iswa:
+            raise NotImplementedError(
+                "split files, self-extend and the iSWA cache are not ported yet")
+        self.model = model
+        self.cfg = model.config
+        where = model.params["tok_embd"].device
+        if where.type != self.device.type or (
+                self.device.index is not None and where.index != self.device.index):
+            raise ValueError(f"model params lie on {where}, the engine runs on "
+                             f"{self.device}: load_model(..., device=...) to match")
+        self.max_seq = max_seq
+        self.sampler_cfg = sampler or SamplerConfig()
+        self.kv_dtype = kv_dtype
+        self.params = model.params
+        if sparse is not None:
+            from ..sparse.ffn import (
+                make_pipelined_sparse_ffn,
+                make_sparse_ffn,
+                prepare_pipelined_params,
+            )
+
+            if not self.cfg.has_predictors:
+                raise ValueError("sparse mode requires predictor tensors in the model")
+            if sparse.hot_groups > 0:
+                raise NotImplementedError("hot/cold tiering is not ported yet")
+            self.params = prepare_pipelined_params(model.params, self.cfg, sparse)
+            prefill_ffn = make_sparse_ffn(self.cfg, sparse, mode="dense")
+            self.fwd = make_forward(self.cfg, ffn_fn=prefill_ffn)
+            self.fwd_prefill = make_forward(self.cfg, ffn_fn=prefill_ffn,
+                                            fresh_prefill=True)
+            decode_ffn, carry_init = make_pipelined_sparse_ffn(
+                self.cfg, sparse, mode=sparse_decode_mode)
+            self.fwd_decode = make_forward(self.cfg, ffn_fn=decode_ffn,
+                                           ffn_carry_init=carry_init)
+        else:
+            self.fwd = make_forward(self.cfg)
+            self.fwd_prefill = make_forward(self.cfg, fresh_prefill=True)
+            self.fwd_decode = self.fwd
+        self.prefill_chunk = 1024  # ubatch size for long prompts (ref n_ubatch)
+        self.perf = PerfCounters()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _tokens(self, toks: list[int], start: int) -> tuple[torch.Tensor, torch.Tensor]:
+        t = torch.tensor([toks], dtype=torch.long, device=self.device)
+        pos = torch.arange(start, start + len(toks), device=self.device)[None]
+        return t, pos
+
+    def new_cache(self) -> KVCache:
+        return init_cache(self.cfg, 1, self.max_seq, self.kv_dtype, self.device)
+
+    def new_sampler_state(self, seed: int | None = None) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.sampler_cfg.seed if seed is None else seed)
+        return gen
+
+    @torch.inference_mode()
+    def prefill(self, prompt_tokens: list[int], cache: KVCache,
+                sstate: torch.Generator) -> tuple[int, KVCache, torch.Generator, int]:
+        """Returns (first sampled token, cache, sampler state, n_past)."""
+        n = len(prompt_tokens)
+        if n == 0:
+            raise ValueError("empty prompt")
+        if n > self.max_seq:
+            raise ValueError(f"prompt of {n} tokens exceeds max_seq {self.max_seq}")
+        self._sync()
+        t0 = time.perf_counter()
+        CH = self.prefill_chunk
+        off = 0
+        while n - off > CH:  # ubatch-style chunks for long prompts
+            toks, pos = self._tokens(prompt_tokens[off:off + CH], off)
+            (self.fwd_prefill if off == 0 else self.fwd)(self.params, toks, pos, cache)
+            off += CH
+        toks, pos = self._tokens(prompt_tokens[off:], off)
+        fwd = self.fwd_prefill if off == 0 else self.fwd
+        logits = fwd(self.params, toks, pos, cache)
+        self.last_logits = logits[:, -1]
+        tok = int(sample(self.last_logits, self.sampler_cfg, sstate)[0])
+        self._sync()
+        self.perf.t_prefill_s += time.perf_counter() - t0
+        self.perf.n_prefill += n
+        return tok, cache, sstate, n
+
+    @torch.inference_mode()
+    def decode_step(self, token: int, n_past: int, cache: KVCache,
+                    sstate: torch.Generator) -> tuple[int, KVCache, torch.Generator]:
+        self._sync()
+        t0 = time.perf_counter()
+        toks, pos = self._tokens([token], n_past)
+        logits = self.fwd_decode(self.params, toks, pos, cache)
+        self.last_logits = logits[:, -1]
+        tok = int(sample(self.last_logits, self.sampler_cfg, sstate)[0])
+        self._sync()
+        self.perf.t_decode_s += time.perf_counter() - t0
+        self.perf.n_decode += 1
+        return tok, cache, sstate
+
+    def generate(self, prompt_tokens: list[int], max_new_tokens: int = 128,
+                 stop_ids: set[int] | None = None, seed: int | None = None,
+                 stream: bool = False) -> list[int] | Iterator[int]:
+        """Greedy/sampled generation; returns the generated token ids."""
+        it = self._generate_iter(prompt_tokens, max_new_tokens,
+                                 stop_ids or set(), seed)
+        return it if stream else list(it)
+
+    def _generate_iter(self, prompt_tokens, max_new_tokens, stop_ids, seed):
+        if max_new_tokens <= 0:
+            return
+        cache = self.new_cache()
+        sstate = self.new_sampler_state(seed)
+        tok, cache, sstate, n_past = self.prefill(prompt_tokens, cache, sstate)
+        emitted = 0
+        while tok not in stop_ids:
+            yield tok
+            emitted += 1
+            if emitted >= max_new_tokens:
+                return
+            if n_past >= self.max_seq - 1:
+                raise NotImplementedError(
+                    "context shift is not ported yet: raise max_seq")
+            tok, cache, sstate = self.decode_step(tok, n_past, cache, sstate)
+            n_past += 1

@@ -1,0 +1,191 @@
+"""The port's Engine against the JAX package's, on the CPU, plus the port's
+guards (device resolution, no JAX import, unported options).
+
+Both engines load one tiny ProSparse GGUF in f32 with an f32 KV cache; the
+JAX sparse decode runs its Pallas v6 kernel in interpret mode. Greedy token
+streams must be identical; prefill and first-decode logits agree to
+rtol=atol=1e-4 (f32, summed in other orders across a whole forward).
+"""
+
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from model_fixtures import make_tiny_llama  # noqa: E402
+from sparkinfer_tpu.models.loader import load_model as jax_load  # noqa: E402
+from sparkinfer_tpu.runtime.engine import Engine as JaxEngine  # noqa: E402
+from sparkinfer_tpu.runtime.sampling import SamplerConfig as JaxSampler  # noqa: E402
+from sparkinfer_tpu.sparse.config import SparseConfig as JaxSparseConfig  # noqa: E402
+from sparkinfer_tpu_torch.models.loader import load_model  # noqa: E402
+from sparkinfer_tpu_torch.ops.sparse_ffn import sparse_ffn_block_v6  # noqa: E402
+from sparkinfer_tpu_torch.runtime.engine import Engine  # noqa: E402
+from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig  # noqa: E402
+from sparkinfer_tpu_torch.sparse.config import SparseConfig  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PROMPT = [5, 9, 42]
+G, CAP = 16, 4
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def gguf(tmp_path_factory):
+    path = tmp_path_factory.mktemp("models") / "tiny-prosparse.gguf"
+    make_tiny_llama(path, arch="prosparse_llama", pred_rank=8, n_ff=96, seed=5)
+    return str(path)
+
+
+def _jax_engine(gguf, sparse):
+    return JaxEngine(jax_load(gguf, dtype=jnp.float32), max_seq=64,
+                     sampler=JaxSampler(temp=0.0), kv_dtype=jnp.float32,
+                     sparse=JaxSparseConfig(G, CAP) if sparse else None,
+                     sparse_decode_mode="pallas")
+
+
+def _port_engine(gguf, sparse, **kw):
+    return Engine(load_model(gguf, dtype=torch.float32, device="cpu"), max_seq=64,
+                  sampler=SamplerConfig(temp=0.0), kv_dtype=torch.float32,
+                  sparse=SparseConfig(G, CAP) if sparse else None, device="cpu", **kw)
+
+
+def _jax_logits(je):
+    """Prefill and first-decode logits of the JAX engine's own forwards."""
+    cache = je.new_cache()
+    toks = jnp.asarray([PROMPT], jnp.int32)
+    pos = jnp.arange(len(PROMPT), dtype=jnp.int32)[None]
+    lg, cache = je.fwd_prefill(je.model.params, toks, pos, cache)
+    first = int(jnp.argmax(lg[0, -1]))
+    lg2, _ = je.fwd_decode(je.model.params, jnp.asarray([[first]], jnp.int32),
+                           jnp.asarray([[len(PROMPT)]], jnp.int32), cache)
+    return np.asarray(lg[:, -1]), np.asarray(lg2[:, -1]), first
+
+
+@pytest.mark.parametrize("sparse", [True, False], ids=["sparse", "dense"])
+def test_engine_matches_jax(gguf, sparse):
+    je = _jax_engine(gguf, sparse)
+    pe = _port_engine(gguf, sparse)
+    ref_pre, ref_dec, first = _jax_logits(je)
+    cache, st = pe.new_cache(), pe.new_sampler_state()
+    tok, cache, st, n = pe.prefill(PROMPT, cache, st)
+    assert tok == first and n == len(PROMPT)
+    np.testing.assert_allclose(pe.last_logits.numpy(), ref_pre, **TOL)
+    pe.decode_step(tok, n, cache, st)
+    np.testing.assert_allclose(pe.last_logits.numpy(), ref_dec, **TOL)
+
+    before = sparse_ffn_block_v6.launches
+    got = pe.generate(PROMPT, 8)
+    assert got == je.generate(PROMPT, 8)
+    assert len(got) == 8 and pe.perf.n_decode == 1 + 7
+    assert sparse_ffn_block_v6.launches == before  # CPU: plain version, uncounted
+
+
+def test_chunked_prefill_matches_jax(gguf):
+    je, pe = _jax_engine(gguf, True), _port_engine(gguf, True)
+    je.prefill_chunk = pe.prefill_chunk = 4
+    prompt = [int(t) for t in np.random.default_rng(0).integers(0, 199, 11)]
+    assert pe.generate(prompt, 6) == je.generate(prompt, 6)
+
+
+def test_gather_mode_equals_kernel_mode(gguf):
+    a = _port_engine(gguf, True, sparse_decode_mode="kernel").generate(PROMPT, 6)
+    b = _port_engine(gguf, True, sparse_decode_mode="gather").generate(PROMPT, 6)
+    assert a == b
+
+
+def test_generate_stops_and_streams(gguf):
+    pe = _port_engine(gguf, True)
+    full = pe.generate(PROMPT, 6)
+    assert list(pe.generate(PROMPT, 6, stream=True)) == full
+    assert pe.generate(PROMPT, 6, stop_ids={full[2]}) == full[:2]
+    assert pe.generate(PROMPT, 0) == []
+
+
+def test_sampled_generation_is_seeded(gguf):
+    pe = Engine(load_model(gguf, dtype=torch.float32, device="cpu"), max_seq=64,
+                sampler=SamplerConfig(temp=1.0, top_k=0, top_p=1.0, min_p=0.0),
+                kv_dtype=torch.float32, device="cpu")
+    assert pe.generate(PROMPT, 8, seed=3) == pe.generate(PROMPT, 8, seed=3)
+
+
+def test_entry_points_default_to_the_card(gguf):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        load_model(gguf)
+    model = load_model(gguf, dtype=torch.float32, device="cpu")
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        Engine(model)
+
+
+def test_unported_options_raise(gguf, tmp_path):
+    model = load_model(gguf, dtype=torch.float32, device="cpu")
+    for kw in (dict(split="x"), dict(self_extend=(2, 8)), dict(kv_iswa=True),
+               dict(sparse=SparseConfig(G, CAP, hot_groups=2))):
+        with pytest.raises(NotImplementedError):
+            Engine(model, device="cpu", **kw)
+    pe = Engine(model, max_seq=6, sampler=SamplerConfig(temp=0.0), device="cpu")
+    with pytest.raises(NotImplementedError, match="context shift"):
+        pe.generate(PROMPT, 8)
+    qwen = tmp_path / "qwen2.gguf"
+    make_tiny_llama(qwen, arch="qwen2")
+    with pytest.raises(NotImplementedError, match="qwen2"):
+        load_model(str(qwen), device="cpu")
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """The build is keyed by source and flags, and fails loudly without nvcc."""
+    from sparkinfer_tpu_torch.ops import _build
+
+    lib = _build.library_path("sparse_ffn_v6")
+    assert lib.parent == _build.BUILD_DIR and lib == _build.library_path("sparse_ffn_v6")
+    if shutil.which("nvcc") or lib.exists():
+        pytest.skip("nvcc or a built library is present")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build_all(["sparse_ffn_v6"])
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sparkinfer_tpu'] = None\n"
+        "import sparkinfer_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_port_sources_name_no_jax():
+    bad = re.compile(r"^\s*(import|from)\s+(jax\b|sparkinfer_tpu(\.|\s|$))", re.M)
+    files = sorted((ROOT / "sparkinfer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        assert not bad.search(f.read_text()), f
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    env = dict(os.environ, PYTHONPATH="")
+    in_repo = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    alone = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                           capture_output=True, text=True, timeout=300)
+    for run in (in_repo, alone):
+        assert run.returncode != 0
+        assert '"ok": true' not in run.stdout
