@@ -7,6 +7,10 @@ is written in place. The FFN is pluggable as in the JAX package:
 `ffn_fn(lp, x, carry, il) -> (y, carry)` that the pipelined sparse FFN uses
 (its selection for layer il+1 is computed at layer il).
 
+Every projection goes through `quant_linear` (the JAX `mm`), so packed
+Q4_0/Q8_0 weights (QuantTensor, FlatQuantTensor) run the quant_matmul
+kernels and plain tensors a plain matmul.
+
 Attention is plain torch (matmul, mask, softmax), as the JAX CPU path
 computes it; the JAX package's TPU prefill uses JAX's library flash
 attention, which is no kernel of this repository and has no port here.
@@ -21,6 +25,8 @@ import torch
 
 from ..ops.activations import act_fn
 from ..ops.norms import rms_norm
+from ..ops.quant_matmul import FlatQuantTensor, is_quantized
+from ..ops.quant_matmul import quant_linear as mm
 from ..ops.rope import RopeParams, rope_cos_sin, rotate
 from ..runtime.kv_cache import KVCache, read_layer, write_layer
 from .config import ModelConfig
@@ -64,16 +70,16 @@ def dense_ffn(cfg: ModelConfig):
     gated, f = act_fn(cfg.traits.act, cfg.fatrelu_threshold)
 
     def ffn(lp: dict, x: torch.Tensor) -> torch.Tensor:
-        up = x @ lp["w_up"]
+        up = mm(x, lp["w_up"])
         if "b_up" in lp:
             up = up + lp["b_up"].to(up.dtype)
         if gated and "w_gate" in lp:
-            hidden = f(x @ lp["w_gate"], up)
+            hidden = f(mm(x, lp["w_gate"]), up)
         elif gated:  # gated act but no gate projection: act on up alone
             hidden = f(up, torch.ones_like(up))
         else:
             hidden = f(up)
-        out = hidden @ lp["w_down"]
+        out = mm(hidden, lp["w_down"])
         if "b_down" in lp:
             out = out + lp["b_down"].to(out.dtype)
         return out
@@ -117,9 +123,9 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
     chunk (T x T) instead of the whole cache (T x S)."""
     B, T, _ = x.shape
     H, Hkv, D = cfg.n_head, cfg.n_head_kv, cfg.head_dim
-    q = (x @ lp["wq"]).reshape(B, T, H, D)
-    k = (x @ lp["wk"]).reshape(B, T, Hkv, D)
-    v = (x @ lp["wv"]).reshape(B, T, Hkv, D)
+    q = mm(x, lp["wq"]).reshape(B, T, H, D)
+    k = mm(x, lp["wk"]).reshape(B, T, Hkv, D)
+    v = mm(x, lp["wv"]).reshape(B, T, Hkv, D)
     if "bq" in lp:
         q = q + lp["bq"].to(q.dtype).reshape(H, D)
         k = k + lp["bk"].to(k.dtype).reshape(Hkv, D)
@@ -137,10 +143,34 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
         s_idx = torch.arange(kc.shape[1], device=x.device)
         mask = s_idx[None, None, :] <= positions[:, :, None]  # (B, T, S)
         out = _attend(q, keys, vals, H, Hkv, D, scale, mask)
-    out = out.reshape(B, T, H * D) @ lp["wo"]
+    out = mm(out.reshape(B, T, H * D), lp["wo"])
     if "bo" in lp:
         out = out + lp["bo"].to(out.dtype)
     return out
+
+
+def lm_head(x: torch.Tensor, w) -> torch.Tensor:
+    """f32 logits of the normed hidden x (..., E). A QuantTensor head runs
+    quant_linear and casts its x.dtype result to f32, as the JAX package
+    does. A plain head keeps f32 sums of the exact products of x and w in
+    their own dtype (the JAX einsum's preferred_element_type=f32): on the
+    card one cuBLAS product with an f32 output, on the CPU the head in f32
+    chunks of V, never an f32 copy of the whole head."""
+    if is_quantized(w):
+        return mm(x, w).float()
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    x2 = x.reshape(-1, x.shape[-1])
+    V = w.shape[-1]
+    if x2.is_cuda and x2.dtype == w.dtype:
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        xf = x2.float()
+        out = torch.empty((x2.shape[0], V), dtype=torch.float32, device=x.device)
+        step = 8192
+        for v0 in range(0, V, step):
+            torch.mm(xf, w[:, v0:v0 + step].float(), out=out[:, v0:v0 + step])
+    return out.reshape(x.shape[:-1] + (V,))
 
 
 def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
@@ -158,9 +188,9 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
             cache: KVCache) -> torch.Tensor:
         x = params["tok_embd"][tokens]
         layers = params["layers"]
-        # loop-invariant flat (layer, group) sparse stores, addressed by the
-        # sparse FFN at row il * n_groups + group
-        flat = params.get("sparse_flat", {})
+        # loop-invariant flat (layer, group) sparse stores and predictor
+        # stacks, addressed by the sparse FFN at row il * n_groups + group
+        flat = params.get("sparse_flat")
         B, T = tokens.shape
         carry = ffn_carry_init(B, T, x.device) if ffn_carry_init else None
         # shared by every layer: per-layer slices and the rope tables
@@ -168,7 +198,9 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
         rope_cs = rope_cos_sin(positions, rp)
         for il in range(cfg.n_layer):
             lp = {k: v[il] for k, v in per_layer.items()}
-            lp.update(flat)
+            if flat is not None:  # FlatQuantTensors bind the layer late
+                lp.update({k: (v.with_il(il) if isinstance(v, FlatQuantTensor) else v)
+                           for k, v in flat.items()}, flat_il=il)
             h = rms_norm(x, lp["attn_norm_w"], eps)
             x = x + attention(cfg, lp, h, positions, cache.k[il], cache.v[il],
                               rp, rope_cs, fresh_prefill=fresh_prefill)
@@ -179,9 +211,6 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                 y = ffn(lp, h2)
             x = x + y
         x = rms_norm(x, params["output_norm_w"], eps)
-        # the JAX head keeps f32 products of bf16 operands; here a bf16
-        # model's logits are rounded to bf16 first (an f32 copy of the
-        # (E, V) head per step would cost more than the head itself)
-        return (x @ params["output"]).float()
+        return lm_head(x, params["output"])
 
     return fwd

@@ -62,7 +62,11 @@ class Engine:
     masked-dense FFN and decode the one-layer-ahead pipelined sparse FFN;
     sparse_decode_mode "kernel" goes through the hand-written CUDA kernel
     on the card (its plain version on the CPU), "gather" through the plain
-    torch version on any device. The model's params must lie on `device`
+    torch version on any device. sparse_drop_dense keeps only the flat
+    stores (prefill then reads them); sparse_preprepared=True takes params
+    that `prepare_pipelined_params` already built, which is how Q8_0
+    stores (quant="q8_0") and Q8_0 predictor stacks (params["sparse_flat"]
+    pred_up_qt ...) reach the engine. The model's params must lie on `device`
     (None: the card). After each prefill or decode step, `last_logits` holds
     the (1, V) f32 logits the token was sampled from."""
 
@@ -74,6 +78,8 @@ class Engine:
         kv_dtype=torch.bfloat16,
         sparse: "SparseConfig | None" = None,
         sparse_decode_mode: str = "kernel",
+        sparse_drop_dense: bool = False,
+        sparse_preprepared: bool = False,
         device=None,
         split=None,
         self_extend: tuple[int, int] | None = None,
@@ -105,7 +111,9 @@ class Engine:
                 raise ValueError("sparse mode requires predictor tensors in the model")
             if sparse.hot_groups > 0:
                 raise NotImplementedError("hot/cold tiering is not ported yet")
-            self.params = prepare_pipelined_params(model.params, self.cfg, sparse)
+            if not sparse_preprepared:
+                self.params = prepare_pipelined_params(
+                    model.params, self.cfg, sparse, drop_dense=sparse_drop_dense)
             prefill_ffn = make_sparse_ffn(self.cfg, sparse, mode="dense")
             self.fwd = make_forward(self.cfg, ffn_fn=prefill_ffn)
             self.fwd_prefill = make_forward(self.cfg, ffn_fn=prefill_ffn,

@@ -11,11 +11,11 @@ count are computed, and sub-threshold neurons inside them are masked.
   - decode: one-layer-ahead pipelined selection
     (`make_pipelined_sparse_ffn`) over flat (L*ng, E, G) / (L*ng, G, E)
     stores addressed at row il*ng + group, through the hand-written
-    `sparse_ffn_block_v6` kernel ("kernel") or its plain torch version
-    ("gather").
+    `sparse_ffn_block_v6` kernel, or `sparse_ffn_block_v6q` over Q8_0
+    stores ("kernel"), or their plain torch versions ("gather").
 
-The non-pipelined gather/pallas modes, the v1 row layout, Q8_0 stores and
-the union kernel for batched decode come with later slices.
+The non-pipelined gather/pallas modes, the v1 row layout and the union
+kernel for batched decode come with later slices.
 """
 
 from __future__ import annotations
@@ -25,9 +25,18 @@ from typing import Callable
 import torch
 
 from ..models.config import ModelConfig
-from ..ops.sparse_ffn import combine, sparse_ffn_block_v6, sparse_ffn_block_v6_plain
+from ..ops.quant_matmul import is_quantized
+from ..ops.sparse_ffn import dequant_rows as _dequant_sub_nd  # sparse/ffn.py:61
+from ..ops.sparse_ffn import (
+    combine,
+    quantize_rows_q8_0,
+    sparse_ffn_block_v6,
+    sparse_ffn_block_v6_plain,
+    sparse_ffn_block_v6q,
+    sparse_ffn_block_v6q_plain,
+)
 from .config import SparseConfig
-from .predictor import predict_activations, predict_from
+from .predictor import predict_activations, predict_from, resolve_predictor
 
 PRED_KEYS = ("pred_up", "pred_up_b", "pred_down", "pred_down_b")
 
@@ -50,23 +59,52 @@ def select_groups(probs: torch.Tensor, scfg: SparseConfig, n_ff: int) -> torch.T
 def make_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
                     mode: str = "dense") -> Callable:
     """ffn(lp, x) for models.transformer.make_forward: the masked-dense FFN
-    (`mode="dense"`, the prefill path). lp carries the predictor and the
-    dense w_up/w_gate/w_down."""
+    (`mode="dense"`, the prefill path). lp carries the predictor and either
+    the dense w_up/w_gate/w_down or, when they were dropped, the flat stores
+    (bf16/f32 `*T_flat` or Q8_0 `qw_*`) with the layer index `flat_il`."""
     if mode != "dense":
         raise NotImplementedError(f"sparse FFN mode {mode!r} is not ported yet")
     act, fat_thr = cfg.traits.sparse_act, cfg.fatrelu_threshold
     gated = act in ("fatrelu", "drelu")
     thr = scfg.threshold
+    F, G = cfg.n_ff, scfg.group_size
+    ng = scfg.n_groups(F)
+
+    def layer_flat(lp, key):
+        # this layer's ng groups of the flat (L*ng, ...) store
+        il = lp["flat_il"]
+        return lp[key][il * ng:(il + 1) * ng]
+
+    def col_mm(lp, x, name):  # x @ W_name (E, F), from whichever store lp has
+        if "w_" + name in lp:
+            return x @ lp["w_" + name]
+        if f"w_{name}T_flat" in lp:  # v6 transposed flat store (L*ng, E, G)
+            w = layer_flat(lp, f"w_{name}T_flat").to(x.dtype)
+        else:  # Q8_0 transposed flat store: dequantize, then contract
+            w = _dequant_sub_nd(layer_flat(lp, f"qw_{name}T_flat"),
+                                layer_flat(lp, f"s_{name}T_flat")).to(x.dtype)
+        y = torch.einsum("...e,neg->...ng", x, w)
+        return y.reshape(y.shape[:-2] + (F,))
 
     def dense_ffn(lp, x):
         probs = predict_activations(lp, x)  # (..., F) f32
         mask = (probs >= thr).to(x.dtype)
-        up = x @ lp["w_up"]
+        up = col_mm(lp, x, "up")
         if "b_up" in lp:
             up = up + lp["b_up"].to(up.dtype)
-        gate = x @ lp["w_gate"] if gated and "w_gate" in lp else None
+        gate = (col_mm(lp, x, "gate") if gated and any(
+            k in lp for k in ("w_gate", "w_gateT_flat", "qw_gateT_flat")) else None)
         hidden = combine(act, fat_thr, gate, up) * mask
-        out = hidden @ lp["w_down"]
+        if "w_down" in lp:
+            out = hidden @ lp["w_down"]
+        else:
+            h3 = hidden.reshape(hidden.shape[:-1] + (ng, G))
+            if "w_down_flat" in lp:
+                wd = layer_flat(lp, "w_down_flat")
+            else:
+                wd = _dequant_sub_nd(layer_flat(lp, "qw_down_flat"),
+                                     layer_flat(lp, "s_down_flat"))
+            out = torch.einsum("...ng,nge->...e", h3, wd.to(hidden.dtype))
         if "b_down" in lp:
             out = out + lp["b_down"].to(out.dtype)
         return out
@@ -74,37 +112,76 @@ def make_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
     return dense_ffn
 
 
-def prepare_pipelined_params(params: dict, cfg: ModelConfig,
-                             scfg: SparseConfig) -> dict:
+def prepare_pipelined_params(params: dict, cfg: ModelConfig, scfg: SparseConfig,
+                             drop_dense: bool = False, quant: str | None = None) -> dict:
     """A new params dict (sharing the dense tensors) that adds
 
-      - layers[k + "_nx"]: the predictor rolled one layer down (layer il's
-        slice holds layer (il+1) % L's predictor), so layer il can select
-        for layer il+1;
-      - params["sparse_flat"]: w_upT_flat / w_gateT_flat (L*ng, E, G) and
-        w_down_flat (L*ng, G, E), the kernel's stores, row il*ng + group.
+      - layers[k + "_nx"]: the per-layer predictor rolled one layer down
+        (layer il's slice holds layer (il+1) % L's predictor), so layer il
+        can select for layer il+1 (stacked predictors need no copy);
+      - params["sparse_flat"]: the kernel's flat stores, row il*ng + group:
+        w_upT_flat / w_gateT_flat (L*ng, E, G) and w_down_flat (L*ng, G, E);
+        with quant="q8_0" instead qw_upT_flat / qw_gateT_flat int8
+        (L*ng, E, G) with s_upT_flat / s_gateT_flat f32 (L*ng, E/32, G),
+        and qw_down_flat int8 (L*ng, G, E) with s_down_flat (L*ng, G/32, E).
 
-    The up/gate stores are transposed copies, filled one layer at a time so
-    no transient ever holds a second copy of a whole projection. The down
-    store has the dense layout already and is a view of w_down (no bytes)."""
+    The stores are filled (and quantized) one layer at a time on the
+    device, so no transient holds a second copy of a whole projection. The
+    bf16 down store has the dense layout already and is a view of w_down.
+    drop_dense=True leaves the dense w_up/w_gate/w_down out of the result;
+    the masked-dense prefill then reads the flat stores. These are the JAX
+    function's layout="v6" stores; its v1 row layout comes with a later
+    slice."""
+    if quant not in (None, "q8_0"):
+        raise ValueError(f"quantized sparse stores: {quant!r} (q8_0 only)")
     L, E, F = cfg.n_layer, cfg.n_embd, cfg.n_ff
     G = scfg.group_size
     ng = scfg.n_groups(F)
     layers = dict(params["layers"])
+    for k in ("w_up", "w_gate", "w_down"):
+        if is_quantized(layers.get(k)):
+            raise ValueError(f"sparse FFN needs dense (bf16/f32) {k}; load the "
+                             "model with keep_quantized=False")
     for k in PRED_KEYS:
-        layers[k + "_nx"] = torch.roll(layers[k], -1, dims=0)
+        if k in layers:
+            layers[k + "_nx"] = torch.roll(layers[k], -1, dims=0)
 
-    def transposed(w):  # (L, E, F) -> (L*ng, E, G)
-        flat = torch.empty((L * ng, E, G), dtype=w.dtype, device=w.device)
+    def fill(w, rows_of, name, store_shape):
+        """Flat store `name` from w (L, ...), layer by layer via rows_of."""
+        dev = w.device
+        if quant is None:
+            flat = {name: torch.empty((L * ng,) + store_shape, dtype=w.dtype, device=dev)}
+        else:
+            B, C = store_shape
+            qn, sn = "q" + name, "s" + name[1:]  # qw_*_flat, s_*_flat
+            flat = {qn: torch.empty((L * ng, B, C), dtype=torch.int8, device=dev),
+                    sn: torch.empty((L * ng, B // 32, C), dtype=torch.float32, device=dev)}
         for il in range(L):
-            flat[il * ng:(il + 1) * ng].copy_(
-                w[il].reshape(E, ng, G).permute(1, 0, 2))
+            rows = rows_of(w[il])
+            sl = slice(il * ng, (il + 1) * ng)
+            if quant is None:
+                flat[name][sl].copy_(rows)
+            else:
+                q, s = quantize_rows_q8_0(rows)
+                flat[qn][sl].copy_(q)
+                flat[sn][sl].copy_(s)
         return flat
 
-    flat = {"w_upT_flat": transposed(layers["w_up"])}
-    if "w_gate" in layers:
-        flat["w_gateT_flat"] = transposed(layers["w_gate"])
-    flat["w_down_flat"] = layers["w_down"].reshape(L * ng, G, E)
+    def up_rows(w):  # (E, F) -> (ng, E, G)
+        return w.reshape(E, ng, G).permute(1, 0, 2)
+
+    flat = {}
+    for name in ("up", "gate"):
+        if "w_" + name in layers:
+            flat.update(fill(layers["w_" + name], up_rows, f"w_{name}T_flat", (E, G)))
+    if quant is None:
+        flat["w_down_flat"] = layers["w_down"].reshape(L * ng, G, E)
+    else:
+        flat.update(fill(layers["w_down"], lambda w: w.reshape(ng, G, E),
+                         "w_down_flat", (G, E)))
+    if drop_dense:
+        for k in ("w_up", "w_gate", "w_down"):
+            layers.pop(k, None)
     return {**params, "layers": layers, "sparse_flat": flat}
 
 
@@ -114,14 +191,18 @@ def make_pipelined_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
 
     ffn(lp, x, carry, il): layer 0 selects from its own predictor; every
     other layer uses the selection that the previous layer computed with the
-    rolled (`_nx`) predictor. Each layer also emits the next layer's
-    selection. mode "kernel" runs `sparse_ffn_block_v6` (the CUDA kernel on
-    the card), "gather" its plain torch version on any device."""
+    next layer's predictor (the rolled `_nx` slices, or layer il+1 of the
+    stacks). Each layer also emits the next layer's selection. mode "kernel"
+    runs `sparse_ffn_block_v6`, or `sparse_ffn_block_v6q` when lp holds Q8_0
+    stores (the CUDA kernels on the card), "gather" their plain torch
+    versions on any device."""
     if mode not in ("kernel", "gather"):
         raise ValueError(f"pipelined sparse FFN mode {mode!r}")
     block = sparse_ffn_block_v6 if mode == "kernel" else sparse_ffn_block_v6_plain
+    block_q = sparse_ffn_block_v6q if mode == "kernel" else sparse_ffn_block_v6q_plain
     G = scfg.group_size
     F = cfg.n_ff
+    L = cfg.n_layer
     ng = scfg.n_groups(F)
     C = scfg.capacity(F)
     thr = scfg.threshold
@@ -133,6 +214,17 @@ def make_pipelined_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
         gp_sel = torch.gather(gp, 1, idx.long()[..., None].expand(-1, -1, G))
         return idx, gp_sel
 
+    def _pred(lp, il, nxt):
+        """Own (il) or next-layer ((il+1) mod L) predictor weights. The JAX
+        package routes on "pred_up_all" alone, so there Q8_0 stacks need a
+        bf16 pred_up_all beside them; routing on either key gives the same
+        function without that copy (as its sparse_tp.py:154 does). Per-layer
+        slices, where lp has them, win, as in resolve_predictor."""
+        if "pred_up" not in lp and ("pred_up_all" in lp or "pred_up_qt" in lp):
+            return resolve_predictor(lp, (il + 1) % L if nxt else il)
+        sfx = "_nx" if nxt else ""
+        return tuple(lp[k + sfx] for k in PRED_KEYS)
+
     def carry_init(B: int, T: int, device) -> dict:
         N = B * T
         return {"idx": torch.zeros((N, C), dtype=torch.int32, device=device),
@@ -142,20 +234,24 @@ def make_pipelined_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
         B, T, E = x.shape
         xt = x.reshape(B * T, E)
         if il == 0:
-            idx, gp_sel = _select(*(lp[k] for k in PRED_KEYS), xt)
+            idx, gp_sel = _select(*_pred(lp, il, False), xt)
         else:
             idx, gp_sel = carry["idx"], carry["gp_sel"]
         bu_sel = None
         if "b_up" in lp:
             bu_sel = lp["b_up"].reshape(ng, G).float()[idx.long()]
-        out = block(xt, idx + il * ng, gp_sel, lp["w_upT_flat"],
-                    lp.get("w_gateT_flat"), lp["w_down_flat"],
-                    act=cfg.traits.sparse_act,
-                    fatrelu_threshold=cfg.fatrelu_threshold,
-                    prob_threshold=thr, bu_sel=bu_sel)
+        kw = dict(act=cfg.traits.sparse_act, fatrelu_threshold=cfg.fatrelu_threshold,
+                  prob_threshold=thr, bu_sel=bu_sel)
+        if "qw_upT_flat" in lp:
+            out = block_q(xt, idx + il * ng, gp_sel, lp["qw_upT_flat"], lp["s_upT_flat"],
+                          lp.get("qw_gateT_flat"), lp.get("s_gateT_flat"),
+                          lp["qw_down_flat"], lp["s_down_flat"], **kw)
+        else:
+            out = block(xt, idx + il * ng, gp_sel, lp["w_upT_flat"],
+                        lp.get("w_gateT_flat"), lp["w_down_flat"], **kw)
         if "b_down" in lp:
             out = out + lp["b_down"].to(out.dtype)
-        nx_idx, nx_gp = _select(*(lp[k + "_nx"] for k in PRED_KEYS), xt)
+        nx_idx, nx_gp = _select(*_pred(lp, il, True), xt)
         return out.reshape(B, T, E).to(x.dtype), {"idx": nx_idx, "gp_sel": nx_gp}
 
     return ffn, carry_init

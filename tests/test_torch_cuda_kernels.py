@@ -7,7 +7,11 @@ a machine with a card (no JAX needed there, hence --noconftest):
 
 Tolerance: kernel and plain version both sum in f32, in another order
 (over E for up/gate and over C*G for down), so they agree to a relative
-1e-3 of the output's scale for bf16 stores and 1e-5 for f32 stores.
+1e-3 of the output's scale for bf16 stores and 1e-5 for f32 stores. The
+Q8_0 kernels (v6q, quant_matmul) sum exact or f32 products in another
+order too: 1e-5 of the scale at small widths, 1e-4 at the 13B decode
+shapes (sums over 5120 terms). The packers and encoders are bit-equal to
+their CPU runs.
 """
 
 import itertools
@@ -17,9 +21,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from sparkinfer_tpu_torch.gguf.constants import GGMLType  # noqa: E402
+from sparkinfer_tpu_torch.gguf.quants import quantize  # noqa: E402
+from sparkinfer_tpu_torch.models.transformer import lm_head  # noqa: E402
+from sparkinfer_tpu_torch.ops import quant_matmul as tqm  # noqa: E402
 from sparkinfer_tpu_torch.ops.sparse_ffn import (  # noqa: E402
+    quantize_rows_q8_0,
     sparse_ffn_block_v6,
     sparse_ffn_block_v6_plain,
+    sparse_ffn_block_v6q,
+    sparse_ffn_block_v6q_plain,
 )
 
 
@@ -108,3 +119,172 @@ def test_v6_is_deterministic(cuda):
     a = sparse_ffn_block_v6(*args, act="fatrelu", bu_sel=bu)
     b = sparse_ffn_block_v6(*args, act="fatrelu", bu_sel=bu)
     assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# v6q over Q8_0 stores
+
+
+def _q8_inputs(N, C, E, G, R, device, seed, with_bu=True, gated=True):
+    x, idx, gp, wu, wg, wd, bu = _inputs(N, C, E, G, R, torch.float32, device, seed,
+                                         with_bu=with_bu, gated=gated)
+    qu, su = quantize_rows_q8_0(wu)
+    qg, sg = quantize_rows_q8_0(wg) if gated else (None, None)
+    qd, sd = quantize_rows_q8_0(wd)
+    return (x, idx, gp, qu, su, qg, sg, qd, sd), bu
+
+
+def _check_v6q(args, bu, tol, **kw):
+    before = sparse_ffn_block_v6q.launches
+    got = sparse_ffn_block_v6q(*args, bu_sel=bu, **kw)
+    torch.cuda.synchronize()
+    assert sparse_ffn_block_v6q.launches == before + 1
+    ref = sparse_ffn_block_v6q_plain(*args, bu_sel=bu, **kw)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,mask_mode,with_bu", list(itertools.product(
+    ["fatrelu", "drelu", "relu", "silu", "gelu"], ["threshold", "scale"],
+    [True, False])))
+def test_v6q_small(cuda, act, mask_mode, with_bu):
+    args, bu = _q8_inputs(3, 4, 64, 32, 12, cuda, seed=11, with_bu=with_bu)
+    _check_v6q(args, bu, 1e-5, act=act, mask_mode=mask_mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,act", [(1, "fatrelu"), (4, "fatrelu"), (4, "relu")])
+def test_v6q_decode_shape(cuda, N, act):
+    """ProSparse-Llama-2-13B widths: E=5120, G=128, C=16 of 108 groups."""
+    args, bu = _q8_inputs(N, 16, 5120, 128, 216, cuda, seed=12, gated=(act != "relu"))
+    _check_v6q(args, bu, 1e-4, act=act)
+
+
+@pytest.mark.cuda
+def test_v6q_odd_widths(cuda):
+    """E not a multiple of the kernel's slices and tiles; G not a power of 2."""
+    args, bu = _q8_inputs(2, 3, 1056, 96, 7, cuda, seed=13)
+    _check_v6q(args, bu, 1e-5, act="silu")
+
+
+@pytest.mark.cuda
+def test_v6q_rejects_bad_stores(cuda):
+    args, bu = _q8_inputs(1, 2, 64, 32, 4, cuda, seed=14)
+    x, idx, gp, qu, su, qg, sg, qd, sd = args
+    with pytest.raises(ValueError):  # scales in another dtype
+        sparse_ffn_block_v6q(x, idx, gp, qu, su.half(), qg, sg, qd, sd, act="fatrelu")
+    with pytest.raises(ValueError):  # a store in the wrong layout
+        sparse_ffn_block_v6q(x, idx, gp, qu.transpose(1, 2).contiguous(), su, qg, sg,
+                             qd, sd, act="fatrelu")
+    with pytest.raises(ValueError):  # a gated activation without its gate
+        sparse_ffn_block_v6q(x, idx, gp, qu, su, None, None, qd, sd, act="silu")
+    x, idx, gp = _inputs(1, 2, 64, 16, 4, torch.float32, cuda, seed=15)[:3]
+    q16 = torch.zeros((4, 64, 16), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):  # G not a multiple of 32
+        sparse_ffn_block_v6q(x, idx, gp, q16, torch.zeros((4, 2, 16), device=cuda), None,
+                             None, q16.transpose(1, 2).contiguous(),
+                             torch.zeros((4, 0, 64), device=cuda), act="relu")
+
+
+@pytest.mark.cuda
+def test_v6q_is_deterministic(cuda):
+    args, bu = _q8_inputs(4, 16, 5120, 128, 64, cuda, seed=16)
+    a = sparse_ffn_block_v6q(*args, act="fatrelu", bu_sel=bu)
+    b = sparse_ffn_block_v6q(*args, act="fatrelu", bu_sel=bu)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_packers_on_the_card_equal_the_cpu(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    w = torch.randn((3, 256, 96), generator=gen, device=cuda) * 0.1
+    w[0, :32] = 0.0
+    for a, b in zip(quantize_rows_q8_0(w), quantize_rows_q8_0(w.cpu())):
+        assert torch.equal(a.cpu(), b)
+    fa, fb = tqm.flat_quantize(w), tqm.flat_quantize(w.cpu())
+    assert torch.equal(fa.q.cpu(), fb.q) and torch.equal(fa.s.cpu(), fb.s)
+    for t in (GGMLType.Q8_0, GGMLType.Q4_0):
+        assert torch.equal(quantize(w, t).cpu(), quantize(w.cpu(), t))
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul_2d / quant_matmul_flat
+
+
+def _store(kind, IN, ld, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kind == "q8_0":
+        q = torch.randint(-127, 128, (IN, ld), generator=gen, device=device).to(torch.int8)
+    else:
+        q = torch.randint(0, 256, (IN // 2, ld), generator=gen, device=device).to(torch.uint8)
+    s = torch.rand((IN // 32, ld), generator=gen, device=device) * 0.01
+    return q, s
+
+
+def _check_qmm(got, ref, tol):
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,IN,OUT,xdt", [
+    (k, n, i, o, dt) for k in ("q4_0", "q8_0") for n in (1, 4, 32)
+    for (i, o, dt) in ((5120, 5120, torch.bfloat16), (5120, 1280, torch.float32),
+                       (96, 199, torch.float32))])
+def test_quant_matmul_2d(cuda, kind, N, IN, OUT, xdt):
+    """The 13B attention and predictor shapes, and an OUT that is not
+    16-byte aligned (the byte-wise path), against the plain version."""
+    q, s = _store(kind, IN, OUT, cuda, seed=20)
+    x = torch.randn((N, IN), device=cuda).to(xdt)
+    before = tqm.quant_matmul_2d.launches
+    got = tqm.quant_matmul_2d(x, q, s, kind=kind)
+    torch.cuda.synchronize()
+    assert tqm.quant_matmul_2d.launches == before + 1
+    _check_qmm(got, tqm.quant_matmul_2d_plain(x, q, s, kind=kind), 1e-4 if IN > 256 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,N", [("q8_0", 1), ("q8_0", 4), ("q4_0", 1)])
+def test_quant_matmul_flat(cuda, kind, N):
+    """Layer 2 of a 3-layer stack at the 13B pred_down shape, read in place."""
+    L, IN, OUT = 3, 1280, 13824
+    q, s = _store(kind, IN, L * OUT, cuda, seed=21)
+    x = torch.randn((N, IN), device=cuda)
+    before = tqm.quant_matmul_flat.launches
+    got = tqm.quant_matmul_flat(x, q, s, 2, kind=kind, out_dim=OUT)
+    torch.cuda.synchronize()
+    assert tqm.quant_matmul_flat.launches == before + 1
+    _check_qmm(got, tqm.quant_matmul_flat_plain(x, q, s, 2, kind=kind, out_dim=OUT), 1e-4)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_is_deterministic_and_checks_shapes(cuda):
+    q, s = _store("q8_0", 5120, 5120, cuda, seed=22)
+    x = torch.randn((4, 5120), device=cuda)
+    assert torch.equal(tqm.quant_matmul_2d(x, q, s, kind="q8_0"),
+                       tqm.quant_matmul_2d(x, q, s, kind="q8_0"))
+    with pytest.raises(ValueError):  # in not a multiple of 32
+        tqm.quant_matmul_2d(x[:, :48], q[:48], s[:1], kind="q8_0")
+    with pytest.raises(ValueError):  # int8 store named q4_0
+        tqm.quant_matmul_2d(x, q, s, kind="q4_0")
+    with pytest.raises(ValueError):  # bf16 scales
+        tqm.quant_matmul_2d(x, q, s.bfloat16(), kind="q8_0")
+    with pytest.raises(ValueError):  # a stripe past the store
+        tqm.quant_matmul_flat(x, q, s, 2, kind="q8_0", out_dim=2560)
+
+
+@pytest.mark.cuda
+def test_bf16_lm_head_on_the_card(cuda):
+    """f32 sums of exact bf16 products: the card's f32-output product
+    against the CPU's f32 chunks."""
+    x = torch.randn((3, 5120), device=cuda).bfloat16()
+    w = (torch.randn((5120, 32000), device=cuda) * 0.02).bfloat16()
+    got = lm_head(x, w)
+    ref = lm_head(x.cpu(), w.cpu())
+    assert got.dtype == torch.float32
+    _check_qmm(got.cpu(), ref, 1e-5)
