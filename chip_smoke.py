@@ -12,6 +12,13 @@ sees no card or the package is missing. Phases, each of which fails the run:
      started at once from csrc/;
   3. reference, f32 on small inputs, kernel path against plain path: tokens
      equal and first-decode logits within 1e-4 of their scale:
+       serving (v1): a tiny model served by the Scheduler, 4 requests on 2
+       slots, on the card against the CPU;
+       union (v7u): ProSparse-Llama-2-7B widths cut to 2 layers, B=8, the
+       union FFN of layer 1 on the card against "gather_union" at one
+       selection (v7u rounds the hidden and W_down to bf16, so a full f32
+       forward is chaotic: within 1e-2 of the output's scale, UNION_TOL),
+       and the full forward finite;
        bf16 stores (v6): a tiny model on the card against the CPU, and
        ProSparse-Llama-2-7B widths cut to 2 layers, kernel against "gather"
        mode, both on the card;
@@ -34,6 +41,8 @@ sees no card or the package is missing. Phases, each of which fails the run:
      max_abs_err, tol, ms, plain_ms, bound_ms and library_ms (the bf16
      torch.matmul of the dequantized weight for the quant products):
        sparse_ffn_block_v6 at 7B widths (E=4096, G=128, C=12 of 86, bf16);
+       sparse_ffn_block (v1) at 7B widths, N=1 and 4, over the Scheduler's
+       row stores; sparse_ffn_block_v7u at 7B widths, B=8, Cu=48;
        sparse_ffn_block_v6q at 13B widths (E=5120, G=128, C=16 of 108);
        quant_matmul_2d Q8_0/Q4_0 5120x5120 at N=1 and 32, Q8_0 head
        5120x32000 at N=1; quant_matmul_flat at the predictor shapes
@@ -44,6 +53,15 @@ sees no card or the package is missing. Phases, each of which fails the run:
        ProSparse-Llama-2-7B widths, bf16 (bench.py "7b" preset scales),
        sparse greedy generate of 64 tokens from a 32-token prompt: v6
        n_layer times per decode step;
+       the Scheduler at the same widths: 8 greedy requests (32-token
+       prompts, 32 new tokens) on 4 slots, so half of them queue, with
+       sparse_batch_max = 4: v1 n_layer times per tick and no other kernel;
+       batched decode at the same widths (bench.py batch): aggregate tok/s
+       of dense, masked-dense, per-token v6, union v7u and the Scheduler's
+       v1 step at B = 1, 4, 8, each from its own dense prefill, best of 3
+       runs of 8 steps, exact launch counts per run; the largest B at which
+       v1 beats masked-dense is the crossover that
+       sparse.config.sparse_batch_crossover holds;
        ProSparse-Llama-2-13B widths, Q8_0 (bench.py "13b" preset; random
        weights made and quantized on the card layer by layer, through the
        ggml Q8_0 blocks a GGUF holds): v6q L, quant_matmul_2d 4L+1 and
@@ -70,6 +88,11 @@ PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_FLOP_S = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BF16_FLOP_S = 989e12  # H100 SXM, dense bf16 tensor cores
 N_SETS = 64  # cold row sets / distinct stores per kernel timing
+# v7u rounds the hidden and W_down to bf16: each product within 2^-8, about
+# 2e-3 of the output's scale summed with random signs; a wrong row or mask
+# errs by the scale itself
+UNION_TOL = 1e-2
+BATCHES = (1, 4, 8)
 
 
 def fail(msg: str):
@@ -553,23 +576,300 @@ def phase_quant_matmul(params):
     return rows[0], flat_rows[1]  # the main path's attention and pred_down shapes
 
 
-def profile_decode(eng, prompt, steps: int = 8):
-    """Device time by kernel over a few sparse decode steps (torch.profiler),
+def phase_serving_reference(sparse_cfg_cls, sampler):
+    """f32 references of the serving paths, kernel against plain: the
+    Scheduler on a tiny model (v1) on the card against the CPU, and the
+    union FFN (v7u) of a 2-layer 7B-width model against "gather_union"."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.ops.sparse_ffn import sparse_ffn_block, sparse_ffn_block_v7u
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+    from sparkinfer_tpu_torch.runtime.scheduler import Request, Scheduler
+    from sparkinfer_tpu_torch.sparse import ffn as sffn
+    from sparkinfer_tpu_torch.sparse.predictor import predict_activations
+
+    cfg = prosparse_config(2, 256, 8, 512, 1024, 64)
+    scfg = sparse_cfg_cls(group_size=128, capacity_groups=2)
+    model = random_model(cfg, torch.float32, "cuda", SEED + 6)
+    prompts = [list(range(3 + i, 40, 2 + i)) for i in range(4)]
+    outs = []
+    for dev in ("cuda", "cpu"):
+        m = type(model)(config=cfg, params=to_device(model.params, dev))
+        sched = Scheduler(m, n_slots=2, max_seq=64, sampler=sampler, kv_dtype=torch.float32,
+                          sparse=scfg, sparse_batch_max=2, device=dev)
+        sparse_ffn_block.launches = 0
+        reqs = [sched.submit(Request(prompt_tokens=p, max_new_tokens=12)) for p in prompts]
+        sched.step()  # admits two requests and decodes them once
+        first = sched.last_logits.float().cpu()
+        sched.run_until_idle()
+        toks = [r.tokens() for r in reqs]
+        check(all(len(t) == 12 for t in toks), f"Scheduler on {dev}: short streams {toks}")
+        if dev == "cuda":
+            steps = sched.metrics["n_decode_steps"]
+            check(sparse_ffn_block.launches == cfg.n_layer * steps,
+                  f"v1 launched {sparse_ffn_block.launches} times in {steps} ticks")
+        outs.append((first, toks))
+        del sched, m
+    check_pair("Scheduler tiny, 4 requests on 2 slots, card v1 kernel vs CPU plain", outs)
+
+    cfg = prosparse_config(2, 4096, 32, 11008, 32000, 1024)
+    scfg = sparse_cfg_cls(group_size=128, capacity_groups=12)
+    model = random_model(cfg, torch.float32, "cuda", SEED + 1)
+    params = sffn.prepare_pipelined_params(model.params, cfg, scfg)
+    F, E, B = cfg.n_ff, cfg.n_embd, 8
+    ng, G = scfg.n_groups(F), scfg.group_size
+    lp = {k: v[1] for k, v in params["layers"].items()} | dict(params["sparse_flat"], flat_il=1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.randn((1, B, E), generator=gen, device="cuda")
+    probs = predict_activations(lp, x[0])
+    idx = sffn.select_groups(probs, scfg, F)
+    carry = {"idx": idx, "gp_sel": torch.gather(probs.reshape(B, ng, G), 1,
+                                                idx.long()[..., None].expand(-1, -1, G))}
+    n_union = len(torch.unique(idx))
+
+    def union_out(mode, union_groups=None):
+        ffn, _ = sffn.make_pipelined_sparse_ffn(cfg, scfg, mode=mode, union_groups=union_groups)
+        return ffn(lp, x, carry, 1)[0]
+
+    for label, ugroups, ref_mode in (("Cu=48, truncated", None, "gather_union"),
+                                     (f"Cu={ng}, the whole union", ng, "gather")):
+        got = union_out("kernel_union", ugroups)
+        ref = union_out(ref_mode, ugroups)
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        print(f"reference (union FFN, 7B widths, B={B}, {n_union} groups selected, {label}): "
+              f"kernel_union vs {ref_mode} max diff {err:.3e} (scale {scale:.3e})")
+        check(bool(torch.isfinite(got).all()) and err <= UNION_TOL * scale,
+              f"union FFN {label}: {err:.3e} > {UNION_TOL} of {scale:.3e}")
+    ffn_u, ci_u = sffn.make_pipelined_sparse_ffn(cfg, scfg, mode="kernel_union")
+    toks = torch.randint(cfg.n_vocab, (B, 4), generator=gen, device="cuda")
+    pos = torch.arange(4, device="cuda")[None].expand(B, 4)
+    sparse_ffn_block_v7u.launches = 0
+    logits = make_forward(cfg, ffn_fn=ffn_u, ffn_carry_init=ci_u)(
+        params, toks, pos, init_cache(cfg, B, 16, torch.float32, "cuda"))
+    check(bool(torch.isfinite(logits).all()), "union forward: non-finite logits")
+    check(sparse_ffn_block_v7u.launches == cfg.n_layer, "union forward: v7u launches")
+    print(f"reference (union forward, B={B}, 4 tokens each): logits finite, "
+          f"v7u launched {cfg.n_layer} times")
+    del model, params, lp
+    torch.cuda.empty_cache()
+
+
+def phase_v1(rows, C):
+    """sparse_ffn_block (v1) against its plain version at the 7B decode
+    shapes, over the Scheduler's row stores (L, ng, G, E): each call takes
+    C groups of one random layer per token."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops.sparse_ffn import sparse_ffn_block, sparse_ffn_block_plain
+
+    wu, wg, wd = rows["w_up_rows"], rows["w_gate_rows"], rows["w_down_rows"]
+    L, ng, G, E = wu.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    results = []
+    for N in (1, 4):
+        sets = [(int(torch.randint(L, (1,), generator=gen, device="cuda")),
+                 torch.stack([torch.randperm(ng, generator=gen, device="cuda")[:C]
+                              for _ in range(N)]).to(torch.int32)) for _ in range(N_SETS)]
+        x = torch.randn((N, E), generator=gen, device="cuda").to(torch.bfloat16)
+        gp = torch.rand((N, C, G), generator=gen, device="cuda")
+        kw = dict(act="fatrelu")
+
+        def args(i):
+            il, idx = sets[i % N_SETS]
+            return x, idx, gp, wu[il], wg[il], wd[il]
+
+        got = sparse_ffn_block(*args(0), **kw)
+        torch.cuda.synchronize()
+        err, tol = compare(f"v1 N={N}", got, sparse_ffn_block_plain(*args(0), **kw))
+        ms = graph_ms(lambda i: sparse_ffn_block(*args(i), **kw), N_SETS)
+        plain_ms = graph_ms(lambda i: sparse_ffn_block_plain(*args(i), **kw), 8)
+        # each distinct selected row of each projection read once; x, gp,
+        # idx read and out written once; 2 flops per weight and token
+        rows_read = sum(len(torch.unique(idx)) for _, idx in sets) / N_SETS
+        nbytes = 3 * rows_read * G * E * 2 + N * E * 2 + N * C * G * 4 + N * C * 4 + N * E * 4
+        bound_ms, by = bound(nbytes, 2 * 3 * N * C * G * E, PEAK_F32_FLOP_S)
+        row = dict(kernel="sparse_ffn_block", N=N, C=C, G=G, E=E, act="fatrelu",
+                   max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=by, library_ms=None, rows_read=rows_read,
+                   GB_s=nbytes / (ms * 1e-3) / 1e9)
+        print("kernel check:", json.dumps(row))
+        results.append(row)
+    return results[0]
+
+
+def phase_v7u(flat, L, ng, B=8, Cu=48, C=12):
+    """sparse_ffn_block_v7u against its plain version at the 7B batched
+    decode shape, over the flat stores: each call's union is Cu groups of
+    one random layer, each token having selected C of them."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops.sparse_ffn import (
+        sparse_ffn_block_v7u,
+        sparse_ffn_block_v7u_plain,
+    )
+
+    R, E, G = flat["w_upT_flat"].shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    unions = [(torch.randperm(ng, generator=gen, device="cuda")[:Cu]
+               + int(torch.randint(L, (1,), generator=gen, device="cuda")) * ng).to(torch.int32)
+              for _ in range(N_SETS)]
+    x = torch.randn((B, E), generator=gen, device="cuda").to(torch.bfloat16)
+    sel = torch.rand((B, Cu), generator=gen, device="cuda").argsort(-1) < C
+    gp = torch.rand((B, Cu, G), generator=gen, device="cuda") * sel[..., None]
+    stores = [flat[k] for k in ("w_upT_flat", "w_gateT_flat", "w_down_flat")]
+    kw = dict(act="fatrelu")
+    args = lambda i: (x, unions[i % N_SETS], gp, *stores)  # noqa: E731
+    got = sparse_ffn_block_v7u(*args(0), **kw)
+    torch.cuda.synchronize()
+    err, tol = compare(f"v7u B={B}", got, sparse_ffn_block_v7u_plain(*args(0), **kw))
+    ms = graph_ms(lambda i: sparse_ffn_block_v7u(*args(i), **kw), N_SETS)
+    plain_ms = graph_ms(lambda i: sparse_ffn_block_v7u_plain(*args(i), **kw), 8)
+    # each union row of each projection read once, whatever B is
+    nbytes = 3 * Cu * G * E * 2 + B * E * 2 + B * Cu * G * 4 + Cu * 4 + B * E * 4
+    bound_ms, by = bound(nbytes, 2 * 3 * B * Cu * G * E, PEAK_F32_FLOP_S)
+    row = dict(kernel="sparse_ffn_block_v7u", B=B, Cu=Cu, G=G, E=E, act="fatrelu",
+               max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=by, library_ms=None, GB_s=nbytes / (ms * 1e-3) / 1e9)
+    print("kernel check:", json.dumps(row))
+    return row
+
+
+def scheduler_path(sched, prompts, n_new):
+    """The Scheduler's main path: every request served, every tick's
+    logits finite, v1 launched n_layer times per tick and no other kernel
+    (counts set to 0 just before, read just after)."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.scheduler import Request
+
+    wrappers = kernel_wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    reqs = [sched.submit(Request(prompt_tokens=p, max_new_tokens=n_new)) for p in prompts]
+    while sched.step():
+        check(bool(torch.isfinite(sched.last_logits).all()), "Scheduler: non-finite logits")
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    toks = [r.tokens() for r in reqs]
+    check(all(len(t) == n_new for t in toks), f"Scheduler: short streams {toks}")
+    m = sched.metrics_snapshot()
+    ticks = m["n_decode_steps"]
+    L = sched.cfg.n_layer
+    for name, n in launches.items():
+        want = L * ticks if name == "sparse_ffn_block" else 0
+        check(n == want, f"Scheduler: {name} launched {n} times, want {want}")
+    check(m["n_dense_steps"] == 0, "Scheduler: a tick took the dense step")
+    decode_tps = (m["n_tokens_generated"] - m["n_requests"]) / m["t_decode_s"]
+    print(f"main path Scheduler 7B bf16 sparse: {len(prompts)} requests on {sched.n_slots} "
+          f"slots, {ticks} ticks, decode {decode_tps:.2f} tok/s aggregate "
+          f"({1e3 * m['t_decode_s'] / ticks:.2f} ms/tick), prefill {m['prefill_tps']:.1f} "
+          f"tok/s, wall {wall:.2f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"launches {json.dumps(launches)} (as expected)")
+    print(f"main path Scheduler tokens (first 2): {toks[:2]}")
+    # a profile of a few ticks with every slot running
+    for p in prompts[:sched.n_slots]:
+        sched.submit(Request(prompt_tokens=p, max_new_tokens=n_new))
+    sched.step()
+    profile_steps(f"Scheduler ticks ({sched.n_slots} slots)", sched.step, 6)
+    sched.run_until_idle()
+    return launches["sparse_ffn_block"]
+
+
+def phase_batched(cfg, scfg, dense_params, flat_params, row_params, steps: int = 8,
+                  trials: int = 3):
+    """Aggregate decode tok/s at B in BATCHES (bench.py batch): dense,
+    masked-dense (the Scheduler's fallback), per-token v6, union v7u and
+    the Scheduler's v1 step, each decoding greedily on from its own 32-token
+    dense prefill. The modes run in turns, `trials` runs of `steps` steps
+    each, and the best run counts (the host's clock varies run to run);
+    every run's launch counts are checked. Returns the v7u launches of the
+    last timed run (B = 8) and the crossover: the largest B at which v1
+    beats masked-dense, 0 where it never does."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+    from sparkinfer_tpu_torch.sparse import ffn as sffn
+    from sparkinfer_tpu_torch.sparse.config import sparse_batch_crossover
+
+    L = cfg.n_layer
+    ffn6, ci6 = sffn.make_pipelined_sparse_ffn(cfg, scfg, mode="kernel")
+    ffnu, ciu = sffn.make_pipelined_sparse_ffn(cfg, scfg, mode="kernel_union")
+    modes = {
+        "dense": (make_forward(cfg), dense_params, None),
+        "masked_dense": (make_forward(cfg, ffn_fn=sffn.make_sparse_ffn(cfg, scfg, "dense")),
+                         row_params, None),
+        "v6": (make_forward(cfg, ffn_fn=ffn6, ffn_carry_init=ci6), flat_params,
+               "sparse_ffn_block_v6"),
+        "v7u": (make_forward(cfg, ffn_fn=ffnu, ffn_carry_init=ciu), flat_params,
+                "sparse_ffn_block_v7u"),
+        "v1": (make_forward(cfg, ffn_fn=sffn.make_sparse_ffn(cfg, scfg, "kernel")),
+               row_params, "sparse_ffn_block"),
+    }
+    prefill = make_forward(cfg, fresh_prefill=True)
+    wrappers = kernel_wrappers()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    table = []
+    for B in BATCHES:
+        prompt = torch.randint(cfg.n_vocab, (B, 32), generator=gen, device="cuda")
+        pos = torch.arange(32, device="cuda")[None].expand(B, 32)
+        caches, toks = {}, {}
+        for name in modes:  # each mode decodes on from its own 32-token prefill
+            caches[name] = init_cache(cfg, B, 32 + 2 + trials * steps, torch.bfloat16, "cuda")
+            toks[name] = prefill(dense_params, prompt, pos, caches[name])[:, -1].argmax(
+                -1, keepdim=True)
+        n_past = 32
+        best = dict.fromkeys(modes, float("inf"))
+        for trial in range(trials + 1):  # the modes in turns; trial 0 warms up
+            n = 1 if trial == 0 else steps
+            for name, (fwd, params, kname) in modes.items():
+                for w in wrappers.values():
+                    w.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for s in range(n):
+                    logits = fwd(params, toks[name], torch.full((B, 1), n_past + s, device="cuda"),
+                                 caches[name])[:, -1]
+                    toks[name] = logits.argmax(-1, keepdim=True)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                check(bool(torch.isfinite(logits).all()), f"batched {name} B={B}: non-finite")
+                for wname, w in wrappers.items():
+                    want = L * n if wname == kname else 0
+                    check(w.launches == want,
+                          f"batched {name} B={B}: {wname} launched {w.launches}, want {want}")
+                if trial > 0:
+                    best[name] = min(best[name], dt / n)
+            n_past += n
+        row = {"B": B, **{name: B / t for name, t in best.items()},
+               "ms_per_step": {name: round(1e3 * t, 3) for name, t in best.items()}}
+        print("batched decode (aggregate tok/s, best of "
+              f"{trials} x {steps} steps):", json.dumps(
+                  {k: (round(v, 2) if isinstance(v, float) else v) for k, v in row.items()}))
+        table.append(row)
+        del caches
+    crossover = max([r["B"] for r in table if r["v1"] > r["masked_dense"]], default=0)
+    print(f"batched decode: v1 beats masked-dense up to B={crossover} "
+          f"(sparse_batch_crossover({cfg.n_ff}) gives {sparse_batch_crossover(cfg.n_ff)})")
+    return L * steps, crossover
+
+
+def profile_steps(label, step, steps: int = 8):
+    """Device time by kernel over `steps` calls of step() (torch.profiler),
     and the share of the window in which the device was busy."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cache, st = eng.new_cache(), eng.new_sampler_state()
-    tok, cache, st, n = eng.prefill(prompt, cache, st)
-    tok, cache, st = eng.decode_step(tok, n, cache, st)  # warm
-    n += 1
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            tok, cache, st = eng.decode_step(tok, n, cache, st)
-            n += 1
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies), so no time counts twice
@@ -577,10 +877,23 @@ def profile_decode(eng, prompt, steps: int = 8):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"profile: {steps} sparse decode steps, wall {wall_ms / steps:.3f} ms/step, "
+    print(f"profile: {steps} {label}, wall {wall_ms / steps:.3f} ms/step, "
           f"device busy {busy / steps:.3f} ms/step ({100 * busy / wall_ms:.1f}%)")
     for key, ms, count in rows[:12]:
         print(f"  {ms / steps:8.4f} ms/step  {count // steps:5d}/step  {key[:90]}")
+
+
+def profile_decode(eng, prompt, steps: int = 8):
+    """profile_steps over a few sparse decode steps of the engine."""
+    cache, st = eng.new_cache(), eng.new_sampler_state()
+    tok, cache, st, n = eng.prefill(prompt, cache, st)
+    state = {"tok": eng.decode_step(tok, n, cache, st)[0], "n": n + 1}  # warm
+
+    def step():
+        state["tok"] = eng.decode_step(state["tok"], state["n"], cache, st)[0]
+        state["n"] += 1
+
+    profile_steps("sparse decode steps", step, steps)
 
 
 def run_generate(eng, prompt, n_new):
@@ -601,6 +914,8 @@ def kernel_wrappers():
 
     return {"sparse_ffn_block_v6": sf.sparse_ffn_block_v6,
             "sparse_ffn_block_v6q": sf.sparse_ffn_block_v6q,
+            "sparse_ffn_block": sf.sparse_ffn_block,
+            "sparse_ffn_block_v7u": sf.sparse_ffn_block_v7u,
             "quant_matmul_2d": qm.quant_matmul_2d,
             "quant_matmul_flat": qm.quant_matmul_flat}
 
@@ -662,6 +977,7 @@ def main() -> int:
     )
     from sparkinfer_tpu_torch.runtime.engine import Engine
     from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
+    from sparkinfer_tpu_torch.runtime.scheduler import Scheduler
     from sparkinfer_tpu_torch.sparse.config import SparseConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -679,7 +995,8 @@ def main() -> int:
 
     # 2. build, every source at once
     for name, (lib, secs, log) in _build.build_all(
-            ["sparse_ffn_v6", "sparse_ffn_v6q", "quant_matmul"]).items():
+            ["sparse_ffn_v6", "sparse_ffn_v6q", "quant_matmul", "sparse_ffn_v1",
+             "sparse_ffn_v7u"]).items():
         if not log:
             print(f"build: {name} -> {lib.name} was already built")
             continue
@@ -691,6 +1008,7 @@ def main() -> int:
 
     # 3. f32 references on small inputs: kernel path == plain path
     phase_reference(SparseConfig, Engine, greedy)
+    phase_serving_reference(SparseConfig, greedy)
     print(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     n_new = 64
@@ -720,9 +1038,23 @@ def main() -> int:
     profile_decode(sparse_eng, prompt)
     dense_run("7B bf16", Engine(model, max_seq=1024, sampler=greedy, device="cuda"),
               prompt, n_new, s7)
-    del sparse_eng, model
+    print(f"7B engine path done at {time.perf_counter() - t_start:.1f} s")
+
+    # 5e. the Scheduler at 7B widths (its row stores serve phase 4c)
+    sched = Scheduler(model, n_slots=4, max_seq=128, sampler=greedy, sparse=scfg,
+                      sparse_batch_max=4, device="cuda")
+    v1_row = phase_v1(sched.params["layers"], scfg.capacity(cfg.n_ff))
+    gen = torch.Generator().manual_seed(SEED + 11)
+    prompts = [torch.randint(cfg.n_vocab, (32,), generator=gen).tolist() for _ in range(8)]
+    l_v1 = scheduler_path(sched, prompts, 32)
+
+    # 4d, 5f. v7u, and batched decode of every decode path at B = 1, 4, 8
+    v7u_row = phase_v7u(sparse_eng.params["sparse_flat"], L, scfg.n_groups(cfg.n_ff))
+    l_v7u, crossover = phase_batched(cfg, scfg, model.params, sparse_eng.params,
+                                     sched.params)
+    del sparse_eng, model, sched
     torch.cuda.empty_cache()
-    print(f"7B path done at {time.perf_counter() - t_start:.1f} s")
+    print(f"7B paths done at {time.perf_counter() - t_start:.1f} s")
 
     # 5c. the 13B-width Q8_0 model, made and quantized on the card
     cfg = prosparse_config(40, 5120, 40, 13824, 32000, 1280)
@@ -781,7 +1113,14 @@ def main() -> int:
         kernel_line("quant_matmul_flat", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
                     "sparkinfer_tpu/ops/quant_matmul.py:243",
                     l13["quant_matmul_flat"], qflat_row, qflat_row["shape"]),
+        kernel_line("sparse_ffn_block", "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
+                    "sparkinfer_tpu/ops/sparse_ffn_pallas.py:124", l_v1, v1_row,
+                    "N=1 C=12 G=128 E=4096 bf16 fatrelu, row stores"),
+        kernel_line("sparse_ffn_block_v7u", "sparkinfer_tpu_torch/csrc/sparse_ffn_v7u.cu",
+                    "sparkinfer_tpu/ops/sparse_ffn_pallas.py:1172", l_v7u, v7u_row,
+                    "B=8 Cu=48 G=128 E=4096 bf16 fatrelu"),
     ]}
+    print(f"crossover measured: v1 beats masked-dense up to B={crossover}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

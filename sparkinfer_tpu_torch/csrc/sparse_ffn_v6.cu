@@ -34,9 +34,7 @@
 //   F  out[n, e] = sum over the RS chunk sums, in chunk order.
 // Out-of-range row ids are clamped into [0, R), as XLA clamps a gather.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sparse_ffn_common.cuh"
 
 namespace {
 
@@ -47,45 +45,6 @@ constexpr int kSliceE = 256;           // E rows per block in kernel A
 constexpr int kTileE = 32 * kVec;      // output columns per block in kernel D
 constexpr int kRowChunks = 16;         // least row chunks of the down product
 constexpr int kMaxChunkRows = 1024;    // most down rows per block in kernel D
-
-enum Act { kFatrelu = 0, kDrelu = 1, kRelu = 2, kSilu = 3, kGelu = 4 };
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ int clamp_row(int r, int R) {
-  return r < 0 ? 0 : (r >= R ? R - 1 : r);
-}
-
-__device__ __forceinline__ float combine(int act, float thr, float gate,
-                                         float up) {
-  switch (act) {
-    case kFatrelu: return (gate > thr ? gate : 0.0f) * up;
-    case kDrelu: return fmaxf(gate, 0.0f) * fmaxf(up, 0.0f);
-    case kRelu: return fmaxf(up, 0.0f);
-    case kSilu: return gate / (1.0f + expf(-gate)) * up;
-    default: {  // kGelu, tanh approximation as jax.nn.gelu(approximate=True)
-      const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-      const float t = tanhf(k * (gate + 0.044715f * gate * gate * gate));
-      return 0.5f * gate * (1.0f + t) * up;
-    }
-  }
-}
 
 int slices(int E) { return (E + kSliceE - 1) / kSliceE; }
 
@@ -215,17 +174,6 @@ v6_down(const float* __restrict__ part_up, const float* __restrict__ part_gate,
   }
 }
 
-// Kernel F: out[n, e] = sum of the RS chunk sums, in chunk order
-__global__ void v6_sum_chunks(const float* __restrict__ part_out,
-                              float* __restrict__ out, int E, int RS) {
-  const int n = blockIdx.y;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float tot = 0.f;
-  for (int k = 0; k < RS; ++k) tot += part_out[((size_t)n * RS + k) * E + e];
-  out[(size_t)n * E + e] = tot;
-}
-
 template <typename T>
 cudaError_t launch(const float* x, const int* idx, const float* gp,
                    const float* bu, const void* wu, const void* wg,
@@ -247,8 +195,9 @@ cudaError_t launch(const float* x, const int* idx, const float* gp,
       E, G, R, S, RS, act, wg != nullptr, fat_thr, prob_thr, mask_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  v6_sum_chunks<<<dim3((E + 255) / 256, N), 256, 0, stream>>>(part_out, out,
-                                                               E, RS);
+  // kernel F: out[n, e] = sum of the RS chunk sums, in chunk order
+  sum_row_chunks<<<dim3((E + 255) / 256, N), 256, 0, stream>>>(part_out, out,
+                                                                E, RS);
   return cudaGetLastError();
 }
 

@@ -37,8 +37,7 @@
 //   F  out[n, e] = sum over the RS chunk sums, in chunk order.
 // Out-of-range row ids are clamped into [0, R), as XLA clamps a gather.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sparse_ffn_common.cuh"
 
 namespace {
 
@@ -53,27 +52,6 @@ constexpr int kQK = 32;
 
 static_assert(kQK % kUnitA == 0 && kQK % kUnitD == 0,
               "a unit of rows lies inside one ggml block");
-
-enum Act { kFatrelu = 0, kDrelu = 1, kRelu = 2, kSilu = 3, kGelu = 4 };
-
-__device__ __forceinline__ int clamp_row(int r, int R) {
-  return r < 0 ? 0 : (r >= R ? R - 1 : r);
-}
-
-__device__ __forceinline__ float combine(int act, float thr, float gate,
-                                         float up) {
-  switch (act) {
-    case kFatrelu: return (gate > thr ? gate : 0.0f) * up;
-    case kDrelu: return fmaxf(gate, 0.0f) * fmaxf(up, 0.0f);
-    case kRelu: return fmaxf(up, 0.0f);
-    case kSilu: return gate / (1.0f + expf(-gate)) * up;
-    default: {  // kGelu, tanh approximation as jax.nn.gelu(approximate=True)
-      const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-      const float t = tanhf(k * (gate + 0.044715f * gate * gate * gate));
-      return 0.5f * gate * (1.0f + t) * up;
-    }
-  }
-}
 
 __device__ __forceinline__ void load_scales(const float* p, float* s) {
 #pragma unroll
@@ -232,17 +210,6 @@ v6q_down(const float* __restrict__ part_up, const float* __restrict__ part_gate,
   }
 }
 
-// Kernel F: out[n, e] = sum of the RS chunk sums, in chunk order
-__global__ void v6q_sum_chunks(const float* __restrict__ part_out,
-                               float* __restrict__ out, int E, int RS) {
-  const int n = blockIdx.y;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float tot = 0.f;
-  for (int k = 0; k < RS; ++k) tot += part_out[((size_t)n * RS + k) * E + e];
-  out[(size_t)n * E + e] = tot;
-}
-
 }  // namespace
 
 extern "C" {
@@ -291,7 +258,8 @@ int sparse_ffn_v6q(const void* x, const void* idx, const void* gp,
       qg != nullptr, fat_thr, prob_thr, mask_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  v6q_sum_chunks<<<dim3((E + 255) / 256, N), 256, 0, st>>>(
+  // kernel F: out[n, e] = sum of the RS chunk sums, in chunk order
+  sum_row_chunks<<<dim3((E + 255) / 256, N), 256, 0, st>>>(
       part_out, static_cast<float*>(out), E, RS);
   return static_cast<int>(cudaGetLastError());
 }

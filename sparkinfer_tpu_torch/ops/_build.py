@@ -2,9 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain `extern "C"` interface and becomes
 `build/kernels/<name>-<hash>.so` at the repository root, where the hash covers
-the source and the compiler flags, so an edited source never loads a stale
-library. Nothing here runs at import: the first wrapper call on a CUDA tensor
-builds (if needed) and loads the library.
+the source, the shared headers `csrc/*.cuh` and the compiler flags, so an
+edited source never loads a stale library. Nothing here runs at import: the
+first wrapper call on a CUDA tensor builds (if needed) and loads the library.
 """
 
 from __future__ import annotations
@@ -40,6 +40,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):  # sources include them by name
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 

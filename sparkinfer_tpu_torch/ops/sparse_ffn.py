@@ -1,24 +1,32 @@
-"""Fused predictor-gated sparse FFN over flat (layer, group) weight stores.
+"""Fused predictor-gated sparse FFN kernels and their plain torch versions.
 
-The port of the Pallas TPU kernel `sparse_ffn_block_v6`
-(sparkinfer_tpu/ops/sparse_ffn_pallas.py:564). For each token n and selected
-row r = idx[n, c]:
+Each wrapper dispatches on the device of `x`: a CPU tensor runs the plain
+version, a CUDA tensor launches the hand-written kernel (csrc/, built by
+`_build` at first use, counted in the wrapper's `.launches`) and never the
+plain version. Row ids outside [0, R) are clamped, as XLA clamps a gather.
+For each token n and selected row r = idx[n, c]:
 
-    up   = x[n] . w_upT_rows[r] + bu_sel[n, c]     (E, G) store
-    gate = x[n] . w_gateT_rows[r]                  gated activations only
-    h    = combine(act, gate, up) * mask           mask = gp >= thr, or gp
-    out[n] = sum_c h . w_down_rows[r]              (G, E) store
+    up   = x[n] . W_up[r] + bu_sel[n, c]
+    gate = x[n] . W_gate[r] (+ bg_sel[n, c])      gated activations only
+    h    = combine(act, gate, up) * mask          mask = gp >= thr, or gp
+    out[n] = sum_c h . W_down[r]
 
-all in f32, as the TPU kernel does (the hidden is not rounded to bf16 before
-the down product). `sparse_ffn_block_v6` dispatches on the device of `x`:
-a CPU tensor runs `sparse_ffn_block_v6_plain`, a CUDA tensor launches the
-hand-written kernel in csrc/sparse_ffn_v6.cu and never the plain version.
-
-`sparse_ffn_block_v6q` is the same function over Q8_0 stores (the port of
-`sparse_ffn_block_v6q`, sparse_ffn_pallas.py:706): int8 weights with one
-f32 scale per 32 elements (along E for up/gate, along G for down),
-dequantized in f32, kernel in csrc/sparse_ffn_v6q.cu; `quantize_rows_q8_0`
-packs a v6 store into that layout on the tensor's device.
+  - `sparse_ffn_block_v6` (sparkinfer_tpu/ops/sparse_ffn_pallas.py:564,
+    csrc/sparse_ffn_v6.cu): transposed flat stores (R, E, G) for up/gate,
+    (R, G, E) for down, all in f32 (the hidden is not rounded before the
+    down product);
+  - `sparse_ffn_block_v6q` (:706, csrc/sparse_ffn_v6q.cu): v6 over Q8_0
+    stores, int8 with one f32 scale per 32 elements (along E for up/gate,
+    along G for down), dequantized in f32; `quantize_rows_q8_0` packs a v6
+    store into that layout on the tensor's device;
+  - `sparse_ffn_block` (v1, :124, csrc/sparse_ffn_v1.cu): row stores
+    (R, G, E) for all three projections, the only gate bias (bg_sel) and
+    the only gated swiglu_oai; the hidden is rounded to the store dtype
+    before the down product (:105), so bf16 stores round it to bf16;
+  - `sparse_ffn_block_v7u` (:1172, csrc/sparse_ffn_v7u.cu): batched decode
+    over the cross-token union of selected groups, each union row read once
+    for all B tokens, with v6's flat stores; the up/gate stores are cast to
+    x's dtype and the hidden and W_down are rounded to bf16 (:1135-1156).
 """
 
 from __future__ import annotations
@@ -31,16 +39,18 @@ import torch.nn.functional as F
 from . import _build
 from .quant_matmul import QK, q8_blocks
 
-# activations the kernel computes; "relu" is the only ungated one, and the
-# gate store is read only for the gated ones (ops/sparse_ffn_pallas.py:585)
-ACT_CODES = {"fatrelu": 0, "drelu": 1, "relu": 2, "silu": 3, "gelu": 4}
-GATED_ACTS = ("fatrelu", "drelu", "silu", "gelu")
+# activation codes of csrc/sparse_ffn_common.cuh; "relu" is the only ungated
+# one, and the gate store is read only for the gated ones
+ACT_CODES = {"fatrelu": 0, "drelu": 1, "relu": 2, "silu": 3, "gelu": 4,
+             "swiglu_oai": 5}
+GATED_ACTS = ("fatrelu", "drelu", "silu", "gelu")  # v6, v6q, v7u (:585, :1193)
+GATED_ACTS_V1 = GATED_ACTS + ("swiglu_oai",)  # v1 (sparse_ffn_pallas.py:149)
 MASK_MODES = ("threshold", "scale")
 
 
 def combine(act: str, fatrelu_threshold: float, gate, up):
-    """hidden = act(gate, up) for the sparse activations; gate is unused
-    (may be None) for "relu"."""
+    """hidden = act(gate, up) for the sparse activations
+    (sparse_ffn_pallas.py:41-58); gate is unused (may be None) for "relu"."""
     if act == "fatrelu":
         return torch.where(gate > fatrelu_threshold, gate, 0.0) * up
     if act == "drelu":
@@ -49,33 +59,44 @@ def combine(act: str, fatrelu_threshold: float, gate, up):
         return up.clamp_min(0.0)
     if act == "silu":
         return gate * torch.sigmoid(gate) * up
+    if act == "swiglu_oai":
+        # gpt-oss clamped swiglu (ggml_swiglu_oai): gate clamped above at 7,
+        # up clamped both ways, sigmoid slope 1.702, (up + 1) shift
+        g = gate.clamp_max(7.0)
+        return g * torch.sigmoid(1.702 * g) * (up.clamp(-7.0, 7.0) + 1.0)
     return F.gelu(gate, approximate="tanh") * up
 
 
-def _is_gated(act: str, w_gateT_rows) -> bool:
-    if act not in ACT_CODES:
-        raise ValueError(f"sparse_ffn_block_v6: unsupported activation {act!r}")
-    gated = w_gateT_rows is not None and act in GATED_ACTS
-    if act != "relu" and not gated:
+def _is_gated(act: str, w_gate, gated_acts=GATED_ACTS) -> bool:
+    if act != "relu" and act not in gated_acts:
+        raise ValueError(f"sparse FFN kernel: unsupported activation {act!r}")
+    if act != "relu" and w_gate is None:
         raise ValueError(f"activation {act!r} needs a gate store")
-    return gated
+    return act != "relu"
 
 
-def _v6_from_rows(x, gp_sel, wu, wg, wd, act, fatrelu_threshold,
-                  prob_threshold, bu_sel, mask_mode):
-    """v6's function from the gathered f32 rows wu/wg (N, C, E, G) and
-    wd (N, C, G, E); wg is None for an ungated activation."""
+def _from_rows(x, gp_sel, wu, wg, wd, act, fatrelu_threshold, prob_threshold,
+               bu_sel, mask_mode, bg_sel=None, hidden_dtype=None):
+    """The sparse FFN from the gathered f32 rows wu/wg (N, C, E, G) and
+    wd (N, C, G, E); wg is None for an ungated activation. hidden_dtype
+    rounds the hidden before the down product (v1's quirk)."""
     if mask_mode not in MASK_MODES:
         raise ValueError(f"mask_mode {mask_mode!r}")
     xf = x.float()
     up = torch.einsum("ne,nceg->ncg", xf, wu)
     if bu_sel is not None:
         up = up + bu_sel.float()
-    gate = torch.einsum("ne,nceg->ncg", xf, wg) if wg is not None else None
+    gate = None
+    if wg is not None:
+        gate = torch.einsum("ne,nceg->ncg", xf, wg)
+        if bg_sel is not None:
+            gate = gate + bg_sel.float()
     hidden = combine(act, fatrelu_threshold, gate, up)
     gp = gp_sel.float()
     hidden = hidden * ((gp >= prob_threshold).float()
                        if mask_mode == "threshold" else gp)
+    if hidden_dtype is not None:
+        hidden = hidden.to(hidden_dtype).float()
     return torch.einsum("ncg,ncge->ne", hidden, wd)
 
 
@@ -90,31 +111,65 @@ def sparse_ffn_block_v6_plain(x, idx, gp_sel, w_upT_rows, w_gateT_rows,
     gated = _is_gated(act, w_gateT_rows)
     rows = idx.long().clamp(0, w_upT_rows.shape[0] - 1)
     wg = w_gateT_rows[rows].float() if gated else None
-    return _v6_from_rows(x, gp_sel, w_upT_rows[rows].float(), wg,
-                         w_down_rows[rows].float(), act, fatrelu_threshold,
-                         prob_threshold, bu_sel, mask_mode)
+    return _from_rows(x, gp_sel, w_upT_rows[rows].float(), wg,
+                      w_down_rows[rows].float(), act, fatrelu_threshold,
+                      prob_threshold, bu_sel, mask_mode)
 
 
-_lib_cache: list[ctypes.CDLL] = []
+_typed: set[str] = set()  # libraries whose C signatures are declared
 
 
-def _lib() -> ctypes.CDLL:
-    if not _lib_cache:
-        lib = _build.load("sparse_ffn_v6")
+def _kernel_lib(name: str, n_ptr: int, n_int: int) -> ctypes.CDLL:
+    """The loaded csrc/<name>.cu, whose entry `name` takes n_ptr pointers,
+    n_int ints, (fatrelu_threshold, prob_threshold) as floats, the mask
+    mode and the stream; `<name>_scratch_floats` takes four ints."""
+    lib = _build.load(name)
+    if name not in _typed:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sparse_ffn_v6.argtypes = [p] * 9 + [i] * 7 + [f, f, i, p]
-        lib.sparse_ffn_v6.restype = i
-        lib.sparse_ffn_v6_scratch_floats.argtypes = [i] * 4
-        lib.sparse_ffn_v6_scratch_floats.restype = ctypes.c_longlong
-        lib.sparse_ffn_v6_error_string.argtypes = [i]
-        lib.sparse_ffn_v6_error_string.restype = ctypes.c_char_p
-        _lib_cache.append(lib)
-    return _lib_cache[0]
+        getattr(lib, name).argtypes = [p] * n_ptr + [i] * n_int + [f, f, i, p]
+        getattr(lib, name).restype = i
+        getattr(lib, name + "_scratch_floats").argtypes = [i] * 4
+        getattr(lib, name + "_scratch_floats").restype = ctypes.c_longlong
+        getattr(lib, name + "_error_string").argtypes = [i]
+        getattr(lib, name + "_error_string").restype = ctypes.c_char_p
+        _typed.add(name)
+    return lib
+
+
+def _launch(lib: ctypes.CDLL, name: str, device, *args):
+    """Call the kernel entry on the device's current stream; raise on a
+    CUDA error of the launches."""
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        msg = getattr(lib, name + "_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"sparse FFN kernel: {msg}")
+
+
+def _check_stores(x, stores, dtypes=(torch.bfloat16, torch.float32)):
+    """Every store on x's device, of one dtype in `dtypes`, contiguous and
+    16-byte aligned."""
+    dt = stores[0].dtype
+    _check(dt in dtypes, f"store dtype {dt}")
+    for w in stores:
+        _check(w.device == x.device, "stores must be on x's device")
+        _check(w.dtype == dt, "stores must share one dtype")
+        _check(w.is_contiguous() and w.data_ptr() % 16 == 0,
+               "stores must be contiguous and 16-byte aligned")
+
+
+def _f32(t):
+    """t as a contiguous f32 tensor (None stays None)."""
+    return None if t is None else t.float().contiguous()
 
 
 def sparse_ffn_block_v6(x, idx, gp_sel, w_upT_rows, w_gateT_rows, w_down_rows,
@@ -136,7 +191,6 @@ def sparse_ffn_block_v6(x, idx, gp_sel, w_upT_rows, w_gateT_rows, w_down_rows,
     N, E = x.shape
     C = idx.shape[1]
     R, E_w, G = w_upT_rows.shape
-    stores = [w_upT_rows, w_down_rows] + ([w_gateT_rows] if gated else [])
     _check(E_w == E and idx.shape == (N, C), "x/idx/store shapes disagree")
     _check(gp_sel.shape == (N, C, G), f"gp_sel shape {tuple(gp_sel.shape)}")
     _check(w_down_rows.shape == (R, G, E), "w_down_rows must be (R, G, E)")
@@ -145,39 +199,23 @@ def sparse_ffn_block_v6(x, idx, gp_sel, w_upT_rows, w_gateT_rows, w_down_rows,
     _check(bu_sel is None or bu_sel.shape == (N, C, G), "bu_sel must be (N, C, G)")
     _check(G % 8 == 0 and G <= 2048 and E % 8 == 0,
            "kernel needs G and E multiples of 8, G <= 2048")
-    dt = w_upT_rows.dtype
-    _check(dt in (torch.bfloat16, torch.float32), f"store dtype {dt}")
-    for w in stores:
-        _check(w.device == x.device, "stores must be on x's device")
-        _check(w.dtype == dt, "stores must share one dtype")
-        _check(w.is_contiguous() and w.data_ptr() % 16 == 0,
-               "stores must be contiguous and 16-byte aligned")
+    _check_stores(x, [w_upT_rows, w_down_rows] + ([w_gateT_rows] if gated else []))
     small = [t for t in (idx, gp_sel, bu_sel) if t is not None]
     _check(all(t.device == x.device for t in small), "inputs on mixed devices")
 
-    xf = x.float().contiguous()
-    idx32 = idx.to(torch.int32).contiguous()
-    gp = gp_sel.float().contiguous()
-    bu = bu_sel.float().contiguous() if bu_sel is not None else None
-    lib = _lib()
+    # every tensor whose pointer the kernel gets stays referenced until the
+    # launch is enqueued, so the allocator cannot hand its memory on first
+    xf, idx32, gp, bu = _f32(x), idx.to(torch.int32).contiguous(), _f32(gp_sel), _f32(bu_sel)
+    lib = _kernel_lib("sparse_ffn_v6", 9, 7)
     f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty((N, E), **f32)
     scratch = torch.empty((lib.sparse_ffn_v6_scratch_floats(N, C, E, G),), **f32)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(x.device):
-        err = lib.sparse_ffn_v6(
-            ptr(xf), ptr(idx32), ptr(gp), ptr(bu), ptr(w_upT_rows),
-            ptr(w_gateT_rows if gated else None), ptr(w_down_rows), ptr(out),
-            ptr(scratch), N, C, E, G, R,
-            int(dt == torch.bfloat16), ACT_CODES[act], float(fatrelu_threshold),
-            float(prob_threshold), int(mask_mode == "scale"),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        msg = lib.sparse_ffn_v6_error_string(err).decode()
-        raise RuntimeError(f"sparse_ffn_v6 launch failed: CUDA error {err} ({msg})")
+    _launch(lib, "sparse_ffn_v6", x.device,
+            _ptr(xf), _ptr(idx32), _ptr(gp), _ptr(bu), _ptr(w_upT_rows),
+            _ptr(w_gateT_rows if gated else None), _ptr(w_down_rows), _ptr(out),
+            _ptr(scratch), N, C, E, G, R, int(w_upT_rows.dtype == torch.bfloat16),
+            ACT_CODES[act], float(fatrelu_threshold), float(prob_threshold),
+            int(mask_mode == "scale"))
     sparse_ffn_block_v6.launches += 1
     return out
 
@@ -224,26 +262,9 @@ def sparse_ffn_block_v6q_plain(x, idx, gp_sel, qw_upT, s_upT, qw_gateT, s_gateT,
     gated = _is_gated(act, qw_gateT)
     rows = idx.long().clamp(0, qw_upT.shape[0] - 1)
     wg = dequant_rows(qw_gateT[rows], s_gateT[rows]) if gated else None
-    return _v6_from_rows(x, gp_sel, dequant_rows(qw_upT[rows], s_upT[rows]), wg,
-                         dequant_rows(qw_down[rows], s_down[rows]), act,
-                         fatrelu_threshold, prob_threshold, bu_sel, mask_mode)
-
-
-_libq_cache: list[ctypes.CDLL] = []
-
-
-def _libq() -> ctypes.CDLL:
-    if not _libq_cache:
-        lib = _build.load("sparse_ffn_v6q")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sparse_ffn_v6q.argtypes = [p] * 12 + [i] * 6 + [f, f, i, p]
-        lib.sparse_ffn_v6q.restype = i
-        lib.sparse_ffn_v6q_scratch_floats.argtypes = [i] * 4
-        lib.sparse_ffn_v6q_scratch_floats.restype = ctypes.c_longlong
-        lib.sparse_ffn_v6q_error_string.argtypes = [i]
-        lib.sparse_ffn_v6q_error_string.restype = ctypes.c_char_p
-        _libq_cache.append(lib)
-    return _libq_cache[0]
+    return _from_rows(x, gp_sel, dequant_rows(qw_upT[rows], s_upT[rows]), wg,
+                      dequant_rows(qw_down[rows], s_down[rows]), act,
+                      fatrelu_threshold, prob_threshold, bu_sel, mask_mode)
 
 
 def sparse_ffn_block_v6q(x, idx, gp_sel, qw_upT, s_upT, qw_gateT, s_gateT,
@@ -286,30 +307,182 @@ def sparse_ffn_block_v6q(x, idx, gp_sel, qw_upT, s_upT, qw_gateT, s_gateT,
     small = [t for t in (idx, gp_sel, bu_sel) if t is not None]
     _check(all(t.device == x.device for t in small), "inputs on mixed devices")
 
-    xf = x.float().contiguous()
-    idx32 = idx.to(torch.int32).contiguous()
-    gp = gp_sel.float().contiguous()
-    bu = bu_sel.float().contiguous() if bu_sel is not None else None
-    lib = _libq()
+    xf, idx32, gp, bu = _f32(x), idx.to(torch.int32).contiguous(), _f32(gp_sel), _f32(bu_sel)
+    lib = _kernel_lib("sparse_ffn_v6q", 12, 6)
     f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty((N, E), **f32)
     scratch = torch.empty((lib.sparse_ffn_v6q_scratch_floats(N, C, E, G),), **f32)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(x.device):
-        err = lib.sparse_ffn_v6q(
-            ptr(xf), ptr(idx32), ptr(gp), ptr(bu), ptr(qw_upT), ptr(s_upT),
-            ptr(qw_gateT if gated else None), ptr(s_gateT if gated else None),
-            ptr(qw_down), ptr(s_down), ptr(out), ptr(scratch), N, C, E, G, R,
+    _launch(lib, "sparse_ffn_v6q", x.device,
+            _ptr(xf), _ptr(idx32), _ptr(gp), _ptr(bu), _ptr(qw_upT), _ptr(s_upT),
+            _ptr(qw_gateT if gated else None), _ptr(s_gateT if gated else None),
+            _ptr(qw_down), _ptr(s_down), _ptr(out), _ptr(scratch), N, C, E, G, R,
             ACT_CODES[act], float(fatrelu_threshold), float(prob_threshold),
-            int(mask_mode == "scale"), torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        msg = lib.sparse_ffn_v6q_error_string(err).decode()
-        raise RuntimeError(f"sparse_ffn_v6q launch failed: CUDA error {err} ({msg})")
+            int(mask_mode == "scale"))
     sparse_ffn_block_v6q.launches += 1
     return out
 
 
 sparse_ffn_block_v6q.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# v1: neuron-row stores, the serving Scheduler's decode
+
+
+def sparse_ffn_block_plain(x, idx, gp_sel, w_up_rows, w_gate_rows, w_down_rows,
+                           *, act: str, fatrelu_threshold: float = 0.0,
+                           prob_threshold: float = 0.5, bu_sel=None, bg_sel=None,
+                           mask_mode: str = "threshold") -> torch.Tensor:
+    """v1 in plain torch. x (N, E); idx (N, C) row ids; gp_sel/bu_sel/bg_sel
+    (N, C, G); w_up_rows/w_gate_rows/w_down_rows (R, G, E) -> (N, E) f32.
+    Up and gate are f32 sums of the exact products of x and the store, the
+    hidden is rounded to the store dtype before the down product."""
+    gated = _is_gated(act, w_gate_rows, GATED_ACTS_V1)
+    rows = idx.long().clamp(0, w_up_rows.shape[0] - 1)
+
+    def col(w):  # (N, C, E, G) view of the gathered rows
+        return w[rows].float().transpose(-1, -2)
+
+    return _from_rows(x, gp_sel, col(w_up_rows), col(w_gate_rows) if gated else None,
+                      w_down_rows[rows].float(), act, fatrelu_threshold,
+                      prob_threshold, bu_sel, mask_mode,
+                      bg_sel=bg_sel, hidden_dtype=w_down_rows.dtype)
+
+
+def _aligned_f32(t):
+    """t as contiguous f32 whose data starts on 16 bytes (vector loads)."""
+    t = _f32(t)
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def sparse_ffn_block(x, idx, gp_sel, w_up_rows, w_gate_rows, w_down_rows, *,
+                     act: str, fatrelu_threshold: float = 0.0,
+                     prob_threshold: float = 0.5, bu_sel=None, bg_sel=None,
+                     mask_mode: str = "threshold") -> torch.Tensor:
+    """(N, E) f32. CPU tensors run the plain version; CUDA tensors launch
+    the kernel (counted in `sparse_ffn_block.launches`) or raise. Row ids
+    outside [0, R) are clamped, as XLA clamps a gather."""
+    kw = dict(act=act, fatrelu_threshold=fatrelu_threshold,
+              prob_threshold=prob_threshold, bu_sel=bu_sel, bg_sel=bg_sel,
+              mask_mode=mask_mode)
+    if x.device.type == "cpu":
+        return sparse_ffn_block_plain(x, idx, gp_sel, w_up_rows, w_gate_rows,
+                                      w_down_rows, **kw)
+    _check(x.device.type == "cuda", f"no kernel for device {x.device}")
+    gated = _is_gated(act, w_gate_rows, GATED_ACTS_V1)
+    _check(mask_mode in MASK_MODES, f"mask_mode {mask_mode!r}")
+    N, E = x.shape
+    C = idx.shape[1]
+    R, G, E_w = w_up_rows.shape
+    _check(E_w == E and idx.shape == (N, C), "x/idx/store shapes disagree")
+    stores = [w_up_rows, w_down_rows] + ([w_gate_rows] if gated else [])
+    _check(all(w.shape == (R, G, E) for w in stores), "stores must be (R, G, E)")
+    for name, t in (("gp_sel", gp_sel), ("bu_sel", bu_sel), ("bg_sel", bg_sel)):
+        _check(t is None or t.shape == (N, C, G), f"{name} must be (N, C, G)")
+    _check(E % 8 == 0, f"kernel needs E a multiple of 8 (E={E})")
+    _check_stores(x, stores)
+    small = [t for t in (idx, gp_sel, bu_sel, bg_sel) if t is not None]
+    _check(all(t.device == x.device for t in small), "inputs on mixed devices")
+
+    xf, idx32 = _aligned_f32(x), idx.to(torch.int32).contiguous()
+    gp, bu, bg = _f32(gp_sel), _f32(bu_sel), _f32(bg_sel if gated else None)
+    lib = _kernel_lib("sparse_ffn_v1", 10, 7)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    out = torch.empty((N, E), **f32)
+    scratch = torch.empty((lib.sparse_ffn_v1_scratch_floats(N, C, E, G),), **f32)
+    _launch(lib, "sparse_ffn_v1", x.device,
+            _ptr(xf), _ptr(idx32), _ptr(gp), _ptr(bu), _ptr(bg), _ptr(w_up_rows),
+            _ptr(w_gate_rows if gated else None), _ptr(w_down_rows), _ptr(out),
+            _ptr(scratch), N, C, E, G, R, int(w_up_rows.dtype == torch.bfloat16),
+            ACT_CODES[act], float(fatrelu_threshold), float(prob_threshold),
+            int(mask_mode == "scale"))
+    sparse_ffn_block.launches += 1
+    return out
+
+
+sparse_ffn_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# v7u: the cross-token union of selected groups, batched decode
+
+
+def sparse_ffn_block_v7u_plain(x, union_rows, gp_u, w_upT_rows, w_gateT_rows,
+                               w_down_rows, *, act: str,
+                               fatrelu_threshold: float = 0.0,
+                               prob_threshold: float = 0.5, bu_u=None,
+                               mask_mode: str = "threshold") -> torch.Tensor:
+    """v7u in plain torch. x (B, E); union_rows (Cu,) row ids; gp_u/bu_u
+    (B, Cu, G), gp_u zero where a token did not select the group;
+    w_upT_rows/w_gateT_rows (R, E, G); w_down_rows (R, G, E) -> (B, E) f32.
+    The up/gate stores are cast to x's dtype, the hidden and W_down are
+    rounded to bf16 before the down product; sums in f32."""
+    gated = _is_gated(act, w_gateT_rows)
+    if mask_mode not in MASK_MODES:
+        raise ValueError(f"mask_mode {mask_mode!r}")
+    rows = union_rows.long().clamp(0, w_upT_rows.shape[0] - 1)
+    xf = x.float()
+
+    def col(w):  # (Cu, E, G) in x's dtype, then exact in f32
+        return w[rows].to(x.dtype).float()
+
+    up = torch.einsum("be,ueg->bug", xf, col(w_upT_rows))
+    if bu_u is not None:
+        up = up + bu_u.float()
+    gate = torch.einsum("be,ueg->bug", xf, col(w_gateT_rows)) if gated else None
+    hidden = combine(act, fatrelu_threshold, gate, up)
+    gp = gp_u.float()
+    hidden = hidden * ((gp >= prob_threshold).float()
+                       if mask_mode == "threshold" else gp)
+    wd = w_down_rows[rows].to(torch.bfloat16).float()
+    return torch.einsum("bug,uge->be", hidden.to(torch.bfloat16).float(), wd)
+
+
+def sparse_ffn_block_v7u(x, union_rows, gp_u, w_upT_rows, w_gateT_rows,
+                         w_down_rows, *, act: str, fatrelu_threshold: float = 0.0,
+                         prob_threshold: float = 0.5, bu_u=None,
+                         mask_mode: str = "threshold") -> torch.Tensor:
+    """(B, E) f32. CPU tensors run the plain version; CUDA tensors launch
+    the kernel (counted in `sparse_ffn_block_v7u.launches`) or raise. Row
+    ids outside [0, R) are clamped, as XLA clamps a gather."""
+    kw = dict(act=act, fatrelu_threshold=fatrelu_threshold,
+              prob_threshold=prob_threshold, bu_u=bu_u, mask_mode=mask_mode)
+    if x.device.type == "cpu":
+        return sparse_ffn_block_v7u_plain(x, union_rows, gp_u, w_upT_rows,
+                                          w_gateT_rows, w_down_rows, **kw)
+    _check(x.device.type == "cuda", f"no kernel for device {x.device}")
+    gated = _is_gated(act, w_gateT_rows)
+    _check(mask_mode in MASK_MODES, f"mask_mode {mask_mode!r}")
+    _check(x.dtype in (torch.float32, torch.bfloat16), f"x dtype {x.dtype}")
+    B, E = x.shape
+    (Cu,) = union_rows.shape
+    R, E_w, G = w_upT_rows.shape
+    _check(E_w == E, "x/store shapes disagree")
+    _check(gp_u.shape == (B, Cu, G), f"gp_u shape {tuple(gp_u.shape)}")
+    _check(bu_u is None or bu_u.shape == (B, Cu, G), "bu_u must be (B, Cu, G)")
+    _check(w_down_rows.shape == (R, G, E), "w_down_rows must be (R, G, E)")
+    _check(not gated or w_gateT_rows.shape == (R, E, G),
+           "w_gateT_rows must be (R, E, G)")
+    _check(G % 8 == 0 and G <= 2048 and E % 8 == 0,
+           "kernel needs G and E multiples of 8, G <= 2048")
+    _check_stores(x, [w_upT_rows, w_down_rows] + ([w_gateT_rows] if gated else []))
+    small = [t for t in (union_rows, gp_u, bu_u) if t is not None]
+    _check(all(t.device == x.device for t in small), "inputs on mixed devices")
+
+    xf, rows32, gp, bu = _f32(x), union_rows.to(torch.int32).contiguous(), _f32(gp_u), _f32(bu_u)
+    lib = _kernel_lib("sparse_ffn_v7u", 9, 8)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    out = torch.empty((B, E), **f32)
+    scratch = torch.empty((lib.sparse_ffn_v7u_scratch_floats(B, Cu, E, G),), **f32)
+    w_bf16 = w_upT_rows.dtype == torch.bfloat16
+    _launch(lib, "sparse_ffn_v7u", x.device,
+            _ptr(xf), _ptr(rows32), _ptr(gp), _ptr(bu), _ptr(w_upT_rows),
+            _ptr(w_gateT_rows if gated else None), _ptr(w_down_rows), _ptr(out),
+            _ptr(scratch), B, Cu, E, G, R, int(w_bf16),
+            int(x.dtype == torch.bfloat16 and not w_bf16), ACT_CODES[act],
+            float(fatrelu_threshold), float(prob_threshold), int(mask_mode == "scale"))
+    sparse_ffn_block_v7u.launches += 1
+    return out
+
+
+sparse_ffn_block_v7u.launches = 0

@@ -1,5 +1,5 @@
 """Generation engine, the port of sparkinfer_tpu/runtime/engine.py for the
-dense and the sparse pipelined paths.
+dense and the sparse (pipelined and non-pipelined) paths.
 
 Prefill runs the whole prompt through one forward (chunked when it is longer
 than `prefill_chunk`); decode runs one token per step; sampling happens on
@@ -23,7 +23,7 @@ from ..device import resolve_device
 from ..models.loader import LoadedModel
 from ..models.transformer import make_forward
 from .kv_cache import KVCache, init_cache
-from .sampling import SamplerConfig, sample
+from .sampling import SamplerConfig, neutral_penalties, sample
 
 if TYPE_CHECKING:
     from ..sparse.config import SparseConfig
@@ -59,13 +59,17 @@ class Engine:
     """Single-sequence generation engine.
 
     sparse=None runs the dense model. With a SparseConfig, prefill runs the
-    masked-dense FFN and decode the one-layer-ahead pipelined sparse FFN;
+    masked-dense FFN and decode the one-layer-ahead pipelined sparse FFN
+    over flat stores (`prepare_pipelined_params`), or with
+    sparse_pipelined=False the per-layer sparse FFN over row stores
+    (`prepare_sparse_params`), the serving Scheduler's decode.
     sparse_decode_mode "kernel" goes through the hand-written CUDA kernel
-    on the card (its plain version on the CPU), "gather" through the plain
-    torch version on any device. sparse_drop_dense keeps only the flat
-    stores (prefill then reads them); sparse_preprepared=True takes params
-    that `prepare_pipelined_params` already built, which is how Q8_0
-    stores (quant="q8_0") and Q8_0 predictor stacks (params["sparse_flat"]
+    on the card (v6 or v6q pipelined, v1 not; the plain version on the
+    CPU), "gather" through plain torch on any device. sparse_drop_dense
+    keeps only the sparse stores (prefill then reads them);
+    sparse_preprepared=True takes params that `prepare_pipelined_params`
+    (or `prepare_sparse_params`) already built, which is how Q8_0 stores
+    (quant="q8_0") and Q8_0 predictor stacks (params["sparse_flat"]
     pred_up_qt ...) reach the engine. The model's params must lie on `device`
     (None: the card). After each prefill or decode step, `last_logits` holds
     the (1, V) f32 logits the token was sampled from."""
@@ -80,6 +84,7 @@ class Engine:
         sparse_decode_mode: str = "kernel",
         sparse_drop_dense: bool = False,
         sparse_preprepared: bool = False,
+        sparse_pipelined: bool = True,
         device=None,
         split=None,
         self_extend: tuple[int, int] | None = None,
@@ -97,7 +102,13 @@ class Engine:
             raise ValueError(f"model params lie on {where}, the engine runs on "
                              f"{self.device}: load_model(..., device=...) to match")
         self.max_seq = max_seq
-        self.sampler_cfg = sampler or SamplerConfig()
+        self.sampler_cfg = sc = sampler or SamplerConfig()
+        if (sc.typical_p < 1.0 or sc.xtc_probability > 0.0 or sc.mirostat
+                or not neutral_penalties(sc.penalty_repeat, sc.penalty_freq,
+                                         sc.penalty_present)):
+            raise NotImplementedError(
+                "the Engine's sampler has no penalties, typical, xtc or mirostat "
+                "yet (the Scheduler's per-slot sampler has all but mirostat)")
         self.kv_dtype = kv_dtype
         self.params = model.params
         if sparse is not None:
@@ -105,23 +116,29 @@ class Engine:
                 make_pipelined_sparse_ffn,
                 make_sparse_ffn,
                 prepare_pipelined_params,
+                prepare_sparse_params,
             )
 
             if not self.cfg.has_predictors:
                 raise ValueError("sparse mode requires predictor tensors in the model")
             if sparse.hot_groups > 0:
                 raise NotImplementedError("hot/cold tiering is not ported yet")
+            prepare = prepare_pipelined_params if sparse_pipelined else prepare_sparse_params
             if not sparse_preprepared:
-                self.params = prepare_pipelined_params(
-                    model.params, self.cfg, sparse, drop_dense=sparse_drop_dense)
+                self.params = prepare(model.params, self.cfg, sparse,
+                                      drop_dense=sparse_drop_dense)
             prefill_ffn = make_sparse_ffn(self.cfg, sparse, mode="dense")
             self.fwd = make_forward(self.cfg, ffn_fn=prefill_ffn)
             self.fwd_prefill = make_forward(self.cfg, ffn_fn=prefill_ffn,
                                             fresh_prefill=True)
-            decode_ffn, carry_init = make_pipelined_sparse_ffn(
-                self.cfg, sparse, mode=sparse_decode_mode)
-            self.fwd_decode = make_forward(self.cfg, ffn_fn=decode_ffn,
-                                           ffn_carry_init=carry_init)
+            if sparse_pipelined:
+                decode_ffn, carry_init = make_pipelined_sparse_ffn(
+                    self.cfg, sparse, mode=sparse_decode_mode)
+                self.fwd_decode = make_forward(self.cfg, ffn_fn=decode_ffn,
+                                               ffn_carry_init=carry_init)
+            else:
+                self.fwd_decode = make_forward(self.cfg, ffn_fn=make_sparse_ffn(
+                    self.cfg, sparse, mode=sparse_decode_mode))
         else:
             self.fwd = make_forward(self.cfg)
             self.fwd_prefill = make_forward(self.cfg, fresh_prefill=True)

@@ -32,6 +32,13 @@ def init_cache(cfg: "ModelConfig", batch: int, max_seq: int,
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+def slot_view(cache: KVCache, s_i: int) -> KVCache:
+    """The (L, 1, S, Hkv, D) view of slot s_i: a forward over it reads and
+    writes the slot's rows of `cache` in place (the JAX Scheduler gathers a
+    copy and scatters it back, runtime/scheduler.py:843-860)."""
+    return KVCache(k=cache.k[:, s_i:s_i + 1], v=cache.v[:, s_i:s_i + 1])
+
+
 def write_layer(kc: torch.Tensor, new: torch.Tensor, positions: torch.Tensor) -> None:
     """Write new (B, T, Hkv, D) into one layer's (B, S, Hkv, D) storage at
     positions (B, T), in place. Positions are clamped into the cache, as the

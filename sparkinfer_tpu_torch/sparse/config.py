@@ -1,7 +1,9 @@
 """Sparse-FFN configuration: a copy of `SparseConfig` from
 sparkinfer_tpu/sparse/config.py, so that the port imports nothing of the JAX
-package. The tiering fields (dfr_*, hot_groups, reload_*, swap_hysteresis)
-are carried for the tiered slice; the port's Engine rejects hot_groups > 0.
+package, and the serving Scheduler's sparse/dense batch crossover as
+measured on the H100 (`sparse_batch_crossover`). The tiering fields (dfr_*,
+hot_groups, reload_*, swap_hysteresis) are carried for the tiered slice;
+the port's Engine and Scheduler reject hot_groups > 0.
 
 Sparsity is expressed as a FIXED-CAPACITY top-k over neuron GROUPS rather than a
 data-dependent threshold count (SURVEY.md §7 hard part (b)). The threshold
@@ -14,6 +16,7 @@ that falls inside the top-k group capacity.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,3 +64,25 @@ class SparseConfig:
         c = self.capacity_groups if self.capacity_groups > 0 else ng
         return min(c, ng)
 
+
+# The largest number of active slots at which the Scheduler's sparse tick
+# (v1 over the row stores) beat its masked-dense tick, by FFN width. Measured
+# by chip_smoke.py's batched-decode phase at ProSparse-Llama-2-7B widths
+# (bf16, 12 of 86 groups, B = 1, 4, 8) on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit: v1 won at no batch size, since the host's launch
+# overhead bounds both steps and the sparse one makes more launches. One
+# run from a git archive of the tree that added this table gave, in
+# aggregate tok/s, v1 14.41 / 58.14 / 128.23 against masked-dense
+# 20.80 / 84.48 / 185.16 at B = 1 / 4 / 8; PERF.md sections 5 and 6 list
+# every run, none with v1 ahead. Widths that were not measured take the
+# 7B-width value. SPIF_SPARSE_BATCH_MAX overrides.
+_BATCH_CROSSOVER = {11008: 0}
+
+
+def sparse_batch_crossover(n_ff: int) -> int:
+    """Largest number of active slots for which the Scheduler decodes
+    sparse; above it a tick takes the masked-dense step."""
+    env = os.environ.get("SPIF_SPARSE_BATCH_MAX")
+    if env is not None:
+        return int(env)
+    return _BATCH_CROSSOVER.get(n_ff, _BATCH_CROSSOVER[11008])

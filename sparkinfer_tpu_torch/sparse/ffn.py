@@ -1,21 +1,25 @@
-"""Predictor-gated sparse FFN, the port of the main path of
-sparkinfer_tpu/sparse/ffn.py.
+"""Predictor-gated sparse FFN, the port of sparkinfer_tpu/sparse/ffn.py.
 
 Every FFN neuron whose predicted activation probability is >= threshold is
 computed; the others contribute exactly zero. Neurons are handled in
 GROUPS of `group_size`: per token the top-`capacity` groups by active-neuron
 count are computed, and sub-threshold neurons inside them are masked.
 
-  - prefill: masked-dense FFN (`make_sparse_ffn`), which reads all weights;
-    the cross-token union of active groups is large there;
-  - decode: one-layer-ahead pipelined selection
+  - prefill: masked-dense FFN (`make_sparse_ffn(mode="dense")`), which reads
+    all weights (the dense ones, or the row or flat stores when the dense
+    weights were dropped);
+  - non-pipelined decode, the serving Scheduler's: `make_sparse_ffn` mode
+    "kernel" (the JAX "pallas") through the hand-written v1 kernel
+    `sparse_ffn_block` over the row stores of `prepare_sparse_params`
+    (L, ng, G, E), or mode "gather" (plain torch on any device);
+  - pipelined decode: one-layer-ahead selection
     (`make_pipelined_sparse_ffn`) over flat (L*ng, E, G) / (L*ng, G, E)
-    stores addressed at row il*ng + group, through the hand-written
-    `sparse_ffn_block_v6` kernel, or `sparse_ffn_block_v6q` over Q8_0
-    stores ("kernel"), or their plain torch versions ("gather").
-
-The non-pipelined gather/pallas modes, the v1 row layout and the union
-kernel for batched decode come with later slices.
+    stores addressed at row il*ng + group, through `sparse_ffn_block_v6`, or
+    `sparse_ffn_block_v6q` over Q8_0 stores ("kernel"), their plain torch
+    versions ("gather"), or for batched decode over the cross-token union
+    of selected groups (`union_from_selection`) through
+    `sparse_ffn_block_v7u` ("kernel_union", the JAX "pallas_union") or plain
+    torch ("gather_union").
 """
 
 from __future__ import annotations
@@ -30,10 +34,12 @@ from ..ops.sparse_ffn import dequant_rows as _dequant_sub_nd  # sparse/ffn.py:61
 from ..ops.sparse_ffn import (
     combine,
     quantize_rows_q8_0,
+    sparse_ffn_block,
     sparse_ffn_block_v6,
     sparse_ffn_block_v6_plain,
     sparse_ffn_block_v6q,
     sparse_ffn_block_v6q_plain,
+    sparse_ffn_block_v7u,
 )
 from .config import SparseConfig
 from .predictor import predict_activations, predict_from, resolve_predictor
@@ -56,14 +62,70 @@ def select_groups(probs: torch.Tensor, scfg: SparseConfig, n_ff: int) -> torch.T
     return torch.topk(score, C, dim=-1).indices.to(torch.int32)
 
 
+def _gather_sel(probs: torch.Tensor, idx: torch.Tensor, ng: int, G: int) -> torch.Tensor:
+    """gp_sel (N, C, G): the probabilities of each token's selected groups."""
+    gp = probs.reshape(-1, ng, G)
+    return torch.gather(gp, 1, idx.long()[..., None].expand(-1, -1, G))
+
+
+def sparse_layout(lp: dict, cfg: ModelConfig, scfg: SparseConfig) -> dict:
+    """A new layer-param dict (possibly L-stacked) with neuron-major row
+    stores w_up_rows / w_gate_rows / w_down_rows (..., ng, G, E) beside the
+    dense weights. The up and gate stores are transposed one layer at a
+    time into their destination, so no transient holds a second copy of a
+    projection; w_down_rows is a view of w_down."""
+    G = scfg.group_size
+    F, E = cfg.n_ff, cfg.n_embd
+    ng = scfg.n_groups(F)
+    for k in ("w_up", "w_gate", "w_down"):
+        if is_quantized(lp.get(k)):
+            raise ValueError(f"sparse FFN needs dense (bf16/f32) {k}; load the "
+                             "model with keep_quantized=False")
+
+    def rows_from_col(w):  # (..., E, F) -> (..., ng, G, E)
+        rows = torch.empty(w.shape[:-2] + (ng, G, E), dtype=w.dtype, device=w.device)
+        src, dst = w.reshape((-1, E, F)), rows.reshape((-1, ng, G, E))
+        for i in range(src.shape[0]):
+            dst[i].copy_(src[i].T.reshape(ng, G, E))
+        return rows
+
+    out = dict(lp)
+    out["w_up_rows"] = rows_from_col(lp["w_up"])
+    if "w_gate" in lp:
+        out["w_gate_rows"] = rows_from_col(lp["w_gate"])
+    out["w_down_rows"] = lp["w_down"].reshape(lp["w_down"].shape[:-2] + (ng, G, E))
+    return out
+
+
+def prepare_sparse_params(params: dict, cfg: ModelConfig, scfg: SparseConfig,
+                          drop_dense: bool = False) -> dict:
+    """A new params dict (sharing the other tensors) whose stacked layers
+    carry the `sparse_layout` row stores (L, ng, G, E), the stores of the
+    non-pipelined "kernel"/"gather" decode. drop_dense=True leaves the dense
+    w_up/w_gate/w_down out of the result; the masked-dense prefill then
+    reads the row stores."""
+    layers = sparse_layout(params["layers"], cfg, scfg)
+    if drop_dense:
+        for k in ("w_up", "w_gate", "w_down"):
+            layers.pop(k, None)
+    return {**params, "layers": layers}
+
+
 def make_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
                     mode: str = "dense") -> Callable:
-    """ffn(lp, x) for models.transformer.make_forward: the masked-dense FFN
-    (`mode="dense"`, the prefill path). lp carries the predictor and either
-    the dense w_up/w_gate/w_down or, when they were dropped, the flat stores
-    (bf16/f32 `*T_flat` or Q8_0 `qw_*`) with the layer index `flat_il`."""
-    if mode != "dense":
-        raise NotImplementedError(f"sparse FFN mode {mode!r} is not ported yet")
+    """ffn(lp, x) for models.transformer.make_forward.
+
+      - "dense": the masked-dense FFN (the prefill). lp carries the
+        predictor and the dense w_up/w_gate/w_down or, when they were
+        dropped, the row stores (`prepare_sparse_params`) or the flat stores
+        (bf16/f32 `*T_flat` or Q8_0 `qw_*`) with the layer index `flat_il`;
+      - "kernel" (the JAX "pallas"): per-token top-C groups through the v1
+        kernel `sparse_ffn_block` over the row stores, the Scheduler's
+        sparse decode (its plain version on the CPU);
+      - "gather": the same selection in plain torch on any device, the
+        gathered rows cast to x's dtype as the JAX "gather" mode does."""
+    if mode not in ("dense", "gather", "kernel"):
+        raise ValueError(f"sparse FFN mode {mode!r}")
     act, fat_thr = cfg.traits.sparse_act, cfg.fatrelu_threshold
     gated = act in ("fatrelu", "drelu")
     thr = scfg.threshold
@@ -80,9 +142,11 @@ def make_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
             return x @ lp["w_" + name]
         if f"w_{name}T_flat" in lp:  # v6 transposed flat store (L*ng, E, G)
             w = layer_flat(lp, f"w_{name}T_flat").to(x.dtype)
-        else:  # Q8_0 transposed flat store: dequantize, then contract
+        elif f"qw_{name}T_flat" in lp:  # Q8_0 flat store: dequantize, contract
             w = _dequant_sub_nd(layer_flat(lp, f"qw_{name}T_flat"),
                                 layer_flat(lp, f"s_{name}T_flat")).to(x.dtype)
+        else:  # row store (ng, G, E)
+            w = lp[f"w_{name}_rows"].to(x.dtype).transpose(-1, -2)
         y = torch.einsum("...e,neg->...ng", x, w)
         return y.reshape(y.shape[:-2] + (F,))
 
@@ -92,14 +156,16 @@ def make_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
         up = col_mm(lp, x, "up")
         if "b_up" in lp:
             up = up + lp["b_up"].to(up.dtype)
-        gate = (col_mm(lp, x, "gate") if gated and any(
-            k in lp for k in ("w_gate", "w_gateT_flat", "qw_gateT_flat")) else None)
+        gate = (col_mm(lp, x, "gate") if gated and any(k in lp for k in (
+            "w_gate", "w_gate_rows", "w_gateT_flat", "qw_gateT_flat")) else None)
         hidden = combine(act, fat_thr, gate, up) * mask
         if "w_down" in lp:
             out = hidden @ lp["w_down"]
         else:
             h3 = hidden.reshape(hidden.shape[:-1] + (ng, G))
-            if "w_down_flat" in lp:
+            if "w_down_rows" in lp:
+                wd = lp["w_down_rows"]
+            elif "w_down_flat" in lp:
                 wd = layer_flat(lp, "w_down_flat")
             else:
                 wd = _dequant_sub_nd(layer_flat(lp, "qw_down_flat"),
@@ -109,7 +175,41 @@ def make_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
             out = out + lp["b_down"].to(out.dtype)
         return out
 
-    return dense_ffn
+    def gather_ffn(lp, x):
+        B, T, E = x.shape
+        xt = x.reshape(B * T, E)
+        probs = predict_activations(lp, xt)  # (N, F)
+        idx = select_groups(probs, scfg, F).long()  # (N, C)
+        up = torch.einsum("ne,ncge->ncg", xt, lp["w_up_rows"][idx].to(xt.dtype))
+        if "b_up" in lp:
+            up = up + lp["b_up"].reshape(ng, G)[idx].to(up.dtype)
+        gate = None
+        if gated and "w_gate_rows" in lp:
+            gate = torch.einsum("ne,ncge->ncg", xt, lp["w_gate_rows"][idx].to(xt.dtype))
+        hidden = combine(act, fat_thr, gate, up)
+        hidden = hidden * (_gather_sel(probs, idx, ng, G) >= thr).to(hidden.dtype)
+        out = torch.einsum("ncg,ncge->ne", hidden, lp["w_down_rows"][idx].to(hidden.dtype))
+        if "b_down" in lp:
+            out = out + lp["b_down"].to(out.dtype)
+        return out.reshape(B, T, E)
+
+    def kernel_ffn(lp, x):
+        B, T, E = x.shape
+        xt = x.reshape(B * T, E)
+        probs = predict_activations(lp, xt)
+        idx = select_groups(probs, scfg, F)
+        bu_sel = None
+        if "b_up" in lp:
+            bu_sel = lp["b_up"].reshape(ng, G).float()[idx.long()]
+        out = sparse_ffn_block(xt, idx, _gather_sel(probs, idx, ng, G), lp["w_up_rows"],
+                               lp.get("w_gate_rows"), lp["w_down_rows"], act=act,
+                               fatrelu_threshold=fat_thr, prob_threshold=thr,
+                               bu_sel=bu_sel)
+        if "b_down" in lp:
+            out = out + lp["b_down"].to(out.dtype)
+        return out.reshape(B, T, E).to(x.dtype)
+
+    return {"dense": dense_ffn, "gather": gather_ffn, "kernel": kernel_ffn}[mode]
 
 
 def prepare_pipelined_params(params: dict, cfg: ModelConfig, scfg: SparseConfig,
@@ -130,8 +230,8 @@ def prepare_pipelined_params(params: dict, cfg: ModelConfig, scfg: SparseConfig,
     bf16 down store has the dense layout already and is a view of w_down.
     drop_dense=True leaves the dense w_up/w_gate/w_down out of the result;
     the masked-dense prefill then reads the flat stores. These are the JAX
-    function's layout="v6" stores; its v1 row layout comes with a later
-    slice."""
+    function's layout="v6" stores; the v1 row stores of its layout="v1"
+    serve the non-pipelined decode (`prepare_sparse_params`) instead."""
     if quant not in (None, "q8_0"):
         raise ValueError(f"quantized sparse stores: {quant!r} (q8_0 only)")
     L, E, F = cfg.n_layer, cfg.n_embd, cfg.n_ff
@@ -185,8 +285,27 @@ def prepare_pipelined_params(params: dict, cfg: ModelConfig, scfg: SparseConfig,
     return {**params, "layers": layers, "sparse_flat": flat}
 
 
+def union_from_selection(idx: torch.Tensor, gp_sel: torch.Tensor, ng: int,
+                         Cu: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-token union of selected groups. idx (B, C) per-token group ids;
+    gp_sel (B, C, G) their probabilities. Returns (union (Cu,) int32 group
+    ids ranked by how many tokens selected them, gp_u (B, Cu, G) per-token
+    probabilities, zero where the token did not select the group). Exact
+    when Cu >= |union|; otherwise the least-shared groups are dropped. The
+    ranking is a stable descending sort, so equal counts keep the lower
+    group id first, as the JAX package's lax.top_k does."""
+    B = idx.shape[0]
+    G = gp_sel.shape[-1]
+    il = idx.long()
+    pres = torch.zeros((B, ng), dtype=torch.float32, device=idx.device).scatter_(1, il, 1.0)
+    union = torch.sort(pres.sum(0), descending=True, stable=True).indices[:Cu]
+    gp_full = torch.zeros((B, ng, G), dtype=gp_sel.dtype, device=idx.device).scatter_(
+        1, il[..., None].expand(-1, -1, G), gp_sel)
+    return union.to(torch.int32), gp_full[:, union] * pres[:, union][..., None]
+
+
 def make_pipelined_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
-                              mode: str = "kernel"):
+                              mode: str = "kernel", union_groups: int | None = None):
     """Returns (ffn, carry_init) for make_forward(..., ffn_carry_init=...).
 
     ffn(lp, x, carry, il): layer 0 selects from its own predictor; every
@@ -195,8 +314,13 @@ def make_pipelined_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
     stacks). Each layer also emits the next layer's selection. mode "kernel"
     runs `sparse_ffn_block_v6`, or `sparse_ffn_block_v6q` when lp holds Q8_0
     stores (the CUDA kernels on the card), "gather" their plain torch
-    versions on any device."""
-    if mode not in ("kernel", "gather"):
+    versions on any device. The batched-decode modes read the cross-token
+    union of the tokens' selected groups, `union_groups` of them (default
+    min(ng, 4C), exact when it covers the union), once for all tokens:
+    "kernel_union" (the JAX "pallas_union") through `sparse_ffn_block_v7u`,
+    "gather_union" in plain torch and f32 (no bf16 rounding). Both need the
+    bf16/f32 flat stores."""
+    if mode not in ("kernel", "gather", "kernel_union", "gather_union"):
         raise ValueError(f"pipelined sparse FFN mode {mode!r}")
     block = sparse_ffn_block_v6 if mode == "kernel" else sparse_ffn_block_v6_plain
     block_q = sparse_ffn_block_v6q if mode == "kernel" else sparse_ffn_block_v6q_plain
@@ -205,14 +329,41 @@ def make_pipelined_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
     L = cfg.n_layer
     ng = scfg.n_groups(F)
     C = scfg.capacity(F)
+    Cu = union_groups or min(ng, 4 * C)
     thr = scfg.threshold
+    act, fat_thr = cfg.traits.sparse_act, cfg.fatrelu_threshold
+    gated = act in ("fatrelu", "drelu")
 
     def _select(pu, pub, pd, pdb, xt):
         probs = predict_from(pu, pub, pd, pdb, xt)
         idx = select_groups(probs, scfg, F)
-        gp = probs.reshape(-1, ng, G)
-        gp_sel = torch.gather(gp, 1, idx.long()[..., None].expand(-1, -1, G))
-        return idx, gp_sel
+        return idx, _gather_sel(probs, idx, ng, G)
+
+    def _union(lp, xt, idx, gp_sel, il):
+        if "w_upT_flat" not in lp:
+            raise ValueError("the union modes need the bf16/f32 flat stores")
+        union, gp_u = union_from_selection(idx, gp_sel, ng, Cu)
+        ul = union.long()
+        if mode == "kernel_union":
+            bu_u = None
+            if "b_up" in lp:
+                bu_u = lp["b_up"].reshape(ng, G).float()[ul][None].expand(gp_u.shape)
+            return sparse_ffn_block_v7u(
+                xt, union + il * ng, gp_u, lp["w_upT_flat"], lp.get("w_gateT_flat"),
+                lp["w_down_flat"], act=act, fatrelu_threshold=fat_thr,
+                prob_threshold=thr, bu_u=bu_u)
+        rows = ul + il * ng
+
+        def col(key):  # (B, Cu, G), the stores in x's dtype
+            return torch.einsum("be,ueg->bug", xt, lp[key][rows].to(xt.dtype))
+
+        up = col("w_upT_flat")
+        if "b_up" in lp:
+            up = up + lp["b_up"].reshape(ng, G)[ul].to(up.dtype)[None]
+        gate = col("w_gateT_flat") if gated and "w_gateT_flat" in lp else None
+        hidden = combine(act, fat_thr, gate, up)
+        hidden = hidden * (gp_u >= thr).to(hidden.dtype)
+        return torch.einsum("bug,uge->be", hidden, lp["w_down_flat"][rows].to(hidden.dtype))
 
     def _pred(lp, il, nxt):
         """Own (il) or next-layer ((il+1) mod L) predictor weights. The JAX
@@ -237,18 +388,21 @@ def make_pipelined_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
             idx, gp_sel = _select(*_pred(lp, il, False), xt)
         else:
             idx, gp_sel = carry["idx"], carry["gp_sel"]
-        bu_sel = None
-        if "b_up" in lp:
-            bu_sel = lp["b_up"].reshape(ng, G).float()[idx.long()]
-        kw = dict(act=cfg.traits.sparse_act, fatrelu_threshold=cfg.fatrelu_threshold,
-                  prob_threshold=thr, bu_sel=bu_sel)
-        if "qw_upT_flat" in lp:
-            out = block_q(xt, idx + il * ng, gp_sel, lp["qw_upT_flat"], lp["s_upT_flat"],
-                          lp.get("qw_gateT_flat"), lp.get("s_gateT_flat"),
-                          lp["qw_down_flat"], lp["s_down_flat"], **kw)
+        if mode in ("kernel_union", "gather_union"):
+            out = _union(lp, xt, idx, gp_sel, il)
         else:
-            out = block(xt, idx + il * ng, gp_sel, lp["w_upT_flat"],
-                        lp.get("w_gateT_flat"), lp["w_down_flat"], **kw)
+            bu_sel = None
+            if "b_up" in lp:
+                bu_sel = lp["b_up"].reshape(ng, G).float()[idx.long()]
+            kw = dict(act=act, fatrelu_threshold=fat_thr, prob_threshold=thr, bu_sel=bu_sel)
+            if "qw_upT_flat" in lp:
+                out = block_q(xt, idx + il * ng, gp_sel, lp["qw_upT_flat"],
+                              lp["s_upT_flat"], lp.get("qw_gateT_flat"),
+                              lp.get("s_gateT_flat"), lp["qw_down_flat"],
+                              lp["s_down_flat"], **kw)
+            else:
+                out = block(xt, idx + il * ng, gp_sel, lp["w_upT_flat"],
+                            lp.get("w_gateT_flat"), lp["w_down_flat"], **kw)
         if "b_down" in lp:
             out = out + lp["b_down"].to(out.dtype)
         nx_idx, nx_gp = _select(*_pred(lp, il, True), xt)

@@ -11,7 +11,10 @@ Tolerance: kernel and plain version both sum in f32, in another order
 Q8_0 kernels (v6q, quant_matmul) sum exact or f32 products in another
 order too: 1e-5 of the scale at small widths, 1e-4 at the 13B decode
 shapes (sums over 5120 terms). The packers and encoders are bit-equal to
-their CPU runs.
+their CPU runs. v1 over f32 stores keeps an f32 hidden: 1e-5. v7u rounds
+its hidden to bf16, so a hidden value whose f32 sums differ in the last
+bit can round to the neighbouring bf16 value: 1e-3 of the scale for v7u
+and for v1 over bf16 stores.
 """
 
 import itertools
@@ -29,8 +32,12 @@ from sparkinfer_tpu_torch.ops.sparse_ffn import (  # noqa: E402
     quantize_rows_q8_0,
     sparse_ffn_block_v6,
     sparse_ffn_block_v6_plain,
+    sparse_ffn_block,
+    sparse_ffn_block_plain,
     sparse_ffn_block_v6q,
     sparse_ffn_block_v6q_plain,
+    sparse_ffn_block_v7u,
+    sparse_ffn_block_v7u_plain,
 )
 
 
@@ -288,3 +295,168 @@ def test_bf16_lm_head_on_the_card(cuda):
     ref = lm_head(x.cpu(), w.cpu())
     assert got.dtype == torch.float32
     _check_qmm(got.cpu(), ref, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# v1 over neuron-row stores, v7u over the cross-token union
+
+
+def _v1_inputs(N, C, E, G, R, dtype, device, seed, bias=True, gated=True):
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device=device, dtype=dt)
+
+    x = t(rng.standard_normal((N, E)))
+    idx = t(np.stack([rng.choice(R, C, replace=False) for _ in range(N)]), torch.int32)
+    gp = t(rng.uniform(0, 1, (N, C, G)))
+    bu = t(rng.standard_normal((N, C, G)) * 0.1) if bias else None
+    bg = t(rng.standard_normal((N, C, G)) * 0.1) if bias and gated else None
+    wu = t(rng.standard_normal((R, G, E)) * 0.05, dtype)
+    wg = t(rng.standard_normal((R, G, E)) * 0.05, dtype) if gated else None
+    wd = t(rng.standard_normal((R, G, E)) * 0.05, dtype)
+    return (x, idx, gp, wu, wg, wd), dict(bu_sel=bu, bg_sel=bg)
+
+
+def _check_fn(fn, plain, args, tol, **kw):
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _check_qmm(got, plain(*args, **kw), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,mask_mode,bias", list(itertools.product(
+    ["fatrelu", "drelu", "relu", "silu", "gelu", "swiglu_oai"], ["threshold", "scale"],
+    [True, False])))
+def test_v1_small_f32(cuda, act, mask_mode, bias):
+    args, kw = _v1_inputs(3, 4, 64, 16, 12, torch.float32, cuda, seed=31, bias=bias,
+                          gated=act != "relu")
+    _check_fn(sparse_ffn_block, sparse_ffn_block_plain, args, 1e-5, act=act,
+              mask_mode=mask_mode, fatrelu_threshold=0.01, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,act", [(1, "fatrelu"), (4, "fatrelu"), (4, "relu")])
+def test_v1_decode_shape_bf16(cuda, N, act):
+    """ProSparse-Llama-2-7B widths: E=4096, G=128, C=12 of 86 groups, bf16."""
+    args, kw = _v1_inputs(N, 12, 4096, 128, 86, torch.bfloat16, cuda, seed=32,
+                          gated=act != "relu")
+    x, *rest = args
+    _check_fn(sparse_ffn_block, sparse_ffn_block_plain, (x.bfloat16(), *rest), 1e-3,
+              act=act, bu_sel=kw["bu_sel"])
+
+
+@pytest.mark.cuda
+def test_v1_odd_widths(cuda):
+    """E not a multiple of the kernel's tiles; G neither a power of 2 nor a
+    multiple of 8 (v1 needs only E % 8 == 0)."""
+    args, kw = _v1_inputs(2, 3, 1000, 12, 7, torch.bfloat16, cuda, seed=33)
+    _check_fn(sparse_ffn_block, sparse_ffn_block_plain, args, 1e-3, act="silu", **kw)
+
+
+@pytest.mark.cuda
+def test_v1_rejects_bad_stores(cuda):
+    (x, idx, gp, wu, wg, wd), _ = _v1_inputs(1, 2, 64, 16, 4, torch.bfloat16, cuda, seed=34)
+    with pytest.raises(ValueError):  # stores in two dtypes
+        sparse_ffn_block(x, idx, gp, wu, wg.float(), wd, act="fatrelu")
+    with pytest.raises(ValueError):  # a store in the transposed layout
+        sparse_ffn_block(x, idx, gp, wu.transpose(1, 2).contiguous(), wg, wd, act="fatrelu")
+    with pytest.raises(ValueError):  # a gated activation without its gate
+        sparse_ffn_block(x, idx, gp, wu, None, wd, act="swiglu_oai")
+    with pytest.raises(ValueError):  # E not a multiple of 8
+        sparse_ffn_block(x[:, :60], idx, gp, wu[..., :60].contiguous(),
+                         wg[..., :60].contiguous(), wd[..., :60].contiguous(), act="fatrelu")
+
+
+@pytest.mark.cuda
+def test_v1_is_deterministic(cuda):
+    args, kw = _v1_inputs(4, 12, 4096, 128, 64, torch.bfloat16, cuda, seed=35)
+    a = sparse_ffn_block(*args, act="fatrelu", **kw)
+    b = sparse_ffn_block(*args, act="fatrelu", **kw)
+    assert torch.equal(a, b)
+
+
+def _v7u_inputs(B, Cu, E, G, R, dtype, device, seed, xdt=torch.float32, bias=True,
+                gated=True):
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device=device, dtype=dt)
+
+    x = t(rng.standard_normal((B, E)), xdt)
+    union = t(rng.choice(R, Cu, replace=False), torch.int32)
+    sel = rng.uniform(0, 1, (B, Cu, 1)) < 0.6  # which tokens selected each slot
+    gp = t(rng.uniform(0, 1, (B, Cu, G)) * sel)
+    bu = t(rng.standard_normal((B, Cu, G)) * 0.1) if bias else None
+    wu = t(rng.standard_normal((R, E, G)) * 0.05, dtype)
+    wg = t(rng.standard_normal((R, E, G)) * 0.05, dtype) if gated else None
+    wd = t(rng.standard_normal((R, G, E)) * 0.05, dtype)
+    return (x, union, gp, wu, wg, wd), dict(bu_u=bu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,mask_mode,bias", list(itertools.product(
+    ["fatrelu", "drelu", "relu", "silu", "gelu"], ["threshold", "scale"], [True, False])))
+def test_v7u_small_f32(cuda, act, mask_mode, bias):
+    args, kw = _v7u_inputs(3, 5, 64, 16, 12, torch.float32, cuda, seed=41, bias=bias,
+                           gated=act != "relu")
+    _check_fn(sparse_ffn_block_v7u, sparse_ffn_block_v7u_plain, args, 1e-3, act=act,
+              mask_mode=mask_mode, fatrelu_threshold=0.01, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", [(torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16)])
+def test_v7u_store_casts(cuda, xdt, wdt):
+    """The up/gate stores cast to x's dtype (an f32 store rounds to bf16
+    under a bf16 x), W_down rounded to bf16."""
+    args, kw = _v7u_inputs(4, 6, 256, 32, 9, wdt, cuda, seed=42, xdt=xdt)
+    _check_fn(sparse_ffn_block_v7u, sparse_ffn_block_v7u_plain, args, 1e-3,
+              act="fatrelu", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4, 8, 11])
+def test_v7u_decode_shape_bf16(cuda, B):
+    """ProSparse-Llama-2-7B widths: E=4096, G=128, Cu=48 of 86 groups, bf16;
+    B=11 takes two token chunks."""
+    args, kw = _v7u_inputs(B, 48, 4096, 128, 86, torch.bfloat16, cuda, seed=43,
+                           xdt=torch.bfloat16)
+    _check_fn(sparse_ffn_block_v7u, sparse_ffn_block_v7u_plain, args, 1e-3,
+              act="fatrelu", **kw)
+
+
+@pytest.mark.cuda
+def test_v7u_odd_widths(cuda):
+    """E not a multiple of the kernel's slices and tiles; G not a power of 2."""
+    args, kw = _v7u_inputs(3, 5, 1000, 48, 7, torch.bfloat16, cuda, seed=44)
+    _check_fn(sparse_ffn_block_v7u, sparse_ffn_block_v7u_plain, args, 1e-3, act="silu",
+              **kw)
+
+
+@pytest.mark.cuda
+def test_v7u_rejects_bad_stores(cuda):
+    (x, union, gp, wu, wg, wd), _ = _v7u_inputs(2, 3, 64, 16, 4, torch.bfloat16, cuda,
+                                                seed=45)
+    with pytest.raises(ValueError):  # stores in two dtypes
+        sparse_ffn_block_v7u(x, union, gp, wu, wg.float(), wd, act="fatrelu")
+    with pytest.raises(ValueError):  # gp_u of another union size
+        sparse_ffn_block_v7u(x, union[:2], gp, wu, wg, wd, act="fatrelu")
+    with pytest.raises(ValueError):  # swiglu_oai is v1's alone
+        sparse_ffn_block_v7u(x, union, gp, wu, wg, wd, act="swiglu_oai")
+    (x, union, gp, wu, wg, wd), _ = _v7u_inputs(2, 3, 64, 12, 4, torch.bfloat16, cuda,
+                                                seed=46)
+    with pytest.raises(ValueError):  # G not a multiple of 8
+        sparse_ffn_block_v7u(x, union, gp, wu, wg, wd, act="fatrelu")
+
+
+@pytest.mark.cuda
+def test_v7u_is_deterministic(cuda):
+    args, kw = _v7u_inputs(8, 48, 4096, 128, 86, torch.bfloat16, cuda, seed=47,
+                           xdt=torch.bfloat16)
+    a = sparse_ffn_block_v7u(*args, act="fatrelu", **kw)
+    b = sparse_ffn_block_v7u(*args, act="fatrelu", **kw)
+    assert torch.equal(a, b)

@@ -267,7 +267,8 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     for mod in ("ops.quant_matmul", "ops.sparse_ffn", "gguf.quants", "sparse.predictor",
-                "sparse.ffn", "models.loader", "models.from_jax", "runtime.engine"):
+                "sparse.ffn", "models.loader", "models.from_jax", "runtime.engine",
+                "runtime.scheduler"):
         assert "sparkinfer_tpu_torch." + mod in names, mod
 
 
