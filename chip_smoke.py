@@ -19,6 +19,11 @@ sees no card or the package is missing. Phases, each of which fails the run:
        selection (v7u rounds the hidden and W_down to bf16, so a full f32
        forward is chaotic: within 1e-2 of the output's scale, UNION_TOL),
        and the full forward finite;
+       bench path (v2, v1): ProSparse-Llama-2-7B widths cut to 2 layers,
+       sparkinfer-bench's pipelined decode over the v1 row layout, greedy
+       through a bare forward: the v2 path (SPIF_KERNEL_V2) and the v1 path
+       against the "gather" math, all on the card, each kernel launched
+       n_layer times per forward;
        bf16 stores (v6): a tiny model on the card against the CPU, and
        ProSparse-Llama-2-7B widths cut to 2 layers, kernel against "gather"
        mode, both on the card;
@@ -42,7 +47,11 @@ sees no card or the package is missing. Phases, each of which fails the run:
      torch.matmul of the dequantized weight for the quant products):
        sparse_ffn_block_v6 at 7B widths (E=4096, G=128, C=12 of 86, bf16);
        sparse_ffn_block (v1) at 7B widths, N=1 and 4, over the Scheduler's
-       row stores; sparse_ffn_block_v7u at 7B widths, B=8, Cu=48;
+       row stores, and v3 and v5 over the same stores, v4 over their
+       interleave (L, ng, 3, G, E), v2 over the bench path's concatenated
+       store (L, 3*ng, G, E), these four with an up bias; all five run one
+       strided kernel (csrc/sparse_ffn_v1.cu); sparse_ffn_block_v7u at 7B
+       widths, B=8, Cu=48;
        sparse_ffn_block_v6q at 13B widths (E=5120, G=128, C=16 of 108);
        quant_matmul_2d Q8_0/Q4_0 5120x5120 at N=1 and 32, Q8_0 head
        5120x32000 at N=1; quant_matmul_flat at the predictor shapes
@@ -62,6 +71,12 @@ sees no card or the package is missing. Phases, each of which fails the run:
        runs of 8 steps, exact launch counts per run; the largest B at which
        v1 beats masked-dense is the crossover that
        sparse.config.sparse_batch_crossover holds;
+       sparkinfer-bench's decode rows at the same widths
+       (tools.bench_matrix.bench_tg: a 512-token seed prefill into a
+       1024-token cache, tg 16, 3 runs, B = 1 and 4): dense, sparse over the
+       v1 row layout (v1 n_layer times per forward, no other kernel) and
+       sparse with SPIF_KERNEL_V2 (v2 n_layer times per forward), with tok/s,
+       ms per step and peak memory;
        ProSparse-Llama-2-13B widths, Q8_0 (bench.py "13b" preset; random
        weights made and quantized on the card layer by layer, through the
        ggml Q8_0 blocks a GGUF holds): v6q L, quant_matmul_2d 4L+1 and
@@ -211,7 +226,7 @@ class Q8Weights:
 
     def sparse_model(self, scfg):
         """The Q8_0 sparse model: Q8_0 attention and head, Q8_0 flat FFN
-        stores (prepare_pipelined_params(quant="q8_0", drop_dense=True),
+        stores (prepare_pipelined_params(layout="v6", quant="q8_0", drop_dense=True),
         quantized one layer at a time) and Q8_0 predictor stacks."""
         import torch
 
@@ -234,7 +249,8 @@ class Q8Weights:
                   "output_norm_w": torch.ones((E,), **ones),
                   "output": QuantTensor(q.contiguous(), s.contiguous(), "q8_0"),
                   "layers": layers}
-        params = prepare_pipelined_params(params, cfg, scfg, drop_dense=True, quant="q8_0")
+        params = prepare_pipelined_params(params, cfg, scfg, drop_dense=True, layout="v6",
+                                          quant="q8_0")
         del layers  # the bf16 FFN: only the flat Q8_0 stores stay
         flat = params["sparse_flat"]
         pu = torch.stack([self.draw("pred_up", il, (E, R), scale=0.05) for il in range(L)])
@@ -616,7 +632,7 @@ def phase_serving_reference(sparse_cfg_cls, sampler):
     cfg = prosparse_config(2, 4096, 32, 11008, 32000, 1024)
     scfg = sparse_cfg_cls(group_size=128, capacity_groups=12)
     model = random_model(cfg, torch.float32, "cuda", SEED + 1)
-    params = sffn.prepare_pipelined_params(model.params, cfg, scfg)
+    params = sffn.prepare_pipelined_params(model.params, cfg, scfg, layout="v6")
     F, E, B = cfg.n_ff, cfg.n_embd, 8
     ng, G = scfg.n_groups(F), scfg.group_size
     lp = {k: v[1] for k, v in params["layers"].items()} | dict(params["sparse_flat"], flat_il=1)
@@ -656,47 +672,78 @@ def phase_serving_reference(sparse_cfg_cls, sampler):
     torch.cuda.empty_cache()
 
 
-def phase_v1(rows, C):
-    """sparse_ffn_block (v1) against its plain version at the 7B decode
-    shapes, over the Scheduler's row stores (L, ng, G, E): each call takes
-    C groups of one random layer per token."""
+def row_kernel_rows(name, fn, plain, stores_of, layers, ng, C, seed, bias):
+    """A row-store kernel (v1, v2, v3, v4, v5) against its plain version at
+    the 7B decode shapes, N = 1 and 4, fatrelu: each call takes C groups of
+    one random layer of `layers` per token, stores_of(il) giving that
+    layer's store arguments and keyword arguments; bias adds an up bias."""
     import torch
 
-    from sparkinfer_tpu_torch.ops.sparse_ffn import sparse_ffn_block, sparse_ffn_block_plain
-
-    wu, wg, wd = rows["w_up_rows"], rows["w_gate_rows"], rows["w_down_rows"]
-    L, ng, G, E = wu.shape
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    stores, extra = stores_of(layers[0])
+    G, E = stores[0].shape[-2:]
     results = []
     for N in (1, 4):
-        sets = [(int(torch.randint(L, (1,), generator=gen, device="cuda")),
+        sets = [(layers[int(torch.randint(len(layers), (1,), generator=gen, device="cuda"))],
                  torch.stack([torch.randperm(ng, generator=gen, device="cuda")[:C]
                               for _ in range(N)]).to(torch.int32)) for _ in range(N_SETS)]
         x = torch.randn((N, E), generator=gen, device="cuda").to(torch.bfloat16)
         gp = torch.rand((N, C, G), generator=gen, device="cuda")
-        kw = dict(act="fatrelu")
+        bu = torch.randn((N, C, G), generator=gen, device="cuda") * 0.1 if bias else None
 
-        def args(i):
+        def call(f, i):
             il, idx = sets[i % N_SETS]
-            return x, idx, gp, wu[il], wg[il], wd[il]
+            stores, extra = stores_of(il)
+            return f(x, idx, gp, *stores, act="fatrelu", bu_sel=bu, **extra)
 
-        got = sparse_ffn_block(*args(0), **kw)
+        got = call(fn, 0)
         torch.cuda.synchronize()
-        err, tol = compare(f"v1 N={N}", got, sparse_ffn_block_plain(*args(0), **kw))
-        ms = graph_ms(lambda i: sparse_ffn_block(*args(i), **kw), N_SETS)
-        plain_ms = graph_ms(lambda i: sparse_ffn_block_plain(*args(i), **kw), 8)
+        err, tol = compare(f"{name} N={N}", got, call(plain, 0))
+        ms = graph_ms(lambda i: call(fn, i), N_SETS)
+        plain_ms = graph_ms(lambda i: call(plain, i), 8)
         # each distinct selected row of each projection read once; x, gp,
-        # idx read and out written once; 2 flops per weight and token
+        # (bu,) idx read and out written once; 2 flops per weight and token
         rows_read = sum(len(torch.unique(idx)) for _, idx in sets) / N_SETS
-        nbytes = 3 * rows_read * G * E * 2 + N * E * 2 + N * C * G * 4 + N * C * 4 + N * E * 4
+        nbytes = (3 * rows_read * G * E * 2 + N * E * 2 + (2 if bias else 1) * N * C * G * 4
+                  + N * C * 4 + N * E * 4)
         bound_ms, by = bound(nbytes, 2 * 3 * N * C * G * E, PEAK_F32_FLOP_S)
-        row = dict(kernel="sparse_ffn_block", N=N, C=C, G=G, E=E, act="fatrelu",
+        row = dict(kernel=name, N=N, C=C, G=G, E=E, act="fatrelu", up_bias=bias,
                    max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=by, library_ms=None, rows_read=rows_read,
                    GB_s=nbytes / (ms * 1e-3) / 1e9)
         print("kernel check:", json.dumps(row))
         results.append(row)
     return results[0]
+
+
+def phase_rows(rows, C):
+    """v1, v3, v5 over the Scheduler's row stores (L, ng, G, E), and v4 over
+    their interleave (L, ng, P, G, E), every layer's rows: v1 without a
+    bias, at the draws of its earlier timings, the others with an up bias.
+    Returns {kernel: N=1 row}."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops import sparse_ffn as sf
+
+    wu, wg, wd = rows["w_up_rows"], rows["w_gate_rows"], rows["w_down_rows"]
+    L, ng = wu.shape[:2]
+    layers = list(range(L))
+
+    def three(il):
+        return (wu[il], wg[il], wd[il]), {}
+
+    out = {}
+    for seed, name, bias in ((8, "sparse_ffn_block", False), (12, "sparse_ffn_block_v3", True),
+                             (13, "sparse_ffn_block_v5", True)):
+        out[name] = row_kernel_rows(name, getattr(sf, name), getattr(sf, name + "_plain"),
+                                    three, layers, ng, C, SEED + seed, bias)
+    il_store = sf.interleave_rows(wu, wg, wd)  # (L, ng, 3, G, E): 8.7 GB at 7B bf16
+    out["sparse_ffn_block_v4"] = row_kernel_rows(
+        "sparse_ffn_block_v4", sf.sparse_ffn_block_v4, sf.sparse_ffn_block_v4_plain,
+        lambda il: ((il_store[il],), {"gated": True}), layers, ng, C, SEED + 14, True)
+    del il_store
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_v7u(flat, L, ng, B=8, Cu=48, C=12):
@@ -858,6 +905,142 @@ def phase_batched(cfg, scfg, dense_params, flat_params, row_params, steps: int =
     return L * steps, crossover
 
 
+def greedy_forward(fwd, params, cfg, prompt, n_new):
+    """Greedy decode through a bare forward, as sparkinfer-bench drives one:
+    the prompt through fwd, then n_new steps. Returns (the first decode
+    step's logits on the CPU, the tokens, the number of forwards)."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+
+    cache = init_cache(cfg, 1, len(prompt) + n_new + 1, torch.float32, "cuda")
+    logits = fwd(params, torch.tensor([prompt], device="cuda"),
+                 torch.arange(len(prompt), device="cuda")[None], cache)[:, -1]
+    toks, first = [], None
+    for i in range(n_new):
+        toks.append(int(logits.argmax(-1)))
+        logits = fwd(params, torch.tensor([[toks[-1]]], device="cuda"),
+                     torch.tensor([[len(prompt) + i]], device="cuda"), cache)[:, -1]
+        first = logits.float().cpu() if first is None else first
+    return first, toks, 1 + n_new
+
+
+def set_kernel_v2(on: bool):
+    import os
+
+    if on:
+        os.environ["SPIF_KERNEL_V2"] = "1"
+    else:
+        os.environ.pop("SPIF_KERNEL_V2", None)
+
+
+def phase_bench_reference(sparse_cfg_cls):
+    """f32 reference of sparkinfer-bench's sparse decode at 7B widths cut to
+    2 layers: the v2 path (SPIF_KERNEL_V2 over w_all_rows), the v1 path and
+    the "gather" math over the row stores, all on the card, give equal
+    greedy tokens and first-decode logits within 1e-4 of their scale (in
+    f32 the hidden's rounding to the store dtype is exact); each kernel
+    path launches its kernel n_layer times per forward and no other."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.sparse import ffn as sffn
+
+    cfg = prosparse_config(2, 4096, 32, 11008, 32000, 1024)
+    scfg = sparse_cfg_cls(group_size=128, capacity_groups=12)
+    model = random_model(cfg, torch.float32, "cuda", SEED + 15)
+    wrappers = kernel_wrappers()
+    set_kernel_v2(True)
+    try:
+        params = sffn.prepare_pipelined_params(model.params, cfg, scfg)
+        outs = {}
+        for label, mode, v2, kname in (("v2", "kernel", True, "sparse_ffn_block_v2"),
+                                       ("v1", "kernel", False, "sparse_ffn_block"),
+                                       ("gather", "gather", False, None)):
+            set_kernel_v2(v2)
+            ffn, ci = sffn.make_pipelined_sparse_ffn(cfg, scfg, mode=mode)
+            for w in wrappers.values():
+                w.launches = 0
+            with torch.inference_mode():
+                first, toks, n_fwd = greedy_forward(
+                    make_forward(cfg, ffn_fn=ffn, ffn_carry_init=ci), params, cfg,
+                    list(range(3, 40, 3)), 16)
+            for name, w in wrappers.items():
+                want = cfg.n_layer * n_fwd if name == kname else 0
+                check(w.launches == want,
+                      f"bench reference {label}: {name} launched {w.launches}, want {want}")
+            outs[label] = (first, toks)
+    finally:
+        set_kernel_v2(False)
+    for label in ("v2", "v1"):
+        check_pair(f"bench path 7B widths 2 layers, card {label} kernel vs card gather",
+                   [outs[label], outs["gather"]])
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def phase_bench(model, scfg, tg=16, reps=3, ctx=1024):
+    """sparkinfer-bench's decode rows (tools.bench_matrix.bench_tg) on the
+    7B-width model: a 512-token seed prefill into a ctx-token cache, one
+    warm-up step, the median of `reps` runs of `tg` steps, at B = 1 and 4,
+    for three paths: dense; sparse over the v1 row layout (v1 n_layer times
+    per forward, no other kernel); sparse with SPIF_KERNEL_V2 (v2 n_layer
+    times per forward, no other kernel). Every count is set to 0 just
+    before each bench_tg call and read just after. Returns the v2 launches
+    of the v2 path's runs."""
+    import torch
+
+    from sparkinfer_tpu_torch.tools.bench_matrix import bench_tg
+
+    L = model.config.n_layer
+    n_fwd = 2 + reps * tg  # the prefill, the warm-up step, the timed steps
+    wrappers = kernel_wrappers()
+    v2_launches = 0
+    try:
+        for path, sparse, v2, kname in (("dense", None, False, None),
+                                        ("sparse v1", scfg, False, "sparse_ffn_block"),
+                                        ("sparse v2", scfg, True, "sparse_ffn_block_v2")):
+            set_kernel_v2(v2)
+            for B in (1, 4):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for w in wrappers.values():
+                    w.launches = 0
+                tps = bench_tg(model, tg, reps, torch.bfloat16, ctx=ctx, batch=B, sparse=sparse)
+                launches = {name: w.launches for name, w in wrappers.items()}
+                for name, n in launches.items():
+                    want = L * n_fwd if name == kname else 0
+                    check(n == want, f"bench {path} B={B}: {name} launched {n}, want {want}")
+                v2_launches += launches["sparse_ffn_block_v2"]
+                print("bench path (sparkinfer-bench tg, 7B bf16):", json.dumps({
+                    "path": path, "B": B, "ctx": ctx, "tg": tg, "reps": reps, "tok_s": tps,
+                    "ms_per_step": 1e3 * B / tps,
+                    "peak_GiB": torch.cuda.max_memory_allocated() / 2**30,
+                    "launches": {k: v for k, v in launches.items() if v}}))
+    finally:
+        set_kernel_v2(False)
+    return v2_launches
+
+
+def phase_v2(model, scfg, C):
+    """sparse_ffn_block_v2 against its plain version at the 7B decode
+    shapes over the bench path's concatenated store (L, 3*ng, G, E)."""
+    from sparkinfer_tpu_torch.ops import sparse_ffn as sf
+    from sparkinfer_tpu_torch.tools.bench_matrix import sparse_params
+
+    set_kernel_v2(True)
+    try:
+        w_all = sparse_params(model, scfg)["layers"]["w_all_rows"]
+    finally:
+        set_kernel_v2(False)
+    L, ng3 = w_all.shape[:2]
+    ng = ng3 // 3
+    return row_kernel_rows("sparse_ffn_block_v2", sf.sparse_ffn_block_v2,
+                           sf.sparse_ffn_block_v2_plain,
+                           lambda il: ((w_all[il],), {"gated": True, "R": ng}),
+                           list(range(L)), ng, C, SEED + 16, True)
+
+
 def profile_steps(label, step, steps: int = 8):
     """Device time by kernel over `steps` calls of step() (torch.profiler),
     and the share of the window in which the device was busy."""
@@ -915,6 +1098,10 @@ def kernel_wrappers():
     return {"sparse_ffn_block_v6": sf.sparse_ffn_block_v6,
             "sparse_ffn_block_v6q": sf.sparse_ffn_block_v6q,
             "sparse_ffn_block": sf.sparse_ffn_block,
+            "sparse_ffn_block_v2": sf.sparse_ffn_block_v2,
+            "sparse_ffn_block_v3": sf.sparse_ffn_block_v3,
+            "sparse_ffn_block_v4": sf.sparse_ffn_block_v4,
+            "sparse_ffn_block_v5": sf.sparse_ffn_block_v5,
             "sparse_ffn_block_v7u": sf.sparse_ffn_block_v7u,
             "quant_matmul_2d": qm.quant_matmul_2d,
             "quant_matmul_flat": qm.quant_matmul_flat}
@@ -1009,6 +1196,7 @@ def main() -> int:
     # 3. f32 references on small inputs: kernel path == plain path
     phase_reference(SparseConfig, Engine, greedy)
     phase_serving_reference(SparseConfig, greedy)
+    phase_bench_reference(SparseConfig)
     print(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     n_new = 64
@@ -1043,7 +1231,7 @@ def main() -> int:
     # 5e. the Scheduler at 7B widths (its row stores serve phase 4c)
     sched = Scheduler(model, n_slots=4, max_seq=128, sampler=greedy, sparse=scfg,
                       sparse_batch_max=4, device="cuda")
-    v1_row = phase_v1(sched.params["layers"], scfg.capacity(cfg.n_ff))
+    row_rows = phase_rows(sched.params["layers"], scfg.capacity(cfg.n_ff))
     gen = torch.Generator().manual_seed(SEED + 11)
     prompts = [torch.randint(cfg.n_vocab, (32,), generator=gen).tolist() for _ in range(8)]
     l_v1 = scheduler_path(sched, prompts, 32)
@@ -1052,7 +1240,14 @@ def main() -> int:
     v7u_row = phase_v7u(sparse_eng.params["sparse_flat"], L, scfg.n_groups(cfg.n_ff))
     l_v7u, crossover = phase_batched(cfg, scfg, model.params, sparse_eng.params,
                                      sched.params)
-    del sparse_eng, model, sched
+    del sparse_eng, sched
+    torch.cuda.empty_cache()
+
+    # 5g, 4e. sparkinfer-bench's decode: dense, v1 and v2 (SPIF_KERNEL_V2),
+    # then v2 against its plain version over the bench path's store
+    l_v2 = phase_bench(model, scfg)
+    row_rows["sparse_ffn_block_v2"] = phase_v2(model, scfg, scfg.capacity(cfg.n_ff))
+    del model
     torch.cuda.empty_cache()
     print(f"7B paths done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1114,8 +1309,19 @@ def main() -> int:
                     "sparkinfer_tpu/ops/quant_matmul.py:243",
                     l13["quant_matmul_flat"], qflat_row, qflat_row["shape"]),
         kernel_line("sparse_ffn_block", "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
-                    "sparkinfer_tpu/ops/sparse_ffn_pallas.py:124", l_v1, v1_row,
-                    "N=1 C=12 G=128 E=4096 bf16 fatrelu, row stores"),
+                    "sparkinfer_tpu/ops/sparse_ffn_pallas.py:124", l_v1,
+                    row_rows["sparse_ffn_block"], "N=1 C=12 G=128 E=4096 bf16 fatrelu, row stores"),
+        # v2 runs on the bench path (SPIF_KERNEL_V2); v3, v4 and v5 on no
+        # path of the package (only its TPU probes call them)
+        *(kernel_line(name, "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
+                      f"sparkinfer_tpu/ops/sparse_ffn_pallas.py:{line}",
+                      l_v2 if name == "sparse_ffn_block_v2" else 0, row_rows[name],
+                      f"N=1 C=12 G=128 E=4096 bf16 fatrelu + up bias, {store}")
+          for name, line, store in (
+              ("sparse_ffn_block_v2", 1044, "concatenated store"),
+              ("sparse_ffn_block_v3", 306, "row stores"),
+              ("sparse_ffn_block_v4", 446, "interleaved store"),
+              ("sparse_ffn_block_v5", 888, "row stores"))),
         kernel_line("sparse_ffn_block_v7u", "sparkinfer_tpu_torch/csrc/sparse_ffn_v7u.cu",
                     "sparkinfer_tpu/ops/sparse_ffn_pallas.py:1172", l_v7u, v7u_row,
                     "B=8 Cu=48 G=128 E=4096 bf16 fatrelu"),

@@ -1,15 +1,34 @@
 // Predictor-gated sparse FFN over neuron-row weight stores, for Hopper
-// (sm_90a).
+// (sm_90a): one strided kernel for five TPU kernels.
 //
-// Replaces the Pallas TPU kernel sparse_ffn_block, "v1"
-// (sparkinfer_tpu/ops/sparse_ffn_pallas.py:124, kernel body :61), the sparse
-// decode of the serving Scheduler. It computes the same function: for each
-// token n and selection c, with r = idx[n, c] and every store (R, G, E),
+// Replaces the Pallas TPU kernels of sparkinfer_tpu/ops/sparse_ffn_pallas.py
+// that read neuron rows (G, E) per selected group:
+//   sparse_ffn_block    "v1" (:124, kernel body :61), the serving Scheduler's
+//                       decode: three (R, G, E) stores, auto-pipelined;
+//   sparse_ffn_block_v3 (:306, body :232): v1's stores, a manual W-deep DMA
+//                       window;
+//   sparse_ffn_block_v5 (:888, body :809): v1's stores, double-buffered waves
+//                       of Wv blocks;
+//   sparse_ffn_block_v4 (:446, body :392): one interleaved (R, P, G, E)
+//                       store, [up, (gate,) down] per row;
+//   sparse_ffn_block_v2 (:1044, body :986): one concatenated (P*R, G, E)
+//                       store [up; (gate;) down], a (N, C, P) grid.
+// They compute one function and differ only in where a row lives and in how
+// the TPU's DMA engine is scheduled to fetch it. A CUDA kernel has no DMA
+// schedule to choose (the memory system pipelines the loads of many warps),
+// so one kernel serves all five: projection p of row r, neuron g starts at
+// element off_p + r * row_stride + g * E of its store:
+//   v1, v3, v5  three pointers, row_stride G*E, every offset 0;
+//   v4          one pointer,    row_stride P*G*E, offsets 0, G*E, (P-1)*G*E;
+//   v2          one pointer,    row_stride G*E, offsets 0, R*G*E, (P-1)*R*G*E.
+// For each token n and selection c, with r = idx[n, c]:
 //     up   = x[n] . Wu[r, g, :] + bu[n, c, g]     f32 sums of exact products
 //     gate = x[n] . Wg[r, g, :] + bg[n, c, g]     gated activations only
 //     h    = combine(act, gate, up) * mask        mask = gp >= thr, or gp
-//     h    = h rounded to the store dtype         (the TPU kernel's quirk, :105)
+//     h    = h rounded to the store dtype         (every one of them: :105,
+//                                                  :289, :430, :874, :1026)
 //     out[n] = sum_c sum_g h[g] * Wd[r, g, :]     f32
+// The gate bias bg is v1's alone (the others pass null).
 //
 // What bounds it: the weight bytes, n_proj * N * C * G * E * sizeof(w) when
 // every token reads its own rows: 3 * 12 * 128 * 4096 * 2 = 37.7 MB for the
@@ -28,7 +47,8 @@
 //      consecutive e of a row, and sum in shared memory in warp order.
 //   F  out[n, e] = sum over the RS chunk sums, in chunk order.
 // No atomics: the result is the same on every run. Out-of-range row ids are
-// clamped into [0, R), as XLA clamps a gather.
+// clamped into [0, R), as XLA clamps a gather (for v2 that keeps a row inside
+// its own projection).
 
 #include "sparse_ffn_common.cuh"
 
@@ -59,15 +79,15 @@ v1_hidden(const float* __restrict__ x, const int* __restrict__ idx,
           const float* __restrict__ gp, const float* __restrict__ bu,
           const float* __restrict__ bg, const T* __restrict__ wu,
           const T* __restrict__ wg, float* __restrict__ hidden, int NCG, int C,
-          int E, int G, int R, int act, float fat_thr, float prob_thr,
-          int mask_scale) {
+          int E, int G, int R, size_t row_stride, int act, float fat_thr,
+          float prob_thr, int mask_scale) {
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= NCG) return;  // whole warps leave together
   const int nc = row / G;
   const int g = row - nc * G;
   const int n = nc / C;
-  const size_t off = ((size_t)clamp_row(idx[nc], R) * G + g) * E;
+  const size_t off = clamp_row(idx[nc], R) * row_stride + (size_t)g * E;
   const float* xn = x + (size_t)n * E;
   const T* ur = wu + off;
   const T* gr = wg ? wg + off : nullptr;
@@ -105,7 +125,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 v1_down(const float* __restrict__ hidden, const int* __restrict__ idx,
         const T* __restrict__ wd, float* __restrict__ part_out, int C, int E,
-        int G, int R, int RS) {
+        int G, int R, size_t row_stride, int RS) {
   __shared__ float hs[kMaxChunkRows];
   __shared__ const T* rows_ptr[kMaxChunkRows];
   __shared__ float red[kWarps][kTileE];
@@ -123,7 +143,8 @@ v1_down(const float* __restrict__ hidden, const int* __restrict__ idx,
     const int c = k / G;
     const int g = k - c * G;
     hs[t] = hidden[(size_t)n * K + k];
-    rows_ptr[t] = wd + ((size_t)clamp_row(idx[n * C + c], R) * G + g) * E;
+    rows_ptr[t] =
+        wd + clamp_row(idx[n * C + c], R) * row_stride + (size_t)g * E;
   }
   __syncthreads();
 
@@ -153,26 +174,31 @@ v1_down(const float* __restrict__ hidden, const int* __restrict__ idx,
 
 template <typename T>
 cudaError_t launch(const float* x, const int* idx, const float* gp,
-                   const float* bu, const float* bg, const void* wu,
-                   const void* wg, const void* wd, float* out, float* scratch,
-                   int N, int C, int E, int G, int R, int act, float fat_thr,
+                   const float* bu, const float* bg, const T* wu, const T* wg,
+                   const T* wd, float* out, float* scratch, int N, int C, int E,
+                   int G, int R, size_t row_stride, int act, float fat_thr,
                    float prob_thr, int mask_scale, cudaStream_t stream) {
   const int NCG = N * C * G;
   const int RS = row_chunks(C * G);
   float* hidden = scratch;
   float* part_out = hidden + (size_t)NCG;
   v1_hidden<T><<<(NCG + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      x, idx, gp, bu, bg, static_cast<const T*>(wu), static_cast<const T*>(wg),
-      hidden, NCG, C, E, G, R, act, fat_thr, prob_thr, mask_scale);
+      x, idx, gp, bu, bg, wu, wg, hidden, NCG, C, E, G, R, row_stride, act,
+      fat_thr, prob_thr, mask_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   v1_down<T><<<dim3((E + kTileE - 1) / kTileE, RS, N), kThreads, 0, stream>>>(
-      hidden, idx, static_cast<const T*>(wd), part_out, C, E, G, R, RS);
+      hidden, idx, wd, part_out, C, E, G, R, row_stride, RS);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   sum_row_chunks<<<dim3((E + 255) / 256, N), 256, 0, stream>>>(part_out, out,
                                                                 E, RS);
   return cudaGetLastError();
+}
+
+template <typename T>
+const T* at(const void* base, long long off) {
+  return base ? static_cast<const T*>(base) + off : nullptr;
 }
 
 }  // namespace
@@ -190,16 +216,24 @@ const char* sparse_ffn_v1_error_string(int err) {
 }
 
 // x f32 (N, E); idx int32 (N, C); gp, bu, bg f32 (N, C, G), bu and bg may be
-// null; wu, wg, wd (R, G, E) in __nv_bfloat16 (w_bf16 = 1) or float, wg null
-// for an ungated activation. Requires E a multiple of 8 and 16-byte aligned
-// x and stores. Returns the CUDA error of the launches (0 on success); it
-// does not synchronise.
+// null; wu, wg, wd the up, gate and down stores in __nv_bfloat16 (w_bf16 = 1)
+// or float, wg null where the gate is not read; they may be one pointer.
+// Neuron g of row r of projection p starts at element
+// off_p + r * row_stride + g * E of its store. Requires E a multiple of 8,
+// 16-byte aligned x and stores, and offsets and row_stride multiples of 8.
+// Returns the CUDA error of the launches (0 on success); it does not
+// synchronise.
 int sparse_ffn_v1(const void* x, const void* idx, const void* gp,
                   const void* bu, const void* bg, const void* wu,
                   const void* wg, const void* wd, void* out, void* scratch,
                   int N, int C, int E, int G, int R, int w_bf16, int act,
-                  float fat_thr, float prob_thr, int mask_scale, void* stream) {
-  if (E % kVec != 0 || N <= 0 || C <= 0 || G <= 0 || R <= 0)
+                  long long row_stride, long long off_u, long long off_g,
+                  long long off_d, float fat_thr, float prob_thr,
+                  int mask_scale, void* stream) {
+  if (E % kVec != 0 || N <= 0 || C <= 0 || G <= 0 || R <= 0 ||
+      row_stride % kVec != 0 || off_u % kVec != 0 || off_g % kVec != 0 ||
+      off_d % kVec != 0 || row_stride < (long long)G * E || off_u < 0 ||
+      off_g < 0 || off_d < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto* xs = static_cast<const float*>(x);
   auto* is = static_cast<const int*>(idx);
@@ -209,12 +243,15 @@ int sparse_ffn_v1(const void* x, const void* idx, const void* gp,
   auto* os = static_cast<float*>(out);
   auto* sc = static_cast<float*>(scratch);
   auto st = static_cast<cudaStream_t>(stream);
+  const size_t rs = static_cast<size_t>(row_stride);
   if (w_bf16)
-    return launch<__nv_bfloat16>(xs, is, gs, bus, bgs, wu, wg, wd, os, sc, N,
-                                 C, E, G, R, act, fat_thr, prob_thr,
-                                 mask_scale, st);
-  return launch<float>(xs, is, gs, bus, bgs, wu, wg, wd, os, sc, N, C, E, G,
-                       R, act, fat_thr, prob_thr, mask_scale, st);
+    return launch(xs, is, gs, bus, bgs, at<__nv_bfloat16>(wu, off_u),
+                  at<__nv_bfloat16>(wg, off_g), at<__nv_bfloat16>(wd, off_d),
+                  os, sc, N, C, E, G, R, rs, act, fat_thr, prob_thr,
+                  mask_scale, st);
+  return launch(xs, is, gs, bus, bgs, at<float>(wu, off_u),
+                at<float>(wg, off_g), at<float>(wd, off_d), os, sc, N, C, E,
+                G, R, rs, act, fat_thr, prob_thr, mask_scale, st);
 }
 
 }  // extern "C"

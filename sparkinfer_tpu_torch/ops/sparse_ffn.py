@@ -21,8 +21,17 @@ For each token n and selected row r = idx[n, c]:
     store into that layout on the tensor's device;
   - `sparse_ffn_block` (v1, :124, csrc/sparse_ffn_v1.cu): row stores
     (R, G, E) for all three projections, the only gate bias (bg_sel) and
-    the only gated swiglu_oai; the hidden is rounded to the store dtype
-    before the down product (:105), so bf16 stores round it to bf16;
+    the only gated swiglu_oai of the three-store kernels; the hidden is
+    rounded to the store dtype before the down product (:105), so bf16
+    stores round it to bf16;
+  - `sparse_ffn_block_v3` (:306) and `sparse_ffn_block_v5` (:888): v1's
+    function over v1's stores, without bg_sel, gated for fatrelu, drelu,
+    silu and gelu; `sparse_ffn_block_v4` (:446) over one interleaved
+    (R, P, G, E) store (`interleave_rows`); `sparse_ffn_block_v2` (:1044)
+    over one concatenated (P*R, G, E) store. v2 and v4 take `gated` from
+    the caller. All four round the hidden as v1 does and launch v1's kernel
+    with their own strides and offsets: on the TPU they differ only in how
+    the DMA is scheduled;
   - `sparse_ffn_block_v7u` (:1172, csrc/sparse_ffn_v7u.cu): batched decode
     over the cross-token union of selected groups, each union row read once
     for all B tokens, with v6's flat stores; the up/gate stores are cast to
@@ -119,14 +128,15 @@ def sparse_ffn_block_v6_plain(x, idx, gp_sel, w_upT_rows, w_gateT_rows,
 _typed: set[str] = set()  # libraries whose C signatures are declared
 
 
-def _kernel_lib(name: str, n_ptr: int, n_int: int) -> ctypes.CDLL:
+def _kernel_lib(name: str, n_ptr: int, n_int: int, n_ll: int = 0) -> ctypes.CDLL:
     """The loaded csrc/<name>.cu, whose entry `name` takes n_ptr pointers,
-    n_int ints, (fatrelu_threshold, prob_threshold) as floats, the mask
-    mode and the stream; `<name>_scratch_floats` takes four ints."""
+    n_int ints, n_ll long longs, (fatrelu_threshold, prob_threshold) as
+    floats, the mask mode and the stream; `<name>_scratch_floats` takes
+    four ints."""
     lib = _build.load(name)
     if name not in _typed:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        getattr(lib, name).argtypes = [p] * n_ptr + [i] * n_int + [f, f, i, p]
+        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        getattr(lib, name).argtypes = [p] * n_ptr + [i] * n_int + [ll] * n_ll + [f, f, i, p]
         getattr(lib, name).restype = i
         getattr(lib, name + "_scratch_floats").argtypes = [i] * 4
         getattr(lib, name + "_scratch_floats").restype = ctypes.c_longlong
@@ -153,6 +163,10 @@ def _ptr(t):
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"sparse FFN kernel: {msg}")
+
+
+def _cuda_only(x):
+    _check(x.device.type == "cuda", f"no kernel for device {x.device}")
 
 
 def _check_stores(x, stores, dtypes=(torch.bfloat16, torch.float32)):
@@ -185,7 +199,7 @@ def sparse_ffn_block_v6(x, idx, gp_sel, w_upT_rows, w_gateT_rows, w_down_rows,
     if x.device.type == "cpu":
         return sparse_ffn_block_v6_plain(x, idx, gp_sel, w_upT_rows,
                                          w_gateT_rows, w_down_rows, **kw)
-    _check(x.device.type == "cuda", f"no kernel for device {x.device}")
+    _cuda_only(x)
     gated = _is_gated(act, w_gateT_rows)
     _check(mask_mode in MASK_MODES, f"mask_mode {mask_mode!r}")
     N, E = x.shape
@@ -280,7 +294,7 @@ def sparse_ffn_block_v6q(x, idx, gp_sel, qw_upT, s_upT, qw_gateT, s_gateT,
     if x.device.type == "cpu":
         return sparse_ffn_block_v6q_plain(x, idx, gp_sel, qw_upT, s_upT, qw_gateT,
                                           s_gateT, qw_down, s_down, **kw)
-    _check(x.device.type == "cuda", f"no kernel for device {x.device}")
+    _cuda_only(x)
     gated = _is_gated(act, qw_gateT)
     _check(mask_mode in MASK_MODES, f"mask_mode {mask_mode!r}")
     N, E = x.shape
@@ -326,7 +340,37 @@ sparse_ffn_block_v6q.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# v1: neuron-row stores, the serving Scheduler's decode
+# neuron-row stores: v1 (the serving Scheduler's decode), v2, v3, v4, v5
+#
+# One CUDA kernel (csrc/sparse_ffn_v1.cu) serves all five: they compute one
+# function over (G, E) neuron rows and differ only in where a row lives. Row
+# r of projection p starts at element off_p + r * row_stride of its store.
+
+
+def _rows_ffn(x, gp_sel, wu, wg, wd, *, act, fatrelu_threshold, prob_threshold,
+              bu_sel, mask_mode, bg_sel=None):
+    """The row-store sparse FFN from the gathered rows wu/wg/wd (N, C, G, E)
+    in the store dtype (wg None where the gate is not computed): up and gate
+    are f32 sums of the exact products of x and the store, the hidden is
+    rounded to the store dtype before the down product."""
+    def col(w):  # (N, C, E, G) view
+        return w.float().transpose(-1, -2)
+
+    return _from_rows(x, gp_sel, col(wu), None if wg is None else col(wg), wd.float(),
+                      act, fatrelu_threshold, prob_threshold, bu_sel, mask_mode,
+                      bg_sel=bg_sel, hidden_dtype=wd.dtype)
+
+
+def _explicit_gate(act: str, gated: bool) -> bool:
+    """v2 and v4 take `gated` from the caller: the gate row is read for any
+    activation when it is set ("relu" ignores it), and an activation that
+    needs the gate fails without it (in JAX on a None gate). Returns whether
+    the gate is computed."""
+    if act != "relu" and act not in GATED_ACTS_V1:
+        raise ValueError(f"sparse FFN kernel: unsupported activation {act!r}")
+    if act != "relu" and not gated:
+        raise ValueError(f"activation {act!r} needs gated=True")
+    return gated and act != "relu"
 
 
 def sparse_ffn_block_plain(x, idx, gp_sel, w_up_rows, w_gate_rows, w_down_rows,
@@ -339,20 +383,124 @@ def sparse_ffn_block_plain(x, idx, gp_sel, w_up_rows, w_gate_rows, w_down_rows,
     hidden is rounded to the store dtype before the down product."""
     gated = _is_gated(act, w_gate_rows, GATED_ACTS_V1)
     rows = idx.long().clamp(0, w_up_rows.shape[0] - 1)
+    return _rows_ffn(x, gp_sel, w_up_rows[rows], w_gate_rows[rows] if gated else None,
+                     w_down_rows[rows], act=act, fatrelu_threshold=fatrelu_threshold,
+                     prob_threshold=prob_threshold, bu_sel=bu_sel, mask_mode=mask_mode,
+                     bg_sel=bg_sel)
 
-    def col(w):  # (N, C, E, G) view of the gathered rows
-        return w[rows].float().transpose(-1, -2)
 
-    return _from_rows(x, gp_sel, col(w_up_rows), col(w_gate_rows) if gated else None,
-                      w_down_rows[rows].float(), act, fatrelu_threshold,
-                      prob_threshold, bu_sel, mask_mode,
-                      bg_sel=bg_sel, hidden_dtype=w_down_rows.dtype)
+def sparse_ffn_block_v3_plain(x, idx, gp_sel, w_up_rows, w_gate_rows, w_down_rows,
+                              *, act: str, fatrelu_threshold: float = 0.0,
+                              prob_threshold: float = 0.5, bu_sel=None,
+                              mask_mode: str = "threshold") -> torch.Tensor:
+    """v3 in plain torch: v1 over v1's stores without a gate bias, gated
+    only for fatrelu/drelu/silu/gelu (sparse_ffn_pallas.py:328)."""
+    gated = _is_gated(act, w_gate_rows)
+    rows = idx.long().clamp(0, w_up_rows.shape[0] - 1)
+    return _rows_ffn(x, gp_sel, w_up_rows[rows], w_gate_rows[rows] if gated else None,
+                     w_down_rows[rows], act=act, fatrelu_threshold=fatrelu_threshold,
+                     prob_threshold=prob_threshold, bu_sel=bu_sel, mask_mode=mask_mode)
+
+
+# v5 (sparse_ffn_pallas.py:888) computes v3's function over the same stores
+sparse_ffn_block_v5_plain = sparse_ffn_block_v3_plain
+
+
+def interleave_rows(w_up_rows, w_gate_rows, w_down_rows) -> torch.Tensor:
+    """(..., R, G, E) x P -> the (..., R, P, G, E) interleaved store of v4,
+    [up, (gate,) down] per row (sparse_ffn_pallas.py:967)."""
+    parts = [w_up_rows] + ([] if w_gate_rows is None else [w_gate_rows]) + [w_down_rows]
+    return torch.stack(parts, dim=-3)
+
+
+def sparse_ffn_block_v4_plain(x, idx, gp_sel, w_rows_il, *, act: str, gated: bool,
+                              fatrelu_threshold: float = 0.0,
+                              prob_threshold: float = 0.5, bu_sel=None,
+                              mask_mode: str = "threshold") -> torch.Tensor:
+    """v4 in plain torch over the interleaved store w_rows_il (R, P, G, E),
+    P = 3 if gated else 2."""
+    R, P = w_rows_il.shape[:2]
+    _check(P == (3 if gated else 2), f"interleaved store has P={P}, gated={gated}")
+    gate = _explicit_gate(act, gated)
+    w = w_rows_il[idx.long().clamp(0, R - 1)]  # (N, C, P, G, E)
+    return _rows_ffn(x, gp_sel, w[:, :, 0], w[:, :, 1] if gate else None, w[:, :, P - 1],
+                     act=act, fatrelu_threshold=fatrelu_threshold,
+                     prob_threshold=prob_threshold, bu_sel=bu_sel, mask_mode=mask_mode)
+
+
+def sparse_ffn_block_v2_plain(x, idx, gp_sel, w_all_rows, *, act: str, gated: bool,
+                              R: int, fatrelu_threshold: float = 0.0,
+                              prob_threshold: float = 0.5, bu_sel=None,
+                              mask_mode: str = "threshold") -> torch.Tensor:
+    """v2 in plain torch over the concatenated store w_all_rows (P*R, G, E),
+    [up; (gate;) down], P = 3 if gated else 2: projection p of row idx is
+    row p*R + idx (sparse_ffn_pallas.py:1073). Ids are clamped into [0, R),
+    where the JAX kernel would read another projection's rows."""
+    P = 3 if gated else 2
+    _check(w_all_rows.shape[0] == P * R, f"store has {w_all_rows.shape[0]} rows, want {P}*{R}")
+    gate = _explicit_gate(act, gated)
+    rows = idx.long().clamp(0, R - 1)
+    return _rows_ffn(x, gp_sel, w_all_rows[rows], w_all_rows[R + rows] if gate else None,
+                     w_all_rows[(P - 1) * R + rows], act=act,
+                     fatrelu_threshold=fatrelu_threshold, prob_threshold=prob_threshold,
+                     bu_sel=bu_sel, mask_mode=mask_mode)
 
 
 def _aligned_f32(t):
     """t as contiguous f32 whose data starts on 16 bytes (vector loads)."""
     t = _f32(t)
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _rows_kernel(x, idx, gp_sel, stores, offsets, row_stride: int, R: int, G: int, E: int, *,
+                 act: str, fatrelu_threshold: float, prob_threshold: float, bu_sel,
+                 mask_mode: str, bg_sel=None) -> torch.Tensor:
+    """Launch the strided row kernel (csrc/sparse_ffn_v1.cu). stores: the
+    up, gate and down tensors (gate None where it is not read; they may be
+    one tensor), whose neuron g of row r of projection p starts at element
+    offsets[p] + r * row_stride + g * E. Checks what every row wrapper
+    shares; the caller checks its store's shape, (.., G, E)."""
+    _check(mask_mode in MASK_MODES, f"mask_mode {mask_mode!r}")
+    N, C = idx.shape
+    _check(x.shape == (N, E), "x/idx/store shapes disagree")
+    for name, t in (("gp_sel", gp_sel), ("bu_sel", bu_sel), ("bg_sel", bg_sel)):
+        _check(t is None or t.shape == (N, C, G), f"{name} must be (N, C, G)")
+    _check(E % 8 == 0, f"kernel needs E a multiple of 8 (E={E})")
+    _check_stores(x, [w for w in stores if w is not None])
+    small = [t for t in (idx, gp_sel, bu_sel, bg_sel) if t is not None]
+    _check(all(t.device == x.device for t in small), "inputs on mixed devices")
+
+    xf, idx32 = _aligned_f32(x), idx.to(torch.int32).contiguous()
+    gp, bu, bg = _f32(gp_sel), _f32(bu_sel), _f32(bg_sel)
+    wu, wg, wd = stores
+    lib = _kernel_lib("sparse_ffn_v1", 10, 7, n_ll=4)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    out = torch.empty((N, E), **f32)
+    scratch = torch.empty((lib.sparse_ffn_v1_scratch_floats(N, C, E, G),), **f32)
+    _launch(lib, "sparse_ffn_v1", x.device,
+            _ptr(xf), _ptr(idx32), _ptr(gp), _ptr(bu), _ptr(bg), _ptr(wu), _ptr(wg),
+            _ptr(wd), _ptr(out), _ptr(scratch), N, C, E, G, R,
+            int(wu.dtype == torch.bfloat16), ACT_CODES[act], row_stride, *offsets,
+            float(fatrelu_threshold), float(prob_threshold), int(mask_mode == "scale"))
+    return out
+
+
+def _three_stores(wrapper, plain, gated_acts, x, idx, gp_sel, w_up_rows, w_gate_rows,
+                  w_down_rows, kw):
+    """v1, v3, v5 over three (R, G, E) stores: the plain version for CPU
+    tensors, else the row kernel, counted in wrapper.launches."""
+    if x.device.type == "cpu":
+        return plain(x, idx, gp_sel, w_up_rows, w_gate_rows, w_down_rows, **kw)
+    _cuda_only(x)
+    gated = _is_gated(kw["act"], w_gate_rows, gated_acts)
+    R, G, E = w_up_rows.shape
+    stores = [w_up_rows, w_gate_rows if gated else None, w_down_rows]
+    _check(all(w is None or w.shape == (R, G, E) for w in stores), "stores must be (R, G, E)")
+    if not gated:
+        kw = dict(kw, bg_sel=None)
+    out = _rows_kernel(x, idx, gp_sel, stores, (0, 0, 0), G * E, R, G, E, **kw)
+    wrapper.launches += 1
+    return out
 
 
 def sparse_ffn_block(x, idx, gp_sel, w_up_rows, w_gate_rows, w_down_rows, *,
@@ -365,42 +513,93 @@ def sparse_ffn_block(x, idx, gp_sel, w_up_rows, w_gate_rows, w_down_rows, *,
     kw = dict(act=act, fatrelu_threshold=fatrelu_threshold,
               prob_threshold=prob_threshold, bu_sel=bu_sel, bg_sel=bg_sel,
               mask_mode=mask_mode)
-    if x.device.type == "cpu":
-        return sparse_ffn_block_plain(x, idx, gp_sel, w_up_rows, w_gate_rows,
-                                      w_down_rows, **kw)
-    _check(x.device.type == "cuda", f"no kernel for device {x.device}")
-    gated = _is_gated(act, w_gate_rows, GATED_ACTS_V1)
-    _check(mask_mode in MASK_MODES, f"mask_mode {mask_mode!r}")
-    N, E = x.shape
-    C = idx.shape[1]
-    R, G, E_w = w_up_rows.shape
-    _check(E_w == E and idx.shape == (N, C), "x/idx/store shapes disagree")
-    stores = [w_up_rows, w_down_rows] + ([w_gate_rows] if gated else [])
-    _check(all(w.shape == (R, G, E) for w in stores), "stores must be (R, G, E)")
-    for name, t in (("gp_sel", gp_sel), ("bu_sel", bu_sel), ("bg_sel", bg_sel)):
-        _check(t is None or t.shape == (N, C, G), f"{name} must be (N, C, G)")
-    _check(E % 8 == 0, f"kernel needs E a multiple of 8 (E={E})")
-    _check_stores(x, stores)
-    small = [t for t in (idx, gp_sel, bu_sel, bg_sel) if t is not None]
-    _check(all(t.device == x.device for t in small), "inputs on mixed devices")
-
-    xf, idx32 = _aligned_f32(x), idx.to(torch.int32).contiguous()
-    gp, bu, bg = _f32(gp_sel), _f32(bu_sel), _f32(bg_sel if gated else None)
-    lib = _kernel_lib("sparse_ffn_v1", 10, 7)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    out = torch.empty((N, E), **f32)
-    scratch = torch.empty((lib.sparse_ffn_v1_scratch_floats(N, C, E, G),), **f32)
-    _launch(lib, "sparse_ffn_v1", x.device,
-            _ptr(xf), _ptr(idx32), _ptr(gp), _ptr(bu), _ptr(bg), _ptr(w_up_rows),
-            _ptr(w_gate_rows if gated else None), _ptr(w_down_rows), _ptr(out),
-            _ptr(scratch), N, C, E, G, R, int(w_up_rows.dtype == torch.bfloat16),
-            ACT_CODES[act], float(fatrelu_threshold), float(prob_threshold),
-            int(mask_mode == "scale"))
-    sparse_ffn_block.launches += 1
-    return out
+    return _three_stores(sparse_ffn_block, sparse_ffn_block_plain, GATED_ACTS_V1, x, idx,
+                         gp_sel, w_up_rows, w_gate_rows, w_down_rows, kw)
 
 
 sparse_ffn_block.launches = 0
+
+
+def sparse_ffn_block_v3(x, idx, gp_sel, w_up_rows, w_gate_rows, w_down_rows, *,
+                        act: str, fatrelu_threshold: float = 0.0,
+                        prob_threshold: float = 0.5, bu_sel=None,
+                        mask_mode: str = "threshold") -> torch.Tensor:
+    """(N, E) f32. CPU tensors run the plain version; CUDA tensors launch
+    the row kernel (counted in `sparse_ffn_block_v3.launches`) or raise."""
+    kw = dict(act=act, fatrelu_threshold=fatrelu_threshold,
+              prob_threshold=prob_threshold, bu_sel=bu_sel, mask_mode=mask_mode)
+    return _three_stores(sparse_ffn_block_v3, sparse_ffn_block_v3_plain, GATED_ACTS, x, idx,
+                         gp_sel, w_up_rows, w_gate_rows, w_down_rows, kw)
+
+
+sparse_ffn_block_v3.launches = 0
+
+
+def sparse_ffn_block_v5(x, idx, gp_sel, w_up_rows, w_gate_rows, w_down_rows, *,
+                        act: str, fatrelu_threshold: float = 0.0,
+                        prob_threshold: float = 0.5, bu_sel=None,
+                        mask_mode: str = "threshold") -> torch.Tensor:
+    """(N, E) f32. CPU tensors run the plain version; CUDA tensors launch
+    the row kernel (counted in `sparse_ffn_block_v5.launches`) or raise."""
+    kw = dict(act=act, fatrelu_threshold=fatrelu_threshold,
+              prob_threshold=prob_threshold, bu_sel=bu_sel, mask_mode=mask_mode)
+    return _three_stores(sparse_ffn_block_v5, sparse_ffn_block_v5_plain, GATED_ACTS, x, idx,
+                         gp_sel, w_up_rows, w_gate_rows, w_down_rows, kw)
+
+
+sparse_ffn_block_v5.launches = 0
+
+
+def sparse_ffn_block_v4(x, idx, gp_sel, w_rows_il, *, act: str, gated: bool,
+                        fatrelu_threshold: float = 0.0, prob_threshold: float = 0.5,
+                        bu_sel=None, mask_mode: str = "threshold") -> torch.Tensor:
+    """(N, E) f32 from the interleaved store w_rows_il (R, P, G, E). CPU
+    tensors run the plain version; CUDA tensors launch the row kernel
+    (counted in `sparse_ffn_block_v4.launches`) or raise."""
+    kw = dict(act=act, fatrelu_threshold=fatrelu_threshold,
+              prob_threshold=prob_threshold, bu_sel=bu_sel, mask_mode=mask_mode)
+    if x.device.type == "cpu":
+        return sparse_ffn_block_v4_plain(x, idx, gp_sel, w_rows_il, gated=gated, **kw)
+    _cuda_only(x)
+    _check(w_rows_il.dim() == 4, "interleaved store must be (R, P, G, E)")
+    R, P, G, E = w_rows_il.shape
+    _check(P == (3 if gated else 2), f"interleaved store has P={P}, gated={gated}")
+    gate = _explicit_gate(act, gated)
+    stores = [w_rows_il, w_rows_il if gate else None, w_rows_il]
+    out = _rows_kernel(x, idx, gp_sel, stores, (0, G * E, (P - 1) * G * E), P * G * E, R,
+                       G, E, **kw)
+    sparse_ffn_block_v4.launches += 1
+    return out
+
+
+sparse_ffn_block_v4.launches = 0
+
+
+def sparse_ffn_block_v2(x, idx, gp_sel, w_all_rows, *, act: str, gated: bool, R: int,
+                        fatrelu_threshold: float = 0.0, prob_threshold: float = 0.5,
+                        bu_sel=None, mask_mode: str = "threshold") -> torch.Tensor:
+    """(N, E) f32 from the concatenated store w_all_rows (P*R, G, E). CPU
+    tensors run the plain version; CUDA tensors launch the row kernel
+    (counted in `sparse_ffn_block_v2.launches`) or raise. Ids are clamped
+    into [0, R), so a row never reads another projection's."""
+    kw = dict(act=act, fatrelu_threshold=fatrelu_threshold,
+              prob_threshold=prob_threshold, bu_sel=bu_sel, mask_mode=mask_mode)
+    if x.device.type == "cpu":
+        return sparse_ffn_block_v2_plain(x, idx, gp_sel, w_all_rows, gated=gated, R=R, **kw)
+    _cuda_only(x)
+    _check(w_all_rows.dim() == 3, "concatenated store must be (P*R, G, E)")
+    P = 3 if gated else 2
+    _check(w_all_rows.shape[0] == P * R, f"store has {w_all_rows.shape[0]} rows, want {P}*{R}")
+    _, G, E = w_all_rows.shape
+    gate = _explicit_gate(act, gated)
+    stores = [w_all_rows, w_all_rows if gate else None, w_all_rows]
+    out = _rows_kernel(x, idx, gp_sel, stores, (0, R * G * E, (P - 1) * R * G * E), G * E,
+                       R, G, E, **kw)
+    sparse_ffn_block_v2.launches += 1
+    return out
+
+
+sparse_ffn_block_v2.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -450,7 +649,7 @@ def sparse_ffn_block_v7u(x, union_rows, gp_u, w_upT_rows, w_gateT_rows,
     if x.device.type == "cpu":
         return sparse_ffn_block_v7u_plain(x, union_rows, gp_u, w_upT_rows,
                                           w_gateT_rows, w_down_rows, **kw)
-    _check(x.device.type == "cuda", f"no kernel for device {x.device}")
+    _cuda_only(x)
     gated = _is_gated(act, w_gateT_rows)
     _check(mask_mode in MASK_MODES, f"mask_mode {mask_mode!r}")
     _check(x.dtype in (torch.float32, torch.bfloat16), f"x dtype {x.dtype}")

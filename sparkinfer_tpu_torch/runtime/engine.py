@@ -123,10 +123,12 @@ class Engine:
                 raise ValueError("sparse mode requires predictor tensors in the model")
             if sparse.hot_groups > 0:
                 raise NotImplementedError("hot/cold tiering is not ported yet")
-            prepare = prepare_pipelined_params if sparse_pipelined else prepare_sparse_params
             if not sparse_preprepared:
-                self.params = prepare(model.params, self.cfg, sparse,
-                                      drop_dense=sparse_drop_dense)
+                kw = dict(drop_dense=sparse_drop_dense)
+                self.params = (
+                    prepare_pipelined_params(model.params, self.cfg, sparse, layout="v6", **kw)
+                    if sparse_pipelined else
+                    prepare_sparse_params(model.params, self.cfg, sparse, **kw))
             prefill_ffn = make_sparse_ffn(self.cfg, sparse, mode="dense")
             self.fwd = make_forward(self.cfg, ffn_fn=prefill_ffn)
             self.fwd_prefill = make_forward(self.cfg, ffn_fn=prefill_ffn,

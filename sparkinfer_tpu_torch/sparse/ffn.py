@@ -14,16 +14,21 @@ count are computed, and sub-threshold neurons inside them are masked.
     (L, ng, G, E), or mode "gather" (plain torch on any device);
   - pipelined decode: one-layer-ahead selection
     (`make_pipelined_sparse_ffn`) over flat (L*ng, E, G) / (L*ng, G, E)
-    stores addressed at row il*ng + group, through `sparse_ffn_block_v6`, or
+    stores addressed at row il*ng + group (`prepare_pipelined_params`
+    layout "v6", the Engine's), through `sparse_ffn_block_v6`, or
     `sparse_ffn_block_v6q` over Q8_0 stores ("kernel"), their plain torch
     versions ("gather"), or for batched decode over the cross-token union
     of selected groups (`union_from_selection`) through
     `sparse_ffn_block_v7u` ("kernel_union", the JAX "pallas_union") or plain
-    torch ("gather_union").
+    torch ("gather_union"); or over the per-layer row stores (layout "v1",
+    `sparkinfer-bench --sparse`'s) through v1 or, with SPIF_KERNEL_V2 set,
+    `sparse_ffn_block_v2` over the concatenated store w_all_rows ("kernel"),
+    or the JAX gather math ("gather").
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable
 
 import torch
@@ -35,6 +40,7 @@ from ..ops.sparse_ffn import (
     combine,
     quantize_rows_q8_0,
     sparse_ffn_block,
+    sparse_ffn_block_v2,
     sparse_ffn_block_v6,
     sparse_ffn_block_v6_plain,
     sparse_ffn_block_v6q,
@@ -66,6 +72,21 @@ def _gather_sel(probs: torch.Tensor, idx: torch.Tensor, ng: int, G: int) -> torc
     """gp_sel (N, C, G): the probabilities of each token's selected groups."""
     gp = probs.reshape(-1, ng, G)
     return torch.gather(gp, 1, idx.long()[..., None].expand(-1, -1, G))
+
+
+def _gather_rows(lp, xt, idx, keep, act, fat_thr, gated, ng, G):
+    """The JAX "gather" math over the row stores (ng, G, E) of one layer:
+    xt (N, E), idx (N, C) group ids, keep (N, C, G) the neurons at or above
+    the threshold; the gathered rows are cast to xt's dtype."""
+    il = idx.long()
+    up = torch.einsum("ne,ncge->ncg", xt, lp["w_up_rows"][il].to(xt.dtype))
+    if "b_up" in lp:
+        up = up + lp["b_up"].reshape(ng, G)[il].to(up.dtype)
+    gate = None
+    if gated and "w_gate_rows" in lp:
+        gate = torch.einsum("ne,ncge->ncg", xt, lp["w_gate_rows"][il].to(xt.dtype))
+    hidden = combine(act, fat_thr, gate, up) * keep.to(up.dtype)
+    return torch.einsum("ncg,ncge->ne", hidden, lp["w_down_rows"][il].to(hidden.dtype))
 
 
 def sparse_layout(lp: dict, cfg: ModelConfig, scfg: SparseConfig) -> dict:
@@ -179,16 +200,9 @@ def make_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
         B, T, E = x.shape
         xt = x.reshape(B * T, E)
         probs = predict_activations(lp, xt)  # (N, F)
-        idx = select_groups(probs, scfg, F).long()  # (N, C)
-        up = torch.einsum("ne,ncge->ncg", xt, lp["w_up_rows"][idx].to(xt.dtype))
-        if "b_up" in lp:
-            up = up + lp["b_up"].reshape(ng, G)[idx].to(up.dtype)
-        gate = None
-        if gated and "w_gate_rows" in lp:
-            gate = torch.einsum("ne,ncge->ncg", xt, lp["w_gate_rows"][idx].to(xt.dtype))
-        hidden = combine(act, fat_thr, gate, up)
-        hidden = hidden * (_gather_sel(probs, idx, ng, G) >= thr).to(hidden.dtype)
-        out = torch.einsum("ncg,ncge->ne", hidden, lp["w_down_rows"][idx].to(hidden.dtype))
+        idx = select_groups(probs, scfg, F)  # (N, C)
+        out = _gather_rows(lp, xt, idx, _gather_sel(probs, idx, ng, G) >= thr, act,
+                           fat_thr, gated, ng, G)
         if "b_down" in lp:
             out = out + lp["b_down"].to(out.dtype)
         return out.reshape(B, T, E)
@@ -212,39 +226,72 @@ def make_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
     return {"dense": dense_ffn, "gather": gather_ffn, "kernel": kernel_ffn}[mode]
 
 
+def _roll_predictors(layers: dict) -> dict:
+    """A copy of layers with each per-layer predictor k beside its slices
+    rolled one layer down, k + "_nx" (layer il holds layer (il+1) % L's)."""
+    out = dict(layers)
+    for k in PRED_KEYS:
+        if k in layers:
+            out[k + "_nx"] = torch.roll(layers[k], -1, dims=0)
+    return out
+
+
 def prepare_pipelined_params(params: dict, cfg: ModelConfig, scfg: SparseConfig,
-                             drop_dense: bool = False, quant: str | None = None) -> dict:
+                             drop_dense: bool = False, layout: str = "v1",
+                             quant: str | None = None) -> dict:
     """A new params dict (sharing the dense tensors) that adds
+    layers[k + "_nx"]: the per-layer predictor rolled one layer down (layer
+    il's slice holds layer (il+1) % L's predictor), so layer il can select
+    for layer il+1 (stacked predictors need no copy), and the stores of
+    `layout`:
 
-      - layers[k + "_nx"]: the per-layer predictor rolled one layer down
-        (layer il's slice holds layer (il+1) % L's predictor), so layer il
-        can select for layer il+1 (stacked predictors need no copy);
-      - params["sparse_flat"]: the kernel's flat stores, row il*ng + group:
-        w_upT_flat / w_gateT_flat (L*ng, E, G) and w_down_flat (L*ng, G, E);
-        with quant="q8_0" instead qw_upT_flat / qw_gateT_flat int8
-        (L*ng, E, G) with s_upT_flat / s_gateT_flat f32 (L*ng, E/32, G),
-        and qw_down_flat int8 (L*ng, G, E) with s_down_flat (L*ng, G/32, E).
+      - "v1" (the default, as in the JAX package): `prepare_sparse_params`'
+        row stores w_up_rows / w_gate_rows / w_down_rows (L, ng, G, E) in
+        layers, the stores of v1; with the environment variable
+        SPIF_KERNEL_V2 set, also v2's concatenated store
+        w_all_rows (L, P*ng, G, E), [up; (gate;) down] per layer;
+      - "v6": params["sparse_flat"], the kernel's flat stores, row
+        il*ng + group: w_upT_flat / w_gateT_flat (L*ng, E, G) and
+        w_down_flat (L*ng, G, E); with quant="q8_0" (layout "v6" only)
+        instead qw_upT_flat / qw_gateT_flat int8 (L*ng, E, G) with
+        s_upT_flat / s_gateT_flat f32 (L*ng, E/32, G), and qw_down_flat int8
+        (L*ng, G, E) with s_down_flat (L*ng, G/32, E). SPIF_KERNEL_V2 adds
+        nothing here: the JAX package reads the row stores it has just
+        replaced (a KeyError), and the v6 route would never read them.
 
-    The stores are filled (and quantized) one layer at a time on the
-    device, so no transient holds a second copy of a whole projection. The
-    bf16 down store has the dense layout already and is a view of w_down.
+    Every store is filled (and quantized) one layer at a time on the device,
+    so no transient holds a second copy of a whole projection; the bf16
+    down stores have the dense layout already and are views of w_down.
     drop_dense=True leaves the dense w_up/w_gate/w_down out of the result;
-    the masked-dense prefill then reads the flat stores. These are the JAX
-    function's layout="v6" stores; the v1 row stores of its layout="v1"
-    serve the non-pipelined decode (`prepare_sparse_params`) instead."""
+    the masked-dense prefill then reads the sparse stores."""
+    if layout not in ("v1", "v6"):
+        raise ValueError(f"sparse store layout {layout!r} (v1 or v6)")
     if quant not in (None, "q8_0"):
         raise ValueError(f"quantized sparse stores: {quant!r} (q8_0 only)")
+    if quant is not None and layout != "v6":
+        raise ValueError("quantized sparse stores require layout='v6'")
+    if layout == "v1":
+        out = prepare_sparse_params(params, cfg, scfg, drop_dense=drop_dense)
+        layers = _roll_predictors(out["layers"])
+        if os.environ.get("SPIF_KERNEL_V2"):
+            parts = [layers[k] for k in ("w_up_rows", "w_gate_rows", "w_down_rows")
+                     if k in layers]
+            L, ng = parts[0].shape[:2]
+            w_all = torch.empty((L, len(parts) * ng) + parts[0].shape[2:],
+                                dtype=parts[0].dtype, device=parts[0].device)
+            for il in range(L):
+                for p, w in enumerate(parts):
+                    w_all[il, p * ng:(p + 1) * ng].copy_(w[il])
+            layers["w_all_rows"] = w_all
+        return {**out, "layers": layers}
     L, E, F = cfg.n_layer, cfg.n_embd, cfg.n_ff
     G = scfg.group_size
     ng = scfg.n_groups(F)
-    layers = dict(params["layers"])
     for k in ("w_up", "w_gate", "w_down"):
-        if is_quantized(layers.get(k)):
+        if is_quantized(params["layers"].get(k)):
             raise ValueError(f"sparse FFN needs dense (bf16/f32) {k}; load the "
                              "model with keep_quantized=False")
-    for k in PRED_KEYS:
-        if k in layers:
-            layers[k + "_nx"] = torch.roll(layers[k], -1, dims=0)
+    layers = _roll_predictors(params["layers"])
 
     def fill(w, rows_of, name, store_shape):
         """Flat store `name` from w (L, ...), layer by layer via rows_of."""
@@ -312,10 +359,15 @@ def make_pipelined_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
     other layer uses the selection that the previous layer computed with the
     next layer's predictor (the rolled `_nx` slices, or layer il+1 of the
     stacks). Each layer also emits the next layer's selection. mode "kernel"
-    runs `sparse_ffn_block_v6`, or `sparse_ffn_block_v6q` when lp holds Q8_0
-    stores (the CUDA kernels on the card), "gather" their plain torch
-    versions on any device. The batched-decode modes read the cross-token
-    union of the tokens' selected groups, `union_groups` of them (default
+    runs `sparse_ffn_block_v6q` when lp holds Q8_0 flat stores,
+    `sparse_ffn_block_v6` over the bf16/f32 flat stores, and over the v1
+    layout's per-layer row stores `sparse_ffn_block_v2` when lp holds
+    w_all_rows and SPIF_KERNEL_V2 is set, else `sparse_ffn_block` (v1), as
+    the JAX "pallas" mode routes (the CUDA kernels on the card). "gather"
+    runs the plain torch versions of the flat-store kernels, or the JAX
+    gather math over the row stores, on any device. The batched-decode
+    modes read the cross-token union of the tokens' selected groups,
+    `union_groups` of them (default
     min(ng, 4C), exact when it covers the union), once for all tokens:
     "kernel_union" (the JAX "pallas_union") through `sparse_ffn_block_v7u`,
     "gather_union" in plain torch and f32 (no bf16 rounding). Both need the
@@ -400,9 +452,17 @@ def make_pipelined_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
                               lp["s_upT_flat"], lp.get("qw_gateT_flat"),
                               lp.get("s_gateT_flat"), lp["qw_down_flat"],
                               lp["s_down_flat"], **kw)
-            else:
+            elif "w_upT_flat" in lp:
                 out = block(xt, idx + il * ng, gp_sel, lp["w_upT_flat"],
                             lp.get("w_gateT_flat"), lp["w_down_flat"], **kw)
+            elif mode == "gather":  # the v1 layout's per-layer row stores
+                out = _gather_rows(lp, xt, idx, gp_sel >= thr, act, fat_thr, gated, ng, G)
+            elif "w_all_rows" in lp and os.environ.get("SPIF_KERNEL_V2"):
+                out = sparse_ffn_block_v2(xt, idx, gp_sel, lp["w_all_rows"], gated=gated,
+                                          R=ng, **kw)
+            else:
+                out = sparse_ffn_block(xt, idx, gp_sel, lp["w_up_rows"],
+                                       lp.get("w_gate_rows"), lp["w_down_rows"], **kw)
         if "b_down" in lp:
             out = out + lp["b_down"].to(out.dtype)
         nx_idx, nx_gp = _select(*_pred(lp, il, True), xt)

@@ -14,7 +14,8 @@ shapes (sums over 5120 terms). The packers and encoders are bit-equal to
 their CPU runs. v1 over f32 stores keeps an f32 hidden: 1e-5. v7u rounds
 its hidden to bf16, so a hidden value whose f32 sums differ in the last
 bit can round to the neighbouring bf16 value: 1e-3 of the scale for v7u
-and for v1 over bf16 stores.
+and for v1 over bf16 stores. v2, v3, v4 and v5 run v1's kernel over their
+own strides and offsets and are held to v1's tolerances.
 """
 
 import itertools
@@ -32,8 +33,17 @@ from sparkinfer_tpu_torch.ops.sparse_ffn import (  # noqa: E402
     quantize_rows_q8_0,
     sparse_ffn_block_v6,
     sparse_ffn_block_v6_plain,
+    interleave_rows,
     sparse_ffn_block,
     sparse_ffn_block_plain,
+    sparse_ffn_block_v2,
+    sparse_ffn_block_v2_plain,
+    sparse_ffn_block_v3,
+    sparse_ffn_block_v3_plain,
+    sparse_ffn_block_v4,
+    sparse_ffn_block_v4_plain,
+    sparse_ffn_block_v5,
+    sparse_ffn_block_v5_plain,
     sparse_ffn_block_v6q,
     sparse_ffn_block_v6q_plain,
     sparse_ffn_block_v7u,
@@ -460,3 +470,96 @@ def test_v7u_is_deterministic(cuda):
     a = sparse_ffn_block_v7u(*args, act="fatrelu", **kw)
     b = sparse_ffn_block_v7u(*args, act="fatrelu", **kw)
     assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# v2, v3, v4, v5: v1's strided kernel over their own stores
+
+
+def _row_calls(kernel, args, gated):
+    """(wrapper, plain, args, kwargs) of one row kernel over the (R, G, E)
+    stores of args, rearranged into the kernel's own store."""
+    x, idx, gp, wu, wg, wd = args
+    if kernel == "v3":
+        return sparse_ffn_block_v3, sparse_ffn_block_v3_plain, args, {}
+    if kernel == "v5":
+        return sparse_ffn_block_v5, sparse_ffn_block_v5_plain, args, {}
+    if kernel == "v4":
+        return (sparse_ffn_block_v4, sparse_ffn_block_v4_plain,
+                (x, idx, gp, interleave_rows(wu, wg, wd)), dict(gated=gated))
+    w_all = torch.cat([wu] + ([wg] if gated else []) + [wd])
+    return (sparse_ffn_block_v2, sparse_ffn_block_v2_plain, (x, idx, gp, w_all),
+            dict(gated=gated, R=wu.shape[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,act,mask_mode,bias", list(itertools.product(
+    ["v2", "v3", "v4", "v5"], ["fatrelu", "drelu", "relu", "silu", "gelu"],
+    ["threshold", "scale"], [True, False])))
+def test_row_kernels_small_f32(cuda, kernel, act, mask_mode, bias):
+    args, kw = _v1_inputs(3, 4, 64, 16, 12, torch.float32, cuda, seed=51, bias=bias,
+                          gated=act != "relu")
+    fn, plain, args, extra = _row_calls(kernel, args, act != "relu")
+    _check_fn(fn, plain, args, 1e-5, act=act, mask_mode=mask_mode, fatrelu_threshold=0.01,
+              bu_sel=kw["bu_sel"], **extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["v2", "v4"])
+def test_row_kernels_gated_swiglu_and_relu(cuda, kernel):
+    """v2 and v4 read the gate for any activation when gated: swiglu_oai
+    computes, relu ignores the gate."""
+    args, kw = _v1_inputs(2, 3, 64, 16, 9, torch.float32, cuda, seed=52)
+    for act in ("swiglu_oai", "relu"):
+        fn, plain, rargs, extra = _row_calls(kernel, args, True)
+        _check_fn(fn, plain, rargs, 1e-5, act=act, bu_sel=kw["bu_sel"], **extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,N", list(itertools.product(["v2", "v3", "v4", "v5"],
+                                                             [1, 4])))
+def test_row_kernels_decode_shape_bf16(cuda, kernel, N):
+    """ProSparse-Llama-2-7B widths: E=4096, G=128, C=12 of 86 groups, bf16."""
+    args, kw = _v1_inputs(N, 12, 4096, 128, 86, torch.bfloat16, cuda, seed=53)
+    x, *rest = args
+    fn, plain, rargs, extra = _row_calls(kernel, (x.bfloat16(), *rest), True)
+    _check_fn(fn, plain, rargs, 1e-3, act="fatrelu", bu_sel=kw["bu_sel"], **extra)
+
+
+@pytest.mark.cuda
+def test_row_kernels_odd_widths_and_clamped_ids(cuda):
+    """E not a multiple of the kernel's tiles, G not a multiple of 8; ids
+    outside [0, R) clamped into the projection's own rows."""
+    args, kw = _v1_inputs(2, 3, 1000, 12, 7, torch.bfloat16, cuda, seed=54)
+    x, idx, *stores = args
+    idx = idx.clone()
+    idx[0, 0], idx[1, 2] = 9, -1
+    for kernel in ("v2", "v3", "v4", "v5"):
+        fn, plain, rargs, extra = _row_calls(kernel, (x, idx, *stores), True)
+        _check_fn(fn, plain, rargs, 1e-3, act="silu", bu_sel=kw["bu_sel"], **extra)
+
+
+@pytest.mark.cuda
+def test_row_kernels_reject_bad_stores(cuda):
+    (x, idx, gp, wu, wg, wd), _ = _v1_inputs(1, 2, 64, 16, 4, torch.bfloat16, cuda, seed=55)
+    with pytest.raises(ValueError):  # swiglu_oai is not gated for v3
+        sparse_ffn_block_v3(x, idx, gp, wu, wg, wd, act="swiglu_oai")
+    with pytest.raises(ValueError):  # stores in two dtypes
+        sparse_ffn_block_v5(x, idx, gp, wu, wg.float(), wd, act="fatrelu")
+    with pytest.raises(ValueError):  # an interleaved store of 3 called ungated
+        sparse_ffn_block_v4(x, idx, gp, interleave_rows(wu, wg, wd), act="relu", gated=False)
+    with pytest.raises(ValueError):  # 2R rows called gated
+        sparse_ffn_block_v2(x, idx, gp, torch.cat([wu, wd]), act="fatrelu", gated=True, R=4)
+    with pytest.raises(ValueError):  # a strided view is no store
+        sparse_ffn_block_v2(x, idx, gp, torch.cat([wu, wg, wd])[:, :, ::2], act="fatrelu",
+                            gated=True, R=4)
+
+
+@pytest.mark.cuda
+def test_row_kernels_are_deterministic(cuda):
+    args, kw = _v1_inputs(4, 12, 4096, 128, 64, torch.bfloat16, cuda, seed=56)
+    for kernel in ("v2", "v4"):
+        fn, _, rargs, extra = _row_calls(kernel, args, True)
+        a = fn(*rargs, act="fatrelu", bu_sel=kw["bu_sel"], **extra)
+        b = fn(*rargs, act="fatrelu", bu_sel=kw["bu_sel"], **extra)
+        assert torch.equal(a, b)

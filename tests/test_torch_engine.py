@@ -8,7 +8,7 @@ rtol=atol=1e-4 (f32, summed in other orders across a whole forward).
 
 The Q8_0 sparse engine is built as chip_smoke.py builds its model: Q8_0
 QuantTensor attention and head (keep_quantized), Q8_0 flat FFN stores
-(prepare_pipelined_params(quant="q8_0", drop_dense=True)) and Q8_0
+(prepare_pipelined_params(layout="v6", quant="q8_0", drop_dense=True)) and Q8_0
 predictor stacks in params["sparse_flat"], then Engine(sparse_preprepared=
 True); the JAX engine runs v6q and the quant matmuls in interpret mode.
 Its products round activations to bf16, so the fixture's seed is one
@@ -167,7 +167,7 @@ def _q8_engines(path, mode="kernel"):
     tm, _ = _q8_sparse_model(
         lambda p, **kw: load_model(p, device="cpu", **kw),
         lambda p, c, s: tffn.prepare_pipelined_params(p, c, s, drop_dense=True,
-                                                      quant="q8_0"),
+                                                      layout="v6", quant="q8_0"),
         tqm.flat_quantize, SparseConfig(GQ, CAPQ), path, dtype=torch.float32)
     je = JaxEngine(jm, max_seq=64, sampler=JaxSampler(temp=0.0), kv_dtype=jnp.float32,
                    sparse=JaxSparseConfig(GQ, CAPQ), sparse_decode_mode="pallas",
@@ -268,7 +268,7 @@ def test_port_imports_without_jax():
     names = set(out.stdout.split())
     for mod in ("ops.quant_matmul", "ops.sparse_ffn", "gguf.quants", "sparse.predictor",
                 "sparse.ffn", "models.loader", "models.from_jax", "runtime.engine",
-                "runtime.scheduler"):
+                "runtime.scheduler", "utils.profiling", "tools.bench_matrix"):
         assert "sparkinfer_tpu_torch." + mod in names, mod
 
 

@@ -235,7 +235,8 @@ def test_union_modes_match_jax(both, modes, union_groups):
     jm, tm = both
     jp = jffn.prepare_pipelined_params(jm.params, jm.config, JaxSparseConfig(G, CAP),
                                        layout="v6")
-    tp = tffn.prepare_pipelined_params(tm.params, tm.config, SparseConfig(G, CAP))
+    tp = tffn.prepare_pipelined_params(tm.params, tm.config, SparseConfig(G, CAP),
+                                       layout="v6")
     rng = np.random.default_rng(11)
     x = (rng.standard_normal((2, 3, 64)) * 0.5).astype(np.float32)
     idx = np.stack([rng.choice(6, CAP, replace=False) for _ in range(6)]).astype(np.int32)
@@ -256,7 +257,8 @@ def test_union_full_equals_per_token(both):
     """With the union covering every selected group, the union FFN equals
     the per-token FFN (gather_union keeps f32: 1e-5)."""
     _, tm = both
-    tp = tffn.prepare_pipelined_params(tm.params, tm.config, SparseConfig(G, CAP))
+    tp = tffn.prepare_pipelined_params(tm.params, tm.config, SparseConfig(G, CAP),
+                                       layout="v6")
     rng = np.random.default_rng(12)
     x = torch.from_numpy((rng.standard_normal((1, 5, 64)) * 0.5).astype(np.float32))
     carry = {"idx": torch.from_numpy(np.stack([rng.choice(6, CAP, replace=False)

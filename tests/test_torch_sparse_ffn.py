@@ -94,7 +94,8 @@ def test_prepare_pipelined_params_matches_jax(both):
     cfg = jm.config
     jp = jffn.prepare_pipelined_params(jm.params, cfg, JaxSparseConfig(G, CAP),
                                        layout="v6")
-    tp = tffn.prepare_pipelined_params(tm.params, tm.config, SparseConfig(G, CAP))
+    tp = tffn.prepare_pipelined_params(tm.params, tm.config, SparseConfig(G, CAP),
+                                       layout="v6")
     _assert_same_params(tp, _np(jp))
     assert tp["sparse_flat"]["w_down_flat"].data_ptr() == tm.params["layers"]["w_down"].data_ptr()
 
@@ -243,7 +244,8 @@ def q8_prepared(both):
     kw = dict(drop_dense=True, quant="q8_0")
     jp = jffn.prepare_pipelined_params(jm.params, jm.config, JaxSparseConfig(GQ, CAP),
                                        layout="v6", **kw)
-    tp = tffn.prepare_pipelined_params(tm.params, tm.config, SparseConfig(GQ, CAP), **kw)
+    tp = tffn.prepare_pipelined_params(tm.params, tm.config, SparseConfig(GQ, CAP),
+                                       layout="v6", **kw)
     return jm, tm, jp, tp
 
 
@@ -267,7 +269,8 @@ def test_masked_dense_ffn_from_flat_stores_matches_jax(both, quant):
     kw = dict(drop_dense=True, quant=quant)
     jp = jffn.prepare_pipelined_params(jm.params, jm.config, JaxSparseConfig(GQ, CAP),
                                        layout="v6", **kw)
-    tp = tffn.prepare_pipelined_params(tm.params, tm.config, SparseConfig(GQ, CAP), **kw)
+    tp = tffn.prepare_pipelined_params(tm.params, tm.config, SparseConfig(GQ, CAP),
+                                       layout="v6", **kw)
     x = np.random.default_rng(8).standard_normal((1, 5, 64)).astype(np.float32)
     lj = {k: v[1] for k, v in jp["layers"].items()} | dict(jp["sparse_flat"], flat_il=1)
     lt = {k: v[1] for k, v in tp["layers"].items()} | dict(tp["sparse_flat"], flat_il=1)
