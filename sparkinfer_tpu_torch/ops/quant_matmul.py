@@ -22,7 +22,13 @@ exact products are summed in f32. `quant_matmul_2d` and `quant_matmul_flat`
 take the plain version for a CPU tensor and launch the kernel for a CUDA
 tensor (or raise), counting launches in `.launches`. Unlike the JAX
 function, no shape falls back to another path: the kernel takes every
-`in % 32 == 0`.
+`in % 32 == 0`. Decode (N <= DECODE_MAX_N tokens) is one launch that sums
+its K splits itself through a per-device workspace (tile counters and
+partial sums), allocated zeroed at the first call on that device, which
+therefore must not happen during CUDA-graph capture; two streams must not
+run the decode kernel at the same time on one device. Wider N launches the
+K-split kernel and a second kernel that sums the splits, with scratch
+allocated per call.
 
 W8A8 row-wise int8 (`W8A8Tensor`, `w8a8_linear`) comes with the tiering
 slice.
@@ -39,6 +45,7 @@ from . import _build
 
 QK = 32  # ggml block size for q4_0/q8_0
 KINDS = ("q4_0", "q8_0")
+DECODE_MAX_N = 4  # the widest x the one-launch decode kernel takes
 
 
 def _div(kind: str) -> int:
@@ -226,18 +233,30 @@ def quant_matmul_flat_plain(x: torch.Tensor, qw: torch.Tensor, scales: torch.Ten
 # the CUDA kernel (csrc/quant_matmul.cu)
 
 _lib_cache: list[ctypes.CDLL] = []
+_workspace: dict[int, torch.Tensor] = {}  # decode workspace, by device index
+_capacity: list[tuple[int, int]] = []  # (counter tiles, partial floats) of the workspace
+_plans: dict[tuple, tuple[int, ...]] = {}  # decode launch shapes, by (device, N, in, out, q4)
 
 
 def _lib() -> ctypes.CDLL:
     if not _lib_cache:
         lib = _build.load("quant_matmul")
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.quant_matmul.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
         lib.quant_matmul.restype = i
         lib.quant_matmul_scratch_floats.argtypes = [i, i, i]
-        lib.quant_matmul_scratch_floats.restype = ctypes.c_longlong
+        lib.quant_matmul_scratch_floats.restype = ll
+        lib.quant_matmul_workspace_words.argtypes = []
+        lib.quant_matmul_workspace_words.restype = ll
+        lib.quant_matmul_workspace_capacity.argtypes = [ctypes.POINTER(ll)] * 2
+        lib.quant_matmul_workspace_capacity.restype = None
+        lib.quant_matmul_plan.argtypes = [i, i, i, i, ctypes.POINTER(ll)]
+        lib.quant_matmul_plan.restype = i
         lib.quant_matmul_error_string.argtypes = [i]
         lib.quant_matmul_error_string.restype = ctypes.c_char_p
+        tiles, floats = ll(), ll()
+        lib.quant_matmul_workspace_capacity(ctypes.byref(tiles), ctypes.byref(floats))
+        _capacity.append((tiles.value, floats.value))
         _lib_cache.append(lib)
     return _lib_cache[0]
 
@@ -245,6 +264,46 @@ def _lib() -> ctypes.CDLL:
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"quant_matmul: {msg}")
+
+
+def _cuda_error(lib, err: int, what: str):
+    if err != 0:
+        msg = lib.quant_matmul_error_string(err).decode()
+        raise RuntimeError(f"quant_matmul {what} failed: CUDA error {err} ({msg})")
+
+
+def decode_plan(device, N: int, IN: int, OUT: int, kind: str) -> dict:
+    """The decode kernel's launch shape for x (N, IN) over OUT columns on
+    `device`: the column tile, the K splits, the blocks per wave (slots, R)
+    and the wave ratio ceil(B / R) / (B / R), counted in bytes. k_splits is 0
+    where IN is too large for the kernel (the wrappers raise). Cached by
+    shape."""
+    device = torch.device(device)
+    key = (device.index, N, IN, OUT, _div(kind) == 2)
+    got = _plans.get(key)
+    if got is None:
+        lib = _lib()
+        out = (ctypes.c_longlong * 6)()
+        with torch.cuda.device(device):
+            _cuda_error(lib, lib.quant_matmul_plan(N, IN, OUT, int(key[-1]), out), "plan")
+        got = _plans[key] = tuple(out)
+    tx, ks, tiles, slots, steps, ratio = got
+    return dict(tile=16 * tx, k_splits=ks, tiles=tiles, blocks=tiles * ks, slots=slots,
+                steps=steps, wave_ratio=ratio / 1e6)
+
+
+def _decode_workspace(device: torch.device) -> torch.Tensor:
+    """The device's decode workspace (int32 tile counters, then f32
+    partials), allocated zeroed at the first decode call on that device."""
+    ws = _workspace.get(device.index)
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("quant_matmul: the first decode call on a device allocates "
+                               "its workspace and must come before CUDA-graph capture")
+        ws = torch.zeros((_lib().quant_matmul_workspace_words(),), dtype=torch.int32,
+                         device=device)
+        _workspace[device.index] = ws
+    return ws
 
 
 def _launch(x, qw, scales, kind: str, col0: int, out_dim: int) -> torch.Tensor:
@@ -269,17 +328,27 @@ def _launch(x, qw, scales, kind: str, col0: int, out_dim: int) -> torch.Tensor:
     x = x.contiguous()
     lib = _lib()
     f32 = dict(dtype=torch.float32, device=x.device)
+    if N <= DECODE_MAX_N:
+        scratch = _decode_workspace(x.device)
+        plan = decode_plan(x.device, N, IN, out_dim, kind)
+        tiles, floats = _capacity[0]
+        ks = plan["k_splits"]
+        _check(ks > 0, f"x ({N}, {IN}): no K split of the decode kernel holds its x rows "
+                       f"in shared memory (in dim too large)")
+        _check(ks == 1 or (plan["tiles"] <= tiles and ks * N * out_dim <= floats),
+               f"x ({N}, {IN}) over {out_dim} columns in {ks} K splits needs "
+               f"{plan['tiles']} tile counters and {ks * N * out_dim} partial floats; "
+               f"the workspace holds {tiles} and {floats}")
+    else:
+        scratch = torch.empty((lib.quant_matmul_scratch_floats(N, IN, out_dim),), **f32)
     out = torch.empty((N, out_dim), **f32)
-    scratch = torch.empty((lib.quant_matmul_scratch_floats(N, IN, out_dim),), **f32)
     with torch.cuda.device(x.device):
         err = lib.quant_matmul(
             x.data_ptr(), int(x.dtype == torch.bfloat16), qw.data_ptr(),
             scales.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, IN,
             out_dim, ld, col0, int(div == 2),
             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        msg = lib.quant_matmul_error_string(err).decode()
-        raise RuntimeError(f"quant_matmul launch failed: CUDA error {err} ({msg})")
+    _cuda_error(lib, err, "launch")
     return out
 
 

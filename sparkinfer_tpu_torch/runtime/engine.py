@@ -60,7 +60,9 @@ class Engine:
 
     sparse=None runs the dense model. With a SparseConfig, prefill runs the
     masked-dense FFN and decode the one-layer-ahead pipelined sparse FFN
-    over flat stores (`prepare_pipelined_params`), or with
+    (`prepare_pipelined_params`): the kernel modes over the flat stores of
+    layout "v6", the gather modes over the row stores of layout "v1", as the
+    JAX Engine builds them; or with
     sparse_pipelined=False the per-layer sparse FFN over row stores
     (`prepare_sparse_params`), the serving Scheduler's decode.
     sparse_decode_mode "kernel" goes through the hand-written CUDA kernel
@@ -125,8 +127,11 @@ class Engine:
                 raise NotImplementedError("hot/cold tiering is not ported yet")
             if not sparse_preprepared:
                 kw = dict(drop_dense=sparse_drop_dense)
+                # as the JAX Engine: the gather modes over the v1 row stores,
+                # the kernel modes over v6's flat stores (v7u needs them)
+                layout = "v1" if sparse_decode_mode.startswith("gather") else "v6"
                 self.params = (
-                    prepare_pipelined_params(model.params, self.cfg, sparse, layout="v6", **kw)
+                    prepare_pipelined_params(model.params, self.cfg, sparse, layout=layout, **kw)
                     if sparse_pipelined else
                     prepare_sparse_params(model.params, self.cfg, sparse, **kw))
             prefill_ffn = make_sparse_ffn(self.cfg, sparse, mode="dense")

@@ -57,15 +57,17 @@ def select_groups(probs: torch.Tensor, scfg: SparseConfig, n_ff: int) -> torch.T
     """probs (..., F) -> idx (..., C) int32 group ids, best first.
 
     Score = active-neuron count per group (threshold crossings), with the max
-    prob as tiebreak so near-threshold groups order stably. Exact ties may
-    order differently from the JAX package's lax.top_k."""
+    prob as tiebreak so near-threshold groups order stably. The ranking is a
+    stable descending sort, so exact ties keep the lower group id first, as
+    the JAX package's lax.top_k does."""
     G = scfg.group_size
     ng = scfg.n_groups(n_ff)
     C = scfg.capacity(n_ff)
     gp = probs.reshape(probs.shape[:-1] + (ng, G))
     active = (gp >= scfg.threshold).float()
     score = active.sum(-1) + gp.amax(-1)  # max < 1 breaks ties only
-    return torch.topk(score, C, dim=-1).indices.to(torch.int32)
+    order = torch.sort(score, dim=-1, descending=True, stable=True).indices
+    return order[..., :C].to(torch.int32)
 
 
 def _gather_sel(probs: torch.Tensor, idx: torch.Tensor, ng: int, G: int) -> torch.Tensor:
@@ -370,8 +372,9 @@ def make_pipelined_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
     `union_groups` of them (default
     min(ng, 4C), exact when it covers the union), once for all tokens:
     "kernel_union" (the JAX "pallas_union") through `sparse_ffn_block_v7u`,
-    "gather_union" in plain torch and f32 (no bf16 rounding). Both need the
-    bf16/f32 flat stores."""
+    "gather_union" in plain torch and f32 (no bf16 rounding).
+    "kernel_union" needs the bf16/f32 flat stores; "gather_union" also reads
+    the v1 layout's row stores, as the JAX package's does."""
     if mode not in ("kernel", "gather", "kernel_union", "gather_union"):
         raise ValueError(f"pipelined sparse FFN mode {mode!r}")
     block = sparse_ffn_block_v6 if mode == "kernel" else sparse_ffn_block_v6_plain
@@ -392,8 +395,9 @@ def make_pipelined_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
         return idx, _gather_sel(probs, idx, ng, G)
 
     def _union(lp, xt, idx, gp_sel, il):
-        if "w_upT_flat" not in lp:
-            raise ValueError("the union modes need the bf16/f32 flat stores")
+        flat_form = "w_upT_flat" in lp
+        if mode == "kernel_union" and not flat_form:
+            raise ValueError("kernel_union needs the bf16/f32 flat stores")
         union, gp_u = union_from_selection(idx, gp_sel, ng, Cu)
         ul = union.long()
         if mode == "kernel_union":
@@ -404,18 +408,24 @@ def make_pipelined_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
                 xt, union + il * ng, gp_u, lp["w_upT_flat"], lp.get("w_gateT_flat"),
                 lp["w_down_flat"], act=act, fatrelu_threshold=fat_thr,
                 prob_threshold=thr, bu_u=bu_u)
-        rows = ul + il * ng
+        # the flat stores at row il*ng + group, or this layer's row stores
+        rows = ul + il * ng if flat_form else ul
 
-        def col(key):  # (B, Cu, G), the stores in x's dtype
-            return torch.einsum("be,ueg->bug", xt, lp[key][rows].to(xt.dtype))
+        def col(name):  # (B, Cu, G), the stores in x's dtype
+            if flat_form:
+                w = lp[f"w_{name}T_flat"][rows].to(xt.dtype)
+                return torch.einsum("be,ueg->bug", xt, w)
+            return torch.einsum("be,uge->bug", xt, lp[f"w_{name}_rows"][rows].to(xt.dtype))
 
-        up = col("w_upT_flat")
+        up = col("up")
         if "b_up" in lp:
             up = up + lp["b_up"].reshape(ng, G)[ul].to(up.dtype)[None]
-        gate = col("w_gateT_flat") if gated and "w_gateT_flat" in lp else None
+        has_gate = "w_gateT_flat" in lp or "w_gate_rows" in lp
+        gate = col("gate") if gated and has_gate else None
         hidden = combine(act, fat_thr, gate, up)
         hidden = hidden * (gp_u >= thr).to(hidden.dtype)
-        return torch.einsum("bug,uge->be", hidden, lp["w_down_flat"][rows].to(hidden.dtype))
+        wd = lp["w_down_flat" if flat_form else "w_down_rows"][rows]
+        return torch.einsum("bug,uge->be", hidden, wd.to(hidden.dtype))
 
     def _pred(lp, il, nxt):
         """Own (il) or next-layer ((il+1) mod L) predictor weights. The JAX

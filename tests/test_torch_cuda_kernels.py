@@ -19,6 +19,7 @@ own strides and offsets and are held to v1's tolerances.
 """
 
 import itertools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -252,10 +253,17 @@ def _check_qmm(got, ref, tol):
 @pytest.mark.parametrize("kind,N,IN,OUT,xdt", [
     (k, n, i, o, dt) for k in ("q4_0", "q8_0") for n in (1, 4, 32)
     for (i, o, dt) in ((5120, 5120, torch.bfloat16), (5120, 1280, torch.float32),
-                       (96, 199, torch.float32))])
+                       (96, 199, torch.float32))] + [
+    (k, n, i, o, dt) for k in ("q4_0", "q8_0") for n in (2, 3)
+    for (i, o) in ((5120, 5120), (5120, 1280), (96, 199))
+    for dt in (torch.bfloat16, torch.float32)] + [
+    (k, n, i, o, dt) for k in ("q4_0", "q8_0") for n in (1, 4)
+    for (i, o, dt) in ((5120, 5120, torch.float32), (5120, 1280, torch.bfloat16),
+                       (96, 199, torch.bfloat16))])
 def test_quant_matmul_2d(cuda, kind, N, IN, OUT, xdt):
     """The 13B attention and predictor shapes, and an OUT that is not
-    16-byte aligned (the byte-wise path), against the plain version."""
+    16-byte aligned (the byte-wise path), against the plain version: the
+    decode kernel at N <= 4 (f32 and bf16 x), the K-split pair at N = 32."""
     q, s = _store(kind, IN, OUT, cuda, seed=20)
     x = torch.randn((N, IN), device=cuda).to(xdt)
     before = tqm.quant_matmul_2d.launches
@@ -266,7 +274,8 @@ def test_quant_matmul_2d(cuda, kind, N, IN, OUT, xdt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,N", [("q8_0", 1), ("q8_0", 4), ("q4_0", 1)])
+@pytest.mark.parametrize("kind,N", [("q8_0", 1), ("q8_0", 4), ("q4_0", 1), ("q8_0", 2),
+                                    ("q8_0", 3), ("q4_0", 2), ("q4_0", 3), ("q4_0", 4)])
 def test_quant_matmul_flat(cuda, kind, N):
     """Layer 2 of a 3-layer stack at the 13B pred_down shape, read in place."""
     L, IN, OUT = 3, 1280, 13824
@@ -293,6 +302,155 @@ def test_quant_matmul_is_deterministic_and_checks_shapes(cuda):
         tqm.quant_matmul_2d(x, q, s.bfloat16(), kind="q8_0")
     with pytest.raises(ValueError):  # a stripe past the store
         tqm.quant_matmul_flat(x, q, s, 2, kind="q8_0", out_dim=2560)
+
+
+def _kernels_of_one_call(fn):
+    """Names of the device kernels that one call of fn launches
+    (torch.profiler), after a warm-up call outside the profile. The call
+    lies between two marker kernels (fill_), and the window opens with a
+    pause, since CUPTI records nothing for a moment after the profile
+    starts; both markers must be recorded."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    marker = torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)
+        marker.fill_(1.0)
+        fn()
+        marker.fill_(2.0)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("fill" in n.lower() for n in names) == 2, names
+    return [n for n in names if "fill" not in n.lower()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 2, 3, 4, 32])
+def test_quant_matmul_launches_per_call(cuda, N):
+    """One kernel per call at N <= 4 (qmm_decode sums its own K splits);
+    the K-split kernel and the split sum at N = 32."""
+    q, s = _store("q8_0", 5120, 5120, cuda, seed=24)
+    x = torch.randn((N, 5120), device=cuda)
+    names = _kernels_of_one_call(lambda: tqm.quant_matmul_2d(x, q, s, kind="q8_0"))
+    if N <= tqm.DECODE_MAX_N:
+        assert len(names) == 1 and "qmm_decode" in names[0], names
+        assert tqm.decode_plan(cuda, N, 5120, 5120, "q8_0")["k_splits"] > 1
+    else:
+        assert len(names) == 2 and "qmm_partial" in names[0], names
+        assert "qmm_sum_splits" in names[1], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("N", [1, 4])
+def test_quant_matmul_decode_is_bit_equal_across_calls_and_graph_replays(cuda, kind, N):
+    """The last block of a column tile adds the K splits in split order, so
+    every call and every replay gives the same bits; two replays of a graph
+    of two calls show that the tile counters are back at 0 after each."""
+    q, s = _store(kind, 5120, 3 * 1280, cuda, seed=25)
+    x = torch.randn((N, 5120), device=cuda)
+    x2 = torch.randn((N, 5120), device=cuda).bfloat16()
+    calls = (lambda: tqm.quant_matmul_2d(x, q, s, kind=kind),
+             lambda: tqm.quant_matmul_flat(x2, q, s, 1, kind=kind, out_dim=1280))
+    ref = [c() for c in calls]
+    for _ in range(3):
+        for c, r in zip(calls, ref):
+            assert torch.equal(c(), r)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, r in zip(outs, ref):
+            assert torch.equal(o, r)
+    _check_qmm(ref[0], tqm.quant_matmul_2d_plain(x, q, s, kind=kind), 1e-4)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_decode_workspace_guards(cuda, monkeypatch):
+    """The decode workspace is allocated at a device's first decode call,
+    which raises inside CUDA-graph capture; a call whose K splits need more
+    tile counters or partials than the workspace holds raises."""
+    q, s = _store("q8_0", 5120, 5120, cuda, seed=26)
+    x = torch.randn((1, 5120), device=cuda)
+    ref = tqm.quant_matmul_2d(x, q, s, kind="q8_0")
+    monkeypatch.setattr(tqm, "_workspace", {})
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before CUDA-graph capture"):
+        with torch.cuda.graph(graph):
+            tqm.quant_matmul_2d(x, q, s, kind="q8_0")
+    assert not tqm._workspace
+    assert torch.equal(tqm.quant_matmul_2d(x, q, s, kind="q8_0"), ref)  # allocates
+    plan = tqm.decode_plan(cuda, 1, 5120, 5120, "q8_0")
+    assert plan["k_splits"] > 1 and plan["tiles"] > 4
+    monkeypatch.setattr(tqm, "_capacity", [(4, tqm._capacity[0][1])])
+    with pytest.raises(ValueError, match="tile counters"):
+        tqm.quant_matmul_2d(x, q, s, kind="q8_0")
+    monkeypatch.setattr(tqm, "_capacity", [(1 << 16, 5120)])
+    with pytest.raises(ValueError, match="partial floats"):
+        tqm.quant_matmul_2d(x, q, s, kind="q8_0")
+
+
+@pytest.mark.cuda
+def test_quant_matmul_decode_refuses_an_in_dim_beyond_its_splits(cuda):
+    """At N = 4 no K split (at most 16) holds more than 32768 input rows of x
+    in shared memory, so the wrapper raises for 32800; at N = 1 it fits."""
+    q, s = _store("q8_0", 32800, 16, cuda, seed=27)
+    assert tqm.decode_plan(cuda, 4, 32800, 16, "q8_0")["k_splits"] == 0
+    with pytest.raises(ValueError, match="in dim too large"):
+        tqm.quant_matmul_2d(torch.randn((4, 32800), device=cuda), q, s, kind="q8_0")
+    x = torch.randn((1, 32800), device=cuda)
+    _check_qmm(tqm.quant_matmul_2d(x, q, s, kind="q8_0"),
+               tqm.quant_matmul_2d_plain(x, q, s, kind="q8_0"), 1e-4)
+
+
+_CONVERSIONS = {"I2F", "I2FP", "F2F", "F2FP", "F2I", "F2IP"}
+
+
+def _sass_functions(lib_path):
+    """{kernel name: [opcode, ...]} from cuobjdump -sass of the library."""
+    import re
+    import shutil
+    import subprocess
+
+    from sparkinfer_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = chunk.split("\n", 1)
+        funcs[name.strip()] = re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)", body)
+    return funcs
+
+
+@pytest.mark.cuda
+def test_quant_matmul_decode_sass_has_no_conversions(cuda):
+    """qmm_decode dequantizes with PRMT, LOP3, FADD and bf16x2 FMAs: its
+    SASS holds no I2F, F2F or F2FP (nor their P forms or F2I). The first
+    design's qmm_partial, which converts each weight, shows that the parser
+    sees them. Needs cuobjdump from the CUDA toolkit."""
+    from sparkinfer_tpu_torch.ops import _build
+
+    tqm._lib()
+    funcs = _sass_functions(_build.library_path("quant_matmul"))
+    decode = {k: v for k, v in funcs.items() if "qmm_decode" in k}
+    assert len(decode) == 8, sorted(funcs)  # Q8_0 and Q4_0 at N = 1, 2, 3, 4
+    for name, ops in decode.items():
+        assert len(ops) > 100, name
+        assert not _CONVERSIONS & set(ops), (name, sorted(_CONVERSIONS & set(ops)))
+    partial = [v for k, v in funcs.items() if "qmm_partial" in k]
+    assert partial and all(_CONVERSIONS & set(ops) for ops in partial)
 
 
 @pytest.mark.cuda

@@ -117,6 +117,32 @@ def test_gather_mode_equals_kernel_mode(gguf):
     assert a == b
 
 
+@pytest.mark.parametrize("seed", [6, 8, 11])
+def test_engine_gather_ffn_bf16_is_bit_equal_to_jax(tmp_path, seed):
+    """The Engine's "gather" decode builds the v1 row stores, as the JAX
+    Engine does for every mode but "pallas", so one bf16 FFN call at layer 0
+    is bit-equal to JAX's (a token stream in bf16 could still part ways on
+    a mask bit near the threshold, so none is compared)."""
+    path = tmp_path / "tiny-prosparse.gguf"
+    make_tiny_llama(path, arch="prosparse_llama", pred_rank=8, n_ff=96, seed=seed)
+    je = JaxEngine(jax_load(str(path), dtype=jnp.bfloat16), max_seq=16,
+                   sampler=JaxSampler(temp=0.0), sparse=JaxSparseConfig(G, CAP),
+                   sparse_decode_mode="gather")
+    pe = Engine(load_model(str(path), dtype=torch.bfloat16, device="cpu"), max_seq=16,
+                sampler=SamplerConfig(temp=0.0), sparse=SparseConfig(G, CAP),
+                sparse_decode_mode="gather", device="cpu")
+    assert "w_up_rows" in pe.params["layers"] and "sparse_flat" not in pe.params
+    jf, jinit = jffn.make_pipelined_sparse_ffn(je.cfg, JaxSparseConfig(G, CAP), mode="gather")
+    tf, tinit = tffn.make_pipelined_sparse_ffn(pe.cfg, SparseConfig(G, CAP), mode="gather")
+    x = np.random.default_rng(seed).standard_normal((1, 1, 64)).astype(np.float32)
+    jl = {k: v[0] for k, v in je.model.params["layers"].items()}
+    tl = {k: v[0] for k, v in pe.params["layers"].items()}
+    ref, _ = jf(jl, jnp.asarray(x, jnp.bfloat16), jinit(1, 1), jnp.int32(0))
+    got, _ = tf(tl, torch.from_numpy(x).to(torch.bfloat16), tinit(1, 1, "cpu"), 0)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+
+
 def test_drop_dense_engine_equals_the_default(gguf):
     a = _port_engine(gguf, True).generate(PROMPT, 6)
     e = _port_engine(gguf, True, sparse_drop_dense=True)

@@ -253,6 +253,35 @@ def test_union_modes_match_jax(both, modes, union_groups):
     np.testing.assert_array_equal(tcarry["idx"].numpy(), np.asarray(jcarry["idx"]))
 
 
+@pytest.mark.parametrize("union_groups", [12, 3], ids=["full", "truncated"])
+def test_gather_union_over_row_stores_matches_jax(tmp_path, union_groups):
+    """"gather_union" over the v1 layout's row stores (no flat stores), as
+    the JAX package's bench batch path runs it; "kernel_union" still needs
+    the flat stores."""
+    path = tmp_path / "tiny-rank16.gguf"
+    make_tiny_llama(path, arch="prosparse_llama", pred_rank=16, n_ff=96, seed=5)
+    jm, tm = jax_load(str(path), dtype=jnp.float32), load_model(str(path), dtype=torch.float32,
+                                                              device="cpu")
+    jscfg, tscfg = JaxSparseConfig(8, 4), SparseConfig(8, 4)
+    jp = jffn.prepare_pipelined_params(jm.params, jm.config, jscfg, layout="v1")
+    tp = tffn.prepare_pipelined_params(tm.params, tm.config, tscfg, layout="v1")
+    assert "sparse_flat" not in tp and "w_up_rows" in tp["layers"]
+    x = (np.random.default_rng(13).standard_normal((2, 1, 64)) * 0.5).astype(np.float32)
+    jf, jinit = jffn.make_pipelined_sparse_ffn(jm.config, jscfg, mode="gather_union",
+                                               union_groups=union_groups)
+    tf, tinit = tffn.make_pipelined_sparse_ffn(tm.config, tscfg, mode="gather_union",
+                                               union_groups=union_groups)
+    for il in (0, 1):
+        ref, jc = jf(_layer(jp, il), jnp.asarray(x), jinit(2, 1), jnp.int32(il))
+        got, tc = tf(_layer(tp, il), torch.from_numpy(x), tinit(2, 1, "cpu"), il)
+        assert np.isfinite(np.asarray(ref)).all()
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(tc["idx"].numpy(), np.asarray(jc["idx"]))
+    kf, _ = tffn.make_pipelined_sparse_ffn(tm.config, tscfg, mode="kernel_union")
+    with pytest.raises(ValueError, match="flat stores"):
+        kf(_layer(tp, 0), torch.from_numpy(x), tinit(2, 1, "cpu"), 0)
+
+
 def test_union_full_equals_per_token(both):
     """With the union covering every selected group, the union FFN equals
     the per-token FFN (gather_union keeps f32: 1e-5)."""

@@ -111,12 +111,24 @@ def test_predictor_matches_jax(both):
 
 
 def test_select_groups_matches_jax():
-    # distinct scores: lax.top_k and torch.topk may order exact ties differently
+    # distinct scores
     scfg_j, scfg_t = JaxSparseConfig(G, CAP), SparseConfig(G, CAP)
     probs = np.random.default_rng(1).uniform(0, 1, (6, 96)).astype(np.float32)
     ref = np.asarray(jffn.select_groups(jnp.asarray(probs), scfg_j, 96))
     got = tffn.select_groups(torch.from_numpy(probs), scfg_t, 96)
     assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("n_tied", [20, 86], ids=["20-of-86", "all"])
+def test_select_groups_breaks_ties_as_jax(n_tied):
+    """More than C groups tie on score (saturated probabilities): lax.top_k
+    keeps the lower group id first, and so must the port (7B widths)."""
+    probs = np.full((1, 11008), 0.2, np.float32)
+    probs[:, :n_tied * 128] = 1.0
+    ref = np.asarray(jffn.select_groups(jnp.asarray(probs), JaxSparseConfig(128, 12), 11008))
+    got = tffn.select_groups(torch.from_numpy(probs), SparseConfig(128, 12), 11008)
+    np.testing.assert_array_equal(ref, np.arange(12)[None])
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
