@@ -32,13 +32,14 @@ sees no card or the package is missing. Phases, each of which fails the run:
        ProSparse-Llama-2-13B widths cut to 2 layers, kernel against
        "gather" mode on the card. The quant products round their
        activations to bf16, so where the kernel and plain FFN differ in
-       the last f32 bit an activation on a bf16 rounding boundary rounds
-       apart and the difference cascades: with the one-launch decode
-       quant_matmul the 13B case lands between 9e-7 and 1.3e-3 of the
-       logits' scale over weight seeds 3-9 on an H100 (equal tokens at each).
-       The case runs at seed 20, which has no such activation there (4e-7),
-       so 1e-4 holds, and prints the spread over seeds 3-9 unchecked; phase 4
-       bounds the kernels themselves;
+       the last f32 bit an activation next to a bf16 rounding midpoint
+       rounds apart and the difference cascades: the 13B case lands between
+       0 and 1.3e-3 of the logits' scale over weight seeds (equal tokens at
+       each) on an H100. Each case prints the first packed-linear input
+       that rounds apart (its two f32 values, the bf16 midpoint between
+       them). The case runs at seed 22, where that flip moves the logits by
+       5e-7 of their scale, so 1e-4 holds, and prints the spread over seeds
+       3-9 and 20 unchecked; phase 4 bounds the kernels themselves;
   4. kernels: each kernel against its plain torch version on the card at
      its main path's decode shapes, over stores that keep the 50 MB L2
      cold (CUDA-graph replay): 64 random row sets of the flat stores, 64
@@ -54,11 +55,12 @@ sees no card or the package is missing. Phases, each of which fails the run:
        strided kernel (csrc/sparse_ffn_v1.cu); sparse_ffn_block_v7u at 7B
        widths, B=8, Cu=48;
        sparse_ffn_block_v6q at 13B widths (E=5120, G=128, C=16 of 108);
-       quant_matmul_2d Q8_0/Q4_0 5120x5120 at N=1 and 32 and Q8_0 at N=4, Q8_0
-       head 5120x32000 at N=1; quant_matmul_flat at the predictor shapes
-       5120x1280 and 1280x13824, N=1, and 1280x13824 at N=4; each with the
-       kernels one call launches (torch.profiler: 1 at N <= 4, 2 at N = 32)
-       and, at N <= 4, the decode kernel's tile, K splits and wave ratio;
+       quant_matmul_2d Q8_0/Q4_0 5120x5120 at N=1 and 32 and Q8_0 at N=4, 8
+       and 512, Q8_0 head 5120x32000 at N=1 and 32; quant_matmul_flat at the
+       predictor shapes 5120x1280 and 1280x13824, N=1 and 32, and 1280x13824
+       at N=4; each with the kernels one call launches (torch.profiler: one,
+       qmm_decode at N <= 4, qmm_prefill above) and the launch plan (tile, K
+       splits, wave ratio);
   5. main paths, each with every launch count set to 0 just before and
      read just after, all logits finite, a profile of a few decode steps
      and peak memory, then the dense engine on the same weights:
@@ -83,14 +85,22 @@ sees no card or the package is missing. Phases, each of which fails the run:
        ProSparse-Llama-2-13B widths, Q8_0 (bench.py "13b" preset; random
        weights made and quantized on the card layer by layer, through the
        ggml Q8_0 blocks a GGUF holds): v6q L, quant_matmul_2d 4L+1 and
-       quant_matmul_flat 2(L+1) times per decode step; then the dense
-       Q8_0 engine (Q8_0 FFN from the same weights).
+       quant_matmul_flat 2(L+1) times per decode step; a profiled 32-token
+       prefill (device time of the qmm_* kernels and their launches,
+       prefill tok/s); then the dense Q8_0 engine (Q8_0 FFN from the same
+       weights).
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --prefill-profile
+
+runs only the profiled 32-token prefill of the 13B Q8_0 engine, for the
+sparkinfer_tpu_torch beside the script: a copy of the script placed in a
+checkout of another revision profiles that revision.
 """
 
 from __future__ import annotations
@@ -354,6 +364,45 @@ def check_pair(label, outs):
     check(outs[0][1] == outs[1][1], f"{label}: token streams differ")
 
 
+def record_quant_inputs(fn):
+    """Run fn() with the input x of every packed-linear kernel call recorded
+    (f32, on the host), in call order."""
+    from sparkinfer_tpu_torch.ops import quant_matmul as qm
+
+    recorded, launch = [], qm._launch
+
+    def recording(x, *args, **kwargs):
+        recorded.append(x.detach().float().cpu())
+        return launch(x, *args, **kwargs)
+
+    qm._launch = recording
+    try:
+        fn()
+    finally:
+        qm._launch = launch
+    return recorded
+
+
+def first_bf16_flip(xs_a, xs_b) -> dict | None:
+    """The first packed-linear call whose inputs round to different bf16
+    values on the two paths: the call, the element, its f32 values on each
+    path, the two bf16 values and the rounding midpoint between them, and
+    the largest f32 difference of that call's inputs relative to their
+    scale. None when every input rounds alike."""
+    for i, (a, b) in enumerate(zip(xs_a, xs_b)):
+        if a.shape != b.shape:
+            return dict(call=i, shapes=[list(a.shape), list(b.shape)])
+        flips = a.bfloat16() != b.bfloat16()
+        if not flips.any():
+            continue
+        at = tuple(flips.nonzero()[0].tolist())
+        lo, hi = sorted((a.bfloat16()[at].item(), b.bfloat16()[at].item()))
+        return dict(call=i, shape=list(a.shape), flipped=int(flips.sum()), element=list(at),
+                    x=[a[at].item(), b[at].item()], bf16=[lo, hi], midpoint=(lo + hi) / 2,
+                    input_diff_rel=((a - b).abs().max() / a.abs().max()).item())
+    return None
+
+
 def phase_reference(sparse_cfg_cls, engine_cls, sampler):
     """f32 references on small inputs, kernel path against plain path."""
     import torch
@@ -388,33 +437,40 @@ def phase_reference(sparse_cfg_cls, engine_cls, sampler):
          ("cpu", "kernel")),
         ("Q8_0 13B widths 2 layers, card kernel vs card plain",
          prosparse_config(2, 5120, 40, 13824, 32000, 1280),
-         sparse_cfg_cls(group_size=128, capacity_groups=16), SEED + 20,
+         sparse_cfg_cls(group_size=128, capacity_groups=16), SEED + 22,
          ("cuda", "kernel"), ("cuda", "gather")),
     )
     def q8_pair(cfg, scfg, seed, sides):
+        """Both sides' (first decode logits, tokens), and the first packed-
+        linear input that rounds to another bf16 value on the two sides."""
         model = Q8Weights(cfg, torch.float32, "cuda", seed).sparse_model(scfg)
-        outs = []
+        outs, inputs = [], []
         for dev, mode in sides:
             m = type(model)(config=cfg, params=to_device(model.params, dev))
             eng = engine_cls(m, max_seq=64, sampler=sampler, kv_dtype=torch.float32,
                              sparse=scfg, sparse_decode_mode=mode,
                              sparse_preprepared=True, device=dev)
-            outs.append(first_decode_and_tokens(eng, prompt, 16))
+            inputs.append(record_quant_inputs(
+                lambda: outs.append(first_decode_and_tokens(eng, prompt, 16))))
             del eng, m
         del model
         torch.cuda.empty_cache()
-        return outs
+        return outs, first_bf16_flip(*inputs)
 
     for label, cfg, scfg, seed, *sides in cases:
-        check_pair(label, q8_pair(cfg, scfg, seed, sides))
+        outs, flip = q8_pair(cfg, scfg, seed, sides)
+        print(f"reference ({label}): first bf16 flip of a packed-linear input: {flip}")
+        check_pair(label, outs)
     # the spread over other weight seeds, printed and not checked: a bf16
     # rounding that flips between the two paths cascades (docstring, phase 3)
     spread = []
-    for seed in range(SEED + 3, SEED + 10):
-        outs = q8_pair(cfg, scfg, seed, sides)
+    for seed in (*range(SEED + 3, SEED + 10), SEED + 20):
+        outs, flip = q8_pair(cfg, scfg, seed, sides)
         err = (outs[0][0] - outs[1][0]).abs().max().item()
-        spread.append((seed, err / outs[1][0].abs().max().item(), outs[0][1] == outs[1][1]))
-    print(f"reference spread ({label}), (seed, max diff / scale, tokens equal): {spread}")
+        spread.append((seed, err / outs[1][0].abs().max().item(), outs[0][1] == outs[1][1],
+                       flip))
+    print(f"reference spread ({label}), (seed, max diff / scale, tokens equal, first bf16 "
+          f"flip): {spread}")
 
 
 def rows_sets(gen, n_sets, N, C, ng, L):
@@ -540,7 +596,7 @@ for kind, N, IN, OUT, L, xdt in json.loads(sys.argv[1]):
         marker.fill_(2.0)
         torch.cuda.synchronize()
         time.sleep(0.2)
-    result.append([[e.key[:80], e.count] for e in prof.key_averages()
+    result.append([[e.key[:120], e.count] for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA])
     del q, s, x
 print(json.dumps(result))
@@ -559,9 +615,9 @@ def kernels_per_call(specs) -> list[int]:
     check(proc.returncode == 0, f"kernels-per-call profile failed: {proc.stderr[-2000:]}")
     counts = []
     for spec, rows in zip(specs, json.loads(proc.stdout.strip().splitlines()[-1])):
-        fills = sum(c for k, c in rows if "fill" in k.lower())
+        fills = sum(c for k, c in rows if "FillFunctor" in k)
         check(fills == 2, f"{spec}: profile window recorded {fills} of its 2 markers: {rows}")
-        counts.append(sum(c for k, c in rows if "fill" not in k.lower()))
+        counts.append(sum(c for k, c in rows if "FillFunctor" not in k))
         print(f"kernels per call {spec}: {counts[-1]} {[k for k, _ in rows]}")
     return counts
 
@@ -570,9 +626,8 @@ def qmm_row(label, kernel, plain, stores, x, kind, per_call, flat_out=None):
     """Time one quant matmul over its list of cold (packed, scales[, il])
     stores: kernel, plain version and the bf16 torch.matmul of the
     dequantized weights (16 of them, more bytes than L2 holds). per_call:
-    the kernels one call launches (kernels_per_call), 1 at N <= 4 (the
-    decode kernel), 2 above where IN takes K splits (the split kernel and
-    the split sum)."""
+    the kernels one call launches (kernels_per_call), which must be 1:
+    qmm_decode at N <= 4, qmm_prefill above."""
     import torch
 
     from sparkinfer_tpu_torch.ops import quant_matmul as qm
@@ -589,9 +644,7 @@ def qmm_row(label, kernel, plain, stores, x, kind, per_call, flat_out=None):
     got = call(kernel, 0)
     torch.cuda.synchronize()
     err, tol = compare(label, got, call(plain, 0))
-    decode = N <= qm.DECODE_MAX_N
-    check(per_call == (1 if decode or IN <= 256 else 2),
-          f"{label}: {per_call} kernels in one call")
+    check(per_call == 1, f"{label}: {per_call} kernels in one call")
     ms = graph_ms(lambda i: call(kernel, i), N_SETS)
     plain_ms = graph_ms(lambda i: call(plain, i), 8)
 
@@ -611,9 +664,9 @@ def qmm_row(label, kernel, plain, stores, x, kind, per_call, flat_out=None):
     bound_ms, by = bound(nbytes, 2 * N * IN * OUT, PEAK_BF16_FLOP_S)
     row = dict(kernel=label.split()[0], shape=label, max_abs_err=err, tol=tol, ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=library_ms,
-               GB_s=nbytes / (ms * 1e-3) / 1e9, launches_per_call=per_call)
-    if decode:  # the decode kernel's tile, K splits and wave ratio
-        row["plan"] = qm.decode_plan(x.device, N, IN, OUT, kind)
+               GB_s=nbytes / (ms * 1e-3) / 1e9, TFLOP_s=2 * N * IN * OUT / (ms * 1e-3) / 1e12,
+               launches_per_call=per_call,
+               plan=qm.launch_plan(x.device, N, IN, OUT, kind))  # tile, K splits, waves
     print("kernel check:", json.dumps(row))
     torch.cuda.empty_cache()
     return row
@@ -639,28 +692,31 @@ def phase_quant_matmul(params):
     q4 = [(q4q[i], q4s[i]) for i in range(N_SETS)]
     V = params["output"].q.shape[-1]
     flat_specs = [(key, N, flat[key].shape[0], flat[key].out_dim)
-                  for key, N in (("pred_up_qt", 1), ("pred_down_qt", 1), ("pred_down_qt", 4))]
-    specs = ([("q8_0", N, E, E, 1, "bfloat16") for N in (1, 4, 32)]
+                  for key, N in (("pred_up_qt", 1), ("pred_down_qt", 1), ("pred_down_qt", 4),
+                                 ("pred_up_qt", 32), ("pred_down_qt", 32))]
+    specs = ([("q8_0", N, E, E, 1, "bfloat16") for N in (1, 4, 8, 32, 512)]
              + [("q4_0", N, E, E, 1, "bfloat16") for N in (1, 32)]
-             + [("q8_0", 1, E, V, 1, "bfloat16")]
+             + [("q8_0", N, E, V, 1, "bfloat16") for N in (1, 32)]
              + [("q8_0", N, IN, OUT, 3, "float32") for _, N, IN, OUT in flat_specs])
     per_call = dict(zip(specs, kernels_per_call(specs)))
     rows = []
-    for N in (1, 4, 32):  # decode at B = 1 and 4; a 32-token prefill
+    # decode at B = 1 and 4; a batch of 8; a 32-token prefill; a 512-token chunk
+    for N in (1, 4, 8, 32, 512):
         x = torch.randn((N, E), generator=gen, device="cuda").to(torch.bfloat16)
         rows.append(qmm_row(f"quant_matmul_2d q8_0 {E}x{E} N={N}", qm.quant_matmul_2d,
                             qm.quant_matmul_2d_plain, q8, x, "q8_0",
                             per_call[("q8_0", N, E, E, 1, "bfloat16")]))
-        if N != 4:
+        if N in (1, 32):
             rows.append(qmm_row(f"quant_matmul_2d q4_0 {E}x{E} N={N}", qm.quant_matmul_2d,
                                 qm.quant_matmul_2d_plain, q4, x, "q4_0",
                                 per_call[("q4_0", N, E, E, 1, "bfloat16")]))
     del q4, q4q, q4s
     head = params["output"]
-    x = torch.randn((1, E), generator=gen, device="cuda").to(torch.bfloat16)
-    rows.append(qmm_row(f"quant_matmul_2d q8_0 head {E}x{V} N=1",
-                        qm.quant_matmul_2d, qm.quant_matmul_2d_plain,
-                        [(head.q, head.s)], x, "q8_0", per_call[("q8_0", 1, E, V, 1, "bfloat16")]))
+    for N in (1, 32):
+        x = torch.randn((N, E), generator=gen, device="cuda").to(torch.bfloat16)
+        rows.append(qmm_row(f"quant_matmul_2d q8_0 head {E}x{V} N={N}",
+                            qm.quant_matmul_2d, qm.quant_matmul_2d_plain, [(head.q, head.s)],
+                            x, "q8_0", per_call[("q8_0", N, E, V, 1, "bfloat16")]))
     flat_rows = []
     for key, N, IN, OUT in flat_specs:
         t = flat[key]
@@ -1124,7 +1180,8 @@ def phase_v2(model, scfg, C):
 
 def profile_steps(label, step, steps: int = 8):
     """Device time by kernel over `steps` calls of step() (torch.profiler),
-    and the share of the window in which the device was busy."""
+    and the share of the window in which the device was busy. Returns the
+    (kernel, ms, launches) rows over all steps and the window's wall ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1145,6 +1202,7 @@ def profile_steps(label, step, steps: int = 8):
           f"device busy {busy / steps:.3f} ms/step ({100 * busy / wall_ms:.1f}%)")
     for key, ms, count in rows[:12]:
         print(f"  {ms / steps:8.4f} ms/step  {count // steps:5d}/step  {key[:90]}")
+    return rows, wall_ms
 
 
 def profile_decode(eng, prompt, steps: int = 8):
@@ -1158,6 +1216,78 @@ def profile_decode(eng, prompt, steps: int = 8):
         state["n"] += 1
 
     profile_steps("sparse decode steps", step, steps)
+
+
+def profile_prefill(eng, prompt, steps: int = 4) -> dict:
+    """The engine's prefill of `prompt` into one cache: prefill tok/s from
+    `steps` synchronized calls, then the same calls under torch.profiler:
+    device time per prefill by kernel, and the packed linears' share (every
+    kernel named qmm_*) with their launches per prefill."""
+    import torch
+
+    cache, st = eng.new_cache(), eng.new_sampler_state()
+    eng.prefill(prompt, cache, st)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.prefill(prompt, cache, st)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    rows, _ = profile_steps(f"{len(prompt)}-token prefills", lambda: eng.prefill(prompt, cache, st),
+                            steps)
+    qmm = [(k, ms, n) for k, ms, n in rows if "qmm_" in k]
+    got = dict(tokens=len(prompt), wall_ms=wall_ms, prefill_tps=len(prompt) / wall_ms * 1e3,
+               device_ms=sum(r[1] for r in rows) / steps,
+               qmm_ms=sum(r[1] for r in qmm) / steps,
+               qmm_launches=sum(r[2] for r in qmm) // steps,
+               qmm_kernels={k[:60]: [ms / steps, n // steps] for k, ms, n in qmm})
+    print("prefill profile:", json.dumps(got))
+    check(got["qmm_launches"] > 0, "the profiled prefill recorded no quant_matmul kernel")
+    return got
+
+
+def q8_13b_engine(greedy):
+    """ProSparse-Llama-2-13B widths, Q8_0, random weights made and quantized
+    on the card layer by layer, and its sparse engine."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.sparse.config import SparseConfig
+
+    cfg = prosparse_config(40, 5120, 40, 13824, 32000, 1280)
+    scfg = SparseConfig(group_size=128, capacity_groups=16)  # 16 of 108 groups, 12.5%
+    t0 = time.perf_counter()
+    weights = Q8Weights(cfg, torch.bfloat16, "cuda", SEED)
+    model = weights.sparse_model(scfg)
+    eng = Engine(model, max_seq=1024, sampler=greedy, sparse=scfg, sparse_preprepared=True,
+                 device="cuda")
+    torch.cuda.synchronize()
+    print(f"model: ProSparse-Llama-2-13B widths, L={cfg.n_layer} E={cfg.n_embd} "
+          f"F={cfg.n_ff} V={cfg.n_vocab} R={cfg.max_pred_rank}, Q8_0 attention/head/"
+          f"FFN stores/predictor stacks, built in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return cfg, scfg, weights, model, eng
+
+
+def prefill_only() -> int:
+    """`chip_smoke.py --prefill-profile`: only the profiled 32-token prefill
+    of the 13B Q8_0 engine, for whichever sparkinfer_tpu_torch the script's
+    directory holds (so a copy of this script beside another revision's
+    package profiles that revision). Prints the card and one JSON line."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; nothing to run", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0])
+    prompt = torch.randint(32000, (32,), generator=torch.Generator().manual_seed(SEED)).tolist()
+    *_, eng = q8_13b_engine(SamplerConfig(temp=0.0))
+    print(json.dumps({"prefill_profile": profile_prefill(eng, prompt)}))
+    return 0
 
 
 def run_generate(eng, prompt, n_new):
@@ -1333,19 +1463,8 @@ def main() -> int:
     print(f"7B paths done at {time.perf_counter() - t_start:.1f} s")
 
     # 5c. the 13B-width Q8_0 model, made and quantized on the card
-    cfg = prosparse_config(40, 5120, 40, 13824, 32000, 1280)
-    scfg = SparseConfig(group_size=128, capacity_groups=16)  # 16 of 108 groups, 12.5%
+    cfg, scfg, weights, model, sparse_eng = q8_13b_engine(greedy)
     ng, C = scfg.n_groups(cfg.n_ff), scfg.capacity(cfg.n_ff)
-    t0 = time.perf_counter()
-    weights = Q8Weights(cfg, torch.bfloat16, "cuda", SEED)
-    model = weights.sparse_model(scfg)
-    sparse_eng = Engine(model, max_seq=1024, sampler=greedy, sparse=scfg,
-                        sparse_preprepared=True, device="cuda")
-    torch.cuda.synchronize()
-    print(f"model: ProSparse-Llama-2-13B widths, L={cfg.n_layer} E={cfg.n_embd} "
-          f"F={cfg.n_ff} V={cfg.n_vocab} R={cfg.max_pred_rank}, Q8_0 attention/head/"
-          f"FFN stores/predictor stacks, built in {time.perf_counter() - t0:.1f} s; "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
     # 4b. v6q and the quant matmuls against their plain versions
     v6q_row = phase_v6q(model.params["sparse_flat"], cfg.n_layer, ng, C)
@@ -1364,6 +1483,7 @@ def main() -> int:
 
     l13, s13 = main_path("13B Q8_0 sparse", sparse_eng, prompt, n_new, want13)
     profile_decode(sparse_eng, prompt)
+    profile_prefill(sparse_eng, prompt)
     del sparse_eng
     dense_params = dict(model.params)
     dense_params.pop("sparse_flat")
@@ -1416,4 +1536,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(prefill_only() if sys.argv[1:] == ["--prefill-profile"] else main())

@@ -22,13 +22,13 @@ exact products are summed in f32. `quant_matmul_2d` and `quant_matmul_flat`
 take the plain version for a CPU tensor and launch the kernel for a CUDA
 tensor (or raise), counting launches in `.launches`. Unlike the JAX
 function, no shape falls back to another path: the kernel takes every
-`in % 32 == 0`. Decode (N <= DECODE_MAX_N tokens) is one launch that sums
-its K splits itself through a per-device workspace (tile counters and
-partial sums), allocated zeroed at the first call on that device, which
-therefore must not happen during CUDA-graph capture; two streams must not
-run the decode kernel at the same time on one device. Wider N launches the
-K-split kernel and a second kernel that sums the splits, with scratch
-allocated per call.
+`in % 32 == 0`. Every call is one launch. Decode (N <= DECODE_MAX_N
+tokens) runs `qmm_decode`, which sums its K splits itself through a
+per-device workspace (tile counters and partial sums), allocated zeroed at
+the first decode call on that device, which therefore must not happen
+during CUDA-graph capture; two streams must not run the decode kernel at
+the same time on one device. Wider x runs `qmm_prefill` on the tensor
+cores, whose K splits add up inside a thread-block cluster.
 
 W8A8 row-wise int8 (`W8A8Tensor`, `w8a8_linear`) comes with the tiering
 slice.
@@ -45,7 +45,7 @@ from . import _build
 
 QK = 32  # ggml block size for q4_0/q8_0
 KINDS = ("q4_0", "q8_0")
-DECODE_MAX_N = 4  # the widest x the one-launch decode kernel takes
+DECODE_MAX_N = 4  # the widest x of the decode kernel; wider x runs the prefill kernel
 
 
 def _div(kind: str) -> int:
@@ -235,7 +235,7 @@ def quant_matmul_flat_plain(x: torch.Tensor, qw: torch.Tensor, scales: torch.Ten
 _lib_cache: list[ctypes.CDLL] = []
 _workspace: dict[int, torch.Tensor] = {}  # decode workspace, by device index
 _capacity: list[tuple[int, int]] = []  # (counter tiles, partial floats) of the workspace
-_plans: dict[tuple, tuple[int, ...]] = {}  # decode launch shapes, by (device, N, in, out, q4)
+_plans: dict[tuple, tuple[int, ...]] = {}  # launch shapes, by (device, N, in, out, q4)
 
 
 def _lib() -> ctypes.CDLL:
@@ -244,8 +244,6 @@ def _lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.quant_matmul.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
         lib.quant_matmul.restype = i
-        lib.quant_matmul_scratch_floats.argtypes = [i, i, i]
-        lib.quant_matmul_scratch_floats.restype = ll
         lib.quant_matmul_workspace_words.argtypes = []
         lib.quant_matmul_workspace_words.restype = ll
         lib.quant_matmul_workspace_capacity.argtypes = [ctypes.POINTER(ll)] * 2
@@ -272,12 +270,12 @@ def _cuda_error(lib, err: int, what: str):
         raise RuntimeError(f"quant_matmul {what} failed: CUDA error {err} ({msg})")
 
 
-def decode_plan(device, N: int, IN: int, OUT: int, kind: str) -> dict:
-    """The decode kernel's launch shape for x (N, IN) over OUT columns on
-    `device`: the column tile, the K splits, the blocks per wave (slots, R)
-    and the wave ratio ceil(B / R) / (B / R), counted in bytes. k_splits is 0
-    where IN is too large for the kernel (the wrappers raise). Cached by
-    shape."""
+def launch_plan(device, N: int, IN: int, OUT: int, kind: str) -> dict:
+    """The kernel's launch shape for x (N, IN) over OUT columns on `device`:
+    the column tile, the K splits, the tiles (column tiles, times token tiles
+    at N > DECODE_MAX_N), the blocks per wave (slots, R) and the wave ratio
+    ceil(B / R) / (B / R), counted in bytes. k_splits is 0 where IN is too
+    large for the decode kernel (the wrappers raise). Cached by shape."""
     device = torch.device(device)
     key = (device.index, N, IN, OUT, _div(kind) == 2)
     got = _plans.get(key)
@@ -327,10 +325,10 @@ def _launch(x, qw, scales, kind: str, col0: int, out_dim: int) -> torch.Tensor:
         x = x.float()
     x = x.contiguous()
     lib = _lib()
-    f32 = dict(dtype=torch.float32, device=x.device)
+    scratch = None
     if N <= DECODE_MAX_N:
         scratch = _decode_workspace(x.device)
-        plan = decode_plan(x.device, N, IN, out_dim, kind)
+        plan = launch_plan(x.device, N, IN, out_dim, kind)
         tiles, floats = _capacity[0]
         ks = plan["k_splits"]
         _check(ks > 0, f"x ({N}, {IN}): no K split of the decode kernel holds its x rows "
@@ -339,13 +337,12 @@ def _launch(x, qw, scales, kind: str, col0: int, out_dim: int) -> torch.Tensor:
                f"x ({N}, {IN}) over {out_dim} columns in {ks} K splits needs "
                f"{plan['tiles']} tile counters and {ks * N * out_dim} partial floats; "
                f"the workspace holds {tiles} and {floats}")
-    else:
-        scratch = torch.empty((lib.quant_matmul_scratch_floats(N, IN, out_dim),), **f32)
-    out = torch.empty((N, out_dim), **f32)
+    out = torch.empty((N, out_dim), dtype=torch.float32, device=x.device)
+    ws = 0 if scratch is None else scratch.data_ptr()
     with torch.cuda.device(x.device):
         err = lib.quant_matmul(
             x.data_ptr(), int(x.dtype == torch.bfloat16), qw.data_ptr(),
-            scales.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, IN,
+            scales.data_ptr(), out.data_ptr(), ws, N, IN,
             out_dim, ld, col0, int(div == 2),
             torch.cuda.current_stream(x.device).cuda_stream)
     _cuda_error(lib, err, "launch")

@@ -8,12 +8,13 @@ versions are compared inside one process on one card.
 `extern "C" quant_matmul` entry point (for example one taken with
 `git show <rev>:sparkinfer_tpu_torch/csrc/quant_matmul.cu`). Both are built
 with `ops/_build.py`'s flags. Each case calls the entry points directly over
-64 cold random stores (or the 40 layer stripes of one flat store) inside a
-CUDA graph and prints one JSON line: the mean microseconds per call of each
-turn, and the largest difference between the two outputs relative to their
-scale. The decode workspace is passed where a library exports
-`quant_matmul_workspace_words` and N <= 4, else the per-call scratch of
-`quant_matmul_scratch_floats`.
+64 cold random stores (4 of the 184 MB head; the 40 layer stripes of one
+flat store) inside a CUDA graph and prints one JSON line: the mean
+microseconds per call of each turn, and the largest difference between the
+two outputs relative to their scale. A library that exports
+`quant_matmul_workspace_words` gets its workspace where
+`quant_matmul_scratch_floats` asks for no scratch, else that scratch per
+call (a revision whose prefill took two launches).
 """
 
 from __future__ import annotations
@@ -30,11 +31,16 @@ import torch
 from ..ops import _build
 
 # (kind, N, IN, OUT, layers, x dtype): the 13B attention projection and
-# pred_down at decode, and the attention projection at a 32-token prefill
+# pred_down at decode; at a batch of 8, a 32-token prefill (with the head
+# and pred_down) and a 512-token chunk
 CASES = (("q8_0", 1, 5120, 5120, 1, torch.bfloat16),
          ("q8_0", 1, 1280, 13824, 40, torch.float32),
+         ("q8_0", 8, 5120, 5120, 1, torch.bfloat16),
          ("q8_0", 32, 5120, 5120, 1, torch.bfloat16),
-         ("q4_0", 32, 5120, 5120, 1, torch.bfloat16))
+         ("q4_0", 32, 5120, 5120, 1, torch.bfloat16),
+         ("q8_0", 32, 5120, 32000, 1, torch.bfloat16),
+         ("q8_0", 32, 1280, 13824, 40, torch.float32),
+         ("q8_0", 512, 5120, 5120, 1, torch.bfloat16))
 
 
 def _load(src: Path) -> ctypes.CDLL:
@@ -92,7 +98,7 @@ def compare(other: Path, reps: int = 64) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for kind, N, IN, OUT, L, xdt in CASES:
-        n, ld, q4 = (64 if L == 1 else 1), OUT * L, kind == "q4_0"
+        n, ld, q4 = (1 if L > 1 else 4 if IN * OUT > 1 << 26 else 64), OUT * L, kind == "q4_0"
         if q4:
             q = torch.randint(0, 256, (n, IN // 2, ld), generator=gen, device="cuda",
                               dtype=torch.uint8)
@@ -106,9 +112,9 @@ def compare(other: Path, reps: int = 64) -> list[dict]:
         for name in ("other", "this", "this", "other"):
             lib = libs[name]
             scratch = scratch_of[name]
-            if scratch is None or N > 4:
-                scratch = torch.empty(max(1, lib.quant_matmul_scratch_floats(N, IN, OUT)),
-                                      device="cuda")
+            floats = lib.quant_matmul_scratch_floats(N, IN, OUT)
+            if scratch is None or floats > 0:
+                scratch = torch.empty(max(1, floats), device="cuda")
 
             def call(k, lib=lib, scratch=scratch):
                 err = lib.quant_matmul(

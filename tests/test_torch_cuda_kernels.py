@@ -263,7 +263,7 @@ def _check_qmm(got, ref, tol):
 def test_quant_matmul_2d(cuda, kind, N, IN, OUT, xdt):
     """The 13B attention and predictor shapes, and an OUT that is not
     16-byte aligned (the byte-wise path), against the plain version: the
-    decode kernel at N <= 4 (f32 and bf16 x), the K-split pair at N = 32."""
+    decode kernel at N <= 4 (f32 and bf16 x), the prefill kernel at N = 32."""
     q, s = _store(kind, IN, OUT, cuda, seed=20)
     x = torch.randn((N, IN), device=cuda).to(xdt)
     before = tqm.quant_matmul_2d.launches
@@ -274,8 +274,40 @@ def test_quant_matmul_2d(cuda, kind, N, IN, OUT, xdt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,IN,OUT,xdt", [
+    (k, n, i, o, dt) for k in ("q4_0", "q8_0") for n in (5, 8, 13, 32, 33, 128, 512)
+    for (i, o, dt) in ((5120, 5120, torch.bfloat16), (5120, 1280, torch.float32),
+                       (96, 199, torch.float32), (96, 199, torch.bfloat16))])
+def test_quant_matmul_prefill(cuda, kind, N, IN, OUT, xdt):
+    """qmm_prefill (N > 4) against the plain version: token counts below,
+    at and across its token tiles (16, 32, 64), the 13B attention and
+    pred_up shapes, and an OUT that is not 16-byte aligned (byte loads) at
+    IN = 96 (three stages), f32 and bf16 x."""
+    q, s = _store(kind, IN, OUT, cuda, seed=28)
+    x = torch.randn((N, IN), device=cuda).to(xdt)
+    before = tqm.quant_matmul_2d.launches
+    got = tqm.quant_matmul_2d(x, q, s, kind=kind)
+    torch.cuda.synchronize()
+    assert tqm.quant_matmul_2d.launches == before + 1
+    _check_qmm(got, tqm.quant_matmul_2d_plain(x, q, s, kind=kind), 1e-4 if IN > 256 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+def test_quant_matmul_prefill_head(cuda, xdt):
+    """The 13B head, 5120 x 32000 Q8_0, at a 32-token prefill (250 column
+    tiles), and an x that starts off a 16-byte boundary (byte loads of x)."""
+    q, s = _store("q8_0", 5120, 32000, cuda, seed=29)
+    x = torch.randn((33, 5120), device=cuda).to(xdt)
+    for xx in (x[:32], x.view(-1)[1:1 + 32 * 5120].view(32, 5120)):
+        _check_qmm(tqm.quant_matmul_2d(xx, q, s, kind="q8_0"),
+                   tqm.quant_matmul_2d_plain(xx, q, s, kind="q8_0"), 1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind,N", [("q8_0", 1), ("q8_0", 4), ("q4_0", 1), ("q8_0", 2),
-                                    ("q8_0", 3), ("q4_0", 2), ("q4_0", 3), ("q4_0", 4)])
+                                    ("q8_0", 3), ("q4_0", 2), ("q4_0", 3), ("q4_0", 4),
+                                    ("q8_0", 5), ("q8_0", 32), ("q4_0", 32), ("q8_0", 128)])
 def test_quant_matmul_flat(cuda, kind, N):
     """Layer 2 of a 3-layer stack at the 13B pred_down shape, read in place."""
     L, IN, OUT = 3, 1280, 13824
@@ -325,24 +357,25 @@ def _kernels_of_one_call(fn):
         torch.cuda.synchronize()
         time.sleep(0.2)
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert sum("fill" in n.lower() for n in names) == 2, names
-    return [n for n in names if "fill" not in n.lower()]
+    assert sum("FillFunctor" in n for n in names) == 2, names
+    return [n for n in names if "FillFunctor" not in n]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 2, 3, 4, 32])
+@pytest.mark.parametrize("N", [1, 2, 3, 4, 8, 32, 512])
 def test_quant_matmul_launches_per_call(cuda, N):
-    """One kernel per call at N <= 4 (qmm_decode sums its own K splits);
-    the K-split kernel and the split sum at N = 32."""
+    """One kernel per call: qmm_decode at N <= 4, qmm_prefill above, each
+    summing its own K splits."""
     q, s = _store("q8_0", 5120, 5120, cuda, seed=24)
     x = torch.randn((N, 5120), device=cuda)
     names = _kernels_of_one_call(lambda: tqm.quant_matmul_2d(x, q, s, kind="q8_0"))
     if N <= tqm.DECODE_MAX_N:
         assert len(names) == 1 and "qmm_decode" in names[0], names
-        assert tqm.decode_plan(cuda, N, 5120, 5120, "q8_0")["k_splits"] > 1
+        assert tqm.launch_plan(cuda, N, 5120, 5120, "q8_0")["k_splits"] > 1
     else:
-        assert len(names) == 2 and "qmm_partial" in names[0], names
-        assert "qmm_sum_splits" in names[1], names
+        assert len(names) == 1 and "qmm_prefill" in names[0], names
+    if N in (8, 32):
+        assert tqm.launch_plan(cuda, N, 5120, 5120, "q8_0")["k_splits"] > 1
 
 
 @pytest.mark.cuda
@@ -375,6 +408,36 @@ def test_quant_matmul_decode_is_bit_equal_across_calls_and_graph_replays(cuda, k
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("N", [8, 32, 128, 512])
+def test_quant_matmul_prefill_is_bit_equal_across_calls_and_graph_replays(cuda, kind, N):
+    """qmm_prefill's last block of a tile adds the K splits in split order:
+    the same bits on every call and replay, with the counters back at 0."""
+    q, s = _store(kind, 5120, 3 * 1280, cuda, seed=30)
+    x = torch.randn((N, 5120), device=cuda)
+    x2 = torch.randn((N, 5120), device=cuda).bfloat16()
+    assert tqm.launch_plan(cuda, N, 5120, 1280, kind)["k_splits"] > 1
+    calls = (lambda: tqm.quant_matmul_2d(x, q, s, kind=kind),
+             lambda: tqm.quant_matmul_flat(x2, q, s, 1, kind=kind, out_dim=1280))
+    ref = [c() for c in calls]
+    for _ in range(3):
+        for c, r in zip(calls, ref):
+            assert torch.equal(c(), r)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, r in zip(outs, ref):
+            assert torch.equal(o, r)
+    _check_qmm(ref[0], tqm.quant_matmul_2d_plain(x, q, s, kind=kind), 1e-4)
+    _check_qmm(ref[1], tqm.quant_matmul_flat_plain(x2, q, s, 1, kind=kind, out_dim=1280), 1e-4)
+
+
+@pytest.mark.cuda
 def test_quant_matmul_decode_workspace_guards(cuda, monkeypatch):
     """The decode workspace is allocated at a device's first decode call,
     which raises inside CUDA-graph capture; a call whose K splits need more
@@ -389,7 +452,7 @@ def test_quant_matmul_decode_workspace_guards(cuda, monkeypatch):
             tqm.quant_matmul_2d(x, q, s, kind="q8_0")
     assert not tqm._workspace
     assert torch.equal(tqm.quant_matmul_2d(x, q, s, kind="q8_0"), ref)  # allocates
-    plan = tqm.decode_plan(cuda, 1, 5120, 5120, "q8_0")
+    plan = tqm.launch_plan(cuda, 1, 5120, 5120, "q8_0")
     assert plan["k_splits"] > 1 and plan["tiles"] > 4
     monkeypatch.setattr(tqm, "_capacity", [(4, tqm._capacity[0][1])])
     with pytest.raises(ValueError, match="tile counters"):
@@ -404,7 +467,7 @@ def test_quant_matmul_decode_refuses_an_in_dim_beyond_its_splits(cuda):
     """At N = 4 no K split (at most 16) holds more than 32768 input rows of x
     in shared memory, so the wrapper raises for 32800; at N = 1 it fits."""
     q, s = _store("q8_0", 32800, 16, cuda, seed=27)
-    assert tqm.decode_plan(cuda, 4, 32800, 16, "q8_0")["k_splits"] == 0
+    assert tqm.launch_plan(cuda, 4, 32800, 16, "q8_0")["k_splits"] == 0
     with pytest.raises(ValueError, match="in dim too large"):
         tqm.quant_matmul_2d(torch.randn((4, 32800), device=cuda), q, s, kind="q8_0")
     x = torch.randn((1, 32800), device=cuda)
@@ -437,8 +500,8 @@ def _sass_functions(lib_path):
 @pytest.mark.cuda
 def test_quant_matmul_decode_sass_has_no_conversions(cuda):
     """qmm_decode dequantizes with PRMT, LOP3, FADD and bf16x2 FMAs: its
-    SASS holds no I2F, F2F or F2FP (nor their P forms or F2I). The first
-    design's qmm_partial, which converts each weight, shows that the parser
+    SASS holds no I2F, F2F or F2FP (nor their P forms or F2I). qmm_prefill,
+    which rounds x and the scales to bf16 with F2FP, shows that the parser
     sees them. Needs cuobjdump from the CUDA toolkit."""
     from sparkinfer_tpu_torch.ops import _build
 
@@ -449,8 +512,24 @@ def test_quant_matmul_decode_sass_has_no_conversions(cuda):
     for name, ops in decode.items():
         assert len(ops) > 100, name
         assert not _CONVERSIONS & set(ops), (name, sorted(_CONVERSIONS & set(ops)))
-    partial = [v for k, v in funcs.items() if "qmm_partial" in k]
-    assert partial and all(_CONVERSIONS & set(ops) for ops in partial)
+    prefill = [v for k, v in funcs.items() if "qmm_prefill" in k]
+    assert prefill and all(_CONVERSIONS & set(ops) for ops in prefill)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_prefill_sass_runs_on_tensor_cores(cuda):
+    """All six qmm_prefill instantiations (Q8_0 and Q4_0 at token tiles 16,
+    32 and 64) issue tensor-core products (HMMA) and dequantize without I2F
+    (PRMT, LOP3 and bf16x2 FMAs). Needs cuobjdump."""
+    from sparkinfer_tpu_torch.ops import _build
+
+    tqm._lib()
+    funcs = _sass_functions(_build.library_path("quant_matmul"))
+    prefill = {k: v for k, v in funcs.items() if "qmm_prefill" in k}
+    assert len(prefill) == 6, sorted(funcs)
+    for name, ops in prefill.items():
+        assert "HMMA" in ops or "HGMMA" in ops, (name, sorted(set(ops)))
+        assert not {"I2F", "I2FP"} & set(ops), name
 
 
 @pytest.mark.cuda

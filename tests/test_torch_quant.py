@@ -113,7 +113,7 @@ def _packed(kind, IN, OUT, seed, L=None):
 
 
 @pytest.mark.parametrize("kind,N,form", list(itertools.product(
-    KINDS, [1, 4], ["2d", "flat"])))
+    KINDS, [1, 4, 5, 8, 32], ["2d", "flat"])))
 def test_plain_quant_matmul_matches_jax_kernel(kind, N, form):
     IN, OUT, L = 96, 40, 3
     x = np.random.default_rng(3).standard_normal((N, IN)).astype(np.float32)
