@@ -53,7 +53,10 @@ sees no card or the package is missing. Phases, each of which fails the run:
        interleave (L, ng, 3, G, E), v2 over the bench path's concatenated
        store (L, 3*ng, G, E), these four with an up bias; all five run one
        strided kernel (csrc/sparse_ffn_v1.cu); sparse_ffn_block_v7u at 7B
-       widths, B=8, Cu=48;
+       widths, B=1, 4 and 8, Cu=48, over the model's stores, and at 13B
+       widths, B=8, Cu=64 of 108, E=5120, over one layer's bf16 stores, each
+       with the kernels one call launches (torch.profiler: v7u_up then
+       v7u_down) and its launch plan (clusters, blocks, wave ratios);
        sparse_ffn_block_v6q at 13B widths (E=5120, G=128, C=16 of 108);
        quant_matmul_2d Q8_0/Q4_0 5120x5120 at N=1 and 32 and Q8_0 at N=4, 8
        and 512, Q8_0 head 5120x32000 at N=1 and 32; quant_matmul_flat at the
@@ -73,8 +76,9 @@ sees no card or the package is missing. Phases, each of which fails the run:
        batched decode at the same widths (bench.py batch): aggregate tok/s
        of dense, masked-dense, per-token v6, union v7u and the Scheduler's
        v1 step at B = 1, 4, 8, each from its own dense prefill, best of 3
-       runs of 8 steps, exact launch counts per run; the largest B at which
-       v1 beats masked-dense is the crossover that
+       runs of 8 steps, exact launch counts per run, then a profile of 4
+       v7u steps at B = 8 (v7u's share of the step's device time); the
+       largest B at which v1 beats masked-dense is the crossover that
        sparse.config.sparse_batch_crossover holds;
        sparkinfer-bench's decode rows at the same widths
        (tools.bench_matrix.bench_tg: a 512-token seed prefill into a
@@ -121,6 +125,7 @@ N_SETS = 64  # cold row sets / distinct stores per kernel timing
 # errs by the scale itself
 UNION_TOL = 1e-2
 BATCHES = (1, 4, 8)
+PROFILE_STEPS = 4  # profiled v7u batched decode steps at the largest B
 
 
 def fail(msg: str):
@@ -576,16 +581,25 @@ gen = torch.Generator(device="cuda").manual_seed(0)
 result = []
 for kind, N, IN, OUT, L, xdt in json.loads(sys.argv[1]):
     ld = OUT * L
-    if kind == "q8_0":
-        q = torch.randint(-127, 128, (IN, ld), generator=gen, device="cuda").to(torch.int8)
+    if kind == "v7u":  # N tokens, IN = Cu union rows, OUT = E, L = G
+        from sparkinfer_tpu_torch.ops.sparse_ffn import sparse_ffn_block_v7u
+        w = [(torch.randn(sh, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+             for sh in ((IN + 3, OUT, L), (IN + 3, OUT, L), (IN + 3, L, OUT))]
+        union = torch.randperm(IN + 3, generator=gen, device="cuda")[:IN].to(torch.int32)
+        gp = torch.rand((N, IN, L), generator=gen, device="cuda")
+        x = torch.randn((N, OUT), generator=gen, device="cuda").to(getattr(torch, xdt))
+        fn = lambda: sparse_ffn_block_v7u(x, union, gp, *w, act="fatrelu")
     else:
-        q = torch.randint(0, 256, (IN // 2, ld), generator=gen, device="cuda").to(torch.uint8)
-    s = torch.rand((IN // 32, ld), generator=gen, device="cuda") * 0.01
-    x = torch.randn((N, IN), generator=gen, device="cuda").to(getattr(torch, xdt))
-    if L == 1:
-        fn = lambda: qm.quant_matmul_2d(x, q, s, kind=kind)
-    else:
-        fn = lambda: qm.quant_matmul_flat(x, q, s, L - 1, kind=kind, out_dim=OUT)
+        if kind == "q8_0":
+            q = torch.randint(-127, 128, (IN, ld), generator=gen, device="cuda").to(torch.int8)
+        else:
+            q = torch.randint(0, 256, (IN // 2, ld), generator=gen, device="cuda").to(torch.uint8)
+        s = torch.rand((IN // 32, ld), generator=gen, device="cuda") * 0.01
+        x = torch.randn((N, IN), generator=gen, device="cuda").to(getattr(torch, xdt))
+        if L == 1:
+            fn = lambda: qm.quant_matmul_2d(x, q, s, kind=kind)
+        else:
+            fn = lambda: qm.quant_matmul_flat(x, q, s, L - 1, kind=kind, out_dim=OUT)
     fn()
     marker = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
@@ -596,29 +610,40 @@ for kind, N, IN, OUT, L, xdt in json.loads(sys.argv[1]):
         marker.fill_(2.0)
         torch.cuda.synchronize()
         time.sleep(0.2)
-    result.append([[e.key[:120], e.count] for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA])
-    del q, s, x
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda e: e.time_range.start)
+    result.append([[e.name[:120], 1, e.time_range.start, e.time_range.end] for e in kernels])
+    del fn
+    torch.cuda.empty_cache()
 print(json.dumps(result))
 """
 
 
-def kernels_per_call(specs) -> list[int]:
+def kernels_per_call(specs, names: bool = False) -> list:
     """Device kernels that one call launches, for each (kind, N, IN, OUT,
     layers, x dtype) of a quant matmul (layers > 1: quant_matmul_flat on the
-    last layer's stripe), by torch.profiler in a child process over random
+    last layer's stripe) or ("v7u", B, Cu, E, G, x dtype) of the union FFN
+    over bf16 stores, by torch.profiler in a child process over random
     stores of those shapes. The call lies between two marker kernels
     (fill_), and the window opens and closes with a pause; a window that
-    misses a marker fails."""
+    misses a marker fails. names: the kernels' names in launch order, else
+    their count."""
     proc = subprocess.run([sys.executable, "-c", KERNELS_PER_CALL, json.dumps(specs)],
                           capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0, f"kernels-per-call profile failed: {proc.stderr[-2000:]}")
     counts = []
     for spec, rows in zip(specs, json.loads(proc.stdout.strip().splitlines()[-1])):
-        fills = sum(c for k, c in rows if "FillFunctor" in k)
+        fills = sum(c for k, c, *_ in rows if "FillFunctor" in k)
         check(fills == 2, f"{spec}: profile window recorded {fills} of its 2 markers: {rows}")
-        counts.append(sum(c for k, c in rows if "FillFunctor" not in k))
-        print(f"kernels per call {spec}: {counts[-1]} {[k for k, _ in rows]}")
+        calls = [r for r in rows if "FillFunctor" not in r[0]]
+        kernels = [r[0] for r in calls]
+        counts.append(kernels if names else len(kernels))
+        # each kernel's span in this one profiled call (us); a dependent
+        # launch's span includes its wait for the kernel before it
+        spans = [round(end - start, 3) for _, _, start, end in calls]
+        total = round(calls[-1][3] - calls[0][2], 3) if calls else 0
+        print(f"kernels per call {spec}: {len(kernels)} {[k[:60] for k in kernels]} "
+              f"span us {spans}, first start to last end {total}")
     return counts
 
 
@@ -883,41 +908,77 @@ def phase_rows(rows, C):
     return out
 
 
-def phase_v7u(flat, L, ng, B=8, Cu=48, C=12):
-    """sparse_ffn_block_v7u against its plain version at the 7B batched
-    decode shape, over the flat stores: each call's union is Cu groups of
-    one random layer, each token having selected C of them."""
+def v7u_row(label, stores, unions, B, Cu, C, gen, per_call):
+    """sparse_ffn_block_v7u against its plain version over the flat stores,
+    timed over the union sets (cold): bf16 x, each token having selected C
+    of the Cu groups; with the launches of one call (per_call, which must be
+    the up and down kernels) and the launch plan."""
     import torch
 
     from sparkinfer_tpu_torch.ops.sparse_ffn import (
         sparse_ffn_block_v7u,
         sparse_ffn_block_v7u_plain,
+        v7u_plan,
     )
 
-    R, E, G = flat["w_upT_flat"].shape
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    unions = [(torch.randperm(ng, generator=gen, device="cuda")[:Cu]
-               + int(torch.randint(L, (1,), generator=gen, device="cuda")) * ng).to(torch.int32)
-              for _ in range(N_SETS)]
+    R, E, G = stores[0].shape
     x = torch.randn((B, E), generator=gen, device="cuda").to(torch.bfloat16)
     sel = torch.rand((B, Cu), generator=gen, device="cuda").argsort(-1) < C
     gp = torch.rand((B, Cu, G), generator=gen, device="cuda") * sel[..., None]
-    stores = [flat[k] for k in ("w_upT_flat", "w_gateT_flat", "w_down_flat")]
     kw = dict(act="fatrelu")
-    args = lambda i: (x, unions[i % N_SETS], gp, *stores)  # noqa: E731
+    n = len(unions)
+    args = lambda i: (x, unions[i % n], gp, *stores)  # noqa: E731
     got = sparse_ffn_block_v7u(*args(0), **kw)
     torch.cuda.synchronize()
-    err, tol = compare(f"v7u B={B}", got, sparse_ffn_block_v7u_plain(*args(0), **kw))
+    err, tol = compare(f"v7u {label}", got, sparse_ffn_block_v7u_plain(*args(0), **kw))
+    check(len(per_call) == 2 and "v7u_up" in per_call[0] and "v7u_down" in per_call[1],
+          f"v7u {label}: one call launched {per_call}")
     ms = graph_ms(lambda i: sparse_ffn_block_v7u(*args(i), **kw), N_SETS)
     plain_ms = graph_ms(lambda i: sparse_ffn_block_v7u_plain(*args(i), **kw), 8)
-    # each union row of each projection read once, whatever B is
+    # each union row of each projection read once, whatever B is; x, gp,
+    # the union and out once; 2 flops per weight and token on the bf16
+    # tensor cores
     nbytes = 3 * Cu * G * E * 2 + B * E * 2 + B * Cu * G * 4 + Cu * 4 + B * E * 4
-    bound_ms, by = bound(nbytes, 2 * 3 * B * Cu * G * E, PEAK_F32_FLOP_S)
-    row = dict(kernel="sparse_ffn_block_v7u", B=B, Cu=Cu, G=G, E=E, act="fatrelu",
-               max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=by, library_ms=None, GB_s=nbytes / (ms * 1e-3) / 1e9)
+    bound_ms, by = bound(nbytes, 2 * 3 * B * Cu * G * E, PEAK_BF16_FLOP_S)
+    plan = v7u_plan(x.device, B, Cu, E, G)
+    row = dict(kernel="sparse_ffn_block_v7u", shape=label, B=B, Cu=Cu, G=G, E=E, R=R,
+               act="fatrelu", max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=by, library_ms=None, x_bound=ms / bound_ms,
+               GB_s=nbytes / (ms * 1e-3) / 1e9, launches_per_call=len(per_call),
+               blocks={"up": plan["up"]["blocks"], "down": plan["down"]["blocks"]},
+               cluster={"up": plan["up"]["cluster"], "down": plan["down"]["cluster"]},
+               wave_ratio={"up": plan["up"]["wave_ratio"], "down": plan["down"]["wave_ratio"]})
     print("kernel check:", json.dumps(row))
     return row
+
+
+def phase_v7u(flat, L, ng, C=12):
+    """sparse_ffn_block_v7u against its plain version at the 7B batched
+    decode shapes, B = 1, 4, 8 and Cu = 48, over the model's flat stores
+    (each call's union is Cu groups of one random layer), and at 13B widths,
+    B = 8, Cu = 64 of 108 groups, E = 5120, over one layer's random bf16
+    stores (R = 108, 252 MB). Returns the B = 8, Cu = 48 row."""
+    import torch
+
+    specs = [["v7u", B, 48, 4096, 128, "bfloat16"] for B in (1, 4, 8)]
+    specs.append(["v7u", 8, 64, 5120, 128, "bfloat16"])
+    per_call = kernels_per_call(specs, names=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    stores = [flat[k] for k in ("w_upT_flat", "w_gateT_flat", "w_down_flat")]
+    unions = [(torch.randperm(ng, generator=gen, device="cuda")[:48]
+               + int(torch.randint(L, (1,), generator=gen, device="cuda")) * ng).to(torch.int32)
+              for _ in range(N_SETS)]
+    rows = {B: v7u_row(f"7B B={B} Cu=48", stores, unions, B, 48, C, gen, names)
+            for B, names in zip((1, 4, 8), per_call)}
+    E13, G, R13 = 5120, 128, 108
+    stores13 = [(torch.randn(shape, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+                for shape in ((R13, E13, G), (R13, E13, G), (R13, G, E13))]
+    unions13 = [torch.randperm(R13, generator=gen, device="cuda")[:64].to(torch.int32)
+                for _ in range(N_SETS)]
+    v7u_row("13B B=8 Cu=64", stores13, unions13, 8, 64, 16, gen, per_call[3])
+    del stores13
+    torch.cuda.empty_cache()
+    return rows[8]
 
 
 def scheduler_path(sched, prompts, n_new):
@@ -1003,7 +1064,8 @@ def phase_batched(cfg, scfg, dense_params, flat_params, row_params, steps: int =
         pos = torch.arange(32, device="cuda")[None].expand(B, 32)
         caches, toks = {}, {}
         for name in modes:  # each mode decodes on from its own 32-token prefill
-            caches[name] = init_cache(cfg, B, 32 + 2 + trials * steps, torch.bfloat16, "cuda")
+            caches[name] = init_cache(cfg, B, 32 + 2 + trials * steps + PROFILE_STEPS,
+                                      torch.bfloat16, "cuda")
             toks[name] = prefill(dense_params, prompt, pos, caches[name])[:, -1].argmax(
                 -1, keepdim=True)
         n_past = 32
@@ -1035,6 +1097,27 @@ def phase_batched(cfg, scfg, dense_params, flat_params, row_params, steps: int =
               f"{trials} x {steps} steps):", json.dumps(
                   {k: (round(v, 2) if isinstance(v, float) else v) for k, v in row.items()}))
         table.append(row)
+        if B == BATCHES[-1]:  # v7u's share of a profiled batched step's device time
+            fwd, params, _ = modes["v7u"]
+            at = {"n": n_past}
+
+            def step():
+                toks["v7u"] = fwd(params, toks["v7u"], torch.full((B, 1), at["n"], device="cuda"),
+                                  caches["v7u"])[:, -1].argmax(-1, keepdim=True)
+                at["n"] += 1
+
+            rows, wall_ms = profile_steps(f"v7u batched decode steps (B={B})", step, PROFILE_STEPS)
+            v7u = [(k, ms, n) for k, ms, n in rows if "v7u_" in k]
+            device_ms = sum(r[1] for r in rows)
+            check(sum(r[2] for r in v7u) == 2 * L * PROFILE_STEPS,
+                  f"profiled v7u step: {v7u} (want {2 * L} v7u kernels a step)")
+            print("v7u step profile:", json.dumps({
+                "B": B, "steps": PROFILE_STEPS, "device_ms_per_step": device_ms / PROFILE_STEPS,
+                "wall_ms_per_step": wall_ms / PROFILE_STEPS,
+                "v7u_ms_per_step": sum(r[1] for r in v7u) / PROFILE_STEPS,
+                "v7u_share_of_device_time": sum(r[1] for r in v7u) / device_ms,
+                "v7u_kernels": {k[:40]: [ms / PROFILE_STEPS, n // PROFILE_STEPS]
+                                for k, ms, n in v7u}}))
         del caches
     crossover = max([r["B"] for r in table if r["v1"] > r["masked_dense"]], default=0)
     print(f"batched decode: v1 beats masked-dense up to B={crossover} "

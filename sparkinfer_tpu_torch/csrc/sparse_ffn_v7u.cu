@@ -4,311 +4,800 @@
 // (sparkinfer_tpu/ops/sparse_ffn_pallas.py:1172, kernel body :1122). Each
 // group in the batch's union of selected groups is read once for all B
 // tokens; a per-(token, union slot) probability masks the groups a token did
-// not select. With r = union[u] and flat stores WuT, WgT (R, E, G), Wd (R, G, E):
+// not select. With r = clamp(union[u], 0, R - 1) and flat stores WuT, WgT
+// (R, E, G), Wd (R, G, E):
 //     up[b, u]   = x[b] . WuT[r] + bu[b, u]        WuT cast to x's dtype first
 //     gate[b, u] = x[b] . WgT[r]                   gated activations only
 //     h[b, u]    = bf16(combine(act, gate, up) * mask)   mask = gp >= thr, or gp
 //     out[b]     = sum_u h[b, u] . bf16(Wd[r])     f32 sums
 // The two bf16 roundings and the cast of the up/gate stores to x's dtype are
-// the TPU kernel's (:1135, :1144, :1153-1156); the rounding here is
-// __float2bfloat16_rn, the round-to-nearest-even of the plain version.
+// the TPU kernel's (:1135, :1144, :1153-1156), rounded to nearest even.
 //
 // What bounds it: the weight bytes, n_proj * Cu * G * E * sizeof(w), read once
 // whatever B is: 3 * 48 * 128 * 4096 * 2 = 151 MB at ProSparse-Llama-2-7B
-// widths with Cu = 48, about 45 us at 3.35 TB/s. 2 * B flops per weight:
-// 1.2 GFLOP at B = 8, 18 us even at the f32 CUDA-core peak, so the kernel is
-// bound by memory and each weight loaded is used for all the block's tokens
-// from registers.
+// widths with Cu = 48, 45 us at 3.35 TB/s. The products are 2 * B flops per
+// weight, 1.2 GFLOP at B = 8: 1.2 us on the bf16 tensor cores.
 //
-// Design, four launches that each sum in a fixed order (no atomics):
-//   A  grid (S, Cu, P * TB): block (s, u, p, tb) reads E-slice s (256 rows) of
-//      projection p of union row u once, each thread 8 consecutive g by
-//      16-byte loads, and multiplies every weight into the NT <= 8 tokens of
-//      token chunk tb (x staged in shared memory); then per token a
-//      fixed-order sum over the block's rows gives part[p][b, u, s, :].
-//      S = ceil(E / 256): 1536 blocks at E = 4096, Cu = 48, gated, B <= 8.
-//   H  hidden[b, u, g]: the S partials summed in order, bias, activation,
-//      mask, bf16 rounding.
-//   D  grid (ceil(E / 256), RS, TB): block (tile, chunk, tb) takes its chunk of
-//      the Cu*G down rows, each read once for the chunk's NT tokens (16-byte
-//      loads, rounded to bf16); 8 warps split the rows and, token by token,
-//      sum in shared memory in warp order.
-//   F  out[b, e] = sum over the RS chunk sums, in chunk order.
-// Out-of-range row ids are clamped into [0, R), as XLA clamps a gather.
+// Design: two launches, each a thread-block cluster per output tile whose
+// blocks split the reduction and add it in rank order through distributed
+// shared memory. No atomics, no f32 partials in device memory, and the same
+// bits on every run.
+//   U  (v7u_up) grid (KS, Cu * G tiles, token tiles), cluster (KS, 1, 1).
+//      Block kz of union row u takes its share of the E rows, in stages of 16
+//      rows of the up and gate stores (a G tile of at most 128 columns) and
+//      the stage's 16 elements of each token's x. mma.sync.m16n8k16 with the
+//      weights as A ("swap AB": M = G columns, by ldmatrix.trans of the (E, G)
+//      row-major stage) and the tokens as the n = 8 side, f32 sums in
+//      registers; 4 warps own 4 of the 16 (up, gate) m16 tiles each. Then the
+//      cluster adds its KS partials in rank order; bias, activation, mask and
+//      the bf16 rounding follow, and the hidden (B, Cu, G) is written once
+//      as bf16 (98 KB at B = 8).
+//   D  (v7u_down) grid (KS, E / 64, token tiles), cluster (KS, 1, 1).
+//      out^T (E x B) = Wd^T (E x K) . h^T (K x B), K = Cu * G: block kz of an
+//      E tile of 64 columns takes its share of the K rows (row k is row
+//      clamp(union[k / G]) * G + k % G of Wd) in stages of 64, ldmatrix.trans
+//      of the (K, E) rows as A, the bf16 hidden as B; the cluster adds its
+//      splits in rank order and writes out once, f32. D is a programmatic
+//      dependent launch: its blocks start while U's last blocks run, stream
+//      their first W_down stages, and wait for U's grid (griddepcontrol.wait)
+//      only before they read the hidden.
+// Weight loads in flight: each stage is copied by cp.async.cg (16 bytes a
+// thread, zero-filled past E, G, K or B) into a ring of slots in shared
+// memory with one barrier a stage: U 3 slots of 8.5 KB (2 stages ahead,
+// 27 KB a block), D 4 slots of 10 KB (3 ahead, 41 KB). Sizing: HBM at
+// 3.35 TB/s with about 1 us of latency under load needs 3.35 MB in flight,
+// 25 KB an SM; measured on an H100, an SM pulls its share only with 3 or
+// more such blocks resident (1.8 blocks an SM reached 1.5 TB/s in all), so
+// the rings are kept shallow enough for 5-8 blocks an SM and the splits are
+// picked for 3-4 blocks an SM. Deeper rings (4-6 U slots, 6 D slots) and
+// TMA bulk copies of single rows measured slower.
+// Splits: KS (1-8, a portable cluster) is picked per shape from the
+// occupancy query (clusters resident at once) for the least wave ratio, the
+// stages the busiest SM streams over an even share (plan_split): 1.03 at
+// B <= 8, Cu = 48, E = 4096 (U 384 blocks, D 512) and U 1.03, D 1.13 at
+// Cu = 64, E = 5120 (U 512, D 480).
+//
+// Routes, chosen by dtype:
+//   bf16 stores, bf16 x: tensor cores; every product bf16 x bf16, exact in
+//     f32 (the batched path over bf16 models);
+//   bf16 stores, f32 x: tensor cores, x split into three bf16 terms
+//     (hi + mid + lo, exact for normal f32 values) whose three products go
+//     into the same f32 sums (JAX multiplies in f32);
+//   f32 stores, bf16 x (round_w): each weight rounded to bf16 as its A
+//     fragment is built from the f32 stage, then the tensor cores;
+//   f32 stores, f32 x: the same tiles, products by f32 FMAs on the CUDA
+//     cores (only the f32 tests run it);
+//   the down product is bf16 x bf16 on the tensor cores on every route (an
+//   f32 Wd is rounded to bf16 as its fragments are built).
+// Requires G and E multiples of 8 and 16-byte aligned stores and x.
 
 #include "sparse_ffn_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;          // threads per block in kernels A and D
-constexpr int kWarps = kThreads / 32;
-constexpr int kVec = 8;                // values per thread per load
-constexpr int kSliceE = 256;           // E rows per block in kernel A
-constexpr int kTileE = 32 * kVec;      // output columns per block in kernel D
-constexpr int kMaxTok = 8;             // most tokens per block
-constexpr int kRowChunks = 16;         // least row chunks of the down product
-constexpr int kMaxChunkRows = 512;     // most down rows per block in kernel D
+constexpr int kThreads = 128;    // 4 warps a block, both launches
+constexpr int kUStages = 3;      // U ring slots: 2 stages in flight
+constexpr int kDStages = 4;      // D ring slots: 3 stages in flight
+constexpr int kMaxSplits = 8;    // blocks of a portable cluster
+constexpr int kURows = 16;       // E rows a U stage
+constexpr int kDRows = 64;       // K rows a D stage
+constexpr int kGTile = 128;      // most G columns of a U block
+constexpr int kETile = 64;       // E columns of a D block: 4 warps of 16 columns
+constexpr int kMaxTiles = 4;     // m16 tiles a warp owns in U
+constexpr int kMinBlocks = 3;    // blocks an SM needs in flight (plan_split)
 
-int slices(int E) { return (E + kSliceE - 1) / kSliceE; }
-
-int row_chunks(int K) {
-  const int need = (K + kMaxChunkRows - 1) / kMaxChunkRows;
-  return need > kRowChunks ? need : kRowChunks;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T> __device__ __forceinline__ float to_bf16(float v);
-template <> __device__ __forceinline__ float to_bf16<float>(float v) {
-  return round_bf16(v);
-}
-template <> __device__ __forceinline__ float to_bf16<__nv_bfloat16>(float v) {
-  return v;  // already a bf16 value
+// 16 bytes from global to shared; bytes = 0 writes zeros (past an edge)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(bytes) : "memory");
 }
 
-// Kernel A: part[p][b, u, s, :] = x[b, e-slice] . W_p[r, e-slice, :]
-template <typename T, int NT>
-__global__ void __launch_bounds__(kThreads)
-v7u_partial_dots(const float* __restrict__ x, const int* __restrict__ urows,
-                 const T* __restrict__ wu, const T* __restrict__ wg,
-                 float* __restrict__ part_up, float* __restrict__ part_gate,
-                 int B, int Cu, int E, int G, int R, int S, int P,
-                 int round_w) {
-  __shared__ float xs[NT][kSliceE];
-  __shared__ float red[kThreads * kVec];
-  const int s = blockIdx.x;
-  const int u = blockIdx.y;
-  const int p = blockIdx.z % P;
-  const int b0 = (blockIdx.z / P) * NT;
-  const int nb = min(NT, B - b0);
-  const int r = clamp_row(urows[u], R);
-  const int lanes = G / kVec;          // threads per E row
-  const int rows = kThreads / lanes;   // E rows per pass
-  const int t = threadIdx.x;
-  const int lane = t % lanes;
-  const int ro = t / lanes;
-  const int e0 = s * kSliceE;
-  const int e1 = min(E, e0 + kSliceE);
-  for (int i = t; i < NT * kSliceE; i += kThreads) {
-    const int b = i / kSliceE, j = i % kSliceE;
-    xs[b][j] = (b < nb && e0 + j < E) ? x[(size_t)(b0 + b) * E + e0 + j] : 0.f;
-  }
-  __syncthreads();
-
-  const T* w = (p == 0 ? wu : wg) + (size_t)r * E * G + kVec * lane;
-  float acc[NT][kVec] = {};
-  if (ro < rows) {
-    for (int e = e0 + ro; e < e1; e += rows) {
-      float wv[kVec];
-      load8(w + (size_t)e * G, wv);
-      if (round_w) {  // an f32 store cast to a bf16 x's dtype
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) wv[i] = round_bf16(wv[i]);
-      }
-#pragma unroll
-      for (int b = 0; b < NT; ++b) {
-        const float xe = xs[b][e - e0];
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) acc[b][i] = fmaf(xe, wv[i], acc[b][i]);
-      }
-    }
-  }
-  float* part = p == 0 ? part_up : part_gate;
-#pragma unroll
-  for (int b = 0; b < NT; ++b) {
-    if (b >= nb) break;  // the same for the whole block
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) red[t * kVec + i] = acc[b][i];
-    __syncthreads();
-    for (int col = t; col < G; col += kThreads) {  // fixed-order sum over rows
-      const int l = col / kVec, i = col % kVec;
-      float tot = 0.f;
-      for (int k = 0; k < rows; ++k) tot += red[(k * lanes + l) * kVec + i];
-      part[(((size_t)(b0 + b) * Cu + u) * S + s) * G + col] = tot;
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// Kernel H: hidden[b, u, g] from the partials
-__global__ void v7u_hidden(const float* __restrict__ part_up,
-                           const float* __restrict__ part_gate,
-                           const float* __restrict__ gp,
-                           const float* __restrict__ bu,
-                           float* __restrict__ hidden, int BUG, int G, int S,
-                           int act, int gated, float fat_thr, float prob_thr,
-                           int mask_scale) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= BUG) return;
-  const size_t bu_i = k / G;  // (b, u)
-  const int g = k - (int)bu_i * G;
-  float up = 0.f, gate = 0.f;
-  for (int s = 0; s < S; ++s) {
-    up += part_up[(bu_i * S + s) * G + g];
-    if (gated) gate += part_gate[(bu_i * S + s) * G + g];
-  }
-  if (bu) up += bu[k];
-  const float p = gp[k];
-  const float mask = mask_scale ? p : (p >= prob_thr ? 1.0f : 0.0f);
-  hidden[k] = round_bf16(combine(act, fat_thr, gate, up) * mask);
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(PENDING) : "memory");
 }
 
-// Kernel D: chunk sums of out[b, e-tile] over the chunk's (u, g) rows
-template <typename T, int NT>
-__global__ void __launch_bounds__(kThreads)
-v7u_down(const float* __restrict__ hidden, const int* __restrict__ urows,
-         const T* __restrict__ wd, float* __restrict__ part_out, int B, int Cu,
-         int E, int G, int R, int RS) {
-  __shared__ float hs[NT][kMaxChunkRows];
-  __shared__ const T* rows_ptr[kMaxChunkRows];
-  __shared__ float red[kWarps][kTileE];
-  const int tile = blockIdx.x;
-  const int chunk = blockIdx.y;
-  const int b0 = blockIdx.z * NT;
-  const int nb = min(NT, B - b0);
-  const int K = Cu * G;
-  const int kb = (K + RS - 1) / RS;
-  const int k0 = chunk * kb;
-  const int nk = max(0, min(K, k0 + kb) - k0);
-  const int e = tile * kTileE + (threadIdx.x % 32) * kVec;
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
 
-  for (int t = threadIdx.x; t < nk; t += kThreads) {
-    const int k = k0 + t;
-    const int u = k / G;
-    const int g = k - u * G;
-    rows_ptr[t] = wd + ((size_t)clamp_row(urows[u], R) * G + g) * E;
-#pragma unroll
-    for (int b = 0; b < NT; ++b)
-      hs[b][t] = b < nb ? hidden[(size_t)(b0 + b) * K + k] : 0.f;
-  }
-  __syncthreads();
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 products summed in f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  const int warp = threadIdx.x / 32;
-  float acc[NT][kVec] = {};
-  if (e < E) {
-    for (int t = warp; t < nk; t += kWarps) {
-      float w[kVec];
-      load8(rows_ptr[t] + e, w);
+// (lo, hi) f32 -> bf16 pair, round to nearest even
+__device__ __forceinline__ uint32_t bf16x2_pack(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
+
+// an f32 pair as three bf16 pairs whose sum is the pair (hi + mid + lo)
+__device__ __forceinline__ void split3(float a, float b, uint32_t (&s)[3]) {
+  s[0] = bf16x2_pack(a, b);
+  a -= bf_lo(s[0]);
+  b -= bf_hi(s[0]);
+  s[1] = bf16x2_pack(a, b);
+  s[2] = bf16x2_pack(a - bf_lo(s[1]), b - bf_hi(s[1]));
+}
+
+// barrier over the block's cluster, ordering shared-memory stores before
+// the other blocks' loads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// the same 16 bytes in cluster block `rank`
+__device__ __forceinline__ float4 ld_cluster4(uint32_t a, int rank) {
+  uint32_t d;
+  float4 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(rank));
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(d));
+  return v;
+}
+
+// sums over the KS blocks of the cluster of the 4 words at a (16-byte
+// aligned), in rank order; every load is issued before the first add
+__device__ __forceinline__ float4 cluster_sum4(uint32_t a, int KS) {
+  float4 v[kMaxSplits];
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) w[i] = to_bf16<T>(w[i]);
+  for (int k = 0; k < kMaxSplits; ++k) v[k] = k < KS ? ld_cluster4(a, k) : make_float4(0, 0, 0, 0);
+  float4 tot = v[0];
 #pragma unroll
-      for (int b = 0; b < NT; ++b) {
-        const float hk = hs[b][t];
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) acc[b][i] = fmaf(hk, w[i], acc[b][i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < NT; ++b) {
-    if (b >= nb) break;  // the same for the whole block
-#pragma unroll
-    for (int i = 0; i < kVec; ++i)
-      red[warp][(threadIdx.x % 32) * kVec + i] = acc[b][i];
-    __syncthreads();
-    for (int col = threadIdx.x; col < kTileE; col += kThreads) {  // warp order
-      const int ee = tile * kTileE + col;
-      if (ee >= E) continue;
-      float tot = 0.f;
-      for (int w = 0; w < kWarps; ++w) tot += red[w][col];
-      part_out[((size_t)(b0 + b) * RS + chunk) * E + ee] = tot;
-    }
-    __syncthreads();
+  for (int k = 1; k < kMaxSplits; ++k)
+    if (k < KS) { tot.x += v[k].x; tot.y += v[k].y; tot.z += v[k].z; tot.w += v[k].w; }
+  return tot;
+}
+
+// The A fragment of the m16 x k16 tile whose (k, m) element lies at
+// base + k * row + m * sizeof(W) in shared memory (rows are K, columns M):
+// ldmatrix.trans for bf16, else f32 values rounded to bf16.
+template <bool WF32>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const uint8_t* base, uint32_t sbase,
+                                       int row, int lane) {
+  if (!WF32) {
+    const int k = ((lane >> 4) << 3) + (lane & 7), m = ((lane >> 3) & 1) << 3;
+    ldsm_x4_trans(a, sbase + k * row + m * 2);
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+    auto w = [&](int k, int m) { return *reinterpret_cast<const float*>(base + k * row + m * 4); };
+    a[0] = bf16x2_pack(w(2 * t, g), w(2 * t + 1, g));
+    a[1] = bf16x2_pack(w(2 * t, g + 8), w(2 * t + 1, g + 8));
+    a[2] = bf16x2_pack(w(2 * t + 8, g), w(2 * t + 9, g));
+    a[3] = bf16x2_pack(w(2 * t + 8, g + 8), w(2 * t + 9, g + 8));
   }
 }
 
-struct Args {
-  const float* x;
-  const int* urows;
-  const float* gp;
-  const float* bu;
-  const void* wu;
-  const void* wg;
-  const void* wd;
-  float* out;
-  float* scratch;
-  int B, Cu, E, G, R, round_w, act;
-  float fat_thr, prob_thr;
-  int mask_scale;
-  cudaStream_t stream;
+// Shared-memory layout of a U stage: P tiles of kURows x GTW weights, then
+// NT x kURows of x; each row padded by 16 bytes so that the 8 rows of an
+// ldmatrix, and the 8 tokens of a B fragment, fall on distinct banks. The
+// block's sums reuse the ring after the K loop.
+struct ULayout {
+  int wrow, xoff, xrow, slot, red_row;
+  __host__ __device__ ULayout(int P, int GTW, int ws, int xs, int NT)
+      : wrow(GTW * ws + 16), xoff(P * kURows * (GTW * ws + 16)), xrow(kURows * xs + 16),
+        slot(xoff + NT * (kURows * xs + 16)), red_row(GTW + 4) {}
+  __host__ __device__ int smem(int P, int NT) const {
+    const int red = P * NT * red_row * 4;
+    return kUStages * slot > red ? kUStages * slot : red;
+  }
 };
 
-template <typename T, int NT>
-cudaError_t launch(const Args& a) {
-  const int S = slices(a.E);
-  const int K = a.Cu * a.G;
-  const int RS = row_chunks(K);
-  const int P = a.wg ? 2 : 1;
-  const int TB = (a.B + NT - 1) / NT;
-  float* part_up = a.scratch;
-  float* part_gate = part_up + (size_t)a.B * a.Cu * S * a.G;
-  float* hidden = part_gate + (size_t)a.B * a.Cu * S * a.G;
-  float* part_out = hidden + (size_t)a.B * K;
-  v7u_partial_dots<T, NT><<<dim3(S, a.Cu, P * TB), kThreads, 0, a.stream>>>(
-      a.x, a.urows, static_cast<const T*>(a.wu), static_cast<const T*>(a.wg),
-      part_up, part_gate, a.B, a.Cu, a.E, a.G, a.R, S, P, a.round_w);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int BUG = a.B * K;
-  v7u_hidden<<<(BUG + 255) / 256, 256, 0, a.stream>>>(
-      part_up, part_gate, a.gp, a.bu, hidden, BUG, a.G, S, a.act, P == 2,
-      a.fat_thr, a.prob_thr, a.mask_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  v7u_down<T, NT><<<dim3((a.E + kTileE - 1) / kTileE, RS, TB), kThreads, 0,
-                    a.stream>>>(hidden, a.urows, static_cast<const T*>(a.wd),
-                                part_out, a.B, a.Cu, a.E, a.G, a.R, RS);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  sum_row_chunks<<<dim3((a.E + 255) / 256, a.B), 256, 0, a.stream>>>(
-      part_out, a.out, a.E, RS);
-  return cudaGetLastError();
+// Launch U: hidden[b, u, g] for the G tile and token tile of this cluster.
+// WF32: f32 stores; XF32: f32 x. Block kz takes stages kb .. kb + nst - 1.
+template <bool WF32, bool XF32, int NT>
+__global__ void __launch_bounds__(kThreads)
+v7u_up(const void* __restrict__ xv, const int* __restrict__ urows,
+       const void* __restrict__ wu, const void* __restrict__ wg,
+       const float* __restrict__ gp, const float* __restrict__ bu, int bu_bs,
+       __nv_bfloat16* __restrict__ hidden, int B, int Cu, int E, int G, int R, int GTW,
+       int per, int rem, int act, float fat_thr, float prob_thr, int mask_scale) {
+  constexpr int ws = WF32 ? 4 : 2, xs = XF32 ? 4 : 2, NI = NT / 8, XS = (XF32 && !WF32) ? 3 : 1;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int P = wg ? 2 : 1;
+  const ULayout ly(P, GTW, ws, xs, NT);
+  const int KS = gridDim.x, kz = blockIdx.x;
+  const int gtiles = (G + GTW - 1) / GTW;
+  const int u = blockIdx.y / gtiles, g0 = (blockIdx.y % gtiles) * GTW;
+  const int n0 = blockIdx.z * NT, nn = min(NT, B - n0);
+  const int kb = kz * per + min(kz, rem), nst = per + (kz < rem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mt = GTW / 16, T = P * mt;  // m16 tiles per projection, in all
+  const size_t r = clamp_row(urows[u], R);
+  const uint32_t sbase = smem_u32(smem);
+  // D may start once every U block runs: it streams W_down meanwhile and
+  // waits for this grid before it reads the hidden
+  asm volatile("griddepcontrol.launch_dependents;");
+
+  // This thread's copies: weight chunk column cw of rows rw + j * (128 / cpr)
+  // of each projection, x chunk column cx of tokens nx + j * (128 / cpx),
+  // zero-filled past E, G and B.
+  const int cpr = GTW * ws / 16, cpx = kURows * xs / 16;
+  const int cw = tid & (cpr - 1), rw = tid / cpr, rstep = kThreads / cpr;
+  const int gcol = g0 + cw * (16 / ws);
+  const bool gin = gcol < G;
+  const size_t wofs = ((r * E + (size_t)kb * kURows + rw) * G + gcol) * ws;
+  const uint8_t* usrc = static_cast<const uint8_t*>(wu) + wofs;
+  const uint8_t* gsrc = static_cast<const uint8_t*>(wg ? wg : wu) + wofs;
+  const int cx = tid & (cpx - 1), nx = tid / cpx, nstep = kThreads / cpx;
+  const uint8_t* xsrc = static_cast<const uint8_t*>(xv) +
+                        ((size_t)(n0 + nx) * E + (size_t)kb * kURows + cx * (16 / xs)) * xs;
+
+  auto issue = [&](int s) {
+    if (s < nst) {
+      const uint32_t slot = sbase + (s % kUStages) * ly.slot;
+      const int e0 = (kb + s) * kURows;
+      for (int p = 0; p < P; ++p)
+        for (int rr = rw; rr < kURows; rr += rstep) {
+          const uint8_t* src = (p ? gsrc : usrc) + ((size_t)s * kURows + rr - rw) * G * ws;
+          const bool in = gin && e0 + rr < E;
+          cp_async16(slot + (p * kURows + rr) * ly.wrow + cw * 16, in ? src : wu, in ? 16 : 0);
+        }
+      for (int n = nx; n < NT; n += nstep) {
+        const uint8_t* src = xsrc + ((size_t)(n - nx) * E + (size_t)s * kURows) * xs;
+        const bool in = n < nn && e0 + cx * (16 / xs) < E;
+        cp_async16(slot + ly.xoff + n * ly.xrow + cx * 16, in ? src : xv, in ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[kMaxTiles][NI][4];
+#pragma unroll
+  for (int i = 0; i < kMaxTiles; ++i)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][ni][e] = 0.f;
+
+  const int g = lane >> 2, t = lane & 3;
+  auto compute = [&](int s) {
+    const int so = (s % kUStages) * ly.slot;
+    const uint8_t* xsm = smem + so + ly.xoff;
+#pragma unroll
+    for (int kk = 0; kk < kURows; kk += 16) {
+      if (WF32 && XF32) {  // CUDA-core route: f32 FMAs in the mma's layout
+#pragma unroll
+        for (int i = 0; i < kMaxTiles; ++i) {
+          const int j = warp + 4 * i;
+          if (j >= T) break;
+          const uint8_t* wt = smem + so + ((j / mt) * kURows + kk) * ly.wrow + (j % mt) * 64;
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) {
+            const float* x0 = reinterpret_cast<const float*>(xsm + (ni * 8 + 2 * t) * ly.xrow) + kk;
+            const float* x1 = reinterpret_cast<const float*>(reinterpret_cast<const uint8_t*>(x0) + ly.xrow);
+#pragma unroll
+            for (int k = 0; k < 16; ++k) {
+              const float wa = *reinterpret_cast<const float*>(wt + k * ly.wrow + g * 4);
+              const float wb = *reinterpret_cast<const float*>(wt + k * ly.wrow + (g + 8) * 4);
+              acc[i][ni][0] = fmaf(wa, x0[k], acc[i][ni][0]);
+              acc[i][ni][1] = fmaf(wa, x1[k], acc[i][ni][1]);
+              acc[i][ni][2] = fmaf(wb, x0[k], acc[i][ni][2]);
+              acc[i][ni][3] = fmaf(wb, x1[k], acc[i][ni][3]);
+            }
+          }
+        }
+        continue;
+      }
+      uint32_t b[NI][XS][2];  // token g of n-tile ni, k = 2t, 2t+1 and 2t+8, 2t+9
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const uint8_t* xr = xsm + (ni * 8 + g) * ly.xrow;
+        if (!XF32) {
+          b[ni][0][0] = *reinterpret_cast<const uint32_t*>(xr + (kk + 2 * t) * 2);
+          b[ni][0][1] = *reinterpret_cast<const uint32_t*>(xr + (kk + 2 * t + 8) * 2);
+        } else {
+          const float2 v0 = *reinterpret_cast<const float2*>(xr + (kk + 2 * t) * 4);
+          const float2 v1 = *reinterpret_cast<const float2*>(xr + (kk + 2 * t + 8) * 4);
+          uint32_t s0[3], s1[3];
+          split3(v0.x, v0.y, s0);
+          split3(v1.x, v1.y, s1);
+#pragma unroll
+          for (int q = 0; q < XS; ++q) { b[ni][q][0] = s0[q]; b[ni][q][1] = s1[q]; }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxTiles; ++i) {
+        const int j = warp + 4 * i;
+        if (j >= T) break;
+        const int off = so + ((j / mt) * kURows + kk) * ly.wrow + (j % mt) * 16 * ws;
+        uint32_t a[4];
+        a_frag<WF32>(a, smem + off, sbase + off, ly.wrow, lane);
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int q = 0; q < XS; ++q) mma_bf16(acc[i][ni], a, b[ni][q][0], b[ni][q][1]);
+      }
+    }
+  };
+
+  // The ring: stage it is waited for, then stage it + S - 1 is issued into
+  // the slot that stage it - 1 used, then stage it is multiplied; one block
+  // barrier a stage.
+#pragma unroll 1
+  for (int s = 0; s < kUStages - 1; ++s) issue(s);
+#pragma unroll 1
+  for (int it = 0; it < nst; ++it) {
+    cp_async_wait<kUStages - 2>();
+    __syncthreads();
+    issue(it + kUStages - 1);
+    compute(it);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the block's (P, NT, GTW) sums into its shared memory: acc[i][ni] rows
+  // g, g + 8 of m16 tile j are columns, its columns 2t, 2t + 1 tokens
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < kMaxTiles; ++i) {
+    const int j = warp + 4 * i;
+    if (j >= T) break;
+    float* rp = red + (j / mt) * NT * ly.red_row + (j % mt) * 16 + g;
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int n = ni * 8 + 2 * t;
+      rp[n * ly.red_row] = acc[i][ni][0];
+      rp[(n + 1) * ly.red_row] = acc[i][ni][1];
+      rp[n * ly.red_row + 8] = acc[i][ni][2];
+      rp[(n + 1) * ly.red_row + 8] = acc[i][ni][3];
+    }
+  }
+  cluster_sync();
+  // block kz finishes groups of 4 columns kz * 128 + tid, then every KS *
+  // 128th (G and the tile are multiples of 8): the KS partials added in rank
+  // order, then bias, activation, mask and the bf16 rounding
+  const int gw4 = min(GTW, G - g0) / 4;
+  const uint32_t rbase = smem_u32(red);
+#pragma unroll 1
+  for (int i = kz * kThreads + tid; i < nn * gw4; i += KS * kThreads) {
+    const int n = i / gw4, m = (i - n * gw4) * 4;
+    const uint32_t at = rbase + (n * ly.red_row + m) * 4;
+    const float4 up4 = cluster_sum4(at, KS);
+    const float4 gate4 = P == 2 ? cluster_sum4(at + NT * ly.red_row * 4, KS)
+                                : make_float4(0, 0, 0, 0);
+    const float ups[4] = {up4.x, up4.y, up4.z, up4.w};
+    const float gates[4] = {gate4.x, gate4.y, gate4.z, gate4.w};
+    const size_t bug = ((size_t)(n0 + n) * Cu + u) * G + g0 + m;
+    const float* bup = bu ? bu + (size_t)(n0 + n) * bu_bs + (size_t)u * G + g0 + m : nullptr;
+    float h[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float up = bup ? ups[q] + bup[q] : ups[q];
+      const float p = gp[bug + q];
+      const float mask = mask_scale ? p : (p >= prob_thr ? 1.0f : 0.0f);
+      h[q] = combine(act, fat_thr, gates[q], up) * mask;
+    }
+    *reinterpret_cast<uint2*>(hidden + bug) = make_uint2(bf16x2_pack(h[0], h[1]),
+                                                        bf16x2_pack(h[2], h[3]));
+  }
+  cluster_sync();  // every block's sums stay until all are read
 }
 
-// the fewest tokens per block that still take all of B at once (8 past it)
-template <typename T>
-cudaError_t dispatch(const Args& a) {
-  if (a.B == 1) return launch<T, 1>(a);
-  if (a.B == 2) return launch<T, 2>(a);
-  if (a.B <= 4) return launch<T, 4>(a);
-  return launch<T, kMaxTok>(a);
+// Shared-memory layout of a D stage: kDRows x kETile weights, then NT x
+// kDRows of the bf16 hidden, each row padded by 16 bytes.
+struct DLayout {
+  int arow, hoff, hrow, slot, red_row;
+  __host__ __device__ DLayout(int ws, int NT)
+      : arow(kETile * ws + 16), hoff(kDRows * (kETile * ws + 16)), hrow(kDRows * 2 + 16),
+        slot(kDRows * (kETile * ws + 16) + NT * (kDRows * 2 + 16)), red_row(kETile + 4) {}
+  __host__ __device__ int smem(int NT) const {
+    const int red = NT * red_row * 4;
+    return kDStages * slot > red ? kDStages * slot : red;
+  }
+};
+
+// Launch D: out[b, e] for the E tile and token tile of this cluster; warp w
+// owns the E columns of m16 tiles w, w + 4, ... Block kz takes K stages kb ..
+// kb + nst - 1.
+template <bool WF32, int NT>
+__global__ void __launch_bounds__(kThreads)
+v7u_down(const __nv_bfloat16* __restrict__ hidden, const int* __restrict__ urows,
+         const void* __restrict__ wd, float* __restrict__ out, int B, int Cu, int E, int G,
+         int R, int per, int rem) {
+  constexpr int ws = WF32 ? 4 : 2, NI = NT / 8;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const DLayout ly(ws, NT);
+  const int K = Cu * G;
+  const int KS = gridDim.x, kz = blockIdx.x;
+  const int e0 = blockIdx.y * kETile, n0 = blockIdx.z * NT, nn = min(NT, B - n0);
+  const int kb = kz * per + min(kz, rem), nst = per + (kz < rem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t sbase = smem_u32(smem);
+  const uint8_t* w8 = static_cast<const uint8_t*>(wd);
+
+  // this thread's copies: weight chunk column cw of rows rw + j * rstep,
+  // hidden chunk column ch of tokens nh + j * (128 / cph), zero-filled past
+  // E, K and B
+  constexpr int cpr = kETile * ws / 16, rstep = kThreads / cpr;
+  const int cw = tid & (cpr - 1), rw = tid / cpr;
+  const int ecol = e0 + cw * (16 / ws);
+  const bool ein = ecol < E;
+  constexpr int cph = kDRows * 2 / 16;
+  const int ch = tid & (cph - 1), nh = tid / cph;
+
+  // the stage's W_down rows, then its hidden rows (uncommitted)
+  auto issue_w = [&](int s) {
+    if (s < nst) {
+      const uint32_t slot = sbase + (s % kDStages) * ly.slot;
+      const int k0 = (kb + s) * kDRows;
+      for (int rr = rw; rr < kDRows; rr += rstep) {
+        const int k = k0 + rr;
+        const bool in = ein && k < K;
+        const uint8_t* src = w8;
+        if (in) {
+          const int uu = k / G;
+          src = w8 + (((size_t)clamp_row(urows[uu], R) * G + (k - uu * G)) * E + ecol) * ws;
+        }
+        cp_async16(slot + rr * ly.arow + cw * 16, src, in ? 16 : 0);
+      }
+    }
+  };
+  auto issue_h = [&](int s) {
+    if (s < nst) {
+      const uint32_t slot = sbase + (s % kDStages) * ly.slot;
+      const int k0 = (kb + s) * kDRows;
+      for (int n = nh; n < NT; n += kThreads / cph) {
+        const int k = k0 + ch * 8;
+        const bool in = n < nn && k < K;
+        cp_async16(slot + ly.hoff + n * ly.hrow + ch * 16,
+                   in ? hidden + (size_t)(n0 + n) * K + k : hidden, in ? 16 : 0);
+      }
+    }
+  };
+
+  constexpr int MD = kETile / 64;  // m16 tiles a warp: columns (warp + 4 i) * 16
+  float acc[MD][NI][4];
+#pragma unroll
+  for (int i = 0; i < MD; ++i)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][ni][e] = 0.f;
+
+  const int g = lane >> 2, t = lane & 3;
+  auto compute = [&](int s) {
+    const int so = (s % kDStages) * ly.slot;
+#pragma unroll
+    for (int kk = 0; kk < kDRows; kk += 16) {
+      uint32_t b[NI][2];
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const uint8_t* hr = smem + so + ly.hoff + (ni * 8 + g) * ly.hrow;
+        b[ni][0] = *reinterpret_cast<const uint32_t*>(hr + (kk + 2 * t) * 2);
+        b[ni][1] = *reinterpret_cast<const uint32_t*>(hr + (kk + 2 * t + 8) * 2);
+      }
+#pragma unroll
+      for (int i = 0; i < MD; ++i) {
+        const int off = so + kk * ly.arow + (warp + 4 * i) * 16 * ws;
+        uint32_t a[4];
+        a_frag<WF32>(a, smem + off, sbase + off, ly.arow, lane);
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[i][ni], a, b[ni][0], b[ni][1]);
+      }
+    }
+  };
+
+  // The first stages' W_down while U may still run; then, after U's grid
+  // has completed (griddepcontrol.wait), their hidden rows. Commit groups:
+  // W 0 .. S-2, H 0 .. S-2, then one group a stage, so stage it is group
+  // S - 1 + it throughout and S - 2 groups may stay pending.
+#pragma unroll 1
+  for (int s = 0; s < kDStages - 1; ++s) {
+    issue_w(s);
+    cp_async_commit();
+  }
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#pragma unroll 1
+  for (int s = 0; s < kDStages - 1; ++s) {
+    issue_h(s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int it = 0; it < nst; ++it) {
+    cp_async_wait<kDStages - 2>();
+    __syncthreads();
+    issue_w(it + kDStages - 1);
+    issue_h(it + kDStages - 1);
+    cp_async_commit();
+    compute(it);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float* red = reinterpret_cast<float*>(smem);  // [NT][red_row]
+#pragma unroll
+  for (int i = 0; i < MD; ++i) {
+    const int m = (warp + 4 * i) * 16 + g;
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int n = ni * 8 + 2 * t;
+      red[n * ly.red_row + m] = acc[i][ni][0];
+      red[(n + 1) * ly.red_row + m] = acc[i][ni][1];
+      red[n * ly.red_row + m + 8] = acc[i][ni][2];
+      red[(n + 1) * ly.red_row + m + 8] = acc[i][ni][3];
+    }
+  }
+  cluster_sync();
+  const int ew4 = min(kETile, E - e0) / 4;  // groups of 4 columns (E % 8 == 0)
+  const uint32_t rbase = smem_u32(red);
+#pragma unroll 1
+  for (int i = kz * kThreads + tid; i < nn * ew4; i += KS * kThreads) {
+    const int n = i / ew4, c = (i - n * ew4) * 4;
+    *reinterpret_cast<float4*>(out + (size_t)(n0 + n) * E + e0 + c) =
+        cluster_sum4(rbase + (n * ly.red_row + c) * 4, KS);
+  }
+  cluster_sync();
+}
+
+// ---------------------------------------------------------------------------
+// host: the launch shape and the two launches
+
+template <bool WF32, bool XF32, int NT>
+const void* up_fn() { return reinterpret_cast<const void*>(&v7u_up<WF32, XF32, NT>); }
+template <bool WF32, int NT>
+const void* down_fn() { return reinterpret_cast<const void*>(&v7u_down<WF32, NT>); }
+
+constexpr int kTokenTiles[] = {8, 16, 32};  // tokens a block: B <= 8, <= 16, else 32
+
+int token_tile_index(int B) { return B <= 8 ? 0 : (B <= 16 ? 1 : 2); }
+
+// the kernels of (f32 stores, f32 x, token tile index)
+const void* up_kernel(int wf32, int xf32, int ti) {
+  static const void* const k[2][2][3] = {
+      {{up_fn<false, false, 8>(), up_fn<false, false, 16>(), up_fn<false, false, 32>()},
+       {up_fn<false, true, 8>(), up_fn<false, true, 16>(), up_fn<false, true, 32>()}},
+      {{up_fn<true, false, 8>(), up_fn<true, false, 16>(), up_fn<true, false, 32>()},
+       {up_fn<true, true, 8>(), up_fn<true, true, 16>(), up_fn<true, true, 32>()}}};
+  return k[wf32][xf32][ti];
+}
+
+const void* down_kernel(int wf32, int ti) {
+  static const void* const k[2][3] = {{down_fn<false, 8>(), down_fn<false, 16>(), down_fn<false, 32>()},
+                                      {down_fn<true, 8>(), down_fn<true, 16>(), down_fn<true, 32>()}};
+  return k[wf32][ti];
+}
+
+// a launch of `grid` as clusters of ks blocks along x; dependent = 1 lets
+// it start before the previous kernel on the stream ends (it waits for that
+// kernel with griddepcontrol.wait)
+cudaLaunchConfig_t cluster_config(dim3 grid, int smem, int ks, cudaStream_t st,
+                                  cudaLaunchAttribute* attr, int dependent = 0) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 2 : 1;
+  return cfg;
+}
+
+// Raise a kernel's dynamic shared-memory limit to `bytes` on the current
+// device (never lowering it), then the clusters of ks blocks of it that are
+// resident at once. Both cached.
+cudaError_t max_clusters(const void* fn, int bytes, int ks, int* n) {
+  struct Entry { const void* fn; int dev, bytes, ks, n; };
+  constexpr int kEntries = 512;
+  static Entry cache[kEntries];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int limit = 0;
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.fn != fn || e.dev != dev) continue;
+    limit = e.bytes > limit ? e.bytes : limit;
+    if (e.bytes == bytes && e.ks == ks) { *n = e.n; return cudaSuccess; }
+  }
+  if (bytes > limit) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(ks), bytes, ks, 0, attr);
+  err = cudaOccupancyMaxActiveClusters(n, fn, &cfg);
+  if (err != cudaSuccess) return err;
+  if (used < kEntries) cache[used++] = Entry{fn, dev, bytes > limit ? bytes : limit, ks, *n};
+  return cudaSuccess;
+}
+
+// The K split of `tiles` output tiles (one cluster each) over `steps`
+// stages: KS in 1 .. 8 with the least wave ratio, the stages the busiest SM
+// streams over an even share: clusters run in rounds of the C resident at
+// once, and a round of b blocks puts ceil(b / SMs) on the busiest SM, each
+// streaming ceil(steps / KS) stages. An SM with fewer than kMinBlocks
+// blocks has too few loads in flight to take its share of the bandwidth
+// (measured: 1.8 blocks an SM pull 1.5 TB/s in all, 3-4 pull 1.9-2.2), so a
+// first round of fewer blocks counts as slower by that shortfall. A tie
+// takes the more splits.
+struct Split {
+  int ks, per, rem;
+  long long blocks;
+  float ratio;
+};
+
+cudaError_t plan_split(const void* fn, int bytes, long long tiles, int steps, int sms,
+                       Split* best) {
+  *best = Split{0, 0, 0, 0, 0.f};
+  float best_score = 0.f;
+  for (int ks = 1; ks <= kMaxSplits && ks <= steps; ++ks) {
+    int C = 0;
+    const cudaError_t err = max_clusters(fn, bytes, ks, &C);
+    if (err != cudaSuccess) return err;
+    if (C <= 0) continue;
+    const int most = (steps + ks - 1) / ks;
+    long long busiest = 0;  // blocks on the busiest SM, summed over rounds
+    for (long long left = tiles; left > 0; left -= C) {
+      const long long b = (left < C ? left : C) * ks;
+      busiest += (b + sms - 1) / sms;
+    }
+    const float ratio = (float)((double)busiest * sms * most / ((double)steps * tiles));
+    const long long first = (tiles < C ? tiles : C) * ks;
+    const float score = ratio * (float)fmax(1.0, (double)kMinBlocks * sms / first);
+    if (best->ks == 0 || score <= best_score * 1.001f) {
+      *best = Split{ks, steps / ks, steps % ks, tiles * ks, ratio};
+      best_score = score;
+    }
+  }
+  return best->ks ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+struct Shape {
+  int gtw, ti, gtiles, ttiles, u_smem, d_smem, sms;
+  const void* up;
+  const void* down;
+  Split u, d;
+};
+
+int gtile_width(int G) {
+  int w = 16;
+  while (w < G && w < kGTile) w *= 2;
+  return w;
+}
+
+// the launch shape on the current device, cached by shape
+cudaError_t make_shape(int B, int Cu, int E, int G, int w_bf16, int x_bf16, int gated,
+                       Shape* sh) {
+  struct Entry { int dev, B, Cu, E, G, key; Shape sh; };
+  constexpr int kEntries = 256;
+  static Entry cache[kEntries];
+  static bool filled[kEntries];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int key = (w_bf16 ? 1 : 0) | (x_bf16 ? 2 : 0) | (gated ? 4 : 0);
+  const unsigned h = ((unsigned)dev * 31u + (unsigned)B * 7919u + (unsigned)Cu * 104729u +
+                      (unsigned)E * 1299709u + (unsigned)G * 15485863u + (unsigned)key) % kEntries;
+  Entry& e = cache[h];
+  if (filled[h] && e.dev == dev && e.B == B && e.Cu == Cu && e.E == E && e.G == G &&
+      e.key == key) {
+    *sh = e.sh;
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(&sh->sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int ws = w_bf16 ? 2 : 4, xs = x_bf16 ? 2 : 4, P = gated ? 2 : 1;
+  sh->gtw = gtile_width(G);
+  sh->ti = token_tile_index(B);
+  const int nt = kTokenTiles[sh->ti];
+  sh->gtiles = (G + sh->gtw - 1) / sh->gtw;
+  sh->ttiles = (B + nt - 1) / nt;
+  sh->u_smem = ULayout(P, sh->gtw, ws, xs, nt).smem(P, nt);
+  sh->d_smem = DLayout(ws, nt).smem(nt);
+  sh->up = up_kernel(!w_bf16, !x_bf16, sh->ti);
+  sh->down = down_kernel(!w_bf16, sh->ti);
+  err = plan_split(sh->up, sh->u_smem, (long long)Cu * sh->gtiles * sh->ttiles,
+                   (E + kURows - 1) / kURows, sh->sms, &sh->u);
+  if (err != cudaSuccess) return err;
+  const long long K = (long long)Cu * G;
+  err = plan_split(sh->down, sh->d_smem, (long long)((E + kETile - 1) / kETile) * sh->ttiles,
+                   (int)((K + kDRows - 1) / kDRows), sh->sms, &sh->d);
+  if (err != cudaSuccess) return err;
+  e = Entry{dev, B, Cu, E, G, key, *sh};
+  filled[h] = true;
+  return cudaSuccess;
+}
+
+bool valid(int B, int Cu, int E, int G, int R) {
+  return G % 8 == 0 && E % 8 == 0 && B > 0 && Cu > 0 && E > 0 && G > 0 && R > 0 &&
+         (long long)Cu * G < (1LL << 30) && Cu <= 65535 / ((G + kGTile - 1) / kGTile);
 }
 
 }  // namespace
 
 extern "C" {
 
-// f32 scratch the caller allocates for one call: the up and gate partials
-// (B, Cu, S, G) each, the hidden (B, Cu, G) and the chunk sums (B, RS, E).
+// f32 words of the scratch the caller allocates for one call: the bf16
+// hidden (B, Cu, G)
 long long sparse_ffn_v7u_scratch_floats(int B, int Cu, int E, int G) {
-  const long long K = (long long)Cu * G;
-  return 2LL * B * K * slices(E) + B * K + (long long)B * row_chunks(K) * E;
+  (void)E;
+  return ((long long)B * Cu * G + 1) / 2;
 }
 
 const char* sparse_ffn_v7u_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x f32 (B, E); union_rows int32 (Cu,); gp, bu f32 (B, Cu, G), bu may be
-// null; wu, wg (R, E, G) and wd (R, G, E) in __nv_bfloat16 (w_bf16 = 1) or
-// float, wg null for an ungated activation. round_w = 1 rounds the up/gate
-// weights to bf16 (an f32 store with a bf16 x). Requires G and E multiples of
-// 8, G at most 2048, and 16-byte aligned stores. Returns the CUDA error of
-// the launches (0 on success); it does not synchronise.
-int sparse_ffn_v7u(const void* x, const void* union_rows, const void* gp,
-                   const void* bu, const void* wu, const void* wg,
-                   const void* wd, void* out, void* scratch, int B, int Cu,
-                   int E, int G, int R, int w_bf16, int round_w, int act,
-                   float fat_thr, float prob_thr, int mask_scale,
-                   void* stream) {
-  if (G % kVec != 0 || E % kVec != 0 || G > kThreads * kVec || B <= 0 ||
-      Cu <= 0 || R <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{static_cast<const float*>(x), static_cast<const int*>(union_rows),
-               static_cast<const float*>(gp), static_cast<const float*>(bu),
-               wu, wg, wd, static_cast<float*>(out), static_cast<float*>(scratch),
-               B, Cu, E, G, R, round_w, act, fat_thr, prob_thr, mask_scale,
-               static_cast<cudaStream_t>(stream)};
-  return w_bf16 ? static_cast<int>(dispatch<__nv_bfloat16>(a))
-                : static_cast<int>(dispatch<float>(a));
+// The launch shape on the current device: out10 = {SMs, G tile, token tile,
+// U splits (cluster size), U blocks, U wave ratio x 1e6, D splits, D blocks,
+// D wave ratio x 1e6, U shared bytes a block}. Returns the CUDA error.
+int sparse_ffn_v7u_plan(int B, int Cu, int E, int G, int w_bf16, int x_bf16, int gated,
+                        long long* out10) {
+  if (!valid(B, Cu, E, G, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  Shape sh;
+  const cudaError_t err = make_shape(B, Cu, E, G, w_bf16, x_bf16, gated, &sh);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long v[10] = {sh.sms, sh.gtw, kTokenTiles[sh.ti], sh.u.ks, sh.u.blocks,
+                           (long long)(sh.u.ratio * 1e6), sh.d.ks, sh.d.blocks,
+                           (long long)(sh.d.ratio * 1e6), sh.u_smem};
+  for (int i = 0; i < 10; ++i) out10[i] = v[i];
+  return 0;
+}
+
+// x (B, E) bf16 (x_bf16 = 1) or f32; union_rows int32 (Cu,); gp f32
+// (B, Cu, G); bu f32 with (Cu, G) contiguous and bu_bs elements between
+// tokens (0: one row for all), or null; wu, wg (R, E, G) and wd (R, G, E)
+// in __nv_bfloat16 (w_bf16 = 1) or float, wg null for an ungated
+// activation; out f32 (B, E); scratch: sparse_ffn_v7u_scratch_floats words.
+// Two launches on the stream (the second may start before the first ends
+// and waits for it); returns their CUDA error (0 on success); it does not
+// synchronise.
+int sparse_ffn_v7u(const void* x, const void* union_rows, const void* gp, const void* bu,
+                   const void* wu, const void* wg, const void* wd, void* out, void* scratch,
+                   int B, int Cu, int E, int G, int R, int w_bf16, int x_bf16, int act,
+                   int bu_bs, float fat_thr, float prob_thr, int mask_scale, void* stream) {
+  if (!valid(B, Cu, E, G, R)) return static_cast<int>(cudaErrorInvalidValue);
+  Shape sh;
+  cudaError_t err = make_shape(B, Cu, E, G, w_bf16, x_bf16, wg != nullptr, &sh);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int* urows = static_cast<const int*>(union_rows);
+  const float* gpf = static_cast<const float*>(gp);
+  const float* buf = static_cast<const float*>(bu);
+  auto* hidden = static_cast<__nv_bfloat16*>(scratch);
+  const __nv_bfloat16* hidden_in = hidden;
+  auto* o = static_cast<float*>(out);
+  int gtw = sh.gtw, uper = sh.u.per, urem = sh.u.rem, dper = sh.d.per, drem = sh.d.rem;
+  void* up_args[] = {&x, &urows, &wu, &wg, &gpf, &buf, &bu_bs, &hidden, &B, &Cu, &E, &G, &R,
+                     &gtw, &uper, &urem, &act, &fat_thr, &prob_thr, &mask_scale};
+  void* down_args[] = {&hidden_in, &urows, &wd, &o, &B, &Cu, &E, &G, &R, &dper, &drem};
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = cluster_config(dim3(sh.u.ks, Cu * sh.gtiles, sh.ttiles), sh.u_smem,
+                                          sh.u.ks, st, attr);
+  err = cudaLaunchKernelExC(&cfg, sh.up, up_args);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cfg = cluster_config(dim3(sh.d.ks, (E + kETile - 1) / kETile, sh.ttiles), sh.d_smem, sh.d.ks,
+                       st, attr, 1);
+  err = cudaLaunchKernelExC(&cfg, sh.down, down_args);
+  return static_cast<int>(err == cudaSuccess ? cudaGetLastError() : err);
 }
 
 }  // extern "C"

@@ -35,7 +35,8 @@ For each token n and selected row r = idx[n, c]:
   - `sparse_ffn_block_v7u` (:1172, csrc/sparse_ffn_v7u.cu): batched decode
     over the cross-token union of selected groups, each union row read once
     for all B tokens, with v6's flat stores; the up/gate stores are cast to
-    x's dtype and the hidden and W_down are rounded to bf16 (:1135-1156).
+    x's dtype and the hidden and W_down are rounded to bf16 (:1135-1156);
+    two launches on the tensor cores (`v7u_plan` gives their shape).
 """
 
 from __future__ import annotations
@@ -642,8 +643,9 @@ def sparse_ffn_block_v7u(x, union_rows, gp_u, w_upT_rows, w_gateT_rows,
                          prob_threshold: float = 0.5, bu_u=None,
                          mask_mode: str = "threshold") -> torch.Tensor:
     """(B, E) f32. CPU tensors run the plain version; CUDA tensors launch
-    the kernel (counted in `sparse_ffn_block_v7u.launches`) or raise. Row
-    ids outside [0, R) are clamped, as XLA clamps a gather."""
+    the kernel (two kernels, counted once in `sparse_ffn_block_v7u.launches`)
+    or raise. x (bf16 or f32) is read in its own dtype. Row ids outside
+    [0, R) are clamped, as XLA clamps a gather."""
     kw = dict(act=act, fatrelu_threshold=fatrelu_threshold,
               prob_threshold=prob_threshold, bu_u=bu_u, mask_mode=mask_mode)
     if x.device.type == "cpu":
@@ -662,26 +664,56 @@ def sparse_ffn_block_v7u(x, union_rows, gp_u, w_upT_rows, w_gateT_rows,
     _check(w_down_rows.shape == (R, G, E), "w_down_rows must be (R, G, E)")
     _check(not gated or w_gateT_rows.shape == (R, E, G),
            "w_gateT_rows must be (R, E, G)")
-    _check(G % 8 == 0 and G <= 2048 and E % 8 == 0,
-           "kernel needs G and E multiples of 8, G <= 2048")
+    _check(G % 8 == 0 and E % 8 == 0, "kernel needs G and E multiples of 8")
     _check_stores(x, [w_upT_rows, w_down_rows] + ([w_gateT_rows] if gated else []))
     small = [t for t in (union_rows, gp_u, bu_u) if t is not None]
     _check(all(t.device == x.device for t in small), "inputs on mixed devices")
 
-    xf, rows32, gp, bu = _f32(x), union_rows.to(torch.int32).contiguous(), _f32(gp_u), _f32(bu_u)
-    lib = _kernel_lib("sparse_ffn_v7u", 9, 8)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    out = torch.empty((B, E), **f32)
-    scratch = torch.empty((lib.sparse_ffn_v7u_scratch_floats(B, Cu, E, G),), **f32)
-    w_bf16 = w_upT_rows.dtype == torch.bfloat16
+    # x is read in its own dtype; bu_u without a copy where its (Cu, G) part
+    # is contiguous f32 (the batched path expands one row over the tokens)
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.contiguous()
+    rows32, gp = union_rows.to(torch.int32).contiguous(), _f32(gp_u)
+    bu, bu_bs = bu_u, Cu * G
+    if bu is not None:
+        if bu.dtype == torch.float32 and bu.stride(2) == 1 and bu.stride(1) == G:
+            bu_bs = bu.stride(0)
+        else:
+            bu = _f32(bu)
+    lib = _kernel_lib("sparse_ffn_v7u", 9, 9)
+    out = torch.empty((B, E), dtype=torch.float32, device=x.device)
+    hidden = torch.empty((lib.sparse_ffn_v7u_scratch_floats(B, Cu, E, G),),
+                         dtype=torch.float32, device=x.device)
     _launch(lib, "sparse_ffn_v7u", x.device,
-            _ptr(xf), _ptr(rows32), _ptr(gp), _ptr(bu), _ptr(w_upT_rows),
+            _ptr(x), _ptr(rows32), _ptr(gp), _ptr(bu), _ptr(w_upT_rows),
             _ptr(w_gateT_rows if gated else None), _ptr(w_down_rows), _ptr(out),
-            _ptr(scratch), B, Cu, E, G, R, int(w_bf16),
-            int(x.dtype == torch.bfloat16 and not w_bf16), ACT_CODES[act],
+            _ptr(hidden), B, Cu, E, G, R, int(w_upT_rows.dtype == torch.bfloat16),
+            int(x.dtype == torch.bfloat16), ACT_CODES[act], bu_bs,
             float(fatrelu_threshold), float(prob_threshold), int(mask_mode == "scale"))
     sparse_ffn_block_v7u.launches += 1
     return out
+
+
+def v7u_plan(device, B: int, Cu: int, E: int, G: int, *, w_dtype=torch.bfloat16,
+             x_dtype=torch.bfloat16, gated: bool = True) -> dict:
+    """The launch shape of `sparse_ffn_block_v7u` on a CUDA device: the G
+    and token tiles, and for each of its two launches (up: up, gate and
+    hidden; down: the down product) the cluster size (K splits), the blocks
+    and the wave ratio (the most stages an SM streams over an even share)."""
+    lib = _kernel_lib("sparse_ffn_v7u", 9, 9)
+    fn = lib.sparse_ffn_v7u_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    v = (ctypes.c_longlong * 10)()
+    with torch.cuda.device(device):
+        err = fn(B, Cu, E, G, int(w_dtype == torch.bfloat16), int(x_dtype == torch.bfloat16),
+                 int(gated), v)
+    if err:
+        raise RuntimeError(f"sparse_ffn_v7u_plan failed: CUDA error {err}")
+    return {"sms": v[0], "g_tile": v[1], "token_tile": v[2],
+            "up": {"cluster": v[3], "blocks": v[4], "wave_ratio": v[5] / 1e6},
+            "down": {"cluster": v[6], "blocks": v[7], "wave_ratio": v[8] / 1e6},
+            "up_smem_bytes": v[9]}
 
 
 sparse_ffn_block_v7u.launches = 0

@@ -709,6 +709,154 @@ def test_v7u_is_deterministic(cuda):
     assert torch.equal(a, b)
 
 
+# The launch shapes of the sweep: every Cu in (1, 5, 47, 48, 64), G in
+# (16, 48, 128, 256) and E in (64, 1000, 4096, 5120), with the 7B and 13B
+# batched-decode shapes (Cu, G, E) = (48, 128, 4096) and (64, 128, 5120)
+_V7U_SHAPES = [(1, 16, 64), (5, 48, 1000), (47, 256, 4096), (48, 128, 4096),
+               (64, 128, 5120), (5, 256, 5120), (64, 16, 1000), (47, 48, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 5, 8, 16, 33])
+@pytest.mark.parametrize("Cu,G,E", _V7U_SHAPES)
+def test_v7u_sweep_bf16(cuda, B, Cu, G, E):
+    """bf16 x over bf16 stores (the batched path's route) at every B (33:
+    two token tiles of 32), union size, group size and width. Inputs made on
+    the card (the stores reach 250 MB)."""
+    gen = torch.Generator(device=cuda).manual_seed(48)
+    R = Cu + 3
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=cuda) * 0.05).bfloat16()
+
+    x = torch.randn((B, E), generator=gen, device=cuda).bfloat16()
+    union = torch.randperm(R, generator=gen, device=cuda)[:Cu].to(torch.int32)
+    sel = torch.rand((B, Cu, 1), generator=gen, device=cuda) < 0.6
+    gp = torch.rand((B, Cu, G), generator=gen, device=cuda) * sel
+    kw = dict(bu_u=torch.randn((B, Cu, G), generator=gen, device=cuda) * 0.1)
+    args = (x, union, gp, w(R, E, G), w(R, E, G), w(R, G, E))
+    _check_fn(sparse_ffn_block_v7u, sparse_ffn_block_v7u_plain, args, 1e-3,
+              act="fatrelu", fatrelu_threshold=0.01, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt,act,mask_mode,bias", list(itertools.product(
+    [torch.bfloat16, torch.float32], [torch.bfloat16, torch.float32],
+    ["fatrelu", "relu"], ["threshold", "scale"], [True, False])))
+def test_v7u_routes(cuda, xdt, wdt, act, mask_mode, bias):
+    """Each route: bf16 x or f32 x (three bf16 terms) over bf16 stores on the
+    tensor cores, f32 stores rounded to bf16 under a bf16 x, f32 x over f32
+    stores by f32 FMAs; gated and ungated, both mask modes, with and without
+    the up bias; two of the union's row ids out of range (clamped)."""
+    args, kw = _v7u_inputs(5, 7, 1000, 48, 11, wdt, cuda, seed=49, xdt=xdt, bias=bias,
+                           gated=act != "relu")
+    x, union, *rest = args
+    union = union.clone()
+    union[1], union[4] = -3, 11 + 5
+    _check_fn(sparse_ffn_block_v7u, sparse_ffn_block_v7u_plain, (x, union, *rest), 1e-3,
+              act=act, mask_mode=mask_mode, fatrelu_threshold=0.01, **kw)
+
+
+@pytest.mark.cuda
+def test_v7u_shared_bias_row_is_read_in_place(cuda):
+    """An up bias expanded over the tokens (batch stride 0, as the batched
+    path passes it) gives the same output as its contiguous copy."""
+    args, kw = _v7u_inputs(4, 48, 4096, 128, 86, torch.bfloat16, cuda, seed=50,
+                           xdt=torch.bfloat16)
+    row = kw["bu_u"][:1]
+    shared = row.expand(4, -1, -1)
+    assert shared.stride(0) == 0
+    got = sparse_ffn_block_v7u(*args, act="fatrelu", bu_u=shared)
+    assert torch.equal(got, sparse_ffn_block_v7u(*args, act="fatrelu",
+                                                 bu_u=shared.contiguous()))
+    _check_qmm(got, sparse_ffn_block_v7u_plain(*args, act="fatrelu", bu_u=shared), 1e-3)
+
+
+# One v7u call profiled in a fresh process: in a process that has captured
+# CUDA graphs (earlier tests of this file), a short torch.profiler window
+# records no device activity at all.
+_V7U_ONE_CALL = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[2])
+from test_torch_cuda_kernels import _kernels_of_one_call
+from sparkinfer_tpu_torch.ops.sparse_ffn import sparse_ffn_block_v7u
+B = int(sys.argv[1])
+gen = torch.Generator(device="cuda").manual_seed(51)
+w = [(torch.randn(sh, generator=gen, device="cuda") * 0.05).bfloat16()
+     for sh in ((86, 4096, 128), (86, 4096, 128), (86, 128, 4096))]
+union = torch.randperm(86, generator=gen, device="cuda")[:48].to(torch.int32)
+gp = torch.rand((B, 48, 128), generator=gen, device="cuda")
+bu = torch.randn((B, 48, 128), generator=gen, device="cuda") * 0.1
+x = torch.randn((B, 4096), generator=gen, device="cuda").bfloat16()
+print(json.dumps(_kernels_of_one_call(
+    lambda: sparse_ffn_block_v7u(x, union, gp, *w, act="fatrelu", bu_u=bu))))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
+def test_v7u_one_call_is_two_kernels(cuda, B):
+    """One call over bf16 x, bf16 stores and an f32 bias launches the up and
+    down kernels and nothing else: no copy or conversion of x, no partial
+    sums (profiled in a child process)."""
+    import json
+    import subprocess
+    import sys
+
+    here = Path(__file__).resolve().parent
+    proc = subprocess.run([sys.executable, "-c", _V7U_ONE_CALL, str(B), str(here)],
+                          cwd=here.parent, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(names) == 2, names
+    assert "v7u_up" in names[0] and "v7u_down" in names[1], names
+
+
+@pytest.mark.cuda
+def test_v7u_sass_runs_on_tensor_cores(cuda):
+    """Every v7u_down instantiation and every v7u_up one but the f32-x over
+    f32-stores route issue tensor-core products (HMMA); that route's FMAs
+    (FFMA) show that the parser reads the functions. Needs cuobjdump."""
+    from sparkinfer_tpu_torch.ops import _build
+    from sparkinfer_tpu_torch.ops.sparse_ffn import _kernel_lib
+
+    _kernel_lib("sparse_ffn_v7u", 9, 9)
+    funcs = _sass_functions(_build.library_path("sparse_ffn_v7u"))
+    up = {k: v for k, v in funcs.items() if "v7u_up" in k}
+    down = {k: v for k, v in funcs.items() if "v7u_down" in k}
+    assert len(up) == 12 and len(down) == 6, sorted(funcs)
+    fma_route = {k for k in up if "v7u_upILb1ELb1E" in k}
+    assert len(fma_route) == 3, sorted(up)
+    for name, ops in list(up.items()) + list(down.items()):
+        if name in fma_route:
+            assert "FFMA" in ops and "HMMA" not in ops, name
+        else:
+            assert "HMMA" in ops or "HGMMA" in ops, (name, sorted(set(ops)))
+
+
+@pytest.mark.cuda
+def test_v7u_graph_replay_equals_the_eager_call(cuda):
+    """Replays of a CUDA graph of two calls (B = 8 and B = 3, bf16 and f32 x)
+    give the eager calls' bits: no state is left between calls."""
+    a8, k8 = _v7u_inputs(8, 48, 4096, 128, 86, torch.bfloat16, cuda, seed=52,
+                         xdt=torch.bfloat16)
+    a3, k3 = _v7u_inputs(3, 5, 1000, 48, 7, torch.bfloat16, cuda, seed=53)
+    calls = (lambda: sparse_ffn_block_v7u(*a8, act="fatrelu", **k8),
+             lambda: sparse_ffn_block_v7u(*a3, act="silu", mask_mode="scale", **k3))
+    ref = [c() for c in calls]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, r in zip(outs, ref):
+            assert torch.equal(o, r)
+
+
 # ---------------------------------------------------------------------------
 # v2, v3, v4, v5: v1's strided kernel over their own stores
 
