@@ -71,6 +71,7 @@
 //   f32 Wd is rounded to bf16 as its fragments are built).
 // Requires G and E multiples of 8 and 16-byte aligned stores and x.
 
+#include "sparse_ffn_cluster.cuh"
 #include "sparse_ffn_common.cuh"
 
 namespace {
@@ -85,25 +86,6 @@ constexpr int kGTile = 128;      // most G columns of a U block
 constexpr int kETile = 64;       // E columns of a D block: 4 warps of 16 columns
 constexpr int kMaxTiles = 4;     // m16 tiles a warp owns in U
 constexpr int kMinBlocks = 3;    // blocks an SM needs in flight (plan_split)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared; bytes = 0 writes zeros (past an edge)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
-               "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(PENDING) : "memory");
-}
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
@@ -137,36 +119,6 @@ __device__ __forceinline__ void split3(float a, float b, uint32_t (&s)[3]) {
   b -= bf_hi(s[0]);
   s[1] = bf16x2_pack(a, b);
   s[2] = bf16x2_pack(a - bf_lo(s[1]), b - bf_hi(s[1]));
-}
-
-// barrier over the block's cluster, ordering shared-memory stores before
-// the other blocks' loads after it
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
-               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// the same 16 bytes in cluster block `rank`
-__device__ __forceinline__ float4 ld_cluster4(uint32_t a, int rank) {
-  uint32_t d;
-  float4 v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(rank));
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(d));
-  return v;
-}
-
-// sums over the KS blocks of the cluster of the 4 words at a (16-byte
-// aligned), in rank order; every load is issued before the first add
-__device__ __forceinline__ float4 cluster_sum4(uint32_t a, int KS) {
-  float4 v[kMaxSplits];
-#pragma unroll
-  for (int k = 0; k < kMaxSplits; ++k) v[k] = k < KS ? ld_cluster4(a, k) : make_float4(0, 0, 0, 0);
-  float4 tot = v[0];
-#pragma unroll
-  for (int k = 1; k < kMaxSplits; ++k)
-    if (k < KS) { tot.x += v[k].x; tot.y += v[k].y; tot.z += v[k].z; tot.w += v[k].w; }
-  return tot;
 }
 
 // The A fragment of the m16 x k16 tile whose (k, m) element lies at
@@ -373,8 +325,8 @@ v7u_up(const void* __restrict__ xv, const int* __restrict__ urows,
   for (int i = kz * kThreads + tid; i < nn * gw4; i += KS * kThreads) {
     const int n = i / gw4, m = (i - n * gw4) * 4;
     const uint32_t at = rbase + (n * ly.red_row + m) * 4;
-    const float4 up4 = cluster_sum4(at, KS);
-    const float4 gate4 = P == 2 ? cluster_sum4(at + NT * ly.red_row * 4, KS)
+    const float4 up4 = cluster_sum4<kMaxSplits>(at, KS);
+    const float4 gate4 = P == 2 ? cluster_sum4<kMaxSplits>(at + NT * ly.red_row * 4, KS)
                                 : make_float4(0, 0, 0, 0);
     const float ups[4] = {up4.x, up4.y, up4.z, up4.w};
     const float gates[4] = {gate4.x, gate4.y, gate4.z, gate4.w};
@@ -545,7 +497,7 @@ v7u_down(const __nv_bfloat16* __restrict__ hidden, const int* __restrict__ urows
   for (int i = kz * kThreads + tid; i < nn * ew4; i += KS * kThreads) {
     const int n = i / ew4, c = (i - n * ew4) * 4;
     *reinterpret_cast<float4*>(out + (size_t)(n0 + n) * E + e0 + c) =
-        cluster_sum4(rbase + (n * ly.red_row + c) * 4, KS);
+        cluster_sum4<kMaxSplits>(rbase + (n * ly.red_row + c) * 4, KS);
   }
   cluster_sync();
 }
@@ -576,98 +528,6 @@ const void* down_kernel(int wf32, int ti) {
   static const void* const k[2][3] = {{down_fn<false, 8>(), down_fn<false, 16>(), down_fn<false, 32>()},
                                       {down_fn<true, 8>(), down_fn<true, 16>(), down_fn<true, 32>()}};
   return k[wf32][ti];
-}
-
-// a launch of `grid` as clusters of ks blocks along x; dependent = 1 lets
-// it start before the previous kernel on the stream ends (it waits for that
-// kernel with griddepcontrol.wait)
-cudaLaunchConfig_t cluster_config(dim3 grid, int smem, int ks, cudaStream_t st,
-                                  cudaLaunchAttribute* attr, int dependent = 0) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = dependent ? 2 : 1;
-  return cfg;
-}
-
-// Raise a kernel's dynamic shared-memory limit to `bytes` on the current
-// device (never lowering it), then the clusters of ks blocks of it that are
-// resident at once. Both cached.
-cudaError_t max_clusters(const void* fn, int bytes, int ks, int* n) {
-  struct Entry { const void* fn; int dev, bytes, ks, n; };
-  constexpr int kEntries = 512;
-  static Entry cache[kEntries];
-  static int used = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int limit = 0;
-  for (int i = 0; i < used; ++i) {
-    const Entry& e = cache[i];
-    if (e.fn != fn || e.dev != dev) continue;
-    limit = e.bytes > limit ? e.bytes : limit;
-    if (e.bytes == bytes && e.ks == ks) { *n = e.n; return cudaSuccess; }
-  }
-  if (bytes > limit) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-  }
-  cudaLaunchAttribute attr[2];
-  const cudaLaunchConfig_t cfg = cluster_config(dim3(ks), bytes, ks, 0, attr);
-  err = cudaOccupancyMaxActiveClusters(n, fn, &cfg);
-  if (err != cudaSuccess) return err;
-  if (used < kEntries) cache[used++] = Entry{fn, dev, bytes > limit ? bytes : limit, ks, *n};
-  return cudaSuccess;
-}
-
-// The K split of `tiles` output tiles (one cluster each) over `steps`
-// stages: KS in 1 .. 8 with the least wave ratio, the stages the busiest SM
-// streams over an even share: clusters run in rounds of the C resident at
-// once, and a round of b blocks puts ceil(b / SMs) on the busiest SM, each
-// streaming ceil(steps / KS) stages. An SM with fewer than kMinBlocks
-// blocks has too few loads in flight to take its share of the bandwidth
-// (measured: 1.8 blocks an SM pull 1.5 TB/s in all, 3-4 pull 1.9-2.2), so a
-// first round of fewer blocks counts as slower by that shortfall. A tie
-// takes the more splits.
-struct Split {
-  int ks, per, rem;
-  long long blocks;
-  float ratio;
-};
-
-cudaError_t plan_split(const void* fn, int bytes, long long tiles, int steps, int sms,
-                       Split* best) {
-  *best = Split{0, 0, 0, 0, 0.f};
-  float best_score = 0.f;
-  for (int ks = 1; ks <= kMaxSplits && ks <= steps; ++ks) {
-    int C = 0;
-    const cudaError_t err = max_clusters(fn, bytes, ks, &C);
-    if (err != cudaSuccess) return err;
-    if (C <= 0) continue;
-    const int most = (steps + ks - 1) / ks;
-    long long busiest = 0;  // blocks on the busiest SM, summed over rounds
-    for (long long left = tiles; left > 0; left -= C) {
-      const long long b = (left < C ? left : C) * ks;
-      busiest += (b + sms - 1) / sms;
-    }
-    const float ratio = (float)((double)busiest * sms * most / ((double)steps * tiles));
-    const long long first = (tiles < C ? tiles : C) * ks;
-    const float score = ratio * (float)fmax(1.0, (double)kMinBlocks * sms / first);
-    if (best->ks == 0 || score <= best_score * 1.001f) {
-      *best = Split{ks, steps / ks, steps % ks, tiles * ks, ratio};
-      best_score = score;
-    }
-  }
-  return best->ks ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
 struct Shape {
@@ -714,11 +574,13 @@ cudaError_t make_shape(int B, int Cu, int E, int G, int w_bf16, int x_bf16, int 
   sh->d_smem = DLayout(ws, nt).smem(nt);
   sh->up = up_kernel(!w_bf16, !x_bf16, sh->ti);
   sh->down = down_kernel(!w_bf16, sh->ti);
-  err = plan_split(sh->up, sh->u_smem, (long long)Cu * sh->gtiles * sh->ttiles,
-                   (E + kURows - 1) / kURows, sh->sms, &sh->u);
+  err = plan_split(sh->up, kThreads, sh->u_smem, kMaxSplits, kMinBlocks,
+                   (long long)Cu * sh->gtiles * sh->ttiles, (E + kURows - 1) / kURows, sh->sms,
+                   &sh->u);
   if (err != cudaSuccess) return err;
   const long long K = (long long)Cu * G;
-  err = plan_split(sh->down, sh->d_smem, (long long)((E + kETile - 1) / kETile) * sh->ttiles,
+  err = plan_split(sh->down, kThreads, sh->d_smem, kMaxSplits, kMinBlocks,
+                   (long long)((E + kETile - 1) / kETile) * sh->ttiles,
                    (int)((K + kDRows - 1) / kDRows), sh->sms, &sh->d);
   if (err != cudaSuccess) return err;
   e = Entry{dev, B, Cu, E, G, key, *sh};
@@ -790,12 +652,12 @@ int sparse_ffn_v7u(const void* x, const void* union_rows, const void* gp, const 
                      &gtw, &uper, &urem, &act, &fat_thr, &prob_thr, &mask_scale};
   void* down_args[] = {&hidden_in, &urows, &wd, &o, &B, &Cu, &E, &G, &R, &dper, &drem};
   cudaLaunchAttribute attr[2];
-  cudaLaunchConfig_t cfg = cluster_config(dim3(sh.u.ks, Cu * sh.gtiles, sh.ttiles), sh.u_smem,
-                                          sh.u.ks, st, attr);
+  cudaLaunchConfig_t cfg = cluster_config(dim3(sh.u.ks, Cu * sh.gtiles, sh.ttiles), kThreads,
+                                          sh.u_smem, sh.u.ks, st, attr);
   err = cudaLaunchKernelExC(&cfg, sh.up, up_args);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cfg = cluster_config(dim3(sh.d.ks, (E + kETile - 1) / kETile, sh.ttiles), sh.d_smem, sh.d.ks,
-                       st, attr, 1);
+  cfg = cluster_config(dim3(sh.d.ks, (E + kETile - 1) / kETile, sh.ttiles), kThreads,
+                       sh.d_smem, sh.d.ks, st, attr, 1);
   err = cudaLaunchKernelExC(&cfg, sh.down, down_args);
   return static_cast<int>(err == cudaSuccess ? cudaGetLastError() : err);
 }

@@ -18,7 +18,8 @@ For each token n and selected row r = idx[n, c]:
   - `sparse_ffn_block_v6q` (:706, csrc/sparse_ffn_v6q.cu): v6 over Q8_0
     stores, int8 with one f32 scale per 32 elements (along E for up/gate,
     along G for down), dequantized in f32; `quantize_rows_q8_0` packs a v6
-    store into that layout on the tensor's device;
+    store into that layout on the tensor's device; two launches with f32
+    FMAs (`v6q_plan` gives their shape);
   - `sparse_ffn_block` (v1, :124, csrc/sparse_ffn_v1.cu): row stores
     (R, G, E) for all three projections, the only gate bias (bg_sel) and
     the only gated swiglu_oai of the three-store kernels; the hidden is
@@ -288,8 +289,9 @@ def sparse_ffn_block_v6q(x, idx, gp_sel, qw_upT, s_upT, qw_gateT, s_gateT,
                          prob_threshold: float = 0.5, bu_sel=None,
                          mask_mode: str = "threshold") -> torch.Tensor:
     """(N, E) f32. CPU tensors run the plain version; CUDA tensors launch
-    the kernel (counted in `sparse_ffn_block_v6q.launches`) or raise.
-    Row ids outside [0, R) are clamped, as XLA clamps a gather."""
+    the kernel (two kernels, counted once in `sparse_ffn_block_v6q.launches`)
+    or raise. x (bf16 or f32) is read in its own dtype. Row ids outside
+    [0, R) are clamped, as XLA clamps a gather."""
     kw = dict(act=act, fatrelu_threshold=fatrelu_threshold,
               prob_threshold=prob_threshold, bu_sel=bu_sel, mask_mode=mask_mode)
     if x.device.type == "cpu":
@@ -322,19 +324,47 @@ def sparse_ffn_block_v6q(x, idx, gp_sel, qw_upT, s_upT, qw_gateT, s_gateT,
     small = [t for t in (idx, gp_sel, bu_sel) if t is not None]
     _check(all(t.device == x.device for t in small), "inputs on mixed devices")
 
-    xf, idx32, gp, bu = _f32(x), idx.to(torch.int32).contiguous(), _f32(gp_sel), _f32(bu_sel)
-    lib = _kernel_lib("sparse_ffn_v6q", 12, 6)
+    # x is read in its own dtype (bf16 or f32), gp_sel and bu_sel in place
+    # when they are contiguous f32
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        x = x.float()
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.contiguous()
+    idx32, gp, bu = idx.to(torch.int32).contiguous(), _f32(gp_sel), _f32(bu_sel)
+    lib = _kernel_lib("sparse_ffn_v6q", 12, 7)
     f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty((N, E), **f32)
-    scratch = torch.empty((lib.sparse_ffn_v6q_scratch_floats(N, C, E, G),), **f32)
+    hidden = torch.empty((lib.sparse_ffn_v6q_scratch_floats(N, C, E, G),), **f32)
     _launch(lib, "sparse_ffn_v6q", x.device,
-            _ptr(xf), _ptr(idx32), _ptr(gp), _ptr(bu), _ptr(qw_upT), _ptr(s_upT),
+            _ptr(x), _ptr(idx32), _ptr(gp), _ptr(bu), _ptr(qw_upT), _ptr(s_upT),
             _ptr(qw_gateT if gated else None), _ptr(s_gateT if gated else None),
-            _ptr(qw_down), _ptr(s_down), _ptr(out), _ptr(scratch), N, C, E, G, R,
-            ACT_CODES[act], float(fatrelu_threshold), float(prob_threshold),
-            int(mask_mode == "scale"))
+            _ptr(qw_down), _ptr(s_down), _ptr(out), _ptr(hidden), N, C, E, G, R,
+            int(x.dtype == torch.bfloat16), ACT_CODES[act], float(fatrelu_threshold),
+            float(prob_threshold), int(mask_mode == "scale"))
     sparse_ffn_block_v6q.launches += 1
     return out
+
+
+def v6q_plan(device, N: int, C: int, E: int, G: int, *, gated: bool = True,
+             x_dtype=torch.bfloat16) -> dict:
+    """The launch shape of `sparse_ffn_block_v6q` on a CUDA device: for each
+    of its two launches (up: up, gate and hidden over tiles of G columns;
+    down: the down product over tiles of E columns) the column tile, the
+    cluster size (splits of the reduction), the blocks and the wave ratio
+    (the most stages an SM streams over an even share)."""
+    lib = _kernel_lib("sparse_ffn_v6q", 12, 7)
+    fn = lib.sparse_ffn_v6q_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    v = (ctypes.c_longlong * 10)()
+    with torch.cuda.device(device):
+        err = fn(N, C, E, G, int(gated), int(x_dtype == torch.bfloat16), v)
+    if err:
+        raise RuntimeError(f"sparse_ffn_v6q_plan failed: CUDA error {err}")
+    return {"sms": v[0],
+            "up": {"tile": v[1], "cluster": v[2], "blocks": v[3], "wave_ratio": v[4] / 1e6},
+            "down": {"tile": v[5], "cluster": v[6], "blocks": v[7], "wave_ratio": v[8] / 1e6},
+            "smem_bytes": v[9]}
 
 
 sparse_ffn_block_v6q.launches = 0

@@ -41,10 +41,13 @@ CASES = (("7B B=1", 1, 48, 4096, 128, 32, 86),
          ("13B B=8", 8, 64, 5120, 128, 1, 108))
 
 
-def _load(src: Path) -> ctypes.CDLL:
-    """Build src with the package's nvcc flags (cached by content) and bind it."""
+def _load(src: Path, stem: str = "v7u_other") -> ctypes.CDLL:
+    """Build src with the package's nvcc flags against this tree's headers
+    (cached by content, as build/kernels/<stem>-<hash>.so) and load it."""
     digest = hashlib.sha1(src.read_bytes() + " ".join(_build.NVCC_FLAGS).encode())
-    lib = _build.BUILD_DIR / f"v7u_other-{digest.hexdigest()[:12]}.so"
+    for header in sorted(_build.CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    lib = _build.BUILD_DIR / f"{stem}-{digest.hexdigest()[:12]}.so"
     if not lib.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",

@@ -215,6 +215,149 @@ def test_v6q_is_deterministic(cuda):
     assert torch.equal(a, b)
 
 
+# The shapes of the v6q sweep: C in (1, 3, 16), G in (32, 96, 128, 4096)
+# and E in (64, 1056, 5120), with the 13B decode shape (16, 128, 5120)
+_V6Q_SHAPES = [(1, 32, 64), (3, 96, 1056), (16, 128, 5120), (3, 4096, 64),
+               (1, 128, 1056), (16, 32, 5120), (3, 128, 5120), (1, 4096, 1056)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("C,G,E", _V6Q_SHAPES)
+def test_v6q_sweep_bf16(cuda, N, C, G, E):
+    """bf16 x (the 13B main path's route) at every token count, selection
+    count, group size and width, inputs made on the card. 1e-4 of the scale
+    where a sum runs over 4096 terms or more (E, or C * G for the down
+    product), else 1e-5."""
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    R = C + 3
+
+    def store(*shape):
+        return quantize_rows_q8_0(torch.randn(shape, generator=gen, device=cuda) * 0.05)
+
+    x = torch.randn((N, E), generator=gen, device=cuda).bfloat16()
+    idx = torch.stack([torch.randperm(R, generator=gen, device=cuda)[:C]
+                       for _ in range(N)]).to(torch.int32)
+    gp = torch.rand((N, C, G), generator=gen, device=cuda)
+    bu = torch.randn((N, C, G), generator=gen, device=cuda) * 0.1
+    args = (x, idx, gp, *store(R, E, G), *store(R, E, G), *store(R, G, E))
+    _check_v6q(args, bu, 1e-4 if max(E, C * G) >= 4096 else 1e-5, act="fatrelu",
+               fatrelu_threshold=0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,act,mask_mode,bias", list(itertools.product(
+    [torch.bfloat16, torch.float32], ["fatrelu", "relu"], ["threshold", "scale"],
+    [True, False])))
+def test_v6q_routes(cuda, xdt, act, mask_mode, bias):
+    """Each route: bf16 or f32 x, gated (up and gate in one launch) and
+    ungated, both mask modes, with and without the up bias; two row ids out
+    of range (clamped)."""
+    args, bu = _q8_inputs(5, 7, 1056, 96, 11, cuda, seed=19, with_bu=bias,
+                          gated=act != "relu")
+    x, idx, *rest = args
+    idx = idx.clone()
+    idx[1, 2], idx[3, 0] = -4, 11 + 6
+    _check_v6q((x.to(xdt), idx, *rest), bu, 1e-5, act=act, mask_mode=mask_mode,
+               fatrelu_threshold=0.01)
+
+
+@pytest.mark.cuda
+def test_v6q_plan(cuda):
+    """The launch plan at the 13B decode shapes: clusters of at most 16
+    blocks, a block count that is the clusters' multiple, and wave ratios
+    at or above 1 (the busiest SM's share over an even one)."""
+    from sparkinfer_tpu_torch.ops.sparse_ffn import v6q_plan
+
+    for N in (1, 4):
+        plan = v6q_plan(cuda, N, 16, 5120, 128)
+        assert plan["sms"] > 0 and plan["smem_bytes"] > 0, plan
+        for launch in ("up", "down"):
+            p = plan[launch]
+            assert 1 <= p["cluster"] <= 16 and p["blocks"] % p["cluster"] == 0, plan
+            assert p["tile"] % 32 == 0 and 0.99 <= p["wave_ratio"] < 4, plan
+
+
+# One v6q call profiled in a fresh process (see _V7U_ONE_CALL)
+_V6Q_ONE_CALL = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[2])
+from test_torch_cuda_kernels import _kernels_of_one_call
+from sparkinfer_tpu_torch.ops.sparse_ffn import quantize_rows_q8_0, sparse_ffn_block_v6q
+N = int(sys.argv[1])
+gen = torch.Generator(device="cuda").manual_seed(20)
+stores = [t for sh in ((108, 5120, 128), (108, 5120, 128), (108, 128, 5120))
+          for t in quantize_rows_q8_0(torch.randn(sh, generator=gen, device="cuda") * 0.05)]
+idx = torch.stack([torch.randperm(108, generator=gen, device="cuda")[:16]
+                   for _ in range(N)]).to(torch.int32)
+gp = torch.rand((N, 16, 128), generator=gen, device="cuda")
+bu = torch.randn((N, 16, 128), generator=gen, device="cuda") * 0.1
+x = torch.randn((N, 5120), generator=gen, device="cuda").bfloat16()
+print(json.dumps(_kernels_of_one_call(
+    lambda: sparse_ffn_block_v6q(x, idx, gp, *stores, act="fatrelu", bu_sel=bu))))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 4])
+def test_v6q_one_call_is_two_kernels(cuda, N):
+    """One call over bf16 x, int32 ids and f32 gp and bias launches the up
+    and down kernels and nothing else: no copy or conversion of x, no
+    partial sums (profiled in a child process)."""
+    import json
+    import subprocess
+    import sys
+
+    here = Path(__file__).resolve().parent
+    proc = subprocess.run([sys.executable, "-c", _V6Q_ONE_CALL, str(N), str(here)],
+                          cwd=here.parent, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(names) == 2, names
+    assert "v6q_up" in names[0] and "v6q_down" in names[1], names
+
+
+@pytest.mark.cuda
+def test_v6q_sass_has_no_int_conversions(cuda):
+    """v6q_up (bf16 and f32 x) and v6q_down read int8 as f32 with LOP3,
+    PRMT and FADD: no I2F or I2FP in their SASS, and their FMAs (FFMA) and
+    byte permutes (PRMT) show that the parser reads them. Needs cuobjdump."""
+    from sparkinfer_tpu_torch.ops import _build
+    from sparkinfer_tpu_torch.ops.sparse_ffn import _kernel_lib
+
+    _kernel_lib("sparse_ffn_v6q", 12, 7)
+    funcs = _sass_functions(_build.library_path("sparse_ffn_v6q"))
+    v6q = {k: v for k, v in funcs.items() if "v6q_up" in k or "v6q_down" in k}
+    assert len(v6q) == 3, sorted(funcs)
+    for name, ops in v6q.items():
+        assert "FFMA" in ops and "PRMT" in ops, (name, sorted(set(ops)))
+        assert not {"I2F", "I2FP"} & set(ops), (name, sorted({"I2F", "I2FP"} & set(ops)))
+
+
+@pytest.mark.cuda
+def test_v6q_graph_replay_equals_the_eager_call(cuda):
+    """Replays of a CUDA graph of two calls (the 13B shape at N = 4 with bf16
+    x, an odd shape with f32 x) give the eager calls' bits: no state is left
+    between calls."""
+    a4, b4 = _q8_inputs(4, 16, 5120, 128, 40, cuda, seed=21)
+    a3, b3 = _q8_inputs(3, 3, 1056, 96, 7, cuda, seed=22)
+    a4 = (a4[0].bfloat16(), *a4[1:])
+    calls = (lambda: sparse_ffn_block_v6q(*a4, act="fatrelu", bu_sel=b4),
+             lambda: sparse_ffn_block_v6q(*a3, act="silu", mask_mode="scale", bu_sel=b3))
+    ref = [c() for c in calls]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, r in zip(outs, ref):
+            assert torch.equal(o, r)
+
+
 @pytest.mark.cuda
 def test_packers_on_the_card_equal_the_cpu(cuda):
     gen = torch.Generator(device=cuda).manual_seed(17)

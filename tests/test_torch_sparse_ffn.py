@@ -218,16 +218,27 @@ def _v6q_inputs(seed, with_bu):
     return (x, idx, gp, *stores), bu
 
 
-@pytest.mark.parametrize("act,mask_mode,with_bu", list(itertools.product(
-    ["fatrelu", "drelu", "relu", "silu", "gelu"], ["threshold", "scale"],
-    [True, False])))
-def test_plain_v6q_matches_jax_kernel(act, mask_mode, with_bu):
+# each case with f32 x (ids as act-mask-bias) and with x rounded to bf16
+# (ids ending in -bf16), as the 13B main path passes it to the kernel
+_V6Q_CASES = list(itertools.product(["fatrelu", "drelu", "relu", "silu", "gelu"],
+                                    ["threshold", "scale"], [True, False]))
+
+
+@pytest.mark.parametrize(
+    "act,mask_mode,with_bu,x_bf16",
+    [(*c, False) for c in _V6Q_CASES] + [(*c, True) for c in _V6Q_CASES],
+    ids=[f"{a}-{m}-{b}" for a, m, b in _V6Q_CASES]
+    + [f"{a}-{m}-{b}-bf16" for a, m, b in _V6Q_CASES])
+def test_plain_v6q_matches_jax_kernel(act, mask_mode, with_bu, x_bf16):
     args, bu = _v6q_inputs(6, with_bu)
     kw = dict(act=act, fatrelu_threshold=0.05, prob_threshold=0.5,
               mask_mode=mask_mode)
-    ref = np.asarray(jax_v6q(*(jnp.asarray(a) for a in args),
+    jx, tx = jnp.asarray(args[0]), torch.from_numpy(args[0])
+    if x_bf16:  # both round to nearest even
+        jx, tx = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16)
+    ref = np.asarray(jax_v6q(jx, *(jnp.asarray(a) for a in args[1:]),
                              bu_sel=None if bu is None else jnp.asarray(bu), **kw))
-    got = sparse_ffn_block_v6q_plain(*(torch.from_numpy(a) for a in args),
+    got = sparse_ffn_block_v6q_plain(tx, *(torch.from_numpy(a) for a in args[1:]),
                                      bu_sel=None if bu is None else torch.from_numpy(bu),
                                      **kw)
     assert got.dtype == torch.float32
