@@ -48,7 +48,9 @@ sees no card or the package is missing. Phases, each of which fails the run:
      layers of each predictor stack, and the 184 MB head alone; with
      max_abs_err, tol, ms, plain_ms, bound_ms and library_ms (the bf16
      torch.matmul of the dequantized weight for the quant products):
-       sparse_ffn_block_v6 at 7B widths (E=4096, G=128, C=12 of 86, bf16);
+       sparse_ffn_block_v6 at 7B widths (E=4096, G=128, C=12 of 86, bf16),
+       N=1 and 4, with the kernel one call launches and its span
+       (torch.profiler: v6_ffn alone) and its launch plan;
        sparse_ffn_block (v1) at 7B widths, N=1 and 4, over the Scheduler's
        row stores, and v3 and v5 over the same stores, v4 over their
        interleave (L, ng, 3, G, E), v2 over the bench path's concatenated
@@ -72,7 +74,8 @@ sees no card or the package is missing. Phases, each of which fails the run:
      and peak memory, then the dense engine on the same weights:
        ProSparse-Llama-2-7B widths, bf16 (bench.py "7b" preset scales),
        sparse greedy generate of 64 tokens from a 32-token prompt: v6
-       n_layer times per decode step;
+       n_layer times per decode step, with v6's device time and launches (1
+       kernel a call) and the f32 copies' in the profiled steps;
        the Scheduler at the same widths: 8 greedy requests (32-token
        prompts, 32 new tokens) on 4 slots, so half of them queue, with
        sparse_batch_max = 4: v1 n_layer times per tick and no other kernel;
@@ -493,14 +496,24 @@ def rows_sets(gen, n_sets, N, C, ng, L):
 
 
 def phase_v6(v6, v6_plain, flat, L, ng):
-    """sparse_ffn_block_v6 against its plain version at the 7B decode shapes."""
+    """sparse_ffn_block_v6 against its plain version at the 7B decode
+    shapes, over the model's flat stores; with the kernels one call launches
+    and their spans (torch.profiler in a child process: v6_ffn alone) and
+    the launch plan (splits, blocks, wave ratio, stages)."""
     import torch
+
+    from sparkinfer_tpu_torch.ops.sparse_ffn import v6_plan
 
     R, E, G = flat["w_upT_flat"].shape
     C = 12
+    cases = ((1, "fatrelu"), (4, "fatrelu"), (4, "relu"))
+    per_call = kernels_per_call([["v6", N, C, E, G, "bfloat16", act] for N, act in cases],
+                                spans=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     results = []
-    for N, act in ((1, "fatrelu"), (4, "fatrelu"), (4, "relu")):
+    for (N, act), kernels in zip(cases, per_call):
+        names = [k for k, _ in kernels[:-1]]
+        check(len(names) == 1 and "v6_ffn" in names[0], f"v6 N={N} {act}: one call launched {names}")
         gated = act != "relu"
         idx = rows_sets(gen, N_SETS, N, C, ng, L)
         x = torch.randn((N, E), generator=gen, device="cuda").to(torch.bfloat16)
@@ -525,7 +538,9 @@ def phase_v6(v6, v6_plain, flat, L, ng):
         bound_ms, by = bound(nbytes, 2 * n_proj * N * C * G * E, PEAK_F32_FLOP_S)
         row = dict(kernel="sparse_ffn_block_v6", N=N, act=act, max_abs_err=err, tol=tol,
                    ms=ms, eager_call_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=by, library_ms=None, GB_s=nbytes / (ms * 1e-3) / 1e9)
+                   bound_by=by, library_ms=None, x_bound=ms / bound_ms,
+                   GB_s=nbytes / (ms * 1e-3) / 1e9, launches_per_call=len(names),
+                   span_us=kernels, plan=v6_plan(x.device, N, C, E, G, gated=gated))
         print("kernel check:", json.dumps(row))
         results.append(row)
     return results[0]  # N=1 fatrelu: the main path's decode shape
@@ -593,9 +608,21 @@ from sparkinfer_tpu_torch.ops import quant_matmul as qm
 
 gen = torch.Generator(device="cuda").manual_seed(0)
 result = []
-for kind, N, IN, OUT, L, xdt in json.loads(sys.argv[1]):
+for kind, N, IN, OUT, L, xdt, *rest in json.loads(sys.argv[1]):
     ld = OUT * L
-    if kind == "v6q":  # N tokens, IN = C selections of 108 groups, OUT = E, L = G
+    if kind == "v6":  # N tokens, IN = C selections of 86 groups, OUT = E, L = G; rest: act
+        from sparkinfer_tpu_torch.ops.sparse_ffn import sparse_ffn_block_v6
+        w = [(torch.randn(sh, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+             for sh in ((86, OUT, L), (86, OUT, L), (86, L, OUT))]
+        if rest[0] == "relu":
+            w[1] = None
+        idx = torch.stack([torch.randperm(86, generator=gen, device="cuda")[:IN]
+                           for _ in range(N)]).to(torch.int32)
+        gp = torch.rand((N, IN, L), generator=gen, device="cuda")
+        bu = torch.randn((N, IN, L), generator=gen, device="cuda") * 0.1
+        x = torch.randn((N, OUT), generator=gen, device="cuda").to(getattr(torch, xdt))
+        fn = lambda: sparse_ffn_block_v6(x, idx, gp, *w, act=rest[0], bu_sel=bu)
+    elif kind == "v6q":  # N tokens, IN = C selections of 108 groups, OUT = E, L = G
         from sparkinfer_tpu_torch.ops.sparse_ffn import quantize_rows_q8_0, sparse_ffn_block_v6q
         w = [t for sh in ((108, OUT, L), (108, OUT, L), (108, L, OUT))
              for t in quantize_rows_q8_0(torch.randn(sh, generator=gen, device="cuda") * 0.02)]
@@ -646,8 +673,10 @@ def kernels_per_call(specs, names: bool = False, spans: bool = False) -> list:
     """Device kernels that one call launches, for each (kind, N, IN, OUT,
     layers, x dtype) of a quant matmul (layers > 1: quant_matmul_flat on the
     last layer's stripe), ("v7u", B, Cu, E, G, x dtype) of the union FFN
-    over bf16 stores or ("v6q", N, C, E, G, x dtype) of the Q8_0 FFN over
-    108 groups, by torch.profiler in a child process over random stores of
+    over bf16 stores, ("v6", N, C, E, G, x dtype, act) of the decode FFN
+    over 86 groups of bf16 stores with an up bias or ("v6q", N, C, E, G, x
+    dtype) of the Q8_0 FFN over 108 groups, by torch.profiler in a child
+    process over random stores of
     those shapes. The call lies between two marker kernels (fill_), and the
     window opens and closes with a pause; a window that misses a marker
     fails. names: the kernels' names in launch order; spans: their [name,
@@ -1546,7 +1575,17 @@ def main() -> int:
     L = cfg.n_layer
     l7, s7 = main_path("7B bf16 sparse", sparse_eng, prompt, n_new,
                        lambda steps: {"sparse_ffn_block_v6": L * steps})
-    profile_decode(sparse_eng, prompt)
+    rows7, steps7 = profile_decode(sparse_eng, prompt)
+    v6_prof = [(k, ms, n) for k, ms, n in rows7 if "v6_ffn" in k]
+    # the f32 copies: torch's casting copies (direct_copy_kernel_cuda)
+    copies = [(k, ms, n) for k, ms, n in rows7 if "direct_copy_kernel" in k]
+    print("profile: v6 in a 7B bf16 sparse step:", json.dumps({
+        "device_ms": sum(ms for _, ms, _ in v6_prof) / steps7,
+        "launches": sum(n for _, _, n in v6_prof) // steps7,
+        "f32_copies": {"device_ms": sum(ms for _, ms, _ in copies) / steps7,
+                       "launches": sum(n for _, _, n in copies) // steps7}}))
+    check(sum(n for _, _, n in v6_prof) == L * steps7,
+          f"the profiled 7B step launched {v6_prof} v6 kernels, want {L} a step")
     dense_run("7B bf16", Engine(model, max_seq=1024, sampler=greedy, device="cuda"),
               prompt, n_new, s7)
     print(f"7B engine path done at {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,6 @@
 // Pieces shared by the sparse FFN kernels that split a reduction over the
-// blocks of a thread-block cluster (sparse_ffn_v7u.cu, sparse_ffn_v6q.cu):
+// blocks of a thread-block cluster (sparse_ffn_v7u.cu, sparse_ffn_v6q.cu,
+// sparse_ffn_v6.cu):
 // cp.async copies into a ring, the cluster barriers and the rank-order sum
 // over the cluster's blocks through distributed shared memory, the launch
 // of a cluster grid (a programmatic dependent launch on request), and the
@@ -32,19 +33,35 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(PENDING) : "memory");
 }
 
+// The two halves of a barrier over the block's cluster, so that work can
+// run between them: arrive with release (the block's shared-memory stores
+// before it are seen by the other blocks after their wait) or relaxed (no
+// ordering), and wait with acquire.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
 // barrier over the block's cluster, ordering shared-memory stores before
 // the other blocks' loads after it
 __device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
-               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  cluster_arrive();
+  cluster_wait();
 }
 
 // barrier over the block's cluster without memory ordering: a block's
 // shared memory stays until every block of the cluster has used what it
 // loaded from it (its loads have completed, the values being consumed)
 __device__ __forceinline__ void cluster_hold() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n\t"
-               "barrier.cluster.wait.aligned;" ::: "memory");
+  cluster_arrive_relaxed();
+  cluster_wait();
 }
 
 // the same 16 bytes in cluster block `rank`
@@ -55,6 +72,14 @@ __device__ __forceinline__ float4 ld_cluster4(uint32_t a, int rank) {
   asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(d));
   return v;
+}
+
+// store 16 bytes at a (16-byte aligned) in cluster block `rank`
+__device__ __forceinline__ void st_cluster4(uint32_t a, int rank, float4 v) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
+               ::"r"(d), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
 }
 
 // sums over the KS (<= MAXK) blocks of the cluster of the 4 words at a
@@ -136,7 +161,12 @@ cudaError_t max_clusters(const void* fn, int threads, int bytes, int ks, int* n)
 // flight to take its share of the bandwidth (measured for v7u's cp.async
 // ring: 1.8 blocks an SM pull 1.5 TB/s in all, 3-4 pull 1.9-2.2), so a
 // first round of fewer blocks counts as slower by that shortfall (score). A
-// tie takes the more splits.
+// tie takes the more splits. KS starts at min_ks. packed: the hardware may
+// place the clusters of a grid that runs in one round on as few SMs as
+// they fit in (measured for v6 by tools/v6_stamps.py --splits 11: 12
+// clusters of 11 blocks that fit 2 an SM left 30 of 132 SMs idle and put 2
+// blocks on 30), so such a round of b
+// blocks counts as min(b, the blocks an SM holds) on the busiest SM.
 struct Split {
   int ks, per, rem;
   long long blocks;
@@ -144,9 +174,10 @@ struct Split {
 };
 
 cudaError_t plan_split(const void* fn, int threads, int bytes, int max_ks, int min_blocks,
-                       long long tiles, int steps, int sms, Split* best, bool pow2 = false) {
+                       long long tiles, int steps, int sms, Split* best, bool pow2 = false,
+                       int min_ks = 1, bool packed = false) {
   *best = Split{0, 0, 0, 0, 0.f, 0.f};
-  for (int ks = 1; ks <= max_ks && ks <= steps; ks = pow2 ? 2 * ks : ks + 1) {
+  for (int ks = min_ks; ks <= max_ks && ks <= steps; ks = pow2 ? 2 * ks : ks + 1) {
     int C = 0;
     const cudaError_t err = max_clusters(fn, threads, bytes, ks, &C);
     if (err != cudaSuccess) return err;
@@ -155,7 +186,8 @@ cudaError_t plan_split(const void* fn, int threads, int bytes, int max_ks, int m
     long long busiest = 0;  // blocks on the busiest SM, summed over rounds
     for (long long left = tiles; left > 0; left -= C) {
       const long long b = (left < C ? left : C) * ks;
-      busiest += (b + sms - 1) / sms;
+      const long long held = ((long long)C * ks + sms - 1) / sms;  // blocks an SM holds
+      busiest += packed && tiles <= C ? (b < held ? b : held) : (b + sms - 1) / sms;
     }
     const float ratio = (float)((double)busiest * sms * most / ((double)steps * tiles));
     const long long first = (tiles < C ? tiles : C) * ks;

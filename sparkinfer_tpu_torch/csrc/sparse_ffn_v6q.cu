@@ -64,10 +64,9 @@
 // Requires G and E multiples of 32, G at most 4096, 16-byte aligned stores
 // and x.
 
-#include <cudaTypedefs.h>  // cuTensorMapEncodeTiled's type (reached at run time)
-
 #include "sparse_ffn_cluster.cuh"
 #include "sparse_ffn_common.cuh"
+#include "sparse_ffn_tma.cuh"
 
 namespace {
 
@@ -113,52 +112,6 @@ struct Item {
 };
 
 __device__ __forceinline__ int log2_of(int v) { return 31 - __clz(v); }
-
-// The ring's barriers: each slot's completes when the bytes a thread
-// announced (expect_tx) have landed by bulk copies (the Tensor Memory
-// Accelerator, cp.async.bulk).
-__device__ __forceinline__ void ring_init(uint32_t bars, int slots) {
-  for (int s = 0; s < slots; ++s)
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bars + 8 * s));
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void expect_bytes(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// bytes (a multiple of 16, 16-byte aligned both sides) from global to shared
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// One box of a 2-D tensor map (columns x.., rows y..) into shared memory;
-// columns past the tensor's edge are zero-filled and count as landed bytes
-__device__ __forceinline__ void box_copy(uint32_t dst, const CUtensorMap* map, int x, int y,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar) : "memory");
-}
-
-// Wait for the phase of a barrier; a copy that never lands (a fault of the
-// kernel) traps after 2^24 polls instead of hanging the card.
-__device__ __forceinline__ void wait_phase(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  for (long long spin = 0; !done; ++spin) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (spin > (1LL << 24)) __trap();
-  }
-}
 
 // part[i] += v * q_i over the 16 int8 q of w, each q read as f32 exactly
 // without I2F: byte b of w ^ 0x80808080 is q + 128, set under 0x4B000000
@@ -525,45 +478,6 @@ cudaError_t make_shape(int N, int C, int E, int G, int gated, int x_bf16, Shape*
   return cudaSuccess;
 }
 
-// The tensor map of a down store qd (R * G rows of E int8) in boxes of 32
-// rows and `box` columns, cached by store and shape.
-cudaError_t down_map(const void* qd, int R, int G, int E, int box, CUtensorMap* map) {
-  struct Entry { const void* qd; int dev, R, G, E, box; CUtensorMap map; };
-  constexpr int kEntries = 64;
-  static Entry cache[kEntries];
-  static int used = 0, next = 0;
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  for (int i = 0; i < used; ++i) {
-    const Entry& e = cache[i];
-    if (e.qd == qd && e.dev == dev && e.R == R && e.G == G && e.E == E && e.box == box) {
-      *map = e.map;
-      return cudaSuccess;
-    }
-  }
-  if (!encode) {
-    cudaDriverEntryPointQueryResult found;
-    err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-                                  cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || !encode) return cudaErrorNotSupported;
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)E, (cuuint64_t)R * G};
-  const cuuint64_t strides[1] = {(cuuint64_t)E};
-  const cuuint32_t boxdim[2] = {(cuuint32_t)box, (cuuint32_t)kQK};
-  const cuuint32_t step[2] = {1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(qd), dims, strides, boxdim,
-             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  cache[next] = Entry{qd, dev, R, G, E, box, *map};
-  next = (next + 1) % kEntries;
-  used = used < kEntries ? used + 1 : kEntries;
-  return cudaSuccess;
-}
-
 bool valid(int N, int C, int E, int G, int R) {
   return G % kQK == 0 && E % kQK == 0 && G > 0 && E > 0 && G <= 4096 && N > 0 && C > 0 &&
          R > 0 && N <= 65535 && C <= 65535 && (long long)C * G < (1LL << 30) &&
@@ -633,7 +547,9 @@ int sparse_ffn_v6q(const void* x, const void* idx, const void* gp, const void* b
                      &E,   &G,  &R,   &ulc, &ulks, &uper, &urem, &act, &fat_thr, &prob_thr,
                      &mask_scale};
   CUtensorMap qmap;
-  err = down_map(qd, R, G, E, dlc + 4 < 8 ? 16 << dlc : 256, &qmap);
+  // the down store as R * G rows of E int8, in boxes of 32 rows
+  err = tensor_map_2d(qd, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, (long long)R * G, E,
+                      dlc + 4 < 8 ? 16 << dlc : 256, kQK, &qmap);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* down_args[] = {&qmap, &hidden_in, &is, &sdf, &o, &C, &E, &G, &R, &dlc, &dper, &drem};
   const int gtiles = (G + (16 << ulc) - 1) >> (4 + ulc);

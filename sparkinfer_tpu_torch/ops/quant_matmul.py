@@ -41,7 +41,7 @@ import ctypes
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, workspace
 
 QK = 32  # ggml block size for q4_0/q8_0
 KINDS = ("q4_0", "q8_0")
@@ -293,15 +293,8 @@ def launch_plan(device, N: int, IN: int, OUT: int, kind: str) -> dict:
 def _decode_workspace(device: torch.device) -> torch.Tensor:
     """The device's decode workspace (int32 tile counters, then f32
     partials), allocated zeroed at the first decode call on that device."""
-    ws = _workspace.get(device.index)
-    if ws is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("quant_matmul: the first decode call on a device allocates "
-                               "its workspace and must come before CUDA-graph capture")
-        ws = torch.zeros((_lib().quant_matmul_workspace_words(),), dtype=torch.int32,
-                         device=device)
-        _workspace[device.index] = ws
-    return ws
+    return workspace.zeroed(_workspace, device, _lib().quant_matmul_workspace_words(),
+                            "quant_matmul decode")
 
 
 def _launch(x, qw, scales, kind: str, col0: int, out_dim: int) -> torch.Tensor:

@@ -14,7 +14,8 @@ For each token n and selected row r = idx[n, c]:
   - `sparse_ffn_block_v6` (sparkinfer_tpu/ops/sparse_ffn_pallas.py:564,
     csrc/sparse_ffn_v6.cu): transposed flat stores (R, E, G) for up/gate,
     (R, G, E) for down, all in f32 (the hidden is not rounded before the
-    down product);
+    down product); one launch with f32 FMAs, its selections added through
+    a per-device workspace of counters (`v6_plan` gives its shape);
   - `sparse_ffn_block_v6q` (:706, csrc/sparse_ffn_v6q.cu): v6 over Q8_0
     stores, int8 with one f32 scale per 32 elements (along E for up/gate,
     along G for down), dequantized in f32; `quantize_rows_q8_0` packs a v6
@@ -47,7 +48,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, workspace
 from .quant_matmul import QK, q8_blocks
 
 # activation codes of csrc/sparse_ffn_common.cuh; "relu" is the only ungated
@@ -128,6 +129,9 @@ def sparse_ffn_block_v6_plain(x, idx, gp_sel, w_upT_rows, w_gateT_rows,
 
 
 _typed: set[str] = set()  # libraries whose C signatures are declared
+_v6_workspace: dict[int, torch.Tensor] = {}  # v6's counters, by device index
+V6_MAX_E = 32768  # 16 splits of at most 2048 columns (csrc/sparse_ffn_v6.cu)
+V6_MAX_N = 4096  # 16 splits a token in the workspace's 65536 counters
 
 
 def _kernel_lib(name: str, n_ptr: int, n_int: int, n_ll: int = 0) -> ctypes.CDLL:
@@ -144,6 +148,9 @@ def _kernel_lib(name: str, n_ptr: int, n_int: int, n_ll: int = 0) -> ctypes.CDLL
         getattr(lib, name + "_scratch_floats").restype = ctypes.c_longlong
         getattr(lib, name + "_error_string").argtypes = [i]
         getattr(lib, name + "_error_string").restype = ctypes.c_char_p
+        if hasattr(lib, name + "_workspace_words"):
+            getattr(lib, name + "_workspace_words").argtypes = []
+            getattr(lib, name + "_workspace_words").restype = ctypes.c_longlong
         _typed.add(name)
     return lib
 
@@ -193,8 +200,12 @@ def sparse_ffn_block_v6(x, idx, gp_sel, w_upT_rows, w_gateT_rows, w_down_rows,
                         prob_threshold: float = 0.5, bu_sel=None,
                         mask_mode: str = "threshold") -> torch.Tensor:
     """(N, E) f32. CPU tensors run the plain version; CUDA tensors launch
-    the kernel (counted in `sparse_ffn_block_v6.launches`) or raise.
-    Row ids outside [0, R) are clamped, as XLA clamps a gather."""
+    the kernel (one launch a call, counted in `sparse_ffn_block_v6.launches`)
+    or raise. x (bf16 or f32) is read in its own dtype. Row ids outside
+    [0, R) are clamped, as XLA clamps a gather. The kernel adds its
+    selections through a per-device workspace of counters, allocated zeroed
+    at the first call on a device, which therefore must come before any
+    CUDA-graph capture; two streams must not run it at once on one device."""
     kw = dict(act=act, fatrelu_threshold=fatrelu_threshold,
               prob_threshold=prob_threshold, bu_sel=bu_sel,
               mask_mode=mask_mode)
@@ -215,25 +226,59 @@ def sparse_ffn_block_v6(x, idx, gp_sel, w_upT_rows, w_gateT_rows, w_down_rows,
     _check(bu_sel is None or bu_sel.shape == (N, C, G), "bu_sel must be (N, C, G)")
     _check(G % 8 == 0 and G <= 2048 and E % 8 == 0,
            "kernel needs G and E multiples of 8, G <= 2048")
+    _check(E <= V6_MAX_E and N <= V6_MAX_N,
+           f"kernel takes E <= {V6_MAX_E} and N <= {V6_MAX_N} (E={E}, N={N})")
     _check_stores(x, [w_upT_rows, w_down_rows] + ([w_gateT_rows] if gated else []))
     small = [t for t in (idx, gp_sel, bu_sel) if t is not None]
     _check(all(t.device == x.device for t in small), "inputs on mixed devices")
 
-    # every tensor whose pointer the kernel gets stays referenced until the
-    # launch is enqueued, so the allocator cannot hand its memory on first
-    xf, idx32, gp, bu = _f32(x), idx.to(torch.int32).contiguous(), _f32(gp_sel), _f32(bu_sel)
-    lib = _kernel_lib("sparse_ffn_v6", 9, 7)
+    # x is read in its own dtype (bf16 or f32), gp_sel and bu_sel in place
+    # when they are contiguous f32; every tensor whose pointer the kernel
+    # gets stays referenced until the launch is enqueued, so the allocator
+    # cannot hand its memory on first
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        x = x.float()
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.contiguous()
+    idx32, gp, bu = idx.to(torch.int32).contiguous(), _f32(gp_sel), _f32(bu_sel)
+    lib = _kernel_lib("sparse_ffn_v6", 10, 8)
+    counters = workspace.zeroed(_v6_workspace, x.device, lib.sparse_ffn_v6_workspace_words(),
+                                "sparse_ffn_block_v6")
     f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty((N, E), **f32)
-    scratch = torch.empty((lib.sparse_ffn_v6_scratch_floats(N, C, E, G),), **f32)
+    floats = lib.sparse_ffn_v6_scratch_floats(N, C, E, G)
+    part = torch.empty((floats,), **f32) if floats else None
     _launch(lib, "sparse_ffn_v6", x.device,
-            _ptr(xf), _ptr(idx32), _ptr(gp), _ptr(bu), _ptr(w_upT_rows),
+            _ptr(x), _ptr(idx32), _ptr(gp), _ptr(bu), _ptr(w_upT_rows),
             _ptr(w_gateT_rows if gated else None), _ptr(w_down_rows), _ptr(out),
-            _ptr(scratch), N, C, E, G, R, int(w_upT_rows.dtype == torch.bfloat16),
+            _ptr(part), _ptr(counters), N, C, E, G, R,
+            int(w_upT_rows.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
             ACT_CODES[act], float(fatrelu_threshold), float(prob_threshold),
             int(mask_mode == "scale"))
     sparse_ffn_block_v6.launches += 1
     return out
+
+
+def v6_plan(device, N: int, C: int, E: int, G: int, *, gated: bool = True,
+            w_dtype=torch.bfloat16, x_dtype=torch.bfloat16) -> dict:
+    """The launch shape of `sparse_ffn_block_v6` on a CUDA device: the
+    splits of E (the cluster size KS), the blocks (N * C * KS), the wave
+    ratio (the most stages an SM streams over an even share), the shared
+    bytes of a block, the rows of an up/gate stage and of a down stage, the
+    stages of the widest block and the columns of a down box."""
+    lib = _kernel_lib("sparse_ffn_v6", 10, 8)
+    fn = lib.sparse_ffn_v6_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    v = (ctypes.c_longlong * 9)()
+    with torch.cuda.device(device):
+        err = fn(N, C, E, G, int(gated), int(w_dtype == torch.bfloat16),
+                 int(x_dtype == torch.bfloat16), v)
+    if err:
+        raise RuntimeError(f"sparse_ffn_v6_plan failed: CUDA error {err}")
+    return {"sms": v[0], "splits": v[1], "blocks": v[2], "wave_ratio": v[3] / 1e6,
+            "smem_bytes": v[4], "up_rows": v[5], "down_rows": v[6], "stages": v[7],
+            "down_box_cols": v[8]}
 
 
 sparse_ffn_block_v6.launches = 0

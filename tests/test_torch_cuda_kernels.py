@@ -139,6 +139,156 @@ def test_v6_is_deterministic(cuda):
     assert torch.equal(a, b)
 
 
+# The shapes of the v6 sweep: C in (1, 3, 12), G in (16, 48, 128, 2048) and
+# E in (64, 1000, 4096), with the 7B decode shape (12, 128, 4096)
+_V6_SHAPES = [(1, 16, 64), (3, 48, 1000), (12, 128, 4096), (3, 2048, 64),
+              (1, 128, 1000), (12, 16, 4096), (3, 128, 4096), (1, 2048, 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("C,G,E", _V6_SHAPES)
+def test_v6_sweep_bf16(cuda, N, C, G, E):
+    """bf16 x and stores (the 7B main path's route) at every token count,
+    selection count, group size and width, inputs made on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    R = C + 3
+
+    def store(*shape):
+        return (torch.randn(shape, generator=gen, device=cuda) * 0.05).bfloat16()
+
+    x = torch.randn((N, E), generator=gen, device=cuda).bfloat16()
+    idx = torch.stack([torch.randperm(R, generator=gen, device=cuda)[:C]
+                       for _ in range(N)]).to(torch.int32)
+    gp = torch.rand((N, C, G), generator=gen, device=cuda)
+    bu = torch.randn((N, C, G), generator=gen, device=cuda) * 0.1
+    args = (x, idx, gp, store(R, E, G), store(R, E, G), store(R, G, E))
+    _check(args, bu, 1e-3, act="fatrelu", fatrelu_threshold=0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt,act,mask_mode,bias", list(itertools.product(
+    [torch.bfloat16, torch.float32], [torch.bfloat16, torch.float32], ["fatrelu", "relu"],
+    ["threshold", "scale"], [True, False])))
+def test_v6_routes(cuda, xdt, wdt, act, mask_mode, bias):
+    """Each route: bf16 or f32 x, bf16 or f32 stores, gated (up and gate in
+    one stage) and ungated, both mask modes, with and without the up bias;
+    two row ids out of range (clamped). 1e-5 of the scale with f32 stores,
+    1e-3 with bf16."""
+    *args, bu = _inputs(5, 7, 1000, 48, 11, wdt, cuda, seed=31, with_bu=bias,
+                        gated=act != "relu")
+    x, idx, *rest = args
+    idx = idx.clone()
+    idx[1, 2], idx[3, 0] = -4, 11 + 6
+    _check((x.to(xdt), idx, *rest), bu, 1e-5 if wdt == torch.float32 else 1e-3, act=act,
+           mask_mode=mask_mode, fatrelu_threshold=0.01)
+
+
+@pytest.mark.cuda
+def test_v6_plan(cuda):
+    """The launch plan at the 7B decode shapes: one cluster of 1-16 blocks a
+    selection, so N * C * KS blocks, and wave ratios at or above 1."""
+    from sparkinfer_tpu_torch.ops.sparse_ffn import v6_plan
+
+    for N, gated in itertools.product((1, 4, 8), (True, False)):
+        plan = v6_plan(cuda, N, 12, 4096, 128, gated=gated)
+        assert plan["sms"] > 0 and plan["smem_bytes"] > 0, plan
+        assert 1 <= plan["splits"] <= 16, plan
+        assert plan["blocks"] == N * 12 * plan["splits"], plan
+        assert 0.99 <= plan["wave_ratio"] < 4 and plan["stages"] > 1, plan
+
+
+@pytest.mark.cuda
+def test_v6_workspace_counters_and_capture_guard(cuda, monkeypatch):
+    """Every counter of the workspace is 0 after calls of several shapes;
+    the workspace is allocated at a device's first call, which raises
+    inside CUDA-graph capture."""
+    from sparkinfer_tpu_torch.ops import sparse_ffn as sf
+
+    *a8, b8 = _inputs(8, 12, 4096, 128, 40, torch.bfloat16, cuda, seed=32)
+    *a2, b2 = _inputs(2, 3, 1000, 48, 7, torch.float32, cuda, seed=33)
+    ref = sparse_ffn_block_v6(*a8, act="fatrelu", bu_sel=b8)
+    sparse_ffn_block_v6(*a2, act="silu", bu_sel=b2)
+    torch.cuda.synchronize()
+    ws = sf._v6_workspace[a8[0].device.index]
+    assert ws.dtype == torch.int32 and int(ws.count_nonzero()) == 0
+    monkeypatch.setattr(sf, "_v6_workspace", {})
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before CUDA-graph capture"):
+        with torch.cuda.graph(graph):
+            sparse_ffn_block_v6(*a8, act="fatrelu", bu_sel=b8)
+    assert not sf._v6_workspace
+    assert torch.equal(sparse_ffn_block_v6(*a8, act="fatrelu", bu_sel=b8), ref)  # allocates
+    torch.cuda.synchronize()
+    assert int(sf._v6_workspace[a8[0].device.index].count_nonzero()) == 0
+
+
+@pytest.mark.cuda
+def test_v6_graph_replay_equals_the_eager_call(cuda):
+    """Replays of a CUDA graph of three calls (the 7B shape at N = 4 with
+    bf16 x, N = 1, an odd shape with f32 x and stores) give the eager calls'
+    bits, and so does every eager call: no state is left between calls."""
+    *a4, b4 = _inputs(4, 12, 4096, 128, 40, torch.bfloat16, cuda, seed=34)
+    *a1, b1 = _inputs(1, 12, 4096, 128, 40, torch.bfloat16, cuda, seed=35)
+    *a3, b3 = _inputs(3, 3, 1000, 48, 7, torch.float32, cuda, seed=36)
+    a4 = (a4[0].bfloat16(), *a4[1:])
+    calls = (lambda: sparse_ffn_block_v6(*a4, act="fatrelu", bu_sel=b4),
+             lambda: sparse_ffn_block_v6(*a1, act="relu", bu_sel=b1),
+             lambda: sparse_ffn_block_v6(*a3, act="silu", mask_mode="scale", bu_sel=b3))
+    ref = [c() for c in calls]
+    for _ in range(3):
+        assert all(torch.equal(c(), r) for c, r in zip(calls, ref))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, r in zip(outs, ref):
+            assert torch.equal(o, r)
+
+
+# One v6 call profiled in a fresh process (see _V7U_ONE_CALL)
+_V6_ONE_CALL = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[2])
+from test_torch_cuda_kernels import _kernels_of_one_call
+from sparkinfer_tpu_torch.ops.sparse_ffn import sparse_ffn_block_v6
+N = int(sys.argv[1])
+gen = torch.Generator(device="cuda").manual_seed(37)
+stores = [(torch.randn(sh, generator=gen, device="cuda") * 0.05).bfloat16()
+          for sh in ((86, 4096, 128), (86, 4096, 128), (86, 128, 4096))]
+idx = torch.stack([torch.randperm(86, generator=gen, device="cuda")[:12]
+                   for _ in range(N)]).to(torch.int32)
+gp = torch.rand((N, 12, 128), generator=gen, device="cuda")
+bu = torch.randn((N, 12, 128), generator=gen, device="cuda") * 0.1
+x = torch.randn((N, 4096), generator=gen, device="cuda").bfloat16()
+print(json.dumps(_kernels_of_one_call(
+    lambda: sparse_ffn_block_v6(x, idx, gp, *stores, act="fatrelu", bu_sel=bu))))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 4])
+def test_v6_one_call_is_one_kernel(cuda, N):
+    """One call over bf16 x and stores, int32 ids and f32 gp and bias
+    launches v6_ffn and nothing else: no copy or conversion of x, no sum of
+    partials in another kernel (profiled in a child process)."""
+    import json
+    import subprocess
+    import sys
+
+    here = Path(__file__).resolve().parent
+    proc = subprocess.run([sys.executable, "-c", _V6_ONE_CALL, str(N), str(here)],
+                          cwd=here.parent, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(names) == 1 and "v6_ffn" in names[0], names
+
+
 # ---------------------------------------------------------------------------
 # v6q over Q8_0 stores
 

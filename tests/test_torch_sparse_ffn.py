@@ -157,10 +157,18 @@ def _v6_inputs(seed, with_bu):
     return x, idx, gp, wu, wg, wd, bu
 
 
-@pytest.mark.parametrize("act,mask_mode,with_bu", list(itertools.product(
-    ["fatrelu", "drelu", "relu", "silu", "gelu"], ["threshold", "scale"],
-    [True, False])))
-def test_plain_v6_matches_jax_kernel(act, mask_mode, with_bu):
+_V6_CASES = list(itertools.product(["fatrelu", "drelu", "relu", "silu", "gelu"],
+                                   ["threshold", "scale"], [True, False]))
+
+
+# each case with f32 x (ids as act-mask-bias) and with x rounded to bf16
+# (ids ending in -bf16), as the 7B main path passes it to the kernel
+@pytest.mark.parametrize(
+    "act,mask_mode,with_bu,x_bf16",
+    [(*c, False) for c in _V6_CASES] + [(*c, True) for c in _V6_CASES],
+    ids=[f"{a}-{m}-{b}" for a, m, b in _V6_CASES]
+    + [f"{a}-{m}-{b}-bf16" for a, m, b in _V6_CASES])
+def test_plain_v6_matches_jax_kernel(act, mask_mode, with_bu, x_bf16):
     x, idx, gp, wu, wg, wd, bu = _v6_inputs(3, with_bu)
     kw = dict(act=act, fatrelu_threshold=0.05, prob_threshold=0.5,
               mask_mode=mask_mode)
@@ -171,9 +179,12 @@ def test_plain_v6_matches_jax_kernel(act, mask_mode, with_bu):
     def t(a):
         return None if a is None else torch.from_numpy(a)
 
-    ref = np.asarray(jax_v6(j(x), j(idx), j(gp), j(wu), j(wg), j(wd),
+    jx, tx = j(x), t(x)
+    if x_bf16:  # both round to nearest even
+        jx, tx = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16)
+    ref = np.asarray(jax_v6(jx, j(idx), j(gp), j(wu), j(wg), j(wd),
                             bu_sel=j(bu), **kw))
-    got = sparse_ffn_block_v6_plain(t(x), t(idx), t(gp), t(wu), t(wg), t(wd),
+    got = sparse_ffn_block_v6_plain(tx, t(idx), t(gp), t(wu), t(wg), t(wd),
                                     bu_sel=t(bu), **kw)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
