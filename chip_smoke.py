@@ -55,7 +55,9 @@ sees no card or the package is missing. Phases, each of which fails the run:
        row stores, and v3 and v5 over the same stores, v4 over their
        interleave (L, ng, 3, G, E), v2 over the bench path's concatenated
        store (L, 3*ng, G, E), these four with an up bias; all five run one
-       strided kernel (csrc/sparse_ffn_v1.cu); sparse_ffn_block_v7u at 7B
+       strided kernel (csrc/sparse_ffn_v1.cu), each row with the kernel one
+       call launches and its span (torch.profiler: v1_ffn alone), the time
+       of an eager call and its launch plan; sparse_ffn_block_v7u at 7B
        widths, B=1, 4 and 8, Cu=48, over the model's stores, and at 13B
        widths, B=8, Cu=64 of 108, E=5120, over one layer's bf16 stores, each
        with the kernels one call launches (torch.profiler: v7u_up then
@@ -78,7 +80,9 @@ sees no card or the package is missing. Phases, each of which fails the run:
        kernel a call) and the f32 copies' in the profiled steps;
        the Scheduler at the same widths: 8 greedy requests (32-token
        prompts, 32 new tokens) on 4 slots, so half of them queue, with
-       sparse_batch_max = 4: v1 n_layer times per tick and no other kernel;
+       sparse_batch_max = 4: v1 n_layer times per tick and no other kernel,
+       with v1's device time and launches (1 kernel a call) and the f32
+       copies' in a profile of 6 ticks;
        batched decode at the same widths (bench.py batch): aggregate tok/s
        of dense, masked-dense, per-token v6, union v7u and the Scheduler's
        v1 step at B = 1, 4, 8, each from its own dense prefill, best of 3
@@ -631,6 +635,24 @@ for kind, N, IN, OUT, L, xdt, *rest in json.loads(sys.argv[1]):
         gp = torch.rand((N, IN, L), generator=gen, device="cuda")
         x = torch.randn((N, OUT), generator=gen, device="cuda").to(getattr(torch, xdt))
         fn = lambda: sparse_ffn_block_v6q(x, idx, gp, *w, act="fatrelu")
+    elif kind == "rows":  # N tokens, IN = C selections of 86 groups, OUT = E, L = G; rest: wrapper
+        from sparkinfer_tpu_torch.ops import sparse_ffn as sf
+        w = (torch.randn((3 * 86, L, OUT), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        idx = torch.stack([torch.randperm(86, generator=gen, device="cuda")[:IN]
+                           for _ in range(N)]).to(torch.int32)
+        gp = torch.rand((N, IN, L), generator=gen, device="cuda")
+        bu = torch.randn((N, IN, L), generator=gen, device="cuda") * 0.1
+        x = torch.randn((N, OUT), generator=gen, device="cuda").to(getattr(torch, xdt))
+        if rest[0] == "sparse_ffn_block_v2":
+            fn = lambda: sf.sparse_ffn_block_v2(x, idx, gp, w, act="fatrelu", gated=True, R=86,
+                                                bu_sel=bu)
+        elif rest[0] == "sparse_ffn_block_v4":
+            il = sf.interleave_rows(w[:86], w[86:172], w[172:])
+            fn = lambda: sf.sparse_ffn_block_v4(x, idx, gp, il, act="fatrelu", gated=True,
+                                                bu_sel=bu)
+        else:
+            fn = lambda: getattr(sf, rest[0])(x, idx, gp, w[:86], w[86:172], w[172:],
+                                              act="fatrelu", bu_sel=bu)
     elif kind == "v7u":  # N tokens, IN = Cu union rows, OUT = E, L = G
         from sparkinfer_tpu_torch.ops.sparse_ffn import sparse_ffn_block_v7u
         w = [(torch.randn(sh, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
@@ -674,8 +696,10 @@ def kernels_per_call(specs, names: bool = False, spans: bool = False) -> list:
     layers, x dtype) of a quant matmul (layers > 1: quant_matmul_flat on the
     last layer's stripe), ("v7u", B, Cu, E, G, x dtype) of the union FFN
     over bf16 stores, ("v6", N, C, E, G, x dtype, act) of the decode FFN
-    over 86 groups of bf16 stores with an up bias or ("v6q", N, C, E, G, x
-    dtype) of the Q8_0 FFN over 108 groups, by torch.profiler in a child
+    over 86 groups of bf16 stores with an up bias, ("rows", N, C, E, G, x
+    dtype, wrapper) of a row-store wrapper (v1-v5) over 86 groups of bf16
+    stores with an up bias, or ("v6q", N, C, E, G, x dtype) of the Q8_0 FFN
+    over 108 groups, by torch.profiler in a child
     process over random stores of
     those shapes. The call lies between two marker kernels (fill_), and the
     window opens and closes with a pause; a window that misses a marker
@@ -890,12 +914,27 @@ def phase_serving_reference(sparse_cfg_cls, sampler):
     torch.cuda.empty_cache()
 
 
-def row_kernel_rows(name, fn, plain, stores_of, layers, ng, C, seed, bias):
+ROW_WRAPPERS = ("sparse_ffn_block", "sparse_ffn_block_v2", "sparse_ffn_block_v3",
+                "sparse_ffn_block_v4", "sparse_ffn_block_v5")
+
+
+def row_kernels_per_call(C, E, G) -> dict:
+    """{(wrapper, N): [[kernel, span us], ..., ["all", us]]} of one call of
+    each row-store wrapper at N = 1 and 4, from one child process."""
+    specs = [["rows", N, C, E, G, "bfloat16", name] for name in ROW_WRAPPERS for N in (1, 4)]
+    spans = kernels_per_call(specs, spans=True)
+    return {(spec[6], spec[1]): kernels for spec, kernels in zip(specs, spans)}
+
+
+def row_kernel_rows(name, fn, plain, stores_of, layers, ng, C, seed, bias, per_call):
     """A row-store kernel (v1, v2, v3, v4, v5) against its plain version at
     the 7B decode shapes, N = 1 and 4, fatrelu: each call takes C groups of
     one random layer of `layers` per token, stores_of(il) giving that
-    layer's store arguments and keyword arguments; bias adds an up bias."""
+    layer's store arguments and keyword arguments; bias adds an up bias.
+    per_call: row_kernels_per_call's spans, which must be v1_ffn alone."""
     import torch
+
+    from sparkinfer_tpu_torch.ops.sparse_ffn import v1_plan
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     stores, extra = stores_of(layers[0])
@@ -914,10 +953,14 @@ def row_kernel_rows(name, fn, plain, stores_of, layers, ng, C, seed, bias):
             stores, extra = stores_of(il)
             return f(x, idx, gp, *stores, act="fatrelu", bu_sel=bu, **extra)
 
+        kernels = per_call[(name, N)]
+        names = [k for k, _ in kernels[:-1]]
+        check(len(names) == 1 and "v1_ffn" in names[0], f"{name} N={N}: one call launched {names}")
         got = call(fn, 0)
         torch.cuda.synchronize()
         err, tol = compare(f"{name} N={N}", got, call(plain, 0))
         ms = graph_ms(lambda i: call(fn, i), N_SETS)
+        host_ms = events_ms(lambda i: call(fn, i), 200)
         plain_ms = graph_ms(lambda i: call(plain, i), 8)
         # each distinct selected row of each projection read once; x, gp,
         # (bu,) idx read and out written once; 2 flops per weight and token
@@ -926,9 +969,11 @@ def row_kernel_rows(name, fn, plain, stores_of, layers, ng, C, seed, bias):
                   + N * C * 4 + N * E * 4)
         bound_ms, by = bound(nbytes, 2 * 3 * N * C * G * E, PEAK_F32_FLOP_S)
         row = dict(kernel=name, N=N, C=C, G=G, E=E, act="fatrelu", up_bias=bias,
-                   max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=by, library_ms=None, rows_read=rows_read,
-                   GB_s=nbytes / (ms * 1e-3) / 1e9)
+                   max_abs_err=err, tol=tol, ms=ms, eager_call_ms=host_ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=by, library_ms=None, x_bound=ms / bound_ms,
+                   rows_read=rows_read, GB_s=nbytes / (ms * 1e-3) / 1e9,
+                   launches_per_call=len(names), span_us=kernels,
+                   plan=v1_plan(x.device, N, C, E, G))
         print("kernel check:", json.dumps(row))
         results.append(row)
     return results[0]
@@ -938,14 +983,15 @@ def phase_rows(rows, C):
     """v1, v3, v5 over the Scheduler's row stores (L, ng, G, E), and v4 over
     their interleave (L, ng, P, G, E), every layer's rows: v1 without a
     bias, at the draws of its earlier timings, the others with an up bias.
-    Returns {kernel: N=1 row}."""
+    Returns {kernel: N=1 row} and the five wrappers' kernels per call."""
     import torch
 
     from sparkinfer_tpu_torch.ops import sparse_ffn as sf
 
     wu, wg, wd = rows["w_up_rows"], rows["w_gate_rows"], rows["w_down_rows"]
-    L, ng = wu.shape[:2]
+    L, ng, G, E = wu.shape
     layers = list(range(L))
+    per_call = row_kernels_per_call(C, E, G)
 
     def three(il):
         return (wu[il], wg[il], wd[il]), {}
@@ -954,14 +1000,14 @@ def phase_rows(rows, C):
     for seed, name, bias in ((8, "sparse_ffn_block", False), (12, "sparse_ffn_block_v3", True),
                              (13, "sparse_ffn_block_v5", True)):
         out[name] = row_kernel_rows(name, getattr(sf, name), getattr(sf, name + "_plain"),
-                                    three, layers, ng, C, SEED + seed, bias)
+                                    three, layers, ng, C, SEED + seed, bias, per_call)
     il_store = sf.interleave_rows(wu, wg, wd)  # (L, ng, 3, G, E): 8.7 GB at 7B bf16
     out["sparse_ffn_block_v4"] = row_kernel_rows(
         "sparse_ffn_block_v4", sf.sparse_ffn_block_v4, sf.sparse_ffn_block_v4_plain,
-        lambda il: ((il_store[il],), {"gated": True}), layers, ng, C, SEED + 14, True)
+        lambda il: ((il_store[il],), {"gated": True}), layers, ng, C, SEED + 14, True, per_call)
     del il_store
     torch.cuda.empty_cache()
-    return out
+    return out, per_call
 
 
 def v7u_row(label, stores, unions, B, Cu, C, gen, per_call):
@@ -1071,11 +1117,26 @@ def scheduler_path(sched, prompts, n_new):
           f"tok/s, wall {wall:.2f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"launches {json.dumps(launches)} (as expected)")
     print(f"main path Scheduler tokens (first 2): {toks[:2]}")
-    # a profile of a few ticks with every slot running
+    # a profile of a few ticks with every slot running: v1's device time
+    # and launches (one kernel a call, L a decode tick), the f32 copies'
     for p in prompts[:sched.n_slots]:
         sched.submit(Request(prompt_tokens=p, max_new_tokens=n_new))
     sched.step()
-    profile_steps(f"Scheduler ticks ({sched.n_slots} slots)", sched.step, 6)
+    ticks0 = sched.metrics_snapshot()["n_decode_steps"]
+    rows, _ = profile_steps(f"Scheduler ticks ({sched.n_slots} slots)", sched.step, 6)
+    ticks = sched.metrics_snapshot()["n_decode_steps"] - ticks0
+    v1_prof = [(k, ms, n) for k, ms, n in rows if "v1_" in k or "sum_row_chunks" in k]
+    copies = [(k, ms, n) for k, ms, n in rows if "direct_copy_kernel" in k]
+    print("profile: v1 in the Scheduler's ticks:", json.dumps({
+        "decode_ticks": ticks,
+        "device_ms_per_tick": sum(ms for _, ms, _ in v1_prof) / ticks,
+        "launches_per_tick": sum(n for _, _, n in v1_prof) / ticks,
+        "kernels": {k[:60]: [ms / ticks, n / ticks] for k, ms, n in v1_prof},
+        "f32_copies": {"device_ms_per_tick": sum(ms for _, ms, _ in copies) / ticks,
+                       "launches_per_tick": sum(n for _, _, n in copies) / ticks}}))
+    check(ticks > 0 and all("v1_ffn" in k for k, _, _ in v1_prof)
+          and sum(n for _, _, n in v1_prof) == L * ticks,
+          f"the profiled ticks launched {v1_prof} v1 kernels over {ticks} ticks, want {L} a tick")
     sched.run_until_idle()
     return launches["sparse_ffn_block"]
 
@@ -1298,7 +1359,7 @@ def phase_bench(model, scfg, tg=16, reps=3, ctx=1024):
     return v2_launches
 
 
-def phase_v2(model, scfg, C):
+def phase_v2(model, scfg, C, per_call):
     """sparse_ffn_block_v2 against its plain version at the 7B decode
     shapes over the bench path's concatenated store (L, 3*ng, G, E)."""
     from sparkinfer_tpu_torch.ops import sparse_ffn as sf
@@ -1314,7 +1375,7 @@ def phase_v2(model, scfg, C):
     return row_kernel_rows("sparse_ffn_block_v2", sf.sparse_ffn_block_v2,
                            sf.sparse_ffn_block_v2_plain,
                            lambda il: ((w_all[il],), {"gated": True, "R": ng}),
-                           list(range(L)), ng, C, SEED + 16, True)
+                           list(range(L)), ng, C, SEED + 16, True, per_call)
 
 
 def profile_steps(label, step, steps: int = 8):
@@ -1593,7 +1654,7 @@ def main() -> int:
     # 5e. the Scheduler at 7B widths (its row stores serve phase 4c)
     sched = Scheduler(model, n_slots=4, max_seq=128, sampler=greedy, sparse=scfg,
                       sparse_batch_max=4, device="cuda")
-    row_rows = phase_rows(sched.params["layers"], scfg.capacity(cfg.n_ff))
+    row_rows, row_per_call = phase_rows(sched.params["layers"], scfg.capacity(cfg.n_ff))
     gen = torch.Generator().manual_seed(SEED + 11)
     prompts = [torch.randint(cfg.n_vocab, (32,), generator=gen).tolist() for _ in range(8)]
     l_v1 = scheduler_path(sched, prompts, 32)
@@ -1608,7 +1669,8 @@ def main() -> int:
     # 5g, 4e. sparkinfer-bench's decode: dense, v1 and v2 (SPIF_KERNEL_V2),
     # then v2 against its plain version over the bench path's store
     l_v2 = phase_bench(model, scfg)
-    row_rows["sparse_ffn_block_v2"] = phase_v2(model, scfg, scfg.capacity(cfg.n_ff))
+    row_rows["sparse_ffn_block_v2"] = phase_v2(model, scfg, scfg.capacity(cfg.n_ff),
+                                               row_per_call)
     del model
     torch.cuda.empty_cache()
     print(f"7B paths done at {time.perf_counter() - t_start:.1f} s")

@@ -1,8 +1,9 @@
 // Pieces shared by the sparse FFN kernels that split a reduction over the
 // blocks of a thread-block cluster (sparse_ffn_v7u.cu, sparse_ffn_v6q.cu,
-// sparse_ffn_v6.cu):
-// cp.async copies into a ring, the cluster barriers and the rank-order sum
-// over the cluster's blocks through distributed shared memory, the launch
+// sparse_ffn_v6.cu, sparse_ffn_v1.cu):
+// cp.async copies into a ring, the cluster barriers, stores into another
+// block's shared memory and the rank-order sum over the cluster's blocks
+// through distributed shared memory, the launch
 // of a cluster grid (a programmatic dependent launch on request), and the
 // pick of the cluster size from the occupancy query.
 
@@ -82,6 +83,18 @@ __device__ __forceinline__ void st_cluster4(uint32_t a, int rank, float4 v) {
                ::"r"(d), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
 }
 
+// store 16 bytes at a (16-byte aligned) in cluster block `rank`, the store
+// completing 16 bytes of the transaction count of that block's barrier at
+// bar (Hopper's st.async: the storing thread does not wait for it)
+__device__ __forceinline__ void st_async4(uint32_t a, uint32_t bar, int rank, float4 v) {
+  uint32_t da, db;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(da) : "r"(a), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(db) : "r"(bar), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];"
+      ::"r"(da), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(db) : "memory");
+}
+
 // sums over the KS (<= MAXK) blocks of the cluster of the 4 words at a
 // (16-byte aligned), in rank order; every load is issued before the first add
 template <int MAXK>
@@ -118,9 +131,9 @@ cudaLaunchConfig_t cluster_config(dim3 grid, int threads, int smem, int ks, cuda
 }
 
 // Raise a kernel's dynamic shared-memory limit to `bytes` on the current
-// device (never lowering it; clusters above 8 blocks are allowed once ks
-// asks for one), then the clusters of ks blocks of it that are resident at
-// once. Both cached.
+// device (never lowering it, also once the cache is full; clusters above 8
+// blocks are allowed once ks asks for one), then the clusters of ks blocks
+// of it that are resident at once. Both cached.
 cudaError_t max_clusters(const void* fn, int threads, int bytes, int ks, int* n) {
   struct Entry { const void* fn; int dev, bytes, ks, n; };
   constexpr int kEntries = 512;
@@ -136,9 +149,14 @@ cudaError_t max_clusters(const void* fn, int threads, int bytes, int ks, int* n)
     limit = e.bytes > limit ? e.bytes : limit;
     if (e.bytes == bytes && e.ks == ks) { *n = e.n; return cudaSuccess; }
   }
-  if (bytes > limit) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (bytes > limit) {  // the cache may be full: ask the function's own limit
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, fn);
     if (err != cudaSuccess) return err;
+    if (bytes > fa.maxDynamicSharedSizeBytes) {
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return err;
+    }
   }
   if (ks > 8) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);

@@ -1,8 +1,7 @@
 // Device helpers shared by the sparse FFN kernels (sparse_ffn_v1.cu,
 // sparse_ffn_v6.cu, sparse_ffn_v6q.cu, sparse_ffn_v7u.cu): 16-byte loads of
 // 8 weights, the row clamp, the activations of the TPU kernels' `_combine`
-// (sparkinfer_tpu/ops/sparse_ffn_pallas.py:41-58) and the fixed-order sum of
-// the down product's row-chunk partials.
+// (sparkinfer_tpu/ops/sparse_ffn_pallas.py:41-58) and the rounding to bf16.
 
 #pragma once
 
@@ -60,17 +59,6 @@ __device__ __forceinline__ float combine(int act, float thr, float gate,
       return 0.5f * gate * (1.0f + t) * up;
     }
   }
-}
-
-// out[n, e] = sum of the RS row-chunk sums part_out[n, k, e], in chunk order
-__global__ void sum_row_chunks(const float* __restrict__ part_out,
-                               float* __restrict__ out, int E, int RS) {
-  const int n = blockIdx.y;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float tot = 0.f;
-  for (int k = 0; k < RS; ++k) tot += part_out[((size_t)n * RS + k) * E + e];
-  out[(size_t)n * E + e] = tot;
 }
 
 }  // namespace

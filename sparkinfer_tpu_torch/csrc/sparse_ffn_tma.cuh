@@ -1,8 +1,9 @@
 // Loads through the Tensor Memory Accelerator, shared by the sparse FFN
 // kernels that stream their weights into a ring of shared-memory slots
-// (sparse_ffn_v6.cu, sparse_ffn_v6q.cu): the ring's mbarriers, bulk copies
-// of contiguous bytes, boxes of a 2-D tensor map, the bounded wait for a
-// slot, and the host-side encoding of a tensor map (cached by store).
+// (sparse_ffn_v6.cu, sparse_ffn_v6q.cu, sparse_ffn_v1.cu): the ring's
+// mbarriers, bulk copies of contiguous bytes, boxes of a 2-D tensor map, the
+// bounded wait for a slot, and the host-side encoding of a tensor map
+// (cached by store).
 
 #pragma once
 
@@ -14,11 +15,17 @@ namespace {
 
 // The ring's barriers: each slot's completes when the bytes a thread
 // announced (expect_tx) have landed by bulk copies (the Tensor Memory
-// Accelerator, cp.async.bulk).
-__device__ __forceinline__ void ring_init(uint32_t bars, int slots) {
+// Accelerator, cp.async.bulk), and `count` arrivals were made (one by the
+// announcing thread, unless a barrier counts other arrivals).
+__device__ __forceinline__ void ring_init(uint32_t bars, int slots, int count = 1) {
   for (int s = 0; s < slots; ++s)
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bars + 8 * s));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bars + 8 * s), "r"(count));
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// one arrival on a barrier of this block
+__device__ __forceinline__ void arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void expect_bytes(uint32_t bar, int bytes) {

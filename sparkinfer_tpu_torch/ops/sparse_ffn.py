@@ -33,7 +33,9 @@ For each token n and selected row r = idx[n, c]:
     over one concatenated (P*R, G, E) store. v2 and v4 take `gated` from
     the caller. All four round the hidden as v1 does and launch v1's kernel
     with their own strides and offsets: on the TPU they differ only in how
-    the DMA is scheduled;
+    the DMA is scheduled. One launch a call with f32 FMAs, x read in its own
+    dtype, the selections added through a per-device workspace of counters
+    as v6's (`v1_plan` gives its shape);
   - `sparse_ffn_block_v7u` (:1172, csrc/sparse_ffn_v7u.cu): batched decode
     over the cross-token union of selected groups, each union row read once
     for all B tokens, with v6's flat stores; the up/gate stores are cast to
@@ -134,17 +136,18 @@ V6_MAX_E = 32768  # 16 splits of at most 2048 columns (csrc/sparse_ffn_v6.cu)
 V6_MAX_N = 4096  # 16 splits a token in the workspace's 65536 counters
 
 
-def _kernel_lib(name: str, n_ptr: int, n_int: int, n_ll: int = 0) -> ctypes.CDLL:
+def _kernel_lib(name: str, n_ptr: int, n_int: int, n_ll: int = 0,
+                n_scratch: int = 4) -> ctypes.CDLL:
     """The loaded csrc/<name>.cu, whose entry `name` takes n_ptr pointers,
     n_int ints, n_ll long longs, (fatrelu_threshold, prob_threshold) as
     floats, the mask mode and the stream; `<name>_scratch_floats` takes
-    four ints."""
+    n_scratch ints."""
     lib = _build.load(name)
     if name not in _typed:
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         getattr(lib, name).argtypes = [p] * n_ptr + [i] * n_int + [ll] * n_ll + [f, f, i, p]
         getattr(lib, name).restype = i
-        getattr(lib, name + "_scratch_floats").argtypes = [i] * 4
+        getattr(lib, name + "_scratch_floats").argtypes = [i] * n_scratch
         getattr(lib, name + "_scratch_floats").restype = ctypes.c_longlong
         getattr(lib, name + "_error_string").argtypes = [i]
         getattr(lib, name + "_error_string").restype = ctypes.c_char_p
@@ -195,6 +198,16 @@ def _f32(t):
     return None if t is None else t.float().contiguous()
 
 
+def _kernel_x(x):
+    """x as the kernels read it, without a copy where it already is: bf16 or
+    f32 (another dtype as f32), contiguous, its data on 16 bytes (a
+    misaligned view is copied)."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        x = x.float()
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def sparse_ffn_block_v6(x, idx, gp_sel, w_upT_rows, w_gateT_rows, w_down_rows,
                         *, act: str, fatrelu_threshold: float = 0.0,
                         prob_threshold: float = 0.5, bu_sel=None,
@@ -236,10 +249,7 @@ def sparse_ffn_block_v6(x, idx, gp_sel, w_upT_rows, w_gateT_rows, w_down_rows,
     # when they are contiguous f32; every tensor whose pointer the kernel
     # gets stays referenced until the launch is enqueued, so the allocator
     # cannot hand its memory on first
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        x = x.float()
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        x = x.contiguous()
+    x = _kernel_x(x)
     idx32, gp, bu = idx.to(torch.int32).contiguous(), _f32(gp_sel), _f32(bu_sel)
     lib = _kernel_lib("sparse_ffn_v6", 10, 8)
     counters = workspace.zeroed(_v6_workspace, x.device, lib.sparse_ffn_v6_workspace_words(),
@@ -371,10 +381,7 @@ def sparse_ffn_block_v6q(x, idx, gp_sel, qw_upT, s_upT, qw_gateT, s_gateT,
 
     # x is read in its own dtype (bf16 or f32), gp_sel and bu_sel in place
     # when they are contiguous f32
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        x = x.float()
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        x = x.contiguous()
+    x = _kernel_x(x)
     idx32, gp, bu = idx.to(torch.int32).contiguous(), _f32(gp_sel), _f32(bu_sel)
     lib = _kernel_lib("sparse_ffn_v6q", 12, 7)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -522,43 +529,79 @@ def sparse_ffn_block_v2_plain(x, idx, gp_sel, w_all_rows, *, act: str, gated: bo
                      bu_sel=bu_sel, mask_mode=mask_mode)
 
 
-def _aligned_f32(t):
-    """t as contiguous f32 whose data starts on 16 bytes (vector loads)."""
-    t = _f32(t)
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+_v1_workspace: dict[int, torch.Tensor] = {}  # the row kernel's counters, by device index
+V1_MAX_E = 8192  # 4 chunks of 8 columns a thread, 256 threads (csrc/sparse_ffn_v1.cu)
+V1_MAX_N = 4096  # 16 splits a token in the workspace's 65536 counters
 
 
 def _rows_kernel(x, idx, gp_sel, stores, offsets, row_stride: int, R: int, G: int, E: int, *,
                  act: str, fatrelu_threshold: float, prob_threshold: float, bu_sel,
                  mask_mode: str, bg_sel=None) -> torch.Tensor:
-    """Launch the strided row kernel (csrc/sparse_ffn_v1.cu). stores: the
-    up, gate and down tensors (gate None where it is not read; they may be
-    one tensor), whose neuron g of row r of projection p starts at element
-    offsets[p] + r * row_stride + g * E. Checks what every row wrapper
-    shares; the caller checks its store's shape, (.., G, E)."""
+    """Launch the strided row kernel (csrc/sparse_ffn_v1.cu, one kernel a
+    call). stores: the up, gate and down tensors (gate None where it is not
+    read; they may be one tensor), whose neuron g of row r of projection p
+    starts at element offsets[p] + r * row_stride + g * E. Checks what every
+    row wrapper shares; the caller checks its store's shape, (.., G, E). The
+    kernel adds its selections through a per-device workspace of counters,
+    allocated zeroed at the first call on a device, which therefore must
+    come before any CUDA-graph capture; two streams must not run it at once
+    on one device."""
     _check(mask_mode in MASK_MODES, f"mask_mode {mask_mode!r}")
     N, C = idx.shape
     _check(x.shape == (N, E), "x/idx/store shapes disagree")
     for name, t in (("gp_sel", gp_sel), ("bu_sel", bu_sel), ("bg_sel", bg_sel)):
         _check(t is None or t.shape == (N, C, G), f"{name} must be (N, C, G)")
     _check(E % 8 == 0, f"kernel needs E a multiple of 8 (E={E})")
+    _check(E <= V1_MAX_E and N <= V1_MAX_N,
+           f"kernel takes E <= {V1_MAX_E} and N <= {V1_MAX_N} (E={E}, N={N})")
     _check_stores(x, [w for w in stores if w is not None])
     small = [t for t in (idx, gp_sel, bu_sel, bg_sel) if t is not None]
     _check(all(t.device == x.device for t in small), "inputs on mixed devices")
 
-    xf, idx32 = _aligned_f32(x), idx.to(torch.int32).contiguous()
+    # x is read in its own dtype (bf16 or f32), gp_sel, bu_sel and bg_sel in
+    # place when they are contiguous f32
+    x, idx32 = _kernel_x(x), idx.to(torch.int32).contiguous()
     gp, bu, bg = _f32(gp_sel), _f32(bu_sel), _f32(bg_sel)
     wu, wg, wd = stores
-    lib = _kernel_lib("sparse_ffn_v1", 10, 7, n_ll=4)
+    lib = _kernel_lib("sparse_ffn_v1", 11, 8, n_ll=4, n_scratch=7)
+    counters = workspace.zeroed(_v1_workspace, x.device, lib.sparse_ffn_v1_workspace_words(),
+                                "sparse_ffn_block")
     f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty((N, E), **f32)
-    scratch = torch.empty((lib.sparse_ffn_v1_scratch_floats(N, C, E, G),), **f32)
+    keys = (int(wg is not None), int(wu.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16))
+    with torch.cuda.device(x.device):
+        floats = lib.sparse_ffn_v1_scratch_floats(N, C, E, G, *keys)
+    part = torch.empty((floats,), **f32) if floats else None
     _launch(lib, "sparse_ffn_v1", x.device,
-            _ptr(xf), _ptr(idx32), _ptr(gp), _ptr(bu), _ptr(bg), _ptr(wu), _ptr(wg),
-            _ptr(wd), _ptr(out), _ptr(scratch), N, C, E, G, R,
-            int(wu.dtype == torch.bfloat16), ACT_CODES[act], row_stride, *offsets,
-            float(fatrelu_threshold), float(prob_threshold), int(mask_mode == "scale"))
+            _ptr(x), _ptr(idx32), _ptr(gp), _ptr(bu), _ptr(bg), _ptr(wu), _ptr(wg),
+            _ptr(wd), _ptr(out), _ptr(part), _ptr(counters), N, C, E, G, R, *keys[1:],
+            ACT_CODES[act], row_stride, *offsets, float(fatrelu_threshold),
+            float(prob_threshold), int(mask_mode == "scale"))
     return out
+
+
+def v1_plan(device, N: int, C: int, E: int, G: int, *, gated: bool = True,
+            w_dtype=torch.bfloat16, x_dtype=torch.bfloat16) -> dict:
+    """The launch shape of the row kernel (`sparse_ffn_block`, `_v2`-`_v5`)
+    on a CUDA device: the cluster size KS (splits), the clusters of each
+    token, the blocks (N * clusters * KS, each owning an even share of its
+    token's C * G rows), the wave ratio (the rows the busiest SM streams
+    over an even share), the shared bytes of a block, the rows of each
+    projection in an up/gate stage and of a down stage, and the stages of
+    the widest block."""
+    lib = _kernel_lib("sparse_ffn_v1", 11, 8, n_ll=4, n_scratch=7)
+    fn = lib.sparse_ffn_v1_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    v = (ctypes.c_longlong * 9)()
+    with torch.cuda.device(device):
+        err = fn(N, C, E, G, int(gated), int(w_dtype == torch.bfloat16),
+                 int(x_dtype == torch.bfloat16), v)
+    if err:
+        raise RuntimeError(f"sparse_ffn_v1_plan failed: CUDA error {err}")
+    return {"sms": v[0], "splits": v[1], "clusters_per_token": v[2], "blocks": v[3],
+            "wave_ratio": v[4] / 1e6, "smem_bytes": v[5], "up_rows": v[6], "down_rows": v[7],
+            "stages": v[8]}
 
 
 def _three_stores(wrapper, plain, gated_acts, x, idx, gp_sel, w_up_rows, w_gate_rows,
@@ -746,8 +789,7 @@ def sparse_ffn_block_v7u(x, union_rows, gp_u, w_upT_rows, w_gateT_rows,
 
     # x is read in its own dtype; bu_u without a copy where its (Cu, G) part
     # is contiguous f32 (the batched path expands one row over the tokens)
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        x = x.contiguous()
+    x = _kernel_x(x)
     rows32, gp = union_rows.to(torch.int32).contiguous(), _f32(gp_u)
     bu, bu_bs = bu_u, Cu * G
     if bu is not None:

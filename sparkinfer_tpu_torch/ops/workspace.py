@@ -1,8 +1,9 @@
 """Per-device workspaces of the kernels that add their splits through
-counters (`quant_matmul`'s decode kernel, `sparse_ffn_block_v6`): an int32
-buffer allocated zeroed at the first call on a device and kept, whose
-counters every call leaves at 0. The allocation cannot happen inside a
-CUDA-graph capture, so the first call on a device must come before one."""
+counters (`quant_matmul`'s decode kernel, `sparse_ffn_block_v6` and the row
+kernel of `sparse_ffn_block` and `_v2`-`_v5`): an int32 buffer allocated
+zeroed at the first call on a device and kept, whose counters every call
+leaves at 0. The allocation cannot happen inside a CUDA-graph capture, so
+the first call on a device must come before one."""
 
 from __future__ import annotations
 

@@ -33,35 +33,39 @@ MARK = re.compile(r"^(\s*)// stamp: (\w+)(?: if (.+))?$", re.M)
 MAX_BLOCKS = 8192
 
 
-def instrument(src: str, splits: int | None = None) -> tuple[str, list[str]]:
-    """The source with its stamp comments made stores, and the stamp names."""
+KERNEL = "template <typename W, typename X>\n__global__"  # v6_ffn's first line
+
+
+def instrument(src: str, splits: int | None = None,
+               anchor: str = KERNEL) -> tuple[str, list[str]]:
+    """The source with its stamp comments made stores (the store function
+    and its buffer placed before `anchor`), and the stamp names."""
     names: list[str] = []
 
     def store(m):
         names.append(m.group(2))
         cond = f" && ({m.group(3)})" if m.group(3) else ""
-        return f"{m.group(1)}if (threadIdx.x == 0{cond}) v6_stamp({len(names) - 1});"
+        return f"{m.group(1)}if (threadIdx.x == 0{cond}) ffn_stamp({len(names) - 1});"
 
     body = MARK.sub(store, src)
     if not names or names[0] != "start":
-        raise SystemExit("v6_stamps: the kernel source has no '// stamp: start' comment first")
+        raise SystemExit("stamps: the kernel source has no '// stamp: start' comment first")
     width = len(names) + 1  # the stamps, then the SM
     head = f"""
-__device__ unsigned long long v6_stamps[{MAX_BLOCKS} * {width}];
-__device__ __forceinline__ void v6_stamp(int i) {{
+__device__ unsigned long long ffn_stamps[{MAX_BLOCKS} * {width}];
+__device__ __forceinline__ void ffn_stamp(int i) {{
   unsigned long long now;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
   const int b = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
   if (b >= {MAX_BLOCKS}) return;
-  v6_stamps[b * {width} + i] = now;
+  ffn_stamps[b * {width} + i] = now;
   if (i == 0) {{
     unsigned sm;
     asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-    v6_stamps[b * {width} + {width - 1}] = sm;
+    ffn_stamps[b * {width} + {width - 1}] = sm;
   }}
 }}
 """
-    anchor = "template <typename W, typename X>\n__global__"
     subs = [(anchor, head + anchor)]
     if splits is not None:
         subs += [("const int max_ks = most < kMaxSplits ? most : kMaxSplits;",
@@ -69,11 +73,11 @@ __device__ __forceinline__ void v6_stamp(int i) {{
                  ("&sh->split, false, min_ks, true);", f"&sh->split, false, {splits}, true);")]
     for old, new in subs:
         if old not in body:
-            raise SystemExit(f"v6_stamps: the kernel source lacks {old!r}")
+            raise SystemExit(f"stamps: the kernel source lacks {old!r}")
         body = body.replace(old, new, 1)
     body += f"""
-extern "C" int v6_stamps_read(void* dst, long long blocks) {{
-  return (int)cudaMemcpyFromSymbol(dst, v6_stamps, (size_t)blocks * {width} * 8);
+extern "C" int ffn_stamps_read(void* dst, long long blocks) {{
+  return (int)cudaMemcpyFromSymbol(dst, ffn_stamps, (size_t)blocks * {width} * 8);
 }}
 """
     return body, names
@@ -90,8 +94,8 @@ def run(splits: int | None = None, reps: int = 4) -> list[dict]:
     lib.sparse_ffn_v6.restype = i
     lib.sparse_ffn_v6_plan.argtypes = [i] * 7 + [ctypes.POINTER(ll)]
     lib.sparse_ffn_v6_plan.restype = i
-    lib.v6_stamps_read.argtypes = [p, ll]
-    lib.v6_stamps_read.restype = i
+    lib.ffn_stamps_read.argtypes = [p, ll]
+    lib.ffn_stamps_read.restype = i
     width = len(names) + 1
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -123,7 +127,7 @@ def run(splits: int | None = None, reps: int = 4) -> list[dict]:
         lib.sparse_ffn_v6_plan(N, C, E, G, 1, 1, 1, plan)
         blocks = min(plan[2], MAX_BLOCKS)
         buf = (ctypes.c_ulonglong * (blocks * width))()
-        if lib.v6_stamps_read(buf, blocks):
+        if lib.ffn_stamps_read(buf, blocks):
             raise RuntimeError("v6_stamps: reading the stamps failed")
         t = torch.tensor(list(buf), dtype=torch.float64).view(blocks, width)
         t0 = t[:, 0].min()

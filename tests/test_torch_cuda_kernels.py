@@ -15,7 +15,8 @@ their CPU runs. v1 over f32 stores keeps an f32 hidden: 1e-5. v7u rounds
 its hidden to bf16, so a hidden value whose f32 sums differ in the last
 bit can round to the neighbouring bf16 value: 1e-3 of the scale for v7u
 and for v1 over bf16 stores. v2, v3, v4 and v5 run v1's kernel over their
-own strides and offsets and are held to v1's tolerances.
+own strides and offsets and are held to v1's tolerances (1e-5 with f32
+stores whatever x's dtype: bf16 x is exact in f32).
 """
 
 import itertools
@@ -916,6 +917,226 @@ def test_v1_is_deterministic(cuda):
     a = sparse_ffn_block(*args, act="fatrelu", **kw)
     b = sparse_ffn_block(*args, act="fatrelu", **kw)
     assert torch.equal(a, b)
+
+
+# The shapes of the v1 sweep: C in (1, 3, 12), G in (12, 48, 128, 2048) and
+# E in (64, 1000, 4096), with the 7B decode shape (12, 128, 4096)
+_V1_SHAPES = [(1, 12, 64), (3, 48, 1000), (12, 128, 4096), (3, 2048, 64),
+              (1, 128, 1000), (12, 12, 4096), (3, 128, 4096), (1, 2048, 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("C,G,E", _V1_SHAPES)
+def test_v1_sweep_bf16(cuda, N, C, G, E):
+    """bf16 x and stores (the Scheduler's route) at every token count,
+    selection count, group size and width, with both biases, inputs made on
+    the card: the grid shares each token's C * G rows among its blocks, so
+    a block's rows may span selections."""
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    R = C + 3
+
+    def store():
+        return (torch.randn((R, G, E), generator=gen, device=cuda) * 0.05).bfloat16()
+
+    x = torch.randn((N, E), generator=gen, device=cuda).bfloat16()
+    idx = torch.stack([torch.randperm(R, generator=gen, device=cuda)[:C]
+                       for _ in range(N)]).to(torch.int32)
+    gp = torch.rand((N, C, G), generator=gen, device=cuda)
+    bu = torch.randn((N, C, G), generator=gen, device=cuda) * 0.1
+    bg = torch.randn((N, C, G), generator=gen, device=cuda) * 0.1
+    _check_fn(sparse_ffn_block, sparse_ffn_block_plain, (x, idx, gp, store(), store(), store()),
+              1e-3, act="fatrelu", fatrelu_threshold=0.01, bu_sel=bu, bg_sel=bg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt,act,mask_mode,bias", list(itertools.product(
+    [torch.bfloat16, torch.float32], [torch.bfloat16, torch.float32],
+    ["fatrelu", "drelu", "relu", "silu", "gelu", "swiglu_oai"], ["threshold", "scale"],
+    [True, False])))
+def test_v1_routes(cuda, xdt, wdt, act, mask_mode, bias):
+    """Each route: bf16 or f32 x, bf16 or f32 stores, every activation (gated
+    swiglu_oai with its gate bias), both mask modes, with and without the
+    biases; two row ids out of range (clamped); the 7B selection shape (C =
+    12 of G = 128 rows) at an odd width. 1e-5 of the scale with f32 stores,
+    1e-3 with bf16 (a hidden value that rounds to the neighbouring bf16 value
+    moves the output by one bf16 step of it times its down row)."""
+    args, kw = _v1_inputs(5, 12, 1000, 128, 15, wdt, cuda, seed=41, bias=bias,
+                          gated=act != "relu")
+    x, idx, *rest = args
+    idx = idx.clone()
+    idx[1, 2], idx[3, 0] = -4, 15 + 6
+    _check_fn(sparse_ffn_block, sparse_ffn_block_plain, (x.to(xdt), idx, *rest),
+              1e-5 if wdt == torch.float32 else 1e-3, act=act, mask_mode=mask_mode,
+              fatrelu_threshold=0.01, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,wdt,act", list(itertools.product(
+    ["v1", "v2", "v3", "v4", "v5"], [torch.bfloat16, torch.float32], ["fatrelu", "relu"])))
+def test_v1_layouts(cuda, kernel, wdt, act):
+    """The five layouts through the one kernel (three stores; v2's offsets
+    into one concatenated store; v4's interleaved stride), bf16 x, with an
+    up bias, ids out of range clamped into each projection's own rows."""
+    gated = act != "relu"
+    args, kw = _v1_inputs(4, 12, 1000, 48, 15, wdt, cuda, seed=42, gated=gated)
+    x, idx, *stores = args
+    idx = idx.clone()
+    idx[0, 0], idx[2, 5] = 15 + 4, -2
+    args = (x.bfloat16(), idx, *stores)
+    tol = 1e-5 if wdt == torch.float32 else 1e-3
+    if kernel == "v1":
+        _check_fn(sparse_ffn_block, sparse_ffn_block_plain, args, tol, act=act,
+                  mask_mode="scale", **kw)
+        return
+    fn, plain, rargs, extra = _row_calls(kernel, args, gated)
+    _check_fn(fn, plain, rargs, tol, act=act, mask_mode="scale", bu_sel=kw["bu_sel"], **extra)
+
+
+@pytest.mark.cuda
+def test_v1_reads_misaligned_x(cuda):
+    """A contiguous view of x that does not start on 16 bytes is copied,
+    not read misaligned."""
+    args, kw = _v1_inputs(2, 3, 64, 16, 7, torch.bfloat16, cuda, seed=43)
+    x, *rest = args
+    base = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    base[1:] = x.bfloat16().flatten()
+    xm = base[1:].view(x.shape)
+    assert xm.is_contiguous() and xm.data_ptr() % 16
+    _check_fn(sparse_ffn_block, sparse_ffn_block_plain, (xm, *rest), 1e-3, act="fatrelu", **kw)
+
+
+@pytest.mark.cuda
+def test_v1_refuses_widths_beyond_its_limits(cuda):
+    """E above V1_MAX_E or N above V1_MAX_N raises rather than falling back."""
+    from sparkinfer_tpu_torch.ops.sparse_ffn import V1_MAX_E, V1_MAX_N
+
+    (x, idx, gp, wu, wg, wd), _ = _v1_inputs(1, 2, V1_MAX_E + 8, 2, 3, torch.bfloat16, cuda,
+                                             seed=44)
+    with pytest.raises(ValueError, match="E <="):
+        sparse_ffn_block(x, idx, gp, wu, wg, wd, act="fatrelu")
+    (x, idx, gp, wu, wg, wd), _ = _v1_inputs(V1_MAX_N + 1, 1, 64, 8, 2, torch.bfloat16, cuda,
+                                             seed=45)
+    with pytest.raises(ValueError, match="N <="):
+        sparse_ffn_block(x, idx, gp, wu, wg, wd, act="fatrelu")
+
+
+@pytest.mark.cuda
+def test_v1_plan(cuda):
+    """The launch plan at the 7B decode shapes: clusters of 1-16 blocks, each
+    token's C * G rows shared among its clusters' blocks (at least one row
+    a block), so N * clusters * KS blocks, and wave ratios at or above 1."""
+    from sparkinfer_tpu_torch.ops.sparse_ffn import v1_plan
+
+    for N, gated in itertools.product((1, 4, 8), (True, False)):
+        plan = v1_plan(cuda, N, 12, 4096, 128, gated=gated)
+        assert plan["sms"] > 0 and plan["smem_bytes"] > 0, plan
+        assert 1 <= plan["splits"] <= 16 and plan["clusters_per_token"] >= 1, plan
+        assert plan["blocks"] == N * plan["clusters_per_token"] * plan["splits"], plan
+        assert plan["clusters_per_token"] * plan["splits"] <= 12 * 128, plan
+        assert 0.99 <= plan["wave_ratio"] < 4 and plan["stages"] > 1, plan
+        assert plan["down_rows"] == (2 if gated else 1) * plan["up_rows"], plan
+
+
+@pytest.mark.cuda
+def test_v1_workspace_counters_and_capture_guard(cuda, monkeypatch):
+    """Every counter of the workspace is 0 after calls of several shapes;
+    the workspace is allocated at a device's first call, which raises
+    inside CUDA-graph capture."""
+    from sparkinfer_tpu_torch.ops import sparse_ffn as sf
+
+    a8, k8 = _v1_inputs(8, 12, 4096, 128, 40, torch.bfloat16, cuda, seed=46)
+    a2, k2 = _v1_inputs(2, 3, 1000, 12, 7, torch.float32, cuda, seed=47)
+    ref = sparse_ffn_block(*a8, act="fatrelu", **k8)
+    sparse_ffn_block(*a2, act="swiglu_oai", **k2)
+    sparse_ffn_block_v2(a8[0], a8[1], a8[2], torch.cat(a8[3:]), act="fatrelu", gated=True,
+                        R=40)
+    torch.cuda.synchronize()
+    ws = sf._v1_workspace[a8[0].device.index]
+    assert ws.dtype == torch.int32 and int(ws.count_nonzero()) == 0
+    monkeypatch.setattr(sf, "_v1_workspace", {})
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before CUDA-graph capture"):
+        with torch.cuda.graph(graph):
+            sparse_ffn_block(*a8, act="fatrelu", **k8)
+    assert not sf._v1_workspace
+    assert torch.equal(sparse_ffn_block(*a8, act="fatrelu", **k8), ref)  # allocates
+    torch.cuda.synchronize()
+    assert int(sf._v1_workspace[a8[0].device.index].count_nonzero()) == 0
+
+
+@pytest.mark.cuda
+def test_v1_graph_replay_equals_the_eager_call(cuda):
+    """Repeated eager calls and replays of a CUDA graph of four calls (the 7B
+    shape at N = 4 and N = 1 with bf16 x, an odd shape with f32 x and
+    stores, v2 over its concatenated store) give the same bits: no state is
+    left between calls and no sum depends on arrival order."""
+    a4, k4 = _v1_inputs(4, 12, 4096, 128, 40, torch.bfloat16, cuda, seed=48)
+    a1, k1 = _v1_inputs(1, 12, 4096, 128, 40, torch.bfloat16, cuda, seed=49)
+    a3, k3 = _v1_inputs(3, 3, 1000, 12, 7, torch.float32, cuda, seed=50)
+    a4 = (a4[0].bfloat16(), *a4[1:])
+    w_all = torch.cat(a1[3:])
+    calls = (lambda: sparse_ffn_block(*a4, act="fatrelu", **k4),
+             lambda: sparse_ffn_block(*a1[:3], a1[3], None, a1[5], act="relu",
+                                      bu_sel=k1["bu_sel"]),
+             lambda: sparse_ffn_block(*a3, act="swiglu_oai", mask_mode="scale", **k3),
+             lambda: sparse_ffn_block_v2(a1[0], a1[1], a1[2], w_all, act="silu", gated=True,
+                                         R=40))
+    ref = [c() for c in calls]
+    for _ in range(3):
+        assert all(torch.equal(c(), r) for c, r in zip(calls, ref))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, r in zip(outs, ref):
+            assert torch.equal(o, r)
+
+
+# One row-kernel call profiled in a fresh process (see _V7U_ONE_CALL): v1
+# over three bf16 stores, or v2 over its concatenated store
+_V1_ONE_CALL = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[3])
+from test_torch_cuda_kernels import _kernels_of_one_call
+from sparkinfer_tpu_torch.ops.sparse_ffn import sparse_ffn_block, sparse_ffn_block_v2
+N, kind = int(sys.argv[1]), sys.argv[2]
+gen = torch.Generator(device="cuda").manual_seed(51)
+w_all = (torch.randn((3 * 86, 128, 4096), generator=gen, device="cuda") * 0.05).bfloat16()
+idx = torch.stack([torch.randperm(86, generator=gen, device="cuda")[:12]
+                   for _ in range(N)]).to(torch.int32)
+gp = torch.rand((N, 12, 128), generator=gen, device="cuda")
+x = torch.randn((N, 4096), generator=gen, device="cuda").bfloat16()
+if kind == "v2":
+    fn = lambda: sparse_ffn_block_v2(x, idx, gp, w_all, act="fatrelu", gated=True, R=86)
+else:
+    fn = lambda: sparse_ffn_block(x, idx, gp, w_all[:86], w_all[86:172], w_all[172:],
+                                  act="fatrelu")
+print(json.dumps(_kernels_of_one_call(fn)))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,kind", [(1, "v1"), (4, "v1"), (1, "v2")])
+def test_v1_one_call_is_one_kernel(cuda, N, kind):
+    """One call over bf16 x and stores, int32 ids and f32 gp launches v1_ffn
+    and nothing else: no copy or conversion of x, no sum of partials in
+    another kernel (profiled in a child process)."""
+    import json
+    import subprocess
+    import sys
+
+    here = Path(__file__).resolve().parent
+    proc = subprocess.run([sys.executable, "-c", _V1_ONE_CALL, str(N), kind, str(here)],
+                          cwd=here.parent, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(names) == 1 and "v1_ffn" in names[0], names
 
 
 def _v7u_inputs(B, Cu, E, G, R, dtype, device, seed, xdt=torch.float32, bias=True,

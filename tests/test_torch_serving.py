@@ -87,15 +87,19 @@ def _v1_inputs(seed, gated, bias):
 
 @pytest.mark.parametrize("act,mask_mode,bias,store", list(itertools.product(
     ["fatrelu", "drelu", "relu", "silu", "gelu", "swiglu_oai"], ["threshold", "scale"],
-    [True, False], ["f32", "bf16"])))
+    [True, False], ["f32", "bf16", "bf16x_f32"])))
 def test_plain_v1_matches_jax_kernel(act, mask_mode, bias, store):
+    """store: the dtype of x and the stores; "bf16x_f32" is bf16 x over f32
+    stores, which the row kernel reads as it is."""
     a = _v1_inputs(7, act != "relu", bias)
-    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if store == "bf16" else (jnp.float32, torch.float32)
+    dts = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+    (jx, tx), (jdt, tdt) = {"f32": (dts["f32"], dts["f32"]), "bf16": (dts["bf16"], dts["bf16"]),
+                            "bf16x_f32": (dts["bf16"], dts["f32"])}[store]
     kw = dict(act=act, fatrelu_threshold=0.05, prob_threshold=0.5, mask_mode=mask_mode)
-    ref = np.asarray(jax_v1(_j(a["x"], jdt), _j(a["idx"]), _j(a["gp"]), _j(a["wu"], jdt),
+    ref = np.asarray(jax_v1(_j(a["x"], jx), _j(a["idx"]), _j(a["gp"]), _j(a["wu"], jdt),
                             _j(a["wg"], jdt), _j(a["wd"], jdt), bu_sel=_j(a["bu"]),
                             bg_sel=_j(a["bg"]), **kw))
-    args = (_t(a["x"], tdt), _t(a["idx"], torch.int32), _t(a["gp"]), _t(a["wu"], tdt),
+    args = (_t(a["x"], tx), _t(a["idx"], torch.int32), _t(a["gp"]), _t(a["wu"], tdt),
             _t(a["wg"], tdt), _t(a["wd"], tdt))
     got = sparse_ffn_block_plain(*args, bu_sel=_t(a["bu"]), bg_sel=_t(a["bg"]), **kw)
     assert got.dtype == torch.float32
