@@ -10,7 +10,8 @@ sees no card or the package is missing. Phases, each of which fails the run:
   1. device: name, count, nvidia-smi name and power limit;
   2. build: every CUDA kernel of the main paths, one nvcc per source, all
      started at once from csrc/;
-  3. reference, f32 on small inputs, kernel path against plain path: tokens
+  3. reference, f32 on small inputs, kernel path against plain path, the
+     engines' and Scheduler's decode steps replaying CUDA graphs: tokens
      equal and first-decode logits within 1e-4 of their scale:
        serving (v1): a tiny model served by the Scheduler, 4 requests on 2
        slots, on the card against the CPU;
@@ -28,19 +29,19 @@ sees no card or the package is missing. Phases, each of which fails the run:
        ProSparse-Llama-2-7B widths cut to 2 layers, kernel against "gather"
        mode, both on the card;
        Q8_0 (v6q, quant_matmul): a tiny Q8_0 model (attention, head, flat
-       stores, predictor stacks) on the card against the CPU, and
+       stores, predictor stacks) on the card against the CPU; and
        ProSparse-Llama-2-13B widths cut to 2 layers, kernel against
-       "gather" mode on the card. The quant products round their
-       activations to bf16, so where the kernel and plain FFN differ in
-       the last f32 bit an activation next to a bf16 rounding midpoint
-       rounds apart and the difference cascades: the 13B case lands between
-       0 and 1.4e-3 of the logits' scale over weight seeds (equal tokens at
-       each) on an H100. Each case prints the first packed-linear input
-       that rounds apart (its two f32 values, the bf16 midpoint between
-       them). The case runs at seed 27, where the first flip comes in the
-       second layer and moves the logits by 8e-8 of their scale, so 1e-4
-       holds, and prints the spread over seeds 3-9, 20 and 22 unchecked;
-       phase 4 bounds the kernels themselves;
+       "gather" mode on the card, layer by layer: the plain path decodes 8
+       greedy steps and feeds each layer's FFN input (its normed residual
+       and carried selection) to the kernel FFN too, whose output must lie
+       within 1e-4 of the plain one's scale and whose carried selection
+       must be equal, at weight seeds 27, 3-9, 20 and 22. Whole forwards
+       are no gate there: the quant products round their activations to
+       bf16, so where the two FFNs differ in the last f32 bit an activation
+       next to a bf16 rounding midpoint rounds apart and the difference
+       cascades (0 to 1.4e-3 of the logits' scale over seeds on an H100);
+       their first decode logits are printed and their greedy tokens
+       checked equal at seed 27;
   4. kernels: each kernel against its plain torch version on the card at
      its main path's decode shapes, over stores that keep the 50 MB L2
      cold (CUDA-graph replay): 64 random row sets of the flat stores, 64
@@ -71,9 +72,12 @@ sees no card or the package is missing. Phases, each of which fails the run:
        at N=4; each with the kernels one call launches (torch.profiler: one,
        qmm_decode at N <= 4, qmm_prefill above) and the launch plan (tile, K
        splits, wave ratio);
-  5. main paths, each with every launch count set to 0 just before and
-     read just after, all logits finite, a profile of a few decode steps
-     and peak memory, then the dense engine on the same weights:
+  5. main paths, each decode step (or tick forward) one replay of a CUDA
+     graph, each with every launch count set to 0 just before and read just
+     after (a replay credits the launches its capture recorded; a capture's
+     warm-up is one more step forward, counted), all logits finite, a
+     profile of a few decode steps (torch.profiler, which sees the kernels
+     inside the graphs: the independent count) and peak memory:
        ProSparse-Llama-2-7B widths, bf16 (bench.py "7b" preset scales),
        sparse greedy generate of 64 tokens from a 32-token prompt: v6
        n_layer times per decode step, with v6's device time and launches (1
@@ -100,10 +104,23 @@ sees no card or the package is missing. Phases, each of which fails the run:
        weights made and quantized on the card layer by layer, through the
        ggml Q8_0 blocks a GGUF holds): v6q L, quant_matmul_2d 4L+1 and
        quant_matmul_flat 2(L+1) times per decode step, with v6q's device
-       time and launches (2 kernels a call) in the profiled steps; a
-       profiled 32-token prefill (device time of the qmm_* kernels and their
-       launches, prefill tok/s); then the dense Q8_0 engine (Q8_0 FFN from
-       the same weights).
+       time and launches (2 kernels a call) and 6L+3 qmm_decode kernels in
+       the profiled steps; a profiled 32-token prefill (device time of the
+       qmm_* kernels and their launches, prefill tok/s);
+     5h. graph against eager, for the 7B bf16 sparse engine and the dense
+       one on the same weights, the Scheduler's tick, the 13B Q8_0 sparse
+       engine and the dense one (Q8_0 FFN from the same weights): each eager
+       side (cuda_graph=False) over the same params or prepared stores, the
+       same greedy requests; the streams equal and the first decode (tick)
+       logits bit-equal, or the run fails; two generate calls on one engine
+       capture one graph; wall ms a step (tick) and tok/s, device ms and
+       busy share over profiled replayed steps (busy share: of the profiled
+       window; device share of wall: of the unprofiled step), the device
+       span of one replay (CUDA events), the host time of its replay()
+       call and the wall time of a replay synchronized after, an engine
+       step taken apart (host ms of the fills, the replay call and the token
+       read; device ms around the replay), capture seconds and graph pool
+       bytes, and the sparse/dense decode tok/s ratio of graph and of eager.
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
@@ -380,43 +397,44 @@ def check_pair(label, outs):
     check(outs[0][1] == outs[1][1], f"{label}: token streams differ")
 
 
-def record_quant_inputs(fn):
-    """Run fn() with the input x of every packed-linear kernel call recorded
-    (f32, on the host), in call order."""
-    from sparkinfer_tpu_torch.ops import quant_matmul as qm
+def q8_layer_gate(model, scfg, prompt, engine_cls, sampler, steps: int = 8):
+    """The f32 Q8_0 FFNs held layer by layer: greedy decode through the plain
+    ("gather") path, whose FFN at every layer and step also feeds its own
+    input (the normed residual and the carried selection) to the kernel FFN
+    (v6q, with quant_matmul_flat for the next layer's predictor). Returns
+    the largest max|kernel - plain| / max|plain| over the layers and steps,
+    whether every carried selection the two emitted was equal, and the
+    number of FFN calls compared. No difference cascades from one layer to
+    the next: each layer's inputs are the plain path's."""
+    import torch
 
-    recorded, launch = [], qm._launch
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.sparse.ffn import make_pipelined_sparse_ffn
 
-    def recording(x, *args, **kwargs):
-        recorded.append(x.detach().float().cpu())
-        return launch(x, *args, **kwargs)
+    cfg, dev = model.config, model.params["tok_embd"].device
+    eng = engine_cls(model, max_seq=64, sampler=sampler, kv_dtype=torch.float32, sparse=scfg,
+                     sparse_decode_mode="gather", sparse_preprepared=True, device=dev,
+                     cuda_graph=False)
+    plain, carry_init = make_pipelined_sparse_ffn(cfg, scfg, mode="gather")
+    kernel, _ = make_pipelined_sparse_ffn(cfg, scfg, mode="kernel")
+    rows = []
 
-    qm._launch = recording
-    try:
-        fn()
-    finally:
-        qm._launch = launch
-    return recorded
+    def both(lp, x, carry, il):
+        y, nxt = plain(lp, x, carry, il)
+        yk, nxt_k = kernel(lp, x, carry, il)
+        rows.append(((yk - y).abs().max() / y.abs().max(), torch.equal(nxt["idx"], nxt_k["idx"])))
+        return y, nxt
 
-
-def first_bf16_flip(xs_a, xs_b) -> dict | None:
-    """The first packed-linear call whose inputs round to different bf16
-    values on the two paths: the call, the element, its f32 values on each
-    path, the two bf16 values and the rounding midpoint between them, and
-    the largest f32 difference of that call's inputs relative to their
-    scale. None when every input rounds alike."""
-    for i, (a, b) in enumerate(zip(xs_a, xs_b)):
-        if a.shape != b.shape:
-            return dict(call=i, shapes=[list(a.shape), list(b.shape)])
-        flips = a.bfloat16() != b.bfloat16()
-        if not flips.any():
-            continue
-        at = tuple(flips.nonzero()[0].tolist())
-        lo, hi = sorted((a.bfloat16()[at].item(), b.bfloat16()[at].item()))
-        return dict(call=i, shape=list(a.shape), flipped=int(flips.sum()), element=list(at),
-                    x=[a[at].item(), b[at].item()], bf16=[lo, hi], midpoint=(lo + hi) / 2,
-                    input_diff_rel=((a - b).abs().max() / a.abs().max()).item())
-    return None
+    fwd = make_forward(cfg, ffn_fn=both, ffn_carry_init=carry_init)
+    cache, st = eng.new_cache(), eng.new_sampler_state()
+    tok, cache, st, n = eng.prefill(prompt, cache, st)
+    with torch.inference_mode():
+        for i in range(steps):
+            logits = fwd(eng.params, torch.tensor([[tok]], device=dev),
+                         torch.tensor([[n + i]], device=dev), cache)
+            tok = int(logits[0, -1].argmax())
+    return (torch.stack([e for e, _ in rows]).max().item(), all(eq for _, eq in rows),
+            len(rows))
 
 
 def phase_reference(sparse_cfg_cls, engine_cls, sampler):
@@ -447,46 +465,45 @@ def phase_reference(sparse_cfg_cls, engine_cls, sampler):
         del model, outs
         torch.cuda.empty_cache()
     # Q8_0 stores, packed attention and head, Q8_0 predictor stacks
-    cases = (
-        ("Q8_0 tiny, card kernel vs CPU plain", prosparse_config(2, 512, 8, 1024, 1024, 64),
-         sparse_cfg_cls(group_size=128, capacity_groups=2), SEED + 3, ("cuda", "kernel"),
-         ("cpu", "kernel")),
-        ("Q8_0 13B widths 2 layers, card kernel vs card plain",
-         prosparse_config(2, 5120, 40, 13824, 32000, 1280),
-         sparse_cfg_cls(group_size=128, capacity_groups=16), SEED + 27,
-         ("cuda", "kernel"), ("cuda", "gather")),
-    )
-    def q8_pair(cfg, scfg, seed, sides):
-        """Both sides' (first decode logits, tokens), and the first packed-
-        linear input that rounds to another bf16 value on the two sides."""
-        model = Q8Weights(cfg, torch.float32, "cuda", seed).sparse_model(scfg)
-        outs, inputs = [], []
+    def q8_pair(model, scfg, sides):
+        """Both sides' (first decode logits, tokens)."""
+        outs = []
         for dev, mode in sides:
-            m = type(model)(config=cfg, params=to_device(model.params, dev))
+            m = type(model)(config=model.config, params=to_device(model.params, dev))
             eng = engine_cls(m, max_seq=64, sampler=sampler, kv_dtype=torch.float32,
                              sparse=scfg, sparse_decode_mode=mode,
                              sparse_preprepared=True, device=dev)
-            inputs.append(record_quant_inputs(
-                lambda: outs.append(first_decode_and_tokens(eng, prompt, 16))))
+            outs.append(first_decode_and_tokens(eng, prompt, 16))
             del eng, m
+        return outs
+
+    cfg, scfg = prosparse_config(2, 512, 8, 1024, 1024, 64), sparse_cfg_cls(128, 2)
+    model = Q8Weights(cfg, torch.float32, "cuda", SEED + 3).sparse_model(scfg)
+    check_pair("Q8_0 tiny, card kernel vs CPU plain",
+               q8_pair(model, scfg, (("cuda", "kernel"), ("cpu", "kernel"))))
+    # 13B widths: every FFN layer within 1e-4 of its scale, the carried
+    # selections equal, at every seed; the greedy tokens of the whole
+    # forwards equal at SEED + 27; their logits printed (docstring, phase 3)
+    cfg, scfg = prosparse_config(2, 5120, 40, 13824, 32000, 1280), sparse_cfg_cls(128, 16)
+    label = "Q8_0 13B widths 2 layers, card kernel vs card plain"
+    spread = []
+    for seed in (SEED + 27, *range(SEED + 3, SEED + 10), SEED + 20, SEED + 22):
+        model = Q8Weights(cfg, torch.float32, "cuda", seed).sparse_model(scfg)
+        worst, same_sel, calls = q8_layer_gate(model, scfg, prompt, engine_cls, sampler)
+        check(worst <= 1e-4 and same_sel,
+              f"{label}, seed {seed}: an FFN layer differs by {worst:.3e} of its scale "
+              f"(tolerance 1e-4) or a carried selection differs ({same_sel})")
+        outs = q8_pair(model, scfg, (("cuda", "kernel"), ("cuda", "gather")))
         del model
         torch.cuda.empty_cache()
-        return outs, first_bf16_flip(*inputs)
-
-    for label, cfg, scfg, seed, *sides in cases:
-        outs, flip = q8_pair(cfg, scfg, seed, sides)
-        print(f"reference ({label}): first bf16 flip of a packed-linear input: {flip}")
-        check_pair(label, outs)
-    # the spread over other weight seeds, printed and not checked: a bf16
-    # rounding that flips between the two paths cascades (docstring, phase 3)
-    spread = []
-    for seed in (*range(SEED + 3, SEED + 10), SEED + 20, SEED + 22):
-        outs, flip = q8_pair(cfg, scfg, seed, sides)
-        err = (outs[0][0] - outs[1][0]).abs().max().item()
-        spread.append((seed, err / outs[1][0].abs().max().item(), outs[0][1] == outs[1][1],
-                       flip))
-    print(f"reference spread ({label}), (seed, max diff / scale, tokens equal, first bf16 "
-          f"flip): {spread}")
+        err = (outs[0][0] - outs[1][0]).abs().max().item() / outs[1][0].abs().max().item()
+        same_toks = outs[0][1] == outs[1][1]
+        if seed == SEED + 27:
+            print(f"reference ({label}): tokens {outs[0][1]} vs {outs[1][1]}")
+            check(same_toks, f"{label}: token streams differ")
+        spread.append((seed, worst, calls, err, same_toks))
+    print(f"reference ({label}), per seed (seed, worst FFN layer max diff / scale, FFN calls "
+          f"compared, first decode logits max diff / scale, tokens equal): {spread}")
 
 
 def rows_sets(gen, n_sets, N, C, ng, L):
@@ -863,10 +880,10 @@ def phase_serving_reference(sparse_cfg_cls, sampler):
         sched.run_until_idle()
         toks = [r.tokens() for r in reqs]
         check(all(len(t) == 12 for t in toks), f"Scheduler on {dev}: short streams {toks}")
-        if dev == "cuda":
-            steps = sched.metrics["n_decode_steps"]
-            check(sparse_ffn_block.launches == cfg.n_layer * steps,
-                  f"v1 launched {sparse_ffn_block.launches} times in {steps} ticks")
+        if dev == "cuda":  # each tick, and the graph's warm-up
+            runs = sched.metrics["n_decode_steps"] + sched.graphs.captures
+            check(sparse_ffn_block.launches == cfg.n_layer * runs,
+                  f"v1 launched {sparse_ffn_block.launches} times in {runs} tick forwards")
         outs.append((first, toks))
         del sched, m
     check_pair("Scheduler tiny, 4 requests on 2 slots, card v1 kernel vs CPU plain", outs)
@@ -1085,14 +1102,16 @@ def phase_v7u(flat, L, ng, C=12):
 
 def scheduler_path(sched, prompts, n_new):
     """The Scheduler's main path: every request served, every tick's
-    logits finite, v1 launched n_layer times per tick and no other kernel
-    (counts set to 0 just before, read just after)."""
+    logits finite, v1 launched n_layer times per tick forward (each replay
+    of the tick's graph, and its warm-up) and no other kernel (counts set
+    to 0 just before, read just after)."""
     import torch
 
     from sparkinfer_tpu_torch.runtime.scheduler import Request
 
     wrappers = kernel_wrappers()
     torch.cuda.reset_peak_memory_stats()
+    captures = sched.graphs.captures
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -1105,9 +1124,10 @@ def scheduler_path(sched, prompts, n_new):
     check(all(len(t) == n_new for t in toks), f"Scheduler: short streams {toks}")
     m = sched.metrics_snapshot()
     ticks = m["n_decode_steps"]
+    warm = sched.graphs.captures - captures
     L = sched.cfg.n_layer
     for name, n in launches.items():
-        want = L * ticks if name == "sparse_ffn_block" else 0
+        want = L * (ticks + warm) if name == "sparse_ffn_block" else 0
         check(n == want, f"Scheduler: {name} launched {n} times, want {want}")
     check(m["n_dense_steps"] == 0, "Scheduler: a tick took the dense step")
     decode_tps = (m["n_tokens_generated"] - m["n_requests"]) / m["t_decode_s"]
@@ -1115,7 +1135,7 @@ def scheduler_path(sched, prompts, n_new):
           f"slots, {ticks} ticks, decode {decode_tps:.2f} tok/s aggregate "
           f"({1e3 * m['t_decode_s'] / ticks:.2f} ms/tick), prefill {m['prefill_tps']:.1f} "
           f"tok/s, wall {wall:.2f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"launches {json.dumps(launches)} (as expected)")
+          f"launches {json.dumps(launches)} (as expected: {ticks} ticks, {warm} warm-up)")
     print(f"main path Scheduler tokens (first 2): {toks[:2]}")
     # a profile of a few ticks with every slot running: v1's device time
     # and launches (one kernel a call, L a decode tick), the f32 copies'
@@ -1406,8 +1426,10 @@ def profile_steps(label, step, steps: int = 8):
 
 
 def profile_decode(eng, prompt, steps: int = 8):
-    """profile_steps over a few sparse decode steps of the engine; returns
-    its (kernel, ms, launches) rows over all steps and the step count."""
+    """profile_steps over a few decode steps of the engine on a cache of
+    its own (whose graph the first, unprofiled step captures); returns its
+    (kernel, ms, launches) rows over all steps, the step count and the
+    window's wall ms."""
     cache, st = eng.new_cache(), eng.new_sampler_state()
     tok, cache, st, n = eng.prefill(prompt, cache, st)
     state = {"tok": eng.decode_step(tok, n, cache, st)[0], "n": n + 1}  # warm
@@ -1416,8 +1438,184 @@ def profile_decode(eng, prompt, steps: int = 8):
         state["tok"] = eng.decode_step(state["tok"], state["n"], cache, st)[0]
         state["n"] += 1
 
-    rows, _ = profile_steps("sparse decode steps", step, steps)
-    return rows, steps
+    kind = "graph" if eng.graphs.capture else "eager"
+    rows, wall_ms = profile_steps(f"decode steps ({kind})", step, steps)
+    return rows, steps, wall_ms
+
+
+def decode_timing(eng, prompt, n_new) -> tuple[list, "torch.Tensor", dict]:
+    """One engine's greedy stream of n_new tokens from `prompt` and its
+    first decode step's logits (a copy); the decode wall ms a step and tok/s
+    of a second generate, which must give the same stream and capture no
+    graph (the first captures one unless the engine's cache had one), with
+    the median and the largest wall ms between its tokens; then device ms a
+    step and busy share over 8 profiled steps."""
+    from sparkinfer_tpu_torch.runtime.engine import PerfCounters
+
+    toks, first = [], None
+    c0, had_cache = eng.graphs.captures, eng.cache is not None
+    for tok in eng.generate(prompt, n_new, stream=True):
+        toks.append(tok)
+        if len(toks) == 2:  # the first decode step's token: its logits
+            first = eng.last_logits.clone()
+    c1 = eng.graphs.captures
+    eng.perf = PerfCounters()
+    stamps, again = [], []
+    for tok in eng.generate(prompt, n_new, stream=True):
+        stamps.append(time.perf_counter())
+        again.append(tok)
+    check(again == toks, "a second generate gave another stream")
+    # wall ms between tokens: one decode step each, and the generator's turn
+    gaps = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+    wall, tok_s = 1e3 * eng.perf.t_decode_s / eng.perf.n_decode, eng.perf.decode_tps
+    if eng.graphs.capture:
+        check(c1 - c0 == (0 if had_cache else 1) and eng.graphs.captures == c1,
+              f"two generate calls captured {eng.graphs.captures - c0} graphs "
+              f"(the engine's cache {'had' if had_cache else 'had no'} graph before)")
+    rows, steps, wall_ms = profile_decode(eng, prompt)
+    busy = sum(r[1] for r in rows)
+    return toks, first, {"wall_ms_per_step": wall, "tok_s": tok_s,
+                         "step_ms_median": gaps[len(gaps) // 2], "step_ms_max": gaps[-1],
+                         "device_ms_per_step": busy / steps, "busy_share": busy / wall_ms,
+                         "device_share_of_wall": busy / steps / wall}
+
+
+def replay_times(step, reps: int = 20) -> dict:
+    """Replays of a captured step on its last inputs, which rewrite the same
+    cache rows with the same values: the device span of one replay (CUDA
+    events around `reps` back-to-back replays: its kernels and the gaps
+    between them, the host's part hidden behind the device); the host time
+    of one `replay()` call on an idle card, and the wall time from that
+    call to the end of a synchronization after it (`reps` calls each). A
+    decode step's wall time less the last is the host's part around the
+    replay (the static buffers' fills, the token read, Python). These
+    replays credit no launch counter."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        step.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    launch = synced = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step.graph.replay()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        launch += t1 - t0
+        synced += time.perf_counter() - t0
+    return {"replay_span_ms": start.elapsed_time(end) / reps,
+            "replay_launch_ms": 1e3 * launch / reps, "replay_sync_ms": 1e3 * synced / reps}
+
+
+def step_breakdown(eng, steps: int = 16) -> dict:
+    """Decode steps of the graph engine on its own cache, after the tokens
+    generate left there, taken apart as `Engine.decode_step` runs them: host
+    ms of the static buffers' fills, of the replay call (with its counter
+    credits), and of the token read (the wait for the card); and the device
+    ms between CUDA events recorded around the replay call."""
+    import torch
+
+    step = eng.graphs.get(eng.cache, 1, "decode", None)
+    tok, n_past = int(step.tokens[0, 0]), int(step.positions[0, 0]) + 1
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    host, device = [0.0, 0.0, 0.0], 0.0
+    with torch.inference_mode():  # the static buffers are inference tensors
+        for i in range(steps):
+            t0 = time.perf_counter()
+            step.tokens.fill_(tok)
+            step.positions.fill_(n_past + i)
+            t1 = time.perf_counter()
+            start.record()
+            _, out = step.run()
+            end.record()
+            t2 = time.perf_counter()
+            tok = int(out[0])
+            t3 = time.perf_counter()
+            device += start.elapsed_time(end)
+            for j, dt in enumerate((t1 - t0, t2 - t1, t3 - t2)):
+                host[j] += dt
+    return {"fill_ms": 1e3 * host[0] / steps, "replay_call_ms": 1e3 * host[1] / steps,
+            "token_read_ms": 1e3 * host[2] / steps, "replay_device_ms": device / steps}
+
+
+def graph_vs_eager(label, graph_eng, eager_eng, prompt, n_new) -> dict:
+    """Phase 5h for one Engine path, graph against eager over the same
+    params: greedy streams equal and first decode logits bit-equal, or the
+    run fails; wall ms a step, tok/s, device ms a step and busy share of
+    each, the graph's capture time and pool bytes."""
+    import torch
+
+    (gt, gf, g), (et, ef, e) = (decode_timing(eng, prompt, n_new)
+                                for eng in (graph_eng, eager_eng))
+    check(gt == et, f"5h {label}: graph stream {gt} differs from eager {et}")
+    check(torch.equal(gf, ef), f"5h {label}: first decode logits differ by up to "
+                               f"{(gf - ef).abs().max().item():.3e}")
+    step = graph_eng.graphs.get(graph_eng.cache, 1, "decode", None)
+    row = {"path": label, "graph": g, "eager": e, **replay_times(step),
+           "step_breakdown": step_breakdown(graph_eng),
+           "capture_s": step.stats["capture_s"], "graph_pool_bytes": step.stats["pool_bytes"],
+           "wall_speedup": e["wall_ms_per_step"] / g["wall_ms_per_step"]}
+    print("phase 5h, graph vs eager (streams equal, first decode logits bit-equal):",
+          json.dumps(row))
+    return row
+
+
+def sparse_dense_ratio(label, sparse_row, dense_row) -> dict:
+    ratio = {"path": label, **{k: sparse_row[k]["tok_s"] / dense_row[k]["tok_s"]
+                               for k in ("graph", "eager")}}
+    print("phase 5h, sparse/dense decode tok/s:", json.dumps(ratio))
+    return ratio
+
+
+def scheduler_graph_vs_eager(graph_sched, eager_sched, prompts, n_new) -> dict:
+    """Phase 5h for the Scheduler: the same requests through the graph
+    Scheduler (its tick captured already) and an eager one; streams equal
+    and the first tick's logits bit-equal, or the run fails; wall ms a
+    tick, aggregate decode tok/s, and device ms a tick and busy share over
+    6 profiled ticks with every slot running."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.scheduler import Request
+
+    got = {}
+    for name, sched in (("graph", graph_sched), ("eager", eager_sched)):
+        m0, c0 = sched.metrics_snapshot(), sched.graphs.captures
+        reqs = [sched.submit(Request(prompt_tokens=p, max_new_tokens=n_new)) for p in prompts]
+        sched.step()
+        first = sched.last_logits.clone()
+        sched.run_until_idle()
+        m = sched.metrics_snapshot()
+        ticks = m["n_decode_steps"] - m0["n_decode_steps"]
+        secs = m["t_decode_s"] - m0["t_decode_s"]
+        gen = (m["n_tokens_generated"] - m0["n_tokens_generated"]
+               - (m["n_requests"] - m0["n_requests"]))
+        for p in prompts[:sched.n_slots]:
+            sched.submit(Request(prompt_tokens=p, max_new_tokens=n_new))
+        sched.step()
+        rows, wall_ms = profile_steps(f"Scheduler ticks ({name})", sched.step, 6)
+        sched.run_until_idle()
+        check(sched.graphs.captures == c0, f"5h Scheduler ({name}): a tick captured again")
+        busy = sum(r[1] for r in rows)
+        got[name] = ([r.tokens() for r in reqs], first,
+                     {"wall_ms_per_tick": 1e3 * secs / ticks, "tok_s": gen / secs,
+                      "device_ms_per_tick": busy / 6, "busy_share": busy / wall_ms,
+                      "device_share_of_wall": busy / 6 / (1e3 * secs / ticks)})
+    (gt, gf, g), (et, ef, e) = got["graph"], got["eager"]
+    check(gt == et, "5h Scheduler: graph streams differ from eager")
+    check(torch.equal(gf, ef), f"5h Scheduler: first tick logits differ by up to "
+                               f"{(gf - ef).abs().max().item():.3e}")
+    step = graph_sched.graphs.get(graph_sched.cache, graph_sched.n_slots, "decode", None)
+    row = {"path": f"Scheduler 7B bf16 sparse, {graph_sched.n_slots} slots", "graph": g,
+           "eager": e, **replay_times(step),
+           "capture_s": step.stats["capture_s"], "graph_pool_bytes": step.stats["pool_bytes"],
+           "wall_speedup": e["wall_ms_per_tick"] / g["wall_ms_per_tick"]}
+    print("phase 5h, graph vs eager (streams equal, first tick logits bit-equal):",
+          json.dumps(row))
+    return row
 
 
 def profile_prefill(eng, prompt, steps: int = 4) -> dict:
@@ -1522,18 +1720,23 @@ def kernel_wrappers():
 
 def main_path(label, eng, prompt, n_new, want):
     """Generate with every launch count set to 0 just before and read just
-    after; `want(steps)` gives the exact count each kernel must show."""
+    after; `want(runs)` gives the exact count each kernel must show after
+    `runs` decode-step forwards: each step (a replay of its graph) and the
+    graph's warm-up where this generate captured it."""
     import torch
 
     wrappers = kernel_wrappers()
     torch.cuda.reset_peak_memory_stats()
+    captures = eng.graphs.captures
     for w in wrappers.values():
         w.launches = 0
     toks = run_generate(eng, prompt, n_new)
     launches = {name: w.launches for name, w in wrappers.items()}
     steps = eng.perf.n_decode
     check(steps == n_new - 1, f"{steps} decode steps for {n_new} tokens")
-    expect = want(steps)
+    warm = eng.graphs.captures - captures
+    check(warm == 1, f"{label}: generate captured {warm} graphs, want 1")
+    expect = want(steps + warm)
     for name, n in launches.items():
         check(n == expect.get(name, 0),
               f"{label}: {name} launched {n} times, want {expect.get(name, 0)}")
@@ -1541,20 +1744,9 @@ def main_path(label, eng, prompt, n_new, want):
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"main path {label}: prefill {summary['prefill_tps']} tok/s, decode "
           f"{summary['decode_tps']} tok/s ({steps} steps), peak {peak:.2f} GiB, "
-          f"launches {json.dumps(launches)} (as expected)")
+          f"launches {json.dumps(launches)} (as expected: {steps} steps, {warm} warm-up)")
     print(f"main path {label} tokens: {toks}")
-    return launches, summary
-
-
-def dense_run(label, eng, prompt, n_new, sparse_summary):
-    import torch
-
-    torch.cuda.reset_peak_memory_stats()
-    run_generate(eng, prompt, n_new)
-    dp = eng.perf.summary()
-    print(f"main path {label} dense: prefill {dp['prefill_tps']} tok/s, decode "
-          f"{dp['decode_tps']} tok/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          f"GiB; sparse/dense decode {sparse_summary['decode_tps'] / dp['decode_tps']:.3f}x")
+    return launches
 
 
 def kernel_line(name, source, replaces, launches, row, shape):
@@ -1634,9 +1826,9 @@ def main() -> int:
 
     # 5b. the 7B main path
     L = cfg.n_layer
-    l7, s7 = main_path("7B bf16 sparse", sparse_eng, prompt, n_new,
+    l7 = main_path("7B bf16 sparse", sparse_eng, prompt, n_new,
                        lambda steps: {"sparse_ffn_block_v6": L * steps})
-    rows7, steps7 = profile_decode(sparse_eng, prompt)
+    rows7, steps7, _ = profile_decode(sparse_eng, prompt)
     v6_prof = [(k, ms, n) for k, ms, n in rows7 if "v6_ffn" in k]
     # the f32 copies: torch's casting copies (direct_copy_kernel_cuda)
     copies = [(k, ms, n) for k, ms, n in rows7 if "direct_copy_kernel" in k]
@@ -1647,8 +1839,17 @@ def main() -> int:
                        "launches": sum(n for _, _, n in copies) // steps7}}))
     check(sum(n for _, _, n in v6_prof) == L * steps7,
           f"the profiled 7B step launched {v6_prof} v6 kernels, want {L} a step")
-    dense_run("7B bf16", Engine(model, max_seq=1024, sampler=greedy, device="cuda"),
-              prompt, n_new, s7)
+    # 5h. graph against eager: the sparse engine and an eager one over its
+    # prepared stores, then the dense engines on the same weights
+    h5 = [graph_vs_eager("7B bf16 sparse", sparse_eng, Engine(
+        LoadedModel(config=cfg, params=sparse_eng.params), max_seq=1024, sampler=greedy,
+        sparse=scfg, sparse_preprepared=True, device="cuda", cuda_graph=False), prompt, n_new)]
+    h5.append(graph_vs_eager(
+        "7B bf16 dense", Engine(model, max_seq=1024, sampler=greedy, device="cuda"),
+        Engine(model, max_seq=1024, sampler=greedy, device="cuda", cuda_graph=False),
+        prompt, n_new))
+    ratios = [sparse_dense_ratio("7B bf16", *h5[-2:])]
+    torch.cuda.empty_cache()
     print(f"7B engine path done at {time.perf_counter() - t_start:.1f} s")
 
     # 5e. the Scheduler at 7B widths (its row stores serve phase 4c)
@@ -1658,6 +1859,13 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED + 11)
     prompts = [torch.randint(cfg.n_vocab, (32,), generator=gen).tolist() for _ in range(8)]
     l_v1 = scheduler_path(sched, prompts, 32)
+    # 5h. the tick, graph against eager, on requests whose prompts no slot
+    # holds (a reused prefix would prefill another way than a fresh slot)
+    prompts_h = [torch.randint(cfg.n_vocab, (32,), generator=gen).tolist() for _ in range(8)]
+    h5.append(scheduler_graph_vs_eager(sched, Scheduler(
+        model, n_slots=4, max_seq=128, sampler=greedy, sparse=scfg, sparse_batch_max=4,
+        device="cuda", cuda_graph=False), prompts_h, 32))
+    torch.cuda.empty_cache()
 
     # 4d, 5f. v7u, and batched decode of every decode path at B = 1, 4, 8
     v7u_row = phase_v7u(sparse_eng.params["sparse_flat"], L, scfg.n_groups(cfg.n_ff))
@@ -1694,15 +1902,23 @@ def main() -> int:
                 "quant_matmul_2d": (4 * L + 1) * (steps + 1),
                 "quant_matmul_flat": 2 * (L + 1) * steps + 2 * L}
 
-    l13, s13 = main_path("13B Q8_0 sparse", sparse_eng, prompt, n_new, want13)
-    rows13, steps13 = profile_decode(sparse_eng, prompt)
+    l13 = main_path("13B Q8_0 sparse", sparse_eng, prompt, n_new, want13)
+    rows13, steps13, _ = profile_decode(sparse_eng, prompt)
     v6q_prof = [(k, ms, n) for k, ms, n in rows13 if "v6q_" in k]
-    print("profile: v6q in a 13B Q8_0 sparse step:", json.dumps({
+    qmm_prof = [(k, ms, n) for k, ms, n in rows13 if "qmm_" in k]
+    print("profile: v6q and quant_matmul in a 13B Q8_0 sparse step:", json.dumps({
         "device_ms": sum(ms for _, ms, _ in v6q_prof) / steps13,
         "launches": sum(n for _, _, n in v6q_prof) // steps13,
-        "kernels": {k[:60]: [ms / steps13, n // steps13] for k, ms, n in v6q_prof}}))
+        "kernels": {k[:60]: [ms / steps13, n // steps13] for k, ms, n in v6q_prof + qmm_prof}}))
     check(sum(n for _, _, n in v6q_prof) == 2 * L * steps13,
           f"the profiled 13B step launched {v6q_prof} v6q kernels, want 2 x {L} a step")
+    # quant_matmul_2d 4L + 1 and quant_matmul_flat 2(L + 1) a step, qmm_decode each
+    check(sum(n for _, _, n in qmm_prof) == (6 * L + 3) * steps13
+          and all("qmm_decode" in k for k, _, _ in qmm_prof),
+          f"the profiled 13B step launched {qmm_prof}, want {6 * L + 3} qmm_decode a step")
+    h5.append(graph_vs_eager("13B Q8_0 sparse", sparse_eng, Engine(
+        model, max_seq=1024, sampler=greedy, sparse=scfg, sparse_preprepared=True,
+        device="cuda", cuda_graph=False), prompt, n_new))
     profile_prefill(sparse_eng, prompt)
     del sparse_eng
     dense_params = dict(model.params)
@@ -1710,9 +1926,12 @@ def main() -> int:
     dense_params["layers"] = dict(model.params["layers"], **weights.dense_ffn())
     del model
     torch.cuda.empty_cache()
-    dense_run("13B Q8_0", Engine(LoadedModel(config=cfg, params=dense_params),
-                                 max_seq=1024, sampler=greedy, device="cuda"),
-              prompt, n_new, s13)
+    dense = LoadedModel(config=cfg, params=dense_params)
+    h5.append(graph_vs_eager(
+        "13B Q8_0 dense", Engine(dense, max_seq=1024, sampler=greedy, device="cuda"),
+        Engine(dense, max_seq=1024, sampler=greedy, device="cuda", cuda_graph=False),
+        prompt, n_new))
+    ratios.append(sparse_dense_ratio("13B Q8_0", h5[-2], h5[-1]))
     print(f"13B path done at {time.perf_counter() - t_start:.1f} s")
 
     out = {"kernels": [
@@ -1748,6 +1967,13 @@ def main() -> int:
                     "B=8 Cu=48 G=128 E=4096 bf16 fatrelu"),
     ]}
     print(f"crossover measured: v1 beats masked-dense up to B={crossover}")
+    print("phase 5h summary:", json.dumps({"graph_vs_eager": [
+        {"path": r["path"], **{f"{k}_{m}": r[k][m] for k in ("graph", "eager")
+                               for m in r["graph"]},
+         **{k: r[k] for k in ("replay_span_ms", "replay_launch_ms", "replay_sync_ms",
+                              "step_breakdown", "capture_s", "graph_pool_bytes") if k in r}}
+        for r in h5],
+        "sparse_dense": ratios}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

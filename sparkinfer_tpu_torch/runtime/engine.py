@@ -1,12 +1,15 @@
 """Generation engine, the port of sparkinfer_tpu/runtime/engine.py for the
 dense and the sparse (pipelined and non-pipelined) paths.
 
-Prefill runs the whole prompt through one forward (chunked when it is longer
-than `prefill_chunk`); decode runs one token per step; sampling happens on
-the device and the host reads one token id per step. The JAX engine's TPU
-tunings have no counterpart here: prefill length buckets (the port runs
-eagerly, so no shape needs a compile), the fused multi-step decode scan and
-batched token readback (a local card answers a read in microseconds).
+Prefill runs the whole prompt eagerly through one forward (chunked when it
+is longer than `prefill_chunk`). Decode runs one token per step: the forward
+and the sampler over static token and position buffers, on the card one
+replay of a CUDA graph (`runtime/graphs.py`), the counterpart of the JAX
+Engine's jitted, cache-donating decode step; the host reads one token id per
+step. The JAX engine's TPU tunings have no counterpart here: prefill length
+buckets (prefill runs eagerly, so no shape needs a compile), the fused
+multi-step decode scan and batched token readback (a local card answers a
+read in microseconds).
 
 Tiering, split files, self-extend, context shift, iSWA and MoE come later.
 """
@@ -22,6 +25,7 @@ import torch
 from ..device import resolve_device
 from ..models.loader import LoadedModel
 from ..models.transformer import make_forward
+from .graphs import StepGraphs, resolve_capture
 from .kv_cache import KVCache, init_cache
 from .sampling import SamplerConfig, neutral_penalties, sample
 
@@ -74,7 +78,19 @@ class Engine:
     (quant="q8_0") and Q8_0 predictor stacks (params["sparse_flat"]
     pred_up_qt ...) reach the engine. The model's params must lie on `device`
     (None: the card). After each prefill or decode step, `last_logits` holds
-    the (1, V) f32 logits the token was sampled from."""
+    the (1, V) f32 logits the token was sampled from; after a decode step it
+    is the step's output buffer, which the next step overwrites (clone it to
+    keep it).
+
+    cuda_graph: None captures each decode step as one CUDA graph on a CUDA
+    device and runs it eagerly on the CPU; False runs it eagerly on the card
+    too; True on the CPU raises ValueError. The eager step is the same
+    function over the same static buffers. A graph is kept for each KV cache
+    a step runs on: `generate`'s one engine-owned cache, and at most a few
+    caches of the caller's own (`decode_step`). The engine keeps one
+    sampler generator, which `new_sampler_state` reseeds and returns."""
+
+    GRAPHS = 4  # the decode-step graphs kept: the engine's cache and callers'
 
     def __init__(
         self,
@@ -91,8 +107,10 @@ class Engine:
         split=None,
         self_extend: tuple[int, int] | None = None,
         kv_iswa: bool = False,
+        cuda_graph: bool | None = None,
     ):
         self.device = resolve_device(device)
+        capture = resolve_capture(cuda_graph, self.device)
         if split is not None or self_extend is not None or kv_iswa:
             raise NotImplementedError(
                 "split files, self-extend and the iSWA cache are not ported yet")
@@ -152,6 +170,10 @@ class Engine:
             self.fwd_decode = self.fwd
         self.prefill_chunk = 1024  # ubatch size for long prompts (ref n_ubatch)
         self.perf = PerfCounters()
+        self.generator = torch.Generator(device=self.device)
+        self.graphs = StepGraphs(self.device, capture, self.GRAPHS,
+                                 None if sc.greedy else self.generator)
+        self.cache: KVCache | None = None  # generate's, made at its first call
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -166,9 +188,11 @@ class Engine:
         return init_cache(self.cfg, 1, self.max_seq, self.kv_dtype, self.device)
 
     def new_sampler_state(self, seed: int | None = None) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.sampler_cfg.seed if seed is None else seed)
-        return gen
+        """The engine's generator, reseeded: a decode step draws from it
+        (its graphs have it registered), so it is the only sampler state
+        `decode_step` takes."""
+        self.generator.manual_seed(self.sampler_cfg.seed if seed is None else seed)
+        return self.generator
 
     @torch.inference_mode()
     def prefill(self, prompt_tokens: list[int], cache: KVCache,
@@ -197,16 +221,34 @@ class Engine:
         self.perf.n_prefill += n
         return tok, cache, sstate, n
 
+    def _decode_fn(self, cache: KVCache):
+        """The decode step over static (1, 1) token and position buffers:
+        the (1, V) f32 logits and the sampled token (1,). It holds what it
+        reads, not the engine, so that no reference cycle keeps an engine's
+        memory past its last use."""
+        fwd, params, cfg, gen = self.fwd_decode, self.params, self.sampler_cfg, self.generator
+
+        def step(tokens, positions):
+            logits = fwd(params, tokens, positions, cache)[:, -1]
+            return logits, sample(logits, cfg, gen)
+
+        return step
+
     @torch.inference_mode()
     def decode_step(self, token: int, n_past: int, cache: KVCache,
                     sstate: torch.Generator) -> tuple[int, KVCache, torch.Generator]:
-        self._sync()
+        """One token through the step of `cache` (its graph, captured at the
+        first step on that cache); the token read is the step's only
+        synchronization."""
+        if not self.sampler_cfg.greedy and sstate is not self.generator:
+            raise ValueError("a sampled decode step draws from the engine's generator: "
+                             "pass new_sampler_state()'s")
         t0 = time.perf_counter()
-        toks, pos = self._tokens([token], n_past)
-        logits = self.fwd_decode(self.params, toks, pos, cache)
-        self.last_logits = logits[:, -1]
-        tok = int(sample(self.last_logits, self.sampler_cfg, sstate)[0])
-        self._sync()
+        step = self.graphs.get(cache, 1, "decode", lambda: self._decode_fn(cache))
+        step.tokens.fill_(token)
+        step.positions.fill_(n_past)
+        self.last_logits, tok = step.run()
+        tok = int(tok[0])
         self.perf.t_decode_s += time.perf_counter() - t0
         self.perf.n_decode += 1
         return tok, cache, sstate
@@ -222,7 +264,9 @@ class Engine:
     def _generate_iter(self, prompt_tokens, max_new_tokens, stop_ids, seed):
         if max_new_tokens <= 0:
             return
-        cache = self.new_cache()
+        if self.cache is None:  # one cache for every call, as the JAX Engine donates its own
+            self.cache = self.new_cache()
+        cache = self.cache
         sstate = self.new_sampler_state(seed)
         tok, cache, sstate, n_past = self.prefill(prompt_tokens, cache, sstate)
         emitted = 0

@@ -14,6 +14,10 @@ the card, its plain version on the CPU. When more than `sparse_batch_max`
 slots are active a tick takes the masked-dense step instead: at a large
 batch the union of the slots' groups approaches every group, and dense
 reads each weight once for all of them (`sparse.config.sparse_batch_crossover`).
+On the card each tick's forward (sparse or masked-dense) replays a CUDA
+graph over static token and position buffers (`runtime/graphs.py`), the
+counterpart of the JAX `_jit_decode` and `_jit_decode_dense`; slot prefill
+and the per-slot sampler stay eager.
 
 Differences from the JAX Scheduler, by design:
   - an idle slot steps at position max_seq - 1, which no request's cached
@@ -42,6 +46,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.transformer import make_forward
+from .graphs import StepGraphs, resolve_capture
 from .kv_cache import KVCache, init_cache, slot_view
 from .sampling import (
     DynamicParams,
@@ -102,7 +107,10 @@ class Scheduler:
 
     The model's params must lie on `device` (None: the card). After each
     decode tick `last_logits` holds the (n_slots, V) f32 logits of every
-    slot, idle ones included."""
+    slot, idle ones included: the tick's output buffer, which the next tick
+    overwrites. cuda_graph: None captures the tick's forward as a CUDA graph
+    on a CUDA device and runs it eagerly on the CPU; False runs it eagerly
+    on the card too; True on the CPU raises ValueError."""
 
     def __init__(
         self,
@@ -120,8 +128,10 @@ class Scheduler:
         slot_similarity: float = 0.0,  # -sps: prefix-similarity slot routing
         prefill_mode: str = "rows",
         device=None,
+        cuda_graph: bool | None = None,
     ):
         self.device = resolve_device(device)
+        capture = resolve_capture(cuda_graph, self.device)
         if kv_dtype_v is not None or kv_quantized:
             raise NotImplementedError("quantized and split-dtype KV caches are not ported yet")
         if split is not None or prefill_mode != "rows":
@@ -164,6 +174,7 @@ class Scheduler:
                                  else max(int(sparse_batch_max), 0))
         self.prefill_chunk = 1024  # ubatch size for long prompts, as the Engine's
         self.cache: KVCache = init_cache(self.cfg, n_slots, max_seq, kv_dtype, self.device)
+        self.graphs = StepGraphs(self.device, capture, limit=2)  # sparse and dense ticks
         self.slots = [SlotState() for _ in range(n_slots)]
         self.sstates = [init_state(self.sampler_cfg, i, self.device) for i in range(n_slots)]
         self.dparams = stack_params([dynamic_params(self.sampler_cfg)] * n_slots)
@@ -324,6 +335,17 @@ class Scheduler:
         else:
             slot.last_token = tok
 
+    def _tick_fn(self, fwd):
+        """A tick's forward over static (n_slots, 1) token and position
+        buffers: the (n_slots, V) f32 logits. It holds what it reads, not
+        the scheduler (no reference cycle)."""
+        params, cache = self.params, self.cache
+
+        def tick(tokens, positions):
+            return fwd(params, tokens, positions, cache)[:, -1]
+
+        return tick
+
     @torch.inference_mode()
     def step(self) -> bool:
         """One tick: admit, then one batched decode over every slot.
@@ -333,14 +355,15 @@ class Scheduler:
         if not rows:
             return False
         t0 = time.perf_counter()
-        toks = torch.tensor([[s.last_token if s.running else 0] for s in self.slots],
-                            dtype=torch.long, device=self.device)
-        # an idle slot steps at max_seq - 1, past every cached prefix
-        pos = torch.tensor([[s.n_past if s.running else self.max_seq - 1]
-                            for s in self.slots], device=self.device)
         dense = self.sparse_batch_max is not None and len(rows) > self.sparse_batch_max
         fwd = self.fwd if dense else self.fwd_decode
-        self.last_logits = fwd(self.params, toks, pos, self.cache)[:, -1]
+        tick = self.graphs.get(self.cache, self.n_slots, "dense" if dense else "decode",
+                               lambda: self._tick_fn(fwd))
+        # tokens, and positions: an idle slot steps at max_seq - 1, past every cached prefix
+        tick.io.copy_(torch.tensor(
+            [[[s.last_token] if s.running else [0] for s in self.slots],
+             [[s.n_past] if s.running else [self.max_seq - 1] for s in self.slots]]))
+        self.last_logits = tick.run()
         full = len(rows) == self.n_slots
         logits = self.last_logits if full else self.last_logits[rows]
         dp = self.dparams if full else DynamicParams(*(col[rows] for col in self.dparams))
