@@ -89,11 +89,16 @@ sees no card or the package is missing. Phases, each of which fails the run:
        copies' in a profile of 6 ticks;
        batched decode at the same widths (bench.py batch): aggregate tok/s
        of dense, masked-dense, per-token v6, union v7u and the Scheduler's
-       v1 step at B = 1, 4, 8, each from its own dense prefill, best of 3
-       runs of 8 steps, exact launch counts per run, then a profile of 4
-       v7u steps at B = 8 (v7u's share of the step's device time); the
-       largest B at which v1 beats masked-dense is the crossover that
-       sparse.config.sparse_batch_crossover holds;
+       v1 step at B = 1, 2, 4, 8 (the Scheduler's two ticks at 16 too), each
+       from its own dense prefill, best of 3 runs of 8 steps, exact launch
+       counts per run; the Scheduler's two ticks (masked-dense and v1)
+       replay a CUDA graph of their forward as the Scheduler does, with the
+       device span of one replay, while dense, v6 and v7u stay eager; then a
+       profile of 4 v7u steps at B = 8 (v7u's share of the step's device
+       time); the largest B (the rows a tick computes, the Scheduler's
+       n_slots) at which the graphed v1 tick beats the graphed masked-dense
+       tick is the crossover that sparse.config.sparse_batch_crossover
+       holds;
        sparkinfer-bench's decode rows at the same widths
        (tools.bench_matrix.bench_tg: a 512-token seed prefill into a
        1024-token cache, tg 16, 3 runs, B = 1 and 4): dense, sparse over the
@@ -121,6 +126,24 @@ sees no card or the package is missing. Phases, each of which fails the run:
        step taken apart (host ms of the fills, the replay call and the token
        read; device ms around the replay), capture seconds and graph pool
        bytes, and the sparse/dense decode tok/s ratio of graph and of eager.
+     5i. the OpenAI-compatible server (server/app.py) over HTTP on
+       127.0.0.1, with an in-memory SPM vocabulary of 32000 pieces from the
+       seed and a llama-2 chat template: the 7B bf16 model behind
+       SparkServer (4 slots, max_seq 1024, SparseConfig(128, 12), the
+       crossover table's sparse_batch_max), 4 concurrent streamed
+       completions of 32-token prompts (32 greedy tokens) equal to the same
+       requests through its Scheduler directly, 2 streamed chats equal to
+       the same chats not streamed, a json_schema request whose text the
+       grammar accepts, /tokenize, /detokenize, /health and /metrics, v1
+       launched L times in each sparse tick; the 13B Q8_0 dense model with
+       its packed linears behind a second SparkServer, 4 concurrent
+       requests equal to its Scheduler, quant_matmul_2d launched 7L + 1
+       times a forward; time to first token and end-to-end ms of each
+       request, the clients' aggregate decode tok/s against the bare
+       Scheduler's, ms a tick of the grammar mask; and
+       `python -m sparkinfer_tpu_torch.server` on a small GGUF written by
+       the port's writer, started as a child process, answering /health
+       and one completion.
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
@@ -152,8 +175,10 @@ N_SETS = 64  # cold row sets / distinct stores per kernel timing
 # 2e-3 of the output's scale summed with random signs; a wrong row or mask
 # errs by the scale itself
 UNION_TOL = 1e-2
-BATCHES = (1, 4, 8)
-PROFILE_STEPS = 4  # profiled v7u batched decode steps at the largest B
+BATCHES = (1, 2, 4, 8, 16)
+GRAPHED = ("masked_dense", "v1")  # the Scheduler's two ticks, replayed as CUDA graphs
+EAGER_BATCH_MAX = 8  # dense, v6 and v7u decode eagerly up to this B; the graphed ticks at every B
+PROFILE_STEPS = 4  # profiled v7u batched decode steps at EAGER_BATCH_MAX
 
 
 def fail(msg: str):
@@ -1166,14 +1191,22 @@ def phase_batched(cfg, scfg, dense_params, flat_params, row_params, steps: int =
     """Aggregate decode tok/s at B in BATCHES (bench.py batch): dense,
     masked-dense (the Scheduler's fallback), per-token v6, union v7u and
     the Scheduler's v1 step, each decoding greedily on from its own 32-token
-    dense prefill. The modes run in turns, `trials` runs of `steps` steps
-    each, and the best run counts (the host's clock varies run to run);
-    every run's launch counts are checked. Returns the v7u launches of the
-    last timed run (B = 8) and the crossover: the largest B at which v1
-    beats masked-dense, 0 where it never does."""
+    dense prefill. The Scheduler's two ticks (GRAPHED: masked-dense and v1)
+    replay a CUDA graph of their forward, as the Scheduler runs them; dense,
+    v6 and v7u stay eager (the batched Engine decode has no graph) and run
+    only up to EAGER_BATCH_MAX. Every row of a tick is live, as all n_slots
+    rows of a Scheduler tick are computed, idle ones included. The modes
+    run in turns, `trials` runs of `steps` steps each, and the best run
+    counts (the host's clock varies run to run); every run's launch counts
+    are checked, a graph's warm-up included. After each B, the device span
+    of one replay of each graphed tick (CUDA events around back-to-back
+    replays). Returns the v7u launches of a timed run at B = 8, the
+    crossover: the largest B at which the graphed v1 tick beats the graphed
+    masked-dense tick, 0 where it never does, and the table's rows."""
     import torch
 
     from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.runtime.graphs import StepGraph
     from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
     from sparkinfer_tpu_torch.sparse import ffn as sffn
     from sparkinfer_tpu_torch.sparse.config import sparse_batch_crossover
@@ -1181,7 +1214,7 @@ def phase_batched(cfg, scfg, dense_params, flat_params, row_params, steps: int =
     L = cfg.n_layer
     ffn6, ci6 = sffn.make_pipelined_sparse_ffn(cfg, scfg, mode="kernel")
     ffnu, ciu = sffn.make_pipelined_sparse_ffn(cfg, scfg, mode="kernel_union")
-    modes = {
+    all_modes = {
         "dense": (make_forward(cfg), dense_params, None),
         "masked_dense": (make_forward(cfg, ffn_fn=sffn.make_sparse_ffn(cfg, scfg, "dense")),
                          row_params, None),
@@ -1199,43 +1232,63 @@ def phase_batched(cfg, scfg, dense_params, flat_params, row_params, steps: int =
     for B in BATCHES:
         prompt = torch.randint(cfg.n_vocab, (B, 32), generator=gen, device="cuda")
         pos = torch.arange(32, device="cuda")[None].expand(B, 32)
-        caches, toks = {}, {}
-        for name in modes:  # each mode decodes on from its own 32-token prefill
+        caches, toks, ticks = {}, {}, {}
+        at_b = {name: m for name, m in all_modes.items()
+                if B <= EAGER_BATCH_MAX or name in GRAPHED}
+        for name in at_b:  # each mode decodes on from its own 32-token prefill
             caches[name] = init_cache(cfg, B, 32 + 2 + trials * steps + PROFILE_STEPS,
                                       torch.bfloat16, "cuda")
             toks[name] = prefill(dense_params, prompt, pos, caches[name])[:, -1].argmax(
                 -1, keepdim=True)
+        for name in GRAPHED:  # the tick's forward over static buffers, as the Scheduler's
+            fwd, params, _ = at_b[name]
+            ticks[name] = StepGraph(
+                lambda t, p, fwd=fwd, params=params, cache=caches[name]:
+                fwd(params, t, p, cache)[:, -1],
+                B, torch.device("cuda"), capture=True, label=f"batched {name} tick")
         n_past = 32
-        best = dict.fromkeys(modes, float("inf"))
+        best = dict.fromkeys(at_b, float("inf"))
         for trial in range(trials + 1):  # the modes in turns; trial 0 warms up
             n = 1 if trial == 0 else steps
-            for name, (fwd, params, kname) in modes.items():
+            for name, (fwd, params, kname) in at_b.items():
+                tick = ticks.get(name)
+                warm = int(tick is not None and tick.graph is None)
                 for w in wrappers.values():
                     w.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for s in range(n):
-                    logits = fwd(params, toks[name], torch.full((B, 1), n_past + s, device="cuda"),
-                                 caches[name])[:, -1]
+                    if tick is None:
+                        logits = fwd(params, toks[name],
+                                     torch.full((B, 1), n_past + s, device="cuda"),
+                                     caches[name])[:, -1]
+                    else:
+                        tick.tokens.copy_(toks[name])
+                        tick.positions.fill_(n_past + s)
+                        logits = tick.run()
                     toks[name] = logits.argmax(-1, keepdim=True)
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
                 check(bool(torch.isfinite(logits).all()), f"batched {name} B={B}: non-finite")
                 for wname, w in wrappers.items():
-                    want = L * n if wname == kname else 0
+                    want = L * (n + warm) if wname == kname else 0
                     check(w.launches == want,
                           f"batched {name} B={B}: {wname} launched {w.launches}, want {want}")
                 if trial > 0:
                     best[name] = min(best[name], dt / n)
             n_past += n
         row = {"B": B, **{name: B / t for name, t in best.items()},
-               "ms_per_step": {name: round(1e3 * t, 3) for name, t in best.items()}}
+               "ms_per_step": {name: round(1e3 * t, 3) for name, t in best.items()},
+               "graphed": list(GRAPHED),
+               "graph_device_ms": {name: round(replay_times(tick)["replay_span_ms"], 3)
+                                   for name, tick in ticks.items()}}
         print("batched decode (aggregate tok/s, best of "
               f"{trials} x {steps} steps):", json.dumps(
                   {k: (round(v, 2) if isinstance(v, float) else v) for k, v in row.items()}))
         table.append(row)
-        if B == BATCHES[-1]:  # v7u's share of a profiled batched step's device time
-            fwd, params, _ = modes["v7u"]
+        if B == EAGER_BATCH_MAX:  # v7u's share of a profiled batched step's device time
+            l_v7u = L * steps
+            fwd, params, _ = at_b["v7u"]
             at = {"n": n_past}
 
             def step():
@@ -1255,11 +1308,13 @@ def phase_batched(cfg, scfg, dense_params, flat_params, row_params, steps: int =
                 "v7u_share_of_device_time": sum(r[1] for r in v7u) / device_ms,
                 "v7u_kernels": {k[:40]: [ms / PROFILE_STEPS, n // PROFILE_STEPS]
                                 for k, ms, n in v7u}}))
-        del caches
+        del caches, ticks
+        torch.cuda.empty_cache()
     crossover = max([r["B"] for r in table if r["v1"] > r["masked_dense"]], default=0)
-    print(f"batched decode: v1 beats masked-dense up to B={crossover} "
-          f"(sparse_batch_crossover({cfg.n_ff}) gives {sparse_batch_crossover(cfg.n_ff)})")
-    return L * steps, crossover
+    print(f"batched decode: the graphed v1 tick beats the graphed masked-dense tick up to "
+          f"B={crossover} (sparse_batch_crossover({cfg.n_ff}) gives "
+          f"{sparse_batch_crossover(cfg.n_ff)})")
+    return l_v7u, crossover, table
 
 
 def greedy_forward(fwd, params, cfg, prompt, n_new):
@@ -1749,6 +1804,451 @@ def main_path(label, eng, prompt, n_new, want):
     return launches
 
 
+# --- phase 5i: the OpenAI-compatible server over the Scheduler ---------------
+
+# llama-2's chat format (the ProSparse models' family), without the BOS the
+# tokenizer adds itself
+CHAT_TEMPLATE = (
+    "{% for m in messages %}{% if m['role'] == 'system' %}<<SYS>>\n{{ m['content'] }}"
+    "\n<</SYS>>\n\n{% elif m['role'] == 'user' %}[INST] {{ m['content'] }} [/INST]"
+    "{% else %} {{ m['content'] }} {{ eos_token }}{% endif %}{% endfor %}")
+SERVER_KEYS = ("client_decode_tok_s", "server_ms_per_tick", "server_prefill_ms",
+               "bare_ms_per_tick", "bare_decode_tok_s", "bare_prefill_ms", "ticks")
+JSON_SCHEMA = {"type": "object", "properties": {"name": {"type": "string"},
+                                                "age": {"type": "integer"}},
+               "required": ["name", "age"]}
+
+
+def spm_vocab(n_vocab: int, seed: int):
+    """An SPM Vocab of n_vocab pieces, as a llama-2 GGUF holds one: <unk>,
+    <s>, </s>, the 256 byte-fallback pieces and word pieces made from the
+    seed, each word with every prefix a piece (the merge chain SPM needs),
+    and CHAT_TEMPLATE."""
+    import numpy as np
+
+    from sparkinfer_tpu_torch.tokenizer import Vocab
+
+    rng = np.random.default_rng(seed)
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)] + ["▁"]
+    seen = set(tokens)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(tokens) < n_vocab:
+        word = "".join(rng.choice(letters, size=int(rng.integers(1, 9))))
+        for k in range(1, len(word) + 1):
+            piece = "▁" + word[:k]
+            if piece not in seen and len(tokens) < n_vocab:
+                seen.add(piece)
+                tokens.append(piece)
+    types = np.full(n_vocab, 1, np.int32)  # NORMAL
+    types[0], types[1:3], types[3:259] = 2, 3, 6  # UNKNOWN, CONTROL, BYTE
+    scores = np.zeros(n_vocab, np.float32)
+    scores[259:] = -np.arange(n_vocab - 259, dtype=np.float32) / n_vocab
+    return Vocab(model="llama", pre="default", tokens=tokens, token_types=types,
+                 scores=scores, merges=None, bos_id=1, eos_id=2, unk_id=0, add_bos=True,
+                 add_space_prefix=True, chat_template=CHAT_TEMPLATE)
+
+
+def http(port: int, path: str, body=None, timeout: float = 300.0) -> dict:
+    """One request to the server on 127.0.0.1:port: its status, its body
+    (JSON, or for an SSE stream the text of its deltas, joined), and the
+    client's ms to the first SSE chunk and to the end. Fails the run on a
+    status other than 200."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    first = None
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        check(r.status == 200, f"server {path}: HTTP {r.status}")
+        if body is None or not body.get("stream"):
+            raw = r.read()
+            out = (json.loads(raw) if r.headers.get("Content-Type") == "application/json"
+                   else raw.decode())
+        else:
+            parts, done = [], False
+            for line in r:
+                line = line.decode().strip()
+                if not line.startswith("data: "):
+                    continue
+                if first is None:
+                    first = time.perf_counter()
+                if line == "data: [DONE]":
+                    done = True
+                    break
+                ch = json.loads(line[6:])["choices"][0]
+                parts.append(ch.get("text") or ch.get("delta", {}).get("content") or "")
+            check(done, f"server {path}: the stream ended without [DONE]")
+            out = "".join(parts)
+    end = time.perf_counter()
+    return {"body": out, "ttft_ms": 1e3 * ((first or end) - t0), "e2e_ms": 1e3 * (end - t0)}
+
+
+def fresh_slots(sched):
+    """Forget the prompts the slots hold, so that every next request
+    prefills from position 0 as its reference did (a reused prefix prefills
+    the rest another way, whose last bits differ at bf16)."""
+    for slot in sched.slots:
+        slot.cached_tokens = []
+
+
+def held_requests(srv, bodies, path):
+    """Send `bodies` to `path` at once, each on a thread of its own, with the
+    Scheduler's loop held until all of them wait in its queue, so that they
+    are admitted together into fresh slots, as their reference was. Returns
+    the responses in order."""
+    import threading
+
+    sched = srv.sched
+    sched.stop()
+    fresh_slots(sched)
+    out = [None] * len(bodies)
+    errors = []
+
+    def call(i):
+        try:
+            out[i] = http(srv.port, path, bodies[i])
+        except BaseException as e:  # noqa: BLE001 - reported below, the run fails
+            errors.append(f"{path} request {i}: {e!r}")
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    deadline = time.perf_counter() + 120
+    while sched.pending.qsize() < len(bodies) and not errors:
+        check(time.perf_counter() < deadline, f"server {path}: requests never queued")
+        time.sleep(0.005)
+    sched.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not errors and all(o is not None for o in out), f"server: {errors}")
+    return out
+
+
+def reference_ids(srv, bodies):
+    """The bodies' requests, built by the server's own request maker, served
+    by its Scheduler directly (loop stopped, slots fresh, all admitted
+    together): their token ids, and the bare Scheduler's ms a tick and
+    aggregate decode tok/s. A first pass of 2 tokens each captures the
+    ticks' graphs, so that no capture is timed."""
+    sched = srv.sched
+    sched.stop()
+    for b in bodies:
+        sched.submit(srv._make_request(b["prompt"], {**b, "max_tokens": 2}))
+    sched.run_until_idle()
+    fresh_slots(sched)
+    m0 = sched.metrics_snapshot()
+    reqs = [sched.submit(srv._make_request(b["prompt"], b)) for b in bodies]
+    sched.run_until_idle()
+    m = sched.metrics_snapshot()
+    ticks = m["n_decode_steps"] - m0["n_decode_steps"]
+    secs = m["t_decode_s"] - m0["t_decode_s"]
+    gen = m["n_tokens_generated"] - m0["n_tokens_generated"] - len(reqs)
+    return [r.tokens() for r in reqs], {
+        "ms_per_tick": 1e3 * secs / ticks, "decode_tok_s": gen / secs, "ticks": ticks,
+        "prefill_ms": 1e3 * (m["t_prefill_s"] - m0["t_prefill_s"]) / len(reqs)}
+
+
+def server_path(label, srv, prompts, n_new, want):
+    """The server's main path: `prompts` (token ids) as concurrent streamed
+    /v1/completions of n_new greedy tokens, held to the bare Scheduler's
+    streams on the same weights (detokenized; the stream keeps the SPM
+    leading space that a whole decode drops). Every launch count is set to
+    0 just before the HTTP requests and read just after; want(runs) gives
+    each kernel's count after `runs` forwards: the prefills (one a
+    request), the sparse and dense ticks and the captures' warm-ups.
+    Returns the launches, the counts of ticks and the numbers printed."""
+    sched = srv.sched
+    bodies = [{"prompt": p, "max_tokens": n_new, "temperature": 0.0, "stream": True}
+              for p in prompts]
+    ref, bare = reference_ids(srv, bodies)
+    # a first request warms the client and the server (about 150 ms of first
+    # use, not the path's), so that the times below start warm
+    check(http(srv.port, "/health")["body"] == {"status": "ok"}, f"{label}: /health")
+    wrappers = kernel_wrappers()
+    m0, c0 = sched.metrics_snapshot(), len(sched.graphs.captured)
+    for w in wrappers.values():
+        w.launches = 0
+    got = held_requests(srv, bodies, "/v1/completions")
+    launches = {name: w.launches for name, w in wrappers.items()}
+    m = sched.metrics_snapshot()
+    for i, (r, ids) in enumerate(zip(got, ref)):
+        check(r["body"].removeprefix(" ") == srv.detok(ids),
+              f"{label}: request {i} streamed {r['body']!r}, the Scheduler gave "
+              f"{srv.detok(ids)!r}")
+    ticks = m["n_decode_steps"] - m0["n_decode_steps"]
+    dense = m["n_dense_steps"] - m0["n_dense_steps"]
+    warm = [c["label"] for c in sched.graphs.captured[c0:]]
+    runs = {"prefill": m["n_requests"] - m0["n_requests"], "sparse": ticks - dense,
+            "dense": dense, "warm_sparse": warm.count("decode step"),
+            "warm_dense": warm.count("dense step")}
+    expect = want(runs)
+    for name, n in launches.items():
+        check(n == expect.get(name, 0),
+              f"{label}: {name} launched {n} times, want {expect.get(name, 0)} ({runs})")
+    secs = m["t_decode_s"] - m0["t_decode_s"]
+    first = min(r["ttft_ms"] for r in got)
+    last = max(r["e2e_ms"] for r in got)
+    n_dec = sum(len(ids) - 1 for ids in ref)
+    stats = {
+        "requests": [{"ttft_ms": round(r["ttft_ms"], 2), "e2e_ms": round(r["e2e_ms"], 2),
+                      "tokens": len(ids)} for r, ids in zip(got, ref)],
+        "client_decode_tok_s": 1e3 * n_dec / (last - first),
+        "server_ms_per_tick": 1e3 * secs / max(ticks, 1),
+        "server_prefill_ms": 1e3 * (m["t_prefill_s"] - m0["t_prefill_s"]) / runs["prefill"],
+        "bare_ms_per_tick": bare["ms_per_tick"], "bare_decode_tok_s": bare["decode_tok_s"],
+        "bare_prefill_ms": bare["prefill_ms"],
+        "ticks": runs, "launches": launches}
+    print(f"phase 5i, {label}:", json.dumps(stats))
+    return launches, runs, stats
+
+
+def phase_server(model, scfg, n_new: int = 32):
+    """Phase 5i: the 7B-width bf16 model behind SparkServer (4 slots,
+    max_seq 1024, the sparse Scheduler with the crossover table's
+    sparse_batch_max), driven over HTTP on 127.0.0.1: 4 concurrent streamed
+    completions held to the bare Scheduler; 2 streamed chats each equal to
+    the same chat not streamed; a json_schema request whose text the
+    grammar accepts; /tokenize, /detokenize, /health and /metrics."""
+    import torch
+
+    from sparkinfer_tpu_torch.grammar import json_schema_to_gbnf, parse_gbnf
+    from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
+    from sparkinfer_tpu_torch.server import ServerConfig, SparkServer
+
+    cfg = model.config
+    L = cfg.n_layer
+    model.vocab = spm_vocab(cfg.n_vocab, SEED)
+    t0 = time.perf_counter()
+    srv = SparkServer(model, ServerConfig(port=0, n_slots=4, max_seq=1024, sparse=scfg),
+                      sampler=SamplerConfig(temp=0.0))
+    bmax = srv.sched.sparse_batch_max
+    print(f"phase 5i: SparkServer 7B bf16 sparse, 4 slots, sparse_batch_max {bmax}, built in "
+          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          "allocated")
+    try:
+        srv.serve(block=False)
+        gen = torch.Generator().manual_seed(SEED + 12)
+        prompts = [torch.randint(259, cfg.n_vocab, (32,), generator=gen).tolist()
+                   for _ in range(4)]
+
+        def want(r):  # v1 once a layer in each sparse tick forward
+            return {"sparse_ffn_block": L * (r["sparse"] + r["warm_sparse"])}
+
+        launches, runs, stats = server_path("7B bf16 sparse server", srv, prompts, n_new, want)
+        if bmax == 0:
+            print("phase 5i: the crossover is 0, so every tick took the masked-dense step "
+                  f"and v1 launched {launches['sparse_ffn_block']} times; the Q8_0 server "
+                  "carries the kernel requirement")
+        else:
+            check(launches["sparse_ffn_block"] > 0, "phase 5i: v1 never ran in the server")
+        # streamed chats, each against the same chat not streamed
+        chats = [[{"role": "system", "content": "You answer briefly."},
+                  {"role": "user", "content": "hello world"}],
+                 [{"role": "user", "content": "what is sparse decoding"}]]
+        bodies = [{"messages": c, "max_tokens": 16, "temperature": 0.0, "stream": s}
+                  for c in chats for s in (True, False)]
+        out = held_requests(srv, bodies, "/v1/chat/completions")
+        for i in range(0, len(out), 2):
+            sse = out[i]["body"]
+            text = out[i + 1]["body"]["choices"][0]["message"]["content"]
+            check(sse.removeprefix(" ") == text,
+                  f"phase 5i: chat {i // 2} streamed {sse!r}, not streamed {text!r}")
+        # one grammar-constrained request, its mask timed a tick
+        m0 = srv.sched.metrics_snapshot()
+        r = http(srv.port, "/v1/completions", {
+            "prompt": "the person:", "max_tokens": 8, "temperature": 0.0,
+            "response_format": {"type": "json_schema", "json_schema": {"schema": JSON_SCHEMA}}})
+        text = r["body"]["choices"][0]["text"]
+        g = parse_gbnf(json_schema_to_gbnf(JSON_SCHEMA))
+        stacks = g.accept_text(g.start_stacks(), text) or g.accept_text(g.start_stacks(),
+                                                                       " " + text)
+        check(bool(stacks), f"phase 5i: {text!r} is no prefix of the schema's language")
+        if g.is_complete(stacks):
+            obj = json.loads(text)
+            check(isinstance(obj.get("name"), str) and isinstance(obj.get("age"), int),
+                  f"phase 5i: {obj} does not match the schema")
+        m = srv.sched.metrics_snapshot()
+        n_masks = m["n_grammar_masks"] - m0["n_grammar_masks"]
+        mask_ms = 1e3 * (m["t_grammar_s"] - m0["t_grammar_s"]) / n_masks
+        # the plain routes
+        words = "hello sparse world"
+        ids = http(srv.port, "/tokenize", {"content": words})["body"]["tokens"]
+        back = http(srv.port, "/detokenize", {"tokens": ids})["body"]["content"]
+        check(back.strip() == words, f"phase 5i: /tokenize then /detokenize gave {back!r}")
+        check(http(srv.port, "/health")["body"] == {"status": "ok"}, "phase 5i: /health")
+        metrics = http(srv.port, "/metrics")["body"]
+        check("sparkinfer_n_decode_steps" in metrics, "phase 5i: /metrics lacks the ticks")
+        m = srv.sched.metrics_snapshot()
+        print("phase 5i, 7B server checks:", json.dumps({
+            "completions_equal_scheduler": True, "sse_equals_non_streamed": True,
+            "json_schema_text": text, "json_schema_ms": round(r["e2e_ms"], 2),
+            "grammar_mask_ms_per_tick": mask_ms, "grammar_masks": n_masks,
+            "vocab": cfg.n_vocab, "tokenize_ids": len(ids),
+            "ticks": {"sparse": m["n_decode_steps"] - m["n_dense_steps"],
+                      "dense": m["n_dense_steps"]}}))
+    finally:
+        srv.shutdown()
+        model.vocab = None
+    return launches["sparse_ffn_block"], stats, mask_ms
+
+
+def phase_server_q8(cfg, dense, n_new: int = 16):
+    """Phase 5i, Q8_0: the 13B-width dense model with its packed linears
+    (Q8_0 attention, FFN and head) behind SparkServer, 4 concurrent
+    streamed requests of 32-token prompts held to its bare Scheduler;
+    quant_matmul_2d launched 7L + 1 times a forward."""
+    from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
+    from sparkinfer_tpu_torch.server import ServerConfig, SparkServer
+
+    L = cfg.n_layer
+    dense.vocab = spm_vocab(cfg.n_vocab, SEED)
+    srv = SparkServer(dense, ServerConfig(port=0, n_slots=4, max_seq=128),
+                      sampler=SamplerConfig(temp=0.0))
+    try:
+        srv.serve(block=False)
+        import torch
+
+        gen = torch.Generator().manual_seed(SEED + 13)
+        prompts = [torch.randint(259, cfg.n_vocab, (32,), generator=gen).tolist()
+                   for _ in range(4)]
+
+        def want(r):
+            return {"quant_matmul_2d": (7 * L + 1) * (r["prefill"] + r["dense"] + r["sparse"]
+                                                      + r["warm_dense"] + r["warm_sparse"])}
+
+        launches, _, stats = server_path("13B Q8_0 dense server", srv, prompts, n_new, want)
+        check(launches["quant_matmul_2d"] > 0, "phase 5i: quant_matmul never ran")
+    finally:
+        srv.shutdown()
+        dense.vocab = None
+    return launches["quant_matmul_2d"], stats
+
+
+def write_tiny_gguf(path, seed: int):
+    """A small ProSparse GGUF at the llama-2 layout, written by the port's
+    gguf writer: 2 layers, E=128, 4 heads, F=256, a rank-16 predictor, and
+    an SPM vocabulary of 512 pieces with CHAT_TEMPLATE."""
+    import numpy as np
+
+    from sparkinfer_tpu_torch.gguf.writer import GGUFWriter
+
+    arch, L, E, H, F, R = "prosparse_llama", 2, 128, 4, 256, 16
+    vocab = spm_vocab(512, seed)
+    V = vocab.n_tokens
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, scale=0.08):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    wr = GGUFWriter(str(path), arch)
+    wr.add_kv("tokenizer.ggml.model", "llama")
+    wr.add_array("tokenizer.ggml.tokens", vocab.tokens)
+    wr.add_array("tokenizer.ggml.scores", vocab.scores)
+    wr.add_array("tokenizer.ggml.token_type", vocab.token_types)
+    for key, v in (("bos", 1), ("eos", 2), ("unknown", 0)):
+        wr.add_kv(f"tokenizer.ggml.{key}_token_id", np.uint32(v))
+    wr.add_kv("tokenizer.chat_template", CHAT_TEMPLATE)
+    for key, v in (("block_count", L), ("embedding_length", E), ("attention.head_count", H),
+                   ("attention.head_count_kv", H), ("feed_forward_length", F),
+                   ("vocab_size", V), ("context_length", 256),
+                   ("rope.dimension_count", E // H)):
+        wr.add_kv(f"{arch}.{key}", np.uint32(v))
+    wr.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", np.float32(1e-5))
+    wr.add_kv(f"{arch}.rope.freq_base", np.float32(10000.0))
+    wr.add_array(f"{arch}.pred_lora", np.full(L, R, np.uint32))
+    wr.add_tensor("token_embd.weight", w(V, E))
+    wr.add_tensor("output_norm.weight", np.ones(E, np.float32))
+    wr.add_tensor("output.weight", w(V, E))
+    for i in range(L):
+        p = f"blk.{i}."
+        for name, shape in (("attn_norm.weight", (E,)), ("ffn_norm.weight", (E,))):
+            wr.add_tensor(p + name, np.ones(shape, np.float32))
+        for name, shape in (("attn_q.weight", (E, E)), ("attn_k.weight", (E, E)),
+                            ("attn_v.weight", (E, E)), ("attn_output.weight", (E, E)),
+                            ("ffn_up.weight", (F, E)), ("ffn_gate.weight", (F, E)),
+                            ("ffn_down.weight", (E, F)), ("ffn_pred_up.weight", (R, E)),
+                            ("ffn_pred_down.weight", (F, R))):
+            wr.add_tensor(p + name, w(*shape))
+        wr.add_tensor(p + "ffn_pred_up.bias", w(R))
+        wr.add_tensor(p + "ffn_pred_down.bias", w(F) - 1.0)
+    wr.write()
+
+
+def phase_entry_point(timeout: float = 240.0) -> dict:
+    """`python -m sparkinfer_tpu_torch.server -m tiny.gguf -np 2 --port 0` as a
+    child process on the card: load_model, the Scheduler and HTTP through
+    the real entry point. Waits for its "listening on" line and /health,
+    sends one completion, and stops the process whatever happens."""
+    import os
+    import pathlib
+    import queue
+    import tempfile
+    import threading
+    import urllib.error
+
+    root = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        gguf = pathlib.Path(tmp) / "tiny-prosparse.gguf"
+        write_tiny_gguf(gguf, SEED)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sparkinfer_tpu_torch.server", "-m", str(gguf), "-np", "2",
+             "--port", "0", "-c", "256"], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        lines: "queue.Queue[str | None]" = queue.Queue()
+        log: list[str] = []
+
+        def read():
+            for line in proc.stdout:
+                lines.put(line)
+            lines.put(None)
+
+        threading.Thread(target=read, daemon=True).start()
+        try:
+            port = None
+            deadline = time.perf_counter() + timeout
+            while port is None:
+                try:
+                    line = lines.get(timeout=max(deadline - time.perf_counter(), 0.01))
+                except queue.Empty:
+                    fail(f"entry point: no 'listening on' line in {timeout} s: {log}")
+                if line is None:
+                    fail(f"entry point exited {proc.wait()}: {''.join(log)}")
+                log.append(line)
+                if line.startswith("listening on http://"):
+                    port = int(line.split()[2].rsplit(":", 1)[1])
+            while True:
+                try:
+                    health = http(port, "/health", timeout=10)["body"]
+                    break
+                except (urllib.error.URLError, ConnectionError):
+                    check(time.perf_counter() < deadline, "entry point: /health never answered")
+                    time.sleep(0.2)
+            r = http(port, "/v1/completions",
+                     {"prompt": "hello world", "max_tokens": 8, "temperature": 0.0})
+            out = r["body"]
+            check(health == {"status": "ok"} and out["object"] == "text_completion"
+                  and out["usage"]["completion_tokens"] >= 1
+                  and isinstance(out["choices"][0]["text"], str),
+                  f"entry point: /health {health}, completion {out}")
+            row = {"listening": log[-1].strip(), "start_to_answer_s": time.perf_counter() - t0,
+                   "completion_ms": round(r["e2e_ms"], 2),
+                   "completion_tokens": out["usage"]["completion_tokens"]}
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+    print("phase 5i, entry point:", json.dumps(row))
+    return row
+
+
 def kernel_line(name, source, replaces, launches, row, shape):
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1867,11 +2367,17 @@ def main() -> int:
         device="cuda", cuda_graph=False), prompts_h, 32))
     torch.cuda.empty_cache()
 
-    # 4d, 5f. v7u, and batched decode of every decode path at B = 1, 4, 8
+    # 4d, 5f. v7u, and batched decode of every decode path at B = 1, 2, 4, 8 (the ticks at 16)
     v7u_row = phase_v7u(sparse_eng.params["sparse_flat"], L, scfg.n_groups(cfg.n_ff))
-    l_v7u, crossover = phase_batched(cfg, scfg, model.params, sparse_eng.params,
-                                     sched.params)
+    l_v7u, crossover, batched = phase_batched(cfg, scfg, model.params, sparse_eng.params,
+                                              sched.params)
     del sparse_eng, sched
+    torch.cuda.empty_cache()
+
+    # 5i. the server over the Scheduler at 7B widths (its own row stores)
+    torch.cuda.reset_peak_memory_stats()
+    l_srv, srv7, mask_ms = phase_server(model, scfg)
+    print(f"phase 5i, 7B server peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.empty_cache()
 
     # 5g, 4e. sparkinfer-bench's decode: dense, v1 and v2 (SPIF_KERNEL_V2),
@@ -1932,7 +2438,12 @@ def main() -> int:
         Engine(dense, max_seq=1024, sampler=greedy, device="cuda", cuda_graph=False),
         prompt, n_new))
     ratios.append(sparse_dense_ratio("13B Q8_0", h5[-2], h5[-1]))
+    # 5i. the Q8_0 server over the dense Scheduler, then the entry point
+    l_srv_q8, srv13 = phase_server_q8(cfg, dense)
+    del dense, dense_params
+    torch.cuda.empty_cache()
     print(f"13B path done at {time.perf_counter() - t_start:.1f} s")
+    entry = phase_entry_point()
 
     out = {"kernels": [
         kernel_line("sparse_ffn_block_v6", "sparkinfer_tpu_torch/csrc/sparse_ffn_v6.cu",
@@ -1966,7 +2477,18 @@ def main() -> int:
                     "sparkinfer_tpu/ops/sparse_ffn_pallas.py:1172", l_v7u, v7u_row,
                     "B=8 Cu=48 G=128 E=4096 bf16 fatrelu"),
     ]}
-    print(f"crossover measured: v1 beats masked-dense up to B={crossover}")
+    print(f"crossover measured: the graphed v1 tick beats the graphed masked-dense tick up to "
+          f"B={crossover}")
+    print("phase 5i summary:", json.dumps({
+        "crossover": crossover,
+        "batched_graph_ticks": [{"B": r["B"], "v1_tok_s": r["v1"],
+                                 "masked_dense_tok_s": r["masked_dense"],
+                                 "wall_ms": {k: r["ms_per_step"][k] for k in GRAPHED},
+                                 "device_ms": r["graph_device_ms"]} for r in batched],
+        "server_7b": {k: srv7[k] for k in SERVER_KEYS},
+        "server_7b_v1_launches": l_srv, "grammar_mask_ms_per_tick": mask_ms,
+        "server_13b_q8": {k: srv13[k] for k in SERVER_KEYS},
+        "server_13b_quant_matmul_2d_launches": l_srv_q8, "entry_point": entry}))
     print("phase 5h summary:", json.dumps({"graph_vs_eager": [
         {"path": r["path"], **{f"{k}_{m}": r[k][m] for k in ("graph", "eager")
                                for m in r["graph"]},

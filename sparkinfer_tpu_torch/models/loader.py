@@ -11,6 +11,8 @@ filled layer by layer, so the host never holds the whole model in f32.
 
 keep_quantized=True keeps Q4_0/Q8_0 linears packed on the device as
 `QuantTensor`s (ops/quant_matmul.py), stacked over layers, the head too.
+A GGUF with `tokenizer.ggml.*` metadata gives the model its `Vocab`
+(tokenizer/vocab.py).
 
 Later slices: attn_w8a8, MLA, layer segments, MoE.
 """
@@ -49,6 +51,7 @@ _LAYER_TENSORS = {
 class LoadedModel:
     config: ModelConfig
     params: Params
+    vocab: Any = None  # tokenizer.Vocab, where the GGUF has one
 
 
 def _host(arr: np.ndarray) -> torch.Tensor:
@@ -120,9 +123,14 @@ def load_model(path: str, dtype=torch.bfloat16, device=None,
         cfg = ModelConfig.from_gguf(r)
         _check_supported(r, cfg)
         params = _load_params(r, cfg, dtype, device, keep_quantized)
+        vocab = None
+        if "tokenizer.ggml.tokens" in r.kv:
+            from ..tokenizer import Vocab
+
+            vocab = Vocab.from_gguf(r)
     finally:
         r.close()
-    return LoadedModel(config=cfg, params=params)
+    return LoadedModel(config=cfg, params=params, vocab=vocab)
 
 
 def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,

@@ -261,6 +261,18 @@ class Engine:
                                  stop_ids or set(), seed)
         return it if stream else list(it)
 
+    def generate_text(self, prompt: str, max_new_tokens: int = 128, seed: int | None = None) -> str:
+        vocab = self.model.vocab
+        if vocab is None:
+            raise ValueError("model has no tokenizer vocab")
+        from ..tokenizer import build_tokenizer
+
+        tk = build_tokenizer(vocab)
+        ids = tk.encode(prompt, add_special=True)
+        stop = {vocab.eos_id} if vocab.eos_id is not None else set()
+        out = self.generate(ids, max_new_tokens, stop_ids=stop, seed=seed)
+        return tk.decode(out)
+
     def _generate_iter(self, prompt_tokens, max_new_tokens, stop_ids, seed):
         if max_new_tokens <= 0:
             return

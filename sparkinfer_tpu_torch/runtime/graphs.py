@@ -17,6 +17,14 @@ stores, the KV cache and the static buffers. The fn holds its cache, so the
 cache lives as long as its graph. A failure raises; nothing falls back to an
 eager step.
 
+A server runs a Scheduler's loop on one thread and its HTTP handlers on
+others, and its router loads a model from a handler thread. A capture is
+made in the "thread_local" mode, so that what another thread does on the
+card meanwhile (an allocation, a copy, an eager step) neither joins nor
+invalidates it, while a stray synchronization inside the step still fails it
+loudly. `CAPTURE_LOCK` makes one capture at a time in the process; a model
+load on a thread other than its Scheduler's holds it too.
+
 The kernel wrappers count their launches in Python, which a replay does not
 run. The graph records the launches its capture made and credits them to the
 wrappers' `.launches` at every replay, so a counter still counts the kernel
@@ -26,6 +34,7 @@ calls run, the warm-up's included.
 from __future__ import annotations
 
 import sys
+import threading
 import time
 from collections import OrderedDict
 from typing import Callable
@@ -40,6 +49,10 @@ COUNTED = (sf.sparse_ffn_block, sf.sparse_ffn_block_v2, sf.sparse_ffn_block_v3,
            sf.sparse_ffn_block_v4, sf.sparse_ffn_block_v5, sf.sparse_ffn_block_v6,
            sf.sparse_ffn_block_v6q, sf.sparse_ffn_block_v7u, qm.quant_matmul_2d,
            qm.quant_matmul_flat)
+
+
+# held by every capture, and by a model load off its Scheduler's thread
+CAPTURE_LOCK = threading.RLock()
 
 
 def resolve_capture(cuda_graph: bool | None, device: torch.device) -> bool:
@@ -80,7 +93,8 @@ class StepGraph:
         if not self.capture:
             return self.fn(self.tokens, self.positions)
         if self.graph is None:
-            self._capture()
+            with CAPTURE_LOCK:
+                self._capture()
         self.graph.replay()
         for w, n in zip(COUNTED, self.credits):
             w.launches += n
@@ -105,7 +119,7 @@ class StepGraph:
             graph.register_generator_state(self.generator)
         before = [w.launches for w in COUNTED]
         try:
-            with torch.cuda.graph(graph, stream=side):
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
                 outputs = self.fn(self.tokens, self.positions)
             credits = tuple(w.launches - n for w, n in zip(COUNTED, before))
         finally:

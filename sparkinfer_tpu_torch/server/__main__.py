@@ -1,0 +1,88 @@
+"""python -m sparkinfer_tpu_torch.server: the port of sparkinfer_tpu/server/__main__.py.
+
+    python -m sparkinfer_tpu_torch.server -m model.gguf -np 4 [--device cpu]
+
+Flags come from the port's copy of the shared declarative table
+(common/args.py, server scope); --device picks the torch device (default:
+the CUDA card). Flags whose modules are not ported yet (-hf, -vb,
+--hot-groups, --split, --cold-mode, --prefill-mode tiered, --lora,
+--attn-w8a8, --slot-save-path, -ctk/-ctv q8 or a split -ctv) fail with an
+error naming the module. The line "listening on http://HOST:PORT" gives the bound port, also
+for --port 0.
+"""
+
+from __future__ import annotations
+
+
+def main(argv=None) -> int:
+    from ..common.args import (
+        build_parser,
+        kv_dtypes_from_args,
+        sampler_from_args,
+        unported_flags,
+    )
+
+    ap = build_parser("server", prog="sparkinfer-torch-server", description=__doc__)
+    args = ap.parse_args(argv)
+    kv_dtypes_from_args(args)  # validates the -ctk/-ctv combination
+    missing = unported_flags(args)
+    if missing:
+        ap.error("; ".join(missing))
+    if args.model is None:
+        ap.error("need -m/--model")
+
+    from ..models.loader import load_model
+    from .app import ServerConfig, SparkServer
+
+    model = load_model(args.model, device=args.device)
+    from ..common.args import apply_model_overrides
+
+    apply_model_overrides(args, model)  # --rope-*/--yarn-*/-t
+
+    sparse = None
+    if (args.sparse or model.config.has_predictors) and not args.dense \
+            and model.config.has_predictors:
+        from ..sparse.config import SparseConfig
+
+        sparse = SparseConfig(group_size=args.group_size,
+                              capacity_groups=args.capacity_groups)
+
+    extra_models = None
+    if args.models:
+        extra_models = {}
+        for spec in args.models:
+            name, _, path = spec.partition("=")
+            if not path:
+                ap.error(f"--models expects NAME=GGUF, got {spec!r}")
+            extra_models[name] = path
+
+    srv = SparkServer(
+        model,
+        ServerConfig(
+            host=args.host,
+            port=args.port,
+            n_slots=args.n_slots,
+            max_seq=args.ctx_size,
+            model_name=args.alias,
+            kv_dtype=args.cache_type_k,
+            chat_template=args.chat_template,
+            timeout=args.timeout,
+            n_predict_default=args.n_predict_default,
+            slot_prompt_similarity=args.slot_prompt_similarity,
+            api_key=args.api_key,
+            extra_models=extra_models,
+            sparse=sparse,
+            device=args.device,
+        ),
+        sampler=sampler_from_args(args),
+    )
+    srv.bind()
+    print(f"listening on http://{args.host}:{srv.port} "
+          f"({args.n_slots} slots, ctx {args.ctx_size}, device {srv.device})",
+          flush=True)
+    srv.serve(block=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -65,23 +65,31 @@ class SparseConfig:
         return min(c, ng)
 
 
-# The largest number of active slots at which the Scheduler's sparse tick
-# (v1 over the row stores) beat its masked-dense tick, by FFN width. Measured
-# by chip_smoke.py's batched-decode phase at ProSparse-Llama-2-7B widths
-# (bf16, 12 of 86 groups, B = 1, 4, 8) on an NVIDIA H100 80GB HBM3 at a
-# 700.00 W power limit: v1 won at no batch size, since the host's launch
-# overhead bounds both steps and the sparse one makes more launches. One
-# run from a git archive of the tree that added this table gave, in
-# aggregate tok/s, v1 14.41 / 58.14 / 128.23 against masked-dense
-# 20.80 / 84.48 / 185.16 at B = 1 / 4 / 8; PERF.md sections 5 and 6 list
-# every run, none with v1 ahead. Widths that were not measured take the
-# 7B-width value. SPIF_SPARSE_BATCH_MAX overrides.
-_BATCH_CROSSOVER = {11008: 0}
+# The largest number of rows a Scheduler tick computes, which is its
+# n_slots (idle slots step too), at which its sparse tick (v1 over the row
+# stores) beat its masked-dense tick, by FFN width, both ticks replayed as
+# CUDA graphs as the Scheduler runs them. The Scheduler reads it once, when
+# it is built: v1 at every tick when n_slots is at most this, the
+# masked-dense step at every tick above it. Measured by
+# chip_smoke.py's batched-decode phase (5f) at ProSparse-Llama-2-7B widths
+# (bf16, 12 of 86 groups, B rows all live at B = 1, 2, 4, 8, 16) on an
+# NVIDIA H100 80GB HBM3 at a 700.00 W power limit: v1 won at B = 1-8 and
+# lost at 16. Aggregate tok/s, v1 98.40 / 187.12 / 342.98 / 568.25 against
+# masked-dense 81.62 / 162.04 / 293.78 / 561.84 at B = 1-8; device ms of
+# one replay, v1 9.98 / 10.53 / 11.25 / 13.87 against 12.16 / 12.25 /
+# 12.54 / 14.12 (the masked-dense tick pays the dense FFN's weights at
+# every B, v1 grows with the rows its tokens select). At B = 8 the margin,
+# 1.1%, is within the spread between runs. At B = 16 (a later run on the
+# same card) v1 866.25 tok/s, 18.44 device ms, against masked-dense 968.44
+# and 16.40. The eager steps this replaced were bound by the host and gave
+# 0. PERF.md sections 5 and 6 list the runs. Widths that were not measured
+# take the 7B-width value. SPIF_SPARSE_BATCH_MAX overrides.
+_BATCH_CROSSOVER = {11008: 8}
 
 
 def sparse_batch_crossover(n_ff: int) -> int:
-    """Largest number of active slots for which the Scheduler decodes
-    sparse; above it a tick takes the masked-dense step."""
+    """Largest n_slots for which the Scheduler decodes sparse; with more
+    slots every tick takes the masked-dense step."""
     env = os.environ.get("SPIF_SPARSE_BATCH_MAX")
     if env is not None:
         return int(env)

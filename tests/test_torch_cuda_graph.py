@@ -16,13 +16,18 @@ kernels on the same inputs in the same order, so any difference is a fault,
 such as a stale static buffer) for dense, v6, v6q (with quant_matmul), the
 Scheduler's v1 tick and its masked-dense fallback; the launch counters
 credited per replay; one capture for two `generate` calls; a sampled
-engine's seeded stream; and a fresh process's first captured step.
+engine's seeded stream; a fresh process's first captured step; and the
+Scheduler's first capture while another thread works on the card: the
+server's router loading a second model, or an allocation, a copy and a
+matmul that take no lock.
 """
 
 import os
 import pathlib
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -367,3 +372,83 @@ def test_a_fresh_process_captures_its_first_step(cuda, gguf, q8_gguf):
     assert out.returncode == 0, out.stderr[-4000:]
     assert "fresh ok" in out.stdout
     assert out.stderr.count("cuda graph: captured") == 3, out.stderr[-4000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("other", ["router_load", "unlocked_cuda_work"])
+def test_capture_while_another_thread_uses_the_card(cuda, tmp_path, monkeypatch, other):
+    """The Scheduler's first tick is captured while another thread works on
+    the card: the server's router loading a second model from a handler
+    thread (it waits on CAPTURE_LOCK until the capture ends), or an
+    allocation, a copy and a matmul that take no lock (the capture is
+    thread-local, so they neither join nor invalidate it). The graphed
+    ticks give the eager Scheduler's streams; the routed model serves."""
+    from sparkinfer_tpu_torch.server import ServerConfig, SparkServer
+
+    monkeypatch.setenv("SPIF_SPARSE_BATCH_MAX", "100")  # the server's ticks: v1
+    path = tmp_path / "tiny-prosparse-vocab.gguf"
+    make_tiny_llama(path, arch="prosparse_llama", pred_rank=8, n_ff=96, seed=5, n_vocab=300,
+                    with_vocab=True)
+    model = load_model(str(path), dtype=torch.float32, device="cuda")
+    kw = dict(n_slots=2, max_seq=64, sampler=GREEDY, kv_dtype=torch.float32,
+              sparse=SparseConfig(G, CAP), sparse_batch_max=100, device="cuda")
+    want = _serve(Scheduler(model, cuda_graph=False, **kw))
+    srv = SparkServer(model, ServerConfig(port=0, n_slots=2, max_seq=64, kv_dtype="f32",
+                                          sparse=SparseConfig(G, CAP),
+                                          extra_models={"second": str(path)}),
+                      sampler=GREEDY)
+    sched = srv.sched
+    capturing, done = threading.Event(), threading.Event()
+    make_tick = sched._tick_fn
+
+    def hooked_tick_fn(fwd):
+        tick = make_tick(fwd)
+
+        def hooked(tokens, positions):
+            if torch.cuda.is_current_stream_capturing():
+                capturing.set()
+                if other == "unlocked_cuda_work":
+                    assert done.wait(120)  # the other thread's work lands mid-capture
+                else:
+                    time.sleep(0.5)  # the router's load waits on CAPTURE_LOCK meanwhile
+            return tick(tokens, positions)
+
+        return hooked
+
+    sched._tick_fn = hooked_tick_fn
+    result = {}
+
+    def work():
+        try:
+            assert capturing.wait(120)
+            if other == "router_load":
+                result["backend"] = srv._backend_for({"model": "second"})
+                result["captures_then"] = sched.graphs.captures
+            else:
+                big = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+                x = (torch.arange(4096) % 7).float().to("cuda").reshape(64, 64)
+                result["sum"] = float((x @ x).sum().item())
+                del big
+        except BaseException as e:  # noqa: BLE001 - asserted below
+            result["error"] = e
+        finally:
+            done.set()
+
+    t = threading.Thread(target=work)
+    t.start()
+    try:
+        got = _serve(sched)
+        t.join(timeout=300)
+        assert "error" not in result, result.get("error")
+        assert got == want and sched.graphs.captures == 1
+        if other == "router_load":
+            assert result["captures_then"] == 1  # the load ran after the capture
+            be_sched = result["backend"][0]
+            req = be_sched.submit(Request(prompt_tokens=PROMPTS[0], max_new_tokens=6,
+                                          sampler=GREEDY))
+            assert len(req.tokens()) == 6
+        else:
+            x = (np.arange(4096) % 7).astype(np.float64).reshape(64, 64)
+            assert result["sum"] == float((x @ x).sum())
+    finally:
+        srv.shutdown()

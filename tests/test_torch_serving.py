@@ -599,6 +599,21 @@ def test_sparse_batch_crossover(monkeypatch, sparse_gguf):
     assert sched.sparse_batch_max == sparse_batch_crossover(96)
 
 
+@pytest.mark.parametrize("crossover, n_slots", [(2, 2), (1, 2)], ids=["v1", "dense"])
+def test_default_crossover_is_keyed_on_n_slots(monkeypatch, sparse_gguf, crossover, n_slots):
+    """Without sparse_batch_max the Scheduler compares the crossover with
+    its n_slots, the rows every tick computes, not with the slots that are
+    live: with more slots than the crossover every tick is masked-dense,
+    one live slot included (the last request runs alone)."""
+    monkeypatch.setenv("SPIF_SPARSE_BATCH_MAX", str(crossover))
+    sched = _sched(sparse_gguf, n_slots=n_slots, sparse=SparseConfig(G, CAP))
+    assert sched.sparse_batch_max == (crossover if n_slots <= crossover else 0)
+    assert all(len(t) == 6 for t in _serve(sched, PROMPTS[:3]))
+    m = sched.metrics_snapshot()
+    assert m["n_decode_steps"] > 0
+    assert m["n_dense_steps"] == (0 if n_slots <= crossover else m["n_decode_steps"])
+
+
 def test_slot_view_writes_in_place(llama_gguf):
     cache = init_cache(_port_model(llama_gguf).config, 3, 8, torch.float32, "cpu")
     view = slot_view(cache, 1)
@@ -615,7 +630,8 @@ def test_unported_options_raise(llama_gguf, sparse_gguf):
     with pytest.raises(NotImplementedError):
         _sched(sparse_gguf, sparse=SparseConfig(G, CAP, hot_groups=2))
     sched = _sched(llama_gguf)
-    with pytest.raises(NotImplementedError):
+    # grammars are ported (tests/test_torch_grammar.py); one needs the tokenizer
+    with pytest.raises(ValueError, match="tokenizer"):
         sched.submit(Request(prompt_tokens=[1, 2], grammar='root ::= "a"'))
     for call in (lambda: sched.save_slot(0, "x"), lambda: sched.restore_slot(0, "x")):
         with pytest.raises(NotImplementedError):
