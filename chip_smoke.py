@@ -144,6 +144,32 @@ sees no card or the package is missing. Phases, each of which fails the run:
        `python -m sparkinfer_tpu_torch.server` on a small GGUF written by
        the port's writer, started as a child process, answering /health
        and one completion.
+     5j. hot/cold tiering (sparse/tiering.py, balancer.py, the host
+       library csrc/spark_host.cpp built with g++ in phase 2), with the
+       predictor bias of bench.py's tiered harness (a random fifth of each
+       layer's groups fires): an f32 gate at 7B widths cut to 4 layers, 22
+       of 86 groups hot, host mode's FFN (v6 plus the host complement)
+       within 1e-4 of the untiered sparse FFN over the same groups at every
+       layer of 8 decode steps, and the two forwards' greedy tokens equal;
+       the 7B bf16 model, SparseConfig(128, 12), 22 of 86 groups hot:
+       the tiered Engine in fetch and drop modes (CUDA graphs, 64 tokens, a
+       rebalance after every step) and host mode (eager, 16 tokens), one
+       f16 cold store at a time, v6 launched n_layer times a step; in fetch
+       mode the misses a token of the last 16 steps below those of the
+       first 16, and after at least 8 rebalances that swapped a replay's
+       logits bit-equal to the eager step's on the same state; then the
+       4-slot Scheduler with prefill_mode="tiered" (4 requests of 32
+       tokens), which takes the dense FFN out of the model and keeps no row
+       store; the 13B widths with a Q8_0 hot store of 27 of 108 groups
+       (v6q, init_tiered(quant="q8_0"), bf16 rows drawn a layer at a time
+       into host RAM), fetch mode as a CUDA graph of the tiered step driven
+       directly (the Engine builds no Q8_0 hot store, as in the JAX
+       package), v6q L, quant_matmul_2d 4L+1 and quant_matmul_flat 2L
+       times a step; each with tok/s, wall and device ms a step, ms a
+       rebalance, swaps, bytes copied to the card, window, overruns, misses
+       a token, host complement ms a layer and peak memory, beside phase
+       5h's 7B steps and the dense engine's peak. `python3 chip_smoke.py
+       --tiered` runs phases 1, 2 and 5j alone and prints no result.
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
@@ -1773,6 +1799,9 @@ def kernel_wrappers():
             "quant_matmul_flat": qm.quant_matmul_flat}
 
 
+PEAKS = {}  # peak device GiB of each main path, by label
+
+
 def main_path(label, eng, prompt, n_new, want):
     """Generate with every launch count set to 0 just before and read just
     after; `want(runs)` gives the exact count each kernel must show after
@@ -1796,7 +1825,7 @@ def main_path(label, eng, prompt, n_new, want):
         check(n == expect.get(name, 0),
               f"{label}: {name} launched {n} times, want {expect.get(name, 0)}")
     summary = eng.perf.summary()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = PEAKS[label] = torch.cuda.max_memory_allocated() / 2**30
     print(f"main path {label}: prefill {summary['prefill_tps']} tok/s, decode "
           f"{summary['decode_tps']} tok/s ({steps} steps), peak {peak:.2f} GiB, "
           f"launches {json.dumps(launches)} (as expected: {steps} steps, {warm} warm-up)")
@@ -2249,18 +2278,511 @@ def phase_entry_point(timeout: float = 240.0) -> dict:
     return row
 
 
+# --- phase 5j: hot/cold tiering with online balancing ------------------------
+
+TIER_HOT_7B = 22  # of 86 groups a layer, 0.25
+TIER_HOT_13B = 27  # of 108 groups a layer, 0.25
+TIER_TOL = 1e-4  # host mode's FFN against the untiered one, f32: of the output's scale
+
+
+def skewed_pred_bias(cfg, group_size: int):
+    """bench.py:765-780: a random fifth of each layer's neuron groups fire
+    often, the rest almost never, shuffled per layer, so that the balancer
+    has a hot set to find; the offsets scale with the predictor logits'
+    spread at these weight scales. (L, F) f32 on the host."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(7)
+    L, F, R = cfg.n_layer, cfg.n_ff, cfg.max_pred_rank
+    ng = F // group_size
+    sigma = 0.6 * (0.05 * np.sqrt(cfg.n_embd)) * np.sqrt(R / 2)
+    b = np.full((L, F), -4.0 * sigma, np.float32)
+    for l in range(L):
+        for g in rng.choice(ng, size=max(1, ng // 5), replace=False):
+            b[l, g * group_size:(g + 1) * group_size] = (
+                rng.standard_normal(group_size).astype(np.float32) * 0.5 - 0.5) * sigma
+    return torch.from_numpy(b)
+
+
+def untiered_ffn(cfg, scfg):
+    """The untiered sparse FFN over the full row stores (the gather math, on
+    the card) over the groups host mode computes: each token's selected
+    groups that are hot, and every active group that is cold (the
+    complement takes them whether or not they were selected). Where every
+    active group is selected this is the plain sparse FFN."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops.sparse_ffn import combine
+    from sparkinfer_tpu_torch.sparse.ffn import select_groups
+    from sparkinfer_tpu_torch.sparse.predictor import predict_activations
+
+    G, F, thr = scfg.group_size, cfg.n_ff, scfg.threshold
+    ng = F // G
+
+    def ffn(lp, x):
+        B, T, E = x.shape
+        xt = x.reshape(B * T, E)
+        probs = predict_activations(lp, xt)
+        gp = probs.reshape(-1, ng, G)
+        idx = select_groups(probs, scfg, F).long()
+        selected = torch.zeros(gp.shape[:2], dtype=torch.bool, device=x.device)
+        selected.scatter_(1, idx, True)
+        hot = lp["group_map"] >= 0
+        groups = (selected & hot) | ((gp >= thr).any(-1) & ~hot)
+        up = torch.einsum("ne,kge->nkg", xt, lp["w_up_rows"])
+        gate = torch.einsum("ne,kge->nkg", xt, lp["w_gate_rows"])
+        h = combine(cfg.traits.sparse_act, cfg.fatrelu_threshold, gate, up)
+        h = h * ((gp >= thr) & groups[..., None]).to(h.dtype)
+        return torch.einsum("nkg,kge->ne", h, lp["w_down_rows"]).reshape(B, T, E)
+
+    return ffn
+
+
+def tier_f32_gate(greedy_steps: int = 8):
+    """ProSparse-Llama-2-7B widths cut to 4 layers, f32, skewed predictor
+    bias, 22 of 86 groups hot: host mode (v6 over the hot store plus the host
+    library's complement) against the untiered sparse FFN over the same
+    selections (`untiered_ffn`), layer by layer on the untiered path's inputs,
+    and the greedy tokens of the two whole forwards."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+    from sparkinfer_tpu_torch.sparse.config import SparseConfig
+    from sparkinfer_tpu_torch.sparse.ffn import prepare_sparse_params
+    from sparkinfer_tpu_torch.sparse.tiering import (
+        ColdStore,
+        init_tiered,
+        make_tiered_ffn,
+        tiered_layer_params,
+    )
+
+    cfg = prosparse_config(4, 4096, 32, 11008, 32000, 1024)
+    scfg = SparseConfig(128, 12, hot_groups=TIER_HOT_7B)
+    model = random_model(cfg, torch.float32, "cuda", SEED + 41)
+    model.params["layers"]["pred_down_b"].copy_(skewed_pred_bias(cfg, 128))
+    params = prepare_sparse_params(model.params, cfg, scfg, drop_dense=True)
+    layers = params["layers"]
+    tp, fs = init_tiered(cfg, scfg, layers, scfg.hot_groups)
+    cold = ColdStore(cfg, scfg, {k: v for k, v in layers.items() if k.endswith("_rows")},
+                     dtype=torch.float32)
+    tiered = make_tiered_ffn(cfg, scfg, cold, mode="host")
+    plain = untiered_ffn(cfg, scfg)
+    flat = tiered_layer_params(layers, tp)[1]
+    params = {**params, "layers": {**layers, "group_map": tp.group_map}, "sparse_flat": flat}
+    errs = []
+
+    def both(lp, x, state, il):
+        y = plain(lp, x)
+        errs.append(((tiered(lp, x, state, il) - y).abs().max() / y.abs().max()).item())
+        return y
+
+    prompt = torch.randint(cfg.n_vocab, (1, 32), generator=torch.Generator().manual_seed(SEED + 5))
+    plain_fwd = make_forward(cfg, ffn_fn=plain)
+    host_fwd = make_forward(cfg, ffn_fn=tiered, stateful_ffn=True)
+    gate_fwd = make_forward(cfg, ffn_fn=both, stateful_ffn=True)
+    streams = {}
+    with torch.inference_mode():
+        # the gate decodes from the plain path's prefill
+        for name, pre, fwd in (("plain", plain_fwd, plain_fwd), ("gate", plain_fwd, gate_fwd),
+                               ("host", host_fwd, host_fwd)):
+            cache = init_cache(cfg, 1, 64, torch.float32, "cuda")
+
+            def run(f, toks, pos):
+                return f(params, toks, pos, cache, *(() if f is plain_fwd else (fs,)))
+
+            logits = run(pre, prompt.cuda(), torch.arange(32, device="cuda")[None])
+            toks = [int(logits[0, -1].argmax())]
+            for i in range(greedy_steps):
+                logits = run(fwd, torch.tensor([[toks[-1]]], device="cuda"),
+                             torch.tensor([[32 + i]], device="cuda"))
+                toks.append(int(logits[0, -1].argmax()))
+            streams[name] = toks
+    worst = max(errs)
+    row = {"layers_compared": len(errs), "max_rel_err": worst, "tol": TIER_TOL,
+           "misses": float(fs.miss.sum()), "host_calls": cold.n_calls,
+           "tokens_equal": streams["host"] == streams["plain"]}
+    print("phase 5j, f32 gate (7B widths, 4 layers, host mode vs untiered):", json.dumps(row))
+    check(len(errs) == cfg.n_layer * greedy_steps, f"5j: {len(errs)} layers compared")
+    check(worst <= TIER_TOL, f"5j: a host-mode layer differs by {worst:.3e} of its scale")
+    check(row["misses"] > 0, "5j: the f32 gate missed no cold group: nothing was tested")
+    check(streams["host"] == streams["plain"] == streams["gate"],
+          f"5j: greedy tokens differ: {streams}")
+    return row
+
+
+def settled_gib() -> float:
+    """Device GiB allocated once everything dropped is collected, with the
+    peak counter reset to it: the base of the next build's own peak."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def miss_trend(misses) -> dict:
+    """Mean misses a token over the first and the last 16 steps (over the
+    run's halves where it has fewer than 32 steps)."""
+    k = min(16, len(misses) // 2)
+    return {"misses_per_token_first16": sum(misses[:k]) / k,
+            "misses_per_token_last16": sum(misses[-k:]) / k}
+
+
+def tier_decode(label, eng, prompt, n_new, kernel, gate_graph=False):
+    """Greedy decode through a tiered Engine, step by step (each decode step
+    followed by the engine's rebalance): every launch count set to 0 just
+    before and read just after, and `kernel` launched n_layer times a step
+    (and a warm-up step where a graph is captured); misses a token, swaps,
+    host-to-card bytes, window and overruns, wall ms a step and a rebalance,
+    host complement ms a layer, device ms a step (profiled steps after), peak
+    memory. gate_graph: after the run, one replay of the captured step
+    against the eager step on the same state, logits bit-equal."""
+    import torch
+
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    captures = eng.graphs.captures
+    cache, st = eng.new_cache(), eng.new_sampler_state()
+    tok, cache, st, n = eng.prefill(prompt, cache, st)
+    fs, bal = eng.fstate, eng.balancer
+    misses, swapped, walls = [], 0, []
+    for i in range(n_new - 1):
+        m0, s0 = float(fs.miss.sum()), bal.total_swaps
+        t0 = time.perf_counter()
+        tok, cache, st = eng.decode_step(tok, n + i, cache, st)
+        walls.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(eng.last_logits).all()), f"5j {label}: non-finite logits")
+        misses.append(float(fs.miss.sum()) - m0)
+        swapped += bal.total_swaps > s0
+    steps = n_new - 1
+    launches = {name: w.launches for name, w in wrappers.items()}
+    warm = eng.graphs.captures - captures
+    L = eng.cfg.n_layer
+    for name, got in launches.items():
+        want = L * (steps + warm) if name == kernel else 0
+        check(got == want, f"5j {label}: {name} launched {got} times, want {want}")
+    row = {"path": label, "steps": steps, "graph": eng.graphs.capture, "launches": launches[kernel],
+           "tok_s": eng.perf.decode_tps,
+           "wall_ms_per_step": 1e3 * eng.perf.t_decode_s / eng.perf.n_decode,
+           "wall_ms_per_step_with_rebalance": 1e3 * sum(walls) / steps,
+           "rebalances": bal.rebalances, "rebalances_that_swapped": swapped,
+           "ms_per_rebalance": 1e3 * bal.t_total_s / max(bal.rebalances, 1),
+           "swaps": bal.total_swaps, "h2d_bytes": bal.bytes_h2d, "window": bal.window,
+           "overruns": bal.overruns, **miss_trend(misses),
+           "hot_store_bytes": eng.tiered_params.nbytes, "cold_store_bytes": eng.cold.nbytes,
+           "cold_store_dtype": str(eng.cold.dtype)}
+    if eng.cold.n_calls:
+        row.update(host_calls=eng.cold.n_calls,
+                   host_library_ms_per_layer=1e3 * eng.cold.t_call_s / eng.cold.n_calls,
+                   host_ms_per_layer=1e3 * eng.cold.t_layer_s / eng.cold.n_calls,
+                   host_share_of_step=eng.cold.t_layer_s / eng.perf.t_decode_s)
+    if gate_graph:
+        check(swapped >= 8, f"5j {label}: {swapped} rebalances swapped, want at least 8")
+        step = eng.graphs.get(cache, 1, "decode", None)
+        live = [t for t in fs if t is not None]
+        saved = [t.clone() for t in live]
+        with torch.inference_mode():
+            step.tokens.fill_(tok)
+            step.positions.fill_(n + steps)
+            graph_logits = step.run()[0].clone()
+            for t, v in zip(live, saved):
+                t.copy_(v)
+            eager_logits = eng._decode_fn(cache)(step.tokens, step.positions)[0]
+        check(torch.equal(graph_logits, eager_logits),
+              f"5j {label}: the replay's logits differ from the eager step's by up to "
+              f"{(graph_logits - eager_logits).abs().max().item():.3e}")
+        row["replay_equals_eager_after_swaps"] = True
+        row.update(replay_times(step))  # the replay's device span and host call
+    rows, n_prof, wall_ms = profile_decode(eng, prompt, steps=4)
+    row["device_ms_per_step"] = sum(r[1] for r in rows) / n_prof
+    row["kernels_per_step"] = sum(r[2] for r in rows) / n_prof
+    row["h2d_copy_ms_per_step"] = sum(r[1] for r in rows if "Memcpy HtoD" in r[0]) / n_prof
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 5j, {label}:", json.dumps(row))
+    return row
+
+
+def phase_tiered_7b(model, greedy, prompt, n_new):
+    """The 7B bf16 model, skewed predictor bias, 22 of 86 groups hot: the
+    tiered Engine in fetch and drop modes (graphs, n_new tokens, a rebalance
+    every step) and host mode (eager, 16 tokens), one cold store at a time;
+    then the 4-slot Scheduler with prefill_mode="tiered" (fetch mode), which
+    takes the dense FFN out of `model` and leaves no row store on the card.
+    Returns the rows and the tiered path's v6 launches."""
+    import gc
+
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.runtime.scheduler import Request, Scheduler
+    from sparkinfer_tpu_torch.sparse.config import SparseConfig
+
+    cfg = model.config
+    L = cfg.n_layer
+    model.params["layers"]["pred_down_b"].copy_(skewed_pred_bias(cfg, 128))
+    scfg = SparseConfig(128, 12, hot_groups=TIER_HOT_7B)
+    rows = []
+    for mode, steps in (("fetch", n_new), ("drop", n_new), ("host", 16)):
+        base = settled_gib()
+        t0 = time.perf_counter()
+        eng = Engine(model, max_seq=1024, sampler=greedy, sparse=scfg, sparse_cold_mode=mode,
+                     device="cuda")
+        built = time.perf_counter() - t0
+        row = tier_decode(f"7B bf16 tiered {mode}", eng, prompt, steps, "sparse_ffn_block_v6",
+                          gate_graph=(mode == "fetch"))
+        row.update(build_s=built, base_gib=base, own_peak_gib=row["peak_gib"] - base)
+        rows.append(row)
+        if mode == "fetch":
+            check(row["misses_per_token_last16"] < row["misses_per_token_first16"],
+                  f"5j: fetch misses a token did not fall: {row['misses_per_token_first16']} "
+                  f"-> {row['misses_per_token_last16']}")
+        del eng
+    # the dense engine's peak on the same weights, for the memory comparison
+    base = settled_gib()
+    dense = Engine(model, max_seq=1024, sampler=greedy, device="cuda")
+    run_generate(dense, prompt, 8)
+    dense_peak = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30, "base_gib": base,
+                  "model_gib": sum(t.numel() * t.element_size() for t in
+                                   [model.params[k] for k in ("tok_embd", "output")]
+                                   + list(model.params["layers"].values())) / 2**30}
+    dense_peak["own_peak_gib"] = dense_peak["peak_gib"] - base
+    del dense
+
+    # the Scheduler, tiered prefill: the FFN never takes row form on the card
+    base = settled_gib()
+    t0 = time.perf_counter()
+    sched = Scheduler(model, n_slots=4, max_seq=128, sampler=greedy, sparse=scfg,
+                      sparse_cold_mode="fetch", prefill_mode="tiered", device="cuda")
+    built = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    allocated = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    check(not {"w_up", "w_gate", "w_down"} & set(model.params["layers"]),
+          "5j: the tiered Scheduler left the dense FFN on the card")
+    check(not any(k.endswith("_rows") for k in sched.params["layers"]),
+          "5j: the tiered Scheduler holds a row store")
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    gen = torch.Generator().manual_seed(SEED + 17)
+    reqs = [sched.submit(Request(prompt_tokens=torch.randint(cfg.n_vocab, (32,), generator=gen)
+                                 .tolist(), max_new_tokens=32)) for _ in range(4)]
+    t0 = time.perf_counter()
+    sched.run_until_idle()
+    wall = time.perf_counter() - t0
+    toks = [r.tokens() for r in reqs]
+    m = sched.metrics_snapshot()
+    ticks = m["n_decode_steps"]
+    want = L * (ticks + sched.graphs.captures + 4)  # ticks, the warm-up, 4 prefills
+    got = {k: w.launches for k, w in wrappers.items()}
+    check(got["sparse_ffn_block_v6"] == want and sum(got.values()) == want,
+          f"5j: the tiered Scheduler launched {got}, want v6 {want} alone")
+    check(all(len(t) == 32 for t in toks), "5j: a tiered request ended early")
+    srow = {"path": "7B bf16 Scheduler, 4 slots, prefill tiered, fetch", "ticks": ticks,
+            "launches": got["sparse_ffn_block_v6"], "build_s": built, "wall_s": wall,
+            "decode_tok_s": m.get("decode_tps"), "ms_per_tick": 1e3 * m["t_decode_s"] / ticks,
+            "rebalances": m["n_rebalances"], "swaps": m["n_swaps"],
+            "h2d_bytes": m["rebalance_bytes"], "hot_store_bytes": sched.tiered_params.nbytes,
+            "base_gib": base, "allocated_after_build_gib": allocated,
+            "build_peak_gib": build_peak, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print("phase 5j, 7B Scheduler tiered prefill:", json.dumps(srow))
+    launches = sum(r["launches"] for r in rows) + srow["launches"]
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, srow, dense_peak, launches
+
+
+def phase_tiered_13b(cfg, scfg_all, weights, model, prompt, n_new):
+    """The 13B widths, Q8_0: the Q8_0 attention, head and predictor stacks of
+    `model`, a Q8_0 hot store of 27 of 108 groups (v6q) quantized from the
+    bf16 rows, the f16 cold store built from the same rows, fetch mode, the
+    tiered step captured as a CUDA graph, a rebalance after every step. The
+    tiered library pieces are driven directly, as bench.py's tiered harness
+    drives them: the Engine builds no Q8_0 hot store, as the JAX Engine
+    does not. The prompt prefills through the tiered forward (the full FFN
+    is not kept)."""
+    import gc
+
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.runtime.graphs import StepGraph
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+    from sparkinfer_tpu_torch.sparse.balancer import Balancer
+    from sparkinfer_tpu_torch.sparse.config import SparseConfig
+    from sparkinfer_tpu_torch.sparse.tiering import (
+        ColdStore,
+        init_tiered,
+        make_tiered_ffn,
+        tiered_layer_params,
+    )
+
+    L, E, F = cfg.n_layer, cfg.n_embd, cfg.n_ff
+    scfg = SparseConfig(128, scfg_all.capacity_groups, hot_groups=TIER_HOT_13B)
+    ng = F // 128
+    base = settled_gib()
+    t0 = time.perf_counter()
+    # the bf16 rows on the host, drawn a layer at a time on the card: only
+    # the hot blocks go back up
+    rows = {k: torch.empty((L, ng, 128, E), dtype=torch.bfloat16)
+            for k in ("w_up_rows", "w_gate_rows", "w_down_rows")}
+    for il in range(L):
+        rows["w_up_rows"][il].copy_(weights.draw("w_up", il, (F, E)).reshape(ng, 128, E))
+        rows["w_gate_rows"][il].copy_(weights.draw("w_gate", il, (F, E)).reshape(ng, 128, E))
+        rows["w_down_rows"][il].copy_(weights.draw("w_down", il, (E, F)).T.reshape(ng, 128, E))
+    tp, fs = init_tiered(cfg, scfg, rows, scfg.hot_groups, quant="q8_0",
+                         track_miss_groups=True, device="cuda")
+    cold = ColdStore(cfg, scfg, rows)
+    del rows
+    gc.collect()
+    flat = {k: v for k, v in model.params["sparse_flat"].items() if k.startswith("pred_")}
+    flat["pred_down_b_all"] = skewed_pred_bias(cfg, 128).to("cuda", flat["pred_down_b_all"].dtype)
+    lay, hot = tiered_layer_params(model.params["layers"], tp)
+    params = {**model.params, "layers": lay, "sparse_flat": {**flat, **hot}}
+    fwd = make_forward(cfg, ffn_fn=make_tiered_ffn(cfg, scfg, cold, mode="fetch"),
+                       stateful_ffn=True)
+    bal = Balancer(cold=cold, scfg=scfg)
+    cache = init_cache(cfg, 1, 1024, torch.bfloat16, "cuda")
+    built = time.perf_counter() - t0
+
+    def one(tokens, positions):
+        logits = fwd(params, tokens, positions, cache, fs)[:, -1]
+        return logits, logits.argmax(-1)
+
+    step = StepGraph(one, 1, torch.device("cuda"), capture=True, label="13B tiered step",
+                     restore=tuple(t for t in fs if t is not None))
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    misses, walls, swapped = [], [], 0
+    with torch.inference_mode():
+        logits = fwd(params, torch.tensor([prompt], device="cuda"),
+                     torch.arange(len(prompt), device="cuda")[None], cache, fs)
+        tok = int(logits[0, -1].argmax())
+        bal.rebalance(tp, fs.dfr, miss_g=fs.miss_g)
+        fs.miss_g.zero_()
+        n = len(prompt)
+        for i in range(n_new - 1):
+            m0, s0 = float(fs.miss.sum()), bal.total_swaps
+            t0 = time.perf_counter()
+            step.tokens.fill_(tok)
+            step.positions.fill_(n + i)
+            logits, nxt = step.run()
+            tok = int(nxt[0])
+            t1 = time.perf_counter()
+            bal.rebalance(tp, fs.dfr, miss_g=fs.miss_g)
+            fs.miss_g.zero_()
+            walls.append((t1 - t0, time.perf_counter() - t1))
+            check(bool(torch.isfinite(logits).all()), "5j 13B: non-finite logits")
+            misses.append(float(fs.miss.sum()) - m0)
+            swapped += bal.total_swaps > s0
+    steps = n_new - 1
+    got = {k: w.launches for k, w in wrappers.items()}
+    want = {"sparse_ffn_block_v6q": L * (steps + 2),  # steps, warm-up, prefill
+            "quant_matmul_2d": (4 * L + 1) * (steps + 2),
+            "quant_matmul_flat": 2 * L * (steps + 2)}  # each layer's own predictor
+    for name, n_got in got.items():
+        check(n_got == want.get(name, 0),
+              f"5j 13B: {name} launched {n_got} times, want {want.get(name, 0)}")
+    row = {"path": "13B Q8_0 tiered fetch (v6q hot store)", "steps": steps, "graph": True,
+           "launches": got["sparse_ffn_block_v6q"], "build_s": built,
+           "wall_ms_per_step": 1e3 * sum(w[0] for w in walls) / steps,
+           "tok_s": steps / sum(w[0] for w in walls),
+           "wall_ms_per_step_with_rebalance": 1e3 * sum(a + b for a, b in walls) / steps,
+           "ms_per_rebalance": 1e3 * bal.t_total_s / bal.rebalances,
+           "rebalances": bal.rebalances, "rebalances_that_swapped": swapped,
+           "swaps": bal.total_swaps, "h2d_bytes": bal.bytes_h2d, "window": bal.window,
+           "overruns": bal.overruns, **miss_trend(misses),
+           "hot_store_bytes": tp.nbytes, "cold_store_bytes": cold.nbytes,
+           "cold_store_dtype": str(cold.dtype)}
+    check(row["misses_per_token_last16"] < row["misses_per_token_first16"],
+          f"5j 13B: fetch misses a token did not fall: {row['misses_per_token_first16']} "
+          f"-> {row['misses_per_token_last16']}")
+
+    def replay():
+        with torch.inference_mode():
+            step.run()
+
+    rows_p, wall_ms = profile_steps("13B tiered steps (graph)", replay, 4)
+    row["device_ms_per_step"] = sum(r[1] for r in rows_p) / 4
+    row["kernels_per_step"] = sum(r[2] for r in rows_p) / 4
+    row.update(replay_times(step))
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    row.update(base_gib=base, own_peak_gib=row["peak_gib"] - base)
+    print("phase 5j, 13B Q8_0 tiered:", json.dumps(row))
+    launches = row["launches"]
+    del step, params, cold, tp, fs, cache, bal
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def tier_summary(gate, rows7, sched, row13, h5, dense_peak) -> dict:
+    """Phase 5j beside phase 5h's 7B graph steps of the same call: tok/s,
+    wall and device ms a step and peak memory of the tiered paths, the
+    all-on-device sparse step and the dense one."""
+    keys = ("tok_s", "wall_ms_per_step", "device_ms_per_step", "peak_gib", "base_gib",
+            "own_peak_gib", "ms_per_rebalance",
+            "swaps", "h2d_bytes", "window", "overruns", "misses_per_token_first16",
+            "misses_per_token_last16", "host_library_ms_per_layer", "host_ms_per_layer",
+            "host_share_of_step", "hot_store_bytes", "cold_store_bytes")
+    out = {"f32_gate": gate, "tiered": [{"path": r["path"], **{k: r[k] for k in keys if k in r}}
+                                       for r in rows7 + [row13]], "scheduler": sched}
+    for r in h5 or []:
+        if r["path"] in ("7B bf16 sparse", "7B bf16 dense", "13B Q8_0 sparse"):
+            g = r["graph"]
+            out[r["path"]] = {"tok_s": g["tok_s"], "wall_ms_per_step": g["wall_ms_per_step"],
+                              "device_ms_per_step": g["device_ms_per_step"],
+                              "peak_gib": PEAKS.get(r["path"])}
+    out["7B bf16 dense memory"] = dense_peak
+    return out
+
+
+def tiered_phases(greedy_cfg) -> int:
+    """`chip_smoke.py --tiered`: phase 5j alone, for working on it; prints
+    its summary and no result."""
+    import torch
+
+    cfg = prosparse_config(32, 4096, 32, 11008, 32000, 1024)
+    prompt = torch.randint(32000, (32,), generator=torch.Generator().manual_seed(SEED)).tolist()
+    gate = tier_f32_gate()
+    model = random_model(cfg, torch.bfloat16, "cuda", SEED)
+    rows7, sched, dense_peak, _ = phase_tiered_7b(model, greedy_cfg, prompt, 64)
+    del model
+    torch.cuda.empty_cache()
+    cfg, scfg, weights, model, eng = q8_13b_engine(greedy_cfg)
+    del eng
+    for k in [k for k in model.params["sparse_flat"] if not k.startswith("pred_")]:
+        del model.params["sparse_flat"][k]
+    torch.cuda.empty_cache()
+    row13, _ = phase_tiered_13b(cfg, scfg, weights, model, prompt, 64)
+    print("phase 5j summary:", json.dumps(tier_summary(gate, rows7, sched, row13, None,
+                                                       dense_peak)))
+    return 0
+
+
 def kernel_line(name, source, replaces, launches, row, shape):
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: row[k] for k in keys}, "shape": shape}
 
 
-def main() -> int:
+def main(tiered_only: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing to run", file=sys.stderr)
         return 1
+    from sparkinfer_tpu_torch import native
     from sparkinfer_tpu_torch.models.loader import LoadedModel
     from sparkinfer_tpu_torch.ops import _build
     from sparkinfer_tpu_torch.ops.sparse_ffn import (
@@ -2285,7 +2807,14 @@ def main() -> int:
     print(f"device: {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi)
 
-    # 2. build, every source at once
+    # 2. build, every source at once (and the tiered FFN's host library)
+    t0 = time.perf_counter()
+    native.library()
+    print(f"build: the host library (csrc/spark_host.cpp, g++) in "
+          f"{time.perf_counter() - t0:.2f} s; _Float16 {native.has_f16()}, "
+          f"{native.num_threads()} threads")
+    if tiered_only:
+        return tiered_phases(greedy_cfg=SamplerConfig(temp=0.0))
     for name, (lib, secs, log) in _build.build_all(
             ["sparse_ffn_v6", "sparse_ffn_v6q", "quant_matmul", "sparse_ffn_v1",
              "sparse_ffn_v7u"]).items():
@@ -2387,6 +2916,14 @@ def main() -> int:
                                                row_per_call)
     del model
     torch.cuda.empty_cache()
+    # 5j. tiering: the f32 gate, then the 7B tiered engines and Scheduler on
+    # a fresh copy of the model (the same seed) that nothing else holds, so
+    # that the Scheduler's taking its dense FFN frees the card's memory
+    tier_gate = tier_f32_gate()
+    model = random_model(cfg, torch.bfloat16, "cuda", SEED)
+    tier_rows, tier_sched, dense_peak, tier_v6 = phase_tiered_7b(model, greedy, prompt, n_new)
+    del model
+    torch.cuda.empty_cache()
     print(f"7B paths done at {time.perf_counter() - t_start:.1f} s")
 
     # 5c. the 13B-width Q8_0 model, made and quantized on the card
@@ -2427,6 +2964,12 @@ def main() -> int:
         device="cuda", cuda_graph=False), prompt, n_new))
     profile_prefill(sparse_eng, prompt)
     del sparse_eng
+    # 5j. the 13B Q8_0 tiered fetch path, with the model's Q8_0 attention, head and
+    # predictor stacks; its flat FFN stores leave the card first
+    for k in [k for k in model.params["sparse_flat"] if not k.startswith("pred_")]:
+        del model.params["sparse_flat"][k]
+    torch.cuda.empty_cache()
+    tier13, tier_v6q = phase_tiered_13b(cfg, scfg, weights, model, prompt, n_new)
     dense_params = dict(model.params)
     dense_params.pop("sparse_flat")
     dense_params["layers"] = dict(model.params["layers"], **weights.dense_ffn())
@@ -2448,10 +2991,11 @@ def main() -> int:
     out = {"kernels": [
         kernel_line("sparse_ffn_block_v6", "sparkinfer_tpu_torch/csrc/sparse_ffn_v6.cu",
                     "sparkinfer_tpu/ops/sparse_ffn_pallas.py:564",
-                    l7["sparse_ffn_block_v6"], v6_row, "N=1 C=12 G=128 E=4096 bf16 fatrelu"),
+                    l7["sparse_ffn_block_v6"] + tier_v6, v6_row,
+                    "N=1 C=12 G=128 E=4096 bf16 fatrelu"),
         kernel_line("sparse_ffn_block_v6q", "sparkinfer_tpu_torch/csrc/sparse_ffn_v6q.cu",
                     "sparkinfer_tpu/ops/sparse_ffn_pallas.py:706",
-                    l13["sparse_ffn_block_v6q"], v6q_row,
+                    l13["sparse_ffn_block_v6q"] + tier_v6q, v6q_row,
                     "N=1 C=16 G=128 E=5120 q8_0 fatrelu"),
         kernel_line("quant_matmul_2d", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
                     "sparkinfer_tpu/ops/quant_matmul.py:149",
@@ -2496,6 +3040,8 @@ def main() -> int:
                               "step_breakdown", "capture_s", "graph_pool_bytes") if k in r}}
         for r in h5],
         "sparse_dense": ratios}))
+    print("phase 5j summary:", json.dumps(tier_summary(
+        tier_gate, tier_rows, tier_sched, tier13, h5, dense_peak)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2504,4 +3050,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(prefill_only() if sys.argv[1:] == ["--prefill-profile"] else main())
+    if sys.argv[1:] == ["--prefill-profile"]:
+        sys.exit(prefill_only())
+    sys.exit(main(tiered_only=sys.argv[1:] == ["--tiered"]))

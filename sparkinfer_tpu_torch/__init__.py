@@ -8,7 +8,9 @@ reader finds each counterpart, and imports nothing of it (nor JAX).
   ops/        plain torch ops + hand-written CUDA kernels (csrc/, ctypes)
   models/     arch config (copy), GGUF loader, llama-family forward
   runtime/    static KV cache, sampling, Engine
-  sparse/     predictor, group selection, pipelined sparse FFN
+  sparse/     predictor, group selection, pipelined sparse FFN, hot/cold
+              tiering, the online balancer, model splits
+  native.py   the tiered FFN's host library (csrc/spark_host.cpp, g++)
 
 Entry points (`models.loader.load_model`, `runtime.engine.Engine`) run on
 the card unless the caller passes device="cpu".

@@ -330,10 +330,6 @@ def adapters_from_args(args) -> list:
 # flags whose modules the port has not ported yet: dest -> (flag, module)
 _UNPORTED = {
     "hf_repo": ("-hf/--hf-repo", "tools/hf.py"),
-    "hbm_budget": ("-vb/--hbm-budget", "sparse/tiering.py"),
-    "hot_groups": ("--hot-groups", "sparse/tiering.py"),
-    "split": ("--spif-ms/--split", "sparse/split.py"),
-    "cold_mode": ("--cold-mode", "sparse/tiering.py"),
     "lora": ("--lora", "models/lora.py"),
     "lora_scaled": ("--lora-scaled", "models/lora.py"),
     "attn_w8a8": ("--attn-w8a8", "ops/quant_matmul.py W8A8Tensor"),
@@ -343,13 +339,10 @@ _UNPORTED = {
 
 def unported_flags(args) -> list[str]:
     """One message for each flag of `args` that needs a module the port
-    has not ported yet: the tiered hot cache, split files, LoRA, the HF
-    cache, W8A8 attention, slot files, and quantized or split-dtype KV
-    caches."""
+    has not ported yet: LoRA, the HF cache, W8A8 attention, slot files, and
+    quantized or split-dtype KV caches."""
     out = [f"{flag} needs {mod}, which is not ported yet"
            for dest, (flag, mod) in _UNPORTED.items() if getattr(args, dest, None)]
-    if getattr(args, "prefill_mode", "rows") != "rows":
-        out.append("--prefill-mode tiered needs sparse/tiering.py, which is not ported yet")
     ctk = getattr(args, "cache_type_k", "bf16")
     ctv = getattr(args, "cache_type_v", None)
     if ctk in ("q8", "int8") or ctv in ("q8", "int8"):

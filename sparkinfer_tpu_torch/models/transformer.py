@@ -5,7 +5,11 @@ A plain Python loop over layers takes the place of `lax.scan`; the KV cache
 is written in place. The FFN is pluggable as in the JAX package:
 `ffn_fn(lp, x) -> y`, or with `ffn_carry_init` the cross-layer carry form
 `ffn_fn(lp, x, carry, il) -> (y, carry)` that the pipelined sparse FFN uses
-(its selection for layer il+1 is computed at layer il).
+(its selection for layer il+1 is computed at layer il), or with
+`stateful_ffn=True` the form `ffn_fn(lp, x, fstate, il) -> y` whose state
+lives across forwards (the tiered FFN's DFR statistics, a profiler's
+counts): the forward takes it as a fifth argument and the FFN updates it in
+place, where the JAX forward threads it through its scan and returns it.
 
 Every projection goes through `quant_linear` (the JAX `mm`), so packed
 Q4_0/Q8_0 weights (QuantTensor, FlatQuantTensor) run the quant_matmul
@@ -175,17 +179,21 @@ def lm_head(x: torch.Tensor, w) -> torch.Tensor:
 
 def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                  fresh_prefill: bool = False,
-                 ffn_carry_init: Callable | None = None) -> Callable:
-    """fwd(params, tokens (B,T), positions (B,T), cache) -> logits f32
-    (B, T, V); the cache is updated in place. `positions` are the absolute
-    sequence positions of `tokens`."""
+                 ffn_carry_init: Callable | None = None,
+                 stateful_ffn: bool = False) -> Callable:
+    """fwd(params, tokens (B,T), positions (B,T), cache[, fstate]) -> logits
+    f32 (B, T, V); the cache is updated in place, and with stateful_ffn the
+    FFN's state `fstate` too. `positions` are the absolute sequence
+    positions of `tokens`."""
     check_supported(cfg)
+    if stateful_ffn and ffn_carry_init is not None:
+        raise ValueError("a stateful FFN takes no cross-layer carry")
     ffn = ffn_fn or dense_ffn(cfg)
     rp = rope_params(cfg)
     eps = cfg.norm_eps
 
     def fwd(params: dict, tokens: torch.Tensor, positions: torch.Tensor,
-            cache: KVCache) -> torch.Tensor:
+            cache: KVCache, fstate=None) -> torch.Tensor:
         x = params["tok_embd"][tokens]
         layers = params["layers"]
         # loop-invariant flat (layer, group) sparse stores and predictor
@@ -205,7 +213,9 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
             x = x + attention(cfg, lp, h, positions, cache.k[il], cache.v[il],
                               rp, rope_cs, fresh_prefill=fresh_prefill)
             h2 = rms_norm(x, lp["ffn_norm_w"], eps)
-            if ffn_carry_init is not None:
+            if stateful_ffn:
+                y = ffn(lp, h2, fstate, il)
+            elif ffn_carry_init is not None:
                 y, carry = ffn(lp, h2, carry, il)
             else:
                 y = ffn(lp, h2)

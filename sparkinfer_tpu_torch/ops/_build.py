@@ -1,10 +1,14 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's CUDA sources with nvcc, and its host C++ sources with
+g++, and load them with ctypes.
 
 Each `csrc/<name>.cu` has a plain `extern "C"` interface and becomes
 `build/kernels/<name>-<hash>.so` at the repository root, where the hash covers
 the source, the shared headers `csrc/*.cuh` and the compiler flags, so an
-edited source never loads a stale library. Nothing here runs at import: the
-first wrapper call on a CUDA tensor builds (if needed) and loads the library.
+edited source never loads a stale library. Each `csrc/<name>.cpp` (the host
+complement of the tiered FFN) becomes `build/host/<name>-<hash>.so`, built
+for the host's own CPU (`-march=native`), so its hash also covers the
+compiler's target description of that CPU. Nothing here runs at import: the
+first call that needs a library builds (if needed) and loads it.
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+HOST_BUILD_DIR = _PKG.parent / "build" / "host"
+HOST_FLAGS = ["-O3", "-march=native", "-fopenmp-simd", "-pthread", "-fPIC", "-shared",
+              "-std=c++17", "-Wall"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -87,4 +95,43 @@ def load(name: str) -> ctypes.CDLL:
         path, _, _ = build_all([name])[name]
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
+    return lib
+
+
+def _cxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if found is None:
+        raise RuntimeError("no C++ compiler (g++, or $CXX) found: the host "
+                           "complement of the tiered FFN cannot be built")
+    return found
+
+
+def host_library_path(name: str) -> Path:
+    cxx = _cxx()
+    target = subprocess.run([cxx, "-march=native", "-Q", "--help=target"],
+                            capture_output=True, text=True, timeout=120).stdout
+    digest = hashlib.sha1((CSRC / f"{name}.cpp").read_bytes())
+    digest.update(" ".join([cxx, *HOST_FLAGS]).encode() + target.encode())
+    return HOST_BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded csrc/<name>.cpp, built with g++ first if needed. Raises
+    RuntimeError with the compiler output if the build fails."""
+    key = "host:" + name
+    lib = _loaded.get(key)
+    if lib is None:
+        path = host_library_path(name)
+        if not path.exists():
+            HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([_cxx(), *HOST_FLAGS, "-o", str(tmp),
+                                   str(CSRC / f"{name}.cpp")],
+                                  capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"host library build failed: {name} (exit "
+                                   f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(str(path))
+        _loaded[key] = lib
     return lib

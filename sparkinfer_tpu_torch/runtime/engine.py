@@ -11,7 +11,15 @@ buckets (prefill runs eagerly, so no shape needs a compile), the fused
 multi-step decode scan and batched token readback (a local card answers a
 read in microseconds).
 
-Tiering, split files, self-extend, context shift, iSWA and MoE come later.
+Hot/cold tiering (SparseConfig.hot_groups > 0, `sparse/tiering.py`): prefill
+stays masked-dense over the full row stores, decode runs the tiered FFN over
+the hot store, and the balancer swaps groups between decode steps
+(`rebalance_every`), in place. Drop and fetch modes capture the step as a
+CUDA graph; host mode, whose every layer calls the host library, runs it
+eagerly (the JAX Engine turns its fused decode off for tiering). A split file
+(`split`) reorders the neurons hot-first before the stores are built.
+
+Self-extend, context shift, iSWA and MoE come later.
 """
 
 from __future__ import annotations
@@ -82,6 +90,15 @@ class Engine:
     is the step's output buffer, which the next step overwrites (clone it to
     keep it).
 
+    Tiering (sparse.hot_groups > 0): the row stores (`prepare_sparse_params`,
+    the prefill's) give a hot store of hot_groups groups a layer on the card
+    (`tiered_params`), a cold store in host RAM (`cold`), DFR state
+    (`fstate`) and a `balancer`, which `rebalance()` runs after every
+    `rebalance_every` decode steps. sparse_cold_mode "host" adds the host
+    library's complement at every layer (eager steps; cuda_graph=True
+    raises), "drop" and "fetch" do not. split (a ModelSplit or a split
+    GGUF's path) reorders the model's neurons hot-first, in place, first.
+
     cuda_graph: None captures each decode step as one CUDA graph on a CUDA
     device and runs it eagerly on the CPU; False runs it eagerly on the card
     too; True on the CPU raises ValueError. The eager step is the same
@@ -108,12 +125,19 @@ class Engine:
         self_extend: tuple[int, int] | None = None,
         kv_iswa: bool = False,
         cuda_graph: bool | None = None,
+        sparse_cold_mode: str = "host",
+        rebalance_every: int = 1,
     ):
         self.device = resolve_device(device)
+        self.tiered = sparse is not None and sparse.hot_groups > 0
+        if self.tiered and sparse_cold_mode == "host":
+            if cuda_graph:
+                raise ValueError("host mode calls the host library at every layer, which "
+                                 "a CUDA graph cannot hold: cuda_graph=False")
+            cuda_graph = False
         capture = resolve_capture(cuda_graph, self.device)
-        if split is not None or self_extend is not None or kv_iswa:
-            raise NotImplementedError(
-                "split files, self-extend and the iSWA cache are not ported yet")
+        if self_extend is not None or kv_iswa:
+            raise NotImplementedError("self-extend and the iSWA cache are not ported yet")
         self.model = model
         self.cfg = model.config
         where = model.params["tok_embd"].device
@@ -141,39 +165,87 @@ class Engine:
 
             if not self.cfg.has_predictors:
                 raise ValueError("sparse mode requires predictor tensors in the model")
-            if sparse.hot_groups > 0:
-                raise NotImplementedError("hot/cold tiering is not ported yet")
-            if not sparse_preprepared:
-                kw = dict(drop_dense=sparse_drop_dense)
-                # as the JAX Engine: the gather modes over the v1 row stores,
-                # the kernel modes over v6's flat stores (v7u needs them)
-                layout = "v1" if sparse_decode_mode.startswith("gather") else "v6"
-                self.params = (
-                    prepare_pipelined_params(model.params, self.cfg, sparse, layout=layout, **kw)
-                    if sparse_pipelined else
-                    prepare_sparse_params(model.params, self.cfg, sparse, **kw))
+            if split is not None:
+                from ..sparse.split import ModelSplit, apply_reorder, read_split
+
+                if not isinstance(split, ModelSplit):
+                    split = read_split(split)
+                # inplace: the engine owns and rebinds the params
+                model.params = self.params = apply_reorder(
+                    model.params, self.cfg, split.perms, inplace=True)
             prefill_ffn = make_sparse_ffn(self.cfg, sparse, mode="dense")
             self.fwd = make_forward(self.cfg, ffn_fn=prefill_ffn)
             self.fwd_prefill = make_forward(self.cfg, ffn_fn=prefill_ffn,
                                             fresh_prefill=True)
-            if sparse_pipelined:
-                decode_ffn, carry_init = make_pipelined_sparse_ffn(
-                    self.cfg, sparse, mode=sparse_decode_mode)
-                self.fwd_decode = make_forward(self.cfg, ffn_fn=decode_ffn,
-                                               ffn_carry_init=carry_init)
+            if self.tiered:  # the row stores, the tiered state, the decode forward
+                self._init_tiered(sparse, sparse_cold_mode, sparse_drop_dense,
+                                  sparse_preprepared)
             else:
-                self.fwd_decode = make_forward(self.cfg, ffn_fn=make_sparse_ffn(
-                    self.cfg, sparse, mode=sparse_decode_mode))
+                if not sparse_preprepared:
+                    kw = dict(drop_dense=sparse_drop_dense)
+                    # as the JAX Engine: the gather modes over the v1 row stores,
+                    # the kernel modes over v6's flat stores (v7u needs them)
+                    layout = "v1" if sparse_decode_mode.startswith("gather") else "v6"
+                    self.params = (
+                        prepare_pipelined_params(model.params, self.cfg, sparse,
+                                                 layout=layout, **kw)
+                        if sparse_pipelined else
+                        prepare_sparse_params(model.params, self.cfg, sparse, **kw))
+                if sparse_pipelined:
+                    decode_ffn, carry_init = make_pipelined_sparse_ffn(
+                        self.cfg, sparse, mode=sparse_decode_mode)
+                    self.fwd_decode = make_forward(self.cfg, ffn_fn=decode_ffn,
+                                                   ffn_carry_init=carry_init)
+                else:
+                    self.fwd_decode = make_forward(self.cfg, ffn_fn=make_sparse_ffn(
+                        self.cfg, sparse, mode=sparse_decode_mode))
         else:
             self.fwd = make_forward(self.cfg)
             self.fwd_prefill = make_forward(self.cfg, fresh_prefill=True)
             self.fwd_decode = self.fwd
         self.prefill_chunk = 1024  # ubatch size for long prompts (ref n_ubatch)
+        self.rebalance_every = max(rebalance_every, 1)
         self.perf = PerfCounters()
         self.generator = torch.Generator(device=self.device)
         self.graphs = StepGraphs(self.device, capture, self.GRAPHS,
                                  None if sc.greedy else self.generator)
         self.cache: KVCache | None = None  # generate's, made at its first call
+
+    def _init_tiered(self, sparse, mode, drop_dense, preprepared):
+        """The tiered decode: the row stores (the prefill's too), the hot store
+        and DFR state on the card, the cold store in host RAM, the balancer."""
+        from ..sparse.balancer import Balancer
+        from ..sparse.ffn import prepare_sparse_params
+        from ..sparse.tiering import (
+            ColdStore,
+            init_tiered,
+            make_tiered_ffn,
+            tiered_layer_params,
+        )
+
+        if not preprepared:
+            self.params = prepare_sparse_params(self.params, self.cfg, sparse,
+                                                drop_dense=drop_dense)
+        layers = self.params["layers"]
+        self.tiered_params, self.fstate = init_tiered(
+            self.cfg, sparse, layers, sparse.hot_groups,
+            track_miss_groups=(mode == "fetch"))
+        self.cold = ColdStore(self.cfg, sparse, {k: v for k, v in layers.items()
+                                                 if k.endswith("_rows") or k == "b_up"})
+        self.balancer = Balancer(cold=self.cold, scfg=sparse)
+        self.fwd_decode = make_forward(self.cfg, ffn_fn=make_tiered_ffn(
+            self.cfg, sparse, self.cold, mode=mode), stateful_ffn=True)
+        # decode params: the hot store instead of the full row stores
+        lay, flat = tiered_layer_params(layers, self.tiered_params)
+        self.decode_params = {**self.params, "layers": lay, "sparse_flat": flat}
+
+    def rebalance(self):
+        """One online rebalance of the tiered hot set from the DFR state (the
+        fetch mode's miss counts consumed), in place, on the step's stream."""
+        fs = self.fstate
+        self.balancer.rebalance(self.tiered_params, fs.dfr, miss_g=fs.miss_g)
+        if fs.miss_g is not None:
+            fs.miss_g.zero_()
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -227,9 +299,12 @@ class Engine:
         reads, not the engine, so that no reference cycle keeps an engine's
         memory past its last use."""
         fwd, params, cfg, gen = self.fwd_decode, self.params, self.sampler_cfg, self.generator
+        state = ()
+        if self.tiered:  # the tiered forward updates its DFR state in place
+            params, state = self.decode_params, (self.fstate,)
 
         def step(tokens, positions):
-            logits = fwd(params, tokens, positions, cache)[:, -1]
+            logits = fwd(params, tokens, positions, cache, *state)[:, -1]
             return logits, sample(logits, cfg, gen)
 
         return step
@@ -244,13 +319,16 @@ class Engine:
             raise ValueError("a sampled decode step draws from the engine's generator: "
                              "pass new_sampler_state()'s")
         t0 = time.perf_counter()
-        step = self.graphs.get(cache, 1, "decode", lambda: self._decode_fn(cache))
+        restore = tuple(t for t in self.fstate if t is not None) if self.tiered else ()
+        step = self.graphs.get(cache, 1, "decode", lambda: self._decode_fn(cache), restore)
         step.tokens.fill_(token)
         step.positions.fill_(n_past)
         self.last_logits, tok = step.run()
         tok = int(tok[0])
         self.perf.t_decode_s += time.perf_counter() - t0
         self.perf.n_decode += 1
+        if self.tiered and self.perf.n_decode % self.rebalance_every == 0:
+            self.rebalance()  # between steps, as the JAX Engine's
         return tok, cache, sstate
 
     def generate(self, prompt_tokens: list[int], max_new_tokens: int = 128,

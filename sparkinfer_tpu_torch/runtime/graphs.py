@@ -29,6 +29,10 @@ The kernel wrappers count their launches in Python, which a replay does not
 run. The graph records the launches its capture made and credits them to the
 wrappers' `.launches` at every replay, so a counter still counts the kernel
 calls run, the warm-up's included.
+
+A step that updates state of its own in place (the tiered FFN's DFR
+statistics) names those tensors (`restore`): the warm-up's updates are
+undone, so a captured step updates them once, as an eager one does.
 """
 
 from __future__ import annotations
@@ -74,8 +78,9 @@ class StepGraph:
 
     def __init__(self, fn: Callable, batch: int, device: torch.device, *, capture: bool,
                  generator: torch.Generator | None = None, label: str = "decode step",
-                 log: list | None = None):
+                 log: list | None = None, restore: tuple = ()):
         self.fn = fn
+        self.restore = restore  # state the step updates in place, which the warm-up must not
         io = torch.zeros((2, batch, 1), dtype=torch.long, device=device)
         self.io = io  # [tokens; positions], for one copy from the host
         self.tokens, self.positions = io[0], io[1]
@@ -106,10 +111,13 @@ class StepGraph:
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         rng = None if self.generator is None else self.generator.get_state()
+        saved = [t.clone() for t in self.restore]
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             self.fn(self.tokens, self.positions)  # warm-up: lazy allocations, plans
+            for t, v in zip(self.restore, saved):
+                t.copy_(v)  # the warm-up's updates undone, as its draws are
         cur.wait_stream(side)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -153,14 +161,15 @@ class StepGraphs:
         self._graphs: OrderedDict[tuple, StepGraph] = OrderedDict()
         self.captured: list[dict] = []  # the stats of every capture made, in order
 
-    def get(self, cache, batch: int, forward: str, make_fn: Callable) -> StepGraph:
+    def get(self, cache, batch: int, forward: str, make_fn: Callable,
+            restore: tuple = ()) -> StepGraph:
         key = (cache.k.data_ptr(), cache.v.data_ptr(), tuple(cache.k.shape),
                cache.k.dtype, batch, forward)
         step = self._graphs.get(key)
         if step is None:
             step = StepGraph(make_fn(), batch, self.device, capture=self.capture,
                              generator=self.generator, label=f"{forward} step",
-                             log=self.captured)
+                             log=self.captured, restore=restore)
             self._graphs[key] = step
             while len(self._graphs) > self.limit:
                 self._graphs.popitem(last=False)

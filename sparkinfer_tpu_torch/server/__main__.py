@@ -4,10 +4,12 @@
 
 Flags come from the port's copy of the shared declarative table
 (common/args.py, server scope); --device picks the torch device (default:
-the CUDA card). Flags whose modules are not ported yet (-hf, -vb,
---hot-groups, --split, --cold-mode, --prefill-mode tiered, --lora,
---attn-w8a8, --slot-save-path, -ctk/-ctv q8 or a split -ctv) fail with an
-error naming the module. The line "listening on http://HOST:PORT" gives the bound port, also
+the CUDA card). Tiered sparse serving: --hot-groups H (or -vb GiB, the hot
+store's budget), --cold-mode host|drop|fetch (default host),
+--prefill-mode rows|tiered, --split FILE, --rebalance-every,
+--reload-budget-mb and --swap-hysteresis. Flags whose modules are not
+ported yet (-hf, --lora, --attn-w8a8, --slot-save-path, -ctk/-ctv q8 or a
+split -ctv) fail with an error naming the module. The line "listening on http://HOST:PORT" gives the bound port, also
 for --port 0.
 """
 
@@ -42,10 +44,15 @@ def main(argv=None) -> int:
     sparse = None
     if (args.sparse or model.config.has_predictors) and not args.dense \
             and model.config.has_predictors:
-        from ..sparse.config import SparseConfig
+        from ..sparse.config import SparseConfig, hbm_budget_to_hot_groups
 
+        hot = args.hot_groups
+        if not hot and args.hbm_budget:
+            hot = hbm_budget_to_hot_groups(args.hbm_budget, model.config, args.group_size)
         sparse = SparseConfig(group_size=args.group_size,
-                              capacity_groups=args.capacity_groups)
+                              capacity_groups=args.capacity_groups, hot_groups=hot,
+                              reload_budget_mb=args.reload_budget_mb,
+                              swap_hysteresis=args.swap_hysteresis)
 
     extra_models = None
     if args.models:
@@ -72,6 +79,10 @@ def main(argv=None) -> int:
             api_key=args.api_key,
             extra_models=extra_models,
             sparse=sparse,
+            sparse_cold_mode=args.cold_mode or "host",
+            prefill_mode=args.prefill_mode,
+            split=args.split,
+            rebalance_every=args.rebalance_every,
             device=args.device,
         ),
         sampler=sampler_from_args(args),

@@ -15,9 +15,10 @@ Endpoints (reference parity set):
 Streaming via SSE (`stream: true`). The server runs on the card unless
 `ServerConfig.device` says otherwise. Routes whose modules are not ported
 yet answer HTTP 501: /embeddings and /rerank (runtime/embeddings.py),
-/lora-adapters (models/lora.py) and /slots/:id save and restore. Tiered
-sparse serving, LoRA at startup and quantized or split-dtype KV caches
-raise at startup. The router's lazy model load holds the graphs'
+/lora-adapters (models/lora.py) and /slots/:id save and restore. LoRA at
+startup and quantized or split-dtype KV caches raise at startup; tiered
+sparse serving (`sparse.hot_groups > 0`, `sparse_cold_mode`,
+`prefill_mode`, `split`, `rebalance_every`) goes to the Scheduler. The router's lazy model load holds the graphs'
 CAPTURE_LOCK: it runs on a handler thread while a Scheduler may capture.
 """
 
@@ -74,8 +75,12 @@ class ServerConfig:
     # bearer-token auth on API routes, /health stays open (ref:
     # tools/server middleware_validate_api_key)
     api_key: str | None = None
-    # SparkInfer sparse serving (predictor-gated; tiering is not ported yet)
+    # SparkInfer sparse serving (predictor-gated; tiered when hot_groups>0)
     sparse: object | None = None  # SparseConfig
+    sparse_cold_mode: str = "host"  # --cold-mode: host | drop | fetch
+    prefill_mode: str = "rows"  # --prefill-mode: rows | tiered
+    split: object | None = None  # ModelSplit | path (offline profile)
+    rebalance_every: int = 1
     device: str | None = None  # torch device; None: the CUDA card
 
 
@@ -107,6 +112,10 @@ class SparkServer:
             slot_similarity=self.cfg.slot_prompt_similarity,
             tokenizer=self.tokenizer,
             sparse=self.cfg.sparse,
+            sparse_cold_mode=self.cfg.sparse_cold_mode,
+            prefill_mode=self.cfg.prefill_mode,
+            split=self.cfg.split,
+            rebalance_every=self.cfg.rebalance_every,
             device=self.device,
         )
         self.template = _template_for(model.vocab, self.cfg.chat_template)

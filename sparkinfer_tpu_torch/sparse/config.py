@@ -1,9 +1,10 @@
 """Sparse-FFN configuration: a copy of `SparseConfig` from
 sparkinfer_tpu/sparse/config.py, so that the port imports nothing of the JAX
 package, and the serving Scheduler's sparse/dense batch crossover as
-measured on the H100 (`sparse_batch_crossover`). The tiering fields (dfr_*,
-hot_groups, reload_*, swap_hysteresis) are carried for the tiered slice;
-the port's Engine and Scheduler reject hot_groups > 0.
+measured on the H100 (`sparse_batch_crossover`), and a copy of the CLI's
+`hbm_budget_to_hot_groups` (sparkinfer_tpu/tools/cli.py:41), which the
+server's -vb uses. The tiering fields (dfr_*, hot_groups, reload_*,
+swap_hysteresis) configure `sparse/tiering.py` and `sparse/balancer.py`.
 
 Sparsity is expressed as a FIXED-CAPACITY top-k over neuron GROUPS rather than a
 data-dependent threshold count (SURVEY.md §7 hard part (b)). The threshold
@@ -94,3 +95,10 @@ def sparse_batch_crossover(n_ff: int) -> int:
     if env is not None:
         return int(env)
     return _BATCH_CROSSOVER.get(n_ff, _BATCH_CROSSOVER[11008])
+
+
+def hbm_budget_to_hot_groups(budget_gib: float, cfg, group_size: int) -> int:
+    """GiB budget -> per-layer hot group count (3 projections, bf16)."""
+    bytes_per_group = 3 * group_size * cfg.n_embd * 2
+    total_groups = int(budget_gib * (1 << 30) / bytes_per_group)
+    return max(total_groups // cfg.n_layer, 1)

@@ -452,3 +452,73 @@ def test_capture_while_another_thread_uses_the_card(cuda, tmp_path, monkeypatch,
             assert result["sum"] == float((x @ x).sum())
     finally:
         srv.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# card: the tiered decode (sparse/tiering.py, sparse/balancer.py)
+
+
+def _tiered(path, device, mode, **kw):
+    return Engine(load_model(path, dtype=torch.float32, device=device), max_seq=64,
+                  sampler=GREEDY, kv_dtype=torch.float32,
+                  sparse=SparseConfig(G, CAP, hot_groups=2), sparse_cold_mode=mode,
+                  device=device, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fetch", "drop"])
+def test_tiered_graph_equals_eager_after_swaps(cuda, gguf, mode):
+    """The tiered step as a graph against the eager step, each engine with its
+    own hot store swapped in place after every step: equal streams and
+    bit-equal logits at every step, so no replay read a stale or half-written
+    store; one v6 launch a layer a step."""
+    graph_eng, eager = _tiered(gguf, "cuda", mode), _tiered(gguf, "cuda", mode,
+                                                             cuda_graph=False)
+    runs = {}
+    for name, eng in (("eager", eager), ("graph", graph_eng)):
+        c0 = _counts()
+        toks, logits = _steps(eng, 12)
+        runs[name] = (toks, logits, [b - a for a, b in zip(c0, _counts())])
+    assert runs["graph"][0] == runs["eager"][0]
+    for got, want in zip(runs["graph"][1], runs["eager"][1]):
+        assert torch.equal(got, want)
+    assert graph_eng.graphs.captures == 1 and graph_eng.balancer.total_swaps > 0
+    assert torch.equal(graph_eng.tiered_params.hot_ids, eager.tiered_params.hot_ids)
+    assert torch.equal(graph_eng.fstate.dfr, eager.fstate.dfr)  # the warm-up undone
+    v6 = graphs.COUNTED.index(tffn.sparse_ffn_block_v6)
+    L = graph_eng.cfg.n_layer
+    assert runs["eager"][2][v6] == 12 * L and runs["graph"][2][v6] == 13 * L
+
+
+@pytest.mark.cuda
+def test_tiered_host_mode_on_the_card_equals_the_cpu(cuda, gguf):
+    """Host mode on the card (eager; pinned copies to and from the host
+    library at every layer) against host mode on the CPU: equal streams."""
+    on_card = _tiered(gguf, "cuda", "host")
+    assert not on_card.graphs.capture
+    want = _tiered(gguf, "cpu", "host").generate(PROMPT, 12)
+    assert on_card.generate(PROMPT, 12) == want
+    assert on_card.cold.n_calls == 11 * on_card.cfg.n_layer
+
+
+@pytest.mark.cuda
+def test_cold_store_complement_from_the_card(cuda, gguf):
+    """ColdStore.complement of card tensors (the library over pinned copies)
+    against the plain version on the CPU: within 1e-5 of its scale."""
+    from sparkinfer_tpu_torch import native
+    from sparkinfer_tpu_torch.sparse.tiering import ColdStore
+
+    eng = _engine(gguf, "cpu", "gather", sparse_pipelined=False)
+    rows = {k: v for k, v in eng.params["layers"].items() if k.endswith("_rows")}
+    cold = ColdStore(eng.cfg, SparseConfig(G, CAP), rows, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((5, eng.cfg.n_embd), generator=gen)
+    probs = torch.rand((5, 6, G), generator=gen)
+    cold_active = torch.rand((5, 6), generator=gen) < 0.5
+    for il in range(eng.cfg.n_layer):
+        got = cold.complement(il, x.cuda(), probs.cuda(), cold_active.cuda())
+        assert got.device.type == "cuda"
+        want = native.sparse_complement_plain(x, cold.up[il], cold.gate[il], cold.down[il],
+                                              None, probs, cold_active, cold.act,
+                                              cold.fatrelu_threshold, 0.5)
+        assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()

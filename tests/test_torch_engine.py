@@ -254,8 +254,7 @@ def test_entry_points_default_to_the_card(gguf):
 
 def test_unported_options_raise(gguf, tmp_path):
     model = load_model(gguf, dtype=torch.float32, device="cpu")
-    for kw in (dict(split="x"), dict(self_extend=(2, 8)), dict(kv_iswa=True),
-               dict(sparse=SparseConfig(G, CAP, hot_groups=2))):
+    for kw in (dict(self_extend=(2, 8)), dict(kv_iswa=True)):
         with pytest.raises(NotImplementedError):
             Engine(model, device="cpu", **kw)
     pe = Engine(model, max_seq=6, sampler=SamplerConfig(temp=0.0), device="cpu")
@@ -301,7 +300,8 @@ def test_port_imports_without_jax():
                 "grammar.gbnf", "grammar.json_schema", "grammar.sampler", "common.args",
                 "common.jinja", "server.app", "server.chat", "server.chat_parser",
                 "server.json_partial", "server.tools_api", "server.webui",
-                "server.__main__"):
+                "server.__main__", "native", "sparse.tiering", "sparse.balancer",
+                "sparse.split"):
         assert "sparkinfer_tpu_torch." + mod in names, mod
 
 

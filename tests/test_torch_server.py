@@ -218,7 +218,6 @@ def test_router_loads_a_second_model(servers):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(sparse=SparseConfig(8, 4, hot_groups=2)), "tiering"),
     (dict(kv_dtype="int8"), "KV"),
     (dict(kv_dtype_v="f32"), "KV"),
     (dict(lora=["adapter.gguf"]), "lora"),
@@ -230,12 +229,9 @@ def test_unported_startup_options_raise(gguf, kw, match):
 
 
 @pytest.mark.parametrize("flags,module", [
-    (["--lora", "a.gguf"], "models/lora.py"), (["-vb", "4"], "tiering"),
-    (["--hot-groups", "8"], "tiering"), (["--split", "s.gguf"], "split"),
-    (["--cold-mode", "drop"], "tiering"), (["-hf", "acme/tiny"], "tools/hf.py"),
+    (["--lora", "a.gguf"], "models/lora.py"), (["-hf", "acme/tiny"], "tools/hf.py"),
     (["-ctk", "q8", "-ctv", "q8"], "quantized KV"), (["-ctv", "f32"], "split-dtype"),
-    (["--attn-w8a8"], "W8A8"), (["--prefill-mode", "tiered"], "tiering"),
-    (["--slot-save-path", "slots"], "state_io.py"),
+    (["--attn-w8a8"], "W8A8"), (["--slot-save-path", "slots"], "state_io.py"),
 ])
 def test_unported_flags_fail_with_the_module(gguf, capsys, flags, module):
     from sparkinfer_tpu_torch.server.__main__ import main

@@ -623,12 +623,9 @@ def test_slot_view_writes_in_place(llama_gguf):
 
 
 def test_unported_options_raise(llama_gguf, sparse_gguf):
-    for kw in (dict(kv_quantized=True), dict(kv_dtype_v=torch.bfloat16), dict(split="x"),
-               dict(prefill_mode="tiered")):
+    for kw in (dict(kv_quantized=True), dict(kv_dtype_v=torch.bfloat16)):
         with pytest.raises(NotImplementedError):
             _sched(llama_gguf, **kw)
-    with pytest.raises(NotImplementedError):
-        _sched(sparse_gguf, sparse=SparseConfig(G, CAP, hot_groups=2))
     sched = _sched(llama_gguf)
     # grammars are ported (tests/test_torch_grammar.py); one needs the tokenizer
     with pytest.raises(ValueError, match="tokenizer"):
