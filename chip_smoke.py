@@ -170,12 +170,40 @@ sees no card or the package is missing. Phases, each of which fails the run:
        a token, host complement ms a layer and peak memory, beside phase
        5h's 7B steps and the dense engine's peak. `python3 chip_smoke.py
        --tiered` runs phases 1, 2 and 5j alone and prints no result.
+     5k. Mixture-of-Experts (sparse/moe.py) at Qwen3-30B-A3B widths
+       (Qwen/Qwen3-30B-A3B config.json: L=48, E=2048, 32 heads, 4 KV heads,
+       head_dim 128, 128 experts of width 768, 8 used, V=151936), random
+       weights from SEED built on the card, one resident copy of the
+       experts, in a child process started right after phase 2 (before
+       this process builds any model; it prints the free memory it starts
+       with): an f32 gate at 4 layers, the fused mode (v1, mask_mode
+       "scale") against dense mode layer by layer over a 32-token prompt
+       and 8 decode steps (each FFN output within 1e-4 of its scale, the
+       routed experts and greedy tokens equal), and host-mode expert
+       tiering (eager, 32 of 128 experts hot, an f32 cold store) within
+       1e-4 of dense mode with misses; v1 against its plain version at
+       the MoE shapes (N = 1 and 32, C = 48, G = 128, E = 2048, bf16); the
+       full 48-layer bf16 model through Engine(moe_mode="pallas") (v1
+       n_layer times a forward) and Engine(moe_mode="dense") (no counted
+       kernel), a 32-token prompt and 64 greedy tokens each, decode as CUDA
+       graphs whose first decode logits equal an eager engine's bit for
+       bit, with tok/s, wall and device ms a step, v1's share, the replay
+       span, prefill ms and peak memory; the 4-slot Scheduler (max_seq
+       1024, 8 requests of 32 + 32 tokens, dense MoE, the tick a graph);
+       expert tiering at 12 layers (a router skewed towards a random fifth
+       of each layer's experts, 32 of 128 hot, an f16 cold store in host
+       RAM, the expert stacks then dropped from the card), drop mode as a
+       CUDA graph of the tiered step, 64 tokens, a rebalance after every
+       step, the misses a token of the last 16 steps below those of the
+       first 16. `python3 chip_smoke.py --moe` runs phases 1, 2 and 5k
+       alone and prints no result.
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]} (v1's entry counts its MoE
+launches too, and carries its MoE-shape timing under "moe"); the last line
+is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --prefill-profile
 
@@ -2770,13 +2798,536 @@ def tiered_phases(greedy_cfg) -> int:
     return 0
 
 
+# --- phase 5k: Mixture-of-Experts at Qwen3-30B-A3B widths --------------------
+# Qwen/Qwen3-30B-A3B config.json: 48 layers, hidden 2048, 32 heads, 4 KV heads,
+# head_dim 128, 128 experts of width 768, 8 used, norm_topk_prob, vocab 151936,
+# rope theta 1e6, rms eps 1e-6, untied head. Random weights from SEED, built on
+# the card.
+
+MOE_TOL = 1e-4  # the f32 gates' FFN outputs against dense mode, of the output's scale
+MOE_HOT_EXPERTS = 32  # of 128: expert tiering's hot set, 192 of 768 groups a layer
+MOE_SKEW = 4.0  # a random fifth of each layer's experts: their router columns scaled by this
+
+
+def qwen3moe_config(L):
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="qwen3moe", n_layer=L, n_embd=2048, n_head=32, n_head_kv=4,
+                       head_dim=128, n_ff=6144, n_ff_exp=768, n_vocab=151936, n_expert=128,
+                       n_expert_used=8, norm_topk_prob=True, norm_eps=1e-6,
+                       rope_freq_base=1e6)
+
+
+def random_moe_model(cfg, dtype, seed):
+    """A LoadedModel with the MoE loader's keys, weights drawn on the card:
+    N(0, 0.02) projections, router and experts (one resident copy, the
+    port's (L, X, Fe, E) stacks), q/k norms 1 + N(0, 0.1), ones for the
+    block norms."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f32 = torch.float32
+
+    def normal(shape, std=0.02, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="cuda").normal_(0.0, std, generator=gen)
+
+    L, E, H, Hkv, D = cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.n_head_kv, cfg.head_dim
+    X, Fe, V = cfg.n_expert, cfg.n_ff_exp, cfg.n_vocab
+    ones = dict(dtype=f32, device="cuda")
+    layers = {"attn_norm_w": torch.ones((L, E), **ones), "ffn_norm_w": torch.ones((L, E), **ones),
+              "wq": normal((L, E, H * D)), "wk": normal((L, E, Hkv * D)),
+              "wv": normal((L, E, Hkv * D)), "wo": normal((L, H * D, E)),
+              "attn_q_norm_w": 1.0 + normal((L, D), 0.1, f32),
+              "attn_k_norm_w": 1.0 + normal((L, D), 0.1, f32),
+              "w_router": normal((L, E, X))}
+    for name in ("up", "gate", "down"):
+        layers[f"w_{name}_exps"] = normal((L, X, Fe, E))
+    params = {"tok_embd": normal((V, E)), "output_norm_w": torch.ones((E,), **ones),
+              "output": normal((E, V)), "layers": layers}
+    return LoadedModel(config=cfg, params=params)
+
+
+def skew_router(w_router, seed):
+    """In place: a random fifth of each layer's experts get their router
+    columns scaled by MOE_SKEW, so they take most of the routing mass."""
+    import torch
+
+    gen = torch.Generator(device=w_router.device).manual_seed(seed)
+    L, _, X = w_router.shape
+    for il in range(L):
+        hot = torch.randperm(X, generator=gen, device=w_router.device)[:X // 5]
+        w_router[il][:, hot] *= MOE_SKEW
+
+
+def greedy_tokens(fwd, params, cfg, prompt, steps, *state):
+    """The prompt's prefill and `steps` greedy decode steps through a bare
+    forward on a cache of its own: the steps + 1 greedy tokens."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+
+    cache = init_cache(cfg, 1, len(prompt) + steps + 1, torch.float32, "cuda")
+    toks = []
+    with torch.inference_mode():
+        logits = fwd(params, torch.tensor([prompt], device="cuda"),
+                     torch.arange(len(prompt), device="cuda")[None], cache, *state)
+        for i in range(steps + 1):
+            check(bool(torch.isfinite(logits).all()), "5k: non-finite logits")
+            toks.append(int(logits[0, -1].argmax()))
+            if i < steps:
+                logits = fwd(params, torch.tensor([[toks[-1]]], device="cuda"),
+                             torch.tensor([[len(prompt) + i]], device="cuda"), cache, *state)
+    return toks
+
+
+def moe_f32_gates(prompt, steps: int = 8) -> dict:
+    """Qwen3-30B-A3B widths cut to 4 layers, f32. (1) The fused mode (v1)
+    against dense mode: the dense forward feeds each layer's FFN input to
+    the fused FFN too, whose output must lie within MOE_TOL of the dense
+    one's scale at every layer of the prompt and `steps` decode steps; the
+    fused forward's routed experts at every layer and step and its greedy
+    tokens must equal the dense forward's. (2) Expert tiering in host mode
+    (eager), the router skewed, 32 of 128 experts hot, an f32 cold store:
+    its FFN within MOE_TOL of dense mode's on the same inputs, with misses."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.ops import sparse_ffn as sf
+    from sparkinfer_tpu_torch.sparse.config import SparseConfig
+    from sparkinfer_tpu_torch.sparse.moe import (
+        MoEColdStore,
+        expert_groups,
+        make_moe_ffn,
+        make_tiered_moe_ffn,
+        moe_layout,
+        moe_rows_layout,
+        route,
+    )
+    from sparkinfer_tpu_torch.sparse.tiering import init_tiered, tiered_layer_params
+
+    t0 = time.perf_counter()
+    cfg = qwen3moe_config(4)
+    model = random_moe_model(cfg, torch.float32, SEED + 31)
+    params = {**model.params, "layers": moe_layout(model.params["layers"], cfg)}
+    dense, fused = make_moe_ffn(cfg, mode="dense"), make_moe_ffn(cfg, mode="pallas")
+    E = cfg.n_embd
+    errs, routes = [], {"dense": [], "pallas": []}
+
+    def rel(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    def gate(lp, x):
+        want = dense(lp, x)
+        errs.append(rel(fused(lp, x), want))
+        routes["dense"].append(route(cfg, lp, x.reshape(-1, E))[0])
+        return want
+
+    def kernel(lp, x):
+        routes["pallas"].append(route(cfg, lp, x.reshape(-1, E))[0])
+        return fused(lp, x)
+
+    n0 = sf.sparse_ffn_block.launches
+    toks = {name: greedy_tokens(make_forward(cfg, ffn_fn=f), params, cfg, prompt, steps)
+            for name, f in (("dense", gate), ("pallas", kernel))}
+    n_fwd = 4 * (steps + 1)
+    check(sf.sparse_ffn_block.launches - n0 == 2 * n_fwd and len(errs) == n_fwd,
+          f"5k gate: {sf.sparse_ffn_block.launches - n0} v1 launches, {len(errs)} layers")
+    worst = max(errs)
+    check(worst <= MOE_TOL, f"5k gate: a layer's fused FFN is {worst:.3e} of its scale off")
+    check(toks["dense"] == toks["pallas"], f"5k gate: greedy tokens differ {toks}")
+    check(all(torch.equal(a, b) for a, b in zip(routes["dense"], routes["pallas"])),
+          "5k gate: the routed experts differ")
+    row = {"layers": 4, "steps": steps, "layer_outputs": n_fwd, "worst_rel_err": worst,
+           "tokens": toks["dense"]}
+
+    # (2) host-mode expert tiering on the same f32 weights
+    del params
+    skew_router(model.params["layers"]["w_router"], SEED + 32)
+    G, ng_e = expert_groups(cfg, 128)
+    scfg = SparseConfig(group_size=G, hot_groups=MOE_HOT_EXPERTS * ng_e)
+    rows = moe_rows_layout(model.params["layers"], cfg)
+    tp, fs = init_tiered(cfg, scfg, rows, scfg.hot_groups)
+    cold = MoEColdStore(cfg, scfg, {k: v for k, v in rows.items() if k.endswith("_rows")},
+                        dtype=torch.float32)
+    tiered = make_tiered_moe_ffn(cfg, scfg, cold, mode="host")
+    host_errs = []
+
+    def both(lp, x, state, il):
+        want = dense(lp, x)
+        host_errs.append(rel(tiered(lp, x, state, il), want))
+        return want
+
+    lay, hot = tiered_layer_params(rows, tp)
+    params = {**model.params, "layers": lay, "sparse_flat": hot}
+    host_steps = 4
+    greedy_tokens(make_forward(cfg, ffn_fn=both, stateful_ffn=True), params, cfg,
+                  prompt[:16], host_steps, fs)
+    worst = max(host_errs)
+    misses = float(fs.miss.sum())
+    check(worst <= MOE_TOL, f"5k host mode: a layer's FFN is {worst:.3e} of its scale off")
+    check(misses > 0, "5k host mode: no routed expert was cold")
+    row["host_mode"] = {"layers": 4, "prompt": 16, "steps": host_steps,
+                        "layer_outputs": len(host_errs), "worst_rel_err": worst,
+                        "cold_routed_experts": misses, "complement_calls": cold.n_calls,
+                        "hot_experts": MOE_HOT_EXPERTS}
+    row["seconds"] = time.perf_counter() - t0
+    print("phase 5k, f32 gates (Qwen3-30B-A3B widths, 4 layers):", json.dumps(row))
+    return row
+
+
+def moe_v1_rows(model) -> list:
+    """v1 (`sparse_ffn_block`, mask_mode "scale") against its plain version
+    at the MoE shapes of the main path, N = 1 (decode) and 32 (prefill):
+    each token's 8 experts of 128 (C = 48 groups of G = 128), router weights
+    as the scale, bf16 row stores of one random layer (views of the expert
+    stacks), silu; over 64 random draws that keep the L2 cold."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops import sparse_ffn as sf
+    from sparkinfer_tpu_torch.sparse.moe import expert_rows, moe_layout
+
+    cfg = model.config
+    lay = moe_layout(model.params["layers"], cfg)
+    up, gate, down = lay["moe_up_rows"], lay["moe_gate_rows"], lay["moe_down_rows"]
+    L, R, G, E = up.shape
+    k, ng_e = cfg.n_expert_used, R // cfg.n_expert
+    C = k * ng_e
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    out = []
+    for N in (1, 32):
+        sets = []
+        for _ in range(N_SETS):
+            il = int(torch.randint(L, (1,), generator=gen, device="cuda"))
+            idx = torch.stack([torch.randperm(cfg.n_expert, generator=gen, device="cuda")[:k]
+                               for _ in range(N)]).to(torch.int32)
+            w = torch.rand((N, k), generator=gen, device="cuda")
+            w = w / w.sum(-1, keepdim=True)
+            scale = w[:, :, None, None].expand(N, k, ng_e, G).reshape(N, C, G).contiguous()
+            sets.append((il, expert_rows(idx, ng_e), scale))
+        x = torch.randn((N, E), generator=gen, device="cuda").to(torch.bfloat16)
+
+        def call(f, i):
+            il, rows, scale = sets[i % N_SETS]
+            return f(x, rows, scale, up[il], gate[il], down[il], act="silu", mask_mode="scale")
+
+        got = call(sf.sparse_ffn_block, 0)
+        torch.cuda.synchronize()
+        err, tol = compare(f"v1 MoE N={N}", got, call(sf.sparse_ffn_block_plain, 0))
+        ms = graph_ms(lambda i: call(sf.sparse_ffn_block, i), N_SETS)
+        plain_ms = graph_ms(lambda i: call(sf.sparse_ffn_block_plain, i), 8 if N == 1 else 2)
+        rows_read = sum(len(torch.unique(r)) for _, r, _ in sets) / N_SETS
+        nbytes = 3 * rows_read * G * E * 2 + N * E * 2 + N * C * G * 4 + N * C * 4 + N * E * 4
+        bound_ms, by = bound(nbytes, 2 * 3 * N * C * G * E, PEAK_F32_FLOP_S)
+        row = dict(kernel="sparse_ffn_block", path="MoE", N=N, C=C, G=G, E=E, act="silu",
+                   mask_mode="scale", max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=by, library_ms=None, x_bound=ms / bound_ms,
+                   rows_read=rows_read, GB_s=nbytes / (ms * 1e-3) / 1e9,
+                   plan=sf.v1_plan(x.device, N, C, E, G))
+        print("kernel check:", json.dumps(row))
+        out.append(row)
+    return out
+
+
+def moe_engine(label, model, greedy, prompt, n_new, mode) -> dict:
+    """One Engine(moe_mode=mode) over the full model: the main path (launch
+    counts 0 just before, read just after: v1 n_layer times a forward in
+    "pallas" mode, prefill included, none in "dense"), the decode timings
+    and a profile (v1's share of the device time), the replay span, the
+    first decode logits of the graph against an eager engine's (bit-equal),
+    and the prefill's wall ms."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    L = model.config.n_layer
+    per_fwd = L if mode == "pallas" else 0
+    eng = Engine(model, max_seq=1024, sampler=greedy, device="cuda", moe_mode=mode)
+    launches = main_path(label, eng, prompt, n_new,
+                         lambda runs: {"sparse_ffn_block": per_fwd * (runs + 1)})
+    toks, first, timing = decode_timing(eng, prompt, n_new)
+    rows, steps, _ = profile_decode(eng, prompt, 4)
+    v1 = [(k, ms, n) for k, ms, n in rows if "v1_" in k]
+    check(sum(n for _, _, n in v1) == per_fwd * steps and all("v1_ffn" in k for k, _, _ in v1),
+          f"5k {label}: the profiled steps launched {v1}, want {per_fwd} v1_ffn a step")
+    device = sum(r[1] for r in rows)
+    eager = Engine(model, max_seq=1024, sampler=greedy, device="cuda", moe_mode=mode,
+                   cuda_graph=False)
+    cache, st = eager.new_cache(), eager.new_sampler_state()
+    tok, cache, st, n = eager.prefill(prompt, cache, st)
+    eager.decode_step(tok, n, cache, st)
+    check(torch.equal(first, eager.last_logits), f"5k {label}: the replay's first decode "
+          f"logits differ from the eager step's by "
+          f"{(first - eager.last_logits).abs().max().item():.3e}")
+    del eager, cache
+    step = eng.graphs.get(eng.cache, 1, "decode", None)
+    cache, st = eng.new_cache(), eng.new_sampler_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        eng.prefill(prompt, cache, st)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0) / 4
+    row = {"path": label, "moe_mode": mode, "launches": launches["sparse_ffn_block"],
+           **timing, "v1_device_ms_per_step": sum(ms for _, ms, _ in v1) / steps,
+           "v1_share_of_device": sum(ms for _, ms, _ in v1) / device,
+           "profiled_device_ms_per_step": device / steps, **replay_times(step),
+           "capture_s": step.stats["capture_s"], "graph_pool_bytes": step.stats["pool_bytes"],
+           "prefill_ms": prefill_ms, "prefill_tokens": len(prompt), "peak_gib": PEAKS[label],
+           "tokens_first8": toks[:8]}
+    print(f"phase 5k, {label}:", json.dumps(row))
+    return row
+
+
+def moe_scheduler(model, greedy, n_new: int = 32) -> dict:
+    """The Scheduler over the full model (dense MoE, the tick a CUDA graph):
+    8 greedy requests of 32-token prompts and 32 new tokens on 4 slots,
+    max_seq 1024; every tick's logits finite, no counted kernel launched."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.scheduler import Request, Scheduler
+
+    sched = Scheduler(model, n_slots=4, max_seq=1024, sampler=greedy, device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 34)
+    prompts = [torch.randint(model.config.n_vocab, (32,), generator=gen).tolist()
+               for _ in range(8)]
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reqs = [sched.submit(Request(prompt_tokens=p, max_new_tokens=n_new)) for p in prompts]
+    while sched.step():
+        check(bool(torch.isfinite(sched.last_logits).all()), "5k Scheduler: non-finite logits")
+    wall = time.perf_counter() - t0
+    check(all(len(r.tokens()) == n_new for r in reqs), "5k Scheduler: short streams")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(not any(launches.values()), f"5k Scheduler: dense MoE launched {launches}")
+    check(sched.graphs.captures == 1, f"5k Scheduler: {sched.graphs.captures} captures")
+    m = sched.metrics_snapshot()
+    ticks = m["n_decode_steps"]
+    row = {"path": "Qwen3-30B-A3B Scheduler, dense MoE", "slots": 4, "requests": 8,
+           "ticks": ticks, "decode_tok_s": (m["n_tokens_generated"] - m["n_requests"])
+           / m["t_decode_s"], "ms_per_tick": 1e3 * m["t_decode_s"] / ticks,
+           "prefill_tps": m["prefill_tps"], "wall_s": wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print("phase 5k, Scheduler:", json.dumps(row))
+    return row
+
+
+def moe_tiered_drop(greedy_prompt, n_new: int = 64) -> dict:
+    """Expert tiering at Qwen3-30B-A3B widths cut to 12 layers, bf16, the
+    router skewed, 32 of 128 experts hot (init_tiered: the first 32), an f16
+    cold store in host RAM, the expert stacks then dropped from the card;
+    drop mode, the tiered step captured as a CUDA graph and driven
+    directly (no Engine option wires expert tiering, as in the JAX
+    package), a rebalance after every step. The misses a token of the last
+    16 steps must lie below those of the first 16."""
+    import gc
+
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.runtime.graphs import StepGraph
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+    from sparkinfer_tpu_torch.sparse.balancer import Balancer
+    from sparkinfer_tpu_torch.sparse.config import SparseConfig
+    from sparkinfer_tpu_torch.sparse.moe import (
+        MoEColdStore,
+        expert_groups,
+        make_tiered_moe_ffn,
+        moe_rows_layout,
+    )
+    from sparkinfer_tpu_torch.sparse.tiering import init_tiered, tiered_layer_params
+
+    base = settled_gib()
+    t0 = time.perf_counter()
+    cfg = qwen3moe_config(12)
+    model = random_moe_model(cfg, torch.bfloat16, SEED + 41)
+    skew_router(model.params["layers"]["w_router"], SEED + 42)
+    G, ng_e = expert_groups(cfg, 128)
+    scfg = SparseConfig(group_size=G, hot_groups=MOE_HOT_EXPERTS * ng_e)
+    rows = moe_rows_layout(model.params["layers"], cfg)
+    tp, fs = init_tiered(cfg, scfg, rows, scfg.hot_groups)
+    cold = MoEColdStore(cfg, scfg, {k: v for k, v in rows.items() if k.endswith("_rows")})
+    lay, hot = tiered_layer_params(rows, tp)
+    for name in ("w_up_exps", "w_gate_exps", "w_down_exps"):
+        lay.pop(name)
+    params = {**model.params, "layers": lay, "sparse_flat": hot}
+    del model, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    built_s = time.perf_counter() - t0
+    resident_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    fwd = make_forward(cfg, ffn_fn=make_tiered_moe_ffn(cfg, scfg, cold, mode="drop"),
+                       stateful_ffn=True)
+    bal = Balancer(cold=cold, scfg=scfg)
+    cache = init_cache(cfg, 1, 1024, torch.bfloat16, "cuda")
+
+    def one(tokens, positions):
+        logits = fwd(params, tokens, positions, cache, fs)[:, -1]
+        return logits, logits.argmax(-1)
+
+    step = StepGraph(one, 1, torch.device("cuda"), capture=True, label="MoE tiered step",
+                     restore=(fs.dfr, fs.miss, fs.steps))
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    misses, walls, swapped = [], [], 0
+    prompt = greedy_prompt
+    with torch.inference_mode():
+        logits = fwd(params, torch.tensor([prompt], device="cuda"),
+                     torch.arange(len(prompt), device="cuda")[None], cache, fs)
+        tok = int(logits[0, -1].argmax())
+        bal.rebalance(tp, fs.dfr)
+        for i in range(n_new - 1):
+            m0, s0 = float(fs.miss.sum()), bal.total_swaps
+            t1 = time.perf_counter()
+            step.tokens.fill_(tok)
+            step.positions.fill_(len(prompt) + i)
+            logits, nxt = step.run()
+            tok = int(nxt[0])
+            t2 = time.perf_counter()
+            bal.rebalance(tp, fs.dfr)
+            walls.append((t2 - t1, time.perf_counter() - t2))
+            check(bool(torch.isfinite(logits).all()), "5k tiered: non-finite logits")
+            misses.append(float(fs.miss.sum()) - m0)
+            swapped += bal.total_swaps > s0
+    got = {k: w.launches for k, w in wrappers.items()}
+    check(not any(got.values()), f"5k tiered: the plain tiered FFN launched {got}")
+    steps = n_new - 1
+    row = {"path": "Qwen3-30B-A3B tiered drop, 12 layers", "steps": steps, "graph": True,
+           "hot_experts": MOE_HOT_EXPERTS, "build_s": built_s,
+           "wall_ms_per_step": 1e3 * sum(w[0] for w in walls) / steps,
+           "tok_s": steps / sum(w[0] for w in walls),
+           "wall_ms_per_step_with_rebalance": 1e3 * sum(a + b for a, b in walls) / steps,
+           "ms_per_rebalance": 1e3 * bal.t_total_s / bal.rebalances,
+           "rebalances": bal.rebalances, "rebalances_that_swapped": swapped,
+           "swaps": bal.total_swaps, "h2d_bytes": bal.bytes_h2d, "window": bal.window,
+           "overruns": bal.overruns, **miss_trend(misses),
+           "hot_store_bytes": tp.nbytes, "cold_store_bytes": cold.nbytes,
+           "resident_gib": resident_gib}
+    check(row["misses_per_token_last16"] < row["misses_per_token_first16"],
+          f"5k tiered: drop misses a token did not fall: {row['misses_per_token_first16']} "
+          f"-> {row['misses_per_token_last16']}")
+
+    def replay():
+        with torch.inference_mode():
+            step.run()
+
+    rows_p, _ = profile_steps("MoE tiered steps (graph)", replay, 4)
+    row["device_ms_per_step"] = sum(r[1] for r in rows_p) / 4
+    row.update(replay_times(step))
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    row.update(base_gib=base)
+    print("phase 5k, expert tiering:", json.dumps(row))
+    del step, params, cold, tp, fs, cache, bal
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_moe(greedy) -> dict:
+    """Phase 5k: the f32 gates, then Qwen3-30B-A3B at full width and depth
+    in bf16 (v1 at the MoE shapes, the pallas and dense Engines, the
+    Scheduler), then expert tiering at 12 layers. Returns its summary, with
+    v1's launches on the main paths."""
+    import gc
+
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 5k: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free at its start")
+    t0 = time.perf_counter()
+    prompt = torch.randint(151936, (32,), generator=torch.Generator().manual_seed(SEED)).tolist()
+    gates = moe_f32_gates(prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = qwen3moe_config(48)
+    t1 = time.perf_counter()
+    model = random_moe_model(cfg, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    weights = sum(t.numel() for t in [model.params["tok_embd"], model.params["output"],
+                                      *model.params["layers"].values()])
+    print(f"model: Qwen3-30B-A3B widths, L={cfg.n_layer} E={cfg.n_embd} H={cfg.n_head} "
+          f"Hkv={cfg.n_head_kv} D={cfg.head_dim} X={cfg.n_expert} k={cfg.n_expert_used} "
+          f"Fe={cfg.n_ff_exp} V={cfg.n_vocab}, bf16, {weights} weights built in "
+          f"{time.perf_counter() - t1:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB allocated")
+    v1_rows = moe_v1_rows(model)
+    engines = [moe_engine(f"Qwen3-30B-A3B bf16 {mode}", model, greedy, prompt, 64, mode)
+               for mode in ("pallas", "dense")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    sched = moe_scheduler(model, greedy)
+    del model
+    tiered = moe_tiered_drop(prompt)
+    summary = {"f32_gates": gates, "v1_moe": v1_rows, "engines": engines, "scheduler": sched,
+               "tiered": tiered, "v1_launches": engines[0]["launches"], "weights": weights,
+               "seconds": time.perf_counter() - t0}
+    return summary
+
+
+def moe_summary(moe) -> dict:
+    """Phase 5k's numbers in brief, for the end of the full run's output."""
+    keys = ("tok_s", "wall_ms_per_step", "device_ms_per_step", "v1_share_of_device",
+            "replay_span_ms", "prefill_ms", "peak_gib", "launches")
+    return {"f32_gate_worst": moe["f32_gates"]["worst_rel_err"],
+            "host_mode_worst": moe["f32_gates"]["host_mode"]["worst_rel_err"],
+            "v1_moe": [{k: r[k] for k in ("N", "ms", "bound_ms", "plain_ms", "x_bound")}
+                       for r in moe["v1_moe"]],
+            "engines": [{"path": r["path"], **{k: r[k] for k in keys}} for r in moe["engines"]],
+            "scheduler": {k: moe["scheduler"][k] for k in ("decode_tok_s", "ms_per_tick",
+                                                           "peak_gib")},
+            "tiered": {k: moe["tiered"][k] for k in (
+                "tok_s", "wall_ms_per_step", "device_ms_per_step", "ms_per_rebalance", "swaps",
+                "misses_per_token_first16", "misses_per_token_last16", "peak_gib",
+                "resident_gib", "hot_store_bytes", "cold_store_bytes")},
+            "seconds": moe["seconds"]}
+
+
+def moe_child() -> dict:
+    """Phase 5k in a child process, started before this process builds any
+    model (a child does not free what its parent holds): its output is
+    passed through, its summary read from its last line."""
+    proc = subprocess.Popen([sys.executable, __file__, "--moe-phase"], stdout=subprocess.PIPE,
+                            text=True)
+    last = None
+    for line in proc.stdout:
+        print(line, end="", flush=True)
+        if line.startswith("phase 5k summary: "):
+            last = line
+    check(proc.wait(timeout=900) == 0 and last is not None,
+          f"phase 5k: the child process exited with {proc.returncode}")
+    return json.loads(last[len("phase 5k summary: "):])
+
+
 def kernel_line(name, source, replaces, launches, row, shape):
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: row[k] for k in keys}, "shape": shape}
 
 
-def main(tiered_only: bool = False) -> int:
+def moe_phase_only() -> int:
+    """`chip_smoke.py --moe-phase`: phase 5k alone, in the child process the
+    full run starts (the kernels built already); its summary is the last
+    line."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; nothing to run", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("phase 5k summary:", json.dumps(phase_moe(SamplerConfig(temp=0.0))))
+    return 0
+
+
+def main(only: str | None = None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2813,7 +3364,7 @@ def main(tiered_only: bool = False) -> int:
     print(f"build: the host library (csrc/spark_host.cpp, g++) in "
           f"{time.perf_counter() - t0:.2f} s; _Float16 {native.has_f16()}, "
           f"{native.num_threads()} threads")
-    if tiered_only:
+    if only == "tiered":
         return tiered_phases(greedy_cfg=SamplerConfig(temp=0.0))
     for name, (lib, secs, log) in _build.build_all(
             ["sparse_ffn_v6", "sparse_ffn_v6q", "quant_matmul", "sparse_ffn_v1",
@@ -2826,6 +3377,13 @@ def main(tiered_only: bool = False) -> int:
                         and ("Used" in ln or "entry" in ln)))
 
     greedy = SamplerConfig(temp=0.0)
+    if only == "moe":
+        print("phase 5k summary:", json.dumps(phase_moe(greedy)))
+        return 0
+    # 5k. Qwen3-30B-A3B (61 GB of bf16 weights) in a child process, before
+    # this process builds any model
+    moe = moe_child()
+    print(f"phase 5k done at {time.perf_counter() - t_start:.1f} s")
 
     # 3. f32 references on small inputs: kernel path == plain path
     phase_reference(SparseConfig, Engine, greedy)
@@ -3003,9 +3561,14 @@ def main(tiered_only: bool = False) -> int:
         kernel_line("quant_matmul_flat", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
                     "sparkinfer_tpu/ops/quant_matmul.py:243",
                     l13["quant_matmul_flat"], qflat_row, qflat_row["shape"]),
-        kernel_line("sparse_ffn_block", "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
-                    "sparkinfer_tpu/ops/sparse_ffn_pallas.py:124", l_v1,
-                    row_rows["sparse_ffn_block"], "N=1 C=12 G=128 E=4096 bf16 fatrelu, row stores"),
+        {**kernel_line("sparse_ffn_block", "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
+                       "sparkinfer_tpu/ops/sparse_ffn_pallas.py:124", l_v1 + moe["v1_launches"],
+                       row_rows["sparse_ffn_block"],
+                       "N=1 C=12 G=128 E=4096 bf16 fatrelu, row stores"),
+         "moe": {"launches": moe["v1_launches"],
+                 **{k: moe["v1_moe"][0][k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by")},
+                 "shape": "N=1 C=48 G=128 E=2048 bf16 silu, scale = router weights"}},
         # v2 runs on the bench path (SPIF_KERNEL_V2); v3, v4 and v5 on no
         # path of the package (only its TPU probes call them)
         *(kernel_line(name, "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
@@ -3042,6 +3605,7 @@ def main(tiered_only: bool = False) -> int:
         "sparse_dense": ratios}))
     print("phase 5j summary:", json.dumps(tier_summary(
         tier_gate, tier_rows, tier_sched, tier13, h5, dense_peak)))
+    print("phase 5k summary:", json.dumps(moe_summary(moe)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3052,4 +3616,6 @@ def main(tiered_only: bool = False) -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--prefill-profile"]:
         sys.exit(prefill_only())
-    sys.exit(main(tiered_only=sys.argv[1:] == ["--tiered"]))
+    if sys.argv[1:] == ["--moe-phase"]:
+        sys.exit(moe_phase_only())
+    sys.exit(main(only={"--tiered": "tiered", "--moe": "moe"}.get(" ".join(sys.argv[1:]))))

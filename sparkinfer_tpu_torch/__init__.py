@@ -6,10 +6,12 @@ reader finds each counterpart, and imports nothing of it (nor JAX).
 
   gguf/       GGUF reader and the dequantizers the port needs (copies)
   ops/        plain torch ops + hand-written CUDA kernels (csrc/, ctypes)
-  models/     arch config (copy), GGUF loader, llama-family forward
+  models/     arch config (copy), GGUF loader, llama-family forward and
+              its MoE (llama-MoE, mixtral, qwen3moe)
   runtime/    static KV cache, sampling, Engine
   sparse/     predictor, group selection, pipelined sparse FFN, hot/cold
-              tiering, the online balancer, model splits
+              tiering, the online balancer, model splits, MoE routing, the
+              expert FFN and expert tiering
   native.py   the tiered FFN's host library (csrc/spark_host.cpp, g++)
 
 Entry points (`models.loader.load_model`, `runtime.engine.Engine`) run on

@@ -1,5 +1,6 @@
 """GGUF -> torch params, the port of sparkinfer_tpu/models/loader.py for the
-llama family (llama, mistral, prosparse_llama, bamboo).
+llama family (llama, mistral, prosparse_llama, bamboo) and its MoE (llama
+with experts, mixtral, qwen3moe).
 
 The params dict has the JAX loader's keys and orientations, so the two
 packages can be compared key for key: `x @ W` with W shaped (in, out),
@@ -14,7 +15,16 @@ keep_quantized=True keeps Q4_0/Q8_0 linears packed on the device as
 A GGUF with `tokenizer.ggml.*` metadata gives the model its `Vocab`
 (tokenizer/vocab.py).
 
-Later slices: attn_w8a8, MLA, layer segments, MoE.
+MoE: the router (ffn_gate_inp) as w_router (E, X), its bias, the expert
+stacks, their gpt-oss biases, the score-correction bias (exp_probs_b),
+grovemoe's chunk experts and the shared expert's tensors, and qwen3's q/k
+norms. Every expert stack is kept in one orientation, (X, Fe, E) a layer,
+the GGUF's own for up and gate (sparse/moe.py): the fused mode and expert
+tiering read it as row stores through views, so the experts are resident
+once. The JAX loader keeps up and gate as (X, E, Fe); models/from_jax.py
+converts.
+
+Later slices: attn_w8a8, MLA, layer segments.
 """
 
 from __future__ import annotations
@@ -44,6 +54,15 @@ _LAYER_TENSORS = {
     "ffn_down.weight": "w_down", "ffn_down.bias": "b_down",
     "ffn_pred_up.weight": "pred_up", "ffn_pred_up.bias": "pred_up_b",
     "ffn_pred_down.weight": "pred_down", "ffn_pred_down.bias": "pred_down_b",
+    "attn_q_norm.weight": "attn_q_norm_w", "attn_k_norm.weight": "attn_k_norm_w",
+    "ffn_gate_inp.weight": "w_router", "ffn_gate_inp.bias": "w_router_b",
+    "ffn_up_exps.weight": "w_up_exps", "ffn_gate_exps.weight": "w_gate_exps",
+    "ffn_down_exps.weight": "w_down_exps", "ffn_up_exps.bias": "w_up_exps_b",
+    "ffn_gate_exps.bias": "w_gate_exps_b", "ffn_down_exps.bias": "w_down_exps_b",
+    "exp_probs_b.bias": "router_bias", "ffn_up_chexps.weight": "w_up_chexps",
+    "ffn_gate_chexps.weight": "w_gate_chexps", "ffn_down_chexps.weight": "w_down_chexps",
+    "ffn_up_shexp.weight": "w_up_shexp", "ffn_gate_shexp.weight": "w_gate_shexp",
+    "ffn_down_shexp.weight": "w_down_shexp", "ffn_gate_inp_shexp.weight": "w_gate_inp_shexp",
 }
 
 
@@ -112,6 +131,33 @@ def _check_supported(r: GGUFReader, cfg: ModelConfig):
             raise NotImplementedError(f"tensor {name} is not read by the port yet")
 
 
+def _add_moe(r: GGUFReader, p: str, E: int, add):
+    """A layer's MoE tensors (models/loader.py:404-445 of the JAX package),
+    the expert stacks as (X, Fe, E)."""
+    gi = _get(r, p + "ffn_gate_inp.weight")  # (X, E)
+    if gi is None:
+        return
+    add("w_router", np.ascontiguousarray(gi.T))  # (E, X)
+    add("w_router_b", _get(r, p + "ffn_gate_inp.bias"))
+    for nm in ("up", "gate", "down"):  # gpt-oss per-expert biases, (X, Fe) and (X, E)
+        add(f"w_{nm}_exps_b", _get(r, p + f"ffn_{nm}_exps.bias"))
+    for kind in ("exps", "chexps"):  # grovemoe's chunk experts as the experts
+        for nm in ("up", "gate", "down"):
+            w = _get(r, p + f"ffn_{nm}_{kind}.weight")  # up/gate (X, Fe, E), down (X, E, Fe)
+            if w is not None and nm == "down":
+                w = np.ascontiguousarray(np.swapaxes(w, -1, -2))
+            add(f"w_{nm}_{kind}", w)
+    add("router_bias", _get(r, p + "exp_probs_b.bias"))  # selection-only bias
+    # the shared expert, oriented by n_embd (its width differs from n_ff)
+    for nm in ("up", "gate", "down"):
+        ws = _get(r, p + f"ffn_{nm}_shexp.weight")
+        if ws is not None and ws.shape[0 if nm == "down" else 1] == E:
+            ws = np.ascontiguousarray(ws.T)  # to (E, Fs), down (Fs, E)
+        add(f"w_{nm}_shexp", ws)
+    gis = _get(r, p + "ffn_gate_inp_shexp.weight")  # (1, E): qwen2moe's shared-expert gate
+    add("w_gate_inp_shexp", None if gis is None else np.ascontiguousarray(gis.reshape(-1)))
+
+
 def load_model(path: str, dtype=torch.bfloat16, device=None,
                keep_quantized: bool = False) -> LoadedModel:
     """Load a llama-family GGUF into stacked torch tensors on `device`
@@ -172,7 +218,8 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
                     torch.empty((L,) + qw.shape[::-1], dtype=_host(qw).dtype, device=device),
                     torch.empty((L,) + sc.shape[::-1], dtype=f32, device=device), kind)
             else:
-                want = f32 if ("norm" in key or key.startswith("b")) else dtype
+                want = (f32 if ("norm" in key or key.startswith("b") or key == "router_bias")
+                        else dtype)
                 layers[key] = torch.empty((L,) + arr.shape, dtype=want, device=device)
         dst = layers[key]
         if isinstance(dst, QuantTensor) != _is_quant(arr) or (
@@ -194,10 +241,13 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
         for nm, key in (("attn_q.bias", "bq"), ("attn_k.bias", "bk"),
                         ("attn_v.bias", "bv")):
             add(i, key, _get(r, p + nm))
+        add(i, "attn_q_norm_w", _get(r, p + "attn_q_norm.weight"))
+        add(i, "attn_k_norm_w", _get(r, p + "attn_k_norm.weight"))
         add(i, "wo", _lin(p + "attn_output.weight", H * D, E))
         add(i, "bo", _get(r, p + "attn_output.bias"))
         fnw = _get(r, p + "ffn_norm.weight")
         add(i, "ffn_norm_w", fnw if fnw is not None else np.ones(E, np.float32))
+        _add_moe(r, p, E, lambda key, arr: add(i, key, arr))
         add(i, "w_up", _lin(p + "ffn_up.weight", E, F))
         add(i, "b_up", _get(r, p + "ffn_up.bias"))
         add(i, "w_gate", _lin(p + "ffn_gate.weight", E, F))

@@ -1,5 +1,6 @@
 """Llama-family transformer forward, the port of the llama-family body of
-sparkinfer_tpu/models/transformer.py:make_forward.
+sparkinfer_tpu/models/transformer.py:make_forward, with the Mixture-of-Experts
+FFN of llama-MoE (mixtral) and qwen3moe and qwen3's per-head q/k norms.
 
 A plain Python loop over layers takes the place of `lax.scan`; the KV cache
 is written in place. The FFN is pluggable as in the JAX package:
@@ -15,10 +16,18 @@ Every projection goes through `quant_linear` (the JAX `mm`), so packed
 Q4_0/Q8_0 weights (QuantTensor, FlatQuantTensor) run the quant_matmul
 kernels and plain tensors a plain matmul.
 
+A model with experts (cfg.n_expert > 0) and no `ffn_fn` runs the MoE FFN of
+`sparse/moe.py` at every layer that carries a router (`w_router`), the dense
+FFN at any other, in `moe_mode` "dense" (plain torch over the gathered expert
+weights) or "pallas" (the v1 row kernel, `ops/sparse_ffn.py`, with the router
+weights as its scale mask), as the JAX forward dispatches them.
+
 Attention is plain torch (matmul, mask, softmax), as the JAX CPU path
 computes it; the JAX package's TPU prefill uses JAX's library flash
 attention, which is no kernel of this repository and has no port here.
-MLA, iSWA, layer segments, deepstack, ALiBi and softcaps come later.
+MLA, iSWA, layer segments, deepstack, ALiBi, softcaps and the other MoE
+families' variants (deepseek2 segments, gpt-oss, arctic's parallel MoE,
+qk norms after rope) come later.
 """
 
 from __future__ import annotations
@@ -38,18 +47,26 @@ from .config import ModelConfig
 NEG_INF = -1e30
 
 LLAMA_FAMILY = ("llama", "mistral", "prosparse_llama", "bamboo")
+MOE_ARCHS = ("llama", "mixtral", "qwen3moe")  # the archs whose experts the port runs
+EXPERT_ONLY = ("mixtral", "qwen3moe")  # the archs it runs with experts only
 
 
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError for a configuration the port cannot run yet."""
-    if cfg.arch not in LLAMA_FAMILY:
+    archs = LLAMA_FAMILY + EXPERT_ONLY
+    if cfg.arch not in archs:
         raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet (llama family only: "
-            f"{', '.join(LLAMA_FAMILY)})")
-    if (cfg.n_expert or cfg.kv_lora_rank or cfg.sliding_window
-            or cfg.n_head_arr or cfg.n_ff_arr):
+            f"arch {cfg.arch!r} is not ported yet (the llama family and its MoE: "
+            f"{', '.join(archs)})")
+    if cfg.n_expert and cfg.arch not in MOE_ARCHS:
+        raise NotImplementedError(f"experts of arch {cfg.arch!r} are not ported yet")
+    if cfg.arch in EXPERT_ONLY and not (cfg.n_expert and cfg.n_expert_used):
+        raise NotImplementedError(f"arch {cfg.arch!r} without experts is not ported")
+    if (cfg.kv_lora_rank or cfg.sliding_window or cfg.n_head_arr or cfg.n_ff_arr
+            or cfg.traits.qk_norm_after_rope or cfg.traits.parallel_moe):
         raise NotImplementedError(
-            "MoE, MLA, sliding windows and per-layer widths are not ported yet")
+            "MLA, sliding windows, per-layer widths, q/k norms after rope and "
+            "parallel MoE blocks are not ported yet")
 
 
 def rope_params(cfg: ModelConfig) -> RopeParams:
@@ -116,6 +133,16 @@ def _attend(q, k, v, H, Hkv, D, scale, mask):
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D)
 
 
+def _qk_norms(lp: dict, q: torch.Tensor, k: torch.Tensor, eps: float):
+    """The q/k RMS norms before rope (qwen3's attn_q_norm/attn_k_norm): per
+    head when the weight is head_dim wide, over the full width otherwise."""
+    qw, kw = lp["attn_q_norm_w"], lp["attn_k_norm_w"]
+    if qw.shape[-1] == q.shape[-1]:
+        return rms_norm(q, qw, eps), rms_norm(k, kw, eps)
+    return (rms_norm(q.flatten(-2), qw, eps).view(q.shape),
+            rms_norm(k.flatten(-2), kw, eps).view(k.shape))
+
+
 def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor,
               kc: torch.Tensor, vc: torch.Tensor, rp: RopeParams,
               rope_cs: tuple[torch.Tensor, torch.Tensor],
@@ -134,6 +161,8 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
         q = q + lp["bq"].to(q.dtype).reshape(H, D)
         k = k + lp["bk"].to(k.dtype).reshape(Hkv, D)
         v = v + lp["bv"].to(v.dtype).reshape(Hkv, D)
+    if "attn_q_norm_w" in lp:
+        q, k = _qk_norms(lp, q, k, cfg.norm_eps)
     q = rotate(q, *rope_cs, rp)
     k = rotate(k, *rope_cs, rp)
     write_layer(kc, k, positions)
@@ -177,18 +206,36 @@ def lm_head(x: torch.Tensor, w) -> torch.Tensor:
     return out.reshape(x.shape[:-1] + (V,))
 
 
+def moe_or_dense_ffn(cfg: ModelConfig, moe_mode: str = "dense") -> Callable:
+    """The FFN of a model with experts: the MoE FFN at a layer with a router,
+    the dense FFN at any other (deepseek2-style leading dense layers).
+    moe_mode "pallas" reads the layers' `moe_layout` row stores."""
+    from ..sparse.moe import make_moe_ffn
+
+    moe, dense = make_moe_ffn(cfg, mode=moe_mode), dense_ffn(cfg)
+
+    def ffn(lp: dict, x: torch.Tensor) -> torch.Tensor:
+        return moe(lp, x) if "w_router" in lp else dense(lp, x)
+
+    return ffn
+
+
 def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                  fresh_prefill: bool = False,
                  ffn_carry_init: Callable | None = None,
-                 stateful_ffn: bool = False) -> Callable:
+                 stateful_ffn: bool = False, moe_mode: str = "dense") -> Callable:
     """fwd(params, tokens (B,T), positions (B,T), cache[, fstate]) -> logits
     f32 (B, T, V); the cache is updated in place, and with stateful_ffn the
     FFN's state `fstate` too. `positions` are the absolute sequence
-    positions of `tokens`."""
+    positions of `tokens`. Without ffn_fn a model with experts runs its MoE
+    FFN in `moe_mode` ("dense" or "pallas")."""
     check_supported(cfg)
     if stateful_ffn and ffn_carry_init is not None:
         raise ValueError("a stateful FFN takes no cross-layer carry")
-    ffn = ffn_fn or dense_ffn(cfg)
+    if ffn_fn is None and cfg.n_expert > 0:
+        ffn = moe_or_dense_ffn(cfg, moe_mode)
+    else:
+        ffn = ffn_fn or dense_ffn(cfg)
     rp = rope_params(cfg)
     eps = cfg.norm_eps
 

@@ -2,8 +2,9 @@
 sparkinfer_tpu/ops/activations.py:act_fn.
 
 ProSparse: fatrelu(gate) * up; Bamboo: relu(gate) * relu(up); ReLU models:
-relu(up); llama: silu(gate) * up. The other activations of the JAX table
-(gelu, geglu, relu², swiglu_oai, xIELU, ...) come with their families.
+relu(up); llama and the MoE families: silu(gate) * up; the MoE functions'
+other variants: gpt-oss's clamped swiglu, geglu, reglu and gelu. The rest of
+the JAX table (relu², xIELU, ...) comes with its families.
 """
 
 from __future__ import annotations
@@ -21,6 +22,18 @@ def _silu_gate(g, u):
     return F.silu(g.float()).to(g.dtype) * u
 
 
+def _gelu_gate(g, u):
+    return F.gelu(g.float(), approximate="tanh").to(g.dtype) * u
+
+
+def _swiglu_oai(g, u, alpha: float = 1.702, limit: float = 7.0):
+    """gpt-oss clamped swiglu (ggml_swiglu_oai): gate clamped above at
+    limit, up to [-limit, limit], sigmoid slope alpha, the (up + 1) shift."""
+    gf = g.float().clamp_max(limit)
+    uf = u.float().clamp(-limit, limit)
+    return (gf * torch.sigmoid(alpha * gf) * (uf + 1.0)).to(g.dtype)
+
+
 def _drelu(g, u):
     return g.clamp_min(0) * u.clamp_min(0)
 
@@ -29,11 +42,19 @@ def _relu(u):
     return u.clamp_min(0)
 
 
+def _gelu(u):
+    return F.gelu(u.float(), approximate="tanh").to(u.dtype)
+
+
 def act_fn(name: str, fatrelu_threshold: float = 0.0):
     """Returns (gated, fn). gated=True -> fn(gate, up); else fn(up)."""
     table = {
         "silu": (True, _silu_gate),
         "swiglu": (True, _silu_gate),
+        "swiglu_oai": (True, _swiglu_oai),
+        "geglu": (True, _gelu_gate),
+        "reglu": (True, lambda g, u: g.clamp_min(0) * u),
+        "gelu": (False, _gelu),
         "fatrelu": (True, lambda g, u: fatrelu(g, fatrelu_threshold) * u),
         "drelu": (True, _drelu),
         "relu": (False, _relu),

@@ -19,7 +19,14 @@ CUDA graph; host mode, whose every layer calls the host library, runs it
 eagerly (the JAX Engine turns its fused decode off for tiering). A split file
 (`split`) reorders the neurons hot-first before the stores are built.
 
-Self-extend, context shift, iSWA and MoE come later.
+A model with experts (llama-MoE, qwen3moe) decodes through its MoE FFN
+(`sparse/moe.py`) in `moe_mode` "dense" (plain torch over the gathered
+expert stacks, the default, as the JAX Engine's) or "pallas" (the v1 row
+kernel over views of the same stacks, `moe_layout`); routing, its top-k and
+the expansion of expert ids to row groups run on the device, inside the
+step's graph.
+
+Self-extend, context shift and iSWA come later.
 """
 
 from __future__ import annotations
@@ -105,7 +112,13 @@ class Engine:
     function over the same static buffers. A graph is kept for each KV cache
     a step runs on: `generate`'s one engine-owned cache, and at most a few
     caches of the caller's own (`decode_step`). The engine keeps one
-    sampler generator, which `new_sampler_state` reseeds and returns."""
+    sampler generator, which `new_sampler_state` reseeds and returns.
+
+    moe_mode ("dense" or "pallas") picks the MoE FFN of a model with
+    experts. "pallas" reads `moe_layout`'s row-store views of the expert
+    stacks, in the engine's own params: the model's params stay as they
+    are (the JAX Engine replaces the stacks in them), so engines of both
+    modes can share one model."""
 
     GRAPHS = 4  # the decode-step graphs kept: the engine's cache and callers'
 
@@ -127,8 +140,11 @@ class Engine:
         cuda_graph: bool | None = None,
         sparse_cold_mode: str = "host",
         rebalance_every: int = 1,
+        moe_mode: str = "dense",
     ):
         self.device = resolve_device(device)
+        if moe_mode not in ("dense", "pallas"):
+            raise ValueError(f"moe_mode {moe_mode!r} (dense or pallas)")
         self.tiered = sparse is not None and sparse.hot_groups > 0
         if self.tiered and sparse_cold_mode == "host":
             if cuda_graph:
@@ -200,8 +216,16 @@ class Engine:
                     self.fwd_decode = make_forward(self.cfg, ffn_fn=make_sparse_ffn(
                         self.cfg, sparse, mode=sparse_decode_mode))
         else:
-            self.fwd = make_forward(self.cfg)
-            self.fwd_prefill = make_forward(self.cfg, fresh_prefill=True)
+            if moe_mode == "pallas" and self.cfg.n_expert > 0:
+                from ..sparse.moe import moe_layout
+
+                # the row stores are views: the experts stay resident once
+                layers = moe_layout(model.params["layers"], self.cfg)
+                for k in ("w_up_exps", "w_gate_exps", "w_down_exps"):
+                    layers.pop(k, None)
+                self.params = {**model.params, "layers": layers}
+            self.fwd = make_forward(self.cfg, moe_mode=moe_mode)
+            self.fwd_prefill = make_forward(self.cfg, fresh_prefill=True, moe_mode=moe_mode)
             self.fwd_decode = self.fwd
         self.prefill_chunk = 1024  # ubatch size for long prompts (ref n_ubatch)
         self.rebalance_every = max(rebalance_every, 1)

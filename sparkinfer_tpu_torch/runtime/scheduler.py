@@ -55,6 +55,9 @@ hot blocks go to the card, and prompts prefill through the tiered forward,
 whose statistics they warm. A split file (`split`) reorders the neurons
 hot-first first.
 
+A model with experts ticks through its MoE FFN in dense mode (the
+forward's default), as the JAX Scheduler does; there is no moe_mode here.
+
 Quantized or split-dtype KV caches and slot save/restore are not ported yet
 and raise NotImplementedError.
 """

@@ -55,7 +55,7 @@ from .predictor import predict_activations
 MODES = ("host", "drop", "fetch")
 
 
-def _host_rows(w, dtype) -> torch.Tensor:
+def host_rows(w, dtype) -> torch.Tensor:
     """A contiguous host copy of a row store (L, ...) in `dtype`, made one
     layer at a time (so a card's store is never converted whole)."""
     w = torch.as_tensor(w)
@@ -63,6 +63,35 @@ def _host_rows(w, dtype) -> torch.Tensor:
     for il in range(w.shape[0]):
         out[il].copy_(w[il])
     return out
+
+
+class PinnedStaging:
+    """Pinned host buffers for a layer's round trip between the card and the
+    host, named with their per-row shape and dtype: one set a device, grown
+    to the largest row count asked for, of which each call takes views of
+    the first N rows. A prefill of any length thus reuses the one set; a
+    buffer that a grown set replaces goes back to torch's pinned-memory
+    cache, which holds it until the copies queued on it have run."""
+
+    def __init__(self, **specs: tuple[tuple[int, ...], torch.dtype]):
+        self.specs = specs
+        self._sets: dict[str, tuple[int, tuple[torch.Tensor, ...]]] = {}
+
+    def rows(self, N: int, device) -> tuple[torch.Tensor, ...]:
+        """The buffers' first N rows, in the order of the specs."""
+        key = str(device)
+        have, bufs = self._sets.get(key, (0, ()))
+        if N > have:
+            bufs = tuple(torch.empty((N,) + shape, dtype=dtype, pin_memory=True)
+                         for shape, dtype in self.specs.values())
+            self._sets[key] = (N, bufs)
+        return tuple(b[:N] for b in bufs)
+
+    @property
+    def nbytes(self) -> int:
+        """The pinned bytes held, over every device's set."""
+        return sum(b.numel() * b.element_size()
+                   for _, bufs in self._sets.values() for b in bufs)
 
 
 class ColdStore:
@@ -81,16 +110,18 @@ class ColdStore:
         if dtype is None:
             dtype = torch.float16 if native.has_f16() else torch.float32
         self.dtype = dtype
-        self.up = _host_rows(layers["w_up_rows"], dtype)
-        self.gate = (_host_rows(layers["w_gate_rows"], dtype)
+        self.up = host_rows(layers["w_up_rows"], dtype)
+        self.gate = (host_rows(layers["w_gate_rows"], dtype)
                      if "w_gate_rows" in layers else None)
-        self.down = _host_rows(layers["w_down_rows"], dtype)
-        L, ng, G = self.up.shape[:3]
-        self.b_up = (_host_rows(torch.as_tensor(layers["b_up"]).reshape(L, ng, G),
+        self.down = host_rows(layers["w_down_rows"], dtype)
+        L, ng, G, E = self.up.shape
+        self.b_up = (host_rows(torch.as_tensor(layers["b_up"]).reshape(L, ng, G),
                                 torch.float32) if "b_up" in layers else None)
         self.act = cfg.traits.sparse_act
         self.fatrelu_threshold = cfg.fatrelu_threshold
-        self._pinned: dict[tuple, tuple] = {}  # (N, device) -> host staging buffers
+        f32 = torch.float32
+        self.staging = PinnedStaging(x=((E,), f32), probs=((ng, G), f32),
+                                     cold_active=((ng,), torch.bool), out=((E,), f32))
         self.t_call_s = 0.0  # the library's time, summed over calls
         self.t_layer_s = 0.0  # a layer's whole host part: copies, waits, the call
         self.n_calls = 0
@@ -101,18 +132,6 @@ class ColdStore:
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
                    for t in (self.up, self.gate, self.down, self.b_up) if t is not None)
-
-    def _staging(self, N: int, E: int, ng: int, G: int, device):
-        key = (N, str(device))
-        bufs = self._pinned.get(key)
-        if bufs is None:
-            pin = dict(pin_memory=True)
-            bufs = (torch.empty((N, E), dtype=torch.float32, **pin),
-                    torch.empty((N, ng, G), dtype=torch.float32, **pin),
-                    torch.empty((N, ng), dtype=torch.bool, **pin),
-                    torch.empty((N, E), dtype=torch.float32, **pin))
-            self._pinned[key] = bufs
-        return bufs
 
     def complement(self, il: int, x: torch.Tensor, probs: torch.Tensor,
                    cold_active: torch.Tensor) -> torch.Tensor:
@@ -134,7 +153,7 @@ class ColdStore:
                                            cold_active.contiguous(), **kw)
             t2 = time.perf_counter()
         else:
-            xh, ph, ch, oh = self._staging(N, E, ng, G, x.device)
+            xh, ph, ch, oh = self.staging.rows(N, x.device)
             xh.copy_(x, non_blocking=True)
             ph.copy_(probs, non_blocking=True)
             ch.copy_(cold_active, non_blocking=True)

@@ -283,6 +283,40 @@ def test_graph_step_equals_the_eager_step(cuda, gguf, q8_gguf, kind):
     assert any(per_step) == (kind != "dense")
 
 
+@pytest.fixture(scope="module")
+def moe_gguf(tmp_path_factory):
+    path = tmp_path_factory.mktemp("models") / "tiny-qwen3moe.gguf"
+    rng = np.random.default_rng(11)
+    norms = {f"blk.{i}.attn_{qk}_norm.weight": 1.0 + 0.2 * rng.standard_normal(16)
+             for i in range(2) for qk in ("q", "k")}
+    make_tiny_llama(path, arch="qwen3moe", n_expert=8, n_expert_used=3, n_ff=32, seed=3,
+                    extra_tensors=norms)
+    return str(path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "pallas"])
+def test_moe_graph_step_equals_the_eager_step(cuda, moe_gguf, mode):
+    """A qwen3moe Engine in each moe_mode: the decode graph against the eager
+    step over the same model, greedy streams equal and every step's logits
+    bit-equal (routing, its top-k and the expert rows run inside the
+    graph); in "pallas" mode v1 once a layer a step, in "dense" none."""
+    model = load_model(moe_gguf, dtype=torch.float32, device="cuda")
+    kw = dict(max_seq=64, sampler=GREEDY, kv_dtype=torch.float32, device="cuda",
+              moe_mode=mode)
+    graph_eng, eager = Engine(model, **kw), Engine(model, cuda_graph=False, **kw)
+    runs = {}
+    for name, eng in (("eager", eager), ("graph", graph_eng)):
+        toks, logits = _steps(eng, 6)
+        runs[name] = (toks, logits)
+    assert runs["graph"][0] == runs["eager"][0]
+    for got, want in zip(runs["graph"][1], runs["eager"][1]):
+        assert torch.equal(got, want)
+    assert graph_eng.graphs.captures == 1
+    v1 = graphs.COUNTED.index(sparse_ffn_block)
+    assert _per_step(eager)[v1] == (model.config.n_layer if mode == "pallas" else 0)
+
+
 def _per_step(eng):
     """The launches of one eager decode step of `eng`, by counted wrapper."""
     cache, st = eng.new_cache(), eng.new_sampler_state()
@@ -522,3 +556,23 @@ def test_cold_store_complement_from_the_card(cuda, gguf):
                                               None, probs, cold_active, cold.act,
                                               cold.fatrelu_threshold, 0.5)
         assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_tiered_prefill_pins_one_staging_set(cuda, gguf):
+    """Host-mode tiered prefill calls the cold store's complement with N =
+    the prompt's length: five lengths served one after another leave one
+    pinned staging set, sized for the longest prompt (x, probabilities,
+    out: f32 rows; cold_active: bool), not a set a length."""
+    sched = Scheduler(load_model(gguf, dtype=torch.float32, device="cuda"), n_slots=2,
+                      max_seq=64, sampler=GREEDY, kv_dtype=torch.float32,
+                      sparse=SparseConfig(G, CAP, hot_groups=2), sparse_cold_mode="host",
+                      prefill_mode="tiered", device="cuda")
+    lengths = (7, 3, 12, 5, 9)
+    for n in lengths:
+        req = sched.submit(Request(prompt_tokens=[(13 * n + 11 * i) % 199 for i in range(n)],
+                                   max_new_tokens=3))
+        sched.run_until_idle()
+        assert len(req.tokens()) == 3
+    E, ng = sched.cfg.n_embd, SparseConfig(G, CAP).n_groups(sched.cfg.n_ff)
+    assert sched.cold.staging.nbytes == max(lengths) * ((2 * E + ng * G) * 4 + ng)

@@ -889,6 +889,40 @@ def test_v1_decode_shape_bf16(cuda, N, act):
               act=act, bu_sel=kw["bu_sel"])
 
 
+@pytest.fixture(scope="module")
+def moe_stores():
+    """Qwen3-30B-A3B's row stores of one layer, bf16: 128 experts of 6
+    groups of 128 rows (R = 768), E = 2048."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    return [(torch.randn((768, 128, 2048), generator=gen, device="cuda") * 0.05).bfloat16()
+            for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,bias", list(itertools.product([1, 32], [False, True])))
+def test_v1_moe_shape_bf16(cuda, moe_stores, N, bias):
+    """The fused MoE FFN at Qwen3-30B-A3B's shape: each token's 8 of 128
+    experts as 48 group rows (C = 48, G = 128, E = 2048), silu, the router
+    weights as the scale mask, at decode (N = 1) and prefill (N = 32); with
+    gpt-oss-style up and gate biases (bu_sel, bg_sel) and without."""
+    gen = torch.Generator(device="cuda").manual_seed(42 + N)
+    k, ng_e, G = 8, 6, 128
+    idx = torch.stack([torch.randperm(128, generator=gen, device="cuda")[:k] for _ in range(N)])
+    rows = (idx[:, :, None] * ng_e + torch.arange(ng_e, device="cuda")).reshape(N, -1).int()
+    w = torch.rand((N, k), generator=gen, device="cuda")
+    scale = (w / w.sum(-1, keepdim=True))[:, :, None, None].expand(N, k, ng_e, G)
+    kw = {}
+    if bias:
+        kw = {name: torch.randn((N, k * ng_e, G), generator=gen, device="cuda") * 0.1
+              for name in ("bu_sel", "bg_sel")}
+    x = torch.randn((N, 2048), generator=gen, device="cuda").bfloat16()
+    _check_fn(sparse_ffn_block, sparse_ffn_block_plain,
+              (x, rows, scale.reshape(N, k * ng_e, G), *moe_stores), 1e-3, act="silu",
+              mask_mode="scale", **kw)
+
+
 @pytest.mark.cuda
 def test_v1_odd_widths(cuda):
     """E not a multiple of the kernel's tiles; G neither a power of 2 nor a

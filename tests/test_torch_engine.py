@@ -301,7 +301,7 @@ def test_port_imports_without_jax():
                 "common.jinja", "server.app", "server.chat", "server.chat_parser",
                 "server.json_partial", "server.tools_api", "server.webui",
                 "server.__main__", "native", "sparse.tiering", "sparse.balancer",
-                "sparse.split"):
+                "sparse.split", "sparse.moe"):
         assert "sparkinfer_tpu_torch." + mod in names, mod
 
 

@@ -68,7 +68,8 @@ def test_partial_rope_keeps_the_tail():
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
 
 
-@pytest.mark.parametrize("name", ["silu", "swiglu", "fatrelu", "drelu", "relu"])
+@pytest.mark.parametrize("name", ["silu", "swiglu", "fatrelu", "drelu", "relu", "swiglu_oai",
+                                  "geglu", "reglu", "gelu"])
 def test_act_fn_matches_jax(name):
     rng = _rng(2)
     g = rng.standard_normal((4, 33)).astype(np.float32)
@@ -87,7 +88,7 @@ def test_act_fn_matches_jax(name):
 
 def test_act_fn_rejects_unported():
     with pytest.raises(NotImplementedError):
-        tact.act_fn("swiglu_oai")
+        tact.act_fn("relu2")
 
 
 @pytest.mark.parametrize("gtype", [GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.F16,
