@@ -50,8 +50,10 @@ sees no card or the package is missing. Phases, each of which fails the run:
      max_abs_err, tol, ms, plain_ms, bound_ms and library_ms (the bf16
      torch.matmul of the dequantized weight for the quant products):
        sparse_ffn_block_v6 at 7B widths (E=4096, G=128, C=12 of 86, bf16),
-       N=1 and 4, with the kernel one call launches and its span
-       (torch.profiler: v6_ffn alone) and its launch plan;
+       N=1 and 4, and N=6 (a speculative verify, K=5) and 32 (a 32-token
+       sparse prefill) with every token's groups in one layer, with the
+       kernel one call launches and its span (torch.profiler: v6_ffn
+       alone) and its launch plan;
        sparse_ffn_block (v1) at 7B widths, N=1 and 4, over the Scheduler's
        row stores, and v3 and v5 over the same stores, v4 over their
        interleave (L, ng, 3, G, E), v2 over the bench path's concatenated
@@ -197,13 +199,46 @@ sees no card or the package is missing. Phases, each of which fails the run:
        step, the misses a token of the last 16 steps below those of the
        first 16. `python3 chip_smoke.py --moe` runs phases 1, 2 and 5k
        alone and prints no result.
+     5l. the single-sequence runtime and the CLI, on the 7B bf16 model
+       (full width and depth, SparseConfig(128, 12), decode steps as CUDA
+       graphs), right after 5h: the static sampler chain (repetition
+       penalty 1.1 over the last 64 tokens) and a context shift (max_seq
+       128, a 32-token prompt, 160 tokens) and self-extend ((4, 64),
+       max_seq 256, 200 tokens), each a graph engine's stream against an
+       eager engine's over the same stores, every token's logits bit-equal
+       and no capture in the compared run; mirostat v2 seeded (64 tokens,
+       mu moved on the device); the 32-token prompt prefilled through v6
+       (sparse_prefill="sparse": v6 at N=32, n_layer launches) against the
+       masked-dense prefill; speculative decoding (the sparse target, a
+       dense draft on the same weights, K=5), lookup and lookahead over a
+       repeated prompt, 64 tokens each, with accept rate, ms a round, the
+       plain step's ms and v6 launches a round (v6 at N=6 in each verify),
+       on the random weights and on echo weights (greedy decoding repeats
+       its last token: every draft accepted); the 4-slot v1 Scheduler's
+       slot saved after 16 tokens, zeroed and restored into another slot,
+       whose continuation streams the saved slot's, no capture; a rank-8
+       LoRA adapter (attn_q, ffn_up, ffn_down, written by the port's GGUF
+       writer) re-merged in place into the weights and flat stores (scale 0
+       and 1 give back their logits bit for bit) and served by SparkServer,
+       /lora-adapters at scale 0 and 1 each streaming its text again; f32
+       gates at 7B widths cut to 4 layers: the three drafters' greedy
+       streams against plain greedy decode (a difference only at a top-2
+       gap below 1e-4 of the scale) and the in-place LoRA merge against a
+       plain torch merge (prefill and first decode logits within 1e-3); and
+       `python -m sparkinfer_tpu_torch.tools.cli` as a child process on a
+       GGUF at 7B widths cut to 2 layers (F16 weights, predictors, the
+       32000-piece SPM vocabulary), sparse decode, --draft-mode lookup and
+       -gan 4 -gaw 64 each printing the in-process engine's stream, and
+       -nps 2 --json. `python3 chip_smoke.py --runtime` runs phases 1, 2
+       and 5l alone and prints no result.
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
 
 The line before the last is {"kernels": [...]} (v1's entry counts its MoE
-launches too, and carries its MoE-shape timing under "moe"); the last line
-is {"ok": true, "device": {...}}.
+launches too, and carries its MoE-shape timing under "moe"; v6's counts
+phase 5l's and carries its N=6 and N=32 timings under "shapes"); the last
+line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --prefill-profile
 
@@ -585,14 +620,22 @@ def phase_reference(sparse_cfg_cls, engine_cls, sampler):
           f"compared, first decode logits max diff / scale, tokens equal): {spread}")
 
 
-def rows_sets(gen, n_sets, N, C, ng, L):
+def rows_sets(gen, n_sets, N, C, ng, L, one_layer=False):
     """n_sets random (N, C) row-id sets into a flat (L*ng, ...) store: C
-    distinct groups of one random layer per token."""
+    distinct groups of one random layer per token (one_layer: the same
+    layer for every token of a set, as a forward's N tokens share it)."""
     import torch
 
-    return [torch.stack([torch.randperm(ng, generator=gen, device="cuda")[:C]
-                         + int(torch.randint(L, (1,), generator=gen, device="cuda")) * ng
-                         for _ in range(N)]).to(torch.int32) for _ in range(n_sets)]
+    def layer():
+        return int(torch.randint(L, (1,), generator=gen, device="cuda")) * ng
+
+    sets = []
+    for _ in range(n_sets):
+        il = layer() if one_layer else None
+        sets.append(torch.stack([torch.randperm(ng, generator=gen, device="cuda")[:C]
+                                 + (il if one_layer else layer())
+                                 for _ in range(N)]).to(torch.int32))
+    return sets
 
 
 def phase_v6(v6, v6_plain, flat, L, ng):
@@ -606,7 +649,9 @@ def phase_v6(v6, v6_plain, flat, L, ng):
 
     R, E, G = flat["w_upT_flat"].shape
     C = 12
-    cases = ((1, "fatrelu"), (4, "fatrelu"), (4, "relu"))
+    # decode (N = 1), batched decode (4), the speculative verify (K+1 = 6)
+    # and the sparse prefill of a 32-token prompt (32)
+    cases = ((1, "fatrelu"), (4, "fatrelu"), (4, "relu"), (6, "fatrelu"), (32, "fatrelu"))
     per_call = kernels_per_call([["v6", N, C, E, G, "bfloat16", act] for N, act in cases],
                                 spans=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -615,7 +660,7 @@ def phase_v6(v6, v6_plain, flat, L, ng):
         names = [k for k, _ in kernels[:-1]]
         check(len(names) == 1 and "v6_ffn" in names[0], f"v6 N={N} {act}: one call launched {names}")
         gated = act != "relu"
-        idx = rows_sets(gen, N_SETS, N, C, ng, L)
+        idx = rows_sets(gen, N_SETS, N, C, ng, L, one_layer=N > 4)
         x = torch.randn((N, E), generator=gen, device="cuda").to(torch.bfloat16)
         gp = torch.rand((N, C, G), generator=gen, device="cuda")
         bu = torch.randn((N, C, G), generator=gen, device="cuda") * 0.1
@@ -643,7 +688,8 @@ def phase_v6(v6, v6_plain, flat, L, ng):
                    span_us=kernels, plan=v6_plan(x.device, N, C, E, G, gated=gated))
         print("kernel check:", json.dumps(row))
         results.append(row)
-    return results[0]  # N=1 fatrelu: the main path's decode shape
+    # N=1 fatrelu: the decode shape; N=6 and 32: the verify and prefill shapes
+    return results[0], {f"N={r['N']}": r for r in results if r["N"] in (6, 32)}
 
 
 def phase_v6q(flat, L, ng, C):
@@ -670,7 +716,7 @@ def phase_v6q(flat, L, ng, C):
         names = [k for k, _ in kernels[:-1]]
         check(len(names) == 2 and "v6q_up" in names[0] and "v6q_down" in names[1],
               f"v6q N={N}: one call launched {names}")
-        idx = rows_sets(gen, N_SETS, N, C, ng, L)
+        idx = rows_sets(gen, N_SETS, N, C, ng, L, one_layer=N > 4)
         x = torch.randn((N, E), generator=gen, device="cuda").to(torch.bfloat16)
         gp = torch.rand((N, C, G), generator=gen, device="cuda")
         kw = dict(act="fatrelu")
@@ -1510,25 +1556,43 @@ def phase_v2(model, scfg, C, per_call):
 def profile_steps(label, step, steps: int = 8):
     """Device time by kernel over `steps` calls of step() (torch.profiler),
     and the share of the window in which the device was busy. Returns the
-    (kernel, ms, launches) rows over all steps and the window's wall ms."""
+    (kernel, ms, launches) rows over all steps and the window's wall ms.
+    The window opens with a few `spin_kernel`s (torch.cuda._sleep), a
+    synchronization and a pause, and closes with a pause, spin kernels and
+    a synchronization, all left out of the rows, as `kernels_per_call`'s
+    window does: late in the full run the profiler lost kernels at a
+    window's edge (1-3 of a 13B step's qmm_decode launches with one window
+    of 8 steps, 14 with a window a step, on the H100; 1 with the opening
+    guard alone), which the same window alone did not."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.05)
+        for _ in range(8):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
     # device-side events only (kernels, copies), so no time counts twice
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows = [(e.key, (e.self_device_time_total or e.device_time_total) / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in device if "spin_kernel" not in e.key]
+    guards = sum(e.count for e in device if "spin_kernel" in e.key)
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     print(f"profile: {steps} {label}, wall {wall_ms / steps:.3f} ms/step, "
-          f"device busy {busy / steps:.3f} ms/step ({100 * busy / wall_ms:.1f}%)")
+          f"device busy {busy / steps:.3f} ms/step ({100 * busy / wall_ms:.1f}%), "
+          f"{guards} of the 16 guard kernels recorded")
     for key, ms, count in rows[:12]:
         print(f"  {ms / steps:8.4f} ms/step  {count // steps:5d}/step  {key[:90]}")
     return rows, wall_ms
@@ -1919,7 +1983,7 @@ def http(port: int, path: str, body=None, timeout: float = 300.0) -> dict:
     first = None
     with urllib.request.urlopen(req, timeout=timeout) as r:
         check(r.status == 200, f"server {path}: HTTP {r.status}")
-        if body is None or not body.get("stream"):
+        if not isinstance(body, dict) or not body.get("stream"):
             raw = r.read()
             out = (json.loads(raw) if r.headers.get("Content-Type") == "application/json"
                    else raw.decode())
@@ -2187,18 +2251,35 @@ def write_tiny_gguf(path, seed: int):
     """A small ProSparse GGUF at the llama-2 layout, written by the port's
     gguf writer: 2 layers, E=128, 4 heads, F=256, a rank-16 predictor, and
     an SPM vocabulary of 512 pieces with CHAT_TEMPLATE."""
+    write_prosparse_gguf(path, seed, L=2, E=128, H=4, F=256, R=16, n_vocab=512)
+
+
+def write_prosparse_gguf(path, seed: int, L, E, H, F, R, n_vocab, f16=False):
+    """A ProSparse GGUF at the llama-2 layout, written by the port's gguf
+    writer, with an SPM vocabulary of n_vocab pieces and CHAT_TEMPLATE;
+    weights drawn from the seed (N(0, 0.08), or with f16 stored as F16 at
+    bench.py's "7b" scales, drawn on the card)."""
     import numpy as np
 
     from sparkinfer_tpu_torch.gguf.writer import GGUFWriter
 
-    arch, L, E, H, F, R = "prosparse_llama", 2, 128, 4, 256, 16
-    vocab = spm_vocab(512, seed)
+    arch = "prosparse_llama"
+    vocab = spm_vocab(n_vocab, seed)
     V = vocab.n_tokens
     rng = np.random.default_rng(seed)
+    if f16:
+        import torch
 
-    def w(*shape, scale=0.08):
-        return (rng.standard_normal(shape) * scale).astype(np.float32)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
 
+    def w(*shape, scale=0.08, shift=0.0):
+        if f16:
+            t = torch.randn(shape, generator=gen, device="cuda") * scale + shift
+            return t.half().cpu().numpy()
+        return (rng.standard_normal(shape) * scale + shift).astype(np.float32)
+
+    sc = dict(proj=0.02, pred_up=0.05, pred_down=0.6, bias=0.5) if f16 else dict(
+        proj=0.08, pred_up=0.08, pred_down=0.08, bias=0.08)
     wr = GGUFWriter(str(path), arch)
     wr.add_kv("tokenizer.ggml.model", "llama")
     wr.add_array("tokenizer.ggml.tokens", vocab.tokens)
@@ -2209,27 +2290,30 @@ def write_tiny_gguf(path, seed: int):
     wr.add_kv("tokenizer.chat_template", CHAT_TEMPLATE)
     for key, v in (("block_count", L), ("embedding_length", E), ("attention.head_count", H),
                    ("attention.head_count_kv", H), ("feed_forward_length", F),
-                   ("vocab_size", V), ("context_length", 256),
+                   ("vocab_size", V), ("context_length", 4096 if f16 else 256),
                    ("rope.dimension_count", E // H)):
         wr.add_kv(f"{arch}.{key}", np.uint32(v))
     wr.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", np.float32(1e-5))
     wr.add_kv(f"{arch}.rope.freq_base", np.float32(10000.0))
     wr.add_array(f"{arch}.pred_lora", np.full(L, R, np.uint32))
-    wr.add_tensor("token_embd.weight", w(V, E))
+    wr.add_tensor("token_embd.weight", w(V, E, scale=sc["proj"]))
     wr.add_tensor("output_norm.weight", np.ones(E, np.float32))
-    wr.add_tensor("output.weight", w(V, E))
+    wr.add_tensor("output.weight", w(V, E, scale=sc["proj"]))
     for i in range(L):
         p = f"blk.{i}."
         for name, shape in (("attn_norm.weight", (E,)), ("ffn_norm.weight", (E,))):
             wr.add_tensor(p + name, np.ones(shape, np.float32))
-        for name, shape in (("attn_q.weight", (E, E)), ("attn_k.weight", (E, E)),
-                            ("attn_v.weight", (E, E)), ("attn_output.weight", (E, E)),
-                            ("ffn_up.weight", (F, E)), ("ffn_gate.weight", (F, E)),
-                            ("ffn_down.weight", (E, F)), ("ffn_pred_up.weight", (R, E)),
-                            ("ffn_pred_down.weight", (F, R))):
-            wr.add_tensor(p + name, w(*shape))
-        wr.add_tensor(p + "ffn_pred_up.bias", w(R))
-        wr.add_tensor(p + "ffn_pred_down.bias", w(F) - 1.0)
+        for name, shape, scale in (
+                ("attn_q.weight", (E, E), "proj"), ("attn_k.weight", (E, E), "proj"),
+                ("attn_v.weight", (E, E), "proj"), ("attn_output.weight", (E, E), "proj"),
+                ("ffn_up.weight", (F, E), "proj"), ("ffn_gate.weight", (F, E), "proj"),
+                ("ffn_down.weight", (E, F), "proj"), ("ffn_pred_up.weight", (R, E), "pred_up"),
+                ("ffn_pred_down.weight", (F, R), "pred_down")):
+            wr.add_tensor(p + name, w(*shape, scale=sc[scale]))
+        wr.add_tensor(p + "ffn_pred_up.bias", np.zeros(R, np.float32) if f16 else w(R))
+        wr.add_tensor(p + "ffn_pred_down.bias",
+                      (w(F, scale=sc["bias"], shift=-1.2) if f16 else w(F) - 1.0)
+                      .astype(np.float32))
     wr.write()
 
 
@@ -3304,6 +3388,656 @@ def moe_child() -> dict:
     return json.loads(last[len("phase 5k summary: "):])
 
 
+# --- phase 5l: the single-sequence runtime and the CLI ------------------------
+
+
+def stream_with_logits(eng, prompt, n_new, **kw):
+    """(tokens, each token's (1, V) logits, cloned) of a streamed generate."""
+    import torch
+
+    toks, logits = [], []
+    for tok in eng.generate(prompt, n_new, stream=True, **kw):
+        toks.append(tok)
+        logits.append(eng.last_logits.clone())
+    check(all(bool(torch.isfinite(lg).all()) for lg in logits), "non-finite logits")
+    return toks, logits
+
+
+def graph_eager_pair(label, graph_eng, eager_eng, prompt, n_new, **kw) -> dict:
+    """A graph engine's stream against an eager engine's over the same
+    params: tokens equal, every token's logits bit-equal, and no graph
+    captured in the compared run (the graph engine's step is captured by a
+    short generate first, so its decode tok/s leaves the capture out)."""
+    import torch
+
+    graph_eng.generate(prompt, 2)
+    captures = graph_eng.graphs.captures
+    graph_eng.perf.__init__()
+    eager_eng.perf.__init__()
+    g_toks, g_logits = stream_with_logits(graph_eng, prompt, n_new, **kw)
+    e_toks, e_logits = stream_with_logits(eager_eng, prompt, n_new, **kw)
+    bad = [i for i, (a, b) in enumerate(zip(g_logits, e_logits)) if not torch.equal(a, b)]
+    check(g_toks == e_toks, f"phase 5l, {label}: graph and eager streams differ: "
+                            f"{g_toks} vs {e_toks}")
+    check(not bad, f"phase 5l, {label}: logits of steps {bad[:8]} differ between graph "
+                   f"and eager")
+    new = graph_eng.graphs.captures - captures
+    check(captures == 1 and new == 0, f"phase 5l, {label}: {captures} captures before, "
+                                      f"{new} in the compared generate")
+    return {"tokens": len(g_toks), "graph_decode_tok_s": graph_eng.perf.decode_tps,
+            "eager_decode_tok_s": eager_eng.perf.decode_tps, "captures": new}
+
+
+def drafter_run(label, drafter, target, prompt, n_new) -> dict:
+    """One drafter's generate with v6's count set to 0 before and read
+    after: accept rate, wall ms a round, v6 launches a round (verify
+    forwards only: the drafts run on a dense engine). A short generate
+    first captures the verify and draft graphs, out of the measured run."""
+    from sparkinfer_tpu_torch.ops.sparse_ffn import sparse_ffn_block_v6 as v6
+
+    drafter.generate(prompt, 8)
+    drafter.stats = type(drafter.stats)()
+    v6.launches = 0
+    d0, t_dec0 = target.perf.n_decode, target.perf.t_decode_s
+    t0 = time.perf_counter()
+    toks = drafter.generate(prompt, n_new)
+    wall = time.perf_counter() - t0
+    st = drafter.stats
+    steps = target.perf.n_decode - d0  # plain steps taken where nothing was drafted
+    row = {"drafter": label, "tokens": len(toks), "rounds": st.n_rounds,
+           "drafted": st.n_drafted, "accepted": st.n_accepted,
+           "accept_rate": st.accept_rate, "plain_steps": steps,
+           "ms_per_token": 1e3 * wall / max(len(toks), 1),
+           # the plain steps' time taken out (where nothing was proposed)
+           "ms_per_round": (1e3 * (wall - (target.perf.t_decode_s - t_dec0)) / st.n_rounds
+                            if st.n_rounds else None),
+           "v6_launches": v6.launches}
+    return row, toks
+
+
+def echo_params(tok_embd) -> dict:
+    """The embedding scaled by 5000 and the head tied to the unscaled one:
+    the residual stream is the input token's embedding up to a few percent,
+    so every logit but the input token's is about 64 |e| cos, below 6, and
+    the input token's 64 |e|, about 82: greedy decoding repeats its last
+    token. A measurement device: drafts of a repeating sequence are accepted."""
+    return {"tok_embd": tok_embd * 5000.0, "output": tok_embd.T}
+
+
+def f32_gates(scfg, tmp, n_new: int = 32) -> dict:
+    """7B widths cut to 4 layers, f32: the speculative (dense draft on the
+    same weights), lookup and lookahead greedy streams of the sparse target
+    against its plain greedy decode (a position where they differ must be a
+    tie: the plain logits' top-2 gap there below 1e-4 of their scale); and
+    the LoRA re-merge against a plain merge (`lora_f32_gate`)."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.runtime.lookahead import LookaheadEngine
+    from sparkinfer_tpu_torch.runtime.lookup import LookupEngine
+    from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
+    from sparkinfer_tpu_torch.runtime.speculative import SpeculativeEngine
+
+    cfg = prosparse_config(4, 4096, 32, 11008, 32000, 1024)
+    model = random_model(cfg, torch.float32, "cuda", SEED + 17)
+    greedy = SamplerConfig(temp=0.0)
+    kw = dict(max_seq=256, sampler=greedy, kv_dtype=torch.float32, device="cuda")
+    target = Engine(model, sparse=scfg, **kw)
+    draft = Engine(model, **kw)
+    # echo weights: greedy decoding repeats, so lookup and lookahead draft
+    # and accept (phase_runtime says why)
+    tied = Engine(LoadedModel(config=cfg, params={**target.params,
+                                                  **echo_params(model.params["tok_embd"])}),
+                  sparse=scfg, sparse_preprepared=True, **kw)
+    prompt = [int(t) for t in torch.randint(cfg.n_vocab, (8,), generator=torch.Generator()
+                                            .manual_seed(SEED + 18))] * 3
+    rows = {}
+    for name, eng, make in (
+            ("speculative", target, lambda e: SpeculativeEngine(e, draft, n_draft=5)),
+            ("lookup", tied, lambda e: LookupEngine(e, n_draft=5)),
+            ("lookahead", tied, lambda e: LookaheadEngine(e, n_draft=5))):
+        want, logits = stream_with_logits(eng, prompt, n_new)
+        dr = make(eng)
+        got = dr.generate(prompt, n_new)
+        diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        gap = None
+        if diff is not None:
+            top2 = torch.topk(logits[diff][0], 2).values
+            gap = float(top2[0] - top2[1]) / float(logits[diff].abs().max())
+            check(gap < 1e-4, f"phase 5l, f32 gate, {name}: token {diff} differs from plain "
+                              f"greedy decode with a top-2 gap of {gap:.3e} of the scale")
+        else:
+            check(len(got) == len(want), f"phase 5l, f32 gate, {name}: {len(got)} tokens")
+        check(dr.stats.n_rounds > 0, f"phase 5l, f32 gate, {name}: no round drafted")
+        rows[name] = {"equal": diff is None, "first_difference": diff, "top2_gap": gap,
+                      "rounds": dr.stats.n_rounds, "accept_rate": dr.stats.accept_rate}
+    del target, draft, tied
+    path = tmp / "lora-4l.gguf"
+    rows["lora"] = lora_f32_gate(model, scfg, prompt, path, *lora_adapter(path, cfg))
+    del model
+    torch.cuda.empty_cache()
+    print("phase 5l, f32 gates (7B widths, 4 layers: drafters against plain greedy, LoRA "
+          "re-merge against a plain merge):", json.dumps(rows))
+    return rows
+
+
+def lora_adapter(path, cfg, rank: int = 8, seed: int = SEED + 31):
+    """A rank-8 adapter over attn_q, ffn_up and ffn_down of every layer,
+    written by the port's GGUF writer; returns its (A, B) by (layer, key)."""
+    import numpy as np
+
+    from sparkinfer_tpu_torch.gguf.constants import GGMLType
+    from sparkinfer_tpu_torch.gguf.writer import GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    E, F = cfg.n_embd, cfg.n_ff
+    w = GGUFWriter(str(path), "llama")
+    w.add_kv("general.type", "adapter")
+    w.add_kv("adapter.type", "lora")
+    w.add_kv("adapter.lora.alpha", np.float32(2.0 * rank))
+    ab = {}
+    for il in range(cfg.n_layer):
+        for name, key, (out_d, in_d) in (("attn_q", "wq", (E, E)), ("ffn_up", "w_up", (F, E)),
+                                         ("ffn_down", "w_down", (E, F))):
+            A = (rng.standard_normal((rank, in_d)) * 0.02).astype(np.float32)
+            B = (rng.standard_normal((out_d, rank)) * 0.02).astype(np.float32)
+            w.add_tensor(f"blk.{il}.{name}.lora_a", A, GGMLType.F32)
+            w.add_tensor(f"blk.{il}.{name}.lora_b", B, GGMLType.F32)
+            ab[(il, key)] = (A, B)
+    w.write()
+    return ab, 2.0  # alpha / rank
+
+
+def first_logits(eng, prompt):
+    """(prefill logits, first decode step's logits) of a greedy engine: the
+    masked-dense prefill reads the dense weights, the decode step (a graph
+    replay) the sparse stores."""
+    cache, st = eng.own_cache(), eng.new_sampler_state()
+    tok, cache, st, n = eng.prefill(prompt, cache, st)
+    pre = eng.last_logits.float().clone()
+    eng.decode_step(tok, n, cache, st)
+    return pre, eng.last_logits.float().clone()
+
+
+def lora_round_trip(model, eng, path, prompt) -> tuple:
+    """LoraMerger over the model's weights and `eng`'s stores, in place:
+    scale 1, then 0 (the base logits back bit for bit), then 1 again (the
+    merged logits back bit for bit). Returns (base, merged) first logits."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.lora import LoraMerger
+
+    base = first_logits(eng, prompt)
+    merger = LoraMerger([model.params, eng.params], model.config, [str(path)])
+    merger.merge([1.0])
+    merged = first_logits(eng, prompt)
+    merger.merge([0.0])
+    again = first_logits(eng, prompt)
+    check(all(torch.equal(a, b) for a, b in zip(again, base)),
+          "phase 5l, LoRA: scale 0 did not restore the base logits")
+    merger.merge([1.0])
+    again = first_logits(eng, prompt)
+    check(all(torch.equal(a, b) for a, b in zip(again, merged)),
+          "phase 5l, LoRA: a second merge at scale 1 gave other logits")
+    for a, b in zip(merged, base):
+        moved = float((a - b).abs().max())
+        check(moved > 1e-2 * float(b.abs().max()),
+              f"phase 5l, LoRA: the adapter moved the logits by {moved:.3e}")
+    return base, merged, merger
+
+
+def lora_targets(model) -> dict:
+    """Clones of the dense weights the adapter of `lora_adapter` touches,
+    taken before any merge: the references merge into these themselves."""
+    return {k: model.params["layers"][k].clone() for k in ("wq", "w_up", "w_down")}
+
+
+def merged_engine_logits(model, layers, prompt, **kw):
+    """First logits of an engine built afresh (its own sparse stores) on the
+    model with `layers`' weights in place of its own."""
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    params = {**model.params, "layers": {**model.params["layers"], **layers}}
+    return first_logits(Engine(LoadedModel(config=model.config, params=params), **kw), prompt)
+
+
+def lora_f32_gate(model, scfg, prompt, path, ab, s) -> dict:
+    """f32: the sparse engine re-merged in place (dense weights and v6 flat
+    stores) against an engine built on a plain torch merge (W + s (B A)^T)
+    of the base weights cloned before any merge, prefill and first decode
+    logits within 1e-3 of their scale."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
+
+    kw = dict(max_seq=128, sampler=SamplerConfig(temp=0.0), kv_dtype=torch.float32,
+              sparse=scfg, device="cuda")
+    layers = lora_targets(model)
+    _, merged, merger = lora_round_trip(model, Engine(model, **kw), path, prompt)
+    merger.merge([0.0])
+    del merger
+    for (il, key), (A, B) in ab.items():
+        layers[key][il] += s * (torch.tensor(B, device="cuda") @ torch.tensor(A, device="cuda")).T
+    ref = merged_engine_logits(model, layers, prompt, **kw)
+    errs = []
+    for got, want in zip(merged, ref):
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        check(err <= 1e-3 * scale, f"phase 5l, LoRA f32: merged logits differ from the plain "
+                                   f"merge by {err:.3e} (scale {scale:.3e})")
+        errs.append(err / scale)
+    return {"prefill_rel_err": errs[0], "decode_rel_err": errs[1]}
+
+
+def phase_lora(model, scfg, sparse_eng, prompt, tmp) -> dict:
+    """LoRA on the 7B bf16 model: the in-place re-merge (`LoraMerger`) into
+    the model's weights and the sparse engine's flat stores moves the first
+    logits, scale 0 gives the base logits back bit for bit and scale 1 the
+    merged ones, and the merged logits equal bit for bit those of an engine
+    built afresh on a copy merged in the same rounding order (the gate
+    against a plain f32 merge is `f32_gates`: at bf16 and 32 random layers
+    a last-bit difference in a weight grows through the layers); then
+    SparkServer with the adapter: /lora-adapters at scale 0
+    serves the base stream, at 1 the merged one, each time the same."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
+    from sparkinfer_tpu_torch.server.app import ServerConfig, SparkServer
+    from sparkinfer_tpu_torch.tokenizer import build_tokenizer
+
+    path = tmp / "lora-7b.gguf"
+    ab, s = lora_adapter(path, model.config)
+    layers = lora_targets(model)
+    base, merged, merger = lora_round_trip(model, sparse_eng, path, prompt)
+    merger.merge([0.0])
+    moved = [float((a - b).abs().max()) for a, b in zip(merged, base)]
+    del merger
+    # the reference: the adapter merged into the clones in the merger's
+    # rounding order (the f32 product cast to bf16, times s, added in bf16),
+    # an engine built afresh on them; bit-equal first logits check every
+    # dense and v6 flat-store write of the in-place merge at full width
+    for (il, key), (A, B) in ab.items():
+        delta = (torch.tensor(B, device="cuda") @ torch.tensor(A, device="cuda")).T
+        layers[key][il] = layers[key][il] + delta.to(layers[key].dtype) * s
+    ref = merged_engine_logits(model, layers, prompt, max_seq=sparse_eng.max_seq,
+                               sampler=sparse_eng.sampler_cfg, kv_dtype=sparse_eng.kv_dtype,
+                               sparse=scfg, device="cuda")
+    bits = [torch.equal(a, b) for a, b in zip(merged, ref)]
+    check(all(bits), "phase 5l, LoRA: the in-place merge's (prefill, decode) logits are "
+                     f"not bit-equal to a fresh engine's on a merged copy: {bits}, off by "
+                     f"{[float((a - b).abs().max()) for a, b in zip(merged, ref)]}")
+    del layers, ref
+    torch.cuda.empty_cache()
+
+    model.vocab = spm_vocab(model.config.n_vocab, SEED)
+    srv = SparkServer(model, ServerConfig(port=0, n_slots=1, max_seq=256, sparse=scfg,
+                                          lora=[(str(path), 0.0)], device="cuda",
+                                          slot_prompt_similarity=0.0),
+                      sampler=SamplerConfig(temp=0.0))
+    srv.serve(block=False)
+    try:
+        ids = build_tokenizer(model.vocab).encode("hello world", add_special=True)
+        body = {"prompt": ids + prompt[:16], "max_tokens": 16, "temperature": 0.0}
+
+        def stream():
+            fresh_slots(srv.sched)
+            return http(srv.port, "/v1/completions", body)["body"]["choices"][0]["text"]
+
+        base_text = stream()
+        http(srv.port, "/lora-adapters", [{"id": 0, "scale": 1.0}])
+        merged_text = stream()
+        http(srv.port, "/lora-adapters", [{"id": 0, "scale": 0.0}])
+        base_again = stream()
+        http(srv.port, "/lora-adapters", [{"id": 0, "scale": 1.0}])
+        merged_again = stream()
+        http(srv.port, "/lora-adapters", [{"id": 0, "scale": 0.0}])
+        captures = srv.sched.graphs.captures
+    finally:
+        srv.shutdown()
+        model.vocab = None
+    check(base_again == base_text and merged_again == merged_text,
+          "phase 5l, LoRA over HTTP: a re-merge did not give back its stream")
+    check(merged_text != base_text, "phase 5l, LoRA over HTTP: the adapter changed nothing")
+    check(captures == 1, f"phase 5l, LoRA over HTTP: {captures} tick captures")
+    del srv
+    torch.cuda.empty_cache()
+    row = {"moved_prefill_and_decode_logits": moved, "bit_equal_to_a_fresh_merge": True,
+           "http": {"base": base_text, "merged": merged_text}}
+    print("phase 5l, LoRA:", json.dumps(row))
+    return row
+
+
+def phase_slots(sched, tmp) -> dict:
+    """The 4-slot v1 Scheduler: a request of 16 new tokens, its slot saved;
+    the continuation (its prompt and tokens and 2 more) served over the
+    slot's rows is the reference; then the slot is zeroed, the file
+    restored into slot 2 in place, and the same continuation must stream
+    the same tokens, with no new capture."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.scheduler import Request
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+    prompt = torch.randint(sched.cfg.n_vocab, (32,), generator=gen).tolist()
+    fresh_slots(sched)
+    sched.slot_similarity = 0.5
+    try:
+        a = sched.submit(Request(prompt_tokens=prompt, max_new_tokens=16))
+        sched.run_until_idle()
+        first = a.tokens()
+        s_i = next(i for i, sl in enumerate(sched.slots) if sl.cached_tokens)
+        f = tmp / "slot.state"
+        t0 = time.perf_counter()
+        n_bytes = sched.save_slot(s_i, str(f))
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        cont = prompt + first + [5, 6]
+        r = sched.submit(Request(prompt_tokens=cont, max_new_tokens=16))
+        sched.run_until_idle()
+        want = r.tokens()
+        captures = sched.graphs.captures
+        fresh_slots(sched)
+        sched.cache.k[:, s_i].zero_()
+        sched.cache.v[:, s_i].zero_()
+        other = (s_i + 2) % sched.n_slots
+        t0 = time.perf_counter()
+        info = sched.restore_slot(other, str(f))
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        b = sched.submit(Request(prompt_tokens=cont, max_new_tokens=16))
+        sched.run_until_idle()
+        got = b.tokens()
+    finally:
+        sched.slot_similarity = 0.0
+    check(got == want, f"phase 5l, slots: the restored slot streamed {got}, the saved {want}")
+    check(sched.graphs.captures == captures,
+          f"phase 5l, slots: the restore led to {sched.graphs.captures - captures} captures")
+    row = {"slot": s_i, "restored_into": other, "n_past": info["n_past"], "file_bytes": n_bytes,
+           "save_ms": save_ms, "restore_ms": restore_ms, "tokens": len(got)}
+    print("phase 5l, slot save/restore:", json.dumps(row))
+    return row
+
+
+def cli_children(runs: dict, timeout: float = 300.0) -> dict:
+    """`python -m sparkinfer_tpu_torch.tools.cli ARGV` on the card for every
+    run at once (the children's start-up and loads overlap): {name:
+    (stdout, stderr, seconds)}; fails the run on a non-zero exit, and stops
+    every child whatever happens."""
+    import os
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "sparkinfer_tpu_torch.tools.cli", *argv], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for name, argv in runs.items()}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=timeout)
+            check(proc.returncode == 0, f"phase 5l, CLI {name} exited {proc.returncode}: "
+                                        f"{stderr[-3000:]}")
+            out[name] = (stdout, stderr, time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    return out
+
+
+def phase_cli(tmp) -> dict:
+    """The CLI as child processes, started together, on a GGUF at 7B widths
+    cut to 2 layers (F16 weights at bench.py's scales, predictors, the
+    32000-piece SPM vocabulary), written by the port's writer: plain sparse
+    decode, lookup drafting, self-extend (each printed stream equal to the
+    in-process engine's, built by the CLI's own make_engine from the same
+    flags on the same file) and bench mode (-nps 2 --json)."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import load_model
+    from sparkinfer_tpu_torch.runtime.lookup import LookupEngine
+    from sparkinfer_tpu_torch.tokenizer import build_tokenizer
+    from sparkinfer_tpu_torch.tools.cli import build_parser, make_engine
+
+    gguf = tmp / "prosparse-7b-widths-2l.gguf"
+    t0 = time.perf_counter()
+    write_prosparse_gguf(gguf, SEED + 51, L=2, E=4096, H=32, F=11008, R=1024, n_vocab=32000,
+                         f16=True)
+    write_s = time.perf_counter() - t0
+    prompt = "hello world " * 8
+    pf = tmp / "prompts.txt"
+    pf.write_text("hello world\nthe quick brown fox\n")
+    sparse = ["--temp", "0", "--sparse", "--group-size", "128", "--capacity-groups", "12",
+              "-c", "512"]
+    common = ["-m", str(gguf), "-p", prompt, "-n", "32"] + sparse
+    runs = {"plain": common + ["--verbose"],
+            "lookup": common + ["--draft-mode", "lookup", "--verbose"],
+            "self_extend": common + ["-gan", "4", "-gaw", "64"],
+            "bench": ["-m", str(gguf), "-f", str(pf), "-nps", "2", "--json", "-n", "16"] + sparse}
+    done = cli_children(runs)
+    rows = {"gguf_write_s": write_s}
+    model = load_model(str(gguf), device="cuda")
+    tk = build_tokenizer(model.vocab)
+    ids = tk.encode(prompt, add_special=True)
+    stop = {model.vocab.eos_id}
+    for name in ("plain", "lookup", "self_extend"):
+        out, err, child_s = done[name]
+        eng = make_engine(build_parser().parse_args(runs[name] + ["--device", "cuda"]), model)
+        toks = (LookupEngine(eng, n_draft=5).generate(ids, 32, stop_ids=stop)
+                if name == "lookup" else eng.generate(ids, 32, stop_ids=stop))
+        want = prompt + "".join(tk.decode([t]) for t in toks) + "\n"
+        check(out == want, f"phase 5l, CLI {name}: printed {out!r}, the engine {want!r}")
+        rows[name] = {"child_s": child_s, "tokens": len(toks),
+                      "stderr_json": [json.loads(ln) for ln in err.splitlines()
+                                      if ln.startswith("{")]}
+        del eng
+    bench = json.loads(done["bench"][0].strip().splitlines()[-1])
+    check(len(bench) == 2 and all(r["decode_tokens"] >= 1 for r in bench),
+          f"phase 5l, CLI bench mode: {bench}")
+    rows["bench"] = {"child_s": done["bench"][2], "rows": bench}
+    del model
+    torch.cuda.empty_cache()
+    print("phase 5l, CLI:", json.dumps(rows))
+    return rows
+
+
+def phase_runtime(model, scfg, sparse_eng, sched, prompt, n_new: int = 64) -> dict:
+    """Phase 5l over the 7B bf16 model (full width and depth): the sampler
+    chain, context shift, self-extend, sparse prefill, the drafters, slot
+    files, LoRA and the CLI; the f32 drafter gate at 4 layers. Returns its
+    summary with the v6 launches its main-path runs counted."""
+    import tempfile
+    import pathlib
+
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.ops.sparse_ffn import sparse_ffn_block_v6 as v6
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.runtime.lookahead import LookaheadEngine
+    from sparkinfer_tpu_torch.runtime.lookup import LookupEngine
+    from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
+    from sparkinfer_tpu_torch.runtime.speculative import SpeculativeEngine
+
+    t_start = time.perf_counter()
+    L = model.config.n_layer
+    stores = LoadedModel(config=model.config, params=sparse_eng.params)
+
+    def engines(sampler, **kw):
+        """A graph engine and an eager engine over the sparse engine's stores."""
+        kw = dict(sampler=sampler, sparse=scfg, sparse_preprepared=True, device="cuda", **kw)
+        return Engine(stores, **kw), Engine(stores, cuda_graph=False, **kw)
+
+    out, v6_main = {}, 0
+    # the sampler chain: repetition penalty over the last 64 tokens, graph and eager
+    pen = SamplerConfig(temp=0.0, penalty_repeat=1.1, penalty_last_n=64)
+    g, e = engines(pen, max_seq=1024)
+    v6.launches = 0
+    out["penalties"] = graph_eager_pair("penalty 1.1, last 64", g, e, prompt, n_new)
+    v6_main += v6.launches
+    miro = SamplerConfig(temp=0.8, mirostat=2, seed=SEED)
+    g = Engine(stores, max_seq=1024, sampler=miro, sparse=scfg, sparse_preprepared=True,
+               device="cuda")
+    v6.launches = 0
+    toks, _ = stream_with_logits(g, prompt, n_new, seed=SEED)
+    v6_main += v6.launches
+    mu = float(g.sstate.mirostat_mu)
+    check(len(toks) == n_new and mu != 2.0 * miro.mirostat_tau,
+          f"phase 5l, mirostat: {len(toks)} tokens, mu {mu} (starts at {2 * miro.mirostat_tau})")
+    out["mirostat"] = {"tokens": len(toks), "mu": mu, "distinct": len(set(toks))}
+    del g, e
+    # context shift: max_seq 128, a 32-token prompt, 160 tokens
+    g, e = engines(SamplerConfig(temp=0.0), max_seq=128)
+    v6.launches = 0
+    out["context_shift"] = graph_eager_pair("context shift", g, e, prompt, 160)
+    v6_main += v6.launches
+    # self-extend (4, 64): max_seq 256, 200 tokens
+    g, e = engines(SamplerConfig(temp=0.0), max_seq=256, self_extend=(4, 64))
+    v6.launches = 0
+    out["self_extend"] = graph_eager_pair("self-extend (4, 64)", g, e, prompt, 200)
+    v6_main += v6.launches
+    out["self_extend"]["gamma"] = g.self_extend.gamma
+    check(g.self_extend.gamma > 0, "phase 5l, self-extend never fired")
+    del g, e
+    torch.cuda.empty_cache()
+    print(f"phase 5l: sampler chain, context shift, self-extend at "
+          f"{time.perf_counter() - t_start:.1f} s:", json.dumps(out))
+
+    # sparse prefill: v6 at N = 32, n_layer times, against masked-dense prefill
+    sp = Engine(stores, max_seq=1024, sampler=SamplerConfig(temp=0.0), sparse=scfg,
+                sparse_preprepared=True, sparse_prefill="sparse", device="cuda")
+    rows = {}
+    for label, eng, want in (("sparse (v6 at N=32)", sp, L), ("masked-dense", sparse_eng, 0)):
+        cache, st = eng.own_cache() if eng is sp else eng.new_cache(), eng.new_sampler_state()
+        v6.launches = 0
+        eng.prefill(prompt, cache, st)  # warm
+        warm = v6.launches
+        v6.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            eng.prefill(prompt, cache, st)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 5
+        rows[label] = {"ms": ms, "v6_launches": v6.launches / 5, "warm_v6_launches": warm}
+        check(warm == want and v6.launches == 5 * want,
+              f"phase 5l, {label} prefill: v6 launched {warm} times warm and {v6.launches} in "
+              f"5 timed prefills, want {want} a prefill")
+        check(bool(torch.isfinite(eng.last_logits).all()), f"phase 5l, {label} prefill")
+        v6_main += warm + v6.launches
+    out["sparse_prefill"] = rows
+    print("phase 5l, 32-token prefill:", json.dumps(rows))
+    del sp
+
+    # the drafters: the sparse target, a dense draft on the same weights. Random
+    # weights give no recurring n-grams in 64 greedy tokens (no lookup round),
+    # so every drafter also runs on `echo_params`, under which greedy decoding
+    # repeats its last token: the other extreme of acceptance
+    def drafter_engines(tied):
+        head = echo_params(model.params["tok_embd"]) if tied else {}
+        t = Engine(LoadedModel(config=model.config, params={**sparse_eng.params, **head}),
+                   max_seq=1024, sampler=SamplerConfig(temp=0.0), sparse=scfg,
+                   sparse_preprepared=True, device="cuda")
+        d = Engine(LoadedModel(config=model.config, params={**model.params, **head}),
+                   max_seq=1024, sampler=SamplerConfig(temp=0.0), device="cuda")
+        return t, d
+
+    repetitive = prompt[:8] * 4
+    drafts = []
+    for tied, runs in ((False, (("speculative", 0),)),
+                       (True, (("speculative", 0), ("lookup", 1), ("lookahead", 1)))):
+        target, draft = drafter_engines(tied)
+        plain = {}
+        for k, pr in enumerate((prompt, repetitive)):  # plain greedy decode, logits kept
+            v6.launches = 0
+            target.perf.__init__()
+            plain[k] = stream_with_logits(target, pr, n_new)
+            v6_main += v6.launches
+        step_ms = 1e3 * target.perf.t_decode_s / max(target.perf.n_decode, 1)
+        for name, k in runs:
+            dr = {"speculative": lambda: SpeculativeEngine(target, draft, n_draft=5),
+                  "lookup": lambda: LookupEngine(target, n_draft=5),
+                  "lookahead": lambda: LookaheadEngine(target, n_draft=5)}[name]()
+            row, toks = drafter_run(name, dr, target, (prompt, repetitive)[k], n_new)
+            row["weights"] = "echo" if tied else "random"
+            v6_main += row["v6_launches"]
+            row["plain_step_ms"] = step_ms
+            ref, ref_logits = plain[k]
+            diff = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b), None)
+            row["agrees_with_plain_for"] = len(toks) if diff is None else diff
+            if diff is not None:  # bf16: a verify's sums round otherwise than a step's
+                top2 = torch.topk(ref_logits[diff][0].float(), 2).values
+                row["plain_top2_gap_there"] = float(top2[0] - top2[1]) / float(
+                    ref_logits[diff].abs().max())
+            rounds = row["rounds"]
+            check((rounds > 0 or not tied) and row["v6_launches"] >= rounds * L,
+                  f"phase 5l, {name}: {rounds} rounds, v6 launched {row['v6_launches']}")
+            row["v6_per_round"] = ((row["v6_launches"] - L * row["plain_steps"]) / rounds
+                                   if rounds else None)
+            drafts.append(row)
+            print("phase 5l, drafter:", json.dumps(row))
+        del target, draft
+    out["drafters"] = drafts
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        out["slots"] = phase_slots(sched, tmp)
+        out["lora"] = phase_lora(model, scfg, sparse_eng, prompt, tmp)
+        out["f32_gate"] = f32_gates(scfg, tmp)
+        out["cli"] = phase_cli(tmp)
+    out["v6_launches"] = v6_main
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase 5l done in {out['seconds']:.1f} s")
+    return out
+
+
+def runtime_phase_only(greedy) -> int:
+    """`chip_smoke.py --runtime`: phase 5l alone (after phases 1 and 2), on
+    the 7B bf16 model, its sparse engine and the 4-slot v1 Scheduler, as the
+    full run builds them; prints its summary and no result."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.runtime.scheduler import Scheduler
+    from sparkinfer_tpu_torch.sparse.config import SparseConfig
+
+    prompt = torch.randint(32000, (32,), generator=torch.Generator().manual_seed(SEED)).tolist()
+    cfg = prosparse_config(32, 4096, 32, 11008, 32000, 1024)
+    scfg = SparseConfig(group_size=128, capacity_groups=12)
+    model = random_model(cfg, torch.bfloat16, "cuda", SEED)
+    sparse_eng = Engine(model, max_seq=1024, sampler=greedy, sparse=scfg, device="cuda")
+    run_generate(sparse_eng, prompt, 8)
+    sched = Scheduler(model, n_slots=4, max_seq=128, sampler=greedy, sparse=scfg,
+                      sparse_batch_max=4, device="cuda")
+    print("phase 5l summary:", json.dumps(runtime_summary(
+        phase_runtime(model, scfg, sparse_eng, sched, prompt))))
+    return 0
+
+
+def runtime_summary(rt) -> dict:
+    """Phase 5l's numbers for PERF.md: tok/s, ms, accept rates, v6 counts."""
+    return {
+        "seconds": rt["seconds"], "v6_launches": rt["v6_launches"],
+        "penalties_decode_tok_s": [rt["penalties"][k] for k in ("graph_decode_tok_s",
+                                                                 "eager_decode_tok_s")],
+        "mirostat_mu": rt["mirostat"]["mu"],
+        "context_shift_decode_tok_s": [rt["context_shift"][k] for k in (
+            "graph_decode_tok_s", "eager_decode_tok_s")],
+        "self_extend_gamma": rt["self_extend"]["gamma"],
+        "prefill_ms": {k: v["ms"] for k, v in rt["sparse_prefill"].items()},
+        "drafters": [{k: d[k] for k in ("drafter", "weights", "accept_rate", "ms_per_round",
+                                        "ms_per_token", "plain_step_ms", "v6_per_round",
+                                        "agrees_with_plain_for")} for d in rt["drafters"]],
+        "f32_gate": rt["f32_gate"], "slots": rt["slots"],
+        "lora_bf16_moved": rt["lora"]["moved_prefill_and_decode_logits"],
+        "cli_child_s": {k: v["child_s"] for k, v in rt["cli"].items()
+                        if isinstance(v, dict)},
+    }
+
+
 def kernel_line(name, source, replaces, launches, row, shape):
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3380,6 +4114,8 @@ def main(only: str | None = None) -> int:
     if only == "moe":
         print("phase 5k summary:", json.dumps(phase_moe(greedy)))
         return 0
+    if only == "runtime":
+        return runtime_phase_only(greedy)
     # 5k. Qwen3-30B-A3B (61 GB of bf16 weights) in a child process, before
     # this process builds any model
     moe = moe_child()
@@ -3407,9 +4143,9 @@ def main(only: str | None = None) -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
     # 4a. v6 against its plain version
-    v6_row = phase_v6(sparse_ffn_block_v6, sparse_ffn_block_v6_plain,
-                      sparse_eng.params["sparse_flat"], cfg.n_layer,
-                      scfg.n_groups(cfg.n_ff))
+    v6_row, v6_shapes = phase_v6(sparse_ffn_block_v6, sparse_ffn_block_v6_plain,
+                                 sparse_eng.params["sparse_flat"], cfg.n_layer,
+                                 scfg.n_groups(cfg.n_ff))
 
     # 5b. the 7B main path
     L = cfg.n_layer
@@ -3453,6 +4189,11 @@ def main(only: str | None = None) -> int:
         model, n_slots=4, max_seq=128, sampler=greedy, sparse=scfg, sparse_batch_max=4,
         device="cuda", cuda_graph=False), prompts_h, 32))
     torch.cuda.empty_cache()
+    # 5l. the single-sequence runtime (sampler chain, context shift,
+    # self-extend, sparse prefill, drafters, slot files, LoRA) and the CLI
+    runtime = phase_runtime(model, scfg, sparse_eng, sched, prompt)
+    torch.cuda.empty_cache()
+    print(f"phase 5l done at {time.perf_counter() - t_start:.1f} s")
 
     # 4d, 5f. v7u, and batched decode of every decode path at B = 1, 2, 4, 8 (the ticks at 16)
     v7u_row = phase_v7u(sparse_eng.params["sparse_flat"], L, scfg.n_groups(cfg.n_ff))
@@ -3547,10 +4288,14 @@ def main(only: str | None = None) -> int:
     entry = phase_entry_point()
 
     out = {"kernels": [
-        kernel_line("sparse_ffn_block_v6", "sparkinfer_tpu_torch/csrc/sparse_ffn_v6.cu",
-                    "sparkinfer_tpu/ops/sparse_ffn_pallas.py:564",
-                    l7["sparse_ffn_block_v6"] + tier_v6, v6_row,
-                    "N=1 C=12 G=128 E=4096 bf16 fatrelu"),
+        {**kernel_line("sparse_ffn_block_v6", "sparkinfer_tpu_torch/csrc/sparse_ffn_v6.cu",
+                       "sparkinfer_tpu/ops/sparse_ffn_pallas.py:564",
+                       l7["sparse_ffn_block_v6"] + tier_v6 + runtime["v6_launches"], v6_row,
+                       "N=1 C=12 G=128 E=4096 bf16 fatrelu"),
+         # the speculative verify (N = K+1) and the 32-token sparse prefill
+         "shapes": {k: {f: r[f] for f in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}
+                    for k, r in v6_shapes.items()}},
         kernel_line("sparse_ffn_block_v6q", "sparkinfer_tpu_torch/csrc/sparse_ffn_v6q.cu",
                     "sparkinfer_tpu/ops/sparse_ffn_pallas.py:706",
                     l13["sparse_ffn_block_v6q"] + tier_v6q, v6q_row,
@@ -3606,6 +4351,7 @@ def main(only: str | None = None) -> int:
     print("phase 5j summary:", json.dumps(tier_summary(
         tier_gate, tier_rows, tier_sched, tier13, h5, dense_peak)))
     print("phase 5k summary:", json.dumps(moe_summary(moe)))
+    print("phase 5l summary:", json.dumps(runtime_summary(runtime)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3618,4 +4364,5 @@ if __name__ == "__main__":
         sys.exit(prefill_only())
     if sys.argv[1:] == ["--moe-phase"]:
         sys.exit(moe_phase_only())
-    sys.exit(main(only={"--tiered": "tiered", "--moe": "moe"}.get(" ".join(sys.argv[1:]))))
+    sys.exit(main(only={"--tiered": "tiered", "--moe": "moe", "--runtime": "runtime"}.get(
+        " ".join(sys.argv[1:]))))

@@ -1,8 +1,9 @@
 """Declarative argument table shared by all CLIs: the port's own copy of
-sparkinfer_tpu/common/args.py, with the rows of the server scope only (the
-port has no CLI yet). Rows whose modules are not ported yet stay in the
-table, so the flags parse as in the JAX package, and `unported_flags` names
-each one a run sets; the server's entry point fails on them.
+sparkinfer_tpu/common/args.py, with the rows of the cli and server scopes,
+and `--device` in both (the torch device; default the CUDA card). Rows whose
+modules are not ported yet stay in the table, so the flags parse as in the
+JAX package, and `unported_flags` names each one a run sets; the entry
+points fail on them.
 
 The reference declares every flag once in a table of `common_arg` rows
 (ref: common/arg.cpp — ~200 rows), each naming the examples (tools) it
@@ -88,6 +89,9 @@ OPTIONS: list[Opt] = [
        choices=["f32", "bf16", "q8", "int8"], default=None,
        help="V cache dtype (default: same as -ctk; float/quantized mixes "
             "are rejected like the reference non-FA path; ref arg.cpp:1678)"),
+    _o("--keep", scopes=CLI, type=int, default=-1,
+       help="tokens kept from the prompt on context shift "
+            "(-1 = whole prompt; ref main.cpp n_keep)"),
     _o("-b", "--batch-size", scopes=CS, env="SPARK_ARG_BATCH",
        type=int, default=1024,
        help="prefill micro-batch (ubatch) length in tokens (ref -b/-ub)"),
@@ -95,6 +99,8 @@ OPTIONS: list[Opt] = [
        type=int, default=0,
        help="host threads for native (OpenMP) kernels; 0 = all cores "
             "(device compute is unaffected; ref -t)"),
+    _o("--ignore-eos", scopes=CLI, action="store_true",
+       help="keep generating past end-of-generation tokens (ref --ignore-eos)"),
 
     # --- rope / YaRN overrides (ref common/arg.cpp:1564-1630) -----------
     _o("--rope-scaling", scopes=CS, env="SPARK_ARG_ROPE_SCALING",
@@ -116,6 +122,9 @@ OPTIONS: list[Opt] = [
        help="YaRN low correction dim"),
     _o("--yarn-beta-slow", scopes=CS, type=float, default=None,
        help="YaRN high correction dim"),
+    _o("--kv-iswa", scopes=CLI, env="SPARK_ARG_KV_ISWA", action="store_true",
+       help="dual SWA/full KV cache for interleaved-SWA models "
+            "(ref src/llama-kv-cache-iswa.cpp; not ported yet)"),
     _o("--attn-w8a8", scopes=CS, env="SPARK_ARG_ATTN_W8A8",
        action="store_true",
        help="re-quantize attention projections to row-wise W8A8 at load "
@@ -128,6 +137,10 @@ OPTIONS: list[Opt] = [
        help="LoRA adapter GGUF (repeatable; scale 1.0)"),
     _o("--lora-scaled", scopes=CS, action="append", default=None, nargs=2,
        metavar=("GGUF", "SCALE"), help="LoRA adapter with scale (repeatable)"),
+    _o("--control-vector", scopes=CLI, action="append", default=None,
+       metavar="GGUF", help="control vector (repeatable; ref llama-adapter)"),
+    _o("--control-vector-scaled", scopes=CLI, action="append", default=None,
+       nargs=2, metavar=("GGUF", "SCALE"), help="scaled control vector"),
 
     # --- sampling (ref common/common.h common_params_sampling) ----------
     _o("--temp", scopes=CS, env="SPARK_ARG_TEMP", type=float, default=0.8),
@@ -151,6 +164,37 @@ OPTIONS: list[Opt] = [
     _o("--xtc-threshold", scopes=CS, type=float, default=0.1),
     _o("-s", "--seed", scopes=ALL, env="SPARK_ARG_SEED", type=int, default=42),
     _o("--verbose", scopes=ALL, env="SPARK_ARG_VERBOSE", action="store_true"),
+
+    # --- grammar / structured output (ref common/arg.cpp --grammar) -----
+    _o("--grammar", scopes=CLI, default=None,
+       help="GBNF grammar source for constrained decoding"),
+    _o("--grammar-file", scopes=CLI, default=None,
+       help="read GBNF grammar from file"),
+    _o("-j", "--json-schema", scopes=CLI, default=None,
+       help="constrain output to a JSON schema (converted to GBNF; "
+            "ref grammars/README + json-schema-to-grammar)"),
+
+    # --- generation (cli) ------------------------------------------------
+    _o("-p", "--prompt", scopes=CLI, default=None),
+    _o("-f", "--prompt-file", scopes=CLI, default=None),
+    _o("-n", "--n-predict", scopes=CLI, env="SPARK_ARG_N_PREDICT",
+       type=int, default=64),
+    _o("-i", "--interactive", scopes=CLI, action="store_true",
+       help="chat REPL (ref: llama-cli interactive mode)"),
+    _o("--draft-mode", scopes=CLI, choices=["none", "lookup", "lookahead"],
+       default="none",
+       help="draft-free speculative decoding (greedy only; "
+            "ref examples/lookup, examples/lookahead)"),
+    _o("--draft", scopes=CLI, type=int, default=5,
+       help="draft length for --draft-mode"),
+    _o("-gan", "--grp-attn-n", scopes=CLI, type=int, default=1,
+       help="self-extend group size (ref main.cpp grp_attn_n)"),
+    _o("-gaw", "--grp-attn-w", scopes=CLI, type=int, default=512,
+       help="self-extend window (multiple of -gan)"),
+    _o("-nps", "--n-bench-prompts", scopes=CLI, type=int, default=0,
+       help="bench mode: run N prompts from --prompt-file, report t/s "
+            "(SparkInfer addition, ref tools/main/main.cpp:439,185)"),
+    _o("--json", scopes=CLI, action="store_true", help="bench output as JSON"),
 
     # --- SparkInfer sparse knobs (ref common/arg.cpp:1926-1955) ---------
     _o("--spif-ms", "--split", dest="split", scopes=CS, env="SPIF_MS",
@@ -196,9 +240,12 @@ OPTIONS: list[Opt] = [
             "incumbent hot group by this fraction of the layer's DFR "
             "range (kills steady-state churn; demand fetches bypass it)"),
 
+    _o("--moe-mode", scopes=CLI, choices=["dense", "pallas"], default="dense",
+       help="MoE expert FFN path (pallas = fused row streaming, the v1 kernel)"),
+
     # --- server ----------------------------------------------------------
-    _o("--device", scopes=SERVER, env="SPARK_ARG_DEVICE", default=None,
-       help="torch device to serve on (default: the CUDA card; 'cpu' for "
+    _o("--device", scopes=CS, env="SPARK_ARG_DEVICE", default=None,
+       help="torch device to run on (default: the CUDA card; 'cpu' for "
             "the CPU)"),
     _o("--host", scopes=SERVER, env="SPARK_ARG_HOST", default="127.0.0.1"),
     _o("--port", scopes=SERVER, env="SPARK_ARG_PORT", type=int, default=8080),
@@ -317,6 +364,28 @@ def kv_dtypes_from_args(args):
     return m[ctk], m[ctv], qk
 
 
+def grammar_from_args(args) -> str | None:
+    """GBNF source from --grammar / --grammar-file / --json-schema."""
+    if getattr(args, "grammar", None):
+        return args.grammar
+    if getattr(args, "grammar_file", None):
+        with open(args.grammar_file) as f:
+            return f.read()
+    if getattr(args, "json_schema", None):
+        import json
+
+        from ..grammar.json_schema import json_schema_to_gbnf
+
+        schema = args.json_schema
+        if schema.strip().startswith("{"):
+            schema = json.loads(schema)
+        else:  # a file path
+            with open(schema) as f:
+                schema = json.load(f)
+        return json_schema_to_gbnf(schema)
+    return None
+
+
 def adapters_from_args(args) -> list:
     """[(path, scale), ...] from --lora/--lora-scaled."""
     out = []
@@ -327,19 +396,27 @@ def adapters_from_args(args) -> list:
     return out
 
 
+def control_vectors_from_args(args) -> list:
+    """[(path, scale), ...] from --control-vector/--control-vector-scaled."""
+    out = []
+    for p in getattr(args, "control_vector", None) or []:
+        out.append((p, 1.0))
+    for p, s in getattr(args, "control_vector_scaled", None) or []:
+        out.append((p, float(s)))
+    return out
+
+
 # flags whose modules the port has not ported yet: dest -> (flag, module)
 _UNPORTED = {
     "hf_repo": ("-hf/--hf-repo", "tools/hf.py"),
-    "lora": ("--lora", "models/lora.py"),
-    "lora_scaled": ("--lora-scaled", "models/lora.py"),
     "attn_w8a8": ("--attn-w8a8", "ops/quant_matmul.py W8A8Tensor"),
-    "slot_save_path": ("--slot-save-path", "slot save/restore (runtime/state_io.py)"),
+    "kv_iswa": ("--kv-iswa", "the iSWA cache (runtime/kv_cache.py init_cache_iswa)"),
 }
 
 
 def unported_flags(args) -> list[str]:
     """One message for each flag of `args` that needs a module the port
-    has not ported yet: LoRA, the HF cache, W8A8 attention, slot files, and
+    has not ported yet: the HF cache, W8A8 attention, the iSWA cache, and
     quantized or split-dtype KV caches."""
     out = [f"{flag} needs {mod}, which is not ported yet"
            for dest, (flag, mod) in _UNPORTED.items() if getattr(args, dest, None)]

@@ -11,6 +11,8 @@ is written in place. The FFN is pluggable as in the JAX package:
 lives across forwards (the tiered FFN's DFR statistics, a profiler's
 counts): the forward takes it as a fifth argument and the FFN updates it in
 place, where the JAX forward threads it through its scan and returns it.
+A control vector (`layers["cvec"]`, models/lora.py) is added to the residual
+stream after each layer, as in the JAX forward.
 
 Every projection goes through `quant_linear` (the JAX `mm`), so packed
 Q4_0/Q8_0 weights (QuantTensor, FlatQuantTensor) run the quant_matmul
@@ -267,6 +269,8 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
             else:
                 y = ffn(lp, h2)
             x = x + y
+            if "cvec" in lp:  # control vector (llama_adapter_cvec)
+                x = x + lp["cvec"].to(x.dtype)
         x = rms_norm(x, params["output_norm_w"], eps)
         return lm_head(x, params["output"])
 

@@ -26,7 +26,21 @@ kernel over views of the same stacks, `moe_layout`); routing, its top-k and
 the expansion of expert ids to row groups run on the device, inside the
 step's graph.
 
-Self-extend, context shift and iSWA come later.
+Sampling runs the static chain of the JAX Engine (`sampling.chain_sample`:
+penalties, top-k, typical, top-p, min-p, xtc, temperature, or mirostat v2)
+inside the step, over state on the device (the generator, the ring of
+recent tokens, mirostat's mu) that the step updates in place.
+
+Past max_seq, `generate` shifts the context (`kv_cache.shift_cache`: keep
+`n_keep` prompt tokens, drop half of the rest, re-rope the tail), and with
+`self_extend=(n, w)` it groups old positions instead (`self_extend.py`);
+both rewrite the cache's own tensors between steps, so the step's graph
+reads them. `sparse_prefill="sparse"` runs the prompt through the
+pipelined decode FFN (v6 at N = the prompt's length). `verify` runs K+1
+tokens through the decode forward in one step (a graph of its own, keyed on
+T), the speculative, lookup and lookahead drafters' check.
+
+iSWA and the static `batch` > 1 come later.
 """
 
 from __future__ import annotations
@@ -42,7 +56,13 @@ from ..models.loader import LoadedModel
 from ..models.transformer import make_forward
 from .graphs import StepGraphs, resolve_capture
 from .kv_cache import KVCache, init_cache
-from .sampling import SamplerConfig, neutral_penalties, sample
+from .sampling import (
+    ChainState,
+    SamplerConfig,
+    chain_params,
+    chain_sample,
+    init_chain_state,
+)
 
 if TYPE_CHECKING:
     from ..sparse.config import SparseConfig
@@ -111,8 +131,16 @@ class Engine:
     too; True on the CPU raises ValueError. The eager step is the same
     function over the same static buffers. A graph is kept for each KV cache
     a step runs on: `generate`'s one engine-owned cache, and at most a few
-    caches of the caller's own (`decode_step`). The engine keeps one
-    sampler generator, which `new_sampler_state` reseeds and returns.
+    caches of the caller's own (`decode_step`), and one `verify` graph for
+    each block length T. The engine keeps one sampler state (`ChainState`:
+    its generator `generator`, the ring of recent tokens, mirostat's mu, on
+    the device), which `new_sampler_state` resets and returns.
+
+    sparse_prefill "sparse" prefills through the pipelined decode FFN (the
+    kernel at N = the prompt's length) instead of the masked-dense one.
+    self_extend=(grp_attn_n, grp_attn_w) groups old positions between steps
+    (`self_extend.py`); `generate(n_keep=...)` shifts the context at
+    max_seq otherwise.
 
     moe_mode ("dense" or "pallas") picks the MoE FFN of a model with
     experts. "pallas" reads `moe_layout`'s row-store views of the expert
@@ -133,6 +161,7 @@ class Engine:
         sparse_drop_dense: bool = False,
         sparse_preprepared: bool = False,
         sparse_pipelined: bool = True,
+        sparse_prefill: str = "dense",
         device=None,
         split=None,
         self_extend: tuple[int, int] | None = None,
@@ -152,8 +181,10 @@ class Engine:
                                  "a CUDA graph cannot hold: cuda_graph=False")
             cuda_graph = False
         capture = resolve_capture(cuda_graph, self.device)
-        if self_extend is not None or kv_iswa:
-            raise NotImplementedError("self-extend and the iSWA cache are not ported yet")
+        if kv_iswa:
+            raise NotImplementedError("the iSWA cache is not ported yet")
+        if sparse_prefill not in ("dense", "sparse"):
+            raise ValueError(f"sparse_prefill {sparse_prefill!r} (dense or sparse)")
         self.model = model
         self.cfg = model.config
         where = model.params["tok_embd"].device
@@ -163,12 +194,8 @@ class Engine:
                              f"{self.device}: load_model(..., device=...) to match")
         self.max_seq = max_seq
         self.sampler_cfg = sc = sampler or SamplerConfig()
-        if (sc.typical_p < 1.0 or sc.xtc_probability > 0.0 or sc.mirostat
-                or not neutral_penalties(sc.penalty_repeat, sc.penalty_freq,
-                                         sc.penalty_present)):
-            raise NotImplementedError(
-                "the Engine's sampler has no penalties, typical, xtc or mirostat "
-                "yet (the Scheduler's per-slot sampler has all but mirostat)")
+        if sc.mirostat not in (0, 2):
+            raise ValueError(f"mirostat {sc.mirostat}: 0 (off) or 2 (v2)")
         self.kv_dtype = kv_dtype
         self.params = model.params
         if sparse is not None:
@@ -212,6 +239,11 @@ class Engine:
                         self.cfg, sparse, mode=sparse_decode_mode)
                     self.fwd_decode = make_forward(self.cfg, ffn_fn=decode_ffn,
                                                    ffn_carry_init=carry_init)
+                    if sparse_prefill == "sparse":  # the prompt through the decode FFN
+                        self.fwd = self.fwd_decode
+                        self.fwd_prefill = make_forward(
+                            self.cfg, ffn_fn=decode_ffn, ffn_carry_init=carry_init,
+                            fresh_prefill=True)
                 else:
                     self.fwd_decode = make_forward(self.cfg, ffn_fn=make_sparse_ffn(
                         self.cfg, sparse, mode=sparse_decode_mode))
@@ -230,10 +262,24 @@ class Engine:
         self.prefill_chunk = 1024  # ubatch size for long prompts (ref n_ubatch)
         self.rebalance_every = max(rebalance_every, 1)
         self.perf = PerfCounters()
-        self.generator = torch.Generator(device=self.device)
+        self.sstate = init_chain_state(sc, device=self.device)
+        self.generator = self.sstate.gen
+        self._dp = chain_params(sc, self.device)  # the chain's knobs on the device
         self.graphs = StepGraphs(self.device, capture, self.GRAPHS,
                                  None if sc.greedy else self.generator)
         self.cache: KVCache | None = None  # generate's, made at its first call
+        self.self_extend_cfg = None
+        if self_extend is not None and self_extend[0] > 1:
+            from .self_extend import SelfExtendState
+
+            SelfExtendState(*self_extend)  # checks grp_attn_w % grp_attn_n
+            self.self_extend_cfg = tuple(self_extend)
+        self.self_extend = None  # the SelfExtendState of the last generate
+
+    @property
+    def batch(self) -> int:
+        """Sequences a step decodes: 1 (the static batch > 1 is not ported)."""
+        return 1
 
     def _init_tiered(self, sparse, mode, drop_dense, preprepared):
         """The tiered decode: the row stores (the prefill's too), the hot store
@@ -283,17 +329,37 @@ class Engine:
     def new_cache(self) -> KVCache:
         return init_cache(self.cfg, 1, self.max_seq, self.kv_dtype, self.device)
 
-    def new_sampler_state(self, seed: int | None = None) -> torch.Generator:
-        """The engine's generator, reseeded: a decode step draws from it
-        (its graphs have it registered), so it is the only sampler state
-        `decode_step` takes."""
-        self.generator.manual_seed(self.sampler_cfg.seed if seed is None else seed)
-        return self.generator
+    def own_cache(self) -> KVCache:
+        """The engine's own cache (`generate`'s and the drafters'), made once:
+        one cache keeps one set of step graphs."""
+        if self.cache is None:
+            self.cache = self.new_cache()
+        return self.cache
+
+    def new_sampler_state(self, seed: int | None = None) -> ChainState:
+        """The engine's sampler state, reset (the generator reseeded, the
+        ring emptied, mu at 2 tau): a step updates it in place (its graphs
+        hold its tensors), so it is the only sampler state `prefill` and
+        `decode_step` take."""
+        return self.sstate.reset(self.sampler_cfg, seed)
+
+    def _check_state(self, sstate):
+        if sstate is not self.sstate:
+            raise ValueError("a step samples with the engine's state (its generator, ring "
+                             "and mu): pass new_sampler_state()'s")
+
+    @torch.inference_mode()
+    def _self_extend_step(self, cache: KVCache, n_phys: int):
+        from ..models.transformer import rope_params
+        from .self_extend import self_extend_step
+
+        self_extend_step(cache, rope_params(self.cfg), self.self_extend, n_phys)
 
     @torch.inference_mode()
     def prefill(self, prompt_tokens: list[int], cache: KVCache,
-                sstate: torch.Generator) -> tuple[int, KVCache, torch.Generator, int]:
+                sstate: ChainState) -> tuple[int, KVCache, ChainState, int]:
         """Returns (first sampled token, cache, sampler state, n_past)."""
+        self._check_state(sstate)
         n = len(prompt_tokens)
         if n == 0:
             raise ValueError("empty prompt")
@@ -307,11 +373,13 @@ class Engine:
             toks, pos = self._tokens(prompt_tokens[off:off + CH], off)
             (self.fwd_prefill if off == 0 else self.fwd)(self.params, toks, pos, cache)
             off += CH
+            if self.self_extend is not None:  # grouped as ingestion proceeds (main.cpp:990)
+                self._self_extend_step(cache, off)
         toks, pos = self._tokens(prompt_tokens[off:], off)
         fwd = self.fwd_prefill if off == 0 else self.fwd
         logits = fwd(self.params, toks, pos, cache)
         self.last_logits = logits[:, -1]
-        tok = int(sample(self.last_logits, self.sampler_cfg, sstate)[0])
+        tok = int(chain_sample(self.last_logits, self.sampler_cfg, sstate, self._dp)[0])
         self._sync()
         self.perf.t_prefill_s += time.perf_counter() - t0
         self.perf.n_prefill += n
@@ -322,29 +390,58 @@ class Engine:
         the (1, V) f32 logits and the sampled token (1,). It holds what it
         reads, not the engine, so that no reference cycle keeps an engine's
         memory past its last use."""
-        fwd, params, cfg, gen = self.fwd_decode, self.params, self.sampler_cfg, self.generator
-        state = ()
-        if self.tiered:  # the tiered forward updates its DFR state in place
-            params, state = self.decode_params, (self.fstate,)
+        fwd, params, state = self._decode_forward()
+        cfg, st, dp = self.sampler_cfg, self.sstate, self._dp
 
         def step(tokens, positions):
             logits = fwd(params, tokens, positions, cache, *state)[:, -1]
-            return logits, sample(logits, cfg, gen)
+            return logits, chain_sample(logits, cfg, st, dp)
 
         return step
 
+    def _decode_forward(self):
+        """(the decode forward, its params, its extra state arguments)."""
+        if self.tiered:  # the tiered forward updates its DFR state in place
+            return self.fwd_decode, self.decode_params, (self.fstate,)
+        return self.fwd_decode, self.params, ()
+
+    def _tiered_state(self) -> tuple:
+        """The DFR state a tiered forward updates in place."""
+        return tuple(t for t in self.fstate if t is not None) if self.tiered else ()
+
+    def _verify_fn(self, cache: KVCache):
+        fwd, params, state = self._decode_forward()
+
+        def verify(tokens, positions):
+            logits = fwd(params, tokens, positions, cache, *state)[0]
+            return logits, torch.argmax(logits, dim=-1)
+
+        return verify
+
+    @torch.inference_mode()
+    def verify(self, tokens: list[int], n_past: int, cache: KVCache
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """tokens (T of them) at positions n_past.. through the decode forward
+        in one step, the graph of (cache, T): ((T, V) f32 logits, (T,) argmax),
+        on the device. The logits are the graph's buffer, which the next
+        verify of that T overwrites. No sampling: the drafters accept."""
+        T = len(tokens)
+        step = self.graphs.get(cache, 1, "verify", lambda: self._verify_fn(cache),
+                               self._tiered_state(), T=T)
+        step.io.copy_(torch.tensor([[tokens], [list(range(n_past, n_past + T))]]))
+        return step.run()
+
     @torch.inference_mode()
     def decode_step(self, token: int, n_past: int, cache: KVCache,
-                    sstate: torch.Generator) -> tuple[int, KVCache, torch.Generator]:
+                    sstate: ChainState) -> tuple[int, KVCache, ChainState]:
         """One token through the step of `cache` (its graph, captured at the
         first step on that cache); the token read is the step's only
         synchronization."""
-        if not self.sampler_cfg.greedy and sstate is not self.generator:
-            raise ValueError("a sampled decode step draws from the engine's generator: "
-                             "pass new_sampler_state()'s")
+        self._check_state(sstate)
         t0 = time.perf_counter()
-        restore = tuple(t for t in self.fstate if t is not None) if self.tiered else ()
-        step = self.graphs.get(cache, 1, "decode", lambda: self._decode_fn(cache), restore)
+        # the step updates the sampler's state and the tiered DFR state in place
+        step = self.graphs.get(cache, 1, "decode", lambda: self._decode_fn(cache),
+                               self.sstate.tensors + self._tiered_state())
         step.tokens.fill_(token)
         step.positions.fill_(n_past)
         self.last_logits, tok = step.run()
@@ -357,10 +454,12 @@ class Engine:
 
     def generate(self, prompt_tokens: list[int], max_new_tokens: int = 128,
                  stop_ids: set[int] | None = None, seed: int | None = None,
-                 stream: bool = False) -> list[int] | Iterator[int]:
-        """Greedy/sampled generation; returns the generated token ids."""
+                 stream: bool = False, n_keep: int = -1) -> list[int] | Iterator[int]:
+        """Greedy/sampled generation; returns the generated token ids.
+        n_keep: prompt tokens preserved across a context shift (-1 = the
+        whole prompt; ref main.cpp --keep)."""
         it = self._generate_iter(prompt_tokens, max_new_tokens,
-                                 stop_ids or set(), seed)
+                                 stop_ids or set(), seed, n_keep)
         return it if stream else list(it)
 
     def generate_text(self, prompt: str, max_new_tokens: int = 128, seed: int | None = None) -> str:
@@ -375,22 +474,65 @@ class Engine:
         out = self.generate(ids, max_new_tokens, stop_ids=stop, seed=seed)
         return tk.decode(out)
 
-    def _generate_iter(self, prompt_tokens, max_new_tokens, stop_ids, seed):
+    def _generate_iter(self, prompt_tokens, max_new_tokens, stop_ids, seed, n_keep):
         if max_new_tokens <= 0:
             return
-        if self.cache is None:  # one cache for every call, as the JAX Engine donates its own
-            self.cache = self.new_cache()
-        cache = self.cache
+        # one cache for every call, as the JAX Engine donates its own
+        cache = self.own_cache()
         sstate = self.new_sampler_state(seed)
+        if self.self_extend_cfg is not None:  # a fresh grouping for each sequence
+            from .self_extend import SelfExtendState
+
+            self.self_extend = SelfExtendState(*self.self_extend_cfg)
         tok, cache, sstate, n_past = self.prefill(prompt_tokens, cache, sstate)
+        if n_keep < 0 or n_keep > len(prompt_tokens):
+            n_keep = len(prompt_tokens)
+        se = self.self_extend
+        if se is not None:
+            self._self_extend_step(cache, n_past)
         emitted = 0
         while tok not in stop_ids:
             yield tok
             emitted += 1
             if emitted >= max_new_tokens:
                 return
-            if n_past >= self.max_seq - 1:
-                raise NotImplementedError(
-                    "context shift is not ported yet: raise max_seq")
+            if se is not None:
+                if n_past >= self.max_seq - 1:
+                    # the physical rows are spent: self-extend compresses rope
+                    # labels, not storage, as the reference's cells
+                    return
+                self._self_extend_step(cache, n_past)
+            elif n_past >= self.max_seq - 1:
+                n_past -= self._shift(cache, n_keep, n_past)
             tok, cache, sstate = self.decode_step(tok, n_past, cache, sstate)
             n_past += 1
+
+    @torch.inference_mode()
+    def _shift(self, cache: KVCache, n_keep: int, n_past: int) -> int:
+        """Context shift (ref: llama-cli): keep the prompt's first n_keep
+        tokens, drop half of the rest, slide and re-rope the tail, in the
+        cache's own tensors. Returns the rows dropped."""
+        from ..models.transformer import rope_params
+        from .kv_cache import shift_cache
+
+        discard = max((self.max_seq - n_keep) // 2, 1)
+        shift_cache(cache, rope_params(self.cfg), n_keep, discard, n_past)
+        return discard
+
+    def save_session(self, path: str, cache: KVCache, n_past: int,
+                     sstate: ChainState | None = None,
+                     tokens: list[int] | None = None) -> int:
+        """Save the sequence's state (ref: llama_state_save_file + llama-cli
+        --prompt-cache), in the JAX package's file format."""
+        from .state_io import save_state
+
+        return save_state(path, self.cfg, cache, n_past, sstate, tokens,
+                          mirostat_tau=self.sampler_cfg.mirostat_tau)
+
+    def load_session(self, path: str):
+        """Returns (cache, n_past, tokens, sstate): the file restored into the
+        engine's own cache and sampler state, in place (their step graphs
+        read them), as `load_state` does (ref: llama_state_load_file)."""
+        from .state_io import load_state
+
+        return load_state(path, self.cfg, self.own_cache(), 0, self.sstate)

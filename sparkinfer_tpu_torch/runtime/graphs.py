@@ -3,8 +3,9 @@ jitted decode step of the JAX Engine (sparkinfer_tpu/runtime/engine.py:270)
 and of the Scheduler's `_jit_decode` and `_jit_decode_dense`
 (runtime/scheduler.py:300, :319).
 
-A `StepGraph` owns a step's static inputs, (B, 1) int64 token and position
-buffers, and runs `fn(tokens, positions)` over them: eagerly (on the CPU, or
+A `StepGraph` owns a step's static inputs, (B, T) int64 token and position
+buffers (T = 1 for a decode step, K + 1 for a speculative verify forward),
+and runs `fn(tokens, positions)` over them: eagerly (on the CPU, or
 where the owner turns capture off), or on the card as one
 torch.cuda.CUDAGraph. Its first run there warms the step up with one eager
 call on a side stream, which builds the kernels and reaches every workspace,
@@ -31,8 +32,9 @@ wrappers' `.launches` at every replay, so a counter still counts the kernel
 calls run, the warm-up's included.
 
 A step that updates state of its own in place (the tiered FFN's DFR
-statistics) names those tensors (`restore`): the warm-up's updates are
-undone, so a captured step updates them once, as an eager one does.
+statistics, the sampler's ring of recent tokens and mirostat's mu) names
+those tensors (`restore`): the warm-up's updates are undone, so a captured
+step updates them once, as an eager one does.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ def resolve_capture(cuda_graph: bool | None, device: torch.device) -> bool:
 
 
 class StepGraph:
-    """fn(tokens, positions) over static (B, 1) buffers, run eagerly or as
+    """fn(tokens, positions) over static (B, T) buffers, run eagerly or as
     a captured CUDA graph (capture=True). `generator`: a CUDA generator the
     step draws from, registered with the graph, so that each replay draws
     what an eager call would; the warm-up's draws are undone. `log`: a list
@@ -78,10 +80,10 @@ class StepGraph:
 
     def __init__(self, fn: Callable, batch: int, device: torch.device, *, capture: bool,
                  generator: torch.Generator | None = None, label: str = "decode step",
-                 log: list | None = None, restore: tuple = ()):
+                 log: list | None = None, restore: tuple = (), T: int = 1):
         self.fn = fn
         self.restore = restore  # state the step updates in place, which the warm-up must not
-        io = torch.zeros((2, batch, 1), dtype=torch.long, device=device)
+        io = torch.zeros((2, batch, T), dtype=torch.long, device=device)
         self.io = io  # [tokens; positions], for one copy from the host
         self.tokens, self.positions = io[0], io[1]
         self.capture = capture
@@ -144,6 +146,7 @@ class StepGraph:
         if self.log is not None:
             self.log.append(self.stats)
         print(f"cuda graph: captured {self.label} (B={self.tokens.shape[0]}, "
+              f"T={self.tokens.shape[1]}, "
               f"{sum(credits)} counted kernel calls) in {self.stats['capture_s']:.3f} s; "
               f"memory allocated {alloc0} -> {alloc1} bytes, graph pool {res1 - res0} bytes",
               file=sys.stderr, flush=True)
@@ -151,8 +154,9 @@ class StepGraph:
 
 class StepGraphs:
     """An owner's StepGraphs, keyed by what a graph bakes in: the KV cache's
-    storage (pointers, shape, dtype), the batch and the forward. At most
-    `limit` are kept, the least recently used dropped first."""
+    storage (pointers, shape, dtype), the batch, the tokens a row T and the
+    forward. At most `limit` are kept, the least recently used dropped
+    first."""
 
     def __init__(self, device: torch.device, capture: bool, limit: int,
                  generator: torch.Generator | None = None):
@@ -162,14 +166,14 @@ class StepGraphs:
         self.captured: list[dict] = []  # the stats of every capture made, in order
 
     def get(self, cache, batch: int, forward: str, make_fn: Callable,
-            restore: tuple = ()) -> StepGraph:
+            restore: tuple = (), T: int = 1) -> StepGraph:
         key = (cache.k.data_ptr(), cache.v.data_ptr(), tuple(cache.k.shape),
-               cache.k.dtype, batch, forward)
+               cache.k.dtype, batch, T, forward)
         step = self._graphs.get(key)
         if step is None:
             step = StepGraph(make_fn(), batch, self.device, capture=self.capture,
                              generator=self.generator, label=f"{forward} step",
-                             log=self.captured, restore=restore)
+                             log=self.captured, restore=restore, T=T)
             self._graphs[key] = step
             while len(self._graphs) > self.limit:
                 self._graphs.popitem(last=False)

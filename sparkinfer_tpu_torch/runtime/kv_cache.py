@@ -3,7 +3,9 @@
 Each batch slot owns a static (max_seq, n_head_kv, head_dim) region: slot b,
 position p lives at cache.k[:, b, p]. The JAX cache is functional (every
 write returns a new array); here writes go into the tensors in place, so
-the forward needs no copy of the cache. The int8 and iSWA caches come later.
+the forward needs no copy of the cache, and a context shift (`shift_cache`)
+moves rows inside the same tensors, so a CUDA graph captured over the cache
+reads the shifted rows. The int8 and iSWA caches come later.
 """
 
 from __future__ import annotations
@@ -51,3 +53,20 @@ def write_layer(kc: torch.Tensor, new: torch.Tensor, positions: torch.Tensor) ->
 
 def read_layer(kc: torch.Tensor, dtype) -> torch.Tensor:
     return kc.to(dtype)
+
+
+def shift_cache(cache: KVCache, rp, keep: int, discard: int, n_past: int) -> KVCache:
+    """Context shift (ref: llama.cpp context shift / llama_kv_cache_seq_add),
+    in place: drop rows [keep, keep+discard) of every slot and slide rows
+    [keep+discard, n_past) down by `discard`, re-rotating K by -discard
+    positions (RoPE is additive in the angle, so a constant rotation
+    relabels the rows). Rows [n_past-discard, n_past) keep stale values that
+    the causal mask hides until they are written again. Returns `cache`."""
+    from ..ops.rope import apply_rope
+
+    src, dst = slice(keep + discard, n_past), slice(keep, n_past - discard)
+    seg = cache.k[:, :, src].float()
+    pos = torch.full((seg.shape[2],), -discard, dtype=torch.long, device=seg.device)
+    cache.k[:, :, dst] = apply_rope(seg, pos, rp).to(cache.k.dtype)
+    cache.v[:, :, dst] = cache.v[:, :, src].clone()
+    return cache

@@ -2,17 +2,23 @@
 
 Two chains, as in the JAX package:
 
-  - `sample`, the Engine's static chain: greedy, or top-k -> top-p -> min-p
-    -> temp -> draw. Its penalties, typical, xtc and mirostat stages are
-    not ported; the Engine rejects a SamplerConfig that sets them.
+  - `chain_sample`, the Engine's static chain, with its carried state
+    (`ChainState`: the generator, a ring of recent tokens and its write
+    slot, mirostat's mu, all on the logits' device and updated in place,
+    so that a CUDA graph of the decode step carries them): penalties ->
+    greedy; or mirostat v2; or top-k -> typical -> top-p -> min-p -> xtc
+    -> temp -> draw. The truncation stages are the Scheduler's per-row
+    code (`dynamic_logits`) at B = 1 over knobs held on the device;
   - `make_dynamic_sampler`, the serving Scheduler's per-slot chain over
     (B, V) rows, every knob carried per row as data (`DynamicParams`):
     penalties -> top-k -> typical -> top-p -> min-p -> xtc -> temp -> draw,
     greedy where temp <= 0. A knob at its neutral value leaves its stage an
-    exact identity. Mirostat raises NotImplementedError.
+    exact identity. Mirostat raises NotImplementedError there (the JAX
+    Scheduler's is a server-level static chain).
 
-Draws come from a torch.Generator per slot, so a seeded draw cannot match
-JAX's PRNG-key draw; the masks and the greedy choice do match.
+Draws come from torch.Generators, so a seeded draw cannot match JAX's
+PRNG-key draw; the masks, mirostat's update for a given draw and the greedy
+choice do match.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ class SamplerConfig:
     penalty_repeat: float = 1.0
     penalty_freq: float = 0.0
     penalty_present: float = 0.0
-    mirostat: int = 0  # 0 off, 2 = mirostat v2 (not ported)
+    mirostat: int = 0  # 0 off, 2 = mirostat v2
     mirostat_tau: float = 5.0
     mirostat_eta: float = 0.1
     xtc_probability: float = 0.0
@@ -55,47 +61,114 @@ def neutral_penalties(repeat: float, freq: float, present: float) -> bool:
     return repeat == 1.0 and freq == 0.0 and present == 0.0
 
 
-def top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
-    V = logits.shape[-1]
-    if k <= 0 or k >= V:
-        return logits
-    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
-    return torch.where(logits < kth, NEG_INF, logits)
+def xtc_mask(logits: torch.Tensor, u: torch.Tensor, prob,
+             threshold: float) -> torch.Tensor:
+    """Exclude-top-choices (ref: llama_sampler_xtc): where the row's uniform
+    draw u (B,) is below prob (a float, or a (B, 1) column of the rows'
+    probabilities) and at least two tokens reach the threshold, drop all of
+    them but the least likely."""
+    probs = torch.softmax(logits, dim=-1)
+    above = probs >= threshold
+    min_above = torch.where(above, probs, math.inf).amin(-1, keepdim=True)
+    do_xtc = (u[:, None] < prob) & (above.sum(-1, keepdim=True) >= 2)
+    return torch.where(do_xtc & above & (probs > min_above), NEG_INF, logits)
 
 
-def top_p_mask(logits: torch.Tensor, p: float) -> torch.Tensor:
-    """Keep the most likely tokens until their cumulative probability exceeds
-    p (at least one)."""
-    if p >= 1.0:
-        return logits
-    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
-    probs = torch.softmax(sorted_logits, dim=-1)
-    cum = torch.cumsum(probs, dim=-1)
-    n_keep = ((cum - probs) < p).sum(-1, keepdim=True).clamp_min(1)
-    cutoff = torch.gather(sorted_logits, -1, n_keep - 1)
-    return torch.where(logits < cutoff, NEG_INF, logits)
+def mirostat_mask(lf: torch.Tensor, mu: torch.Tensor, temp: float
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mirostat v2's truncation (ref: llama_sampler_mirostat_v2) of f32
+    logits lf (B, V) at mu (B,): (the temperature-scaled logits with every
+    token whose surprise -log2 p exceeds mu masked, the argmax always kept;
+    the surprises (B, V))."""
+    lf = lf / max(temp, 1e-6)
+    max_l = lf.amax(-1, keepdim=True)
+    s = -torch.log_softmax(lf, dim=-1) / math.log(2.0)
+    masked = torch.where(s <= mu[:, None], lf, NEG_INF)
+    return masked.scatter(-1, torch.argmax(lf, dim=-1, keepdim=True), max_l), s
 
 
-def min_p_mask(logits: torch.Tensor, p: float) -> torch.Tensor:
-    """Keep tokens with prob >= p * max prob, i.e. logit >= max + log(p)."""
-    if p <= 0.0:
-        return logits
-    max_l = logits.amax(-1, keepdim=True)
-    return torch.where(logits < max_l + math.log(p), NEG_INF, logits)
+def mirostat_update(mu: torch.Tensor, s: torch.Tensor, tok: torch.Tensor,
+                    tau: float, eta: float) -> torch.Tensor:
+    """mu (B,) moved toward tau by the surprise of the drawn tokens tok (B,)."""
+    observed = torch.gather(s, -1, tok[:, None].long())[:, 0]
+    return mu - eta * (observed - tau)
 
 
-def sample(logits: torch.Tensor, cfg: SamplerConfig,
-           generator: torch.Generator | None = None) -> torch.Tensor:
-    """logits (B, V) -> token ids (B,) int64. Greedy takes the first index
-    of the maximum, as jnp.argmax does."""
+class ChainState(NamedTuple):
+    """The Engine's carried sampling state (JAX `SamplerState`), on the
+    logits' device: every field is updated in place by `chain_sample`."""
+
+    gen: torch.Generator
+    recent: torch.Tensor  # (max(penalty_last_n, 1),) int32 ring, -1 = empty
+    recent_pos: torch.Tensor  # () int64, the next write slot
+    mirostat_mu: torch.Tensor  # () f32
+
+    def reset(self, cfg: "SamplerConfig", seed: int | None = None) -> "ChainState":
+        self.gen.manual_seed(cfg.seed if seed is None else seed)
+        self.recent.fill_(-1)
+        self.recent_pos.zero_()
+        self.mirostat_mu.fill_(2.0 * cfg.mirostat_tau)
+        return self
+
+    @property
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return self.recent, self.recent_pos, self.mirostat_mu
+
+
+def init_chain_state(cfg: "SamplerConfig", seed: int | None = None,
+                     device=None) -> ChainState:
+    n = max(cfg.penalty_last_n, 1)
+    return ChainState(
+        gen=torch.Generator(device=device),
+        recent=torch.full((n,), -1, dtype=torch.int32, device=device),
+        recent_pos=torch.zeros((), dtype=torch.long, device=device),
+        mirostat_mu=torch.zeros((), dtype=torch.float32, device=device),
+    ).reset(cfg, seed)
+
+
+def chain_params(cfg: "SamplerConfig", device) -> "DynamicParams":
+    """The static chain's knobs as (1,) tensors on `device`: the Scheduler's
+    per-row stages read them with no host-to-device copy, which a captured
+    step could not hold."""
+    return DynamicParams(*(t.reshape(1).to(device) for t in dynamic_params(cfg)))
+
+
+def penalizes(cfg: "SamplerConfig") -> bool:
+    return cfg.penalty_last_n > 0 and not neutral_penalties(
+        cfg.penalty_repeat, cfg.penalty_freq, cfg.penalty_present)
+
+
+def chain_sample(logits: torch.Tensor, cfg: "SamplerConfig", st: ChainState,
+                 dp: "DynamicParams") -> torch.Tensor:
+    """logits (1, V) -> token ids (1,) int64 through the static chain, st
+    advanced in place: the draw from st.gen, mu updated under mirostat, and
+    under penalties the token written into the ring (the JAX chain writes it
+    always; nothing else reads it, so a step without penalties launches no
+    kernel for it). dp: `chain_params(cfg, device)`. Greedy takes the first
+    index of the maximum, as jnp.argmax does. No stage reads back to the
+    host."""
     lf = logits.float()
+    recent = st.recent[None] if penalizes(cfg) else None
+    if recent is not None:
+        lf = apply_penalties(lf, recent, dp)
     if cfg.greedy:
-        return torch.argmax(lf, dim=-1)
-    lf = top_k_mask(lf, cfg.top_k)
-    lf = top_p_mask(lf, cfg.top_p)
-    lf = min_p_mask(lf, cfg.min_p)
-    probs = torch.softmax(lf / max(cfg.temp, 1e-6), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        tok = torch.argmax(lf, dim=-1)
+    elif cfg.mirostat == 2:
+        masked, s = mirostat_mask(lf, st.mirostat_mu.reshape(1), cfg.temp)
+        tok = torch.multinomial(torch.softmax(masked, dim=-1), 1, generator=st.gen)[:, 0]
+        st.mirostat_mu.copy_(mirostat_update(st.mirostat_mu.reshape(1), s, tok,
+                                             cfg.mirostat_tau, cfg.mirostat_eta)[0])
+    else:
+        xtc_u = (torch.rand((1,), generator=st.gen, device=lf.device)
+                 if cfg.xtc_probability > 0.0 else None)
+        scaled = _truncate(lf, dp, xtc_u, cfg.xtc_threshold)
+        scaled = scaled / _col(dp.temp, lf.device).clamp_min(1e-6)
+        tok = torch.multinomial(torch.softmax(scaled, dim=-1), 1, generator=st.gen)[:, 0]
+    if recent is not None:
+        n = st.recent.shape[0]
+        st.recent.index_copy_(0, (st.recent_pos % n).reshape(1), tok.to(st.recent.dtype))
+        st.recent_pos.add_(1)
+    return tok
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +230,7 @@ def apply_penalties(lf: torch.Tensor, recent: torch.Tensor, dp: DynamicParams) -
     B, V = lf.shape
     valid = recent >= 0
     count = torch.zeros((B, V), dtype=torch.float32, device=lf.device).scatter_add_(
-        1, torch.where(valid, recent, 0), valid.float())
+        1, torch.where(valid, recent, 0).long(), valid.float())
     present = count > 0
     rep = _col(dp.penalty_repeat, lf.device)
     lf = torch.where(present, torch.where(lf > 0, lf / rep, lf * rep), lf)
@@ -173,11 +246,19 @@ def dynamic_logits(lf: torch.Tensor, recent: torch.Tensor | None, dp: DynamicPar
     recent (B, n) is the rows' rings (None: no penalties); xtc_u (B,) the
     rows' uniform draws for xtc (None: xtc off). Each stage is written as
     the JAX chain writes it, so masks and greedy tokens agree."""
-    V = lf.shape[-1]
-    dev = lf.device
     if recent is not None:
         lf = apply_penalties(lf, recent, dp)
     greedy_tok = torch.argmax(lf, dim=-1)
+    lf = _truncate(lf, dp, xtc_u, xtc_threshold)
+    return lf / _col(dp.temp, lf.device).clamp_min(1e-6), greedy_tok
+
+
+def _truncate(lf: torch.Tensor, dp: DynamicParams, xtc_u: torch.Tensor | None,
+              xtc_threshold: float) -> torch.Tensor:
+    """top-k -> typical -> top-p -> min-p -> xtc over lf (B, V), each row
+    with its own knobs; a neutral knob leaves its stage an identity."""
+    V = lf.shape[-1]
+    dev = lf.device
 
     # top-k (dynamic k): the k-th largest as cutoff
     sorted_desc = torch.sort(lf, dim=-1, descending=True).values
@@ -211,16 +292,9 @@ def dynamic_logits(lf: torch.Tensor, recent: torch.Tensor | None, dp: DynamicPar
     min_cut = lf.amax(-1, keepdim=True) + torch.log(min_p.clamp_min(1e-30))
     lf = torch.where((min_p > 0.0) & (lf < min_cut), NEG_INF, lf)
 
-    # xtc: drop every token above the threshold but the least likely of them
     if xtc_u is not None:
-        probs = torch.softmax(lf, dim=-1)
-        above = probs >= xtc_threshold
-        min_above = torch.where(above, probs, math.inf).amin(-1, keepdim=True)
-        do_xtc = (xtc_u.to(dev)[:, None] < _col(dp.xtc_probability, dev)) & (
-            above.sum(-1, keepdim=True) >= 2)
-        lf = torch.where(do_xtc & above & (probs > min_above), NEG_INF, lf)
-
-    return lf / _col(dp.temp, dev).clamp_min(1e-6), greedy_tok
+        lf = xtc_mask(lf, xtc_u.to(dev), _col(dp.xtc_probability, dev), xtc_threshold)
+    return lf
 
 
 def make_dynamic_sampler(cfg: SamplerConfig):

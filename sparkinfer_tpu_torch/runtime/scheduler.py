@@ -58,8 +58,12 @@ hot-first first.
 A model with experts ticks through its MoE FFN in dense mode (the
 forward's default), as the JAX Scheduler does; there is no moe_mode here.
 
-Quantized or split-dtype KV caches and slot save/restore are not ported yet
-and raise NotImplementedError.
+`save_slot` and `restore_slot` write and read a slot's rows and token
+history in the JAX package's state file format (`state_io.py`); a restore
+writes into the slot's rows of the shared cache in place (`slot_view`), so
+the tick's graph reads them, and the slot's cached prefix then serves a
+request that shares it. Quantized or split-dtype KV caches are not ported
+yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -240,6 +244,9 @@ class Scheduler:
         # per-slot allowed-token masks of grammar-constrained slots (host)
         self._gmask = np.ones((n_slots, self.cfg.n_vocab), bool)
         self.pending: "queue.Queue[Request]" = queue.Queue()
+        # held by every tick; a slot restore or a LoRA re-merge from another
+        # thread takes it to run between ticks
+        self.lock = threading.RLock()
         self._req_ids = itertools.count()
         self._running = False
         self._thread: threading.Thread | None = None
@@ -527,10 +534,14 @@ class Scheduler:
 
         return tick
 
-    @torch.inference_mode()
     def step(self) -> bool:
         """One tick: admit, then one batched decode over every slot.
         Returns True if any slot is running or any request waits."""
+        with self.lock:
+            return self._tick()
+
+    @torch.inference_mode()
+    def _tick(self) -> bool:
         self._admit()
         rows = [i for i, s in enumerate(self.slots) if s.running]
         if not rows:
@@ -607,10 +618,28 @@ class Scheduler:
             pass
 
     def save_slot(self, s_i: int, path: str) -> int:
-        raise NotImplementedError("slot save/restore is not ported yet")
+        """Persist a slot's KV rows and token history (ref: server
+        /slots/:id?action=save). Returns bytes written."""
+        from .state_io import save_state
+
+        slot = self.slots[s_i]
+        return save_state(path, self.cfg, slot_view(self.cache, s_i), slot.n_past,
+                          self.sstates[s_i], tokens=slot.cached_tokens,
+                          mirostat_tau=self.sampler_cfg.mirostat_tau)
 
     def restore_slot(self, s_i: int, path: str) -> dict:
-        raise NotImplementedError("slot save/restore is not ported yet")
+        """Load a saved state into an idle slot, in place; a later request
+        whose prompt shares the token prefix skips prefilling it."""
+        from .state_io import load_state
+
+        slot = self.slots[s_i]
+        if slot.running:
+            raise ValueError(f"slot {s_i} is busy")
+        _, n_past, tokens, _ = load_state(path, self.cfg, slot_view(self.cache, s_i), 0,
+                                          self.sstates[s_i])
+        slot.n_past = n_past
+        slot.cached_tokens = list(tokens)
+        return {"n_past": n_past, "n_tokens": len(tokens)}
 
     def metrics_snapshot(self) -> dict:
         m = dict(self.metrics)

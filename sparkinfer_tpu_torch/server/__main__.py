@@ -7,9 +7,11 @@ Flags come from the port's copy of the shared declarative table
 the CUDA card). Tiered sparse serving: --hot-groups H (or -vb GiB, the hot
 store's budget), --cold-mode host|drop|fetch (default host),
 --prefill-mode rows|tiered, --split FILE, --rebalance-every,
---reload-budget-mb and --swap-hysteresis. Flags whose modules are not
-ported yet (-hf, --lora, --attn-w8a8, --slot-save-path, -ctk/-ctv q8 or a
-split -ctv) fail with an error naming the module. The line "listening on http://HOST:PORT" gives the bound port, also
+--reload-budget-mb and --swap-hysteresis; --lora / --lora-scaled merge
+adapters (rescaled by POST /lora-adapters), --slot-save-path holds the
+/slots/:id save files. Flags whose modules are not ported yet (-hf,
+--attn-w8a8, -ctk/-ctv q8 or a split -ctv) fail with an error naming the
+module. The line "listening on http://HOST:PORT" gives the bound port, also
 for --port 0.
 """
 
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 def main(argv=None) -> int:
     from ..common.args import (
+        adapters_from_args,
         build_parser,
         kv_dtypes_from_args,
         sampler_from_args,
@@ -77,6 +80,8 @@ def main(argv=None) -> int:
             n_predict_default=args.n_predict_default,
             slot_prompt_similarity=args.slot_prompt_similarity,
             api_key=args.api_key,
+            slot_save_path=args.slot_save_path,
+            lora=adapters_from_args(args) or None,
             extra_models=extra_models,
             sparse=sparse,
             sparse_cold_mode=args.cold_mode or "host",

@@ -14,9 +14,13 @@ Endpoints (reference parity set):
        /v1/chat/completions /infill /v1/messages /apply-template
 Streaming via SSE (`stream: true`). The server runs on the card unless
 `ServerConfig.device` says otherwise. Routes whose modules are not ported
-yet answer HTTP 501: /embeddings and /rerank (runtime/embeddings.py),
-/lora-adapters (models/lora.py) and /slots/:id save and restore. LoRA at
-startup and quantized or split-dtype KV caches raise at startup; tiered
+yet answer HTTP 501: /embeddings and /rerank (runtime/embeddings.py).
+LoRA adapters (`ServerConfig.lora`) are merged at startup and re-merged at
+new scales by POST /lora-adapters, in place (`models/lora.LoraMerger`: the
+dense weights and the Scheduler's row stores, which its tick graphs read),
+between ticks (the Scheduler's lock); /slots/:id?action=save|restore writes
+and reads the slot's state file under `slot_save_path`. Quantized or
+split-dtype KV caches raise at startup; tiered
 sparse serving (`sparse.hot_groups > 0`, `sparse_cold_mode`,
 `prefill_mode`, `split`, `rebalance_every`) goes to the Scheduler. The router's lazy model load holds the graphs'
 CAPTURE_LOCK: it runs on a handler thread while a Scheduler may capture.
@@ -66,6 +70,7 @@ class ServerConfig:
     n_predict_default: int = 128  # -n: max_tokens when the request omits it
     # -sps: idle-slot routing by prompt-prefix similarity (0 = first-free)
     slot_prompt_similarity: float = 0.1
+    slot_save_path: str | None = None  # dir for /slots/:id?action=save files
     # LoRA adapters applied at startup; runtime-rescalable via
     # GET/POST /lora-adapters (ref tools/server/server.cpp:180-181)
     lora: list | None = None  # [path | (path, scale), ...]
@@ -94,8 +99,6 @@ class SparkServer:
         self.model = model
         if model.vocab is None:
             raise ValueError("server needs a model with tokenizer vocab")
-        if self.cfg.lora:
-            raise NotImplementedError("LoRA adapters need models/lora.py, which is not ported yet")
         self.device = resolve_device(self.cfg.device)
         self.tokenizer = build_tokenizer(model.vocab)
         kv_dtype = _DTYPES.get(self.cfg.kv_dtype, torch.bfloat16)
@@ -121,15 +124,43 @@ class SparkServer:
         self.template = _template_for(model.vocab, self.cfg.chat_template)
         self._httpd: ThreadingHTTPServer | None = None
         self._t0 = time.time()
+        self._lora: list[dict] = []
+        self._merger = None
+        if self.cfg.lora:
+            from ..models.lora import LoraMerger
+
+            if self.sched.tiered:
+                raise ValueError("LoRA needs dense weights or row stores: the tiered "
+                                 "Scheduler's hot store cannot be re-merged")
+            for i, item in enumerate(self.cfg.lora):
+                path, scale = (item if isinstance(item, (tuple, list)) else (item, 1.0))
+                self._lora.append({"id": i, "path": str(path), "scale": float(scale)})
+            self._merger = LoraMerger([model.params, self.sched.params], model.config,
+                                      [a["path"] for a in self._lora])
+            self._remerge_lora()
         self._backends: dict[str, object] = {}
         self._backends_lock = threading.Lock()
 
     # --- lora ---------------------------------------------------------------
     def lora_list(self) -> list[dict]:
-        raise NotImplementedError("/lora-adapters needs models/lora.py, which is not ported yet")
+        return [dict(a) for a in self._lora]
 
     def lora_set(self, items: list[dict]) -> list[dict]:
-        raise NotImplementedError("/lora-adapters needs models/lora.py, which is not ported yet")
+        for it in items:
+            i = int(it["id"])
+            if not 0 <= i < len(self._lora):
+                raise ValueError(f"no LoRA adapter {i}")
+            self._lora[i]["scale"] = float(it["scale"])
+        self._remerge_lora()
+        return self.lora_list()
+
+    def _remerge_lora(self):
+        """The adapters at their scales, written in place between ticks: the
+        next tick's graph reads them."""
+        if self._merger is None:
+            return
+        with self.sched.lock:
+            self._merger.merge([a["scale"] for a in self._lora])
 
     # --- multi-model router -------------------------------------------------
     def _backend_for(self, body: dict):
@@ -558,9 +589,7 @@ def _make_handler(srv: SparkServer):
                     items = body if isinstance(body, list) else [body]
                     self._json(200, srv.lora_set(items))
                 elif self.path.startswith("/slots/"):
-                    # /slots/<id>?action=save|restore  (ref: server slot save)
-                    raise NotImplementedError(
-                        "/slots/:id save and restore are not ported yet")
+                    self._slot_action(body)
                 else:
                     self._json(404, {"error": "not found"})
             except NotImplementedError as e:
@@ -569,6 +598,34 @@ def _make_handler(srv: SparkServer):
                 self._json(400, {"error": str(e)})
             except BrokenPipeError:
                 pass
+
+        def _slot_action(self, body: dict):
+            """/slots/<id>?action=save|restore (ref: server slot save)."""
+            import os
+            import urllib.parse
+
+            parsed = urllib.parse.urlparse(self.path)
+            s_i = int(parsed.path.split("/")[2])
+            action = urllib.parse.parse_qs(parsed.query).get("action", [""])[0]
+            fname = body.get("filename")
+            if not fname or "/" in fname or ".." in fname:
+                self._json(400, {"error": "filename required (no paths)"})
+                return
+            path = os.path.join(srv.cfg.slot_save_path or ".", fname)
+            sched = srv.sched
+            if action not in ("save", "restore"):
+                self._json(400, {"error": "action must be save|restore"})
+                return
+            try:
+                with sched.lock:  # between ticks
+                    if action == "save":
+                        out = {"saved": True, "n_bytes": sched.save_slot(s_i, path)}
+                    else:
+                        out = {"restored": True, **sched.restore_slot(s_i, path)}
+            except OSError as e:
+                self._json(400, {"error": str(e)})
+                return
+            self._json(200, out)
 
         def _embeddings(self, body: dict):
             raise NotImplementedError(

@@ -19,7 +19,12 @@ credited per replay; one capture for two `generate` calls; a sampled
 engine's seeded stream; a fresh process's first captured step; and the
 Scheduler's first capture while another thread works on the card: the
 server's router loading a second model, or an allocation, a copy and a
-matmul that take no lock.
+matmul that take no lock. Rewrites between replays: the replayed step after
+a context shift and after a self-extend firing bit-equal to the eager step;
+the verify graph (T = 6) bit-equal to its eager forward, and speculative
+decoding over it lossless; a slot restore capturing nothing new; a LoRA
+re-merge reaching the graphs of the dense and v6 engines and of the v1
+Scheduler.
 """
 
 import os
@@ -194,10 +199,12 @@ def test_caller_caches_keep_a_few_steps(gguf):
 def test_sampled_steps_draw_from_the_engine_generator(gguf):
     pe = _engine(gguf, "cpu", "v6", sampler=SAMPLED)
     assert pe.generate(PROMPT, 8, seed=3) == pe.generate(PROMPT, 8, seed=3)
-    assert pe.new_sampler_state(1) is pe.generator
+    st = pe.new_sampler_state(1)
+    assert st is pe.sstate and st.gen is pe.generator
     cache = pe.new_cache()
+    other = _engine(gguf, "cpu", "v6", sampler=SAMPLED).new_sampler_state(1)
     with pytest.raises(ValueError, match="generator"):
-        pe.decode_step(5, 3, cache, torch.Generator().manual_seed(1))
+        pe.decode_step(5, 3, cache, other)
 
 
 @pytest.mark.parametrize("bmax", [100, 0, 1], ids=["sparse_v1", "dense_fallback", "mixed"])
@@ -576,3 +583,166 @@ def test_tiered_prefill_pins_one_staging_set(cuda, gguf):
         assert len(req.tokens()) == 3
     E, ng = sched.cfg.n_embd, SparseConfig(G, CAP).n_groups(sched.cfg.n_ff)
     assert sched.cold.staging.nbytes == max(lengths) * ((2 * E + ng * G) * 4 + ng)
+
+
+# ---------------------------------------------------------------------------
+# Cache and weight rewrites between replays: context shift, self-extend,
+# the verify graph, a slot restore and a LoRA re-merge
+
+
+def _pair(gguf, kind, **kw):
+    """A graph engine and an eager engine over the same params ("dense" or
+    "v6", the sparse pipelined FFN over the flat stores)."""
+    sparse = None if kind == "dense" else SparseConfig(G, CAP)
+    model = load_model(gguf, dtype=torch.float32, device="cuda")
+    graph_eng = Engine(model, sampler=GREEDY, kv_dtype=torch.float32, sparse=sparse,
+                       device="cuda", **kw)
+    extra = {} if sparse is None else dict(sparse=sparse, sparse_preprepared=True)
+    eager = Engine(LoadedModel(config=graph_eng.cfg, params=graph_eng.params), sampler=GREEDY,
+                   kv_dtype=torch.float32, device="cuda", cuda_graph=False, **extra, **kw)
+    return graph_eng, eager
+
+
+def _stream_logits(eng, prompt, n, **kw):
+    toks, logits = [], []
+    for t in eng.generate(prompt, n, stream=True, **kw):
+        toks.append(t)
+        logits.append(eng.last_logits.clone())
+    return toks, logits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "v6"])
+@pytest.mark.parametrize("what", ["context_shift", "self_extend"])
+def test_replay_after_a_cache_rewrite_equals_the_eager_step(cuda, gguf, kind, what):
+    """A context shift (max_seq 16, keep 2) or a self-extend firing ((2, 8))
+    rewrites the cache's rows in place between steps: every replayed step
+    after it has the eager step's logits bit for bit, with one capture."""
+    if what == "context_shift":
+        kw, gen_kw, n = dict(max_seq=16), dict(n_keep=2), 40
+    else:
+        kw, gen_kw, n = dict(max_seq=64, self_extend=(2, 8)), {}, 50
+    graph_eng, eager = _pair(gguf, kind, **kw)
+    runs = {name: _stream_logits(eng, PROMPT, n, **gen_kw)
+            for name, eng in (("eager", eager), ("graph", graph_eng))}
+    assert runs["graph"][0] == runs["eager"][0] and len(runs["graph"][0]) == n
+    for got, want in zip(runs["graph"][1], runs["eager"][1]):
+        assert torch.equal(got, want)
+    assert graph_eng.graphs.captures == 1
+    if what == "self_extend":
+        assert graph_eng.self_extend.gamma > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "v6"])
+def test_verify_graph_equals_its_eager_forward(cuda, gguf, kind):
+    """Engine.verify over 6 tokens (T = K+1 = 6: v6 at N = 6) replays its own
+    graph: logits and argmax bit-equal to the eager forward's at 3
+    positions, one capture; a speculative run over it stays lossless."""
+    from sparkinfer_tpu_torch.runtime.speculative import SpeculativeEngine
+
+    graph_eng, eager = _pair(gguf, kind, max_seq=64)
+    outs = {}
+    for name, eng in (("graph", graph_eng), ("eager", eager)):
+        cache, st = eng.own_cache(), eng.new_sampler_state()
+        tok, cache, st, n = eng.prefill(PROMPT, cache, st)
+        res = []
+        for r in range(3):
+            logits, am = eng.verify([tok, 7, 9, 11, 13, 15], n + 6 * r, cache)
+            res.append((logits.clone(), am.clone()))
+        outs[name] = res
+    for (gl, ga), (el, ea) in zip(outs["graph"], outs["eager"]):
+        assert torch.equal(gl, el) and torch.equal(ga, ea)
+    assert graph_eng.graphs.captures == 1
+    draft = Engine(load_model(gguf, dtype=torch.float32, device="cuda"), max_seq=64,
+                   sampler=GREEDY, kv_dtype=torch.float32, device="cuda")
+    spec = SpeculativeEngine(graph_eng, draft, n_draft=5)
+    assert spec.generate(PROMPT, 24) == graph_eng.generate(PROMPT, 24)
+    assert spec.stats.accept_rate == 1.0 or kind == "v6"
+
+
+@pytest.mark.cuda
+def test_restore_slot_captures_nothing_new(cuda, gguf, tmp_path):
+    """The v1 Scheduler: a slot saved, its rows zeroed, the file restored
+    into another slot in place: the tick's graph serves the shared prefix
+    from the restored rows (the stream of the never-saved slot), and no
+    capture is made."""
+    def sched():
+        return Scheduler(load_model(gguf, dtype=torch.float32, device="cuda"), n_slots=3,
+                         max_seq=64, sampler=GREEDY, kv_dtype=torch.float32,
+                         sparse=SparseConfig(G, CAP), sparse_batch_max=100,
+                         slot_similarity=0.5, device="cuda")
+
+    ref, s = sched(), sched()
+    for sc in (ref, s):
+        first = _serve(sc, [PROMPT], 6)[0]
+    cont = PROMPT + first + [7, 8]
+    want = _serve(ref, [cont], 6)[0]
+    captures = s.graphs.captures
+    f = tmp_path / "slot0.state"
+    s.save_slot(0, str(f))
+    s.slots[0].cached_tokens = []
+    s.cache.k[:, 0].zero_()
+    s.cache.v[:, 0].zero_()
+    s.restore_slot(2, str(f))
+    assert _serve(s, [cont], 6)[0] == want
+    assert s.graphs.captures == captures == 1
+
+
+def _write_lora(path, L, E, F, rank=4, alpha=32.0, seed=0):
+    """attn_q and the three FFN projections, written by the port's writer."""
+    from sparkinfer_tpu_torch.gguf.constants import GGMLType
+    from sparkinfer_tpu_torch.gguf.writer import GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    w = GGUFWriter(path, "llama")
+    w.add_kv("general.type", "adapter")
+    w.add_kv("adapter.type", "lora")
+    w.add_kv("adapter.lora.alpha", np.float32(alpha))
+    for il in range(L):
+        for name, (out_d, in_d) in {"attn_q": (E, E), "ffn_up": (F, E), "ffn_gate": (F, E),
+                                    "ffn_down": (E, F)}.items():
+            for sfx, shape in (("a", (rank, in_d)), ("b", (out_d, rank))):
+                w.add_tensor(f"blk.{il}.{name}.lora_{sfx}",
+                             (rng.standard_normal(shape) * 0.05).astype(np.float32),
+                             GGMLType.F32)
+    w.write()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "v6", "v1_scheduler"])
+def test_lora_remerge_reaches_the_graphs(cuda, gguf, tmp_path, kind):
+    """A LoRA re-merge writes the dense weights and the stores in place: the
+    graphs captured before it decode as a fresh engine on apply_lora's
+    params, and scale 0 brings back the base stream, with no new capture."""
+    from sparkinfer_tpu_torch.models.lora import LoraMerger, apply_lora
+
+    lora = str(tmp_path / "a.gguf")
+    _write_lora(lora, 2, 64, 96)
+    model = load_model(gguf, dtype=torch.float32, device="cuda")
+    ref = load_model(gguf, dtype=torch.float32, device="cuda")
+    ref.params = apply_lora(ref.params, ref.config, lora, 1.0)
+    if kind == "v1_scheduler":
+        def run(m):
+            sc = Scheduler(m, n_slots=2, max_seq=64, sampler=GREEDY, kv_dtype=torch.float32,
+                           sparse=SparseConfig(G, CAP), sparse_batch_max=100, device="cuda")
+            return sc, lambda: _serve(sc, PROMPTS[:2], 8)
+    else:
+        def run(m):
+            eng = Engine(m, max_seq=64, sampler=GREEDY, kv_dtype=torch.float32, device="cuda",
+                         sparse=None if kind == "dense" else SparseConfig(G, CAP))
+            return eng, lambda: eng.generate(PROMPT, 12)
+
+    live, go = run(model)
+    base = go()
+    merger = LoraMerger([model.params, live.params], model.config, [lora])
+    merger.merge([1.0])
+    for slot in getattr(live, "slots", []):
+        slot.cached_tokens = []
+    merged = go()
+    assert merged == run(ref)[1]() and merged != base
+    merger.merge([0.0])
+    for slot in getattr(live, "slots", []):
+        slot.cached_tokens = []
+    assert go() == base
+    assert live.graphs.captures == 1

@@ -1496,3 +1496,30 @@ def test_row_kernels_are_deterministic(cuda):
         a = fn(*rargs, act="fatrelu", bu_sel=kw["bu_sel"], **extra)
         b = fn(*rargs, act="fatrelu", bu_sel=kw["bu_sel"], **extra)
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [6, 32])
+def test_v6_verify_and_prefill_shapes_bf16(cuda, N):
+    """The shapes the speculative verify (N = K+1 = 6) and the sparse
+    prefill (N = 32 prompt tokens) give v6 at 7B widths: E=4096, G=128,
+    C=12 of 86 groups, bf16 stores, against the plain version; a graph
+    replay equals the eager call."""
+    from sparkinfer_tpu_torch.ops.sparse_ffn import v6_plan
+
+    *args, bu = _inputs(N, 12, 4096, 128, 86, torch.bfloat16, cuda, seed=40 + N)
+    _check(args, bu, 1e-3, act="fatrelu", fatrelu_threshold=0.01)
+    plan = v6_plan(cuda, N, 12, 4096, 128)
+    assert plan["blocks"] == N * 12 * plan["splits"]
+    eager = sparse_ffn_block_v6(*args, bu_sel=bu, act="fatrelu")
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sparse_ffn_block_v6(*args, bu_sel=bu, act="fatrelu")
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = sparse_ffn_block_v6(*args, bu_sel=bu, act="fatrelu")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)

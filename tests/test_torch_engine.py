@@ -254,12 +254,14 @@ def test_entry_points_default_to_the_card(gguf):
 
 def test_unported_options_raise(gguf, tmp_path):
     model = load_model(gguf, dtype=torch.float32, device="cpu")
-    for kw in (dict(self_extend=(2, 8)), dict(kv_iswa=True)):
-        with pytest.raises(NotImplementedError):
-            Engine(model, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="iSWA"):
+        Engine(model, device="cpu", kv_iswa=True)
+    with pytest.raises(AssertionError, match="multiple"):
+        Engine(model, device="cpu", self_extend=(4, 6))
+    # self-extend and the context shift are ported: a generation past max_seq
     pe = Engine(model, max_seq=6, sampler=SamplerConfig(temp=0.0), device="cpu")
-    with pytest.raises(NotImplementedError, match="context shift"):
-        pe.generate(PROMPT, 8)
+    assert len(pe.generate(PROMPT, 8)) == 8
+    assert pe.batch == 1
     qwen = tmp_path / "qwen2.gguf"
     make_tiny_llama(qwen, arch="qwen2")
     with pytest.raises(NotImplementedError, match="qwen2"):
@@ -301,7 +303,9 @@ def test_port_imports_without_jax():
                 "common.jinja", "server.app", "server.chat", "server.chat_parser",
                 "server.json_partial", "server.tools_api", "server.webui",
                 "server.__main__", "native", "sparse.tiering", "sparse.balancer",
-                "sparse.split", "sparse.moe"):
+                "sparse.split", "sparse.moe", "runtime.self_extend", "runtime.speculative",
+                "runtime.lookup", "runtime.lookahead", "runtime.state_io", "models.lora",
+                "tools.cli", "tools.export_lora"):
         assert "sparkinfer_tpu_torch." + mod in names, mod
 
 

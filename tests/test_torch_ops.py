@@ -121,29 +121,45 @@ def test_kv_write_read_matches_jax():
 
 @pytest.mark.parametrize("mask,arg", [("top_k", 5), ("top_p", 0.7), ("min_p", 0.05)])
 def test_sampler_masks_match_jax(mask, arg):
+    """Each truncation stage of the static chain (the per-row stages with
+    every other knob neutral) against the JAX chain's mask."""
     logits = (_rng(5).standard_normal((3, 50)) * 3).astype(np.float32)
     jfn = {"top_k": jsamp._top_k_mask, "top_p": jsamp._top_p_mask,
            "min_p": jsamp._min_p_mask}[mask]
     ref = np.stack([np.asarray(jfn(jnp.asarray(row), arg)) for row in logits])
-    got = getattr(tsamp, mask + "_mask")(torch.from_numpy(logits), arg).numpy()
+    knobs = dict(top_k=0, top_p=1.0, min_p=0.0)
+    knobs[mask] = arg
+    dp = tsamp.stack_params([tsamp.dynamic_params(tsamp.SamplerConfig(**knobs))] * 3)
+    got = tsamp._truncate(torch.from_numpy(logits), dp, None, 0.1).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+def _chain(cfg, seed=0):
+    return (tsamp.init_chain_state(cfg, seed), tsamp.chain_params(cfg, "cpu"))
 
 
 def test_greedy_takes_first_max_like_jax():
     logits = np.array([[0.0, 2.0, 2.0, 1.0], [3.0, 3.0, 3.0, 3.0]], np.float32)
-    got = tsamp.sample(torch.from_numpy(logits), tsamp.SamplerConfig(temp=0.0))
+    cfg = tsamp.SamplerConfig(temp=0.0)
+    got = [int(tsamp.chain_sample(torch.from_numpy(row)[None], cfg, *_chain(cfg))[0])
+           for row in logits]
     ref = [int(jnp.argmax(jnp.asarray(row))) for row in logits]
-    assert got.tolist() == ref == [1, 0]
+    assert got == ref == [1, 0]
 
 
 def test_sampling_draws_stay_in_the_mask():
     logits = torch.from_numpy((_rng(6).standard_normal((2, 100)) * 2).astype(np.float32))
     cfg = tsamp.SamplerConfig(temp=1.0, top_k=3, top_p=1.0, min_p=0.0)
     allowed = torch.topk(logits, 3, dim=-1).indices
-    gen = torch.Generator().manual_seed(0)
-    for _ in range(20):
-        tok = tsamp.sample(logits, cfg, gen)
-        assert all(int(t) in allowed[i].tolist() for i, t in enumerate(tok))
-    a = tsamp.sample(logits, cfg, torch.Generator().manual_seed(7))
-    b = tsamp.sample(logits, cfg, torch.Generator().manual_seed(7))
+    for i in range(2):
+        st, dp = _chain(cfg)
+        drawn = [int(tsamp.chain_sample(logits[i:i + 1], cfg, st, dp)) for _ in range(20)]
+        assert all(t in allowed[i].tolist() for t in drawn)
+        assert st.recent.eq(-1).all()  # without penalties nothing reads the ring
+    cfg = tsamp.SamplerConfig(temp=1.0, top_k=3, top_p=1.0, min_p=0.0, penalty_repeat=1.5)
+    st, dp = _chain(cfg)
+    drawn = [int(tsamp.chain_sample(logits[:1], cfg, st, dp)) for _ in range(20)]
+    assert st.recent[:20].tolist() == drawn and int(st.recent_pos) == 20
+    a = tsamp.chain_sample(logits[:1], cfg, *_chain(cfg, 7))
+    b = tsamp.chain_sample(logits[:1], cfg, *_chain(cfg, 7))
     assert torch.equal(a, b)

@@ -197,14 +197,28 @@ def test_infill_prompt_layout_matches_jax(servers):
 @pytest.mark.parametrize("path,body", [
     ("/embeddings", {"input": "hello"}), ("/v1/embeddings", {"input": "hello"}),
     ("/rerank", {"query": "a", "documents": ["b"]}), ("/v1/rerank", {"query": "a"}),
-    ("/lora-adapters", [{"id": 0, "scale": 0.5}]), ("/lora-adapters", None),
-    ("/slots/0?action=save", {"filename": "s.bin"}),
-    ("/slots/0?action=restore", {"filename": "s.bin"}),
 ])
 def test_unported_routes_answer_501(servers, path, body):
     _, tsrv = servers
     code, raw = _call(tsrv.port, path, body)
     assert code == 501 and "not ported yet" in json.loads(raw)["error"]["message"]
+
+
+@pytest.mark.parametrize("path,body,code", [
+    ("/lora-adapters", None, 200), ("/lora-adapters", [{"id": 0, "scale": 0.5}], 400),
+    ("/slots/0?action=save", {"filename": "../s.bin"}, 400),
+    ("/slots/0?action=drop", {"filename": "s.bin"}, 400),
+    ("/slots/0?action=restore", {"filename": "absent.bin"}, 400),
+])
+def test_lora_and_slot_routes_without_adapters_or_files(servers, path, body, code):
+    """The routes are ported (tests/test_torch_lora.py and test_torch_state_io.py
+    drive them); a server without adapters lists none and refuses a scale,
+    and a slot route refuses a path, an unknown action or a missing file."""
+    _, tsrv = servers
+    got, raw = _call(tsrv.port, path, body)
+    assert got == code
+    if code == 200:
+        assert json.loads(raw) == []
 
 
 def test_router_loads_a_second_model(servers):
@@ -220,7 +234,6 @@ def test_router_loads_a_second_model(servers):
 @pytest.mark.parametrize("kw,match", [
     (dict(kv_dtype="int8"), "KV"),
     (dict(kv_dtype_v="f32"), "KV"),
-    (dict(lora=["adapter.gguf"]), "lora"),
 ])
 def test_unported_startup_options_raise(gguf, kw, match):
     model = load_model(gguf, dtype=torch.float32, device="cpu")
@@ -229,9 +242,9 @@ def test_unported_startup_options_raise(gguf, kw, match):
 
 
 @pytest.mark.parametrize("flags,module", [
-    (["--lora", "a.gguf"], "models/lora.py"), (["-hf", "acme/tiny"], "tools/hf.py"),
+    (["-hf", "acme/tiny"], "tools/hf.py"),
     (["-ctk", "q8", "-ctv", "q8"], "quantized KV"), (["-ctv", "f32"], "split-dtype"),
-    (["--attn-w8a8"], "W8A8"), (["--slot-save-path", "slots"], "state_io.py"),
+    (["--attn-w8a8"], "W8A8"),
 ])
 def test_unported_flags_fail_with_the_module(gguf, capsys, flags, module):
     from sparkinfer_tpu_torch.server.__main__ import main

@@ -630,14 +630,13 @@ def test_unported_options_raise(llama_gguf, sparse_gguf):
     # grammars are ported (tests/test_torch_grammar.py); one needs the tokenizer
     with pytest.raises(ValueError, match="tokenizer"):
         sched.submit(Request(prompt_tokens=[1, 2], grammar='root ::= "a"'))
-    for call in (lambda: sched.save_slot(0, "x"), lambda: sched.restore_slot(0, "x")):
-        with pytest.raises(NotImplementedError):
-            call()
-    with pytest.raises(NotImplementedError):
+    # slot files are ported (tests/test_torch_state_io.py): a missing file raises
+    with pytest.raises(OSError):
+        sched.restore_slot(0, "no-such-slot.state")
+    with pytest.raises(NotImplementedError):  # the per-slot chain has no mirostat
         _sched(llama_gguf, sampler=SamplerConfig(mirostat=2))
-    with pytest.raises(NotImplementedError):  # the Engine's static chain
-        Engine(_port_model(llama_gguf), sampler=SamplerConfig(penalty_repeat=1.1),
-               device="cpu")
+    # the Engine's static chain has the penalties (tests/test_torch_sampling_chain.py)
+    Engine(_port_model(llama_gguf), sampler=SamplerConfig(penalty_repeat=1.1), device="cpu")
 
 
 # ---------------------------------------------------------------------------
