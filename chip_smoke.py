@@ -231,13 +231,48 @@ sees no card or the package is missing. Phases, each of which fails the run:
        -gan 4 -gaw 64 each printing the in-process engine's stream, and
        -nps 2 --json. `python3 chip_smoke.py --runtime` runs phases 1, 2
        and 5l alone and prints no result.
+     5m. the quantized formats and embeddings: (a) the JAX bench's
+       headline row at ProSparse-Llama-2-13B widths and depth (5c's
+       draws): W8A8 attention (wq wk wv wo) and W8A8 predictor stacks,
+       quantized a layer at a time by W8A8Tensor.from_float, over 5c's
+       Q8_0 flat FFN stores (v6q) and Q8_0 head (quant_matmul_2d); the
+       int8 product (torch._int_mm) bit-equal to the f64 product, and
+       w8a8_linear to its plain composition, at 5120x5120, 5120x1280 and
+       1280x13824, N=1 and 32; the untiered sparse Engine as a graph (v6q
+       L and quant_matmul_2d once a step, int8 products 6L+2 a step, all
+       counted exactly) against an eager engine (streams equal, first
+       decode logits bit-equal), its profiled step against 5d's Q8_0 step
+       (the kernels W8A8 adds, by name), the share of its greedy tokens
+       equal to 5d's stream, and one attention projection (5120x5120,
+       N=1) by w8a8_linear, by the int8 product alone, by qmm_decode and by
+       the bf16 torch.matmul over the 40 layers' weights; then tiered
+       fetch over 5j's 13B hot and cold stores, right after 5j's Q8_0
+       drive, with W8A8 attention and predictor stacks (v6q L,
+       quant_matmul_2d once and 6L int8 products a forward); (b) a GGUF at
+       ProSparse-Llama-2-7B widths cut to 4 layers (host decoding at load
+       bounds the depth) in llama.cpp's Q4_K_M mix (Q4_K, Q6_K for attn_v,
+       ffn_down and output; f16 predictors), its blocks written directly
+       with sane f16 scales, loaded by load_model and run by the sparse
+       Engine through v6 (L a step), against the BF16 GGUF of its values
+       decoded on the host: prefill logits bit-equal, streams equal, load
+       seconds and decode M elements/s a format; (c) the 7B bf16 model of
+       the main path (full width and depth, the SPM vocabulary, a seeded
+       cls_out_w (1, E)) behind SparkServer: /v1/embeddings of 8 inputs of
+       16-512 tokens bit-equal to the Embedder's vectors of each input
+       alone, an input sent alone equal to itself among the 8, /v1/rerank
+       of 8 documents whose scores equal the head applied in f64 on the
+       host to the forward's hidden state, and the ms of a 512-token
+       embedding. `python3 chip_smoke.py --quant` runs phases 1, 2, 5m(c),
+       5m(b), 5c's engine and 5d's main path, then 5m(a) (tiered fetch
+       with W8A8 only) and prints no result.
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
 
 The line before the last is {"kernels": [...]} (v1's entry counts its MoE
 launches too, and carries its MoE-shape timing under "moe"; v6's counts
-phase 5l's and carries its N=6 and N=32 timings under "shapes"); the last
+phase 5l's and 5m(b)'s and carries its N=6 and N=32 timings under
+"shapes"; v6q's and quant_matmul_2d's count 5m(a)'s); the last
 line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --prefill-profile
@@ -429,6 +464,64 @@ class Q8Weights:
     def dense_ffn(self):
         """The same FFN weights as Q8_0 QuantTensors (a Q8_0 GGUF's FFN)."""
         return {k: self.packed_stack(k, *shape) for k, shape in self.ffn_shapes().items()}
+
+    def w8a8_stack(self, draw_in_out):
+        """A layer-stacked W8A8Tensor, each layer quantized on the card from
+        draw_in_out(il), its (in, out) weight."""
+        from sparkinfer_tpu_torch.ops.quant_matmul import W8A8Tensor
+
+        first = draw_in_out(0)
+        st = W8A8Tensor.empty((self.cfg.n_layer,) + tuple(first.shape), self.device)
+        for il in range(self.cfg.n_layer):
+            st[il] = W8A8Tensor.from_float(first if il == 0 else draw_in_out(il))
+        return st
+
+    def w8a8_draws(self) -> dict:
+        """Phase 5m's W8A8 stacks by their params key, each a function of the
+        layer giving its (in, out) bf16 draw: the attention projections (wq
+        wk wv wo, attn_w8a8's layout) and the predictor stacks (pred_up_w8,
+        pred_down_w8), as bench.py's headline row has them."""
+        cfg = self.cfg
+        E, F, R = cfg.n_embd, cfg.n_ff, cfg.max_pred_rank
+        HD, KD = cfg.n_head * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
+        draws = {k: (lambda il, k=k, o=o, i=i: self.draw(k, il, (o, i)).T)
+                 for k, o, i in (("wq", HD, E), ("wk", KD, E), ("wv", KD, E), ("wo", E, HD))}
+        draws["pred_up_w8"] = lambda il: self.draw("pred_up", il, (E, R), scale=0.05)
+        draws["pred_down_w8"] = lambda il: self.draw("pred_down", il, (R, F), scale=0.6)
+        return draws
+
+    def w8a8_parts(self):
+        """The stacks of w8a8_draws, each quantized a layer at a time by
+        W8A8Tensor.from_float: (attention, predictor stacks)."""
+        st = {k: self.w8a8_stack(draw) for k, draw in self.w8a8_draws().items()}
+        return ({k: st[k] for k in ("wq", "wk", "wv", "wo")},
+                {k: st[k] for k in ("pred_up_w8", "pred_down_w8")})
+
+    def bf16_params(self):
+        """The same draws unquantized, laid out as the loader lays out a bf16
+        ProSparse model: dense attention, FFN and head, stacked predictors."""
+        import torch
+
+        cfg, dev = self.cfg, self.device
+        L, E, F, V, R = cfg.n_layer, cfg.n_embd, cfg.n_ff, cfg.n_vocab, cfg.max_pred_rank
+        HD, KD = cfg.n_head * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
+        ones = dict(dtype=torch.float32, device=dev)
+        layers = {"attn_norm_w": torch.ones((L, E), **ones),
+                  "ffn_norm_w": torch.ones((L, E), **ones),
+                  **{k: self.dense_stack(k, o, i) for k, o, i in (
+                      ("wq", HD, E), ("wk", KD, E), ("wv", KD, E), ("wo", E, HD))},
+                  **{k: self.dense_stack(k, *shape) for k, shape in self.ffn_shapes().items()},
+                  "pred_up": torch.stack([self.draw("pred_up", il, (E, R), scale=0.05)
+                                          for il in range(L)]),
+                  "pred_up_b": torch.zeros((L, R), dtype=self.dtype, device=dev),
+                  "pred_down": torch.stack([self.draw("pred_down", il, (R, F), scale=0.6)
+                                            for il in range(L)]),
+                  "pred_down_b": torch.stack([
+                      self.draw("pred_down_b", il, (F,), scale=0.5, shift=-1.2)
+                      for il in range(L)])}
+        return {"tok_embd": self.draw("tok_embd", 0, (V, E)),
+                "output_norm_w": torch.ones((E,), **ones),
+                "output": self.draw("output", 0, (V, E)).T.contiguous(), "layers": layers}
 
 
 def to_device(obj, device):
@@ -1583,11 +1676,17 @@ def profile_steps(label, step, steps: int = 8):
         for _ in range(8):
             torch.cuda._sleep(100_000)
         torch.cuda.synchronize()
-    # device-side events only (kernels, copies), so no time counts twice
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows = [(e.key, (e.self_device_time_total or e.device_time_total) / 1e3, e.count)
-            for e in device if "spin_kernel" not in e.key]
-    guards = sum(e.count for e in device if "spin_kernel" in e.key)
+    # device-side events only (kernels, copies), so no time counts twice,
+    # summed by name from the profiler's raw events: its per-op tables
+    # (key_averages) build an object for each of the eager steps' tens of
+    # thousands of host events, which takes far longer than the window
+    device = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = device.get(e.name(), (0.0, 0))
+            device[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    rows = [(k, ms, n) for k, (ms, n) in device.items() if "spin_kernel" not in k]
+    guards = sum(n for k, (_, n) in device.items() if "spin_kernel" in k)
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     print(f"profile: {steps} {label}, wall {wall_ms / steps:.3f} ms/step, "
@@ -1616,13 +1715,14 @@ def profile_decode(eng, prompt, steps: int = 8):
     return rows, steps, wall_ms
 
 
-def decode_timing(eng, prompt, n_new) -> tuple[list, "torch.Tensor", dict]:
+def decode_timing(eng, prompt, n_new) -> tuple[list, "torch.Tensor", dict, tuple]:
     """One engine's greedy stream of n_new tokens from `prompt` and its
     first decode step's logits (a copy); the decode wall ms a step and tok/s
     of a second generate, which must give the same stream and capture no
     graph (the first captures one unless the engine's cache had one), with
     the median and the largest wall ms between its tokens; then device ms a
-    step and busy share over 8 profiled steps."""
+    step and busy share over 8 profiled steps, whose (rows, steps) come
+    last."""
     from sparkinfer_tpu_torch.runtime.engine import PerfCounters
 
     toks, first = [], None
@@ -1650,7 +1750,7 @@ def decode_timing(eng, prompt, n_new) -> tuple[list, "torch.Tensor", dict]:
     return toks, first, {"wall_ms_per_step": wall, "tok_s": tok_s,
                          "step_ms_median": gaps[len(gaps) // 2], "step_ms_max": gaps[-1],
                          "device_ms_per_step": busy / steps, "busy_share": busy / wall_ms,
-                         "device_share_of_wall": busy / steps / wall}
+                         "device_share_of_wall": busy / steps / wall}, (rows, steps)
 
 
 def replay_times(step, reps: int = 20) -> dict:
@@ -1719,11 +1819,12 @@ def graph_vs_eager(label, graph_eng, eager_eng, prompt, n_new) -> dict:
     """Phase 5h for one Engine path, graph against eager over the same
     params: greedy streams equal and first decode logits bit-equal, or the
     run fails; wall ms a step, tok/s, device ms a step and busy share of
-    each, the graph's capture time and pool bytes."""
+    each, the graph's capture time and pool bytes. The graph engine's
+    profiled steps are kept in PROFILES[label]."""
     import torch
 
-    (gt, gf, g), (et, ef, e) = (decode_timing(eng, prompt, n_new)
-                                for eng in (graph_eng, eager_eng))
+    (gt, gf, g, PROFILES[label]), (et, ef, e, _) = (decode_timing(eng, prompt, n_new)
+                                                    for eng in (graph_eng, eager_eng))
     check(gt == et, f"5h {label}: graph stream {gt} differs from eager {et}")
     check(torch.equal(gf, ef), f"5h {label}: first decode logits differ by up to "
                                f"{(gf - ef).abs().max().item():.3e}")
@@ -1892,6 +1993,14 @@ def kernel_wrappers():
 
 
 PEAKS = {}  # peak device GiB of each main path, by label
+STREAMS = {}  # greedy tokens of each main path, by label
+PROFILES = {}  # phase 5h's profiled graph steps of each Engine path: (rows, steps), by label
+START = [time.perf_counter()]  # the run's start, reset by main
+
+
+def mark(what):
+    """A line with the seconds since the run's start, after each part."""
+    print(f"{what} done at {time.perf_counter() - START[0]:.1f} s", flush=True)
 
 
 def main_path(label, eng, prompt, n_new, want):
@@ -1918,6 +2027,7 @@ def main_path(label, eng, prompt, n_new, want):
               f"{label}: {name} launched {n} times, want {expect.get(name, 0)}")
     summary = eng.perf.summary()
     peak = PEAKS[label] = torch.cuda.max_memory_allocated() / 2**30
+    STREAMS[label] = toks
     print(f"main path {label}: prefill {summary['prefill_tps']} tok/s, decode "
           f"{summary['decode_tps']} tok/s ({steps} steps), peak {peak:.2f} GiB, "
           f"launches {json.dumps(launches)} (as expected: {steps} steps, {warm} warm-up)")
@@ -2713,20 +2823,26 @@ def phase_tiered_7b(model, greedy, prompt, n_new):
     return rows, srow, dense_peak, launches
 
 
-def phase_tiered_13b(cfg, scfg_all, weights, model, prompt, n_new):
-    """The 13B widths, Q8_0: the Q8_0 attention, head and predictor stacks of
-    `model`, a Q8_0 hot store of 27 of 108 groups (v6q) quantized from the
-    bf16 rows, the f16 cold store built from the same rows, fetch mode, the
-    tiered step captured as a CUDA graph, a rebalance after every step. The
-    tiered library pieces are driven directly, as bench.py's tiered harness
-    drives them: the Engine builds no Q8_0 hot store, as the JAX Engine
-    does not. The prompt prefills through the tiered forward (the full FFN
-    is not kept)."""
+def phase_tiered_13b(cfg, scfg_all, weights, model, prompt, n_new, w8a8=None,
+                     q8_0=True):
+    """The 13B widths: a Q8_0 hot store of 27 of 108 groups (v6q) quantized
+    from the bf16 rows, the f16 cold store built from the same rows, fetch
+    mode, the tiered step captured as a CUDA graph, a rebalance after every
+    step. Driven first (q8_0=True) with the Q8_0 attention, head and
+    predictor stacks of `model`, then, where w8a8 = (attention, predictor
+    stacks) is given, with W8A8 attention and predictor stacks and the same
+    Q8_0 head (phase 5m: the JAX bench's headline row), over the same hot
+    and cold stores and balancer. The tiered library pieces are driven
+    directly, as bench.py's tiered harness drives them: the Engine builds
+    no Q8_0 hot store, as the JAX Engine does not. Each prompt prefills
+    through the tiered forward (the full FFN is not kept). Returns the rows
+    and each kernel's launches over all drives."""
     import gc
 
     import torch
 
     from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.ops import quant_matmul as qm
     from sparkinfer_tpu_torch.runtime.graphs import StepGraph
     from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
     from sparkinfer_tpu_torch.sparse.balancer import Balancer
@@ -2756,86 +2872,114 @@ def phase_tiered_13b(cfg, scfg_all, weights, model, prompt, n_new):
     cold = ColdStore(cfg, scfg, rows)
     del rows
     gc.collect()
-    flat = {k: v for k, v in model.params["sparse_flat"].items() if k.startswith("pred_")}
-    flat["pred_down_b_all"] = skewed_pred_bias(cfg, 128).to("cuda", flat["pred_down_b_all"].dtype)
-    lay, hot = tiered_layer_params(model.params["layers"], tp)
-    params = {**model.params, "layers": lay, "sparse_flat": {**flat, **hot}}
     fwd = make_forward(cfg, ffn_fn=make_tiered_ffn(cfg, scfg, cold, mode="fetch"),
                        stateful_ffn=True)
     bal = Balancer(cold=cold, scfg=scfg)
-    cache = init_cache(cfg, 1, 1024, torch.bfloat16, "cuda")
     built = time.perf_counter() - t0
+    skew = skewed_pred_bias(cfg, 128).to("cuda", torch.bfloat16)
+    flat = {k: v for k, v in model.params["sparse_flat"].items() if k.startswith("pred_")}
+    flat["pred_down_b_all"] = skew.to(flat["pred_down_b_all"].dtype)
+    drives = []
+    if q8_0:
+        drives.append(("13B Q8_0 tiered fetch (v6q hot store)", model.params["layers"],
+                       {k: v for k, v in flat.items() if not k.endswith("_w8")},
+                       {"quant_matmul_2d": 4 * L + 1, "quant_matmul_flat": 2 * L}, 0))
+    if w8a8 is not None:
+        attn, pred = w8a8
+        drives.append(("13B W8A8 tiered fetch (v6q hot store)",
+                       {**model.params["layers"], **attn},
+                       {**{k: v for k, v in flat.items() if not k.endswith("_qt")}, **pred},
+                       {"quant_matmul_2d": 1}, 6 * L))  # int8: attention, own predictor
+    out, launches = [], {}
+    for label, layers, pflat, per_fwd, int8_per_fwd in drives:
+        lay, hot = tiered_layer_params(layers, tp)
+        params = {**model.params, "layers": lay, "sparse_flat": {**pflat, **hot}}
+        cache = init_cache(cfg, 1, 1024, torch.bfloat16, "cuda")
 
-    def one(tokens, positions):
-        logits = fwd(params, tokens, positions, cache, fs)[:, -1]
-        return logits, logits.argmax(-1)
+        def one(tokens, positions, params=params, cache=cache):
+            logits = fwd(params, tokens, positions, cache, fs)[:, -1]
+            return logits, logits.argmax(-1)
 
-    step = StepGraph(one, 1, torch.device("cuda"), capture=True, label="13B tiered step",
-                     restore=tuple(t for t in fs if t is not None))
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
-    misses, walls, swapped = [], [], 0
-    with torch.inference_mode():
-        logits = fwd(params, torch.tensor([prompt], device="cuda"),
-                     torch.arange(len(prompt), device="cuda")[None], cache, fs)
-        tok = int(logits[0, -1].argmax())
-        bal.rebalance(tp, fs.dfr, miss_g=fs.miss_g)
-        fs.miss_g.zero_()
-        n = len(prompt)
-        for i in range(n_new - 1):
-            m0, s0 = float(fs.miss.sum()), bal.total_swaps
-            t0 = time.perf_counter()
-            step.tokens.fill_(tok)
-            step.positions.fill_(n + i)
-            logits, nxt = step.run()
-            tok = int(nxt[0])
-            t1 = time.perf_counter()
+        step = StepGraph(one, 1, torch.device("cuda"), capture=True, label=label,
+                         restore=tuple(t for t in fs if t is not None))
+        wrappers = kernel_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        i0 = qm.int8_matmul.launches
+        torch.cuda.reset_peak_memory_stats()
+        misses, walls, swapped = [], [], 0
+        s0_all, b0 = bal.total_swaps, bal.bytes_h2d
+        r0, t_bal0 = bal.rebalances, bal.t_total_s
+        with torch.inference_mode():
+            logits = fwd(params, torch.tensor([prompt], device="cuda"),
+                         torch.arange(len(prompt), device="cuda")[None], cache, fs)
+            tok = int(logits[0, -1].argmax())
             bal.rebalance(tp, fs.dfr, miss_g=fs.miss_g)
             fs.miss_g.zero_()
-            walls.append((t1 - t0, time.perf_counter() - t1))
-            check(bool(torch.isfinite(logits).all()), "5j 13B: non-finite logits")
-            misses.append(float(fs.miss.sum()) - m0)
-            swapped += bal.total_swaps > s0
-    steps = n_new - 1
-    got = {k: w.launches for k, w in wrappers.items()}
-    want = {"sparse_ffn_block_v6q": L * (steps + 2),  # steps, warm-up, prefill
-            "quant_matmul_2d": (4 * L + 1) * (steps + 2),
-            "quant_matmul_flat": 2 * L * (steps + 2)}  # each layer's own predictor
-    for name, n_got in got.items():
-        check(n_got == want.get(name, 0),
-              f"5j 13B: {name} launched {n_got} times, want {want.get(name, 0)}")
-    row = {"path": "13B Q8_0 tiered fetch (v6q hot store)", "steps": steps, "graph": True,
-           "launches": got["sparse_ffn_block_v6q"], "build_s": built,
-           "wall_ms_per_step": 1e3 * sum(w[0] for w in walls) / steps,
-           "tok_s": steps / sum(w[0] for w in walls),
-           "wall_ms_per_step_with_rebalance": 1e3 * sum(a + b for a, b in walls) / steps,
-           "ms_per_rebalance": 1e3 * bal.t_total_s / bal.rebalances,
-           "rebalances": bal.rebalances, "rebalances_that_swapped": swapped,
-           "swaps": bal.total_swaps, "h2d_bytes": bal.bytes_h2d, "window": bal.window,
-           "overruns": bal.overruns, **miss_trend(misses),
-           "hot_store_bytes": tp.nbytes, "cold_store_bytes": cold.nbytes,
-           "cold_store_dtype": str(cold.dtype)}
-    check(row["misses_per_token_last16"] < row["misses_per_token_first16"],
-          f"5j 13B: fetch misses a token did not fall: {row['misses_per_token_first16']} "
-          f"-> {row['misses_per_token_last16']}")
+            n = len(prompt)
+            for i in range(n_new - 1):
+                m0, s0 = float(fs.miss.sum()), bal.total_swaps
+                t0 = time.perf_counter()
+                step.tokens.fill_(tok)
+                step.positions.fill_(n + i)
+                logits, nxt = step.run()
+                tok = int(nxt[0])
+                t1 = time.perf_counter()
+                bal.rebalance(tp, fs.dfr, miss_g=fs.miss_g)
+                fs.miss_g.zero_()
+                walls.append((t1 - t0, time.perf_counter() - t1))
+                check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
+                misses.append(float(fs.miss.sum()) - m0)
+                swapped += bal.total_swaps > s0
+        steps = n_new - 1
+        fwds = steps + 2  # steps, warm-up, prefill
+        got = {k: w.launches for k, w in wrappers.items()}
+        want = {"sparse_ffn_block_v6q": L * fwds, **{k: n * fwds for k, n in per_fwd.items()}}
+        for name, n_got in got.items():
+            check(n_got == want.get(name, 0),
+                  f"{label}: {name} launched {n_got} times, want {want.get(name, 0)}")
+        int8 = qm.int8_matmul.launches - i0
+        check(int8 == int8_per_fwd * fwds,
+              f"{label}: {int8} int8 products, want {int8_per_fwd * fwds}")
+        rebal = bal.rebalances - r0
+        row = {"path": label, "steps": steps, "graph": True,
+               "launches": got["sparse_ffn_block_v6q"], "int8_products": int8,
+               "build_s": built,
+               "wall_ms_per_step": 1e3 * sum(w[0] for w in walls) / steps,
+               "tok_s": steps / sum(w[0] for w in walls),
+               "wall_ms_per_step_with_rebalance": 1e3 * sum(a + b for a, b in walls) / steps,
+               "ms_per_rebalance": 1e3 * (bal.t_total_s - t_bal0) / rebal,
+               "rebalances": rebal, "rebalances_that_swapped": swapped,
+               "swaps": bal.total_swaps - s0_all, "h2d_bytes": bal.bytes_h2d - b0,
+               "window": bal.window, "overruns": bal.overruns, **miss_trend(misses),
+               "hot_store_bytes": tp.nbytes, "cold_store_bytes": cold.nbytes,
+               "cold_store_dtype": str(cold.dtype)}
+        if not out:  # the first drive starts from the initial hot set
+            check(row["misses_per_token_last16"] < row["misses_per_token_first16"],
+                  f"{label}: fetch misses a token did not fall: "
+                  f"{row['misses_per_token_first16']} -> {row['misses_per_token_last16']}")
 
-    def replay():
-        with torch.inference_mode():
-            step.run()
+        def replay(step=step):
+            with torch.inference_mode():
+                step.run()
 
-    rows_p, wall_ms = profile_steps("13B tiered steps (graph)", replay, 4)
-    row["device_ms_per_step"] = sum(r[1] for r in rows_p) / 4
-    row["kernels_per_step"] = sum(r[2] for r in rows_p) / 4
-    row.update(replay_times(step))
-    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    row.update(base_gib=base, own_peak_gib=row["peak_gib"] - base)
-    print("phase 5j, 13B Q8_0 tiered:", json.dumps(row))
-    launches = row["launches"]
-    del step, params, cold, tp, fs, cache, bal
+        rows_p, wall_ms = profile_steps(f"{label} steps (graph)", replay, 4)
+        row["device_ms_per_step"] = sum(r[1] for r in rows_p) / 4
+        row["kernels_per_step"] = sum(r[2] for r in rows_p) / 4
+        row.update(replay_times(step))
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        row.update(base_gib=base, own_peak_gib=row["peak_gib"] - base)
+        print(f"phase {'5m(a)' if w8a8 and label.startswith('13B W8A8') else '5j'}, "
+              f"{label}:", json.dumps(row))
+        out.append(row)
+        for name, n_got in got.items():
+            launches[name] = launches.get(name, 0) + n_got
+        del step, params, cache, one, replay
+        torch.cuda.empty_cache()
+    del cold, tp, fs, bal
     gc.collect()
     torch.cuda.empty_cache()
-    return row, launches
+    return out, launches
 
 
 def tier_summary(gate, rows7, sched, row13, h5, dense_peak) -> dict:
@@ -2876,7 +3020,7 @@ def tiered_phases(greedy_cfg) -> int:
     for k in [k for k in model.params["sparse_flat"] if not k.startswith("pred_")]:
         del model.params["sparse_flat"][k]
     torch.cuda.empty_cache()
-    row13, _ = phase_tiered_13b(cfg, scfg, weights, model, prompt, 64)
+    (row13,), _ = phase_tiered_13b(cfg, scfg, weights, model, prompt, 64)
     print("phase 5j summary:", json.dumps(tier_summary(gate, rows7, sched, row13, None,
                                                        dense_peak)))
     return 0
@@ -3130,8 +3274,7 @@ def moe_engine(label, model, greedy, prompt, n_new, mode) -> dict:
     eng = Engine(model, max_seq=1024, sampler=greedy, device="cuda", moe_mode=mode)
     launches = main_path(label, eng, prompt, n_new,
                          lambda runs: {"sparse_ffn_block": per_fwd * (runs + 1)})
-    toks, first, timing = decode_timing(eng, prompt, n_new)
-    rows, steps, _ = profile_decode(eng, prompt, 4)
+    toks, first, timing, (rows, steps) = decode_timing(eng, prompt, n_new)
     v1 = [(k, ms, n) for k, ms, n in rows if "v1_" in k]
     check(sum(n for _, _, n in v1) == per_fwd * steps and all("v1_ffn" in k for k, _, _ in v1),
           f"5k {label}: the profiled steps launched {v1}, want {per_fwd} v1_ffn a step")
@@ -4038,6 +4181,569 @@ def runtime_summary(rt) -> dict:
     }
 
 
+# --- phase 5m: row-wise W8A8 (the JAX bench's 13B headline row), a K-quant
+# GGUF, and embeddings / rerank over HTTP --------------------------------------
+
+W8A8_GEMM = ("gemm", "imma", "xmma", "cutlass", "sm90", "sm80")  # library int8 product kernels
+# w8a8_linear against the f32 product of the bf16 weights it was quantized
+# from, ||error|| / ||product|| over 8 random rows: int8 weights a row and
+# int8 activations a token each round to about amax/127/sqrt(12), 0.9% of
+# the RMS at a 4-sigma amax, 1.3% together; a transposed stack is off by
+# about 140%, a scale off by 2 by 100%
+W8A8_PRODUCT_TOL = 0.03
+# the W8A8 engine's prefill logits may lie this many times farther from the
+# bf16 engine's (the same draws unquantized) than the Q8_0 engine's do: its
+# products round 2-3 times coarser than Q8_0's 32-element blocks, and a
+# different rounding can flip a selected neuron group, which moves the
+# logits by far more than the rounding does
+W8A8_GAP_FACTOR = 3.0
+
+
+def w8a8_products(attn, pred, weights) -> dict:
+    """The gate on the int8 product: torch._int_mm bit-equal to the exact f64
+    product, and w8a8_linear to its plain composition, at the path's shapes
+    (an attention projection, the predictor's up and down) and N = 1 and 32,
+    on layer 0's weights; then every stack at every layer against the f32
+    product of its bf16 draw (within W8A8_PRODUCT_TOL), which a stack
+    quantized from a transposed or mis-scaled weight fails."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    out = {}
+    n0 = qm.int8_matmul.launches
+    for key, draw in weights.w8a8_draws().items():
+        stack = attn[key] if key in attn else pred[key]
+        worst = 0.0
+        for il in range(weights.cfg.n_layer):
+            w = draw(il).float()
+            x = torch.randn((8, w.shape[0]), generator=gen, device="cuda").to(torch.bfloat16)
+            ref = x.float() @ w
+            err = (qm.w8a8_linear(x, stack[il]).float() - ref).norm() / ref.norm()
+            worst = max(worst, err.item())
+        check(worst <= W8A8_PRODUCT_TOL, f"5m: w8a8_linear of {key} lies {worst:.4f} from "
+                                         f"the bf16 product, over {W8A8_PRODUCT_TOL}")
+        out[f"{key} all layers, N=8: worst relative error against bf16"] = worst
+    for name, w in (("wq", attn["wq"][0]), ("pred_up", pred["pred_up_w8"][0]),
+                    ("pred_down", pred["pred_down_w8"][0])):
+        for N in (1, 32):
+            x = torch.randn((N, w.shape[0]), generator=gen, device="cuda").to(torch.bfloat16)
+            xq, sx = qm.w8a8_quantize(x)
+            y, ref = qm.int8_matmul(xq, w.q), qm.int8_matmul_plain(xq, w.q)
+            check(torch.equal(y, ref), f"5m: the int8 product of {name} at N={N} differs "
+                                       f"from the f64 product by {(y - ref).abs().max().item()}")
+            plain = (ref.float() * sx * w.s).to(x.dtype)
+            check(torch.equal(qm.w8a8_linear(x, w), plain),
+                  f"5m: w8a8_linear of {name} at N={N} differs from its plain version")
+            out[f"{name} {tuple(w.shape)} N={N}"] = "bit-equal"
+    qm.int8_matmul.launches = n0  # checks, not the path
+    return out
+
+
+def attn_product_times(weights, attn) -> dict:
+    """One attention projection at 13B, N = 1 (5120 x 5120): w8a8_linear
+    (activation quantization, the int8 product, the scale epilogue), the
+    int8 product alone, the Q8_0 decode kernel (qmm_decode) and the bf16
+    torch.matmul, each over the 40 layers' weights (more bytes than L2
+    holds) in one CUDA graph, with each one's bytes bound."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops import quant_matmul as qm
+
+    cfg = weights.cfg
+    L, E = cfg.n_layer, cfg.n_embd
+    HD = cfg.n_head * cfg.head_dim
+    w8 = attn["wq"]
+    q8 = weights.packed_stack("wq", HD, E)
+    bf = weights.dense_stack("wq", HD, E)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    x = torch.randn((1, E), generator=gen, device="cuda").to(torch.bfloat16)
+    xq, _ = qm.w8a8_quantize(x)
+    counts = (qm.int8_matmul.launches, qm.quant_matmul_2d.launches)
+    reps = 2 * L
+    io = E * 2 + HD * 2  # x in, y out (bf16)
+    rows = {
+        "w8a8_linear": (graph_ms(lambda i: qm.w8a8_linear(x, w8[i % L]), reps),
+                        w8.q[0].numel() + w8.s[0].numel() * 4 + io),
+        "int8_product": (graph_ms(lambda i: qm.int8_matmul(xq, w8.q[i % L]), reps),
+                         w8.q[0].numel() + E + HD * 4),
+        "qmm_decode (Q8_0)": (graph_ms(lambda i: qm.quant_matmul_2d(
+            x, q8.q[i % L], q8.s[i % L], kind="q8_0"), reps),
+            q8.q[0].numel() + q8.s[0].numel() * 4 + E * 2 + HD * 4),
+        "torch.matmul (bf16)": (graph_ms(lambda i: torch.matmul(x, bf[i % L]), reps),
+                                bf[0].numel() * 2 + io),
+    }
+    qm.int8_matmul.launches, qm.quant_matmul_2d.launches = counts
+    del q8, bf
+    torch.cuda.empty_cache()
+    return {k: {"ms": ms, "bytes": nb, "bound_ms": bound(nb, 2 * E * HD, PEAK_BF16_FLOP_S)[0]}
+            for k, (ms, nb) in rows.items()}
+
+
+def w8a8_added_kernels(rows, steps, q8_rows, q8_steps) -> dict:
+    """The kernels the W8A8 step launches beyond the Q8_0 step (same FFN,
+    same head), by name, per step: device ms and launches, the library's
+    int8 product kernels apart from the rest (activation quantization and
+    the scale epilogue)."""
+    q8 = {k: (ms / q8_steps, n // q8_steps) for k, ms, n in q8_rows}
+    added = {}
+    for k, ms, n in rows:
+        ms0, n0 = q8.get(k, (0.0, 0))
+        if n // steps > n0:
+            added[k[:80]] = [ms / steps - ms0, n // steps - n0]
+    gemm = {k: v for k, v in added.items() if any(g in k.lower() for g in W8A8_GEMM)}
+    rest = {k: v for k, v in added.items() if k not in gemm}
+    qmm = sum(ms / q8_steps for k, ms, n in q8_rows if "qmm_decode" in k)
+    return {"int8_product": {"ms": sum(v[0] for v in gemm.values()),
+                             "launches": sum(v[1] for v in gemm.values()), "kernels": gemm},
+            "quantize_and_epilogue": {"ms": sum(v[0] for v in rest.values()),
+                                      "launches": sum(v[1] for v in rest.values()),
+                                      "kernels": rest},
+            "q8_step_qmm_decode_ms": qmm}
+
+
+def prefill_logits(eng, prompt):
+    """The engine's prefill logits of `prompt` on a cache of its own (f32)."""
+    cache, st = eng.new_cache(), eng.new_sampler_state()
+    eng.prefill(prompt, cache, st)
+    return eng.last_logits.float().reshape(-1).clone()
+
+
+def bf16_prefill_logits(weights, scfg, greedy, prompt):
+    """Prefill logits of the bf16 sparse Engine over the draws of `weights`
+    unquantized (v6's bf16 flat stores, the dense FFN dropped), built and
+    freed here."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.sparse.ffn import prepare_pipelined_params
+
+    params = prepare_pipelined_params(weights.bf16_params(), weights.cfg, scfg,
+                                      drop_dense=True, layout="v6")
+    eng = Engine(LoadedModel(config=weights.cfg, params=params), max_seq=64, sampler=greedy,
+                 sparse=scfg, sparse_preprepared=True, device="cuda")
+    del params
+    logits = prefill_logits(eng, prompt)
+    del eng
+    torch.cuda.empty_cache()
+    return logits
+
+
+def logits_gap(got, ref) -> dict:
+    """max |got - ref| over max |ref|, and the share of ref's 10 largest
+    logits among got's."""
+    top = set(got.topk(10).indices.tolist()) & set(ref.topk(10).indices.tolist())
+    return {"rel_max_abs": ((got - ref).abs().max() / ref.abs().max()).item(),
+            "top10_overlap": len(top) / 10}
+
+
+def phase_w8a8_13b(cfg, scfg, weights, model, greedy, prompt, n_new, q8_rows, q8_steps,
+                   q8_logits):
+    """Phase 5m(a): the JAX bench's headline configuration at ProSparse-
+    Llama-2-13B widths and depth: W8A8 attention and predictor stacks,
+    quantized a layer at a time from the seeded bf16 draws of `weights`,
+    over the Q8_0 flat FFN stores (v6q) and Q8_0 head of `model` (phase 5c's,
+    the same draws). The int8 product gates, the main path as a graph (exact
+    launch counts, int8 products too), graph against eager, the profiled
+    step against the Q8_0 step's, the attention product's times, and the
+    prefill logits' distance from those of the bf16 engine over the same
+    draws, held to W8A8_GAP_FACTOR times the Q8_0 engine's (q8_logits).
+    Returns the W8A8 parts (for the tiered run), the summary and the
+    launches."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.ops import quant_matmul as qm
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    L = cfg.n_layer
+    t0 = time.perf_counter()
+    attn, pred = weights.w8a8_parts()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    flat = {k: v for k, v in model.params["sparse_flat"].items() if not k.endswith("_qt")}
+    params = {**model.params, "layers": {**model.params["layers"], **attn},
+              "sparse_flat": {**flat, **pred}}
+    w8 = LoadedModel(config=cfg, params=params)
+    products = w8a8_products(attn, pred, weights)
+    eng = Engine(w8, max_seq=1024, sampler=greedy, sparse=scfg, sparse_preprepared=True,
+                 device="cuda")
+
+    def want(steps):  # the head only: attention and predictors are int8 products
+        return {"sparse_ffn_block_v6q": L * steps, "quant_matmul_2d": steps + 1}
+
+    i0 = qm.int8_matmul.launches
+    launches = main_path("13B W8A8 sparse", eng, prompt, n_new, want)
+    int8 = qm.int8_matmul.launches - i0
+    # a step: wq wk wv wo a layer, the next layer's predictor (up, down) a
+    # layer and layer 0's own; the prefill: attention and each layer's own
+    want_int8 = (4 * L + 2 * (L + 1)) * n_new + 6 * L
+    check(int8 == want_int8, f"5m: {int8} int8 products in the W8A8 main path, want {want_int8}")
+    q8_toks, w8_toks = STREAMS["13B Q8_0 sparse"], STREAMS["13B W8A8 sparse"]
+    same = sum(a == b for a, b in zip(q8_toks, w8_toks)) / len(q8_toks)
+    h5 = graph_vs_eager("13B W8A8 sparse", eng, Engine(
+        w8, max_seq=1024, sampler=greedy, sparse=scfg, sparse_preprepared=True,
+        device="cuda", cuda_graph=False), prompt, n_new)
+    rows, steps = PROFILES["13B W8A8 sparse"]
+    added = w8a8_added_kernels(rows, steps, q8_rows, q8_steps)
+    w8_logits = prefill_logits(eng, prompt)
+    del eng
+    torch.cuda.empty_cache()
+    times = attn_product_times(weights, attn)
+    bf_logits = bf16_prefill_logits(weights, scfg, greedy, prompt)
+    gaps = {"w8a8_vs_bf16": logits_gap(w8_logits, bf_logits),
+            "q8_0_vs_bf16": logits_gap(q8_logits, bf_logits),
+            "w8a8_vs_q8_0": logits_gap(w8_logits, q8_logits)}
+    check(gaps["w8a8_vs_bf16"]["rel_max_abs"]
+          <= W8A8_GAP_FACTOR * gaps["q8_0_vs_bf16"]["rel_max_abs"],
+          f"5m: the W8A8 prefill logits lie farther from the bf16 engine's than "
+          f"{W8A8_GAP_FACTOR} times the Q8_0 engine's: {gaps}")
+
+    def nbytes(*ts):
+        return sum(t.q.numel() * t.q.element_size() + t.s.numel() * t.s.element_size()
+                   for t in ts)
+
+    lay, fl = model.params["layers"], model.params["sparse_flat"]
+    weight_bytes = {"w8a8_attention": nbytes(*attn.values()),
+                    "q8_0_attention": nbytes(*(lay[k] for k in attn)),
+                    "w8a8_predictors": nbytes(*pred.values()),
+                    "q8_0_predictors": nbytes(fl["pred_up_qt"], fl["pred_down_qt"])}
+    out = {"build_s": build_s, "int8_products_gate": products, "weight_bytes": weight_bytes,
+           "int8_products_per_step": 4 * L + 2 * (L + 1),
+           "tok_s": h5["graph"]["tok_s"], "wall_ms_per_step": h5["graph"]["wall_ms_per_step"],
+           "device_ms_per_step": h5["graph"]["device_ms_per_step"],
+           "busy_share": h5["graph"]["busy_share"], "eager": h5["eager"],
+           "peak_gib": PEAKS["13B W8A8 sparse"], "greedy_share_equal_q8_0": same,
+           "prefill_logits_gap": gaps,
+           "added_to_the_q8_0_step": added, "attention_product_5120x5120_n1": times}
+    print("phase 5m(a), 13B W8A8:", json.dumps(out))
+    return attn, pred, out, launches
+
+
+def kquant_blocks(t: str, n_elems: int, rng):
+    """Blocks of ggml type t (Q4_K or Q6_K) for n_elems weights: random
+    quants and sub-scales, f16 super-block scales chosen so that the values
+    lie within about +-0.05 (random bytes there would give NaN or Inf)."""
+    import numpy as np
+
+    from sparkinfer_tpu_torch.gguf.constants import GGML_TYPE_TRAITS, GGMLType
+
+    bs, tsz = GGML_TYPE_TRAITS[getattr(GGMLType, t)]
+    nb = n_elems // bs
+    raw = np.frombuffer(rng.bytes(nb * tsz), np.uint8).reshape(nb, tsz).copy()
+
+    def f16(lo, hi):
+        return rng.uniform(lo, hi, nb).astype(np.float16).view(np.uint8).reshape(nb, 2)
+
+    if t == "Q4_K":  # d * sc * q - dmin * m, q < 16, sc and m < 64
+        raw[:, 0:2], raw[:, 2:4] = f16(2e-5, 5e-5), f16(2e-5, 5e-5)
+    else:  # Q6_K: d * sc * (q - 32), int8 sc kept within +-8
+        raw[:, 192:208] = rng.integers(-8, 9, (nb, 16)).astype(np.int8).view(np.uint8)
+        raw[:, 208:210] = f16(1e-4, 2e-4)
+    return raw.reshape(-1)
+
+
+KQ_LAYERS = 4  # host decoding at load bounds the depth
+
+
+def write_kquant_gguf(path, seed: int, L, E, H, F, R, V):
+    """A ProSparse GGUF at ProSparse-Llama-2-7B widths in llama.cpp's Q4_K_M
+    mix: Q4_K, with Q6_K for attn_v, ffn_down and output, f16 predictor
+    tensors, f32 norms and biases; the blocks written directly. Returns
+    {name: (type, numpy shape)} of the block-quantized tensors."""
+    import numpy as np
+
+    from sparkinfer_tpu_torch.gguf.constants import GGMLType
+    from sparkinfer_tpu_torch.gguf.writer import GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    arch = "prosparse_llama"
+    wr = GGUFWriter(str(path), arch)
+    for key, v in (("block_count", L), ("embedding_length", E), ("attention.head_count", H),
+                   ("attention.head_count_kv", H), ("feed_forward_length", F),
+                   ("vocab_size", V), ("context_length", 4096),
+                   ("rope.dimension_count", E // H)):
+        wr.add_kv(f"{arch}.{key}", np.uint32(v))
+    wr.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", np.float32(1e-5))
+    wr.add_kv(f"{arch}.rope.freq_base", np.float32(10000.0))
+    wr.add_array(f"{arch}.pred_lora", np.full(L, R, np.uint32))
+    quant = {}
+
+    def blocks(name, shape, t):
+        quant[name] = (t, shape)
+        wr.add_tensor(name, kquant_blocks(t, int(np.prod(shape)), rng), getattr(GGMLType, t),
+                      raw=True, ne=tuple(reversed(shape)))
+
+    def f16(name, shape, scale, shift=0.0):
+        wr.add_tensor(name, (rng.standard_normal(shape) * scale + shift).astype(np.float16))
+
+    blocks("token_embd.weight", (V, E), "Q4_K")
+    wr.add_tensor("output_norm.weight", np.ones(E, np.float32))
+    blocks("output.weight", (V, E), "Q6_K")
+    for i in range(L):
+        p = f"blk.{i}."
+        for name in ("attn_norm.weight", "ffn_norm.weight"):
+            wr.add_tensor(p + name, np.ones(E, np.float32))
+        for name, shape, t in (("attn_q", (E, E), "Q4_K"), ("attn_k", (E, E), "Q4_K"),
+                               ("attn_v", (E, E), "Q6_K"), ("attn_output", (E, E), "Q4_K"),
+                               ("ffn_up", (F, E), "Q4_K"), ("ffn_gate", (F, E), "Q4_K"),
+                               ("ffn_down", (E, F), "Q6_K")):
+            blocks(p + name + ".weight", shape, t)
+        f16(p + "ffn_pred_up.weight", (R, E), 0.05)
+        f16(p + "ffn_pred_down.weight", (F, R), 0.6)
+        wr.add_tensor(p + "ffn_pred_up.bias", np.zeros(R, np.float32))
+        wr.add_tensor(p + "ffn_pred_down.bias",
+                      (rng.standard_normal(F) * 0.5 - 1.2).astype(np.float32))
+    wr.write()
+    return quant
+
+
+def write_decoded_bf16(src, dst) -> dict:
+    """The GGUF `src` again with every block-quantized tensor decoded on the
+    host (gguf.quants.dequantize) and stored as BF16, the rest as it was.
+    Returns each format's decode rate, M elements/s on one host thread."""
+    import numpy as np
+
+    from sparkinfer_tpu_torch.gguf.constants import GGMLType
+    from sparkinfer_tpu_torch.gguf.quants import dequantize
+    from sparkinfer_tpu_torch.gguf.reader import GGUFReader
+    from sparkinfer_tpu_torch.gguf.writer import GGUFWriter
+
+    r = GGUFReader(str(src))
+    wr = GGUFWriter(str(dst), r.arch())
+    for k, v in r.kv.items():
+        if k != "general.architecture":
+            try:
+                wr.add_kv(k, v)
+            except Exception:
+                wr.add_array(k, v)
+    rates = {}
+    for name, t in r.tensors.items():
+        if t.ggml_type in (GGMLType.Q4_K, GGMLType.Q6_K):
+            t0 = time.perf_counter()
+            dec = dequantize(t.raw(), t.ggml_type, t.n_elems).reshape(t.shape)
+            n, secs = rates.get(t.ggml_type.name, (0, 0.0))
+            rates[t.ggml_type.name] = (n + t.n_elems, secs + time.perf_counter() - t0)
+            wr.add_tensor(name, dec, GGMLType.BF16)
+        else:
+            wr.add_tensor(name, np.array(t.raw()), t.ggml_type, raw=True,
+                          ne=tuple(reversed(t.shape)))
+    wr.write()
+    r.close()
+    return {k: n / secs / 1e6 for k, (n, secs) in rates.items()}
+
+
+def phase_kquant(greedy, prompt, n_new: int = 32) -> dict:
+    """Phase 5m(b): a K-quant GGUF (Q4_K_M mix) at ProSparse-Llama-2-7B
+    widths cut to KQ_LAYERS layers, loaded by load_model (every tensor
+    decoded on the host, bf16 on the card) and run by the sparse Engine
+    through v6; the same model written as a BF16 GGUF of the decoded values
+    must give bit-equal prefill logits and the same greedy stream."""
+    import pathlib
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        return kquant_runs(greedy, prompt, n_new, pathlib.Path(d))
+
+
+def kquant_runs(greedy, prompt, n_new, tmp) -> dict:
+    """phase_kquant's body, its GGUFs in `tmp`."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import load_model
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.sparse.config import SparseConfig
+
+    L, E, H, F, R, V = KQ_LAYERS, 4096, 32, 11008, 1024, 32000
+    kq, bf = tmp / "kquant-7b.gguf", tmp / "kquant-7b-decoded-bf16.gguf"
+    t0 = time.perf_counter()
+    formats = write_kquant_gguf(kq, SEED + 51, L, E, H, F, R, V)
+    write_s = time.perf_counter() - t0
+    rates = write_decoded_bf16(kq, bf)
+    scfg = SparseConfig(group_size=128, capacity_groups=12)
+    runs = {}
+    for label, path in (("Q4_K_M", kq), ("BF16", bf)):
+        t0 = time.perf_counter()
+        model = load_model(str(path), device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        eng = Engine(model, max_seq=256, sampler=greedy, sparse=scfg, device="cuda")
+        logits = prefill_logits(eng, prompt)
+        if label == "Q4_K_M":  # the main path: v6 once a layer a step
+            v6 = main_path("7B-width Q4_K_M sparse", eng, prompt, n_new,
+                           lambda steps: {"sparse_ffn_block_v6": L * steps})
+            toks = STREAMS["7B-width Q4_K_M sparse"]
+        else:
+            toks = run_generate(eng, prompt, n_new)
+        runs[label] = {"load_s": load_s, "logits": logits, "tokens": toks,
+                       "file_bytes": path.stat().st_size}
+        del eng, model
+        torch.cuda.empty_cache()
+    a, b = runs["Q4_K_M"], runs["BF16"]
+    check(torch.equal(a["logits"], b["logits"]),
+          f"5m(b): Q4_K_M prefill logits differ from the BF16 GGUF's by "
+          f"{(a['logits'] - b['logits']).abs().max().item():.3e}")
+    check(a["tokens"] == b["tokens"], "5m(b): the Q4_K_M stream differs from the BF16 GGUF's")
+    check(bool(torch.isfinite(a["logits"]).all()), "5m(b): non-finite logits")
+    out = {"layers": L, "formats": sorted({t for t, _ in formats.values()}),
+           "write_s": write_s, "decode_m_elems_per_s": rates,
+           **{f"{k}_load_s": r["load_s"] for k, r in runs.items()},
+           **{f"{k}_file_bytes": r["file_bytes"] for k, r in runs.items()},
+           "prefill_logits_bit_equal": True, "streams_equal": True,
+           "v6_launches": v6["sparse_ffn_block_v6"]}
+    print("phase 5m(b), K-quant GGUF:", json.dumps(out))
+    return out
+
+
+EMBED_LENGTHS = (16, 32, 64, 128, 192, 256, 384, 512)
+
+
+def embed_texts(vocab, gen):
+    """Texts that tokenize to about EMBED_LENGTHS tokens: word pieces of the
+    vocabulary, joined by spaces."""
+    import torch
+
+    words = [t[1:] for t in vocab.tokens if t.startswith("▁") and len(t) > 1]
+    return [" ".join(words[i] for i in torch.randint(len(words), (n - 1,), generator=gen))
+            for n in EMBED_LENGTHS]
+
+
+def phase_embeddings(model) -> dict:
+    """Phase 5m(c): /v1/embeddings and /v1/rerank of SparkServer over the 7B
+    bf16 model of the main path (full width and depth, a seeded cls_out_w
+    (1, E) as its reranking head): the HTTP vectors bit-equal to the
+    Embedder called directly on each input alone, and each rank score
+    within an f32 dot product's rounding bound of the head applied in f64
+    on the host to the first token's hidden state from a forward of its
+    own (make_forward(with_hidden=True), outside the Embedder)."""
+    import numpy as np
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.runtime.embeddings import Embedder
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+    from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
+    from sparkinfer_tpu_torch.server import ServerConfig, SparkServer
+
+    cfg = model.config
+    gen = torch.Generator().manual_seed(SEED + 61)
+    model.vocab = spm_vocab(cfg.n_vocab, SEED)
+    model.params["cls_out_w"] = (torch.randn((1, cfg.n_embd), generator=gen) * 0.05).to("cuda")
+    srv = SparkServer(model, ServerConfig(port=0, n_slots=1, max_seq=1024),
+                      sampler=SamplerConfig(temp=0.0))
+    try:
+        srv.serve(block=False)
+        texts = embed_texts(model.vocab, gen)
+        toks = [srv.tokenizer.encode(t, add_special=True) for t in texts]
+        r = http(srv.port, "/v1/embeddings", {"input": texts})
+        vecs = [np.asarray(d["embedding"], np.float32) for d in r["body"]["data"]]
+        emb = Embedder(model, max_seq=1024, device="cuda")
+        for i, ids in enumerate(toks):
+            alone = emb.embed_tokens([ids])[0]
+            check(np.array_equal(vecs[i], alone),
+                  f"5m(c): HTTP embedding {i} ({len(ids)} tokens) differs from the direct one")
+        one = http(srv.port, "/v1/embeddings", {"input": texts[3]})["body"]["data"][0]
+        check(np.array_equal(np.asarray(one["embedding"], np.float32), vecs[3]),
+              "5m(c): an input's vector alone differs from its vector among 8")
+        query, docs = texts[0], texts[:8]
+        rr = http(srv.port, "/v1/rerank", {"query": query, "documents": docs})
+        v = model.vocab
+        q_ids = srv.tokenizer.encode(query, add_special=False)
+        check(not (v.add_eos or v.add_sep), "5m(c): the pairs below assume no eos or sep")
+        fwd = make_forward(cfg, with_hidden=True, fresh_prefill=True)
+        w = model.params["cls_out_w"].double().cpu().numpy()[0]
+        worst = 0.0
+        for res in rr["body"]["results"]:
+            ids = ([v.bos_id] if v.add_bos else []) + q_ids + srv.tokenizer.encode(
+                docs[res["index"]], add_special=False)
+            with torch.inference_mode():
+                cache = init_cache(cfg, 1, max(len(ids), 8), torch.float32, "cuda")
+                _, hid = fwd(model.params, torch.tensor([ids], device="cuda"),
+                             torch.arange(len(ids), device="cuda")[None], cache)
+            h = hid[0, 0].double().cpu().numpy()
+            want, size = float(w @ h), float(np.abs(w) @ np.abs(h))
+            # an f32 dot product of E terms, summed in any order, lies within
+            # E * 2^-24 of the sum of its terms' sizes from the exact one
+            err = abs(res["relevance_score"] - want) / size
+            check(err <= len(w) * 2.0**-24,
+                  f"5m(c): rerank score {res['relevance_score']} lies {err:.3e} of the head's "
+                  f"terms from the f64 head's {want}")
+            worst = max(worst, err)
+        ids512 = toks[-1]
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            emb.embed_tokens([ids512])
+            times.append(1e3 * (time.perf_counter() - t0))
+        out = {"inputs": len(texts), "tokens": [len(t) for t in toks],
+               "http_equal_direct": True, "alone_equal_among_8": True,
+               "rerank_vs_f64_head_worst": worst, "documents": len(docs),
+               "embed_ms_512_tokens": sorted(times)[2], "embed_ms_512_tokens_all": times,
+               "http_embeddings_e2e_ms": r["e2e_ms"], "http_rerank_e2e_ms": rr["e2e_ms"]}
+    finally:
+        srv.shutdown()
+        model.vocab = None
+        model.params.pop("cls_out_w")
+    print("phase 5m(c), embeddings and rerank:", json.dumps(out))
+    return out
+
+
+def quant_phases(greedy) -> int:
+    """`chip_smoke.py --quant`: phase 5m alone (after phases 1 and 2), for
+    working on it; the 13B Q8_0 engine first (its stream and profiled step
+    are what 5m(a) compares with), the tiered run with W8A8 only. Prints
+    the phase's summary and no result."""
+    import torch
+
+    t_start = time.perf_counter()
+    prompt = torch.randint(32000, (32,), generator=torch.Generator().manual_seed(SEED)).tolist()
+    cfg = prosparse_config(32, 4096, 32, 11008, 32000, 1024)
+    model = random_model(cfg, torch.bfloat16, "cuda", SEED)
+    emb = phase_embeddings(model)
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 5m(c) done at {time.perf_counter() - t_start:.1f} s")
+    kq = phase_kquant(greedy, prompt)
+    print(f"phase 5m(b) done at {time.perf_counter() - t_start:.1f} s")
+    cfg, scfg, weights, model, eng = q8_13b_engine(greedy)
+    L = cfg.n_layer
+    main_path("13B Q8_0 sparse", eng, prompt, 64, lambda steps: {
+        "sparse_ffn_block_v6q": L * steps, "quant_matmul_2d": (4 * L + 1) * (steps + 1),
+        "quant_matmul_flat": 2 * (L + 1) * steps + 2 * L})
+    rows13, steps13, _ = profile_decode(eng, prompt)
+    q8_logits = prefill_logits(eng, prompt)
+    del eng
+    attn, pred, w8, _ = phase_w8a8_13b(cfg, scfg, weights, model, greedy, prompt, 64,
+                                       rows13, steps13, q8_logits)
+    for k in [k for k in model.params["sparse_flat"] if not k.startswith("pred_")]:
+        del model.params["sparse_flat"][k]
+    torch.cuda.empty_cache()
+    print(f"phase 5m(a) untiered done at {time.perf_counter() - t_start:.1f} s")
+    tiered, _ = phase_tiered_13b(cfg, scfg, weights, model, prompt, 64, w8a8=(attn, pred),
+                                 q8_0=False)
+    print(f"phase 5m(a) tiered done at {time.perf_counter() - t_start:.1f} s")
+    print("phase 5m summary:", json.dumps(quant_summary(w8, tiered, kq, emb)))
+    return 0
+
+
+def quant_summary(w8, tiered, kq, emb) -> dict:
+    keys = ("tok_s", "wall_ms_per_step", "device_ms_per_step", "peak_gib", "swaps",
+            "misses_per_token_first16", "misses_per_token_last16", "int8_products")
+    return {"13B W8A8 sparse": {k: w8[k] for k in (
+                "tok_s", "wall_ms_per_step", "device_ms_per_step", "busy_share", "peak_gib",
+                "greedy_share_equal_q8_0", "prefill_logits_gap", "int8_products_per_step",
+                "weight_bytes")},
+            "13B W8A8 added kernels": {k: {f: v[f] for f in ("ms", "launches")}
+                                       for k, v in w8["added_to_the_q8_0_step"].items()
+                                       if isinstance(v, dict)},
+            "attention_product_5120x5120_n1": w8["attention_product_5120x5120_n1"],
+            "tiered": [{"path": r["path"], **{k: r[k] for k in keys}} for r in tiered],
+            "kquant": kq, "embeddings": emb}
+
+
 def kernel_line(name, source, replaces, launches, row, shape):
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4081,7 +4787,7 @@ def main(only: str | None = None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+    t_start = START[0] = time.perf_counter()
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -4116,16 +4822,18 @@ def main(only: str | None = None) -> int:
         return 0
     if only == "runtime":
         return runtime_phase_only(greedy)
+    if only == "quant":
+        return quant_phases(greedy)
     # 5k. Qwen3-30B-A3B (61 GB of bf16 weights) in a child process, before
     # this process builds any model
     moe = moe_child()
-    print(f"phase 5k done at {time.perf_counter() - t_start:.1f} s")
+    mark("phase 5k")
 
     # 3. f32 references on small inputs: kernel path == plain path
     phase_reference(SparseConfig, Engine, greedy)
     phase_serving_reference(SparseConfig, greedy)
     phase_bench_reference(SparseConfig)
-    print(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
+    mark("phases 1-3")
 
     n_new = 64
     prompt = torch.randint(32000, (32,), generator=torch.Generator().manual_seed(SEED)).tolist()
@@ -4151,7 +4859,13 @@ def main(only: str | None = None) -> int:
     L = cfg.n_layer
     l7 = main_path("7B bf16 sparse", sparse_eng, prompt, n_new,
                        lambda steps: {"sparse_ffn_block_v6": L * steps})
-    rows7, steps7, _ = profile_decode(sparse_eng, prompt)
+    mark("phase 4a, 5b")
+    # 5h. graph against eager: the sparse engine and an eager one over its
+    # prepared stores, then the dense engines on the same weights
+    h5 = [graph_vs_eager("7B bf16 sparse", sparse_eng, Engine(
+        LoadedModel(config=cfg, params=sparse_eng.params), max_seq=1024, sampler=greedy,
+        sparse=scfg, sparse_preprepared=True, device="cuda", cuda_graph=False), prompt, n_new)]
+    rows7, steps7 = PROFILES["7B bf16 sparse"]
     v6_prof = [(k, ms, n) for k, ms, n in rows7 if "v6_ffn" in k]
     # the f32 copies: torch's casting copies (direct_copy_kernel_cuda)
     copies = [(k, ms, n) for k, ms, n in rows7 if "direct_copy_kernel" in k]
@@ -4162,18 +4876,13 @@ def main(only: str | None = None) -> int:
                        "launches": sum(n for _, _, n in copies) // steps7}}))
     check(sum(n for _, _, n in v6_prof) == L * steps7,
           f"the profiled 7B step launched {v6_prof} v6 kernels, want {L} a step")
-    # 5h. graph against eager: the sparse engine and an eager one over its
-    # prepared stores, then the dense engines on the same weights
-    h5 = [graph_vs_eager("7B bf16 sparse", sparse_eng, Engine(
-        LoadedModel(config=cfg, params=sparse_eng.params), max_seq=1024, sampler=greedy,
-        sparse=scfg, sparse_preprepared=True, device="cuda", cuda_graph=False), prompt, n_new)]
     h5.append(graph_vs_eager(
         "7B bf16 dense", Engine(model, max_seq=1024, sampler=greedy, device="cuda"),
         Engine(model, max_seq=1024, sampler=greedy, device="cuda", cuda_graph=False),
         prompt, n_new))
     ratios = [sparse_dense_ratio("7B bf16", *h5[-2:])]
     torch.cuda.empty_cache()
-    print(f"7B engine path done at {time.perf_counter() - t_start:.1f} s")
+    mark("7B engine path")
 
     # 5e. the Scheduler at 7B widths (its row stores serve phase 4c)
     sched = Scheduler(model, n_slots=4, max_seq=128, sampler=greedy, sparse=scfg,
@@ -4182,6 +4891,7 @@ def main(only: str | None = None) -> int:
     gen = torch.Generator().manual_seed(SEED + 11)
     prompts = [torch.randint(cfg.n_vocab, (32,), generator=gen).tolist() for _ in range(8)]
     l_v1 = scheduler_path(sched, prompts, 32)
+    mark("phases 4c, 5e")
     # 5h. the tick, graph against eager, on requests whose prompts no slot
     # holds (a reused prefix would prefill another way than a fresh slot)
     prompts_h = [torch.randint(cfg.n_vocab, (32,), generator=gen).tolist() for _ in range(8)]
@@ -4189,24 +4899,32 @@ def main(only: str | None = None) -> int:
         model, n_slots=4, max_seq=128, sampler=greedy, sparse=scfg, sparse_batch_max=4,
         device="cuda", cuda_graph=False), prompts_h, 32))
     torch.cuda.empty_cache()
+    mark("phase 5h, the Scheduler")
     # 5l. the single-sequence runtime (sampler chain, context shift,
     # self-extend, sparse prefill, drafters, slot files, LoRA) and the CLI
     runtime = phase_runtime(model, scfg, sparse_eng, sched, prompt)
     torch.cuda.empty_cache()
-    print(f"phase 5l done at {time.perf_counter() - t_start:.1f} s")
+    mark("phase 5l")
 
     # 4d, 5f. v7u, and batched decode of every decode path at B = 1, 2, 4, 8 (the ticks at 16)
     v7u_row = phase_v7u(sparse_eng.params["sparse_flat"], L, scfg.n_groups(cfg.n_ff))
+    mark("phase 4d")
     l_v7u, crossover, batched = phase_batched(cfg, scfg, model.params, sparse_eng.params,
                                               sched.params)
     del sparse_eng, sched
     torch.cuda.empty_cache()
+    mark("phase 5f")
 
     # 5i. the server over the Scheduler at 7B widths (its own row stores)
     torch.cuda.reset_peak_memory_stats()
     l_srv, srv7, mask_ms = phase_server(model, scfg)
     print(f"phase 5i, 7B server peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.empty_cache()
+    # 5m(c). /v1/embeddings and /v1/rerank over HTTP on the same model
+    mark("phase 5i, 7B server")
+    emb = phase_embeddings(model)
+    torch.cuda.empty_cache()
+    mark("phase 5m(c)")
 
     # 5g, 4e. sparkinfer-bench's decode: dense, v1 and v2 (SPIF_KERNEL_V2),
     # then v2 against its plain version over the bench path's store
@@ -4215,15 +4933,17 @@ def main(only: str | None = None) -> int:
                                                row_per_call)
     del model
     torch.cuda.empty_cache()
+    mark("phases 5g, 4e")
     # 5j. tiering: the f32 gate, then the 7B tiered engines and Scheduler on
     # a fresh copy of the model (the same seed) that nothing else holds, so
     # that the Scheduler's taking its dense FFN frees the card's memory
     tier_gate = tier_f32_gate()
+    mark("phase 5j, f32 gate")
     model = random_model(cfg, torch.bfloat16, "cuda", SEED)
     tier_rows, tier_sched, dense_peak, tier_v6 = phase_tiered_7b(model, greedy, prompt, n_new)
     del model
     torch.cuda.empty_cache()
-    print(f"7B paths done at {time.perf_counter() - t_start:.1f} s")
+    mark("7B paths")
 
     # 5c. the 13B-width Q8_0 model, made and quantized on the card
     cfg, scfg, weights, model, sparse_eng = q8_13b_engine(greedy)
@@ -4232,6 +4952,7 @@ def main(only: str | None = None) -> int:
     # 4b. v6q and the quant matmuls against their plain versions
     v6q_row = phase_v6q(model.params["sparse_flat"], cfg.n_layer, ng, C)
     q2d_row, qflat_row = phase_quant_matmul(model.params)
+    mark("phases 5c, 4b")
 
     # 5d. the 13B Q8_0 main path: per decode step v6q L, quant_matmul_2d
     # 4L+1 (wq, wk, wv, wo, head) and quant_matmul_flat 2(L+1) (the next
@@ -4245,7 +4966,11 @@ def main(only: str | None = None) -> int:
                 "quant_matmul_flat": 2 * (L + 1) * steps + 2 * L}
 
     l13 = main_path("13B Q8_0 sparse", sparse_eng, prompt, n_new, want13)
-    rows13, steps13, _ = profile_decode(sparse_eng, prompt)
+    mark("phase 5d")
+    h5.append(graph_vs_eager("13B Q8_0 sparse", sparse_eng, Engine(
+        model, max_seq=1024, sampler=greedy, sparse=scfg, sparse_preprepared=True,
+        device="cuda", cuda_graph=False), prompt, n_new))
+    rows13, steps13 = PROFILES["13B Q8_0 sparse"]
     v6q_prof = [(k, ms, n) for k, ms, n in rows13 if "v6q_" in k]
     qmm_prof = [(k, ms, n) for k, ms, n in rows13 if "qmm_" in k]
     print("profile: v6q and quant_matmul in a 13B Q8_0 sparse step:", json.dumps({
@@ -4258,17 +4983,26 @@ def main(only: str | None = None) -> int:
     check(sum(n for _, _, n in qmm_prof) == (6 * L + 3) * steps13
           and all("qmm_decode" in k for k, _, _ in qmm_prof),
           f"the profiled 13B step launched {qmm_prof}, want {6 * L + 3} qmm_decode a step")
-    h5.append(graph_vs_eager("13B Q8_0 sparse", sparse_eng, Engine(
-        model, max_seq=1024, sampler=greedy, sparse=scfg, sparse_preprepared=True,
-        device="cuda", cuda_graph=False), prompt, n_new))
     profile_prefill(sparse_eng, prompt)
+    q8_logits = prefill_logits(sparse_eng, prompt)
     del sparse_eng
-    # 5j. the 13B Q8_0 tiered fetch path, with the model's Q8_0 attention, head and
-    # predictor stacks; its flat FFN stores leave the card first
+    mark("phase 5h, 13B Q8_0 sparse")
+    # 5m(a). the JAX bench's headline row: W8A8 attention and predictor
+    # stacks over the Q8_0 flat FFN stores and head of the same draws
+    w8_attn, w8_pred, w8_row, l_w8 = phase_w8a8_13b(cfg, scfg, weights, model, greedy,
+                                                    prompt, n_new, rows13, steps13, q8_logits)
+    # 5j, 5m(a). the 13B tiered fetch path, with the model's Q8_0 attention,
+    # head and predictor stacks, then with the W8A8 ones; its flat FFN
+    # stores leave the card first
+    mark("phase 5m(a), untiered")
     for k in [k for k in model.params["sparse_flat"] if not k.startswith("pred_")]:
         del model.params["sparse_flat"][k]
     torch.cuda.empty_cache()
-    tier13, tier_v6q = phase_tiered_13b(cfg, scfg, weights, model, prompt, n_new)
+    tier13, l_tier13 = phase_tiered_13b(cfg, scfg, weights, model, prompt, n_new,
+                                        w8a8=(w8_attn, w8_pred))
+    del w8_attn, w8_pred
+    torch.cuda.empty_cache()
+    mark("phases 5j, 5m(a), 13B tiered")
     dense_params = dict(model.params)
     dense_params.pop("sparse_flat")
     dense_params["layers"] = dict(model.params["layers"], **weights.dense_ffn())
@@ -4280,17 +5014,23 @@ def main(only: str | None = None) -> int:
         Engine(dense, max_seq=1024, sampler=greedy, device="cuda", cuda_graph=False),
         prompt, n_new))
     ratios.append(sparse_dense_ratio("13B Q8_0", h5[-2], h5[-1]))
+    mark("phase 5h, 13B Q8_0 dense")
     # 5i. the Q8_0 server over the dense Scheduler, then the entry point
     l_srv_q8, srv13 = phase_server_q8(cfg, dense)
     del dense, dense_params
     torch.cuda.empty_cache()
-    print(f"13B path done at {time.perf_counter() - t_start:.1f} s")
+    mark("13B path")
+    # 5m(b). a K-quant GGUF at 7B widths through load_model and v6
+    kq = phase_kquant(greedy, prompt)
+    mark("phase 5m")
     entry = phase_entry_point()
+    mark("phase 5i, entry point")
 
     out = {"kernels": [
         {**kernel_line("sparse_ffn_block_v6", "sparkinfer_tpu_torch/csrc/sparse_ffn_v6.cu",
                        "sparkinfer_tpu/ops/sparse_ffn_pallas.py:564",
-                       l7["sparse_ffn_block_v6"] + tier_v6 + runtime["v6_launches"], v6_row,
+                       l7["sparse_ffn_block_v6"] + tier_v6 + runtime["v6_launches"]
+                       + kq["v6_launches"], v6_row,
                        "N=1 C=12 G=128 E=4096 bf16 fatrelu"),
          # the speculative verify (N = K+1) and the 32-token sparse prefill
          "shapes": {k: {f: r[f] for f in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
@@ -4298,14 +5038,19 @@ def main(only: str | None = None) -> int:
                     for k, r in v6_shapes.items()}},
         kernel_line("sparse_ffn_block_v6q", "sparkinfer_tpu_torch/csrc/sparse_ffn_v6q.cu",
                     "sparkinfer_tpu/ops/sparse_ffn_pallas.py:706",
-                    l13["sparse_ffn_block_v6q"] + tier_v6q, v6q_row,
+                    l13["sparse_ffn_block_v6q"] + l_tier13["sparse_ffn_block_v6q"]
+                    + l_w8["sparse_ffn_block_v6q"],
+                    v6q_row,
                     "N=1 C=16 G=128 E=5120 q8_0 fatrelu"),
         kernel_line("quant_matmul_2d", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
                     "sparkinfer_tpu/ops/quant_matmul.py:149",
-                    l13["quant_matmul_2d"], q2d_row, q2d_row["shape"]),
+                    l13["quant_matmul_2d"] + l_tier13["quant_matmul_2d"]
+                    + l_w8["quant_matmul_2d"], q2d_row,
+                    q2d_row["shape"]),
         kernel_line("quant_matmul_flat", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
                     "sparkinfer_tpu/ops/quant_matmul.py:243",
-                    l13["quant_matmul_flat"], qflat_row, qflat_row["shape"]),
+                    l13["quant_matmul_flat"] + l_tier13["quant_matmul_flat"], qflat_row,
+                    qflat_row["shape"]),
         {**kernel_line("sparse_ffn_block", "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
                        "sparkinfer_tpu/ops/sparse_ffn_pallas.py:124", l_v1 + moe["v1_launches"],
                        row_rows["sparse_ffn_block"],
@@ -4349,9 +5094,10 @@ def main(only: str | None = None) -> int:
         for r in h5],
         "sparse_dense": ratios}))
     print("phase 5j summary:", json.dumps(tier_summary(
-        tier_gate, tier_rows, tier_sched, tier13, h5, dense_peak)))
+        tier_gate, tier_rows, tier_sched, tier13[0], h5, dense_peak)))
     print("phase 5k summary:", json.dumps(moe_summary(moe)))
     print("phase 5l summary:", json.dumps(runtime_summary(runtime)))
+    print("phase 5m summary:", json.dumps(quant_summary(w8_row, tier13[1:], kq, emb)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4364,5 +5110,5 @@ if __name__ == "__main__":
         sys.exit(prefill_only())
     if sys.argv[1:] == ["--moe-phase"]:
         sys.exit(moe_phase_only())
-    sys.exit(main(only={"--tiered": "tiered", "--moe": "moe", "--runtime": "runtime"}.get(
-        " ".join(sys.argv[1:]))))
+    sys.exit(main(only={"--tiered": "tiered", "--moe": "moe", "--runtime": "runtime",
+                        "--quant": "quant"}.get(" ".join(sys.argv[1:]))))

@@ -409,14 +409,13 @@ def control_vectors_from_args(args) -> list:
 # flags whose modules the port has not ported yet: dest -> (flag, module)
 _UNPORTED = {
     "hf_repo": ("-hf/--hf-repo", "tools/hf.py"),
-    "attn_w8a8": ("--attn-w8a8", "ops/quant_matmul.py W8A8Tensor"),
     "kv_iswa": ("--kv-iswa", "the iSWA cache (runtime/kv_cache.py init_cache_iswa)"),
 }
 
 
 def unported_flags(args) -> list[str]:
     """One message for each flag of `args` that needs a module the port
-    has not ported yet: the HF cache, W8A8 attention, the iSWA cache, and
+    has not ported yet: the HF cache, the iSWA cache, and
     quantized or split-dtype KV caches."""
     out = [f"{flag} needs {mod}, which is not ported yet"
            for dest, (flag, mod) in _UNPORTED.items() if getattr(args, dest, None)]

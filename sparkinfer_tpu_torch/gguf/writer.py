@@ -1,8 +1,8 @@
 """GGUF v3 container writer.
 
 Produces files readable by ggml's reader (ref: ggml/src/gguf.cpp) and by
-gguf.reader. A copy of sparkinfer_tpu/gguf/writer.py; it encodes what the
-port's gguf.quants encodes (F32, F16, Q8_0, Q4_0).
+gguf.reader. A copy of sparkinfer_tpu/gguf/writer.py; it encodes every type
+the port's gguf.quants encodes.
 """
 
 from __future__ import annotations
@@ -21,19 +21,7 @@ from .constants import (
     GGUFValueType,
     tensor_nbytes,
 )
-from .quants import quantize as _quantize_torch
-
-
-def quantize(x: np.ndarray, ggml_type: GGMLType) -> np.ndarray:
-    """Encode a float array to a flat GGML-typed uint8 buffer."""
-    flat = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
-    if ggml_type == GGMLType.F32:
-        return flat.view(np.uint8)
-    if ggml_type == GGMLType.F16:
-        return flat.astype(np.float16).view(np.uint8)
-    import torch
-
-    return _quantize_torch(torch.from_numpy(flat), ggml_type).numpy()
+from .quants import quantize
 
 _NP_TO_VTYPE = {
     np.dtype(np.uint8): GGUFValueType.UINT8,

@@ -7,13 +7,18 @@ pipelined sparse layout (`_nx` predictor copies and params["sparse_flat"]),
 so the result computes what the JAX params compute. One exception: the
 port keeps the up and gate expert stacks (and grovemoe's chunk experts) as
 (..., X, Fe, E), where the JAX package keeps (..., X, E, Fe)
-(sparse/moe.py); they are transposed here.
+(sparse/moe.py); they are transposed here. A JAX W8A8Tensor (after the
+tree map, an object with numpy `q` and `s` and no `kind`) becomes the
+port's W8A8Tensor, recognised by those attributes (the JAX class is never
+imported), its q laid out out-major and its scales kept in f32.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops.quant_matmul import W8A8Tensor
 
 
 def _tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
@@ -31,11 +36,25 @@ def _tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
 EXPERT_COLUMNS = ("w_up_exps", "w_gate_exps", "w_up_chexps", "w_gate_chexps")
 
 
+def _is_w8a8(v) -> bool:
+    return hasattr(v, "q") and hasattr(v, "s") and not hasattr(v, "kind")
+
+
+def _w8a8(v, device) -> W8A8Tensor:
+    q = torch.from_numpy(np.ascontiguousarray(np.swapaxes(np.asarray(v.q, np.int8), -1, -2)))
+    return W8A8Tensor(q.to(device).mT, _tensor(v.s, device, torch.float32))
+
+
 def params_from_numpy(np_params: dict, device, dtype=None) -> dict:
     """Nested dicts of numpy arrays -> the same dicts of tensors on `device`.
     dtype=None keeps each array's dtype; else floating arrays are cast."""
-    return {k: (params_from_numpy(v, device, dtype) if isinstance(v, dict)
-                else _tensor(np.ascontiguousarray(np.swapaxes(v, -1, -2))
-                             if k in EXPERT_COLUMNS else v,
-                             device, dtype))
-            for k, v in np_params.items()}
+    def one(k, v):
+        if isinstance(v, dict):
+            return params_from_numpy(v, device, dtype)
+        if _is_w8a8(v):
+            return _w8a8(v, device)
+        if k in EXPERT_COLUMNS:
+            v = np.ascontiguousarray(np.swapaxes(v, -1, -2))
+        return _tensor(v, device, dtype)
+
+    return {k: one(k, v) for k, v in np_params.items()}

@@ -10,8 +10,17 @@ pred_up_b (R,), pred_down (R, F), pred_down_b (F,), zero-padded to the
 largest rank. Each stacked tensor is allocated once on the device and
 filled layer by layer, so the host never holds the whole model in f32.
 
+Every GGML type the port decodes (gguf/quants.py: the K-quants, the IQ
+formats, ...) loads, dequantized on the host a tensor at a time.
 keep_quantized=True keeps Q4_0/Q8_0 linears packed on the device as
-`QuantTensor`s (ops/quant_matmul.py), stacked over layers, the head too.
+`QuantTensor`s (ops/quant_matmul.py), stacked over layers, the head too;
+other types are dequantized, as in the JAX package. attn_w8a8=True
+re-quantizes the dense attention projections (wq, wk, wv, wo; never packed
+ones) to row-wise W8A8 (`W8A8Tensor`), a layer at a time on the device,
+from the weight in the model's dtype (the bits of the JAX loader, which
+quantizes the whole stack on the host). A reranker's classification head
+(cls.weight, cls.bias, cls.output.weight, cls.output.bias) loads as f32
+cls_w, cls_b, cls_out_w, cls_out_b for rank pooling (runtime/embeddings.py).
 A GGUF with `tokenizer.ggml.*` metadata gives the model its `Vocab`
 (tokenizer/vocab.py).
 
@@ -24,7 +33,7 @@ tiering read it as row stores through views, so the experts are resident
 once. The JAX loader keeps up and gate as (X, E, Fe); models/from_jax.py
 converts.
 
-Later slices: attn_w8a8, MLA, layer segments.
+Later slices: MLA, layer segments.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import torch
 from ..device import resolve_device
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFReader
-from ..ops.quant_matmul import REPACK, QuantTensor
+from ..ops.quant_matmul import REPACK, QuantTensor, W8A8Tensor
 from .config import ModelConfig
 from .transformer import check_supported
 
@@ -159,16 +168,17 @@ def _add_moe(r: GGUFReader, p: str, E: int, add):
 
 
 def load_model(path: str, dtype=torch.bfloat16, device=None,
-               keep_quantized: bool = False) -> LoadedModel:
+               keep_quantized: bool = False, attn_w8a8: bool = False) -> LoadedModel:
     """Load a llama-family GGUF into stacked torch tensors on `device`
     (None: the card; pass "cpu" to load on the CPU). keep_quantized=True
-    keeps Q4_0/Q8_0 linears packed (QuantTensor) instead of dequantizing."""
+    keeps Q4_0/Q8_0 linears packed (QuantTensor) instead of dequantizing;
+    attn_w8a8=True makes the dense attention projections W8A8Tensors."""
     device = resolve_device(device)
     r = GGUFReader(path)
     try:
         cfg = ModelConfig.from_gguf(r)
         _check_supported(r, cfg)
-        params = _load_params(r, cfg, dtype, device, keep_quantized)
+        params = _load_params(r, cfg, dtype, device, keep_quantized, attn_w8a8)
         vocab = None
         if "tokenizer.ggml.tokens" in r.kv:
             from ..tokenizer import Vocab
@@ -179,8 +189,14 @@ def load_model(path: str, dtype=torch.bfloat16, device=None,
     return LoadedModel(config=cfg, params=params, vocab=vocab)
 
 
+_ATTN = ("wq", "wk", "wv", "wo")
+# a reranker's classification head: GGUF name -> key
+_CLS_TENSORS = {"cls.weight": "cls_w", "cls.bias": "cls_b",
+                "cls.output.weight": "cls_out_w", "cls.output.bias": "cls_out_b"}
+
+
 def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
-                 keep_quantized: bool) -> Params:
+                 keep_quantized: bool, attn_w8a8: bool = False) -> Params:
     E, H, Hkv, D, F, L = (cfg.n_embd, cfg.n_head, cfg.n_head_kv, cfg.head_dim,
                           cfg.n_ff, cfg.n_layer)
     f32 = torch.float32
@@ -198,11 +214,16 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
         out_w = np.ascontiguousarray(tok.T)  # tied embeddings
     params["output"] = (QuantTensor.from_repack(out_w[2], out_w[3], out_w[1], device)
                         if _is_quant(out_w) else _tensor(out_w, dtype, device))
+    for nm, key in _CLS_TENSORS.items():  # rank pooling's head
+        w = _get(r, nm)
+        if w is not None:
+            params[key] = _tensor(w, f32, device)
 
     max_rank = cfg.max_pred_rank
     layers: dict[str, torch.Tensor] = {}
 
     def add(i: int, key: str, arr):
+        w8 = attn_w8a8 and key in _ATTN and arr is not None and not _is_quant(arr)
         if arr is None:
             if key in layers:
                 raise NotImplementedError(f"{key} missing in layer {i}: "
@@ -212,7 +233,9 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
             if i > 0:
                 raise NotImplementedError(f"{key} missing before layer {i}: "
                                           "heterogeneous layers are not ported yet")
-            if _is_quant(arr):
+            if w8:
+                layers[key] = W8A8Tensor.empty((L,) + arr.shape, device)
+            elif _is_quant(arr):
                 _, kind, qw, sc = arr
                 layers[key] = QuantTensor(
                     torch.empty((L,) + qw.shape[::-1], dtype=_host(qw).dtype, device=device),
@@ -225,7 +248,9 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
         if isinstance(dst, QuantTensor) != _is_quant(arr) or (
                 _is_quant(arr) and arr[1] != dst.kind):
             raise ValueError(f"{key}: mixed quant kinds across layers")
-        if _is_quant(arr):  # to the device, then transposed there to IN-major
+        if w8:  # quantized on the device from the weight in the model's dtype
+            dst[i] = W8A8Tensor.from_float(_tensor(arr, dtype, device))
+        elif _is_quant(arr):  # to the device, then transposed there to IN-major
             dst.q[i].copy_(_host(arr[2]).to(device).T)
             dst.s[i].copy_(_host(arr[3]).to(device).T)
         else:

@@ -15,8 +15,8 @@ touch and writes base + deltas into the dense weights and into every sparse
 store built from them (the v1 row stores w_*_rows (L, ng, G, E) and the v6
 flat stores w_*T_flat (L*ng, E, G) and w_down_flat (L*ng, G, E)), so the
 step graphs, which hold those tensors, read the merged weights at their
-next replay. Packed (Q4_0/Q8_0) weights, Q8_0 stores and tiered hot stores
-cannot be merged and raise.
+next replay. Packed (Q4_0/Q8_0) weights, W8A8 attention (--attn-w8a8),
+Q8_0 stores and tiered hot stores cannot be merged and raise.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..gguf.reader import GGUFReader
-from ..ops.quant_matmul import is_quantized
+from ..ops.quant_matmul import W8A8Tensor, is_quantized
 from .config import ModelConfig
 
 # gguf tensor base name -> params key
@@ -80,8 +80,17 @@ def _merge(w: torch.Tensor, s: float, A: np.ndarray, B: np.ndarray) -> torch.Ten
     return w + delta.to(w.dtype) * s
 
 
+def _w8a8_refusal(key: str) -> ValueError:
+    # the JAX package fails here too (its merge indexes the W8A8 object)
+    return ValueError(f"LoRA targets {key}, which --attn-w8a8 re-quantized to row-wise "
+                      "W8A8: --lora and --attn-w8a8 cannot be combined for an adapter "
+                      "of the attention projections")
+
+
 def _dense_weight(layers: dict, key: str):
     w = layers.get(key)
+    if isinstance(w, W8A8Tensor):
+        raise _w8a8_refusal(key)
     if w is None or not isinstance(w, torch.Tensor) or is_quantized(w):
         raise ValueError(f"LoRA targets {key} but model has no such weight "
                          "(quantized-packed weights can't be merged; load "
@@ -154,6 +163,8 @@ def _stores(params: dict, key: str) -> list[tuple[str, torch.Tensor, str]]:
         for bad in (f"qw_{n}T_flat", "qw_down_flat", "w_all_rows"):
             if bad in flat or bad in layers:
                 raise ValueError(f"a LoRA re-merge cannot write the store {bad}")
+    elif isinstance(layers.get(key), W8A8Tensor):
+        raise _w8a8_refusal(key)
     elif key in layers and is_quantized(layers[key]):
         raise ValueError(f"{key} is packed: a LoRA re-merge needs dense weights")
     return out
@@ -197,7 +208,8 @@ class LoraMerger:
         self.base = {}
         for il, key in keys:
             src = next((ps["layers"][key] for ps in param_sets
-                        if isinstance(ps["layers"].get(key), torch.Tensor)), None)
+                        if isinstance(ps["layers"].get(key), torch.Tensor)),
+                       param_sets[0]["layers"].get(key))
             self.base[(il, key)] = _dense_weight({key: src}, key)[il].clone()
         # every store of each weight, once (views of one storage written twice is harmless)
         self.stores = {key: [st for ps in param_sets for st in _stores(ps, key)]

@@ -16,7 +16,10 @@ stream after each layer, as in the JAX forward.
 
 Every projection goes through `quant_linear` (the JAX `mm`), so packed
 Q4_0/Q8_0 weights (QuantTensor, FlatQuantTensor) run the quant_matmul
-kernels and plain tensors a plain matmul.
+kernels, row-wise W8A8 weights (W8A8Tensor, `attn_w8a8` at load) the int8
+product, and plain tensors a plain matmul. W8A8 wq, wk and wv quantize
+their shared input once a layer (the JAX package quantizes it three times,
+to the same bits); a W8A8 head gives f32 logits.
 
 A model with experts (cfg.n_expert > 0) and no `ffn_fn` runs the MoE FFN of
 `sparse/moe.py` at every layer that carries a router (`w_router`), the dense
@@ -40,7 +43,13 @@ import torch
 
 from ..ops.activations import act_fn
 from ..ops.norms import rms_norm
-from ..ops.quant_matmul import FlatQuantTensor, is_quantized
+from ..ops.quant_matmul import (
+    FlatQuantTensor,
+    W8A8Tensor,
+    is_quantized,
+    w8a8_linear,
+    w8a8_quantize,
+)
 from ..ops.quant_matmul import quant_linear as mm
 from ..ops.rope import RopeParams, rope_cos_sin, rotate
 from ..runtime.kv_cache import KVCache, read_layer, write_layer
@@ -156,9 +165,10 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
     chunk (T x T) instead of the whole cache (T x S)."""
     B, T, _ = x.shape
     H, Hkv, D = cfg.n_head, cfg.n_head_kv, cfg.head_dim
-    q = mm(x, lp["wq"]).reshape(B, T, H, D)
-    k = mm(x, lp["wk"]).reshape(B, T, Hkv, D)
-    v = mm(x, lp["wv"]).reshape(B, T, Hkv, D)
+    xq = w8a8_quantize(x) if isinstance(lp["wq"], W8A8Tensor) else None
+    q = mm(x, lp["wq"], xq).reshape(B, T, H, D)
+    k = mm(x, lp["wk"], xq).reshape(B, T, Hkv, D)
+    v = mm(x, lp["wv"], xq).reshape(B, T, Hkv, D)
     if "bq" in lp:
         q = q + lp["bq"].to(q.dtype).reshape(H, D)
         k = k + lp["bk"].to(k.dtype).reshape(Hkv, D)
@@ -185,12 +195,15 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
 
 
 def lm_head(x: torch.Tensor, w) -> torch.Tensor:
-    """f32 logits of the normed hidden x (..., E). A QuantTensor head runs
-    quant_linear and casts its x.dtype result to f32, as the JAX package
-    does. A plain head keeps f32 sums of the exact products of x and w in
-    their own dtype (the JAX einsum's preferred_element_type=f32): on the
-    card one cuBLAS product with an f32 output, on the CPU the head in f32
-    chunks of V, never an f32 copy of the whole head."""
+    """f32 logits of the normed hidden x (..., E). A W8A8Tensor head runs
+    w8a8_linear with f32 out; a QuantTensor head runs quant_linear and casts
+    its x.dtype result to f32, as the JAX package does. A plain head keeps
+    f32 sums of the exact products of x and w in their own dtype (the JAX
+    einsum's preferred_element_type=f32): on the card one cuBLAS product
+    with an f32 output, on the CPU the head in f32 chunks of V, never an f32
+    copy of the whole head."""
+    if isinstance(w, W8A8Tensor):
+        return w8a8_linear(x, w, out_dtype=torch.float32)
     if is_quantized(w):
         return mm(x, w).float()
     if x.dtype == torch.float32 and w.dtype == torch.float32:
@@ -225,12 +238,15 @@ def moe_or_dense_ffn(cfg: ModelConfig, moe_mode: str = "dense") -> Callable:
 def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                  fresh_prefill: bool = False,
                  ffn_carry_init: Callable | None = None,
-                 stateful_ffn: bool = False, moe_mode: str = "dense") -> Callable:
+                 stateful_ffn: bool = False, moe_mode: str = "dense",
+                 with_hidden: bool = False) -> Callable:
     """fwd(params, tokens (B,T), positions (B,T), cache[, fstate]) -> logits
     f32 (B, T, V); the cache is updated in place, and with stateful_ffn the
     FFN's state `fstate` too. `positions` are the absolute sequence
     positions of `tokens`. Without ffn_fn a model with experts runs its MoE
-    FFN in `moe_mode` ("dense" or "pallas")."""
+    FFN in `moe_mode` ("dense" or "pallas"). with_hidden=True returns
+    (logits, hidden): hidden (B, T, E) the final-normed stream the head
+    reads, in the model's dtype (the pooled input of runtime/embeddings)."""
     check_supported(cfg)
     if stateful_ffn and ffn_carry_init is not None:
         raise ValueError("a stateful FFN takes no cross-layer carry")
@@ -272,6 +288,7 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
             if "cvec" in lp:  # control vector (llama_adapter_cvec)
                 x = x + lp["cvec"].to(x.dtype)
         x = rms_norm(x, params["output_norm_w"], eps)
-        return lm_head(x, params["output"])
+        logits = lm_head(x, params["output"])
+        return (logits, x) if with_hidden else logits
 
     return fwd

@@ -30,8 +30,13 @@ during CUDA-graph capture; two streams must not run the decode kernel at
 the same time on one device. Wider x runs `qmm_prefill` on the tensor
 cores, whose K splits add up inside a thread-block cluster.
 
-W8A8 row-wise int8 (`W8A8Tensor`, `w8a8_linear`) comes with the tiering
-slice.
+Row-wise W8A8 (`W8A8Tensor`, `w8a8_linear`, the port of :376-426): int8
+weights with one f32 scale per output column, each token's activations
+quantized to int8 with one scale, an int8 x int8 -> int32 product and the
+two scales folded into its result. The JAX package computes the product in
+XLA, not in a Pallas kernel, so it is no kernel of this repository: on the
+card it is the library call `torch._int_mm` (`int8_matmul`), on the CPU an
+int32 matmul; both are exact, so the two paths agree bit for bit.
 """
 
 from __future__ import annotations
@@ -188,6 +193,126 @@ def flat_quantize(w_stack: torch.Tensor, kind: str = "q8_0") -> FlatQuantTensor:
         q[:, il * OUT:(il + 1) * OUT] = ql.reshape(IN, OUT)
         s[:, il * OUT:(il + 1) * OUT] = sl
     return FlatQuantTensor(q, s, kind, OUT)
+
+
+# --------------------------------------------------------------------------
+# row-wise W8A8
+
+
+class W8A8Tensor:
+    """Row-wise int8 weight W (in, out) for x @ W, optionally stacked on
+    leading axes: q (..., in, out) int8 and s (..., out) f32, one scale per
+    output column. q is stored out-major (q.mT is contiguous), the order in
+    which torch._int_mm's cuBLASLt int8 path takes its second operand."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor):
+        self.q = q
+        self.s = s
+
+    @classmethod
+    def from_float(cls, w) -> "W8A8Tensor":
+        """Quantize a float (..., in, out) tensor or array on its device, bit
+        for bit as the JAX from_float: f32 column amax, / 127, reciprocal,
+        round half to even, clip to +-127 (each a separate rounding)."""
+        w = torch.as_tensor(w).float()
+        s = w.abs().amax(dim=-2, keepdim=True) / w.new_full((), 127.0)
+        inv = torch.where(s > 0, 1.0 / torch.clamp_min(s, 1e-30), 0.0)
+        q = torch.round(w * inv).clamp_(-127, 127).to(torch.int8)
+        return cls(q.mT.contiguous().mT, s.squeeze(-2))
+
+    @classmethod
+    def empty(cls, shape: tuple[int, ...], device=None) -> "W8A8Tensor":
+        """An unfilled stack of logical shape (..., in, out), filled per
+        layer by `stack[il] = W8A8Tensor.from_float(w)`."""
+        *lead, inn, out = shape
+        return cls(torch.empty((*lead, out, inn), dtype=torch.int8, device=device).mT,
+                   torch.empty((*lead, out), dtype=torch.float32, device=device))
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.q.shape)
+
+    @property
+    def ndim(self) -> int:
+        return self.q.ndim
+
+    def __getitem__(self, idx) -> "W8A8Tensor":
+        return W8A8Tensor(self.q[idx], self.s[idx])
+
+    def __setitem__(self, idx, other: "W8A8Tensor"):
+        self.q[idx].copy_(other.q)
+        self.s[idx].copy_(other.s)
+
+    def unbind(self, dim: int = 0) -> tuple["W8A8Tensor", ...]:
+        if dim != 0:
+            raise ValueError("W8A8Tensor unbinds its leading (layer) axis only")
+        return tuple(W8A8Tensor(q, s) for q, s in zip(self.q.unbind(0), self.s.unbind(0)))
+
+    def roll(self, shift: int) -> "W8A8Tensor":
+        """The stack rolled along its layer axis (torch.roll's direction)."""
+        return W8A8Tensor(torch.roll(self.q.mT, shift, dims=0).mT,
+                          torch.roll(self.s, shift, dims=0))
+
+    def to(self, device) -> "W8A8Tensor":
+        return W8A8Tensor(self.q.to(device), self.s.to(device))
+
+
+INT_MM_MIN_ROWS = 17  # torch._int_mm on CUDA takes more than 16 rows
+
+
+def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exactly: an int32 matmul
+    on the CPU; on the card (which has no integer matmul outside
+    torch._int_mm) an f64 one, exact while |sums| < 2^53 (127 * 127 * K)."""
+    if a.device.type == "cpu":
+        return a.int() @ b.int()
+    return (a.double() @ b.double()).to(torch.int32)
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32. CPU tensors run the plain
+    version; CUDA tensors run torch._int_mm (counted in
+    `int8_matmul.launches`), whose bounds are checked here: K and N
+    multiples of 8, and M padded with zero rows to 17 where it is smaller."""
+    if a.device.type == "cpu":
+        return int8_matmul_plain(a, b)
+    M, K = a.shape
+    N = b.shape[1]
+    if K % 8 or N % 8:
+        raise ValueError(f"torch._int_mm needs K and N multiples of 8, got K={K} N={N}")
+    if M < INT_MM_MIN_ROWS:
+        a = torch.nn.functional.pad(a, (0, 0, 0, INT_MM_MIN_ROWS - M))
+    out = torch._int_mm(a.contiguous(), b)
+    int8_matmul.launches += 1
+    return out[:M]
+
+
+int8_matmul.launches = 0
+
+
+def w8a8_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8 of x (..., in): (xq int8, sx f32 (..., 1)),
+    sx = max(|x|, 1e-20) / 127, xq = round_half_even(x / sx) clipped."""
+    xf = x.float()
+    # max |x| in one reduction (no arithmetic: the bits of abs().amax())
+    ax = torch.linalg.vector_norm(xf, ord=float("inf"), dim=-1, keepdim=True)
+    # a true division by a device tensor (torch on CUDA turns `t / 127.0`
+    # into a multiply by the reciprocal), filled on the device so that a
+    # CUDA-graph capture takes it
+    sx = ax.clamp_min(1e-20) / ax.new_full((), 127.0)
+    return torch.round(xf / sx).clamp_(-127, 127).to(torch.int8), sx
+
+
+def w8a8_linear(x: torch.Tensor, w: W8A8Tensor, out_dtype=None, xq=None) -> torch.Tensor:
+    """x (..., in) @ W8A8 (in, out) -> (..., out) in out_dtype (default
+    x.dtype; f32 for a logit head): y = (xq @ q) * sx * s. `xq` takes the
+    (xq, sx) of `w8a8_quantize(x)` where several weights read the same x
+    (wq, wk and wv), which then is quantized once."""
+    xq, sx = xq if xq is not None else w8a8_quantize(x)
+    lead = x.shape[:-1]
+    y = int8_matmul(xq.reshape(-1, x.shape[-1]), w.q)
+    yf = y * sx.reshape(-1, 1) * w.s  # int32 -> f32 (rounded) inside the first multiply
+    return yf.reshape(lead + (yf.shape[-1],)).to(out_dtype or x.dtype)
 
 
 def is_quantized(w) -> bool:
@@ -370,11 +495,15 @@ quant_matmul_2d.launches = 0
 quant_matmul_flat.launches = 0
 
 
-def quant_linear(x: torch.Tensor, w) -> torch.Tensor:
-    """x (..., in) @ W (in, out); w is a plain tensor, a QuantTensor, or a
-    FlatQuantTensor with its layer bound. Returns (..., out) in x.dtype, as
+def quant_linear(x: torch.Tensor, w, xq=None) -> torch.Tensor:
+    """x (..., in) @ W (in, out); w is a plain tensor, a QuantTensor, a
+    FlatQuantTensor with its layer bound or a W8A8Tensor (which reads `xq`,
+    x's `w8a8_quantize`, where given). Returns (..., out) in x.dtype, as
     the JAX function does (so an f32 input is still rounded to bf16 inside
-    the product, and the f32 result is cast back to a bf16 input's dtype)."""
+    the packed product, and the f32 result is cast back to a bf16 input's
+    dtype)."""
+    if isinstance(w, W8A8Tensor):
+        return w8a8_linear(x, w, xq=xq)
     if isinstance(w, FlatQuantTensor):
         if w.il is None:
             raise ValueError("FlatQuantTensor used without a bound layer index; "

@@ -54,7 +54,7 @@ from ..ops import sparse_ffn as sf
 COUNTED = (sf.sparse_ffn_block, sf.sparse_ffn_block_v2, sf.sparse_ffn_block_v3,
            sf.sparse_ffn_block_v4, sf.sparse_ffn_block_v5, sf.sparse_ffn_block_v6,
            sf.sparse_ffn_block_v6q, sf.sparse_ffn_block_v7u, qm.quant_matmul_2d,
-           qm.quant_matmul_flat)
+           qm.quant_matmul_flat, qm.int8_matmul)
 
 
 # held by every capture, and by a model load off its Scheduler's thread

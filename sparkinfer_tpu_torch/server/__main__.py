@@ -9,8 +9,9 @@ store's budget), --cold-mode host|drop|fetch (default host),
 --prefill-mode rows|tiered, --split FILE, --rebalance-every,
 --reload-budget-mb and --swap-hysteresis; --lora / --lora-scaled merge
 adapters (rescaled by POST /lora-adapters), --slot-save-path holds the
-/slots/:id save files. Flags whose modules are not ported yet (-hf,
---attn-w8a8, -ctk/-ctv q8 or a split -ctv) fail with an error naming the
+/slots/:id save files; --attn-w8a8 re-quantizes the attention projections
+to row-wise W8A8 at load. Flags whose modules are not ported yet (-hf,
+-ctk/-ctv q8 or a split -ctv) fail with an error naming the
 module. The line "listening on http://HOST:PORT" gives the bound port, also
 for --port 0.
 """
@@ -39,7 +40,7 @@ def main(argv=None) -> int:
     from ..models.loader import load_model
     from .app import ServerConfig, SparkServer
 
-    model = load_model(args.model, device=args.device)
+    model = load_model(args.model, device=args.device, attn_w8a8=args.attn_w8a8)
     from ..common.args import apply_model_overrides
 
     apply_model_overrides(args, model)  # --rope-*/--yarn-*/-t

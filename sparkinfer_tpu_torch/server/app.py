@@ -12,9 +12,11 @@ Endpoints (reference parity set):
   GET  / /health /props /metrics /v1/models /slots
   POST /tokenize /detokenize /completion(s) /v1/completions
        /v1/chat/completions /infill /v1/messages /apply-template
+       /embeddings /v1/embeddings /rerank /reranking /v1/rerank /v1/reranking
 Streaming via SSE (`stream: true`). The server runs on the card unless
-`ServerConfig.device` says otherwise. Routes whose modules are not ported
-yet answer HTTP 501: /embeddings and /rerank (runtime/embeddings.py).
+`ServerConfig.device` says otherwise. /embeddings and /rerank run the
+model's forward (runtime/embeddings.py) on the handler's thread between
+the Scheduler's ticks.
 LoRA adapters (`ServerConfig.lora`) are merged at startup and re-merged at
 new scales by POST /lora-adapters, in place (`models/lora.LoraMerger`: the
 dense weights and the Scheduler's row stores, which its tick graphs read),
@@ -140,6 +142,7 @@ class SparkServer:
             self._remerge_lora()
         self._backends: dict[str, object] = {}
         self._backends_lock = threading.Lock()
+        self._embedders: dict[str, object] = {}  # runtime.embeddings.Embedder, by pooling
 
     # --- lora ---------------------------------------------------------------
     def lora_list(self) -> list[dict]:
@@ -311,8 +314,76 @@ class SparkServer:
         self.sched.submit(req)
         return req
 
+    def _pooled(self, pooling: str, token_lists: list[list[int]], **kw):
+        """Embedder(pooling).embed_tokens over the server's model. A handler
+        thread runs these forwards, so they hold the Scheduler's lock (no
+        tick runs meanwhile) and then CAPTURE_LOCK (no graph is captured
+        meanwhile), in the order the Scheduler's own thread takes them."""
+        from ..runtime.embeddings import Embedder
+
+        with self.sched.lock, CAPTURE_LOCK:
+            emb = self._embedders.get(pooling)
+            if emb is None:
+                emb = self._embedders[pooling] = Embedder(
+                    self.model, max_seq=self.cfg.max_seq, pooling=pooling, device=self.device)
+            return emb.embed_tokens(token_lists, **kw)
+
+    def embeddings(self, body: dict) -> dict:
+        """OpenAI-compatible /v1/embeddings: mean-pooled, normalized vectors
+        of each input, tokenized with the model's special tokens."""
+        inputs = body.get("input", body.get("content", ""))
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        toks = [self.tokenizer.encode(t, add_special=True) for t in inputs]
+        vecs = self._pooled("mean", toks)
+        return {
+            "object": "list",
+            "model": self.cfg.model_name,
+            "data": [{"object": "embedding", "index": i, "embedding": v.tolist()}
+                     for i, v in enumerate(vecs)],
+            "usage": {"prompt_tokens": sum(len(t) for t in toks),
+                      "total_tokens": sum(len(t) for t in toks)},
+        }
+
     def rerank(self, body: dict) -> dict:
-        raise NotImplementedError("/rerank needs runtime/embeddings.py, which is not ported yet")
+        """Jina/TEI-compatible rerank (ref tools/server post_rerank +
+        format_prompt_rerank): score = rank-pooled classification head on
+        [bos]query[eos][sep]doc[eos]."""
+        query = body.get("query")
+        is_tei = "texts" in body and "documents" not in body
+        docs = body.get("documents", body.get("texts")) or []
+        if query is None or not isinstance(docs, list):
+            raise ValueError("rerank needs 'query' and 'documents'/'texts'")
+        v = self.model.vocab
+        eos = v.eos_id if v.eos_id >= 0 else v.sep_id
+        q_toks = self.tokenizer.encode(str(query), add_special=False)
+        pairs = []
+        for d in docs:
+            ids: list[int] = []
+            if v.add_bos and v.bos_id >= 0:
+                ids.append(v.bos_id)
+            ids += q_toks
+            if v.add_eos and eos >= 0:
+                ids.append(eos)
+            if v.add_sep and v.sep_id >= 0:
+                ids.append(v.sep_id)
+            ids += self.tokenizer.encode(str(d), add_special=False)
+            if v.add_eos and eos >= 0:
+                ids.append(eos)
+            pairs.append(ids)
+        scores = [float(s[0]) for s in self._pooled("rank", pairs, normalize=False)]
+        label = "score" if is_tei else "relevance_score"
+        results = [{"index": i, label: s} for i, s in enumerate(scores)]
+        results.sort(key=lambda r: -r[label])
+        top_n = body.get("top_n")
+        if top_n is not None:
+            results = results[: int(top_n)]
+        return {
+            "model": self.cfg.model_name,
+            "results": results,
+            "usage": {"prompt_tokens": sum(len(p) for p in pairs),
+                      "total_tokens": sum(len(p) for p in pairs)},
+        }
 
     def chat_completion(self, body: dict):
         sched, tok, template, name = self._backend_for(body)
@@ -571,7 +642,7 @@ def _make_handler(srv: SparkServer):
                 elif self.path == "/v1/chat/completions":
                     self._completion(body, chat=True)
                 elif self.path in ("/embeddings", "/v1/embeddings"):
-                    self._embeddings(body)
+                    self._json(200, srv.embeddings(body))
                 elif self.path == "/infill":
                     self._infill(body)
                 elif self.path in ("/rerank", "/reranking", "/v1/rerank",
@@ -626,10 +697,6 @@ def _make_handler(srv: SparkServer):
                 self._json(400, {"error": str(e)})
                 return
             self._json(200, out)
-
-        def _embeddings(self, body: dict):
-            raise NotImplementedError(
-                "/embeddings needs runtime/embeddings.py, which is not ported yet")
 
         def _anthropic_messages(self, body: dict):
             """Anthropic-compatible messages endpoint (parity:

@@ -34,7 +34,7 @@ from typing import Callable
 import torch
 
 from ..models.config import ModelConfig
-from ..ops.quant_matmul import is_quantized
+from ..ops.quant_matmul import W8A8Tensor, is_quantized
 from ..ops.sparse_ffn import dequant_rows as _dequant_sub_nd  # sparse/ffn.py:61
 from ..ops.sparse_ffn import (
     combine,
@@ -51,6 +51,7 @@ from .config import SparseConfig
 from .predictor import predict_activations, predict_from, resolve_predictor
 
 PRED_KEYS = ("pred_up", "pred_up_b", "pred_down", "pred_down_b")
+STACK_KEYS = ("pred_up_all", "pred_up_qt", "pred_up_w8")  # the predictor stacks' forms
 
 
 def select_groups(probs: torch.Tensor, scfg: SparseConfig, n_ff: int) -> torch.Tensor:
@@ -234,7 +235,8 @@ def _roll_predictors(layers: dict) -> dict:
     out = dict(layers)
     for k in PRED_KEYS:
         if k in layers:
-            out[k + "_nx"] = torch.roll(layers[k], -1, dims=0)
+            w = layers[k]
+            out[k + "_nx"] = w.roll(-1) if isinstance(w, W8A8Tensor) else torch.roll(w, -1, dims=0)
     return out
 
 
@@ -429,11 +431,11 @@ def make_pipelined_sparse_ffn(cfg: ModelConfig, scfg: SparseConfig,
 
     def _pred(lp, il, nxt):
         """Own (il) or next-layer ((il+1) mod L) predictor weights. The JAX
-        package routes on "pred_up_all" alone, so there Q8_0 stacks need a
-        bf16 pred_up_all beside them; routing on either key gives the same
-        function without that copy (as its sparse_tp.py:154 does). Per-layer
+        package routes on "pred_up_all" alone, so there Q8_0 or W8A8 stacks
+        need a bf16 pred_up_all beside them; routing on any stack's key gives
+        the same function without that copy (as its sparse_tp.py:154 does). Per-layer
         slices, where lp has them, win, as in resolve_predictor."""
-        if "pred_up" not in lp and ("pred_up_all" in lp or "pred_up_qt" in lp):
+        if "pred_up" not in lp and any(k in lp for k in STACK_KEYS):
             return resolve_predictor(lp, (il + 1) % L if nxt else il)
         sfx = "_nx" if nxt else ""
         return tuple(lp[k + sfx] for k in PRED_KEYS)

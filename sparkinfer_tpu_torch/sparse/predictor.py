@@ -5,16 +5,17 @@ sparkinfer_tpu/sparse/predictor.py:
 
 computed in f32 whatever the weight dtype, as the JAX package does. The
 weights come per layer (pred_up ...), as loop-invariant stacks
-(pred_up_all (L, E, R) ...) or as Q8_0 stacks (pred_up_qt / pred_down_qt,
-FlatQuantTensor, through the quant_matmul_flat kernel). W8A8 predictor
-stacks come with the tiering slice.
+(pred_up_all (L, E, R) ...), as Q8_0 stacks (pred_up_qt / pred_down_qt,
+FlatQuantTensor, through the quant_matmul_flat kernel) or as row-wise W8A8
+stacks (pred_up_w8 / pred_down_w8, W8A8Tensor, through the int8 product).
+A per-layer pred_up / pred_down may be a packed or W8A8 weight too.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.quant_matmul import FlatQuantTensor, QuantTensor, quant_linear
+from ..ops.quant_matmul import FlatQuantTensor, QuantTensor, W8A8Tensor, quant_linear
 
 
 def resolve_predictor(lp: dict, il: int | None = None) -> tuple:
@@ -29,13 +30,16 @@ def resolve_predictor(lp: dict, il: int | None = None) -> tuple:
         # Q8_0 stacks: rebind the layer (the pipelined FFN asks for il + 1)
         return (lp["pred_up_qt"].with_il(il), lp["pred_up_b_all"][il],
                 lp["pred_down_qt"].with_il(il), lp["pred_down_b_all"][il])
+    if "pred_up_w8" in lp:
+        return (lp["pred_up_w8"][il], lp["pred_up_b_all"][il],
+                lp["pred_down_w8"][il], lp["pred_down_b_all"][il])
     return (lp["pred_up_all"][il], lp["pred_up_b_all"][il],
             lp["pred_down_all"][il], lp["pred_down_b_all"][il])
 
 
 def _linear_f32(x: torch.Tensor, w) -> torch.Tensor:
-    if isinstance(w, (QuantTensor, FlatQuantTensor)):
-        return quant_linear(x, w)  # x.dtype (f32) out, bf16 operands inside
+    if isinstance(w, (QuantTensor, FlatQuantTensor, W8A8Tensor)):
+        return quant_linear(x, w)  # x.dtype (f32) out
     return x @ w.float()
 
 

@@ -17,7 +17,8 @@ cli scope):
   (--sparse/--dense, --group-size, --capacity-groups, --hot-groups, -vb,
   --cold-mode, --split, --rebalance-every).
 A GGUF without a vocabulary takes the prompt as space-separated token ids
-and prints ids. Flags whose modules are not ported yet (-hf, --attn-w8a8,
+and prints ids. --attn-w8a8 re-quantizes the attention projections to
+row-wise W8A8 at load. Flags whose modules are not ported yet (-hf,
 --kv-iswa, -ctk/-ctv q8 or a split -ctv) and encoder-decoder models fail
 at startup with an error naming the module.
 """
@@ -246,7 +247,7 @@ def main(argv=None) -> int:
     from ..models.loader import load_model
 
     t0 = time.time()
-    model = load_model(args.model, device=args.device)
+    model = load_model(args.model, device=args.device, attn_w8a8=args.attn_w8a8)
     apply_model_overrides(args, model)  # --rope-*/--yarn-*/-t
     if args.verbose:
         print(f"loaded {args.model} ({model.config.arch}) in {time.time() - t0:.1f}s",

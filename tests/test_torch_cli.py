@@ -6,8 +6,10 @@ by a few ulps and flip near-ties) and an f32 KV cache (-ctk f32): the
 printed streams must be equal for plain decode,
 --sparse, --draft-mode lookup and lookahead, -gan/-gaw, --keep past
 max_seq, the penalties and a LoRA adapter; bench mode; the sparse flags'
-plumbing (-vb, --spif-ms, group-size fallback, --cold-mode fetch); and the
-flags whose modules are not ported fail at startup naming the module."""
+plumbing (-vb, --spif-ms, group-size fallback, --cold-mode fetch); W8A8
+attention (--attn-w8a8, dense and sparse, and its refusal beside a LoRA
+adapter of the attention); and the flags whose modules are not ported fail
+at startup naming the module."""
 
 import json
 
@@ -77,8 +79,10 @@ BASE = ["-n", "40", "--temp", "0", "-ctk", "f32"]
                "--presence-penalty", "0.2"]),
     ("vocab", []),
     ("vocab", ["-c", "32", "--keep", "3", "--ignore-eos"]),
+    ("dense", ["--attn-w8a8"]),
+    ("ids", ["--attn-w8a8", "--group-size", "16", "--capacity-groups", "4"]),
 ], ids=["dense", "sparse", "dense_flag", "lookup", "lookahead", "sparse_lookup", "self_extend",
-        "keep", "shift", "penalties", "vocab", "vocab_shift"])
+        "keep", "shift", "penalties", "vocab", "vocab_shift", "attn_w8a8", "sparse_attn_w8a8"])
 def test_streams_match_the_jax_cli(files, capsys, model, flags):
     prompt = "hello world the" if model == "vocab" else "5 9 42 7 5 9 42 7"
     got, want = _both(capsys, ["-m", files[model], "-p", prompt] + BASE + flags)
@@ -106,6 +110,21 @@ def test_lora_flag_matches_the_jax_cli(files, capsys):
     got, want = _both(capsys, argv + ["--lora-scaled", files["lora"], "0.7"])
     base, _ = _both(capsys, argv)
     assert got == want and got != base
+
+
+def test_attn_w8a8_with_an_attention_lora_fails_naming_both_flags(files, tmp_path, capsys):
+    """The JAX CLI fails here too (its merge indexes the W8A8 weight); an
+    adapter of the FFN merges beside W8A8 attention as in the JAX CLI."""
+    from test_torch_lora import write_lora
+
+    write_lora(str(tmp_path / "q.gguf"), 2, 64, 96, targets=("attn_q",))
+    with pytest.raises(ValueError, match="--lora and --attn-w8a8"):
+        main(["-m", files["dense"], "-p", "5 9 42", "--device", "cpu", "--attn-w8a8",
+              "--lora", str(tmp_path / "q.gguf")] + BASE)
+    write_lora(str(tmp_path / "up.gguf"), 2, 64, 96, alpha=32.0, targets=("ffn_up",))
+    argv = ["-m", files["ids"], "-p", "5 9 42", "--dense", "--attn-w8a8"] + BASE
+    got, want = _both(capsys, argv + ["--lora", str(tmp_path / "up.gguf")])
+    assert got == want and got != _both(capsys, argv)[0]
 
 
 def test_bench_mode(files, tmp_path, capsys):
@@ -144,7 +163,7 @@ def test_missing_prompt_and_model(files, capsys):
 
 
 @pytest.mark.parametrize("flags,module", [
-    (["--attn-w8a8"], "W8A8"), (["-hf", "acme/tiny"], "tools/hf.py"),
+    (["-hf", "acme/tiny"], "tools/hf.py"),
     (["--kv-iswa"], "iSWA"), (["-ctk", "q8", "-ctv", "q8"], "quantized KV"),
     (["-ctv", "f32"], "split-dtype"),
 ])

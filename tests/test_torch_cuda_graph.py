@@ -13,8 +13,8 @@ Card (marked `cuda`; no JAX needed, so run with --noconftest as README's
 port section says): graph against eager on the same params, first decode
 logits bit-equal and greedy streams equal (a replay runs the eager step's
 kernels on the same inputs in the same order, so any difference is a fault,
-such as a stale static buffer) for dense, v6, v6q (with quant_matmul), the
-Scheduler's v1 tick and its masked-dense fallback; the launch counters
+such as a stale static buffer) for dense, v6, v6q (with quant_matmul), v6q
+with W8A8 attention and predictor stacks (torch._int_mm), the Scheduler's v1 tick and its masked-dense fallback; the launch counters
 credited per replay; one capture for two `generate` calls; a sampled
 engine's seeded stream; a fresh process's first captured step; and the
 Scheduler's first capture while another thread works on the card: the
@@ -84,10 +84,13 @@ def _engine(path, device, kind="v6", sampler=GREEDY, **kw):
                   sparse_decode_mode=mode, device=device, **kw)
 
 
-def _q8_model(path, device):
+def _q8_model(path, device, w8a8=False):
     """Q8_0 attention and head, Q8_0 flat FFN stores and Q8_0 predictor
-    stacks, as tests/test_torch_engine.py builds them, with the port alone."""
-    model = load_model(path, dtype=torch.float32, device=device, keep_quantized=True)
+    stacks, as tests/test_torch_engine.py builds them, with the port alone;
+    w8a8=True makes the attention (`attn_w8a8`) and the predictor stacks
+    W8A8 instead, over the same Q8_0 flat FFN stores, the head dense."""
+    model = load_model(path, dtype=torch.float32, device=device, keep_quantized=not w8a8,
+                       attn_w8a8=w8a8)
     dense = load_model(path, dtype=torch.float32, device=device).params["layers"]
     layers = dict(model.params["layers"])
     layers.update({k: dense[k] for k in ("w_up", "w_gate", "w_down")})
@@ -95,10 +98,14 @@ def _q8_model(path, device):
     params = tffn.prepare_pipelined_params(dict(model.params, layers=layers), model.config,
                                            SparseConfig(GQ, CAPQ), drop_dense=True,
                                            layout="v6", quant="q8_0")
-    params["sparse_flat"].update(
-        pred_up_qt=tqm.flat_quantize(pred["pred_up"]),
-        pred_down_qt=tqm.flat_quantize(pred["pred_down"]),
-        pred_up_b_all=pred["pred_up_b"], pred_down_b_all=pred["pred_down_b"])
+    if w8a8:
+        params["sparse_flat"].update(pred_up_w8=tqm.W8A8Tensor.from_float(pred["pred_up"]),
+                                     pred_down_w8=tqm.W8A8Tensor.from_float(pred["pred_down"]))
+    else:
+        params["sparse_flat"].update(pred_up_qt=tqm.flat_quantize(pred["pred_up"]),
+                                     pred_down_qt=tqm.flat_quantize(pred["pred_down"]))
+    params["sparse_flat"].update(pred_up_b_all=pred["pred_up_b"],
+                                 pred_down_b_all=pred["pred_down_b"])
     return LoadedModel(config=model.config, params=params)
 
 
@@ -253,8 +260,8 @@ def _counts():
 
 def _engines(kind, gguf, q8_gguf, sampler=GREEDY):
     """A graph engine and an eager engine over the same params."""
-    if kind == "v6q":
-        model = _q8_model(q8_gguf, "cuda")
+    if kind in ("v6q", "w8a8"):
+        model = _q8_model(q8_gguf, "cuda", w8a8=kind == "w8a8")
         kw = dict(max_seq=64, sampler=sampler, kv_dtype=torch.float32,
                   sparse=SparseConfig(GQ, CAPQ), sparse_preprepared=True, device="cuda")
         return Engine(model, **kw), Engine(model, cuda_graph=False, **kw)
@@ -268,7 +275,7 @@ def _engines(kind, gguf, q8_gguf, sampler=GREEDY):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["dense", "v6", "v6q"])
+@pytest.mark.parametrize("kind", ["dense", "v6", "v6q", "w8a8"])
 def test_graph_step_equals_the_eager_step(cuda, gguf, q8_gguf, kind):
     graph_eng, eager = _engines(kind, gguf, q8_gguf)
     assert graph_eng.graphs.capture and not eager.graphs.capture

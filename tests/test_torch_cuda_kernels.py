@@ -11,7 +11,8 @@ Tolerance: kernel and plain version both sum in f32, in another order
 Q8_0 kernels (v6q, quant_matmul) sum exact or f32 products in another
 order too: 1e-5 of the scale at small widths, 1e-4 at the 13B decode
 shapes (sums over 5120 terms). The packers and encoders are bit-equal to
-their CPU runs. v1 over f32 stores keeps an f32 hidden: 1e-5. v7u rounds
+their CPU runs; the W8A8 int8 product (torch._int_mm) is exact, so
+bit-equal to an f64 product. v1 over f32 stores keeps an f32 hidden: 1e-5. v7u rounds
 its hidden to bf16, so a hidden value whose f32 sums differ in the last
 bit can round to the neighbouring bf16 value: 1e-3 of the scale for v7u
 and for v1 over bf16 stores. v2, v3, v4 and v5 run v1's kernel over their
@@ -612,6 +613,35 @@ def test_quant_matmul_flat(cuda, kind, N):
     torch.cuda.synchronize()
     assert tqm.quant_matmul_flat.launches == before + 1
     _check_qmm(got, tqm.quant_matmul_flat_plain(x, q, s, 2, kind=kind, out_dim=OUT), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 16, 17, 32])
+@pytest.mark.parametrize("IN,OUT", [(5120, 5120), (5120, 1280), (1280, 13824), (64, 40)])
+def test_w8a8_linear(cuda, N, IN, OUT):
+    """torch._int_mm (rows padded to 17 below that) against the exact f64
+    product: the int32 results bit-equal, and so w8a8_linear's output."""
+    gen = torch.Generator(device=cuda).manual_seed(N * 7 + IN + OUT)
+    w = tqm.W8A8Tensor.from_float(
+        torch.randn((IN, OUT), generator=gen, device=cuda) * 0.02)
+    x = torch.randn((N, IN), generator=gen, device=cuda).to(torch.bfloat16)
+    xq, sx = tqm.w8a8_quantize(x)
+    before = tqm.int8_matmul.launches
+    y = tqm.int8_matmul(xq, w.q)
+    assert tqm.int8_matmul.launches == before + 1
+    assert y.dtype == torch.int32 and y.shape == (N, OUT)
+    assert torch.equal(y, tqm.int8_matmul_plain(xq, w.q))
+    plain = (tqm.int8_matmul_plain(xq, w.q).float() * sx * w.s).to(torch.bfloat16)
+    assert torch.equal(tqm.w8a8_linear(x, w), plain)
+    head = tqm.w8a8_linear(x, w, out_dtype=torch.float32)
+    assert head.dtype == torch.float32 and torch.equal(head.to(torch.bfloat16), plain)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_checks_its_bounds(cuda):
+    a = torch.zeros((1, 60), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tqm.int8_matmul(a, torch.zeros((60, 16), dtype=torch.int8, device=cuda))
 
 
 @pytest.mark.cuda

@@ -305,7 +305,8 @@ def test_port_imports_without_jax():
                 "server.__main__", "native", "sparse.tiering", "sparse.balancer",
                 "sparse.split", "sparse.moe", "runtime.self_extend", "runtime.speculative",
                 "runtime.lookup", "runtime.lookahead", "runtime.state_io", "models.lora",
-                "tools.cli", "tools.export_lora"):
+                "tools.cli", "tools.export_lora", "gguf._iq_grids", "tools.quantize",
+                "tools.imatrix", "runtime.embeddings", "tools.retrieval"):
         assert "sparkinfer_tpu_torch." + mod in names, mod
 
 

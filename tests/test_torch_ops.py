@@ -102,9 +102,15 @@ def test_dequantize_matches_jax(gtype):
 
 
 def test_dequantize_rejects_unported():
-    raw = jquants.quantize(np.zeros(256, np.float32), GGMLType.Q4_K)
+    """Every block format the JAX package decodes decodes (Q4_K here, all of
+    them in test_torch_quant_formats.py); only a type that the JAX package
+    cannot decode either (Q8_1) raises."""
+    x = np.random.default_rng(0).standard_normal(512).astype(np.float32)
+    raw = jquants.quantize(x, GGMLType.Q4_K)
+    np.testing.assert_array_equal(tquants.dequantize_tensor(raw, GGMLType.Q4_K, (2, 256)),
+                                  jquants.dequantize_tensor(raw, GGMLType.Q4_K, (2, 256)))
     with pytest.raises(NotImplementedError):
-        tquants.dequantize_tensor(raw, GGMLType.Q4_K, (256,))
+        tquants.dequantize_tensor(np.zeros(36 * 16, np.uint8), GGMLType.Q8_1, (512,))
 
 
 def test_kv_write_read_matches_jax():

@@ -62,8 +62,10 @@ def test_quantize_is_bit_equal_to_jax(kind):
     got = quantize(torch.from_numpy(x), getattr(GGMLType, kind.upper()))
     assert got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), ref)
-    with pytest.raises(NotImplementedError):
-        quantize(torch.from_numpy(x), GGMLType.Q4_1)
+    # the other formats take the numpy encoders, a tensor in and out
+    q41 = quantize(torch.from_numpy(x), GGMLType.Q4_1)
+    assert q41.dtype == torch.uint8
+    np.testing.assert_array_equal(q41.numpy(), jax_quantize(x, JGGMLType.Q4_1))
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -14,7 +14,8 @@ give the same status and body, with response ids and timestamps dropped:
 
 Port only: a sparse server (prosparse fixture, SparseConfig(8, 4),
 a crossover of 2 from SPIF_SPARSE_BATCH_MAX) streams what the port's "kernel" Scheduler gives;
-the routes whose modules are not ported answer 501; unported startup
+/embeddings and /rerank answer as the JAX server's; --attn-w8a8 serves the
+JAX server's streams; unported startup
 options and flags raise; the router loads a second model; Engine.generate_text
 gives the JAX Engine's text; and `python -m sparkinfer_tpu_torch.server
 --device cpu` answers /health in a subprocess.
@@ -29,6 +30,7 @@ import time
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -199,9 +201,31 @@ def test_infill_prompt_layout_matches_jax(servers):
     ("/rerank", {"query": "a", "documents": ["b"]}), ("/v1/rerank", {"query": "a"}),
 ])
 def test_unported_routes_answer_501(servers, path, body):
-    _, tsrv = servers
-    code, raw = _call(tsrv.port, path, body)
-    assert code == 501 and "not ported yet" in json.loads(raw)["error"]["message"]
+    """Formerly 501; now the routes answer as the JAX server's: the same
+    status and JSON, numbers within 1e-5 of their scale (the JAX Embedder
+    pads to a length bucket and sums in another order)."""
+    jsrv, tsrv = servers
+    (jc, jraw), (tc, traw) = (_call(s.port, path, body) for s in (jsrv, tsrv))
+    assert tc == jc == (400 if "documents" not in body and "rerank" in path else 200)
+    _json_close(json.loads(traw), json.loads(jraw))  # a rerank of nothing: the same 400
+
+
+def _json_close(got, want, rel=1e-5):
+    """Equal JSON, floats within rel of the largest |float| of their list."""
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            _json_close(got[k], want[k], rel)
+    elif isinstance(want, list) and want and all(isinstance(v, float) for v in want):
+        np.testing.assert_allclose(got, want, rtol=0, atol=rel * max(map(abs, want)))
+    elif isinstance(want, list):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _json_close(g, w, rel)
+    elif isinstance(want, float):
+        assert abs(got - want) <= rel * max(abs(want), 1e-30)
+    else:
+        assert got == want
 
 
 @pytest.mark.parametrize("path,body,code", [
@@ -244,7 +268,6 @@ def test_unported_startup_options_raise(gguf, kw, match):
 @pytest.mark.parametrize("flags,module", [
     (["-hf", "acme/tiny"], "tools/hf.py"),
     (["-ctk", "q8", "-ctv", "q8"], "quantized KV"), (["-ctv", "f32"], "split-dtype"),
-    (["--attn-w8a8"], "W8A8"),
 ])
 def test_unported_flags_fail_with_the_module(gguf, capsys, flags, module):
     from sparkinfer_tpu_torch.server.__main__ import main
@@ -254,6 +277,38 @@ def test_unported_flags_fail_with_the_module(gguf, capsys, flags, module):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert module in err and "not ported yet" in err
+
+
+def test_attn_w8a8_flag_serves_the_jax_servers_streams(gguf, monkeypatch):
+    """`--attn-w8a8` loads W8A8 attention (both loaders made to load f32)
+    and the server's completions equal the JAX server's on the same flag."""
+    from sparkinfer_tpu_torch.models import loader
+    from sparkinfer_tpu_torch.server.__main__ import main
+
+    load, started = loader.load_model, []
+    monkeypatch.setattr(loader, "load_model",
+                        lambda path, **kw: load(path, **{**kw, "dtype": torch.float32}))
+    serve = SparkServer.serve
+    monkeypatch.setattr(SparkServer, "serve",
+                        lambda self, block=True: (started.append(self), serve(self, block=False)))
+    assert main(["-m", gguf, "--device", "cpu", "--port", "0", "-np", "1", "-c", "192",
+                 "-ctk", "f32", "--attn-w8a8", "--temp", "0"]) == 0
+    (tsrv,) = started
+    jsrv = JaxServer(jax_load(gguf, dtype=jnp.float32, attn_w8a8=True),
+                     JaxServerConfig(port=0, n_slots=1, max_seq=192, kv_dtype="f32"),
+                     sampler=JaxSampler(temp=0.0))
+    jsrv.serve(block=False)
+    try:
+        from sparkinfer_tpu_torch.ops.quant_matmul import W8A8Tensor
+
+        assert isinstance(tsrv.model.params["layers"]["wq"], W8A8Tensor)
+        body = {"prompt": "hello world", "max_tokens": 12, "temperature": 0}
+        (jc, jraw), (tc, traw) = (_call(s.port, "/v1/completions", body) for s in (jsrv, tsrv))
+        assert jc == tc == 200
+        assert _strip(json.loads(traw))["choices"] == _strip(json.loads(jraw))["choices"]
+    finally:
+        jsrv.shutdown()
+        tsrv.shutdown()
 
 
 def test_sparse_server_streams_the_kernel_scheduler(tmp_path, monkeypatch):
