@@ -1318,7 +1318,7 @@ def phase_v7u(flat, L, ng, C=12):
     return rows[8]
 
 
-def scheduler_path(sched, prompts, n_new):
+def scheduler_path(sched, prompts, n_new, label="7B bf16"):
     """The Scheduler's main path: every request served, every tick's
     logits finite, v1 launched n_layer times per tick forward (each replay
     of the tick's graph, and its warm-up) and no other kernel (counts set
@@ -1349,7 +1349,7 @@ def scheduler_path(sched, prompts, n_new):
         check(n == want, f"Scheduler: {name} launched {n} times, want {want}")
     check(m["n_dense_steps"] == 0, "Scheduler: a tick took the dense step")
     decode_tps = (m["n_tokens_generated"] - m["n_requests"]) / m["t_decode_s"]
-    print(f"main path Scheduler 7B bf16 sparse: {len(prompts)} requests on {sched.n_slots} "
+    print(f"main path Scheduler {label} sparse: {len(prompts)} requests on {sched.n_slots} "
           f"slots, {ticks} ticks, decode {decode_tps:.2f} tok/s aggregate "
           f"({1e3 * m['t_decode_s'] / ticks:.2f} ms/tick), prefill {m['prefill_tps']:.1f} "
           f"tok/s, wall {wall:.2f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -1845,7 +1845,8 @@ def sparse_dense_ratio(label, sparse_row, dense_row) -> dict:
     return ratio
 
 
-def scheduler_graph_vs_eager(graph_sched, eager_sched, prompts, n_new) -> dict:
+def scheduler_graph_vs_eager(graph_sched, eager_sched, prompts, n_new,
+                             label="7B bf16") -> dict:
     """Phase 5h for the Scheduler: the same requests through the graph
     Scheduler (its tick captured already) and an eager one; streams equal
     and the first tick's logits bit-equal, or the run fails; wall ms a
@@ -1883,7 +1884,7 @@ def scheduler_graph_vs_eager(graph_sched, eager_sched, prompts, n_new) -> dict:
     check(torch.equal(gf, ef), f"5h Scheduler: first tick logits differ by up to "
                                f"{(gf - ef).abs().max().item():.3e}")
     step = graph_sched.graphs.get(graph_sched.cache, graph_sched.n_slots, "decode", None)
-    row = {"path": f"Scheduler 7B bf16 sparse, {graph_sched.n_slots} slots", "graph": g,
+    row = {"path": f"Scheduler {label} sparse, {graph_sched.n_slots} slots", "graph": g,
            "eager": e, **replay_times(step),
            "capture_s": step.stats["capture_s"], "graph_pool_bytes": step.stats["pool_bytes"],
            "wall_speedup": e["wall_ms_per_tick"] / g["wall_ms_per_tick"]}
@@ -4744,6 +4745,755 @@ def quant_summary(w8, tiered, kq, emb) -> dict:
             "kquant": kq, "embeddings": emb}
 
 
+# --- phase 5n: the paper's other sparse families -----------------------------
+# SparseLLM/ReluFalcon-40B, Falcon-40B's published config.json (new decoder
+# architecture): 60 layers, hidden 8192, 128 heads, 8 KV heads of 64, ffn
+# 32768, vocab 65024, ln_attn and ln_mlp (attn_norm, attn_norm_2), parallel
+# attention and FFN, rope theta 1e4, LayerNorm eps 1e-5, 2048 positions.
+# facebook/opt-6.7b: 32 layers, hidden 4096, 32 heads, ffn 16384, vocab
+# 50272, 2048 learned positions (+2), LayerNorm eps 1e-5. Qwen/Qwen2-7B
+# (SparseQwen2-7B's base): 28 layers, hidden 3584, 28 heads, 4 KV heads of
+# 128, ffn 18944, vocab 152064, rope theta 1e6, RMS eps 1e-6. Predictor rank
+# 1024, groups of 128, about 14% of them selected (the 7B phases' 12 of 86).
+# Random weights from SEED, drawn on the card; the depths are cuts.
+
+FAMILY_R = 1024
+FAMILY_C = {"falcon40b": 36, "opt6.7b": 18, "qwen2-7b": 21}  # of 256, 128, 148 groups
+FAMILY_CUT_L = 4  # OPT-6.7B and Qwen2-7B run at this depth
+FAMILY_HEADROOM = 6 * 2**30  # device bytes left for activations, caches, graph pools
+FAMILY_Q8_LIMIT = 76 * 2**30  # the most a Q8_0 ReluFalcon-40B may take
+
+
+def family_config(kind, L):
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    common = dict(n_layer=L, pred_lora=(FAMILY_R,) * L)
+    if kind == "falcon40b":
+        return ModelConfig(arch="falcon", n_embd=8192, n_head=128, n_head_kv=8, n_ff=32768,
+                           n_vocab=65024, head_dim=64, n_ctx_train=2048, norm_eps=1e-5,
+                           **common)
+    if kind == "opt6.7b":
+        return ModelConfig(arch="opt", n_embd=4096, n_head=32, n_head_kv=32, n_ff=16384,
+                           n_vocab=50272, head_dim=128, n_ctx_train=2048, norm_eps=1e-5,
+                           **common)
+    return ModelConfig(arch="qwen2", n_embd=3584, n_head=28, n_head_kv=4, n_ff=18944,
+                       n_vocab=152064, head_dim=128, n_ctx_train=32768, norm_eps=1e-6,
+                       rope_freq_base=1e6, **common)
+
+
+class LazyStack:
+    """An (L, in, out) stack whose layer il is drawn on the device when
+    indexed, for the functions that fill a store a layer at a time
+    (prepare_pipelined_params, flat_quantize): no whole bf16 copy exists."""
+
+    def __init__(self, draw, L, shape, dtype, device):
+        self.draw, self.shape = draw, (L,) + tuple(shape)
+        self.dtype, self.device = dtype, device
+
+    def __getitem__(self, il):
+        return self.draw(il)
+
+
+class FamilyWeights:
+    """Random weights of one family model with the loader's keys and
+    orientations, each tensor of each layer drawn from its own seeded
+    generator, so that a layer can be drawn again, equal, for another
+    store (the dense counterpart, a Q8_0 store, the 1-layer gate)."""
+
+    NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo", "w_up", "b_up", "w_gate",
+             "w_down", "b_down", "pred_up", "pred_down", "pred_down_b", "output", "tok_embd",
+             "pos_embd")
+
+    def __init__(self, cfg, dtype, device, seed):
+        self.cfg, self.dtype, self.device, self.seed = cfg, dtype, device, seed
+        tr = cfg.traits
+        E, F, R = cfg.n_embd, cfg.n_ff, cfg.max_pred_rank
+        HD, KD = cfg.n_head * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
+        self.lin = {"wq": (E, HD), "wk": (E, KD), "wv": (E, KD), "wo": (HD, E),
+                    "w_up": (E, F), "w_down": (F, E)}
+        if tr.sparse_act in ("drelu", "fatrelu"):
+            self.lin["w_gate"] = (E, F)
+        self.bias = {}
+        if tr.qkv_bias:
+            self.bias.update(bq=HD, bk=KD, bv=KD)
+        if tr.attn_out_bias:
+            self.bias["bo"] = E
+        if tr.ffn_bias:
+            self.bias.update(b_up=F, b_down=E)
+
+    def draw(self, name, il, shape, scale=0.02, shift=0.0, dtype=None):
+        import torch
+
+        gen = torch.Generator(device=self.device).manual_seed(
+            (self.seed * len(self.NAMES) + self.NAMES.index(name)) * 4096 + il)
+        t = torch.randn(shape, generator=gen, device=self.device, dtype=dtype or self.dtype)
+        return t.mul_(scale).add_(shift)
+
+    def shape(self, name):
+        """(in, out) of a linear or of a predictor stack's layer."""
+        return {"pred_up": (self.cfg.n_embd, FAMILY_R),
+                "pred_down": (FAMILY_R, self.cfg.n_ff)}.get(name) or self.lin[name]
+
+    def layer(self, name, il):
+        """Layer il of a linear or of a predictor stack."""
+        scale = {"pred_up": 0.05, "pred_down": 0.6}.get(name, 0.02)
+        return self.draw(name, il, self.shape(name), scale=scale)
+
+    def stack(self, name):
+        import torch
+
+        L = self.cfg.n_layer
+        st = torch.empty((L,) + self.shape(name), dtype=self.dtype, device=self.device)
+        for il in range(L):
+            st[il].copy_(self.layer(name, il))
+        return st
+
+    def lazy(self, name):
+        return LazyStack(lambda il: self.layer(name, il), self.cfg.n_layer, self.shape(name),
+                         self.dtype, self.device)
+
+    def small(self, dense_linears=("wq", "wk", "wv", "wo")):
+        """Every tensor but the FFN and predictor stacks: norms (LayerNorm
+        weights ones and biases zeros where the arch has them), biases in
+        f32, the attention stacks in the model's dtype, embeddings, the
+        learned positions and the head."""
+        import torch
+
+        cfg, dev = self.cfg, self.device
+        L, E, V = cfg.n_layer, cfg.n_embd, cfg.n_vocab
+        tr = cfg.traits
+        f32 = dict(dtype=torch.float32, device=dev)
+        layers = {}
+
+        def norm(key):  # weight ones, a LayerNorm's bias zeros
+            layers[key + "_w"] = torch.ones((L, E), **f32)
+            if tr.norm == "ln":
+                layers[key + "_b"] = torch.zeros((L, E), **f32)
+
+        norm("attn_norm")
+        if tr.parallel_blocks and cfg.n_head_kv > 1:  # Falcon-40B's ln_mlp
+            norm("attn_norm2")
+        elif not tr.parallel_blocks:
+            norm("ffn_norm")
+        for k in dense_linears:
+            layers[k] = self.stack(k)
+        for k, n in self.bias.items():
+            layers[k] = torch.stack([self.draw(k, il, (n,), dtype=torch.float32)
+                                     for il in range(L)])
+        layers["pred_up_b"] = torch.zeros((L, FAMILY_R), dtype=self.dtype, device=dev)
+        layers["pred_down_b"] = torch.stack([
+            self.draw("pred_down_b", il, (cfg.n_ff,), scale=0.5, shift=-1.2)
+            for il in range(L)])
+        params = {"tok_embd": self.draw("tok_embd", 0, (V, E)),
+                  "output_norm_w": torch.ones((E,), **f32), "layers": layers}
+        if tr.norm == "ln":
+            params["output_norm_b"] = torch.zeros((E,), **f32)
+        if tr.pos_embd:
+            params["pos_embd"] = self.draw("pos_embd", 0, (cfg.n_ctx_train + tr.pos_embd_offset,
+                                                           E))
+        return params
+
+    def head(self):
+        return self.draw("output", 0, (self.cfg.n_vocab, self.cfg.n_embd)).T.contiguous()
+
+    def model(self):
+        """The dense model in the model's dtype, as load_model lays it out."""
+        from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+        params = self.small()
+        params["layers"].update({k: self.stack(k) for k in self.lin if k.startswith("w_")})
+        params["layers"].update(pred_up=self.stack("pred_up"), pred_down=self.stack("pred_down"))
+        params["output"] = self.head()
+        return LoadedModel(config=self.cfg, params=params)
+
+    def q8_head(self):
+        from sparkinfer_tpu_torch.ops.quant_matmul import QuantTensor, flat_quantize
+
+        ft = flat_quantize(self.head()[None])
+        return QuantTensor(ft.q, ft.s, "q8_0")
+
+    def q8_sparse_model(self, scfg):
+        """bf16 attention (a fused QKV loads dequantized), Q8_0 flat FFN
+        stores (prepare_pipelined_params(quant="q8_0"), each layer drawn and
+        quantized on the card), Q8_0 predictor stacks and a Q8_0 head."""
+        from sparkinfer_tpu_torch.models.loader import LoadedModel
+        from sparkinfer_tpu_torch.ops.quant_matmul import flat_quantize
+        from sparkinfer_tpu_torch.sparse.ffn import prepare_pipelined_params
+
+        params = self.small()
+        layers = params["layers"]
+        layers.update({k: self.lazy(k) for k in self.lin if k.startswith("w_")})
+        params["output"] = self.q8_head()
+        params = prepare_pipelined_params(params, self.cfg, scfg, drop_dense=True,
+                                          layout="v6", quant="q8_0")
+        flat = params["sparse_flat"]
+        flat["pred_up_qt"] = flat_quantize(self.lazy("pred_up"))
+        flat["pred_down_qt"] = flat_quantize(self.lazy("pred_down"))
+        layers = params["layers"]  # the stacks replace the per-layer predictor
+        flat["pred_up_b_all"], flat["pred_down_b_all"] = layers.pop("pred_up_b"), layers.pop(
+            "pred_down_b")
+        for k in ("pred_up_b_nx", "pred_down_b_nx"):
+            layers.pop(k)
+        return LoadedModel(config=self.cfg, params=params)
+
+    def q8_dense_ffn(self):
+        """The same FFN draws as Q8_0 QuantTensors (L, in, out), each layer
+        quantized on the card (the ggml Q8_0 blocks a GGUF holds)."""
+        import torch
+
+        from sparkinfer_tpu_torch.ops.quant_matmul import QuantTensor, flat_quantize
+
+        L, out = self.cfg.n_layer, {}
+        for k in (k for k in self.lin if k.startswith("w_")):
+            IN, OUT = self.lin[k]
+            qt = QuantTensor(torch.empty((L, IN, OUT), dtype=torch.int8, device=self.device),
+                             torch.empty((L, IN // 32, OUT), dtype=torch.float32,
+                                         device=self.device), "q8_0")
+            for il in range(L):
+                ft = flat_quantize(self.layer(k, il)[None])
+                qt.q[il].copy_(ft.q)
+                qt.s[il].copy_(ft.s)
+            out[k] = qt
+        return out
+
+
+def bf16_layer_bytes(cfg) -> int:
+    """Device bytes a layer of the bf16 sparse engine adds beside the dense
+    one: the dense weights, the flat up (and gate) stores' copy and the
+    predictor's rolled copy (prepare_pipelined_params)."""
+    E, F, R = cfg.n_embd, cfg.n_ff, FAMILY_R
+    HD, KD = cfg.n_head * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
+    proj = 3 if cfg.traits.sparse_act in ("drelu", "fatrelu") else 2
+    attn, ffn, pred = 2 * E * HD + 2 * E * KD, proj * E * F, E * R + R * F
+    return 2 * (attn + ffn + pred) + 2 * (proj - 1) * E * F + 2 * pred
+
+
+def family_v6_row(label, flat, L, ng, C, act, with_bias, per_call):
+    """v6 against its plain version at a family's decode shape (N = 1),
+    over the model's flat stores; ungated relu reads no gate store."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops.sparse_ffn import (
+        sparse_ffn_block_v6,
+        sparse_ffn_block_v6_plain,
+        v6_plan,
+    )
+
+    R, E, G = flat["w_upT_flat"].shape
+    gated = act != "relu"
+    names = [k for k, _ in per_call[:-1]]
+    check(len(names) == 1 and "v6_ffn" in names[0], f"v6 {label}: one call launched {names}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    idx = rows_sets(gen, N_SETS, 1, C, ng, L)
+    x = torch.randn((1, E), generator=gen, device="cuda").to(torch.bfloat16)
+    gp = torch.rand((1, C, G), generator=gen, device="cuda")
+    bu = torch.randn((1, C, G), generator=gen, device="cuda") * 0.1 if with_bias else None
+    wg = flat["w_gateT_flat"] if gated else None
+    kw = dict(act=act, bu_sel=bu)
+    args = lambda i: (x, idx[i % N_SETS], gp, flat["w_upT_flat"], wg, flat["w_down_flat"])
+    got = sparse_ffn_block_v6(*args(0), **kw)
+    torch.cuda.synchronize()
+    err, tol = compare(f"v6 {label}", got, sparse_ffn_block_v6_plain(*args(0), **kw))
+    ms = graph_ms(lambda i: sparse_ffn_block_v6(*args(i), **kw), N_SETS)
+    plain_ms = graph_ms(lambda i: sparse_ffn_block_v6_plain(*args(i), **kw), 8)
+    proj = 3 if gated else 2
+    rows_read = sum(len(torch.unique(t)) for t in idx) / N_SETS
+    nbytes = (proj * rows_read * G * E * 2 + E * 2 + (2 if with_bias else 1) * C * G * 4
+              + C * 4 + E * 4)
+    bound_ms, by = bound(nbytes, 2 * proj * C * G * E, PEAK_F32_FLOP_S)
+    row = dict(kernel="sparse_ffn_block_v6", shape=label, N=1, C=C, G=G, E=E, act=act,
+               up_bias=with_bias, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=by, library_ms=None, x_bound=ms / bound_ms,
+               launches_per_call=len(names), span_us=per_call,
+               plan=v6_plan(x.device, 1, C, E, G, gated=gated))
+    print("kernel check:", json.dumps(row))
+    return row
+
+
+def family_v6q_row(label, flat, L, ng, C, per_call):
+    """v6q against its plain version at ReluFalcon-40B's decode shape
+    (N = 1, ungated relu, no gate store) over the model's Q8_0 stores."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops.sparse_ffn import (
+        sparse_ffn_block_v6q,
+        sparse_ffn_block_v6q_plain,
+        v6q_plan,
+    )
+
+    R, E, G = flat["qw_upT_flat"].shape
+    names = [k for k, _ in per_call[:-1]]
+    check(len(names) == 2 and "v6q_up" in names[0] and "v6q_down" in names[1],
+          f"v6q {label}: one call launched {names}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    stores = [flat["qw_upT_flat"], flat["s_upT_flat"], None, None, flat["qw_down_flat"],
+              flat["s_down_flat"]]
+    idx = rows_sets(gen, N_SETS, 1, C, ng, L)
+    x = torch.randn((1, E), generator=gen, device="cuda").to(torch.bfloat16)
+    gp = torch.rand((1, C, G), generator=gen, device="cuda")
+    kw = dict(act="relu")
+    args = lambda i: (x, idx[i % N_SETS], gp, *stores)
+    got = sparse_ffn_block_v6q(*args(0), **kw)
+    torch.cuda.synchronize()
+    err, tol = compare(f"v6q {label}", got, sparse_ffn_block_v6q_plain(*args(0), **kw))
+    ms = graph_ms(lambda i: sparse_ffn_block_v6q(*args(i), **kw), N_SETS)
+    plain_ms = graph_ms(lambda i: sparse_ffn_block_v6q_plain(*args(i), **kw), 8)
+    rows_read = sum(len(torch.unique(t)) for t in idx) / N_SETS
+    nbytes = 2 * rows_read * G * E * 1.125 + E * 2 + C * G * 4 + C * 4 + E * 4
+    bound_ms, by = bound(nbytes, 2 * 2 * C * G * E, PEAK_F32_FLOP_S)
+    row = dict(kernel="sparse_ffn_block_v6q", shape=label, N=1, C=C, G=G, E=E, act="relu",
+               max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=by, library_ms=None, x_bound=ms / bound_ms,
+               launches_per_call=len(names), span_us=per_call,
+               plan=v6q_plan(x.device, 1, C, E, G))
+    print("kernel check:", json.dumps(row))
+    return row
+
+
+def family_v1_row(label, rows, C, per_call):
+    """v1 against its plain version at ReluFalcon-40B's width (E = 8192, its
+    V1_MAX_E), N = 1 and 4, ungated relu, over the Scheduler's row stores
+    (L, ng, G, E), each call C groups of one random layer per token."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops.sparse_ffn import (
+        sparse_ffn_block,
+        sparse_ffn_block_plain,
+        v1_plan,
+    )
+
+    wu, wd = rows["w_up_rows"], rows["w_down_rows"]
+    L, ng, G, E = wu.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    out = []
+    for N in (1, 4):
+        names = [k for k, _ in per_call[N][:-1]]
+        check(len(names) == 1 and "v1_ffn" in names[0], f"v1 {label} N={N}: launched {names}")
+        sets = [(int(torch.randint(L, (1,), generator=gen, device="cuda")),
+                 torch.stack([torch.randperm(ng, generator=gen, device="cuda")[:C]
+                              for _ in range(N)]).to(torch.int32)) for _ in range(N_SETS)]
+        x = torch.randn((N, E), generator=gen, device="cuda").to(torch.bfloat16)
+        gp = torch.rand((N, C, G), generator=gen, device="cuda")
+
+        def call(f, i):
+            il, idx = sets[i % N_SETS]
+            return f(x, idx, gp, wu[il], None, wd[il], act="relu")
+
+        got = call(sparse_ffn_block, 0)
+        torch.cuda.synchronize()
+        err, tol = compare(f"v1 {label} N={N}", got, call(sparse_ffn_block_plain, 0))
+        ms = graph_ms(lambda i: call(sparse_ffn_block, i), N_SETS)
+        plain_ms = graph_ms(lambda i: call(sparse_ffn_block_plain, i), 8)
+        rows_read = sum(len(torch.unique(idx)) for _, idx in sets) / N_SETS
+        nbytes = 2 * rows_read * G * E * 2 + N * E * 2 + N * C * G * 4 + N * C * 4 + N * E * 4
+        bound_ms, by = bound(nbytes, 2 * 2 * N * C * G * E, PEAK_F32_FLOP_S)
+        row = dict(kernel="sparse_ffn_block", shape=f"{label} N={N}", N=N, C=C, G=G, E=E,
+                   act="relu", max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=by, library_ms=None, x_bound=ms / bound_ms,
+                   launches_per_call=len(names), span_us=per_call[N],
+                   plan=v1_plan(x.device, N, C, E, G))
+        print("kernel check:", json.dumps(row))
+        out.append(row)
+    return out[0]
+
+
+def falcon_qmm_rows(params):
+    """quant_matmul_2d (the Q8_0 head, 8192 x 65024) and quant_matmul_flat
+    (the Q8_0 predictor stacks, 8192 x 1024 and 1024 x 32768 at every
+    layer) against their plain versions at N = 1, with the bf16 matmul of
+    the dequantized weights."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops import quant_matmul as qm
+
+    flat, head = params["sparse_flat"], params["output"]
+    E, V = head.q.shape
+    specs = [("q8_0", 1, E, V, 1, "bfloat16")] + [
+        ("q8_0", 1, flat[k].shape[0], flat[k].out_dim, 3, "float32")
+        for k in ("pred_up_qt", "pred_down_qt")]
+    per_call = kernels_per_call(specs)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    x = torch.randn((1, E), generator=gen, device="cuda").to(torch.bfloat16)
+    rows = {"head": qmm_row(f"quant_matmul_2d q8_0 head {E}x{V} N=1", qm.quant_matmul_2d,
+                            qm.quant_matmul_2d_plain, [(head.q, head.s)], x, "q8_0",
+                            per_call[0])}
+    for key, pc in zip(("pred_up_qt", "pred_down_qt"), per_call[1:]):
+        t = flat[key]
+        IN, OUT = t.shape[0], t.out_dim
+        xf = torch.randn((1, IN), generator=gen, device="cuda")
+        rows[key] = qmm_row(f"quant_matmul_flat q8_0 {IN}x{OUT} N=1", qm.quant_matmul_flat,
+                            qm.quant_matmul_flat_plain,
+                            [(t.q, t.s, il) for il in range(t.q.shape[1] // OUT)], xf, "q8_0",
+                            pc, flat_out=OUT)
+    return rows
+
+
+def falcon_layer_gate(scfg, prompt, steps: int = 8) -> dict:
+    """ReluFalcon-40B's first two layers (the full model's draws) on the
+    card in bf16 against the f32 plain path over the same draws: greedy
+    decode through the f32 plain forward (the pipelined FFN in "gather"
+    mode), whose FFN at every call also feeds its own input (rounded to
+    bf16) and carried selection to the bf16 kernel FFN (v6). Layer 1 reads
+    the selection layer 0 carried, the same on both sides, so its outputs
+    differ by bf16 roundings alone: each within FAMILY_FFN_TOL of the plain
+    one's scale. Layer 0 selects from its own bf16 input, so a near-tie can
+    select another group: its gap and the least share of the groups it
+    carries for layer 1 that both sides select are printed. Then the whole block (LayerNorms, bf16 attention, the parallel
+    sum) through the dense forward: its prefill logits within
+    FAMILY_LAYER_TOL of the f32 forward's scale."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+    from sparkinfer_tpu_torch.sparse.ffn import (
+        make_pipelined_sparse_ffn,
+        prepare_pipelined_params,
+    )
+
+    cfg = family_config("falcon40b", 2)
+    mb = FamilyWeights(cfg, torch.bfloat16, "cuda", SEED).model()
+    pf = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
+          for k, v in mb.params.items()}
+    pb = prepare_pipelined_params(mb.params, cfg, scfg, layout="v6")
+    pfs = prepare_pipelined_params(pf, cfg, scfg, layout="v6")
+    plain, carry_init = make_pipelined_sparse_ffn(cfg, scfg, mode="gather")
+    kernel, _ = make_pipelined_sparse_ffn(cfg, scfg, mode="kernel")
+    lps = []
+    for il in range(2):
+        lp = {k: v[il] for k, v in pb["layers"].items()}
+        lp.update(pb["sparse_flat"], flat_il=il)
+        lps.append(lp)
+    rows = []
+
+    def both(lp, x, carry, il):
+        y, nxt = plain(lp, x, carry, il)
+        yk, nk = kernel(lps[il], x.to(torch.bfloat16), carry, il)
+        a = nxt["idx"].reshape(-1, nxt["idx"].shape[-1]).tolist()
+        b = nk["idx"].reshape(-1, nk["idx"].shape[-1]).tolist()
+        same = sum(len(set(p) & set(q)) for p, q in zip(a, b)) / sum(len(p) for p in a)
+        rows.append((il, ((yk.float() - y).abs().max() / y.abs().max()).item(), same,
+                     x.shape[1]))
+        return y, nxt
+
+    fwd = make_forward(cfg, ffn_fn=both, ffn_carry_init=carry_init)
+    T = len(prompt)
+    toks, pos = torch.tensor([prompt], device="cuda"), torch.arange(T, device="cuda")[None]
+    with torch.inference_mode():
+        cache = init_cache(cfg, 1, 64, torch.float32, "cuda")
+        logits = fwd(pfs, toks, pos, cache)
+        for i in range(steps):
+            logits = fwd(pfs, logits[:, -1:].argmax(-1), torch.tensor([[T + i]], device="cuda"),
+                         cache)
+        dense = make_forward(cfg, fresh_prefill=True)
+        lb = dense(mb.params, toks, pos, init_cache(cfg, 1, 64, torch.bfloat16, "cuda"))
+        lf = dense(pf, toks, pos, init_cache(cfg, 1, 64, torch.float32, "cuda"))
+    layer_gap = ((lb - lf).abs().max() / lf.abs().max()).item()
+    worst = max(e for il, e, _, _ in rows if il == 1)
+    row = {"ffn_calls": len(rows), "layer1_ffn_worst_gap": worst, "ffn_tol": FAMILY_FFN_TOL,
+           "layer0_ffn_worst_gap": max(e for il, e, _, _ in rows if il == 0),
+           "layer0_carried_selection_overlap": min(eq for il, _, eq, _ in rows if il == 0),
+           "block_prefill_logits_gap": layer_gap, "layer_tol": FAMILY_LAYER_TOL,
+           "tokens_per_call": sorted({n for *_, n in rows})}
+    print("phase 5n, ReluFalcon-40B layer gate (2 layers, bf16 card against f32 plain):",
+          json.dumps(row))
+    check(worst <= FAMILY_FFN_TOL, f"5n layer gate: a layer-1 FFN call differs by {worst:.3e}")
+    check(layer_gap <= FAMILY_LAYER_TOL, f"5n layer gate: the block's logits differ by "
+                                         f"{layer_gap:.3e}")
+    del mb, pb, pf, pfs
+    torch.cuda.empty_cache()
+    return row
+
+
+# bf16 stores and a bf16 input against f32: each weight and the input
+# round by at most 2^-9 relative, random signs, sums over 8192 terms
+FAMILY_FFN_TOL = 1e-2
+FAMILY_LAYER_TOL = 3e-2
+
+
+def family_crossover(cfg, scfg, row_params, batches=(1, 4, 8, 16), steps: int = 8,
+                     trials: int = 2) -> tuple[int, list]:
+    """The Scheduler's two ticks at ReluFalcon-40B width, each replayed as a
+    CUDA graph of its forward as the Scheduler runs it: masked-dense (the
+    dense FFN's weights at every B) against v1 (the rows its tokens select),
+    B rows all live, each from its own dense prefill, best of `trials` runs
+    of `steps` steps, exact launch counts per run; the device span of one
+    replay. Returns the largest B at which v1 wins (0 where it never does)
+    and the rows."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.runtime.graphs import StepGraph
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+    from sparkinfer_tpu_torch.sparse import ffn as sffn
+
+    L = cfg.n_layer
+    modes = {"masked_dense": (make_forward(cfg, ffn_fn=sffn.make_sparse_ffn(cfg, scfg, "dense")),
+                              None),
+             "v1": (make_forward(cfg, ffn_fn=sffn.make_sparse_ffn(cfg, scfg, "kernel")),
+                    "sparse_ffn_block")}
+    prefill = make_forward(cfg, ffn_fn=sffn.make_sparse_ffn(cfg, scfg, "dense"),
+                           fresh_prefill=True)
+    wrappers = kernel_wrappers()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    table = []
+    for B in batches:
+        prompt = torch.randint(cfg.n_vocab, (B, 32), generator=gen, device="cuda")
+        pos = torch.arange(32, device="cuda")[None].expand(B, 32)
+        toks, ticks = {}, {}
+        for name, (fwd, _) in modes.items():
+            cache = init_cache(cfg, B, 32 + 2 + trials * steps, torch.bfloat16, "cuda")
+            toks[name] = prefill(row_params, prompt, pos, cache)[:, -1].argmax(-1, keepdim=True)
+            ticks[name] = StepGraph(
+                lambda t, p, fwd=fwd, cache=cache: fwd(row_params, t, p, cache)[:, -1],
+                B, torch.device("cuda"), capture=True, label=f"5n {name} tick")
+        n_past, best = 32, dict.fromkeys(modes, float("inf"))
+        for trial in range(trials + 1):  # trial 0 warms up (and captures)
+            n = 1 if trial == 0 else steps
+            for name, (_, kname) in modes.items():
+                tick = ticks[name]
+                warm = int(tick.graph is None)
+                for w in wrappers.values():
+                    w.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for s in range(n):
+                    tick.tokens.copy_(toks[name])
+                    tick.positions.fill_(n_past + s)
+                    logits = tick.run()
+                    toks[name] = logits.argmax(-1, keepdim=True)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                check(bool(torch.isfinite(logits).all()), f"5n {name} tick B={B}: non-finite")
+                for wname, w in wrappers.items():
+                    want = L * (n + warm) if wname == kname else 0
+                    check(w.launches == want,
+                          f"5n {name} tick B={B}: {wname} launched {w.launches}, want {want}")
+                if trial > 0:
+                    best[name] = min(best[name], dt / n)
+            n_past += n
+        row = {"B": B, **{name: B / t for name, t in best.items()},
+               "ms_per_step": {name: 1e3 * t for name, t in best.items()},
+               "graph_device_ms": {name: replay_times(tick)["replay_span_ms"]
+                                   for name, tick in ticks.items()}}
+        print("phase 5n, ReluFalcon-40B ticks (aggregate tok/s, best of "
+              f"{trials} x {steps} steps):", json.dumps(row))
+        table.append(row)
+        del ticks
+        torch.cuda.empty_cache()
+    crossover = max([r["B"] for r in table if r["v1"] > r["masked_dense"]], default=0)
+    print(f"phase 5n: at n_ff {cfg.n_ff} the graphed v1 tick beats the graphed masked-dense "
+          f"tick up to B={crossover}")
+    return crossover, table
+
+
+def family_pair(label, model, scfg, greedy, prompt, n_new, want, preprepared=False):
+    """A family model's sparse Engine: the main path (exact counts), then
+    graph against eager (streams equal, first decode logits bit-equal)."""
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(model, max_seq=1024, sampler=greedy, sparse=scfg,
+                 sparse_preprepared=preprepared, device="cuda")
+    launches = main_path(label, eng, prompt, n_new, want)
+    h = graph_vs_eager(label, eng, Engine(
+        LoadedModel(config=model.config, params=eng.params), max_seq=1024, sampler=greedy,
+        sparse=scfg, sparse_preprepared=True, device="cuda", cuda_graph=False), prompt, n_new)
+    return eng, launches, h
+
+
+def dense_pair(label, model, greedy, prompt, n_new):
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    return graph_vs_eager(label, Engine(model, max_seq=1024, sampler=greedy, device="cuda"),
+                          Engine(model, max_seq=1024, sampler=greedy, device="cuda",
+                                 cuda_graph=False), prompt, n_new)
+
+
+def family_summary(label, sparse, dense, L, peak) -> dict:
+    """Sparse and dense graph steps of one model: device and wall ms a
+    step, tok/s and their ratio."""
+    g, d = sparse["graph"], dense["graph"]
+    return {"path": label, "layers": L, "peak_gib": peak,
+            "sparse": {k: g[k] for k in ("tok_s", "wall_ms_per_step", "device_ms_per_step",
+                                         "busy_share")},
+            "dense": {k: d[k] for k in ("tok_s", "wall_ms_per_step", "device_ms_per_step",
+                                        "busy_share")},
+            "sparse_dense_tok_s": g["tok_s"] / d["tok_s"],
+            "sparse_dense_eager_tok_s": sparse["eager"]["tok_s"] / dense["eager"]["tok_s"]}
+
+
+def phase_families(greedy, n_new: int = 32) -> dict:
+    """Phase 5n; returns its summary, the main paths' launches and the
+    kernel rows at the new shapes."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.runtime.scheduler import Scheduler
+    from sparkinfer_tpu_torch.sparse.config import SparseConfig
+
+    t0 = time.perf_counter()
+    out = {"launches": dict.fromkeys(("sparse_ffn_block_v6", "sparse_ffn_block_v6q",
+                                      "sparse_ffn_block", "quant_matmul_2d",
+                                      "quant_matmul_flat"), 0), "rows": {}}
+
+    def add(launches):
+        for k in out["launches"]:
+            out["launches"][k] += launches.get(k, 0)
+
+    scfg = SparseConfig(group_size=128, capacity_groups=FAMILY_C["falcon40b"])
+    gen = torch.Generator().manual_seed(SEED + 45)
+    prompt = torch.randint(65024, (32,), generator=gen).tolist()
+    per_call = kernels_per_call(
+        [["v6", 1, 36, 8192, 128, "bfloat16", "relu"], ["v6", 1, 18, 4096, 128, "bfloat16",
+                                                         "relu"],
+         ["v6", 1, 21, 3584, 128, "bfloat16", "drelu"], ["v6q", 1, 36, 8192, 128, "bfloat16"],
+         ["rows", 1, 36, 8192, 128, "bfloat16", "sparse_ffn_block"],
+         ["rows", 4, 36, 8192, 128, "bfloat16", "sparse_ffn_block"]], spans=True)
+    out["gate"] = falcon_layer_gate(scfg, prompt)
+    mark("phase 5n, layer gate")
+
+    # (a) ReluFalcon-40B bf16 beside its dense counterpart, at the depth that fits
+    cfg60 = family_config("falcon40b", 60)
+    free, _ = torch.cuda.mem_get_info()
+    outside = 2 * 2 * cfg60.n_vocab * cfg60.n_embd  # embeddings and head, bf16
+    L = min(60, int((free - outside - FAMILY_HEADROOM) // bf16_layer_bytes(cfg60)))
+    cfg = family_config("falcon40b", L)
+    ng = scfg.n_groups(cfg.n_ff)
+    fw = FamilyWeights(cfg, torch.bfloat16, "cuda", SEED)
+    model = fw.model()
+    print(f"phase 5n: ReluFalcon-40B bf16 at {L} of 60 layers ({free / 2**30:.2f} GiB free, "
+          f"{bf16_layer_bytes(cfg) / 2**30:.3f} GiB a layer with its sparse stores); "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    eng, l_a, h_sparse = family_pair("ReluFalcon-40B bf16 sparse", model, scfg, greedy, prompt,
+                                     n_new, lambda s: {"sparse_ffn_block_v6": L * s})
+    add(l_a)
+    peak_b = PEAKS["ReluFalcon-40B bf16 sparse"]
+    out["rows"]["v6 falcon40b"] = family_v6_row(
+        "ReluFalcon-40B N=1 C=36 G=128 E=8192 relu", eng.params["sparse_flat"], L, ng,
+        scfg.capacity(cfg.n_ff), "relu", True, per_call[0])
+    del eng
+    torch.cuda.empty_cache()
+    h_dense = dense_pair("ReluFalcon-40B bf16 dense", model, greedy, prompt, n_new)
+    out["bf16"] = family_summary("ReluFalcon-40B bf16", h_sparse, h_dense, L, peak_b)
+    print("phase 5n, ReluFalcon-40B bf16:", json.dumps(out["bf16"]))
+    torch.cuda.empty_cache()
+    mark("phase 5n(a) bf16")
+
+    # (b) the 4-slot Scheduler at the same depth (v1 at E = 8192, ungated),
+    # graph against eager, then the crossover of its two ticks
+    sched = Scheduler(model, n_slots=4, max_seq=128, sampler=greedy, sparse=scfg,
+                      sparse_batch_max=4, device="cuda")
+    out["rows"]["v1 falcon40b"] = family_v1_row("ReluFalcon-40B C=36 G=128 E=8192 relu",
+                                                sched.params["layers"], scfg.capacity(cfg.n_ff),
+                                                {1: per_call[4], 4: per_call[5]})
+    gen = torch.Generator().manual_seed(SEED + 46)
+    prompts = [torch.randint(cfg.n_vocab, (32,), generator=gen).tolist() for _ in range(8)]
+    out["launches"]["sparse_ffn_block"] += scheduler_path(sched, prompts, 16,
+                                                          label="ReluFalcon-40B bf16")
+    prompts_h = [torch.randint(cfg.n_vocab, (32,), generator=gen).tolist() for _ in range(8)]
+    out["scheduler"] = scheduler_graph_vs_eager(sched, Scheduler(  # over the same row stores
+        LoadedModel(config=cfg, params=sched.params), n_slots=4, max_seq=128, sampler=greedy,
+        sparse=scfg, sparse_batch_max=4, sparse_preprepared=True, device="cuda",
+        cuda_graph=False), prompts_h, 16, label="ReluFalcon-40B bf16")
+    out["crossover"], out["ticks"] = family_crossover(cfg, scfg, sched.params)
+    del sched, model, fw
+    torch.cuda.empty_cache()
+    mark("phase 5n(b)")
+
+    # (a) ReluFalcon-40B Q8_0: 60 layers if 8 layers' bytes scale to under the limit
+    cfg8 = family_config("falcon40b", 8)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    m8 = FamilyWeights(cfg8, torch.bfloat16, "cuda", SEED).q8_sparse_model(scfg)
+    built8 = torch.cuda.memory_allocated() - base
+    outside_q8 = (2 * cfg8.n_vocab * cfg8.n_embd + m8.params["output"].q.numel()
+                  + 4 * m8.params["output"].s.numel())
+    per_layer = (built8 - outside_q8) / 8
+    del m8
+    torch.cuda.empty_cache()
+    L = min(60, int((FAMILY_Q8_LIMIT - outside_q8 - FAMILY_HEADROOM) // per_layer))
+    print(f"phase 5n: ReluFalcon-40B Q8_0 at 8 layers took {built8 / 2**30:.2f} GiB "
+          f"({per_layer / 2**30:.3f} a layer): {L} layers fit under "
+          f"{FAMILY_Q8_LIMIT / 2**30:.0f} GiB")
+    cfg = family_config("falcon40b", L)
+    fw = FamilyWeights(cfg, torch.bfloat16, "cuda", SEED)
+    model = fw.q8_sparse_model(scfg)
+    print(f"phase 5n: ReluFalcon-40B Q8_0 at {L} layers, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+    def want_q8(steps):  # v6q and the predictor stacks a layer, the head a forward
+        return {"sparse_ffn_block_v6q": L * steps, "quant_matmul_2d": steps + 1,
+                "quant_matmul_flat": 2 * (L + 1) * steps + 2 * L}
+
+    eng, l_q, h_sparse = family_pair("ReluFalcon-40B Q8_0 sparse", model, scfg, greedy, prompt,
+                                     n_new, want_q8, preprepared=True)
+    add(l_q)
+    peak_q = PEAKS["ReluFalcon-40B Q8_0 sparse"]
+    out["rows"]["v6q falcon40b"] = family_v6q_row(
+        "ReluFalcon-40B N=1 C=36 G=128 E=8192 q8_0 relu", model.params["sparse_flat"], L,
+        scfg.n_groups(cfg.n_ff), scfg.capacity(cfg.n_ff), per_call[3])
+    out["rows"].update({f"qmm {k}": r for k, r in falcon_qmm_rows(model.params).items()})
+    del eng
+    dense_params = dict(model.params)
+    dense_params.pop("sparse_flat")
+    del model
+    torch.cuda.empty_cache()
+    dense_params["layers"] = dict(dense_params["layers"], **fw.q8_dense_ffn())
+    h_dense = dense_pair("ReluFalcon-40B Q8_0 dense",
+                         LoadedModel(config=cfg, params=dense_params), greedy, prompt, n_new)
+    out["q8_0"] = family_summary("ReluFalcon-40B Q8_0", h_sparse, h_dense, L, peak_q)
+    print("phase 5n, ReluFalcon-40B Q8_0:", json.dumps(out["q8_0"]))
+    del dense_params, fw
+    torch.cuda.empty_cache()
+    mark("phase 5n(a) Q8_0")
+
+    # (c) OPT-6.7B and Qwen2-7B widths, 4 layers, bf16: v6 on the ungated
+    # branch with both biases and on the dReLU branch
+    out["cut"] = {}
+    for kind, pc, act, bias in (("opt6.7b", per_call[1], "relu", True),
+                                ("qwen2-7b", per_call[2], "drelu", False)):
+        cfg = family_config(kind, FAMILY_CUT_L)
+        scfg_k = SparseConfig(group_size=128, capacity_groups=FAMILY_C[kind])
+        model = FamilyWeights(cfg, torch.bfloat16, "cuda", SEED).model()
+        p = torch.randint(cfg.n_vocab, (32,), generator=gen).tolist()
+        label = f"{kind} bf16 sparse"
+        eng, l_c, h = family_pair(label, model, scfg_k, greedy, p, n_new,
+                                  lambda s: {"sparse_ffn_block_v6": FAMILY_CUT_L * s})
+        add(l_c)
+        E, C = cfg.n_embd, scfg_k.capacity(cfg.n_ff)
+        out["rows"][f"v6 {kind}"] = family_v6_row(
+            f"{kind} N=1 C={C} G=128 E={E} {act}" + (" + up bias" if bias else ""),
+            eng.params["sparse_flat"], FAMILY_CUT_L, scfg_k.n_groups(cfg.n_ff), C, act, bias,
+            pc)
+        out["cut"][kind] = {"layers": FAMILY_CUT_L, "peak_gib": PEAKS[label],
+                            **{k: h["graph"][k] for k in ("tok_s", "wall_ms_per_step",
+                                                          "device_ms_per_step")}}
+        del eng, model
+        torch.cuda.empty_cache()
+    mark("phase 5n(c)")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def families_summary(fam) -> dict:
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
+    return {"gate": fam["gate"], "bf16": fam["bf16"], "q8_0": fam["q8_0"],
+            "scheduler": {k: fam["scheduler"][k] for k in ("graph", "eager")},
+            "crossover": fam["crossover"],
+            "ticks": [{"B": r["B"], "v1_tok_s": r["v1"], "masked_dense_tok_s": r["masked_dense"],
+                       "device_ms": r["graph_device_ms"]} for r in fam["ticks"]],
+            "cut": fam["cut"], "launches": fam["launches"],
+            "rows": {k: {f: r[f] for f in keys} for k, r in fam["rows"].items()},
+            "seconds": fam["seconds"]}
+
+
+def families_only(greedy) -> int:
+    """`chip_smoke.py --families`: phase 5n alone (after phases 1 and 2),
+    for working on it; prints its summary and no result."""
+    print("phase 5n summary:", json.dumps(families_summary(phase_families(greedy))))
+    return 0
+
+
 def kernel_line(name, source, replaces, launches, row, shape):
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4824,6 +5574,8 @@ def main(only: str | None = None) -> int:
         return runtime_phase_only(greedy)
     if only == "quant":
         return quant_phases(greedy)
+    if only == "families":
+        return families_only(greedy)
     # 5k. Qwen3-30B-A3B (61 GB of bf16 weights) in a child process, before
     # this process builds any model
     moe = moe_child()
@@ -5025,36 +5777,51 @@ def main(only: str | None = None) -> int:
     mark("phase 5m")
     entry = phase_entry_point()
     mark("phase 5i, entry point")
+    # 5n. the paper's other sparse families: ReluFalcon-40B at full width,
+    # OPT-6.7B and Qwen2-7B widths cut to 4 layers
+    fam = phase_families(greedy)
+    mark("phase 5n")
+    fl = fam["launches"]
+
+    def fam_rows(*keys):  # the kernel's rows at 5n's shapes, by shape
+        return {"families": {fam["rows"][k]["shape"]: {f: fam["rows"][k][f] for f in (
+            "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for k in keys}}
 
     out = {"kernels": [
         {**kernel_line("sparse_ffn_block_v6", "sparkinfer_tpu_torch/csrc/sparse_ffn_v6.cu",
                        "sparkinfer_tpu/ops/sparse_ffn_pallas.py:564",
                        l7["sparse_ffn_block_v6"] + tier_v6 + runtime["v6_launches"]
-                       + kq["v6_launches"], v6_row,
+                       + kq["v6_launches"] + fl["sparse_ffn_block_v6"], v6_row,
                        "N=1 C=12 G=128 E=4096 bf16 fatrelu"),
+         **fam_rows("v6 falcon40b", "v6 opt6.7b", "v6 qwen2-7b"),
          # the speculative verify (N = K+1) and the 32-token sparse prefill
          "shapes": {k: {f: r[f] for f in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}
                     for k, r in v6_shapes.items()}},
-        kernel_line("sparse_ffn_block_v6q", "sparkinfer_tpu_torch/csrc/sparse_ffn_v6q.cu",
-                    "sparkinfer_tpu/ops/sparse_ffn_pallas.py:706",
-                    l13["sparse_ffn_block_v6q"] + l_tier13["sparse_ffn_block_v6q"]
-                    + l_w8["sparse_ffn_block_v6q"],
-                    v6q_row,
-                    "N=1 C=16 G=128 E=5120 q8_0 fatrelu"),
-        kernel_line("quant_matmul_2d", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
-                    "sparkinfer_tpu/ops/quant_matmul.py:149",
-                    l13["quant_matmul_2d"] + l_tier13["quant_matmul_2d"]
-                    + l_w8["quant_matmul_2d"], q2d_row,
-                    q2d_row["shape"]),
-        kernel_line("quant_matmul_flat", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
-                    "sparkinfer_tpu/ops/quant_matmul.py:243",
-                    l13["quant_matmul_flat"] + l_tier13["quant_matmul_flat"], qflat_row,
-                    qflat_row["shape"]),
+        {**kernel_line("sparse_ffn_block_v6q", "sparkinfer_tpu_torch/csrc/sparse_ffn_v6q.cu",
+                       "sparkinfer_tpu/ops/sparse_ffn_pallas.py:706",
+                       l13["sparse_ffn_block_v6q"] + l_tier13["sparse_ffn_block_v6q"]
+                       + l_w8["sparse_ffn_block_v6q"] + fl["sparse_ffn_block_v6q"],
+                       v6q_row, "N=1 C=16 G=128 E=5120 q8_0 fatrelu"),
+         **fam_rows("v6q falcon40b")},
+        {**kernel_line("quant_matmul_2d", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
+                       "sparkinfer_tpu/ops/quant_matmul.py:149",
+                       l13["quant_matmul_2d"] + l_tier13["quant_matmul_2d"]
+                       + l_w8["quant_matmul_2d"] + fl["quant_matmul_2d"], q2d_row,
+                       q2d_row["shape"]),
+         **fam_rows("qmm head")},
+        {**kernel_line("quant_matmul_flat", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
+                       "sparkinfer_tpu/ops/quant_matmul.py:243",
+                       l13["quant_matmul_flat"] + l_tier13["quant_matmul_flat"]
+                       + fl["quant_matmul_flat"], qflat_row, qflat_row["shape"]),
+         **fam_rows("qmm pred_up_qt", "qmm pred_down_qt")},
         {**kernel_line("sparse_ffn_block", "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
-                       "sparkinfer_tpu/ops/sparse_ffn_pallas.py:124", l_v1 + moe["v1_launches"],
+                       "sparkinfer_tpu/ops/sparse_ffn_pallas.py:124",
+                       l_v1 + moe["v1_launches"] + fl["sparse_ffn_block"],
                        row_rows["sparse_ffn_block"],
                        "N=1 C=12 G=128 E=4096 bf16 fatrelu, row stores"),
+         **fam_rows("v1 falcon40b"),
          "moe": {"launches": moe["v1_launches"],
                  **{k: moe["v1_moe"][0][k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
                                                      "bound_ms", "bound_by")},
@@ -5098,6 +5865,7 @@ def main(only: str | None = None) -> int:
     print("phase 5k summary:", json.dumps(moe_summary(moe)))
     print("phase 5l summary:", json.dumps(runtime_summary(runtime)))
     print("phase 5m summary:", json.dumps(quant_summary(w8_row, tier13[1:], kq, emb)))
+    print("phase 5n summary:", json.dumps(families_summary(fam)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -5111,4 +5879,5 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--moe-phase"]:
         sys.exit(moe_phase_only())
     sys.exit(main(only={"--tiered": "tiered", "--moe": "moe", "--runtime": "runtime",
-                        "--quant": "quant"}.get(" ".join(sys.argv[1:]))))
+                        "--quant": "quant", "--families": "families"}.get(
+                            " ".join(sys.argv[1:]))))

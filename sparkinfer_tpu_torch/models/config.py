@@ -3,7 +3,8 @@
 A copy of sparkinfer_tpu/models/config.py (pure Python and numpy), kept in
 the port so that it imports nothing of the JAX package. The registry lists
 every architecture the JAX package reads; the port's loader accepts the
-llama family and its MoE only (models/transformer.py:check_supported).
+llama family, its MoE and qwen2, opt and falcon
+(models/transformer.py:check_supported).
 
 The analogue of src/llama-arch.{h,cpp} + src/llama-hparams.*:
 a declarative per-arch trait table (norm type, activation, rope mode,

@@ -1,6 +1,7 @@
 """GGUF -> torch params, the port of sparkinfer_tpu/models/loader.py for the
-llama family (llama, mistral, prosparse_llama, bamboo) and its MoE (llama
-with experts, mixtral, qwen3moe).
+llama family (llama, mistral, prosparse_llama, bamboo), its MoE (llama
+with experts, mixtral, qwen3moe) and the paper's other sparse families
+(qwen2, opt, falcon).
 
 The params dict has the JAX loader's keys and orientations, so the two
 packages can be compared key for key: `x @ W` with W shaped (in, out),
@@ -33,6 +34,16 @@ tiering read it as row stores through views, so the experts are resident
 once. The JAX loader keeps up and gate as (X, E, Fe); models/from_jax.py
 converts.
 
+The other sparse families add LayerNorm biases (attn_norm_b, ffn_norm_b,
+output_norm_b), falcon's second norm (attn_norm_2 as attn_norm2_w and
+attn_norm2_b), OPT's learned positions (position_embd as pos_embd, in the
+model's dtype) and falcon's fused attn_qkv, split into wq/wk/wv (and their
+biases) by `split_fused_qkv`: per kv group [q_0..q_{g-1}, k, v] for
+grouped falcon, plain [Q; K; V] for MQA or MHA. As in the JAX loader, a
+GGUF with a fused QKV loads dequantized whatever keep_quantized says (the
+split needs the dense weight); a parallel-block arch gets no all-ones FFN
+norm, since its FFN reads the attention norms.
+
 Later slices: MLA, layer segments.
 """
 
@@ -53,12 +64,15 @@ from .transformer import check_supported
 
 Params = dict[str, Any]
 
-# per-layer GGUF tensors the llama-family forward reads: suffix -> key
+# per-layer GGUF tensors the forward reads: suffix -> key (a fused attn_qkv
+# lands in wq, wk and wv)
 _LAYER_TENSORS = {
-    "attn_norm.weight": "attn_norm_w", "attn_q.weight": "wq",
+    "attn_norm.weight": "attn_norm_w", "attn_norm.bias": "attn_norm_b",
+    "attn_norm_2.weight": "attn_norm2_w", "attn_norm_2.bias": "attn_norm2_b",
+    "attn_qkv.weight": "wq", "attn_qkv.bias": "bq", "attn_q.weight": "wq",
     "attn_k.weight": "wk", "attn_v.weight": "wv", "attn_q.bias": "bq",
     "attn_k.bias": "bk", "attn_v.bias": "bv", "attn_output.weight": "wo",
-    "attn_output.bias": "bo", "ffn_norm.weight": "ffn_norm_w",
+    "attn_output.bias": "bo", "ffn_norm.weight": "ffn_norm_w", "ffn_norm.bias": "ffn_norm_b",
     "ffn_up.weight": "w_up", "ffn_up.bias": "b_up", "ffn_gate.weight": "w_gate",
     "ffn_down.weight": "w_down", "ffn_down.bias": "b_down",
     "ffn_pred_up.weight": "pred_up", "ffn_pred_up.bias": "pred_up_b",
@@ -127,6 +141,34 @@ def _linear_maybe_quant(r: GGUFReader, name: str, in_dim: int, out_dim: int,
         qw, sc = REPACK[kind](t.raw(), out_dim, in_dim)
         return ("quant", kind, qw, sc)
     return _linear(r, name, in_dim, out_dim)
+
+
+def split_fused_qkv(wqkv: np.ndarray, bqkv: np.ndarray | None, cfg: ModelConfig):
+    """A fused attn_qkv (in=E, out=(H+2*Hkv)*D) and its bias -> (wq, wk, wv,
+    bq, bk, bv), the port of the JAX loader's _split_fused_qkv: falcon
+    interleaves per kv group [q_0..q_{g-1}, k, v]; MQA/MHA and the
+    fused_qkv_concat archs concatenate [Q; K; V]."""
+    E = cfg.n_embd
+    H, Hkv, D = cfg.n_head, cfg.n_head_kv, cfg.head_dim
+    g = H // Hkv
+    if wqkv.shape != (E, (H + 2 * Hkv) * D):
+        raise ValueError(f"attn_qkv: shape {wqkv.shape}, want {(E, (H + 2 * Hkv) * D)}")
+    if Hkv == H or cfg.traits.fused_qkv_concat:
+        cuts = (H * D, (H + Hkv) * D)
+        wq, wk, wv = np.split(wqkv, cuts, axis=1)
+        bq, bk, bv = (None,) * 3 if bqkv is None else np.split(bqkv, cuts)
+        return wq, wk, wv, bq, bk, bv
+    w = wqkv.reshape(E, Hkv, g + 2, D)
+    wq = np.ascontiguousarray(w[:, :, :g].reshape(E, H * D))
+    wk = np.ascontiguousarray(w[:, :, g].reshape(E, Hkv * D))
+    wv = np.ascontiguousarray(w[:, :, g + 1].reshape(E, Hkv * D))
+    bq = bk = bv = None
+    if bqkv is not None:
+        b = bqkv.reshape(Hkv, g + 2, D)
+        bq = np.ascontiguousarray(b[:, :g].reshape(H * D))
+        bk = np.ascontiguousarray(b[:, g].reshape(Hkv * D))
+        bv = np.ascontiguousarray(b[:, g + 1].reshape(Hkv * D))
+    return wq, wk, wv, bq, bk, bv
 
 
 def _is_quant(w) -> bool:
@@ -199,16 +241,22 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
                  keep_quantized: bool, attn_w8a8: bool = False) -> Params:
     E, H, Hkv, D, F, L = (cfg.n_embd, cfg.n_head, cfg.n_head_kv, cfg.head_dim,
                           cfg.n_ff, cfg.n_layer)
-    f32 = torch.float32
+    f32, tr = torch.float32, cfg.traits
+    kq = keep_quantized and not tr.fused_qkv  # a fused QKV must split: dense
 
     def _lin(name, in_dim, out_dim):
-        return _linear_maybe_quant(r, name, in_dim, out_dim, keep_quantized)
+        return _linear_maybe_quant(r, name, in_dim, out_dim, kq)
 
     tok = _get(r, "token_embd.weight")
     params: Params = {"tok_embd": _tensor(tok, dtype, device)}
+    if tr.pos_embd:
+        params["pos_embd"] = _tensor(_get(r, "position_embd.weight"), dtype, device)
     onw = _get(r, "output_norm.weight")
     params["output_norm_w"] = _tensor(
         onw if onw is not None else np.ones(E, np.float32), f32, device)
+    onb = _get(r, "output_norm.bias")
+    if onb is not None:
+        params["output_norm_b"] = _tensor(onb, f32, device)
     out_w = _lin("output.weight", E, cfg.n_vocab)
     if out_w is None:
         out_w = np.ascontiguousarray(tok.T)  # tied embeddings
@@ -260,18 +308,27 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
         p = f"blk.{i}."
         anw = _get(r, p + "attn_norm.weight")
         add(i, "attn_norm_w", anw if anw is not None else np.ones(E, np.float32))
-        add(i, "wq", _lin(p + "attn_q.weight", E, H * D))
-        add(i, "wk", _lin(p + "attn_k.weight", E, Hkv * D))
-        add(i, "wv", _lin(p + "attn_v.weight", E, Hkv * D))
-        for nm, key in (("attn_q.bias", "bq"), ("attn_k.bias", "bk"),
-                        ("attn_v.bias", "bv")):
-            add(i, key, _get(r, p + nm))
+        add(i, "attn_norm_b", _get(r, p + "attn_norm.bias"))
+        add(i, "attn_norm2_w", _get(r, p + "attn_norm_2.weight"))
+        add(i, "attn_norm2_b", _get(r, p + "attn_norm_2.bias"))
+        if tr.fused_qkv:
+            qkv = split_fused_qkv(_linear(r, p + "attn_qkv.weight", E, (H + 2 * Hkv) * D),
+                                  _get(r, p + "attn_qkv.bias"), cfg)
+        else:
+            qkv = (_lin(p + "attn_q.weight", E, H * D), _lin(p + "attn_k.weight", E, Hkv * D),
+                   _lin(p + "attn_v.weight", E, Hkv * D),
+                   *(_get(r, p + f"attn_{nm}.bias") for nm in "qkv"))
+        for key, arr in zip(("wq", "wk", "wv", "bq", "bk", "bv"), qkv):
+            add(i, key, arr)
         add(i, "attn_q_norm_w", _get(r, p + "attn_q_norm.weight"))
         add(i, "attn_k_norm_w", _get(r, p + "attn_k_norm.weight"))
         add(i, "wo", _lin(p + "attn_output.weight", H * D, E))
         add(i, "bo", _get(r, p + "attn_output.bias"))
         fnw = _get(r, p + "ffn_norm.weight")
-        add(i, "ffn_norm_w", fnw if fnw is not None else np.ones(E, np.float32))
+        if fnw is None and not tr.parallel_blocks:
+            fnw = np.ones(E, np.float32)  # a non-parametric norm
+        add(i, "ffn_norm_w", fnw)
+        add(i, "ffn_norm_b", _get(r, p + "ffn_norm.bias"))
         _add_moe(r, p, E, lambda key, arr: add(i, key, arr))
         add(i, "w_up", _lin(p + "ffn_up.weight", E, F))
         add(i, "b_up", _get(r, p + "ffn_up.bias"))

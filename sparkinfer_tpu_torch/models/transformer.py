@@ -1,6 +1,16 @@
-"""Llama-family transformer forward, the port of the llama-family body of
-sparkinfer_tpu/models/transformer.py:make_forward, with the Mixture-of-Experts
-FFN of llama-MoE (mixtral) and qwen3moe and qwen3's per-head q/k norms.
+"""Transformer forward, the port of sparkinfer_tpu/models/transformer.py:
+make_forward for the llama family, the other sparse families of the paper
+(qwen2, opt, falcon) and the Mixture-of-Experts FFN of llama-MoE (mixtral)
+and qwen3moe, with qwen3's per-head q/k norms.
+
+The block follows the arch's traits as the JAX body does: RMS or LayerNorm
+(`_norm`, with the norm biases of the "ln" archs, the output norm's too),
+OPT's learned positions (params["pos_embd"] at positions + pos_embd_offset,
+added to the token embeddings; rope mode "none"), and falcon's parallel
+block `x = x + attn(h) + ffn(h2)`, where h2 is attn_norm_2(x) when the
+layer has that second norm (Falcon-40B's new decoder architecture) and h
+otherwise (Falcon-7B). Biases on q/k/v, the output projection and the FFN
+are added where the params carry them.
 
 A plain Python loop over layers takes the place of `lax.scan`; the KV cache
 is written in place. The FFN is pluggable as in the JAX package:
@@ -30,19 +40,20 @@ weights as its scale mask), as the JAX forward dispatches them.
 Attention is plain torch (matmul, mask, softmax), as the JAX CPU path
 computes it; the JAX package's TPU prefill uses JAX's library flash
 attention, which is no kernel of this repository and has no port here.
-MLA, iSWA, layer segments, deepstack, ALiBi, softcaps and the other MoE
-families' variants (deepseek2 segments, gpt-oss, arctic's parallel MoE,
-qk norms after rope) come later.
+MLA, iSWA, layer segments, deepstack, ALiBi, softcaps, post-norm blocks,
+partial rope and the other MoE families' variants (deepseek2 segments,
+gpt-oss, arctic's parallel MoE, qk norms after rope) come later.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Callable
 
 import torch
 
 from ..ops.activations import act_fn
-from ..ops.norms import rms_norm
+from ..ops.norms import layer_norm, rms_norm
 from ..ops.quant_matmul import (
     FlatQuantTensor,
     W8A8Tensor,
@@ -58,17 +69,21 @@ from .config import ModelConfig
 NEG_INF = -1e30
 
 LLAMA_FAMILY = ("llama", "mistral", "prosparse_llama", "bamboo")
+# the paper's other sparse families (SparkInfer's build_sparse_ffn archs)
+SPARSE_FAMILIES = ("qwen2", "opt", "falcon")
 MOE_ARCHS = ("llama", "mixtral", "qwen3moe")  # the archs whose experts the port runs
 EXPERT_ONLY = ("mixtral", "qwen3moe")  # the archs it runs with experts only
 
 
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError for a configuration the port cannot run yet."""
-    archs = LLAMA_FAMILY + EXPERT_ONLY
+    archs = LLAMA_FAMILY + SPARSE_FAMILIES + EXPERT_ONLY
     if cfg.arch not in archs:
         raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet (the llama family and its MoE: "
-            f"{', '.join(archs)})")
+            f"arch {cfg.arch!r} is not ported yet (the llama family, its MoE and the "
+            f"other sparse families: {', '.join(archs)})")
+    if cfg.clamp_kqv > 0.0:  # a GGUF key any arch may carry
+        raise NotImplementedError("clamped q/k/v (attention.clamp_kqv) is not ported yet")
     if cfg.n_expert and cfg.arch not in MOE_ARCHS:
         raise NotImplementedError(f"experts of arch {cfg.arch!r} are not ported yet")
     if cfg.arch in EXPERT_ONLY and not (cfg.n_expert and cfg.n_expert_used):
@@ -78,6 +93,26 @@ def check_supported(cfg: ModelConfig):
         raise NotImplementedError(
             "MLA, sliding windows, per-layer widths, q/k norms after rope and "
             "parallel MoE blocks are not ported yet")
+
+
+def clamp_max_seq(cfg: ModelConfig, params: dict, max_seq: int) -> int:
+    """max_seq, cut to the positions a model with learned positions can
+    address (its table's rows less pos_embd_offset), so that no position a
+    runtime steps at, an idle slot's max_seq - 1 included, indexes past the
+    table; a note on stderr where it cuts."""
+    if not cfg.traits.pos_embd:
+        return max_seq
+    limit = params["pos_embd"].shape[0] - cfg.traits.pos_embd_offset
+    if max_seq <= limit:
+        return max_seq
+    print(f"max_seq {max_seq} cut to the model's {limit} learned positions", file=sys.stderr)
+    return limit
+
+
+def _norm(x: torch.Tensor, w: torch.Tensor, b, kind: str, eps: float) -> torch.Tensor:
+    if kind == "rms":
+        return rms_norm(x, w, eps)
+    return layer_norm(x, w, b, eps)
 
 
 def rope_params(cfg: ModelConfig) -> RopeParams:
@@ -255,11 +290,14 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
     else:
         ffn = ffn_fn or dense_ffn(cfg)
     rp = rope_params(cfg)
-    eps = cfg.norm_eps
+    eps, tr = cfg.norm_eps, cfg.traits
+    kind = tr.norm
 
     def fwd(params: dict, tokens: torch.Tensor, positions: torch.Tensor,
             cache: KVCache, fstate=None) -> torch.Tensor:
         x = params["tok_embd"][tokens]
+        if tr.pos_embd:  # OPT's learned positions (HF offset 2)
+            x = x + params["pos_embd"][positions + tr.pos_embd_offset]
         layers = params["layers"]
         # loop-invariant flat (layer, group) sparse stores and predictor
         # stacks, addressed by the sparse FFN at row il * n_groups + group
@@ -274,20 +312,25 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
             if flat is not None:  # FlatQuantTensors bind the layer late
                 lp.update({k: (v.with_il(il) if isinstance(v, FlatQuantTensor) else v)
                            for k, v in flat.items()}, flat_il=il)
-            h = rms_norm(x, lp["attn_norm_w"], eps)
-            x = x + attention(cfg, lp, h, positions, cache.k[il], cache.v[il],
-                              rp, rope_cs, fresh_prefill=fresh_prefill)
-            h2 = rms_norm(x, lp["ffn_norm_w"], eps)
+            h = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), kind, eps)
+            attn_out = attention(cfg, lp, h, positions, cache.k[il], cache.v[il],
+                                 rp, rope_cs, fresh_prefill=fresh_prefill)
+            if tr.parallel_blocks:  # falcon: the FFN reads the layer's input
+                h2 = (_norm(x, lp["attn_norm2_w"], lp.get("attn_norm2_b"), kind, eps)
+                      if "attn_norm2_w" in lp else h)
+            else:
+                x = x + attn_out
+                h2 = _norm(x, lp["ffn_norm_w"], lp.get("ffn_norm_b"), kind, eps)
             if stateful_ffn:
                 y = ffn(lp, h2, fstate, il)
             elif ffn_carry_init is not None:
                 y, carry = ffn(lp, h2, carry, il)
             else:
                 y = ffn(lp, h2)
-            x = x + y
+            x = (x + attn_out + y) if tr.parallel_blocks else (x + y)
             if "cvec" in lp:  # control vector (llama_adapter_cvec)
                 x = x + lp["cvec"].to(x.dtype)
-        x = rms_norm(x, params["output_norm_w"], eps)
+        x = _norm(x, params["output_norm_w"], params.get("output_norm_b"), kind, eps)
         logits = lm_head(x, params["output"])
         return (logits, x) if with_hidden else logits
 

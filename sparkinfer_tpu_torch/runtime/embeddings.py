@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.transformer import make_forward
+from ..models.transformer import clamp_max_seq, make_forward
 from .kv_cache import init_cache
 
 POOLINGS = ("mean", "last", "cls", "none", "rank")
@@ -34,7 +34,7 @@ class Embedder:
             raise ValueError(f"pooling {pooling!r} (want one of {POOLINGS})")
         self.model = model
         self.cfg = model.config
-        self.max_seq = max_seq
+        self.max_seq = clamp_max_seq(self.cfg, model.params, max_seq)
         self.pooling = pooling
         self.device = resolve_device(device)
         self._fwd = make_forward(self.cfg, with_hidden=True, fresh_prefill=True)

@@ -53,7 +53,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.loader import LoadedModel
-from ..models.transformer import make_forward
+from ..models.transformer import clamp_max_seq, make_forward
 from .graphs import StepGraphs, resolve_capture
 from .kv_cache import KVCache, init_cache
 from .sampling import (
@@ -192,7 +192,7 @@ class Engine:
                 self.device.index is not None and where.index != self.device.index):
             raise ValueError(f"model params lie on {where}, the engine runs on "
                              f"{self.device}: load_model(..., device=...) to match")
-        self.max_seq = max_seq
+        self.max_seq = clamp_max_seq(self.cfg, model.params, max_seq)
         self.sampler_cfg = sc = sampler or SamplerConfig()
         if sc.mirostat not in (0, 2):
             raise ValueError(f"mirostat {sc.mirostat}: 0 (off) or 2 (v2)")

@@ -81,7 +81,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.transformer import make_forward
+from ..models.transformer import clamp_max_seq, make_forward
 from .graphs import StepGraphs, resolve_capture
 from .kv_cache import KVCache, init_cache, slot_view
 from .sampling import (
@@ -168,6 +168,7 @@ class Scheduler:
         cuda_graph: bool | None = None,
         sparse_cold_mode: str = "host",  # "host" | "drop" | "fetch"
         rebalance_every: int = 1,
+        sparse_preprepared: bool = False,  # params with prepare_sparse_params' row stores
     ):
         self.device = resolve_device(device)
         self.tiered = sparse is not None and sparse.hot_groups > 0
@@ -188,7 +189,7 @@ class Scheduler:
         self.tokenizer = tokenizer
         self.vocab = getattr(model, "vocab", None)
         self.n_slots = n_slots
-        self.max_seq = max_seq
+        self.max_seq = max_seq = clamp_max_seq(self.cfg, model.params, max_seq)
         self.slot_similarity = float(slot_similarity)
         self.sampler_cfg = sampler or SamplerConfig()
         self.sample = make_dynamic_sampler(self.sampler_cfg)
@@ -221,7 +222,8 @@ class Scheduler:
             if self.tiered:  # no masked-dense fallback: the cold rows are off the card
                 self._init_tiered(model, sparse, sparse_cold_mode, prefill_mode, host_perms)
             else:
-                self.params = prepare_sparse_params(model.params, self.cfg, sparse)
+                if not sparse_preprepared:
+                    self.params = prepare_sparse_params(model.params, self.cfg, sparse)
                 self.fwd_decode = make_forward(self.cfg, ffn_fn=make_sparse_ffn(
                     self.cfg, sparse, mode="kernel"))
                 if sparse_batch_max is None:  # the table is keyed on the rows a tick computes

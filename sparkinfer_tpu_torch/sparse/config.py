@@ -83,9 +83,15 @@ class SparseConfig:
 # 1.1%, is within the spread between runs. At B = 16 (a later run on the
 # same card) v1 866.25 tok/s, 18.44 device ms, against masked-dense 968.44
 # and 16.40. The eager steps this replaced were bound by the host and gave
-# 0. PERF.md sections 5 and 6 list the runs. Widths that were not measured
-# take the 7B-width value. SPIF_SPARSE_BATCH_MAX overrides.
-_BATCH_CROSSOVER = {11008: 8}
+# 0. PERF.md sections 5 and 6 list the runs. At n_ff 32768 (ReluFalcon-40B
+# widths, bf16, 36 of 256 groups, ungated relu, 34 of its 60 layers),
+# chip_smoke.py's phase 5n on an NVIDIA H100 80GB HBM3 at 700.00 W:
+# v1 won at B = 1 and 4 and lost at 8. Aggregate tok/s, v1 51.20 / 155.14 /
+# 236.78 / 351.59 against masked-dense 35.52 / 136.01 / 254.52 / 495.58 at
+# B = 1, 4, 8, 16; device ms of one replay, v1 19.42 / 25.70 / 33.69 /
+# 45.41 against 27.90 / 29.17 / 31.20 / 32.01. Widths that were not
+# measured take the 7B-width value. SPIF_SPARSE_BATCH_MAX overrides.
+_BATCH_CROSSOVER = {11008: 8, 32768: 4}
 
 
 def sparse_batch_crossover(n_ff: int) -> int:

@@ -110,6 +110,25 @@ def test_v6_decode_shape_bf16(cuda, N, act):
     _check(args, bu, 1e-3, act=act)
 
 
+# the other sparse families' decode shapes (group size 128): ReluFalcon-40B
+# (E=8192, 36 of 256 groups, ungated relu), OPT-6.7B (E=4096, 18 of 128,
+# ungated relu with an up bias) and SparseQwen2-7B (E=3584, F=18944: 21 of
+# 148 groups, dReLU); (N, C, E, R, act, with up bias)
+FAMILY_SHAPES = [(1, 36, 8192, 256, "relu", False), (1, 36, 8192, 256, "relu", True),
+                 (4, 36, 8192, 256, "relu", True), (1, 18, 4096, 128, "relu", True),
+                 (1, 21, 3584, 148, "drelu", False), (4, 21, 3584, 148, "drelu", False)]
+FAMILY_IDS = ["falcon40b-n1", "falcon40b-n1-bias", "falcon40b-n4-bias", "opt-n1-bias",
+              "qwen2-n1", "qwen2-n4"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,E,R,act,with_bu", FAMILY_SHAPES, ids=FAMILY_IDS)
+def test_v6_family_shapes_bf16(cuda, N, C, E, R, act, with_bu):
+    *args, bu = _inputs(N, C, E, 128, R, torch.bfloat16, cuda, seed=8, with_bu=with_bu,
+                        gated=act != "relu")
+    _check(args, bu, 1e-3, act=act)
+
+
 @pytest.mark.cuda
 def test_v6_odd_widths(cuda):
     """E not a multiple of the kernel's slices and tiles; G not a power of 2."""
@@ -330,6 +349,15 @@ def test_v6q_small(cuda, act, mask_mode, with_bu):
 def test_v6q_decode_shape(cuda, N, act):
     """ProSparse-Llama-2-13B widths: E=5120, G=128, C=16 of 108 groups."""
     args, bu = _q8_inputs(N, 16, 5120, 128, 216, cuda, seed=12, gated=(act != "relu"))
+    _check_v6q(args, bu, 1e-4, act=act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,E,R,act,with_bu", FAMILY_SHAPES[:3], ids=FAMILY_IDS[:3])
+def test_v6q_falcon40b_shape(cuda, N, C, E, R, act, with_bu):
+    """ReluFalcon-40B's Q8_0 decode FFN: E=8192, 36 of 256 groups of 128,
+    ungated relu, with and without an up bias."""
+    args, bu = _q8_inputs(N, C, E, 128, R, cuda, seed=14, with_bu=with_bu, gated=False)
     _check_v6q(args, bu, 1e-4, act=act)
 
 
@@ -613,6 +641,31 @@ def test_quant_matmul_flat(cuda, kind, N):
     torch.cuda.synchronize()
     assert tqm.quant_matmul_flat.launches == before + 1
     _check_qmm(got, tqm.quant_matmul_flat_plain(x, q, s, 2, kind=kind, out_dim=OUT), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 4, 32])
+@pytest.mark.parametrize("IN,OUT", [(8192, 1024), (1024, 32768), (8192, 65024),
+                                    (8192, 32768), (32768, 8192)],
+                         ids=["pred_up", "pred_down", "head", "ffn_up", "ffn_down"])
+def test_quant_matmul_falcon40b_shapes(cuda, N, IN, OUT):
+    """ReluFalcon-40B's Q8_0 products: the predictor stacks (8192 x 1024,
+    1024 x 32768, as layer 2 of a 3-layer flat stack too), the head (8192 x
+    65024) and the dense FFN (8192 x 32768, 32768 x 8192), by qmm_decode at
+    N <= 4 and qmm_prefill at N = 32, bf16 x (f32 for the predictor's)."""
+    q, s = _store("q8_0", IN, OUT, cuda, seed=IN + OUT + N)
+    pred = (IN, OUT) in ((8192, 1024), (1024, 32768))
+    x = torch.randn((N, IN), device=cuda, dtype=torch.float32 if pred else torch.bfloat16)
+    before = tqm.quant_matmul_2d.launches
+    got = tqm.quant_matmul_2d(x, q, s, kind="q8_0")
+    torch.cuda.synchronize()
+    assert tqm.quant_matmul_2d.launches == before + 1
+    _check_qmm(got, tqm.quant_matmul_2d_plain(x, q, s, kind="q8_0"), 1e-4)
+    if pred:
+        qf, sf = _store("q8_0", IN, 3 * OUT, cuda, seed=IN + N)
+        got = tqm.quant_matmul_flat(x, qf, sf, 2, kind="q8_0", out_dim=OUT)
+        _check_qmm(got, tqm.quant_matmul_flat_plain(x, qf, sf, 2, kind="q8_0", out_dim=OUT),
+                   1e-4)
 
 
 @pytest.mark.cuda
@@ -951,6 +1004,21 @@ def test_v1_moe_shape_bf16(cuda, moe_stores, N, bias):
     _check_fn(sparse_ffn_block, sparse_ffn_block_plain,
               (x, rows, scale.reshape(N, k * ng_e, G), *moe_stores), 1e-3, act="silu",
               mask_mode="scale", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,E,R,act,with_bu", FAMILY_SHAPES, ids=FAMILY_IDS)
+def test_v1_family_shapes_bf16(cuda, N, C, E, R, act, with_bu):
+    """The row kernel at the other families' widths, ReluFalcon-40B's E =
+    8192 exactly its V1_MAX_E, bf16 x over bf16 row stores."""
+    from sparkinfer_tpu_torch.ops.sparse_ffn import V1_MAX_E
+
+    assert V1_MAX_E == 8192
+    args, kw = _v1_inputs(N, C, E, 128, R, torch.bfloat16, cuda, seed=34, bias=with_bu,
+                          gated=act != "relu")
+    x, *rest = args
+    _check_fn(sparse_ffn_block, sparse_ffn_block_plain, (x.bfloat16(), *rest), 1e-3,
+              act=act, **kw)
 
 
 @pytest.mark.cuda

@@ -262,10 +262,10 @@ def test_unported_options_raise(gguf, tmp_path):
     pe = Engine(model, max_seq=6, sampler=SamplerConfig(temp=0.0), device="cpu")
     assert len(pe.generate(PROMPT, 8)) == 8
     assert pe.batch == 1
-    qwen = tmp_path / "qwen2.gguf"
-    make_tiny_llama(qwen, arch="qwen2")
-    with pytest.raises(NotImplementedError, match="qwen2"):
-        load_model(str(qwen), device="cpu")
+    gpt2 = tmp_path / "gpt2.gguf"  # qwen2 is ported: an arch that is not
+    make_tiny_llama(gpt2, arch="gpt2")
+    with pytest.raises(NotImplementedError, match="gpt2"):
+        load_model(str(gpt2), device="cpu")
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
@@ -306,7 +306,8 @@ def test_port_imports_without_jax():
                 "sparse.split", "sparse.moe", "runtime.self_extend", "runtime.speculative",
                 "runtime.lookup", "runtime.lookahead", "runtime.state_io", "models.lora",
                 "tools.cli", "tools.export_lora", "gguf._iq_grids", "tools.quantize",
-                "tools.imatrix", "runtime.embeddings", "tools.retrieval"):
+                "tools.imatrix", "runtime.embeddings", "tools.retrieval", "ops.norms",
+                "ops.rope", "models.transformer", "models.config", "runtime.kv_cache"):
         assert "sparkinfer_tpu_torch." + mod in names, mod
 
 

@@ -595,6 +595,7 @@ def test_sparse_batch_crossover(monkeypatch, sparse_gguf):
     assert sparse_batch_crossover(2048) == 2
     monkeypatch.delenv("SPIF_SPARSE_BATCH_MAX")
     assert sparse_batch_crossover(96) == sparse_batch_crossover(11008) >= 0
+    assert 0 <= sparse_batch_crossover(32768) <= sparse_batch_crossover(11008)
     sched = _sched(sparse_gguf, sparse=SparseConfig(G, CAP))
     assert sched.sparse_batch_max == sparse_batch_crossover(96)
 
