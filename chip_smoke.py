@@ -265,12 +265,45 @@ sees no card or the package is missing. Phases, each of which fails the run:
        embedding. `python3 chip_smoke.py --quant` runs phases 1, 2, 5m(c),
        5m(b), 5c's engine and 5d's main path, then 5m(a) (tiered fetch
        with W8A8 only) and prints no result.
+     5o. sliding-window attention (models/transformer.py, the iSWA ring
+       cache of runtime/kv_cache.py) at gpt-oss-20b's width and depth
+       (openai/gpt-oss-20b config.json: L=24, E=2880, 64 heads, 8 KV heads
+       of 64, 32 experts of 2880, 4 used, window 128 on alternate layers,
+       V=201088, yarn; sinks and attention biases), random bf16 weights
+       from SEED (41.8 GB, one resident copy of the experts), in a child
+       process started after 5k's: an f32 gate at 4 layers (the fused FFN,
+       v1 with the bias rows and swiglu_oai, against dense mode layer by
+       layer within 1e-4 of its scale, greedy tokens equal; the iSWA cache
+       against the full cache teacher-forced over a 1400-token prompt and
+       32 steps, past the ring's wrap, within 1e-4; the 4-slot Scheduler's
+       streams against the Engine's, as below, parted only within 1e-4 of
+       a tie); v1 against its plain
+       version at the gpt-oss shape (C = 180, G = 64, E = 2880, N = 1 and
+       32); Engine(moe_mode="pallas") with and without kv_iswa (v1 24
+       times a forward) and Engine(moe_mode="dense"), a 32-token prompt and
+       128 greedy tokens past the window, decode as CUDA graphs whose
+       streams and first decode logits equal an eager engine's; the bf16
+       iSWA cache against the full cache teacher-forced as in the gate,
+       within 5e-2 of the logits' scale, on the model with a decisive
+       router (4 experts a layer biased by 30: random weights let a
+       last-bit difference move a token to another expert), and printed
+       for the model as drawn beside two full caches of another width;
+       KV bytes and the step's device ms of both caches at max_seq 32768;
+       the 4-slot Scheduler (dense MoE, the window as a mask, the decisive
+       router, 4 requests of 32 + 128 tokens) against the Engine's
+       single-sequence streams (equal, or parted at a near-tie);
+       and a gemma3 cut at Gemma-3-4B width (6 layers: five sliding, one
+       global; two rope bases; q/k and sandwich norms; tied head), iSWA
+       rings of 1280 slots, a 1400-token prompt, graph against eager
+       bit-equal. `python3 chip_smoke.py --swa` runs phases 1, 2 and 5o
+       alone and prints no result.
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
 
 The line before the last is {"kernels": [...]} (v1's entry counts its MoE
-launches too, and carries its MoE-shape timing under "moe"; v6's counts
+launches too, and carries its MoE-shape timing under "moe" and its
+gpt-oss-shape timing under "gpt_oss"; v6's counts
 phase 5l's and 5m(b)'s and carries its N=6 and N=32 timings under
 "shapes"; v6q's and quant_matmul_2d's count 5m(a)'s); the last
 line is {"ok": true, "device": {...}}.
@@ -3103,7 +3136,7 @@ def greedy_tokens(fwd, params, cfg, prompt, steps, *state):
         logits = fwd(params, torch.tensor([prompt], device="cuda"),
                      torch.arange(len(prompt), device="cuda")[None], cache, *state)
         for i in range(steps + 1):
-            check(bool(torch.isfinite(logits).all()), "5k: non-finite logits")
+            check(bool(torch.isfinite(logits).all()), "non-finite logits")
             toks.append(int(logits[0, -1].argmax()))
             if i < steps:
                 logits = fwd(params, torch.tensor([[toks[-1]]], device="cuda"),
@@ -3206,12 +3239,14 @@ def moe_f32_gates(prompt, steps: int = 8) -> dict:
     return row
 
 
-def moe_v1_rows(model) -> list:
+def moe_v1_rows(model, path="MoE", Ns=(1, 32)) -> list:
     """v1 (`sparse_ffn_block`, mask_mode "scale") against its plain version
     at the MoE shapes of the main path, N = 1 (decode) and 32 (prefill):
-    each token's 8 experts of 128 (C = 48 groups of G = 128), router weights
+    each token's k experts (C = k * ng_e groups of G rows), router weights
     as the scale, bf16 row stores of one random layer (views of the expert
-    stacks), silu; over 64 random draws that keep the L2 cold."""
+    stacks), the model's activation, and its up and gate bias rows
+    (gpt-oss's bu_sel, bg_sel) where it has them; over 64 random draws that
+    keep the L2 cold."""
     import torch
 
     from sparkinfer_tpu_torch.ops import sparse_ffn as sf
@@ -3220,12 +3255,13 @@ def moe_v1_rows(model) -> list:
     cfg = model.config
     lay = moe_layout(model.params["layers"], cfg)
     up, gate, down = lay["moe_up_rows"], lay["moe_gate_rows"], lay["moe_down_rows"]
+    ub, gb = lay.get("moe_up_b_rows"), lay.get("moe_gate_b_rows")
     L, R, G, E = up.shape
     k, ng_e = cfg.n_expert_used, R // cfg.n_expert
-    C = k * ng_e
+    C, act = k * ng_e, cfg.traits.act
     gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
     out = []
-    for N in (1, 32):
+    for N in Ns:
         sets = []
         for _ in range(N_SETS):
             il = int(torch.randint(L, (1,), generator=gen, device="cuda"))
@@ -3234,22 +3270,30 @@ def moe_v1_rows(model) -> list:
             w = torch.rand((N, k), generator=gen, device="cuda")
             w = w / w.sum(-1, keepdim=True)
             scale = w[:, :, None, None].expand(N, k, ng_e, G).reshape(N, C, G).contiguous()
-            sets.append((il, expert_rows(idx, ng_e), scale))
+            rows = expert_rows(idx, ng_e)
+            # the bias rows gathered once, outside the timed calls
+            kw = {} if ub is None else {"bu_sel": ub[il][rows.long()],
+                                        "bg_sel": gb[il][rows.long()]}
+            sets.append((il, rows, scale, kw))
         x = torch.randn((N, E), generator=gen, device="cuda").to(torch.bfloat16)
 
         def call(f, i):
-            il, rows, scale = sets[i % N_SETS]
-            return f(x, rows, scale, up[il], gate[il], down[il], act="silu", mask_mode="scale")
+            il, rows, scale, kw = sets[i % N_SETS]
+            return f(x, rows, scale, up[il], gate[il], down[il], act=act, mask_mode="scale",
+                     **kw)
 
         got = call(sf.sparse_ffn_block, 0)
         torch.cuda.synchronize()
-        err, tol = compare(f"v1 MoE N={N}", got, call(sf.sparse_ffn_block_plain, 0))
+        err, tol = compare(f"v1 {path} N={N}", got, call(sf.sparse_ffn_block_plain, 0))
         ms = graph_ms(lambda i: call(sf.sparse_ffn_block, i), N_SETS)
         plain_ms = graph_ms(lambda i: call(sf.sparse_ffn_block_plain, i), 8 if N == 1 else 2)
-        rows_read = sum(len(torch.unique(r)) for _, r, _ in sets) / N_SETS
+        rows_read = sum(len(torch.unique(r)) for _, r, _, _ in sets) / N_SETS
         nbytes = 3 * rows_read * G * E * 2 + N * E * 2 + N * C * G * 4 + N * C * 4 + N * E * 4
+        if ub is not None:  # the up and gate bias rows: gathered in bf16, read as f32
+            nbytes += 2 * N * C * G * 4
         bound_ms, by = bound(nbytes, 2 * 3 * N * C * G * E, PEAK_F32_FLOP_S)
-        row = dict(kernel="sparse_ffn_block", path="MoE", N=N, C=C, G=G, E=E, act="silu",
+        row = dict(kernel="sparse_ffn_block", path=path, N=N, C=C, G=G, E=E, act=act,
+                   biases=ub is not None,
                    mask_mode="scale", max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=by, library_ms=None, x_bound=ms / bound_ms,
                    rows_read=rows_read, GB_s=nbytes / (ms * 1e-3) / 1e9,
@@ -3259,12 +3303,14 @@ def moe_v1_rows(model) -> list:
     return out
 
 
-def moe_engine(label, model, greedy, prompt, n_new, mode) -> dict:
-    """One Engine(moe_mode=mode) over the full model: the main path (launch
-    counts 0 just before, read just after: v1 n_layer times a forward in
-    "pallas" mode, prefill included, none in "dense"), the decode timings
-    and a profile (v1's share of the device time), the replay span, the
-    first decode logits of the graph against an eager engine's (bit-equal),
+def moe_engine(label, model, greedy, prompt, n_new, mode, phase="5k", eager_stream=False,
+               **engine_kw) -> dict:
+    """One Engine(moe_mode=mode, **engine_kw) over the full model: the main
+    path (launch counts 0 just before, read just after: v1 n_layer times a
+    forward in "pallas" mode, prefill included, none in "dense"), the
+    decode timings and a profile (v1's share of the device time), the
+    replay span, the first decode logits of the graph against an eager
+    engine's (bit-equal; with eager_stream its whole greedy stream too),
     and the prefill's wall ms."""
     import torch
 
@@ -3272,22 +3318,27 @@ def moe_engine(label, model, greedy, prompt, n_new, mode) -> dict:
 
     L = model.config.n_layer
     per_fwd = L if mode == "pallas" else 0
-    eng = Engine(model, max_seq=1024, sampler=greedy, device="cuda", moe_mode=mode)
+    kw = {"max_seq": 1024, "sampler": greedy, "device": "cuda", "moe_mode": mode,
+          **engine_kw}
+    eng = Engine(model, **kw)
     launches = main_path(label, eng, prompt, n_new,
                          lambda runs: {"sparse_ffn_block": per_fwd * (runs + 1)})
     toks, first, timing, (rows, steps) = decode_timing(eng, prompt, n_new)
     v1 = [(k, ms, n) for k, ms, n in rows if "v1_" in k]
     check(sum(n for _, _, n in v1) == per_fwd * steps and all("v1_ffn" in k for k, _, _ in v1),
-          f"5k {label}: the profiled steps launched {v1}, want {per_fwd} v1_ffn a step")
+          f"{phase} {label}: the profiled steps launched {v1}, want {per_fwd} v1_ffn a step")
     device = sum(r[1] for r in rows)
-    eager = Engine(model, max_seq=1024, sampler=greedy, device="cuda", moe_mode=mode,
-                   cuda_graph=False)
+    eager = Engine(model, cuda_graph=False, **kw)
     cache, st = eager.new_cache(), eager.new_sampler_state()
     tok, cache, st, n = eager.prefill(prompt, cache, st)
     eager.decode_step(tok, n, cache, st)
-    check(torch.equal(first, eager.last_logits), f"5k {label}: the replay's first decode "
+    check(torch.equal(first, eager.last_logits), f"{phase} {label}: the replay's first decode "
           f"logits differ from the eager step's by "
           f"{(first - eager.last_logits).abs().max().item():.3e}")
+    if eager_stream:
+        eager_toks = eager.generate(prompt, n_new)
+        check(eager_toks == toks, f"{phase} {label}: graph stream {toks} differs from the "
+                                  f"eager stream {eager_toks}")
     del eager, cache
     step = eng.graphs.get(eng.cache, 1, "decode", None)
     cache, st = eng.new_cache(), eng.new_sampler_state()
@@ -3303,8 +3354,8 @@ def moe_engine(label, model, greedy, prompt, n_new, mode) -> dict:
            "profiled_device_ms_per_step": device / steps, **replay_times(step),
            "capture_s": step.stats["capture_s"], "graph_pool_bytes": step.stats["pool_bytes"],
            "prefill_ms": prefill_ms, "prefill_tokens": len(prompt), "peak_gib": PEAKS[label],
-           "tokens_first8": toks[:8]}
-    print(f"phase 5k, {label}:", json.dumps(row))
+           "tokens_first8": toks[:8], "eager_stream_equal": eager_stream}
+    print(f"phase {phase}, {label}:", json.dumps(row))
     return row
 
 
@@ -5494,16 +5545,476 @@ def families_only(greedy) -> int:
     return 0
 
 
+# --- phase 5o: sliding-window attention: gpt-oss-20b and a gemma3 cut -------
+# openai/gpt-oss-20b config.json: 24 layers, hidden 2880, 64 heads, 8 KV heads,
+# head_dim 64, 32 experts of width 2880, 4 used (softmax over the 4 selected
+# logits, router bias, no renormalization), sliding_window 128 on alternate
+# layers (the first sliding), vocab 201088, rope theta 150000 with yarn factor
+# 32 over 4096 original positions, rms eps 1e-5, q/k/v and output biases,
+# attention sinks, untied head; its experts' width 2880 is no multiple of 128,
+# so the fused FFN's groups are 64 rows (45 an expert, C = 180 a token).
+# google/gemma-3-4b-pt config.json (text): hidden 2560, 8 heads, 4 KV heads,
+# head_dim 256, ffn 10240, sliding window 1024 on 5 of every 6 layers, rope
+# bases 10000 (sliding, unscaled) and 1e6 (global, linear factor 8), query
+# scale 256^-0.5, rms eps 1e-6, vocab 262208, tied head, per-head q/k norms,
+# sandwich norms; cut to 6 layers (one pattern block). Random weights from
+# SEED, drawn on the card.
+
+SWA_GATE_TOL = 1e-4  # f32: fused FFN against dense, iSWA logits against the full cache
+# bf16, teacher-forced: the ring and the full cache attend over the same keys
+# in products of another width (1152 against 2048 slots), so f32 sums differ
+# in their last bits, and the bf16 roundings that follow flip some values by
+# one bf16 ulp (2^-8 of the value), which 24 layers carry to the logits; a
+# wrong ring slot or window hides or adds whole keys and errs by a sizeable
+# part of the logits' scale. With random weights such a flip also moves a
+# token's top-4 experts where its router logits nearly tie, and one other
+# expert changes the logits by a large part of their scale, so this
+# check runs on the model with a decisive router (SWA_ROUTE_BIAS), and the
+# gap of the model as drawn is printed beside that of two full caches of
+# another width, which differ only by such roundings.
+SWA_ISWA_TOL = 5e-2
+SWA_ROUTE_BIAS = 30.0  # added to k random experts' router logits a layer: 28 times their spread
+# bf16 Scheduler (on the decisive router) against single-sequence Engine
+# streams: a tick computes 4 rows in products of another shape than a 1-row
+# step, so the logits drift apart as the ring's and the full cache's do
+# (within SWA_ISWA_TOL); where two streams part, the Engine's logit of the
+# Scheduler's token must lie within that share of the logits' scale of its
+# best (a near-tie: a token need not be the Engine's second, where several
+# lie within roundings of the best)
+SWA_TIE_TOL = SWA_ISWA_TOL
+SWA_PROMPT_LONG = 1400  # past the 1152-slot ring of window 128 + chunk 1024
+
+
+def gpt_oss_config(L):
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="gpt-oss", n_layer=L, n_embd=2880, n_head=64, n_head_kv=8,
+                       head_dim=64, n_ff=2880, n_ff_exp=2880, n_vocab=201088, n_expert=32,
+                       n_expert_used=4, expert_gating="softmax_topk", norm_topk_prob=False,
+                       norm_eps=1e-5, rope_freq_base=150000.0, rope_scale=1.0 / 32,
+                       rope_scaling_type="yarn", rope_orig_ctx=4096, sliding_window=128,
+                       n_ctx_train=131072)
+
+
+def random_gpt_oss(cfg, dtype, seed):
+    """A LoadedModel with the loader's keys and dtypes for gpt-oss, drawn on
+    the card: N(0, 0.02) projections, router and experts (one resident copy,
+    (L, X, Fe, E) stacks), N(0, 0.02) biases (q/k/v/output in f32, the
+    router's and the experts' in the model's dtype), N(0, 1) sinks in f32,
+    ones for the norms."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f32 = torch.float32
+
+    def normal(shape, std=0.02, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="cuda").normal_(0.0, std, generator=gen)
+
+    L, E, H, Hkv, D = cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.n_head_kv, cfg.head_dim
+    X, Fe, V = cfg.n_expert, cfg.n_ff_exp, cfg.n_vocab
+    ones = dict(dtype=f32, device="cuda")
+    layers = {"attn_norm_w": torch.ones((L, E), **ones), "ffn_norm_w": torch.ones((L, E), **ones),
+              "wq": normal((L, E, H * D)), "wk": normal((L, E, Hkv * D)),
+              "wv": normal((L, E, Hkv * D)), "wo": normal((L, H * D, E)),
+              "bq": normal((L, H * D), dt=f32), "bk": normal((L, Hkv * D), dt=f32),
+              "bv": normal((L, Hkv * D), dt=f32), "bo": normal((L, E), dt=f32),
+              "attn_sinks": normal((L, H), 1.0, f32),
+              "w_router": normal((L, E, X)), "w_router_b": normal((L, X))}
+    for name in ("up", "gate", "down"):
+        layers[f"w_{name}_exps"] = normal((L, X, Fe, E))
+        layers[f"w_{name}_exps_b"] = normal((L, X, E if name == "down" else Fe))
+    params = {"tok_embd": normal((V, E)), "output_norm_w": torch.ones((E,), **ones),
+              "output": normal((E, V)), "layers": layers}
+    return LoadedModel(config=cfg, params=params)
+
+
+def decisive_router(model, seed):
+    """The model with SWA_ROUTE_BIAS added to the router bias of k random
+    experts a layer (k = n_expert_used; a new bias stack, every other
+    tensor shared): every token takes those k experts, weighted by its own
+    router logits, so a last-bit difference in the stream moves no token
+    to another expert."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    layers = model.params["layers"]
+    bias = layers["w_router_b"].clone()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for il in range(bias.shape[0]):
+        pick = torch.randperm(bias.shape[1], generator=gen,
+                              device="cuda")[:model.config.n_expert_used]
+        bias[il, pick] += SWA_ROUTE_BIAS
+    return LoadedModel(config=model.config,
+                       params={**model.params, "layers": {**layers, "w_router_b": bias}})
+
+
+def gemma3_4b_config(L):
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="gemma3", n_layer=L, n_embd=2560, n_head=8, n_head_kv=4,
+                       head_dim=256, n_ff=10240, n_vocab=262208, norm_eps=1e-6,
+                       rope_freq_base=1e6, rope_freq_base_swa=1e4, rope_scale=1.0 / 8,
+                       rope_scaling_type="linear", sliding_window=1024, attn_scale=256 ** -0.5,
+                       tie_embeddings=True)
+
+
+def random_gemma3(cfg, seed):
+    """A bf16 gemma3 LoadedModel drawn on the card: N(0, 0.02) projections,
+    1 + N(0, 0.1) block, sandwich and q/k norms in f32, the head the
+    embeddings' transpose (the loader's tied head)."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f32, bf = torch.float32, torch.bfloat16
+
+    def normal(shape, std=0.02, dt=bf):
+        return torch.empty(shape, dtype=dt, device="cuda").normal_(0.0, std, generator=gen)
+
+    L, E, H, Hkv, D, F = (cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.n_head_kv, cfg.head_dim,
+                          cfg.n_ff)
+    layers = {k: 1.0 + normal((L, E), 0.1, f32) for k in (
+        "attn_norm_w", "attn_post_norm_w", "ffn_norm_w", "ffn_post_norm_w")}
+    layers.update(wq=normal((L, E, H * D)), wk=normal((L, E, Hkv * D)),
+                  wv=normal((L, E, Hkv * D)), wo=normal((L, H * D, E)),
+                  attn_q_norm_w=1.0 + normal((L, D), 0.1, f32),
+                  attn_k_norm_w=1.0 + normal((L, D), 0.1, f32),
+                  w_up=normal((L, E, F)), w_gate=normal((L, E, F)), w_down=normal((L, F, E)))
+    tok = normal((cfg.n_vocab, E))
+    params = {"tok_embd": tok, "output": tok.T.contiguous(), "layers": layers,
+              "output_norm_w": 1.0 + normal((E,), 0.1, f32)}
+    return LoadedModel(config=cfg, params=params)
+
+
+def rel_gap(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def teacher_forced(engines, prompt, tokens) -> dict:
+    """Each engine prefills `prompt` (in its prefill_chunk chunks) and then
+    decodes `tokens`, one a step, whatever it samples: the largest gap of
+    each engine's logits to the first's, over the prefill's last row and
+    every step, relative to the first's scale."""
+    import torch
+
+    runs = []
+    for eng in engines:
+        cache, st = eng.new_cache(), eng.new_sampler_state()
+        _, cache, st, n = eng.prefill(prompt, cache, st)
+        rows = [eng.last_logits.clone()]
+        for i, tok in enumerate(tokens):
+            eng.decode_step(tok, n + i, cache, st)
+            rows.append(eng.last_logits.clone())
+        check(all(bool(torch.isfinite(r).all()) for r in rows), "5o: non-finite logits")
+        runs.append(rows)
+        del cache
+    return [max(rel_gap(g, w) for g, w in zip(rows, runs[0])) for rows in runs[1:]]
+
+
+def swa_f32_gates(prompt, long_prompt, steps: int = 8) -> dict:
+    """gpt-oss-20b widths cut to 4 layers, f32. (1) The fused mode (v1 with
+    the bias rows and swiglu_oai) against dense mode layer by layer: the
+    dense forward feeds each layer's FFN input to the fused FFN too, whose
+    output must lie within SWA_GATE_TOL of the dense one's scale at every
+    layer of a 32-token prompt and `steps` decode steps, and the two
+    forwards' greedy tokens must be equal. (2) The iSWA cache against the
+    full cache, teacher-forced through Engines in pallas mode: the
+    1400-token prompt in chunks of 1024 into 1152-slot rings and 32 decode
+    steps, every step's logits within SWA_GATE_TOL. (3) The 4-slot
+    Scheduler against the Engine (swa_scheduler, f32, the decisive router):
+    streams equal, or parted within SWA_GATE_TOL of a tie."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.ops import sparse_ffn as sf
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
+    from sparkinfer_tpu_torch.sparse.moe import make_moe_ffn, moe_layout
+
+    t0 = time.perf_counter()
+    cfg = gpt_oss_config(4)
+    model = random_gpt_oss(cfg, torch.float32, SEED + 51)
+    params = {**model.params, "layers": moe_layout(model.params["layers"], cfg)}
+    dense, fused = make_moe_ffn(cfg, mode="dense"), make_moe_ffn(cfg, mode="pallas")
+    errs = []
+
+    def gate(lp, x):
+        want = dense(lp, x)
+        got = fused(lp, x)
+        errs.append(((got - want).abs().max() / want.abs().max()).item())
+        return want
+
+    n0 = sf.sparse_ffn_block.launches
+    toks = {name: greedy_tokens(make_forward(cfg, ffn_fn=f), params, cfg, prompt, steps)
+            for name, f in (("dense", gate), ("pallas", fused))}
+    n_fwd = 4 * (steps + 1)
+    check(sf.sparse_ffn_block.launches - n0 == 2 * n_fwd and len(errs) == n_fwd,
+          f"5o gate: {sf.sparse_ffn_block.launches - n0} v1 launches, {len(errs)} layers")
+    worst = max(errs)
+    check(worst <= SWA_GATE_TOL, f"5o gate: a layer's fused FFN is {worst:.3e} of its scale off")
+    check(toks["dense"] == toks["pallas"], f"5o gate: greedy tokens differ {toks}")
+    del params
+    greedy = SamplerConfig(temp=0.0)
+    kw = dict(max_seq=2048, sampler=greedy, kv_dtype=torch.float32, device="cuda",
+              moe_mode="pallas")
+    forced = torch.randint(cfg.n_vocab, (32,), generator=torch.Generator().manual_seed(SEED + 52))
+    gap = teacher_forced([Engine(model, **kw), Engine(model, kv_iswa=True, **kw)],
+                         long_prompt, forced.tolist())[0]
+    check(gap <= SWA_GATE_TOL, f"5o gate: iSWA logits {gap:.3e} of their scale off the full "
+                               f"cache's")
+    sched = swa_scheduler(decisive_router(model, SEED + 57), greedy, tie_tol=SWA_GATE_TOL)
+    row = {"layers": 4, "steps": steps, "layer_outputs": n_fwd, "worst_rel_err": worst,
+           "tokens": toks["dense"], "iswa_rel_gap": gap, "iswa_prompt": len(long_prompt),
+           "iswa_steps": 32, "scheduler_streams_equal": sched["streams_equal"],
+           "scheduler_parted_gap": sched["parted_gap"], "seconds": time.perf_counter() - t0}
+    print("phase 5o, f32 gates (gpt-oss-20b widths, 4 layers):", json.dumps(row))
+    return row
+
+
+def kv_bytes(cache) -> int:
+    return sum(b.numel() * b.element_size() for b in cache.buffers())
+
+
+def swa_long_context(model, greedy, prompt) -> list:
+    """Engine(moe_mode="pallas") at max_seq 32768 with the full cache and
+    with the iSWA cache: KV bytes, and the device ms of a decode step (one
+    replay's span) after 16 greedy tokens; attention reads every slot of a
+    layer's cache, masked or not, so the full cache's step grows with
+    max_seq and a ring's does not."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    out = []
+    for iswa in (False, True):
+        eng = Engine(model, max_seq=32768, sampler=greedy, device="cuda", moe_mode="pallas",
+                     kv_iswa=iswa)
+        toks = run_generate(eng, prompt, 16)
+        step = eng.graphs.get(eng.cache, 1, "decode", None)
+        row = {"kv_iswa": iswa, "max_seq": 32768, "kv_bytes": kv_bytes(eng.cache),
+               "ring_slots": ([a.shape[2] for a in eng.cache.k] if iswa else None),
+               "tok_s": eng.perf.decode_tps, **replay_times(step), "tokens_first8": toks[:8]}
+        print("phase 5o, long context:", json.dumps(row))
+        out.append(row)
+        del eng, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def swa_scheduler(model, greedy, n_new: int = 128, tie_tol: float = SWA_TIE_TOL) -> dict:
+    """The 4-slot Scheduler over gpt-oss (a full cache a slot, the window as
+    its mask, dense MoE, the tick a CUDA graph; the decisive router), its
+    KV cache in the model's dtype: 4 greedy requests of 32-token prompts
+    and 128 new tokens, past the window, against the single-sequence
+    Engine(moe_mode="dense") streams of the same prompts: equal, or parted
+    at a near-tie of the Engine's (within tie_tol of the logits' scale),
+    after which the rest of the stream is not compared."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.runtime.scheduler import Request, Scheduler
+
+    dtype = model.params["tok_embd"].dtype
+    sched = Scheduler(model, n_slots=4, max_seq=1024, sampler=greedy, kv_dtype=dtype,
+                      device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 53)
+    prompts = [torch.randint(model.config.n_vocab, (32,), generator=gen).tolist()
+               for _ in range(4)]
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    reqs = [sched.submit(Request(prompt_tokens=p, max_new_tokens=n_new)) for p in prompts]
+    while sched.step():
+        check(bool(torch.isfinite(sched.last_logits).all()), "5o Scheduler: non-finite logits")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(not any(launches.values()), f"5o Scheduler: dense MoE launched {launches}")
+    check(sched.graphs.captures == 1, f"5o Scheduler: {sched.graphs.captures} captures")
+    m = sched.metrics_snapshot()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del sched
+    torch.cuda.empty_cache()
+    eng = Engine(model, max_seq=1024, sampler=greedy, kv_dtype=dtype, device="cuda",
+                 moe_mode="dense")
+    parted, gaps = [], []
+    for p, r in zip(prompts, reqs):
+        got = r.tokens()
+        check(len(got) == n_new, "5o Scheduler: a short stream")
+        i = gap = want = None
+        for j, tok in enumerate(eng.generate(p, n_new, stream=True)):
+            if tok != got[j]:  # where they part: how far the Scheduler's token lies below
+                row = eng.last_logits[0].float()
+                i, want, gap = j, tok, ((row[tok] - row[got[j]]) / row.abs().max()).item()
+                break
+        if gap is not None:
+            check(gap <= tie_tol, f"5o Scheduler: stream parts from the Engine's at token "
+                                      f"{i} ({got[i]} vs the Engine's {want}), {gap} of the "
+                                      f"logits' scale below its best")
+        parted.append(i)
+        gaps.append(gap)
+    ticks = m["n_decode_steps"]
+    row = {"path": f"gpt-oss-20b Scheduler, dense MoE, window as a mask, {dtype}",
+           "slots": 4, "requests": 4, "new_tokens": n_new, "ticks": ticks,
+           "decode_tok_s": (m["n_tokens_generated"] - m["n_requests"]) / m["t_decode_s"],
+           "ms_per_tick": 1e3 * m["t_decode_s"] / ticks, "prefill_tps": m["prefill_tps"],
+           "peak_gib": peak, "streams_equal": sum(i is None for i in parted),
+           "parted_at": parted, "parted_gap": gaps}
+    print("phase 5o, Scheduler:", json.dumps(row))
+    return row
+
+
+def swa_gemma3(greedy) -> dict:
+    """gemma3 at Gemma-3-4B width cut to 6 layers, bf16, Engine(kv_iswa=True)
+    with prefill_chunk 256 (rings of 1280 slots): a 1400-token prompt and
+    64 greedy tokens, the graph's stream and first decode logits against an
+    eager engine's over the same model (bit-equal), past ring wraps."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    t0 = time.perf_counter()
+    cfg = gemma3_4b_config(6)
+    model = random_gemma3(cfg, SEED + 54)
+    kw = dict(max_seq=2048, sampler=greedy, device="cuda", kv_iswa=True)
+    engines = [Engine(model, **kw), Engine(model, cuda_graph=False, **kw)]
+    for eng in engines:
+        eng.prefill_chunk = 256
+    prompt = torch.randint(cfg.n_vocab, (SWA_PROMPT_LONG,),
+                           generator=torch.Generator().manual_seed(SEED + 55)).tolist()
+    row = graph_vs_eager("gemma-3-4b 6 layers iSWA", *engines, prompt, 64)
+    rings = [a.shape[2] for a in engines[0].cache.k]
+    check(rings == [1280, 2048], f"5o gemma3: rings {rings}")
+    out = {"path": row["path"], "graph_tok_s": row["graph"]["tok_s"],
+           "eager_tok_s": row["eager"]["tok_s"],
+           "graph_device_ms_per_step": row["graph"]["device_ms_per_step"],
+           "cache_slots": rings, "prompt": len(prompt), "seconds": time.perf_counter() - t0}
+    print("phase 5o, gemma3:", json.dumps(out))
+    del engines, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_swa(greedy) -> dict:
+    """Phase 5o: the f32 gates, then gpt-oss-20b at full width and depth in
+    bf16 (v1 at its shape, the pallas Engine with and without the iSWA
+    cache and the dense Engine, iSWA against the full cache teacher-forced
+    past a ring wrap, both caches at max_seq 32768, the Scheduler), then
+    the gemma3 cut. Returns its summary, with v1's main-path launches."""
+    import gc
+
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 5o: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free at its start")
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 50)
+    prompt = torch.randint(201088, (32,), generator=gen).tolist()
+    long_prompt = torch.randint(201088, (SWA_PROMPT_LONG,), generator=gen).tolist()
+    gates = swa_f32_gates(prompt, long_prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5o, f32 gates")
+    cfg = gpt_oss_config(24)
+    t1 = time.perf_counter()
+    model = random_gpt_oss(cfg, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    weights = sum(t.numel() for t in [model.params["tok_embd"], model.params["output"],
+                                      *model.params["layers"].values()])
+    print(f"model: gpt-oss-20b widths, L={cfg.n_layer} E={cfg.n_embd} H={cfg.n_head} "
+          f"Hkv={cfg.n_head_kv} D={cfg.head_dim} X={cfg.n_expert} k={cfg.n_expert_used} "
+          f"Fe={cfg.n_ff_exp} V={cfg.n_vocab} window={cfg.sliding_window}, bf16, {weights} "
+          f"weights built in {time.perf_counter() - t1:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    v1_rows = moe_v1_rows(model, path="gpt-oss", Ns=(1, 32))
+    mark("phase 5o, v1 at the gpt-oss shape")
+    engines = [moe_engine(f"gpt-oss-20b bf16 {mode}{' iSWA' if iswa else ''}", model, greedy,
+                          prompt, 128, mode, phase="5o", eager_stream=True, max_seq=2048,
+                          kv_iswa=iswa)
+               for mode, iswa in (("pallas", True), ("pallas", False), ("dense", False))]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5o, engines")
+    kw = dict(sampler=greedy, device="cuda", moe_mode="pallas")
+    forced = torch.randint(cfg.n_vocab, (32,), generator=gen).tolist()
+    fixed = decisive_router(model, SEED + 56)
+    gap = teacher_forced([Engine(fixed, max_seq=2048, **kw),
+                          Engine(fixed, max_seq=2048, kv_iswa=True, **kw)],
+                         long_prompt, forced)[0]
+    check(gap <= SWA_ISWA_TOL, f"5o: bf16 iSWA logits {gap:.3e} of their scale off the full "
+                               f"cache's")
+    drawn = teacher_forced([Engine(model, max_seq=2048, **kw),
+                            Engine(model, max_seq=2048, kv_iswa=True, **kw),
+                            Engine(model, max_seq=1536, **kw)], long_prompt, forced)
+    iswa_row = {"prompt": len(long_prompt), "steps": len(forced), "ring_slots": 1152,
+                "rel_gap_decisive_router": gap, "tol": SWA_ISWA_TOL,
+                "rel_gap_as_drawn": drawn[0], "rel_gap_as_drawn_full_1536_vs_2048": drawn[1]}
+    print("phase 5o, iSWA against the full cache (bf16, teacher-forced):",
+          json.dumps(iswa_row))
+    gc.collect()
+    torch.cuda.empty_cache()
+    long_ctx = swa_long_context(model, greedy, prompt)
+    sched = swa_scheduler(fixed, greedy)
+    del model, fixed
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5o, gpt-oss-20b")
+    gemma = swa_gemma3(greedy)
+    return {"f32_gates": gates, "v1_gpt_oss": v1_rows, "engines": engines,
+            "iswa": iswa_row, "long_context": long_ctx, "scheduler": sched,
+            "gemma3": gemma, "v1_launches": sum(r["launches"] for r in engines),
+            "weights": weights, "seconds": time.perf_counter() - t0}
+
+
+def swa_summary(swa) -> dict:
+    """Phase 5o's numbers in brief, for the end of the full run's output."""
+    keys = ("tok_s", "wall_ms_per_step", "device_ms_per_step", "v1_share_of_device",
+            "replay_span_ms", "prefill_ms", "peak_gib", "launches")
+    return {"f32_gate_worst": swa["f32_gates"]["worst_rel_err"],
+            "f32_iswa_gap": swa["f32_gates"]["iswa_rel_gap"],
+            "f32_scheduler_streams_equal": swa["f32_gates"]["scheduler_streams_equal"],
+            "bf16_iswa": swa["iswa"],
+            "v1_gpt_oss": [{k: r[k] for k in ("N", "ms", "bound_ms", "plain_ms", "x_bound")}
+                           for r in swa["v1_gpt_oss"]],
+            "engines": [{"path": r["path"], **{k: r[k] for k in keys}} for r in swa["engines"]],
+            "long_context": [{k: r[k] for k in ("kv_iswa", "kv_bytes", "replay_span_ms",
+                                                "tok_s")} for r in swa["long_context"]],
+            "scheduler": {k: swa["scheduler"][k] for k in (
+                "decode_tok_s", "ms_per_tick", "peak_gib", "streams_equal", "parted_at")},
+            "gemma3": swa["gemma3"], "seconds": swa["seconds"]}
+
+
+def swa_child() -> dict:
+    """Phase 5o in a child process, started after 5k's and before this
+    process builds any model: its output is passed through, its summary
+    read from its last line."""
+    proc = subprocess.Popen([sys.executable, __file__, "--swa-phase"], stdout=subprocess.PIPE,
+                            text=True)
+    last = None
+    for line in proc.stdout:
+        print(line, end="", flush=True)
+        if line.startswith("phase 5o summary: "):
+            last = line
+    check(proc.wait(timeout=900) == 0 and last is not None,
+          f"phase 5o: the child process exited with {proc.returncode}")
+    return json.loads(last[len("phase 5o summary: "):])
+
+
 def kernel_line(name, source, replaces, launches, row, shape):
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: row[k] for k in keys}, "shape": shape}
 
 
-def moe_phase_only() -> int:
-    """`chip_smoke.py --moe-phase`: phase 5k alone, in the child process the
-    full run starts (the kernels built already); its summary is the last
-    line."""
+def child_phase(tag, phase) -> int:
+    """`chip_smoke.py --moe-phase` (5k) or `--swa-phase` (5o): the phase
+    alone, in the child process the full run starts (the kernels built
+    already); its summary is the last line."""
     import torch
 
     from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
@@ -5513,7 +6024,7 @@ def moe_phase_only() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print("phase 5k summary:", json.dumps(phase_moe(SamplerConfig(temp=0.0))))
+    print(f"phase {tag} summary:", json.dumps(phase(SamplerConfig(temp=0.0))))
     return 0
 
 
@@ -5576,10 +6087,15 @@ def main(only: str | None = None) -> int:
         return quant_phases(greedy)
     if only == "families":
         return families_only(greedy)
+    if only == "swa":
+        print("phase 5o summary:", json.dumps(swa_summary(phase_swa(greedy))))
+        return 0
     # 5k. Qwen3-30B-A3B (61 GB of bf16 weights) in a child process, before
-    # this process builds any model
+    # this process builds any model; then 5o, gpt-oss-20b (42 GB), likewise
     moe = moe_child()
     mark("phase 5k")
+    swa = swa_child()
+    mark("phase 5o")
 
     # 3. f32 references on small inputs: kernel path == plain path
     phase_reference(SparseConfig, Engine, greedy)
@@ -5818,14 +6334,20 @@ def main(only: str | None = None) -> int:
          **fam_rows("qmm pred_up_qt", "qmm pred_down_qt")},
         {**kernel_line("sparse_ffn_block", "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
                        "sparkinfer_tpu/ops/sparse_ffn_pallas.py:124",
-                       l_v1 + moe["v1_launches"] + fl["sparse_ffn_block"],
-                       row_rows["sparse_ffn_block"],
+                       l_v1 + moe["v1_launches"] + fl["sparse_ffn_block"]
+                       + swa["v1_launches"], row_rows["sparse_ffn_block"],
                        "N=1 C=12 G=128 E=4096 bf16 fatrelu, row stores"),
          **fam_rows("v1 falcon40b"),
          "moe": {"launches": moe["v1_launches"],
                  **{k: moe["v1_moe"][0][k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
                                                      "bound_ms", "bound_by")},
-                 "shape": "N=1 C=48 G=128 E=2048 bf16 silu, scale = router weights"}},
+                 "shape": "N=1 C=48 G=128 E=2048 bf16 silu, scale = router weights"},
+         "gpt_oss": {"launches": swa["v1_launches"],
+                     **{k: swa["v1_gpt_oss"][0][k] for k in (
+                         "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms")},
+                     "shape": "N=1 C=180 G=64 E=2880 bf16 swiglu_oai, up and gate biases, "
+                              "scale = router weights"}},
         # v2 runs on the bench path (SPIF_KERNEL_V2); v3, v4 and v5 on no
         # path of the package (only its TPU probes call them)
         *(kernel_line(name, "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
@@ -5866,6 +6388,7 @@ def main(only: str | None = None) -> int:
     print("phase 5l summary:", json.dumps(runtime_summary(runtime)))
     print("phase 5m summary:", json.dumps(quant_summary(w8_row, tier13[1:], kq, emb)))
     print("phase 5n summary:", json.dumps(families_summary(fam)))
+    print("phase 5o summary:", json.dumps(swa_summary(swa)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -5877,7 +6400,9 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--prefill-profile"]:
         sys.exit(prefill_only())
     if sys.argv[1:] == ["--moe-phase"]:
-        sys.exit(moe_phase_only())
+        sys.exit(child_phase("5k", phase_moe))
+    if sys.argv[1:] == ["--swa-phase"]:
+        sys.exit(child_phase("5o", phase_swa))
     sys.exit(main(only={"--tiered": "tiered", "--moe": "moe", "--runtime": "runtime",
-                        "--quant": "quant", "--families": "families"}.get(
+                        "--quant": "quant", "--families": "families", "--swa": "swa"}.get(
                             " ".join(sys.argv[1:]))))

@@ -124,7 +124,7 @@ OPTIONS: list[Opt] = [
        help="YaRN high correction dim"),
     _o("--kv-iswa", scopes=CLI, env="SPARK_ARG_KV_ISWA", action="store_true",
        help="dual SWA/full KV cache for interleaved-SWA models "
-            "(ref src/llama-kv-cache-iswa.cpp; not ported yet)"),
+            "(ref src/llama-kv-cache-iswa.cpp)"),
     _o("--attn-w8a8", scopes=CS, env="SPARK_ARG_ATTN_W8A8",
        action="store_true",
        help="re-quantize attention projections to row-wise W8A8 at load "
@@ -409,14 +409,13 @@ def control_vectors_from_args(args) -> list:
 # flags whose modules the port has not ported yet: dest -> (flag, module)
 _UNPORTED = {
     "hf_repo": ("-hf/--hf-repo", "tools/hf.py"),
-    "kv_iswa": ("--kv-iswa", "the iSWA cache (runtime/kv_cache.py init_cache_iswa)"),
 }
 
 
 def unported_flags(args) -> list[str]:
     """One message for each flag of `args` that needs a module the port
-    has not ported yet: the HF cache, the iSWA cache, and
-    quantized or split-dtype KV caches."""
+    has not ported yet: the HF cache, and quantized or split-dtype KV
+    caches."""
     out = [f"{flag} needs {mod}, which is not ported yet"
            for dest, (flag, mod) in _UNPORTED.items() if getattr(args, dest, None)]
     ctk = getattr(args, "cache_type_k", "bf16")

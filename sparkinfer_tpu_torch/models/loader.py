@@ -1,7 +1,8 @@
 """GGUF -> torch params, the port of sparkinfer_tpu/models/loader.py for the
 llama family (llama, mistral, prosparse_llama, bamboo), its MoE (llama
-with experts, mixtral, qwen3moe) and the paper's other sparse families
-(qwen2, opt, falcon).
+with experts, mixtral, qwen3moe, gpt-oss), the paper's other sparse
+families (qwen2, opt, falcon) and the gemma family (gemma, gemma2,
+gemma3).
 
 The params dict has the JAX loader's keys and orientations, so the two
 packages can be compared key for key: `x @ W` with W shaped (in, out),
@@ -44,6 +45,12 @@ GGUF with a fused QKV loads dequantized whatever keep_quantized says (the
 split needs the dense weight); a parallel-block arch gets no all-ones FFN
 norm, since its FFN reads the attention norms.
 
+The sliding-window archs add gpt-oss's attention sinks (attn_sinks, one
+logit a head, kept in f32 as the JAX loader keeps them) beside its q/k/v
+and output biases, and gemma's sandwich norms (attn_post_norm as
+attn_post_norm_w, ffn_post_norm as ffn_post_norm_w); gemma's head is the
+tied embedding, as for any GGUF without output.weight.
+
 Later slices: MLA, layer segments.
 """
 
@@ -78,6 +85,8 @@ _LAYER_TENSORS = {
     "ffn_pred_up.weight": "pred_up", "ffn_pred_up.bias": "pred_up_b",
     "ffn_pred_down.weight": "pred_down", "ffn_pred_down.bias": "pred_down_b",
     "attn_q_norm.weight": "attn_q_norm_w", "attn_k_norm.weight": "attn_k_norm_w",
+    "attn_sinks.weight": "attn_sinks", "attn_post_norm.weight": "attn_post_norm_w",
+    "ffn_post_norm.weight": "ffn_post_norm_w",
     "ffn_gate_inp.weight": "w_router", "ffn_gate_inp.bias": "w_router_b",
     "ffn_up_exps.weight": "w_up_exps", "ffn_gate_exps.weight": "w_gate_exps",
     "ffn_down_exps.weight": "w_down_exps", "ffn_up_exps.bias": "w_up_exps_b",
@@ -289,8 +298,8 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
                     torch.empty((L,) + qw.shape[::-1], dtype=_host(qw).dtype, device=device),
                     torch.empty((L,) + sc.shape[::-1], dtype=f32, device=device), kind)
             else:
-                want = (f32 if ("norm" in key or key.startswith("b") or key == "router_bias")
-                        else dtype)
+                want = (f32 if ("norm" in key or key.startswith("b")
+                                or key in ("router_bias", "attn_sinks")) else dtype)
                 layers[key] = torch.empty((L,) + arr.shape, dtype=want, device=device)
         dst = layers[key]
         if isinstance(dst, QuantTensor) != _is_quant(arr) or (
@@ -322,8 +331,12 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
             add(i, key, arr)
         add(i, "attn_q_norm_w", _get(r, p + "attn_q_norm.weight"))
         add(i, "attn_k_norm_w", _get(r, p + "attn_k_norm.weight"))
+        add(i, "attn_sinks", _get(r, p + "attn_sinks.weight"))  # gpt-oss: a logit a head
         add(i, "wo", _lin(p + "attn_output.weight", H * D, E))
         add(i, "bo", _get(r, p + "attn_output.bias"))
+        # gemma's sandwich norms, after attention and after the FFN
+        add(i, "attn_post_norm_w", _get(r, p + "attn_post_norm.weight"))
+        add(i, "ffn_post_norm_w", _get(r, p + "ffn_post_norm.weight"))
         fnw = _get(r, p + "ffn_norm.weight")
         if fnw is None and not tr.parallel_blocks:
             fnw = np.ones(E, np.float32)  # a non-parametric norm

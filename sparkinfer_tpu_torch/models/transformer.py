@@ -40,13 +40,29 @@ weights as its scale mask), as the JAX forward dispatches them.
 Attention is plain torch (matmul, mask, softmax), as the JAX CPU path
 computes it; the JAX package's TPU prefill uses JAX's library flash
 attention, which is no kernel of this repository and has no port here.
-MLA, iSWA, layer segments, deepstack, ALiBi, softcaps, post-norm blocks,
-partial rope and the other MoE families' variants (deepseek2 segments,
-gpt-oss, arctic's parallel MoE, qk norms after rope) come later.
+
+Sliding windows (gpt-oss, the gemma family, windowed mistral): a layer of
+cfg.swa_layers masks keys more than sliding_window positions back, and
+gemma3's sliding layers rope at their own base, unscaled
+(rope_freq_base_swa). Over an iSWA cache (`runtime/kv_cache.py`) the
+forward walks the runs of the dual cache: a sliding run writes its ring at
+positions % ring and rebuilds each slot's absolute position from the
+step's newest position, on the device, for the mask. gpt-oss's attention
+sinks join the softmax as one more logit a head that carries no value;
+gemma2 caps the attention logits (before the mask) and the final logits
+with cap * tanh(x / cap); the gemma family scales the embeddings by
+sqrt(n_embd) and wraps attention and FFN in sandwich post-norms
+(attn_post_norm, ffn_post_norm).
+
+MLA, layer segments, deepstack, ALiBi, post-norm-only blocks, partial
+rope, symmetric windows of non-causal encoders and the other MoE
+families' variants (deepseek2 segments, arctic's parallel MoE, qk norms
+after rope) come later.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 from typing import Callable
 
@@ -63,7 +79,7 @@ from ..ops.quant_matmul import (
 )
 from ..ops.quant_matmul import quant_linear as mm
 from ..ops.rope import RopeParams, rope_cos_sin, rotate
-from ..runtime.kv_cache import KVCache, read_layer, write_layer
+from ..runtime.kv_cache import KVCache, read_layer, swa_runs, write_layer
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -71,28 +87,34 @@ NEG_INF = -1e30
 LLAMA_FAMILY = ("llama", "mistral", "prosparse_llama", "bamboo")
 # the paper's other sparse families (SparkInfer's build_sparse_ffn archs)
 SPARSE_FAMILIES = ("qwen2", "opt", "falcon")
-MOE_ARCHS = ("llama", "mixtral", "qwen3moe")  # the archs whose experts the port runs
-EXPERT_ONLY = ("mixtral", "qwen3moe")  # the archs it runs with experts only
+# sliding windows, softcaps, sandwich norms and gemma3's second rope base
+GEMMA_FAMILY = ("gemma", "gemma2", "gemma3")
+MOE_ARCHS = ("llama", "mixtral", "qwen3moe", "gpt-oss")  # the archs whose experts the port runs
+EXPERT_ONLY = ("mixtral", "qwen3moe", "gpt-oss")  # the archs it runs with experts only
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise NotImplementedError for a configuration the port cannot run yet."""
-    archs = LLAMA_FAMILY + SPARSE_FAMILIES + EXPERT_ONLY
+    """Raise NotImplementedError for a configuration the port cannot run yet,
+    naming the feature before the arch."""
+    tr = cfg.traits
+    for cond, what in ((cfg.kv_lora_rank, "MLA (multi-head latent attention)"),
+                       (cfg.n_head_arr or cfg.n_ff_arr, "per-layer head counts or FFN widths"),
+                       (tr.qk_norm_after_rope, "q/k norms after rope"),
+                       (tr.parallel_moe, "parallel MoE blocks"),
+                       (cfg.sliding_window and tr.non_causal,
+                        "the symmetric sliding window of a non-causal encoder"),
+                       (cfg.clamp_kqv > 0.0, "clamped q/k/v (attention.clamp_kqv)")):
+        if cond:
+            raise NotImplementedError(f"{what} is not ported yet (arch {cfg.arch!r})")
+    archs = LLAMA_FAMILY + SPARSE_FAMILIES + GEMMA_FAMILY + EXPERT_ONLY
     if cfg.arch not in archs:
         raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet (the llama family, its MoE and the "
-            f"other sparse families: {', '.join(archs)})")
-    if cfg.clamp_kqv > 0.0:  # a GGUF key any arch may carry
-        raise NotImplementedError("clamped q/k/v (attention.clamp_kqv) is not ported yet")
+            f"arch {cfg.arch!r} is not ported yet (the llama family, its MoE, the "
+            f"other sparse families and the gemma family: {', '.join(archs)})")
     if cfg.n_expert and cfg.arch not in MOE_ARCHS:
         raise NotImplementedError(f"experts of arch {cfg.arch!r} are not ported yet")
     if cfg.arch in EXPERT_ONLY and not (cfg.n_expert and cfg.n_expert_used):
         raise NotImplementedError(f"arch {cfg.arch!r} without experts is not ported")
-    if (cfg.kv_lora_rank or cfg.sliding_window or cfg.n_head_arr or cfg.n_ff_arr
-            or cfg.traits.qk_norm_after_rope or cfg.traits.parallel_moe):
-        raise NotImplementedError(
-            "MLA, sliding windows, per-layer widths, q/k norms after rope and "
-            "parallel MoE blocks are not ported yet")
 
 
 def clamp_max_seq(cfg: ModelConfig, params: dict, max_seq: int) -> int:
@@ -161,27 +183,36 @@ def _chunk_causal_attention(q, k, v, H, Hkv, D, scale):
     return _attend(q, k, v, H, Hkv, D, scale, mask)
 
 
-def _attend(q, k, v, H, Hkv, D, scale, mask):
+def _attend(q, k, v, H, Hkv, D, scale, mask, softcap: float = 0.0, sinks=None):
     """Grouped-query attention: q (B,T,H,D) over k/v (B,S,Hkv,D); mask
     broadcastable to (B,T,S), True where query t may see key s. Scores and
     softmax in f32 (the JAX einsum's preferred_element_type), probabilities
-    back in q's dtype for the value product."""
+    back in q's dtype for the value product. softcap > 0 caps the scores
+    before the mask; sinks (H,) join the softmax after it, one logit a head
+    that carries no value."""
     B, T = q.shape[0], q.shape[1]
     g = H // Hkv
     qg = q.reshape(B, T, Hkv, g, D).permute(0, 2, 3, 1, 4).float()  # (B,Hkv,g,T,D)
     kt = k.permute(0, 2, 3, 1)[:, :, None].float()  # (B,Hkv,1,D,S)
     scores = (qg @ kt) * scale  # (B,Hkv,g,T,S)
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
     if mask.dim() == 2:
         mask = mask[None]
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if sinks is not None:
+        sk = sinks.float().reshape(1, Hkv, g, 1, 1).expand(scores.shape[:-1] + (1,))
+        probs = torch.softmax(torch.cat([scores, sk], dim=-1), dim=-1)[..., :-1].to(q.dtype)
+    else:
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = probs @ v.permute(0, 2, 1, 3)[:, :, None]  # (B,Hkv,g,T,D)
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D)
 
 
 def _qk_norms(lp: dict, q: torch.Tensor, k: torch.Tensor, eps: float):
-    """The q/k RMS norms before rope (qwen3's attn_q_norm/attn_k_norm): per
-    head when the weight is head_dim wide, over the full width otherwise."""
+    """The q/k RMS norms before rope (qwen3's and gemma3's attn_q_norm /
+    attn_k_norm): per head when the weight is head_dim wide, over the full
+    width otherwise."""
     qw, kw = lp["attn_q_norm_w"], lp["attn_k_norm_w"]
     if qw.shape[-1] == q.shape[-1]:
         return rms_norm(q, qw, eps), rms_norm(k, kw, eps)
@@ -189,15 +220,37 @@ def _qk_norms(lp: dict, q: torch.Tensor, k: torch.Tensor, eps: float):
             rms_norm(k.flatten(-2), kw, eps).view(k.shape))
 
 
+def _mask(positions: torch.Tensor, S: int, window: int, ring_width: int) -> torch.Tensor:
+    """(B, T, S) True where query t may see cache slot s. Over a ring of
+    ring_width slots, slot j holds the newest position q_j <= p_max with
+    q_j % ring_width == j, p_max the step's newest position (on the device,
+    so a CUDA graph replays it); a never-written slot rebuilds to q_j < 0.
+    window > 0 hides keys window or more positions back."""
+    s_idx = torch.arange(S, device=positions.device)
+    if ring_width:
+        p_max = positions[:, -1:]  # (B, 1)
+        q_j = (p_max - (p_max - s_idx) % ring_width)[:, None, :]  # (B, 1, S)
+        return ((q_j <= positions[:, :, None]) & (q_j >= 0)
+                & (q_j > positions[:, :, None] - window))
+    mask = s_idx[None, None, :] <= positions[:, :, None]
+    if window:
+        mask = mask & (s_idx[None, None, :] > positions[:, :, None] - window)
+    return mask
+
+
 def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor,
               kc: torch.Tensor, vc: torch.Tensor, rp: RopeParams,
               rope_cs: tuple[torch.Tensor, torch.Tensor],
-              fresh_prefill: bool = False) -> torch.Tensor:
+              fresh_prefill: bool = False, window: int = 0,
+              ring_width: int = 0) -> torch.Tensor:
     """x (B, T, E) already normed; positions (B, T); kc/vc one layer's cache
     (B, S, Hkv, D), written in place; rope_cs the rope tables of positions
-    (ops/rope.py:rope_cos_sin). fresh_prefill: the prompt starts at
+    (ops/rope.py:rope_cos_sin) at this layer's rope params rp. window: the
+    layer's sliding window (0: none); ring_width: the slots of the layer's
+    iSWA ring (0: a full cache). fresh_prefill: the prompt starts at
     position 0, so every key is in this chunk and attention runs over the
-    chunk (T x T) instead of the whole cache (T x S)."""
+    chunk (T x T) instead of the whole cache (T x S), where the model has
+    no window, no softcap and no sinks, as in the JAX forward."""
     B, T, _ = x.shape
     H, Hkv, D = cfg.n_head, cfg.n_head_kv, cfg.head_dim
     xq = w8a8_quantize(x) if isinstance(lp["wq"], W8A8Tensor) else None
@@ -212,17 +265,20 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
         q, k = _qk_norms(lp, q, k, cfg.norm_eps)
     q = rotate(q, *rope_cs, rp)
     k = rotate(k, *rope_cs, rp)
-    write_layer(kc, k, positions)
-    write_layer(vc, v, positions)
+    wpos = positions % ring_width if ring_width else positions
+    write_layer(kc, k, wpos)
+    write_layer(vc, v, wpos)
     scale = cfg.attn_scale if cfg.attn_scale else D ** -0.5
-    if fresh_prefill:
+    softcap, sinks = cfg.traits.attn_logit_softcap, lp.get("attn_sinks")
+    if fresh_prefill and cfg.sliding_window <= 0 and softcap == 0.0 and sinks is None:
         out = _chunk_causal_attention(q, k, v, H, Hkv, D, scale)
     else:
         keys = read_layer(kc, q.dtype)
         vals = read_layer(vc, q.dtype)
-        s_idx = torch.arange(kc.shape[1], device=x.device)
-        mask = s_idx[None, None, :] <= positions[:, :, None]  # (B, T, S)
-        out = _attend(q, keys, vals, H, Hkv, D, scale, mask)
+        # a ring holds a sliding run: the model's window, as in the JAX forward
+        mask = _mask(positions, kc.shape[1], cfg.sliding_window if ring_width else window,
+                     ring_width)
+        out = _attend(q, keys, vals, H, Hkv, D, scale, mask, softcap, sinks)
     out = mm(out.reshape(B, T, H * D), lp["wo"])
     if "bo" in lp:
         out = out + lp["bo"].to(out.dtype)
@@ -270,6 +326,42 @@ def moe_or_dense_ffn(cfg: ModelConfig, moe_mode: str = "dense") -> Callable:
     return ffn
 
 
+def _layer_attention(cfg: ModelConfig, rp: RopeParams):
+    """(window(il), rope(il)): each layer's sliding window (0: none) and
+    rope params, as the JAX forward flags them: the window on every layer
+    when the arch has no pattern and no second rope base, else on the
+    layers of cfg.swa_layers; gemma3's sliding layers at
+    rope_freq_base_swa, unscaled."""
+    rp_swa = None
+    if cfg.rope_freq_base_swa and cfg.rope_freq_base_swa != cfg.rope_freq_base:
+        rp_swa = dataclasses.replace(rp, freq_base=cfg.rope_freq_base_swa,
+                                     freq_scale=1.0, yarn_ext_factor=0.0)
+    flags = None
+    if cfg.sliding_window > 0 and (cfg.traits.swa_pattern > 1 or rp_swa is not None):
+        flags = cfg.swa_layers
+
+    def window(il: int) -> int:
+        return cfg.sliding_window if cfg.sliding_window > 0 and (
+            flags is None or flags[il]) else 0
+
+    def rope(il: int) -> RopeParams:
+        return rp_swa if rp_swa is not None and flags is not None and flags[il] else rp
+
+    return window, rope
+
+
+def _layer_caches(cfg: ModelConfig, cache: KVCache) -> list[tuple]:
+    """(k, v, ring width) of each layer: a full cache's layer, or the layer
+    of its run in an iSWA cache, whose sliding runs are rings."""
+    if not cache.iswa:
+        return [(cache.k[il], cache.v[il], 0) for il in range(cfg.n_layer)]
+    out = []
+    for (s, e, is_swa), kr, vr in zip(swa_runs(cfg), cache.k, cache.v):
+        rw = kr.shape[2] if is_swa else 0
+        out += [(kr[j], vr[j], rw) for j in range(e - s)]
+    return out
+
+
 def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                  fresh_prefill: bool = False,
                  ffn_carry_init: Callable | None = None,
@@ -281,7 +373,10 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
     positions of `tokens`. Without ffn_fn a model with experts runs its MoE
     FFN in `moe_mode` ("dense" or "pallas"). with_hidden=True returns
     (logits, hidden): hidden (B, T, E) the final-normed stream the head
-    reads, in the model's dtype (the pooled input of runtime/embeddings)."""
+    reads, in the model's dtype (the pooled input of runtime/embeddings).
+    The cache may be an iSWA dual cache, except in the carry form: the
+    JAX forward's carry branch scans the cache as one stacked array, which
+    a tuple of runs is not, so it raises ValueError there."""
     check_supported(cfg)
     if stateful_ffn and ffn_carry_init is not None:
         raise ValueError("a stateful FFN takes no cross-layer carry")
@@ -292,10 +387,18 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
     rp = rope_params(cfg)
     eps, tr = cfg.norm_eps, cfg.traits
     kind = tr.norm
+    window_of, rope_of = _layer_attention(cfg, rp)
+    ropes = {rope_of(il) for il in range(cfg.n_layer)}
+    final_cap = tr.final_logit_softcap
 
     def fwd(params: dict, tokens: torch.Tensor, positions: torch.Tensor,
             cache: KVCache, fstate=None) -> torch.Tensor:
+        if ffn_carry_init is not None and cache.iswa:
+            raise ValueError("the cross-layer FFN carry (the pipelined sparse FFN) takes no "
+                             "iSWA cache, as the JAX forward's carry branch takes none")
         x = params["tok_embd"][tokens]
+        if tr.embd_scale_sqrt:  # gemma: sqrt(n_embd) rounded to x's dtype, as JAX's
+            x = x * torch.tensor(cfg.n_embd ** 0.5, dtype=x.dtype).item()
         if tr.pos_embd:  # OPT's learned positions (HF offset 2)
             x = x + params["pos_embd"][positions + tr.pos_embd_offset]
         layers = params["layers"]
@@ -306,15 +409,20 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
         carry = ffn_carry_init(B, T, x.device) if ffn_carry_init else None
         # shared by every layer: per-layer slices and the rope tables
         per_layer = {k: v.unbind(0) for k, v in layers.items()}
-        rope_cs = rope_cos_sin(positions, rp)
-        for il in range(cfg.n_layer):
+        rope_cs = {r: rope_cos_sin(positions, r) for r in ropes}
+        for il, (kc, vc, ring_w) in enumerate(_layer_caches(cfg, cache)):
             lp = {k: v[il] for k, v in per_layer.items()}
             if flat is not None:  # FlatQuantTensors bind the layer late
                 lp.update({k: (v.with_il(il) if isinstance(v, FlatQuantTensor) else v)
                            for k, v in flat.items()}, flat_il=il)
             h = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), kind, eps)
-            attn_out = attention(cfg, lp, h, positions, cache.k[il], cache.v[il],
-                                 rp, rope_cs, fresh_prefill=fresh_prefill)
+            rp_l = rope_of(il)
+            attn_out = attention(cfg, lp, h, positions, kc, vc, rp_l, rope_cs[rp_l],
+                                 fresh_prefill=fresh_prefill, window=window_of(il),
+                                 ring_width=ring_w)
+            if "attn_post_norm_w" in lp:  # gemma's sandwich norm
+                attn_out = _norm(attn_out, lp["attn_post_norm_w"],
+                                 lp.get("attn_post_norm_b"), kind, eps)
             if tr.parallel_blocks:  # falcon: the FFN reads the layer's input
                 h2 = (_norm(x, lp["attn_norm2_w"], lp.get("attn_norm2_b"), kind, eps)
                       if "attn_norm2_w" in lp else h)
@@ -327,11 +435,18 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                 y, carry = ffn(lp, h2, carry, il)
             else:
                 y = ffn(lp, h2)
-            x = (x + attn_out + y) if tr.parallel_blocks else (x + y)
+            if tr.parallel_blocks:
+                x = x + attn_out + y
+            else:
+                if "ffn_post_norm_w" in lp:
+                    y = _norm(y, lp["ffn_post_norm_w"], lp.get("ffn_post_norm_b"), kind, eps)
+                x = x + y
             if "cvec" in lp:  # control vector (llama_adapter_cvec)
                 x = x + lp["cvec"].to(x.dtype)
         x = _norm(x, params["output_norm_w"], params.get("output_norm_b"), kind, eps)
         logits = lm_head(x, params["output"])
+        if final_cap > 0:  # gemma2: cap * tanh(logits / cap)
+            logits = final_cap * torch.tanh(logits / final_cap)
         return (logits, x) if with_hidden else logits
 
     return fwd

@@ -40,7 +40,16 @@ pipelined decode FFN (v6 at N = the prompt's length). `verify` runs K+1
 tokens through the decode forward in one step (a graph of its own, keyed on
 T), the speculative, lookup and lookahead drafters' check.
 
-iSWA and the static `batch` > 1 come later.
+kv_iswa=True gives the engine the iSWA dual cache (`kv_cache.init_cache_iswa`
+with chunk = prefill_chunk, made at the first generate): each run of
+sliding layers keeps a ring of sliding_window + prefill_chunk slots, the
+full layers max_seq; a forward writes at most prefill_chunk tokens into a
+ring, and the decode step's graph rebuilds the ring's positions from its
+static position buffer on the device. As in the JAX package, the context
+shift, self-extend, the state files and the drafters take no iSWA cache
+(ValueError), nor does the pipelined sparse FFN's cross-layer carry.
+
+The static `batch` > 1 comes later.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ from ..device import resolve_device
 from ..models.loader import LoadedModel
 from ..models.transformer import clamp_max_seq, make_forward
 from .graphs import StepGraphs, resolve_capture
-from .kv_cache import KVCache, init_cache
+from .kv_cache import KVCache, init_cache, init_cache_iswa, ring_room
 from .sampling import (
     ChainState,
     SamplerConfig,
@@ -146,7 +155,11 @@ class Engine:
     experts. "pallas" reads `moe_layout`'s row-store views of the expert
     stacks, in the engine's own params: the model's params stay as they
     are (the JAX Engine replaces the stacks in them), so engines of both
-    modes can share one model."""
+    modes can share one model.
+
+    kv_iswa=True: the iSWA dual cache (rings for the sliding layers), where
+    the model has a sliding window; on a model without one it is a full
+    cache of one run, and the stream is the same."""
 
     GRAPHS = 4  # the decode-step graphs kept: the engine's cache and callers'
 
@@ -181,8 +194,12 @@ class Engine:
                                  "a CUDA graph cannot hold: cuda_graph=False")
             cuda_graph = False
         capture = resolve_capture(cuda_graph, self.device)
-        if kv_iswa:
-            raise NotImplementedError("the iSWA cache is not ported yet")
+        if kv_iswa and self_extend is not None and self_extend[0] > 1:
+            raise ValueError("self-extend needs a plain full-attention KV cache, not kv_iswa")
+        if kv_iswa and sparse is not None and sparse.hot_groups == 0 and sparse_pipelined:
+            raise ValueError("the pipelined sparse FFN's cross-layer carry takes no iSWA "
+                             "cache (kv_iswa), as in the JAX package")
+        self.kv_iswa = kv_iswa
         if sparse_prefill not in ("dense", "sparse"):
             raise ValueError(f"sparse_prefill {sparse_prefill!r} (dense or sparse)")
         self.model = model
@@ -327,6 +344,9 @@ class Engine:
         return t, pos
 
     def new_cache(self) -> KVCache:
+        if self.kv_iswa:  # a ring absorbs the longest forward, one prefill chunk
+            return init_cache_iswa(self.cfg, 1, self.max_seq, chunk=self.prefill_chunk,
+                                   dtype=self.kv_dtype, device=self.device)
         return init_cache(self.cfg, 1, self.max_seq, self.kv_dtype, self.device)
 
     def own_cache(self) -> KVCache:
@@ -368,6 +388,9 @@ class Engine:
         self._sync()
         t0 = time.perf_counter()
         CH = self.prefill_chunk
+        room = ring_room(self.cfg, cache, self.max_seq)  # an iSWA ring takes at most its chunk
+        if room is not None:
+            CH = min(CH, room)
         off = 0
         while n - off > CH:  # ubatch-style chunks for long prompts
             toks, pos = self._tokens(prompt_tokens[off:off + CH], off)

@@ -49,6 +49,7 @@ import torch
 
 from ..ops import quant_matmul as qm
 from ..ops import sparse_ffn as sf
+from .kv_cache import cache_key
 
 # every wrapper that counts its kernel launches
 COUNTED = (sf.sparse_ffn_block, sf.sparse_ffn_block_v2, sf.sparse_ffn_block_v3,
@@ -154,7 +155,8 @@ class StepGraph:
 
 class StepGraphs:
     """An owner's StepGraphs, keyed by what a graph bakes in: the KV cache's
-    storage (pointers, shape, dtype), the batch, the tokens a row T and the
+    storage (every buffer's pointer and shape, an iSWA cache's runs too, and
+    its dtype), the batch, the tokens a row T and the
     forward. At most `limit` are kept, the least recently used dropped
     first."""
 
@@ -167,8 +169,7 @@ class StepGraphs:
 
     def get(self, cache, batch: int, forward: str, make_fn: Callable,
             restore: tuple = (), T: int = 1) -> StepGraph:
-        key = (cache.k.data_ptr(), cache.v.data_ptr(), tuple(cache.k.shape),
-               cache.k.dtype, batch, T, forward)
+        key = (cache_key(cache), batch, T, forward)
         step = self._graphs.get(key)
         if step is None:
             step = StepGraph(make_fn(), batch, self.device, capture=self.capture,

@@ -19,12 +19,24 @@ if TYPE_CHECKING:
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (L, B, S, Hkv, D)
-    v: torch.Tensor  # (L, B, S, Hkv, D)
+    k: torch.Tensor  # (L, B, S, Hkv, D), or in iSWA mode a tuple of per-run
+    # buffers (n_run_layers, B, S_run, Hkv, D): a sliding run's S_run is its ring
+    v: torch.Tensor  # as k
+
+    @property
+    def iswa(self) -> bool:
+        return isinstance(self.k, tuple)
 
     @property
     def max_seq(self) -> int:
+        if self.iswa:
+            return max(a.shape[2] for a in self.k)
         return self.k.shape[2]
+
+    def buffers(self) -> tuple[torch.Tensor, ...]:
+        """Every tensor of the cache, k's then v's."""
+        ks, vs = (self.k, self.v) if self.iswa else ((self.k,), (self.v,))
+        return tuple(ks) + tuple(vs)
 
 
 def init_cache(cfg: "ModelConfig", batch: int, max_seq: int,
@@ -34,10 +46,68 @@ def init_cache(cfg: "ModelConfig", batch: int, max_seq: int,
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+def swa_runs(cfg: "ModelConfig") -> list[tuple[int, int, bool]]:
+    """Contiguous (start, end, is_swa) layer runs of cfg.swa_layers."""
+    flags = cfg.swa_layers
+    runs = []
+    s = 0
+    for i in range(1, cfg.n_layer + 1):
+        if i == cfg.n_layer or flags[i] != flags[s]:
+            runs.append((s, i, flags[s]))
+            s = i
+    return runs
+
+
+def init_cache_iswa(cfg: "ModelConfig", batch: int, max_seq: int, chunk: int = 64,
+                    dtype=torch.bfloat16, device=None) -> KVCache:
+    """The iSWA dual cache: each sliding run a ring of
+    min(max_seq, sliding_window + chunk) slots, each full run max_seq.
+    chunk is the longest forward the caller feeds: the keys a chunk writes
+    must not overwrite keys its own earliest query still needs."""
+    ring = min(max_seq, cfg.sliding_window + chunk)
+    ks, vs = [], []
+    for s, e, is_swa in swa_runs(cfg):
+        shape = (e - s, batch, ring if is_swa else max_seq, cfg.n_head_kv, cfg.head_dim)
+        ks.append(torch.zeros(shape, dtype=dtype, device=device))
+        vs.append(torch.zeros(shape, dtype=dtype, device=device))
+    return KVCache(k=tuple(ks), v=tuple(vs))
+
+
+def ring_room(cfg: "ModelConfig", cache: KVCache, max_seq: int) -> int | None:
+    """The most tokens one forward may write into `cache`'s rings (a ring's
+    slots less the window), or None where nothing bounds it (a full cache,
+    or rings as wide as the sequence's max_seq, which never wrap)."""
+    if not cache.iswa:
+        return None
+    rings = [kc.shape[2] for (_, _, is_swa), kc in zip(swa_runs(cfg), cache.k) if is_swa]
+    if not rings or min(rings) >= max_seq:
+        return None
+    return min(rings) - cfg.sliding_window
+
+
+def require_full(cache: KVCache, what: str) -> None:
+    """Raise ValueError where `what` needs a full cache and gets an iSWA one."""
+    if cache.iswa:
+        raise ValueError(f"{what} needs a full KV cache: the iSWA cache (kv_iswa) has no "
+                         "such path, as in the JAX package")
+
+
+def cache_key(cache: KVCache) -> tuple:
+    """What a CUDA graph over `cache` bakes in: its buffers' addresses,
+    shapes and dtype."""
+    bufs = cache.buffers()
+    return (tuple(b.data_ptr() for b in bufs), tuple(tuple(b.shape) for b in bufs),
+            bufs[0].dtype)
+
+
 def slot_view(cache: KVCache, s_i: int) -> KVCache:
-    """The (L, 1, S, Hkv, D) view of slot s_i: a forward over it reads and
-    writes the slot's rows of `cache` in place (the JAX Scheduler gathers a
-    copy and scatters it back, runtime/scheduler.py:843-860)."""
+    """The (L, 1, S, Hkv, D) view of slot s_i (per run in iSWA mode): a
+    forward over it reads and writes the slot's rows of `cache` in place
+    (the JAX Scheduler gathers a copy and scatters it back,
+    runtime/scheduler.py:843-860)."""
+    if cache.iswa:
+        return KVCache(k=tuple(a[:, s_i:s_i + 1] for a in cache.k),
+                       v=tuple(a[:, s_i:s_i + 1] for a in cache.v))
     return KVCache(k=cache.k[:, s_i:s_i + 1], v=cache.v[:, s_i:s_i + 1])
 
 
@@ -64,6 +134,7 @@ def shift_cache(cache: KVCache, rp, keep: int, discard: int, n_past: int) -> KVC
     the causal mask hides until they are written again. Returns `cache`."""
     from ..ops.rope import apply_rope
 
+    require_full(cache, "the context shift")
     src, dst = slice(keep + discard, n_past), slice(keep, n_past - discard)
     seg = cache.k[:, :, src].float()
     pos = torch.full((seg.shape[2],), -discard, dtype=torch.long, device=seg.device)

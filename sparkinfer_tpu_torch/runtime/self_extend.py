@@ -21,6 +21,9 @@ Net effect per firing (main.cpp:992-1004): the oldest un-grouped window
 of ga_w labels is compressed ga_n-to-1 and everything above slides down
 by bd = ga_w - ga_w/ga_n, keeping all rope angles within the model's
 trained context.
+
+An iSWA cache (kv_iswa) has no self-extend path, as in the JAX package:
+`self_extend_step` over one raises ValueError.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from .kv_cache import require_full
 
 
 @dataclass
@@ -101,6 +106,7 @@ def apply_to_cache(cache, rp, delta: np.ndarray):
 def self_extend_step(cache, rp, st: SelfExtendState, n_phys: int):
     """Advance the grouping frontier for n_phys consumed tokens and apply
     any needed re-rotation. Returns the (possibly updated) cache."""
+    require_full(cache, "self-extend")
     delta = advance(st, n_phys)
     if delta is None:
         return cache

@@ -16,6 +16,8 @@ sparse FFN runs the kernel at N = K+1. Acceptance:
 Drafting refuses a target sampler with penalties (`refuse_penalties`):
 acceptance reads the raw logits and verified tokens never enter the
 penalty ring, so the stream would be neither penalized nor plain decoding.
+It refuses an engine with an iSWA cache (kv_iswa) too, as the JAX
+package's drafters have no iSWA path.
 
 No KV rollback is needed: rejected rows are hidden by the causal mask until
 they are written again. A round needs K+1 free rows: generation stops when
@@ -45,7 +47,12 @@ class SpecStats:
 
 def refuse_penalties(target: Engine, what: str):
     """Raise ValueError when the target's sampler applies repetition,
-    presence or frequency penalties, which `what` decoding cannot honour."""
+    presence or frequency penalties, which `what` decoding cannot honour,
+    or when it keeps an iSWA cache (kv_iswa), which the JAX package's
+    drafters take none of."""
+    if target.kv_iswa:
+        raise ValueError(f"{what} decoding needs a full KV cache: the iSWA cache "
+                         "(kv_iswa) has no drafting path, as in the JAX package")
     sc = target.sampler_cfg
     if penalizes(sc):
         raise ValueError(
@@ -72,6 +79,8 @@ class SpeculativeEngine:
     def __init__(self, target: Engine, draft: Engine, n_draft: int = 5):
         assert target.batch == 1 and draft.batch == 1
         refuse_penalties(target, "speculative")
+        if draft.kv_iswa:
+            raise ValueError("speculative decoding needs a full KV cache in the draft engine")
         self.target = target
         self.draft = draft
         self.n_draft = n_draft

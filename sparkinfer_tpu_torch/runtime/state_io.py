@@ -14,7 +14,8 @@ package's four arrays; `s_key` is the threefry key of the generator's seed
 state, which the JAX package ignores. A restore writes into the cache's and
 the sampler state's own tensors, in place: the step graphs captured over
 them read the restored rows. A quantized cache is not ported, and a file
-with int8 rows raises.
+with int8 rows raises; an iSWA cache has no state file, as in the JAX
+package, and raises ValueError.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import zipfile
 import numpy as np
 import torch
 
-from .kv_cache import KVCache
+from .kv_cache import KVCache, require_full
 from .sampling import ChainState, SamplerState
 
 STATE_MAGIC = "sparkinfer-state-v1"
@@ -98,6 +99,7 @@ def save_state(path: str, cfg, cache: KVCache, n_past: int,
                tokens: list[int] | None = None, slot: int = 0,
                mirostat_tau: float = 5.0) -> int:
     """Save one slot's sequence state. Returns bytes written."""
+    require_full(cache, "a state file")
     arrays = {"k": _to_numpy(cache.k[:, slot, :n_past]),
               "v": _to_numpy(cache.v[:, slot, :n_past])}
     if sstate is not None:
@@ -128,6 +130,7 @@ def load_state(path: str, cfg, cache: KVCache, slot: int = 0,
                sstate: ChainState | SamplerState | None = None):
     """Restore into `cache` at `slot` and into `sstate`, in place. Returns
     (cache, n_past, tokens, sstate). Raises on a model mismatch."""
+    require_full(cache, "a state file")
     with zipfile.ZipFile(path) as z:
         meta = json.loads(z.read("meta.json"))
         if meta.get("magic") != STATE_MAGIC:

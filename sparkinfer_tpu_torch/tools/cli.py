@@ -18,9 +18,11 @@ cli scope):
   --cold-mode, --split, --rebalance-every).
 A GGUF without a vocabulary takes the prompt as space-separated token ids
 and prints ids. --attn-w8a8 re-quantizes the attention projections to
-row-wise W8A8 at load. Flags whose modules are not ported yet (-hf,
---kv-iswa, -ctk/-ctv q8 or a split -ctv) and encoder-decoder models fail
-at startup with an error naming the module.
+row-wise W8A8 at load. --kv-iswa gives the Engine the iSWA dual cache
+(rings for the sliding-window layers of gpt-oss and the gemma family).
+Flags whose modules are not ported yet (-hf, -ctk/-ctv q8 or a split -ctv)
+and encoder-decoder models fail at startup with an error naming the
+module.
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ def make_engine(args, model):
         split=args.split,
         rebalance_every=args.rebalance_every,
         self_extend=(args.grp_attn_n, args.grp_attn_w) if args.grp_attn_n > 1 else None,
+        kv_iswa=args.kv_iswa,
         moe_mode=args.moe_mode,
         device=args.device,
     )
@@ -267,6 +270,10 @@ def main(argv=None) -> int:
         print("need -p/--prompt or -f/--prompt-file", file=sys.stderr)
         return 1
 
+    if args.kv_iswa and (args.draft_mode != "none" or args.grp_attn_n > 1):
+        print("--kv-iswa cannot run with --draft-mode or -gan: the drafters and self-extend "
+              "need a full KV cache", file=sys.stderr)
+        return 1
     eng = make_engine(args, model)
     drafter = None
     if args.draft_mode != "none":

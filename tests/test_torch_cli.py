@@ -8,8 +8,9 @@ printed streams must be equal for plain decode,
 max_seq, the penalties and a LoRA adapter; bench mode; the sparse flags'
 plumbing (-vb, --spif-ms, group-size fallback, --cold-mode fetch); W8A8
 attention (--attn-w8a8, dense and sparse, and its refusal beside a LoRA
-adapter of the attention); and the flags whose modules are not ported fail
-at startup naming the module."""
+adapter of the attention); --kv-iswa on a tiny gemma2 printing the stream
+of the full cache; and the flags whose modules are not ported fail at
+startup naming the module."""
 
 import json
 
@@ -34,10 +35,12 @@ def files(tmp_path_factory):
     make_tiny_llama(d / "ids.gguf", arch="prosparse_llama", pred_rank=8, n_ff=96, seed=5)
     make_tiny_llama(d / "vocab.gguf", n_vocab=300, with_vocab=True)
     make_tiny_llama(d / "dense.gguf", seed=2)
+    make_tiny_llama(d / "gemma2.gguf", arch="gemma2", n_layer=4, seed=6,  # window 8
+                    extra_kv={"gemma2.attention.sliding_window": np.uint32(8)})
     from test_torch_lora import write_lora
 
     write_lora(str(d / "lora.gguf"), 2, 64, 96, alpha=32.0)
-    return {k: str(d / f"{k}.gguf") for k in ("ids", "vocab", "dense", "lora")}
+    return {k: str(d / f"{k}.gguf") for k in ("ids", "vocab", "dense", "lora", "gemma2")}
 
 
 @pytest.fixture(autouse=True)
@@ -168,6 +171,19 @@ def test_missing_prompt_and_model(files, capsys):
     (["-ctv", "f32"], "split-dtype"),
 ])
 def test_unported_flags_fail_naming_the_module(files, capsys, flags, module):
+    """Each flag whose module is not ported exits 2 naming it. --kv-iswa is
+    ported now, and its case checks it runs instead: on a tiny gemma2 GGUF
+    (window 8) with -b 4 (rings of 12 slots, wrapped by the 43 positions of
+    the run) it prints the tokens of the run without it."""
+    if flags == ["--kv-iswa"]:
+        argv = ["-m", files["gemma2"], "-p", "5 9 42", "-c", "64", "-b", "4",
+                "--device", "cpu"] + BASE
+        assert main(argv) == 0
+        want = capsys.readouterr().out
+        assert main(argv + flags) == 0
+        got = capsys.readouterr().out
+        assert got == want and len(got.split()) == 40
+        return
     with pytest.raises(SystemExit) as e:
         main(["-m", files["dense"], "-p", "1 2", "--device", "cpu"] + flags)
     assert e.value.code == 2

@@ -24,7 +24,9 @@ a context shift and after a self-extend firing bit-equal to the eager step;
 the verify graph (T = 6) bit-equal to its eager forward, and speculative
 decoding over it lossless; a slot restore capturing nothing new; a LoRA
 re-merge reaching the graphs of the dense and v6 engines and of the v1
-Scheduler.
+Scheduler. The iSWA decode step (rings rebuilt from the static position
+buffer on the device) of a tiny gemma2 and of a tiny gpt-oss through v1,
+across ring wraps, bit-equal to the eager step.
 """
 
 import os
@@ -327,6 +329,57 @@ def test_moe_graph_step_equals_the_eager_step(cuda, moe_gguf, mode):
     for got, want in zip(runs["graph"][1], runs["eager"][1]):
         assert torch.equal(got, want)
     assert graph_eng.graphs.captures == 1
+    v1 = graphs.COUNTED.index(sparse_ffn_block)
+    assert _per_step(eager)[v1] == (model.config.n_layer if mode == "pallas" else 0)
+
+
+def swa_gguf(path, name):
+    """A tiny gemma2 (softcaps, sandwich norms) or gpt-oss (sinks, q/k/v and
+    output biases, 4 experts of width 64 with their biases, the router's
+    bias, softmax over the 2 selected) GGUF, window 8 on alternate layers."""
+    rng = np.random.default_rng(12)
+    if name == "gemma2":
+        post = {f"blk.{i}.{n}_post_norm.weight": 1.0 + 0.1 * rng.standard_normal(64)
+                for i in range(4) for n in ("attn", "ffn")}
+        make_tiny_llama(path, arch="gemma2", n_layer=4, seed=6, extra_tensors=post,
+                        extra_kv={"gemma2.attention.sliding_window": np.uint32(8)})
+        return
+    t = {}
+    for i in range(2):
+        t[f"blk.{i}.attn_sinks.weight"] = rng.standard_normal(4)
+        for nm, n in (("q", 64), ("k", 32), ("v", 32), ("output", 64)):
+            t[f"blk.{i}.attn_{nm}.bias"] = 0.1 * rng.standard_normal(n)
+        for nm in ("up", "gate", "down"):
+            t[f"blk.{i}.ffn_{nm}_exps.bias"] = 0.1 * rng.standard_normal((4, 64))
+        t[f"blk.{i}.ffn_gate_inp.bias"] = 0.1 * rng.standard_normal(4)
+    make_tiny_llama(path, arch="gpt-oss", n_expert=4, n_expert_used=2, n_ff=64, seed=8,
+                    extra_tensors=t,
+                    extra_kv={"gpt-oss.attention.sliding_window": np.uint32(8),
+                              "gpt-oss.expert_gating_func": 3,
+                              "gpt-oss.expert_weights_norm": False})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mode", [("gemma2", "dense"), ("gpt-oss", "pallas")])
+def test_iswa_graph_step_equals_the_eager_step(cuda, tmp_path, name, mode):
+    """Engine(kv_iswa=True) with prefill_chunk 4 (rings of 12 slots), 24
+    decode steps past two ring wraps: the graph's greedy stream and every
+    step's logits bit-equal to the eager step's, one capture, and in
+    "pallas" mode v1 once a layer a step."""
+    swa_gguf(tmp_path / "m.gguf", name)
+    model = load_model(str(tmp_path / "m.gguf"), dtype=torch.float32, device="cuda")
+    kw = dict(max_seq=64, sampler=GREEDY, kv_dtype=torch.float32, device="cuda",
+              kv_iswa=True, moe_mode=mode)
+    graph_eng, eager = Engine(model, **kw), Engine(model, cuda_graph=False, **kw)
+    runs = {}
+    for label, eng in (("eager", eager), ("graph", graph_eng)):
+        eng.prefill_chunk = 4
+        runs[label] = _steps(eng, 24)
+    assert runs["graph"][0] == runs["eager"][0]
+    for got, want in zip(runs["graph"][1], runs["eager"][1]):
+        assert torch.equal(got, want)
+    assert graph_eng.graphs.captures == 1
+    assert [a.shape[2] for a in eager.new_cache().k] == [12, 64, 12, 64][:len(eager.cfg.swa_layers)]
     v1 = graphs.COUNTED.index(sparse_ffn_block)
     assert _per_step(eager)[v1] == (model.config.n_layer if mode == "pallas" else 0)
 

@@ -1006,6 +1006,38 @@ def test_v1_moe_shape_bf16(cuda, moe_stores, N, bias):
               mask_mode="scale", **kw)
 
 
+@pytest.fixture(scope="module")
+def gpt_oss_stores():
+    """gpt-oss-20b's row stores of one layer, bf16: 32 experts of width
+    2880, which 128 does not divide, so 45 groups of G = 64 rows each
+    (R = 1440), E = 2880."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    return [(torch.randn((1440, 64, 2880), generator=gen, device="cuda") * 0.05).bfloat16()
+            for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 4])
+def test_v1_gpt_oss_shape_bf16(cuda, gpt_oss_stores, N):
+    """The fused MoE FFN at gpt-oss-20b's shape: each token's 4 of 32
+    experts as 180 group rows (C = 180, G = 64, E = 2880), the clamped
+    swiglu_oai with the up and gate bias rows (bu_sel, bg_sel) and the
+    router weights as the scale mask, at N = 1 and 4."""
+    gen = torch.Generator(device="cuda").manual_seed(44 + N)
+    k, ng_e, G = 4, 45, 64
+    idx = torch.stack([torch.randperm(32, generator=gen, device="cuda")[:k] for _ in range(N)])
+    rows = (idx[:, :, None] * ng_e + torch.arange(ng_e, device="cuda")).reshape(N, -1).int()
+    w = torch.softmax(torch.randn((N, k), generator=gen, device="cuda"), -1)
+    scale = w[:, :, None, None].expand(N, k, ng_e, G).reshape(N, k * ng_e, G)
+    kw = {name: torch.randn((N, k * ng_e, G), generator=gen, device="cuda") * 0.1
+          for name in ("bu_sel", "bg_sel")}
+    x = torch.randn((N, 2880), generator=gen, device="cuda").bfloat16()
+    _check_fn(sparse_ffn_block, sparse_ffn_block_plain, (x, rows, scale, *gpt_oss_stores),
+              1e-3, act="swiglu_oai", mask_mode="scale", **kw)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,C,E,R,act,with_bu", FAMILY_SHAPES, ids=FAMILY_IDS)
 def test_v1_family_shapes_bf16(cuda, N, C, E, R, act, with_bu):

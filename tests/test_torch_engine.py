@@ -254,8 +254,14 @@ def test_entry_points_default_to_the_card(gguf):
 
 def test_unported_options_raise(gguf, tmp_path):
     model = load_model(gguf, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="iSWA"):
-        Engine(model, device="cpu", kv_iswa=True)
+    # the iSWA cache is ported: as the JAX Engine, it takes a model with no
+    # window (one full run), and the stream is the one without it
+    iswa = Engine(model, max_seq=64, sampler=SamplerConfig(temp=0.0), kv_dtype=torch.float32,
+                  device="cpu", kv_iswa=True)
+    assert iswa.generate(PROMPT, 8) == Engine(
+        model, max_seq=64, sampler=SamplerConfig(temp=0.0), kv_dtype=torch.float32,
+        device="cpu").generate(PROMPT, 8)
+    assert iswa.cache.iswa and len(iswa.cache.k) == 1
     with pytest.raises(AssertionError, match="multiple"):
         Engine(model, device="cpu", self_extend=(4, 6))
     # self-extend and the context shift are ported: a generation past max_seq
