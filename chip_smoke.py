@@ -185,7 +185,8 @@ sees no card or the package is missing. Phases, each of which fails the run:
        tiering (eager, 32 of 128 experts hot, an f32 cold store) within
        1e-4 of dense mode with misses; v1 against its plain version at
        the MoE shapes (N = 1 and 32, C = 48, G = 128, E = 2048, bf16); the
-       full 48-layer bf16 model through Engine(moe_mode="pallas") (v1
+       bf16 model (48 layers, its full depth, with --moe; 12 in the full
+       run, FULL_RUN_MOE_L) through Engine(moe_mode="pallas") (v1
        n_layer times a forward) and Engine(moe_mode="dense") (no counted
        kernel), a 32-token prompt and 64 greedy tokens each, decode as CUDA
        graphs whose first decode logits equal an eager engine's bit for
@@ -270,8 +271,9 @@ sees no card or the package is missing. Phases, each of which fails the run:
        (openai/gpt-oss-20b config.json: L=24, E=2880, 64 heads, 8 KV heads
        of 64, 32 experts of 2880, 4 used, window 128 on alternate layers,
        V=201088, yarn; sinks and attention biases), random bf16 weights
-       from SEED (41.8 GB, one resident copy of the experts), in a child
-       process started after 5k's: an f32 gate at 4 layers (the fused FFN,
+       from SEED (41.8 GB, one resident copy of the experts; 8 layers in
+       the full run, FULL_RUN_SWA_L, 24 with --swa), in a child process
+       started after 5k's: an f32 gate at 4 layers (the fused FFN,
        v1 with the bias rows and swiglu_oai, against dense mode layer by
        layer within 1e-4 of its scale, greedy tokens equal; the iSWA cache
        against the full cache teacher-forced over a 1400-token prompt and
@@ -279,8 +281,8 @@ sees no card or the package is missing. Phases, each of which fails the run:
        streams against the Engine's, as below, parted only within 1e-4 of
        a tie); v1 against its plain
        version at the gpt-oss shape (C = 180, G = 64, E = 2880, N = 1 and
-       32); Engine(moe_mode="pallas") with and without kv_iswa (v1 24
-       times a forward) and Engine(moe_mode="dense"), a 32-token prompt and
+       32); Engine(moe_mode="pallas") with and without kv_iswa (v1 once a
+       layer a forward) and Engine(moe_mode="dense"), a 32-token prompt and
        128 greedy tokens past the window, decode as CUDA graphs whose
        streams and first decode logits equal an eager engine's; the bf16
        iSWA cache against the full cache teacher-forced as in the gate,
@@ -297,13 +299,36 @@ sees no card or the package is missing. Phases, each of which fails the run:
        rings of 1280 slots, a 1400-token prompt, graph against eager
        bit-equal. `python3 chip_smoke.py --swa` runs phases 1, 2 and 5o
        alone and prints no result.
+     5p. deepseek2 (multi-head latent attention over the latent cache,
+       the leading dense layer and the MoE layers as layer segments, two
+       shared experts) at DeepSeek-V2-Lite's width and depth
+       (deepseek-ai/DeepSeek-V2-Lite config.json: L=27, E=2048, 16 heads,
+       a direct q, kv_lora_rank 512, qk_nope 128, qk_rope 64, v_head 128,
+       one dense layer of 10944, 64 experts of 1408, 6 used, softmax, no
+       top-k renormalization, routed scale 1.0, 2 shared experts,
+       V=102400, yarn factor 40), random bf16 weights from SEED (31.4 GB),
+       in a child process started after 5o's: an f32 gate at 4 layers
+       (the fused FFN against dense mode layer by layer within 1e-4 of its
+       scale, greedy tokens equal); v1 against its plain version at the
+       DeepSeek-V2-Lite shape (C = 66, G = 128, E = 2048, N = 1 and 32);
+       Engine(moe_mode="pallas") (v1 26 times a forward) and
+       Engine(moe_mode="dense"), a 32-token prompt and 128 greedy tokens,
+       decode as CUDA graphs whose streams and first decode logits equal
+       an eager engine's, tok/s of each and their ratio; the latent
+       cache's bytes against a per-head cache's and the step's device ms
+       at max_seq 2048 and 32768; the 4-slot Scheduler (dense MoE, a
+       decisive router: a selection-only bias of 30 on 6 experts a layer,
+       4 requests of 32 + 64 tokens) against the Engine's streams (equal,
+       or parted at a near-tie). `python3 chip_smoke.py --mla` runs phases
+       1, 2 and 5p alone and prints no result.
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
 
 The line before the last is {"kernels": [...]} (v1's entry counts its MoE
-launches too, and carries its MoE-shape timing under "moe" and its
-gpt-oss-shape timing under "gpt_oss"; v6's counts
+launches too, and carries its MoE-shape timing under "moe", its
+gpt-oss-shape timing under "gpt_oss" and its DeepSeek-V2-Lite-shape
+timing under "deepseek_v2_lite"; v6's counts
 phase 5l's and 5m(b)'s and carries its N=6 and N=32 timings under
 "shapes"; v6q's and quant_matmul_2d's count 5m(a)'s); the last
 line is {"ok": true, "device": {...}}.
@@ -328,6 +353,13 @@ PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_FLOP_S = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BF16_FLOP_S = 989e12  # H100 SXM, dense bf16 tensor cores
 N_SETS = 64  # cold row sets / distinct stores per kernel timing
+# depths the full run gives its largest earlier cells, so that with phase 5p
+# it keeps to the time the run took before 5p (and a host a third slower
+# stays inside the run's limit); each phase run alone (--moe, --swa,
+# --families) keeps its full depth or the depth that fits
+FULL_RUN_MOE_L = 12  # of Qwen3-30B-A3B's 48 layers (phase 5k)
+FULL_RUN_SWA_L = 8  # of gpt-oss-20b's 24 (phase 5o)
+FULL_RUN_FAMILY_L = 12  # of ReluFalcon-40B's 60, bf16 and Q8_0 (phase 5n(a), (b))
 # v7u rounds the hidden and W_down to bf16: each product within 2^-8, about
 # 2e-3 of the output's scale summed with random signs; a wrong row or mask
 # errs by the scale itself
@@ -1679,7 +1711,7 @@ def phase_v2(model, scfg, C, per_call):
                            list(range(L)), ng, C, SEED + 16, True, per_call)
 
 
-def profile_steps(label, step, steps: int = 8):
+def profile_steps(label, step, steps: int = 8, retakes: int = 0):
     """Device time by kernel over `steps` calls of step() (torch.profiler),
     and the share of the window in which the device was busy. Returns the
     (kernel, ms, launches) rows over all steps and the window's wall ms.
@@ -1689,37 +1721,45 @@ def profile_steps(label, step, steps: int = 8):
     window does: late in the full run the profiler lost kernels at a
     window's edge (1-3 of a 13B step's qmm_decode launches with one window
     of 8 steps, 14 with a window a step, on the H100; 1 with the opening
-    guard alone), which the same window alone did not."""
+    guard alone), which the same window alone did not. A window that lost
+    any of its 16 guard kernels is an incomplete record: with retakes > 0
+    (for a step that may run again, such as a decode step) it is taken
+    again, up to `retakes` times, and the last window is returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(8):
-            torch.cuda._sleep(100_000)
+    for attempt in range(retakes + 1):
         torch.cuda.synchronize()
-        time.sleep(0.05)
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        time.sleep(0.05)
-        for _ in range(8):
-            torch.cuda._sleep(100_000)
-        torch.cuda.synchronize()
-    # device-side events only (kernels, copies), so no time counts twice,
-    # summed by name from the profiler's raw events: its per-op tables
-    # (key_averages) build an object for each of the eager steps' tens of
-    # thousands of host events, which takes far longer than the window
-    device = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            ms, n = device.get(e.name(), (0.0, 0))
-            device[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(0.05)
+            for _ in range(8):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+        # device-side events only (kernels, copies), so no time counts twice,
+        # summed by name from the profiler's raw events: its per-op tables
+        # (key_averages) build an object for each of the eager steps' tens of
+        # thousands of host events, which takes far longer than the window
+        device = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                ms, n = device.get(e.name(), (0.0, 0))
+                device[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+        guards = sum(n for k, (_, n) in device.items() if "spin_kernel" in k)
+        if guards == 16 or attempt == retakes:
+            break
+        print(f"profile: {steps} {label}: {guards} of the 16 guard kernels recorded, "
+              f"the window taken again")
     rows = [(k, ms, n) for k, (ms, n) in device.items() if "spin_kernel" not in k]
-    guards = sum(n for k, (_, n) in device.items() if "spin_kernel" in k)
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     print(f"profile: {steps} {label}, wall {wall_ms / steps:.3f} ms/step, "
@@ -1744,7 +1784,7 @@ def profile_decode(eng, prompt, steps: int = 8):
         state["n"] += 1
 
     kind = "graph" if eng.graphs.capture else "eager"
-    rows, wall_ms = profile_steps(f"decode steps ({kind})", step, steps)
+    rows, wall_ms = profile_steps(f"decode steps ({kind})", step, steps, retakes=2)
     return rows, steps, wall_ms
 
 
@@ -3306,8 +3346,8 @@ def moe_v1_rows(model, path="MoE", Ns=(1, 32)) -> list:
 def moe_engine(label, model, greedy, prompt, n_new, mode, phase="5k", eager_stream=False,
                **engine_kw) -> dict:
     """One Engine(moe_mode=mode, **engine_kw) over the full model: the main
-    path (launch counts 0 just before, read just after: v1 n_layer times a
-    forward in "pallas" mode, prefill included, none in "dense"), the
+    path (launch counts 0 just before, read just after: v1 once an MoE
+    layer a forward in "pallas" mode, prefill included, none in "dense"), the
     decode timings and a profile (v1's share of the device time), the
     replay span, the first decode logits of the graph against an eager
     engine's (bit-equal; with eager_stream its whole greedy stream too),
@@ -3316,8 +3356,8 @@ def moe_engine(label, model, greedy, prompt, n_new, mode, phase="5k", eager_stre
 
     from sparkinfer_tpu_torch.runtime.engine import Engine
 
-    L = model.config.n_layer
-    per_fwd = L if mode == "pallas" else 0
+    cfg = model.config  # v1 once an MoE layer: deepseek2's leading dense layers run none
+    per_fwd = cfg.n_layer - cfg.n_dense_lead if mode == "pallas" else 0
     kw = {"max_seq": 1024, "sampler": greedy, "device": "cuda", "moe_mode": mode,
           **engine_kw}
     eng = Engine(model, **kw)
@@ -3508,11 +3548,12 @@ def moe_tiered_drop(greedy_prompt, n_new: int = 64) -> dict:
     return row
 
 
-def phase_moe(greedy) -> dict:
+def phase_moe(greedy, L: int = 48) -> dict:
     """Phase 5k: the f32 gates, then Qwen3-30B-A3B at full width and depth
-    in bf16 (v1 at the MoE shapes, the pallas and dense Engines, the
-    Scheduler), then expert tiering at 12 layers. Returns its summary, with
-    v1's launches on the main paths."""
+    L (48; the full run's child takes FULL_RUN_MOE_L) in bf16 (v1 at the MoE
+    shapes, the pallas and dense Engines, the Scheduler), then expert
+    tiering at 12 layers. Returns its summary, with v1's launches on the
+    main paths."""
     import gc
 
     import torch
@@ -3524,7 +3565,7 @@ def phase_moe(greedy) -> dict:
     gates = moe_f32_gates(prompt)
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = qwen3moe_config(48)
+    cfg = qwen3moe_config(L)
     t1 = time.perf_counter()
     model = random_moe_model(cfg, torch.bfloat16, SEED)
     torch.cuda.synchronize()
@@ -3565,22 +3606,6 @@ def moe_summary(moe) -> dict:
                 "misses_per_token_first16", "misses_per_token_last16", "peak_gib",
                 "resident_gib", "hot_store_bytes", "cold_store_bytes")},
             "seconds": moe["seconds"]}
-
-
-def moe_child() -> dict:
-    """Phase 5k in a child process, started before this process builds any
-    model (a child does not free what its parent holds): its output is
-    passed through, its summary read from its last line."""
-    proc = subprocess.Popen([sys.executable, __file__, "--moe-phase"], stdout=subprocess.PIPE,
-                            text=True)
-    last = None
-    for line in proc.stdout:
-        print(line, end="", flush=True)
-        if line.startswith("phase 5k summary: "):
-            last = line
-    check(proc.wait(timeout=900) == 0 and last is not None,
-          f"phase 5k: the child process exited with {proc.returncode}")
-    return json.loads(last[len("phase 5k summary: "):])
 
 
 # --- phase 5l: the single-sequence runtime and the CLI ------------------------
@@ -4497,7 +4522,7 @@ def kquant_blocks(t: str, n_elems: int, rng):
     return raw.reshape(-1)
 
 
-KQ_LAYERS = 4  # host decoding at load bounds the depth
+KQ_LAYERS = 2  # host decoding at load bounds the depth
 
 
 def write_kquant_gguf(path, seed: int, L, E, H, F, R, V):
@@ -5373,9 +5398,11 @@ def family_summary(label, sparse, dense, L, peak) -> dict:
             "sparse_dense_eager_tok_s": sparse["eager"]["tok_s"] / dense["eager"]["tok_s"]}
 
 
-def phase_families(greedy, n_new: int = 32) -> dict:
-    """Phase 5n; returns its summary, the main paths' launches and the
-    kernel rows at the new shapes."""
+def phase_families(greedy, n_new: int = 32, layers: int = 60) -> dict:
+    """Phase 5n, ReluFalcon-40B's bf16 and Q8_0 models at most `layers` deep
+    (60, its full depth, or what fits; the full run takes
+    FULL_RUN_FAMILY_L); returns its summary, the main paths' launches and
+    the kernel rows at the new shapes."""
     import torch
 
     from sparkinfer_tpu_torch.models.loader import LoadedModel
@@ -5407,7 +5434,7 @@ def phase_families(greedy, n_new: int = 32) -> dict:
     cfg60 = family_config("falcon40b", 60)
     free, _ = torch.cuda.mem_get_info()
     outside = 2 * 2 * cfg60.n_vocab * cfg60.n_embd  # embeddings and head, bf16
-    L = min(60, int((free - outside - FAMILY_HEADROOM) // bf16_layer_bytes(cfg60)))
+    L = min(layers, int((free - outside - FAMILY_HEADROOM) // bf16_layer_bytes(cfg60)))
     cfg = family_config("falcon40b", L)
     ng = scfg.n_groups(cfg.n_ff)
     fw = FamilyWeights(cfg, torch.bfloat16, "cuda", SEED)
@@ -5451,7 +5478,7 @@ def phase_families(greedy, n_new: int = 32) -> dict:
     torch.cuda.empty_cache()
     mark("phase 5n(b)")
 
-    # (a) ReluFalcon-40B Q8_0: 60 layers if 8 layers' bytes scale to under the limit
+    # (a) ReluFalcon-40B Q8_0: `layers` if 8 layers' bytes scale to under the limit
     cfg8 = family_config("falcon40b", 8)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -5462,7 +5489,7 @@ def phase_families(greedy, n_new: int = 32) -> dict:
     per_layer = (built8 - outside_q8) / 8
     del m8
     torch.cuda.empty_cache()
-    L = min(60, int((FAMILY_Q8_LIMIT - outside_q8 - FAMILY_HEADROOM) // per_layer))
+    L = min(layers, int((FAMILY_Q8_LIMIT - outside_q8 - FAMILY_HEADROOM) // per_layer))
     print(f"phase 5n: ReluFalcon-40B Q8_0 at 8 layers took {built8 / 2**30:.2f} GiB "
           f"({per_layer / 2**30:.3f} a layer): {L} layers fit under "
           f"{FAMILY_Q8_LIMIT / 2**30:.0f} GiB")
@@ -5805,7 +5832,9 @@ def swa_long_context(model, greedy, prompt) -> list:
     return out
 
 
-def swa_scheduler(model, greedy, n_new: int = 128, tie_tol: float = SWA_TIE_TOL) -> dict:
+def swa_scheduler(model, greedy, n_new: int = 128, tie_tol: float = SWA_TIE_TOL,
+                  phase: str = "5o", label: str = "gpt-oss-20b Scheduler, dense MoE, "
+                                                    "window as a mask") -> dict:
     """The 4-slot Scheduler over gpt-oss (a full cache a slot, the window as
     its mask, dense MoE, the tick a CUDA graph; the decisive router), its
     KV cache in the model's dtype: 4 greedy requests of 32-token prompts
@@ -5830,10 +5859,11 @@ def swa_scheduler(model, greedy, n_new: int = 128, tie_tol: float = SWA_TIE_TOL)
     torch.cuda.reset_peak_memory_stats()
     reqs = [sched.submit(Request(prompt_tokens=p, max_new_tokens=n_new)) for p in prompts]
     while sched.step():
-        check(bool(torch.isfinite(sched.last_logits).all()), "5o Scheduler: non-finite logits")
+        check(bool(torch.isfinite(sched.last_logits).all()),
+              f"{phase} Scheduler: non-finite logits")
     launches = {k: w.launches for k, w in wrappers.items()}
-    check(not any(launches.values()), f"5o Scheduler: dense MoE launched {launches}")
-    check(sched.graphs.captures == 1, f"5o Scheduler: {sched.graphs.captures} captures")
+    check(not any(launches.values()), f"{phase} Scheduler: dense MoE launched {launches}")
+    check(sched.graphs.captures == 1, f"{phase} Scheduler: {sched.graphs.captures} captures")
     m = sched.metrics_snapshot()
     peak = torch.cuda.max_memory_allocated() / 2**30
     del sched
@@ -5843,7 +5873,7 @@ def swa_scheduler(model, greedy, n_new: int = 128, tie_tol: float = SWA_TIE_TOL)
     parted, gaps = [], []
     for p, r in zip(prompts, reqs):
         got = r.tokens()
-        check(len(got) == n_new, "5o Scheduler: a short stream")
+        check(len(got) == n_new, f"{phase} Scheduler: a short stream")
         i = gap = want = None
         for j, tok in enumerate(eng.generate(p, n_new, stream=True)):
             if tok != got[j]:  # where they part: how far the Scheduler's token lies below
@@ -5851,19 +5881,19 @@ def swa_scheduler(model, greedy, n_new: int = 128, tie_tol: float = SWA_TIE_TOL)
                 i, want, gap = j, tok, ((row[tok] - row[got[j]]) / row.abs().max()).item()
                 break
         if gap is not None:
-            check(gap <= tie_tol, f"5o Scheduler: stream parts from the Engine's at token "
+            check(gap <= tie_tol, f"{phase} Scheduler: stream parts from the Engine's at token "
                                       f"{i} ({got[i]} vs the Engine's {want}), {gap} of the "
                                       f"logits' scale below its best")
         parted.append(i)
         gaps.append(gap)
     ticks = m["n_decode_steps"]
-    row = {"path": f"gpt-oss-20b Scheduler, dense MoE, window as a mask, {dtype}",
+    row = {"path": f"{label}, {dtype}",
            "slots": 4, "requests": 4, "new_tokens": n_new, "ticks": ticks,
            "decode_tok_s": (m["n_tokens_generated"] - m["n_requests"]) / m["t_decode_s"],
            "ms_per_tick": 1e3 * m["t_decode_s"] / ticks, "prefill_tps": m["prefill_tps"],
            "peak_gib": peak, "streams_equal": sum(i is None for i in parted),
            "parted_at": parted, "parted_gap": gaps}
-    print("phase 5o, Scheduler:", json.dumps(row))
+    print(f"phase {phase}, Scheduler:", json.dumps(row))
     return row
 
 
@@ -5898,12 +5928,13 @@ def swa_gemma3(greedy) -> dict:
     return out
 
 
-def phase_swa(greedy) -> dict:
-    """Phase 5o: the f32 gates, then gpt-oss-20b at full width and depth in
-    bf16 (v1 at its shape, the pallas Engine with and without the iSWA
-    cache and the dense Engine, iSWA against the full cache teacher-forced
-    past a ring wrap, both caches at max_seq 32768, the Scheduler), then
-    the gemma3 cut. Returns its summary, with v1's main-path launches."""
+def phase_swa(greedy, L: int = 24) -> dict:
+    """Phase 5o: the f32 gates, then gpt-oss-20b at full width and depth L
+    (24; the full run's child takes FULL_RUN_SWA_L) in bf16 (v1 at its
+    shape, the pallas Engine with and without the iSWA cache and the dense
+    Engine, iSWA against the full cache teacher-forced past a ring wrap,
+    both caches at max_seq 32768, the Scheduler), then the gemma3 cut.
+    Returns its summary, with v1's main-path launches."""
     import gc
 
     import torch
@@ -5920,7 +5951,7 @@ def phase_swa(greedy) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     mark("phase 5o, f32 gates")
-    cfg = gpt_oss_config(24)
+    cfg = gpt_oss_config(L)
     t1 = time.perf_counter()
     model = random_gpt_oss(cfg, torch.bfloat16, SEED)
     torch.cuda.synchronize()
@@ -5989,20 +6020,269 @@ def swa_summary(swa) -> dict:
             "gemma3": swa["gemma3"], "seconds": swa["seconds"]}
 
 
-def swa_child() -> dict:
-    """Phase 5o in a child process, started after 5k's and before this
-    process builds any model: its output is passed through, its summary
-    read from its last line."""
-    proc = subprocess.Popen([sys.executable, __file__, "--swa-phase"], stdout=subprocess.PIPE,
-                            text=True)
+# --- phase 5p: deepseek2, DeepSeek-V2-Lite at full width and depth -----------
+# deepseek-ai/DeepSeek-V2-Lite config.json: 27 layers, hidden 2048, 16 heads,
+# no q-lora (a direct q projection), kv_lora_rank 512, qk_nope_head_dim 128,
+# qk_rope_head_dim 64, v_head_dim 128, first_k_dense_replace 1 (its dense FFN
+# intermediate_size 10944), 64 routed experts of moe_intermediate_size 1408,
+# 6 a token, softmax scoring, norm_topk_prob false, routed_scaling_factor
+# 1.0, 2 shared experts, vocab 102400, rope theta 10000 with yarn (factor
+# 40, original context 4096), rms eps 1e-6. Random weights from SEED, drawn
+# on the card; the cache is the latent cache (512 + 64 a token a layer).
+
+MLA_GATE_TOL = MOE_TOL  # f32: the fused FFN against dense mode, of the output's scale
+MLA_ROUTE_BIAS = 30.0  # a selection bias on k random experts a layer, for the Scheduler check
+
+
+def deepseek_v2_lite_config(L):
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    # n_head_kv = n_head: the JAX config's quirk under MLA; the latent cache ignores it
+    return ModelConfig(arch="deepseek2", n_layer=L, n_embd=2048, n_head=16, n_head_kv=16,
+                       head_dim=192, rope_dim=64, kv_lora_rank=512, v_head_dim=128,
+                       n_ff=10944, n_ff_exp=1408, n_vocab=102400, n_expert=64,
+                       n_expert_used=6, n_expert_shared=2, expert_weights_scale=1.0,
+                       norm_topk_prob=False, norm_eps=1e-6, rope_freq_base=10000.0,
+                       rope_scale=1.0 / 40, rope_scaling_type="yarn", rope_orig_ctx=4096,
+                       n_dense_lead=1, n_ctx_train=163840)
+
+
+def random_deepseek2(cfg, dtype, seed):
+    """A deepseek2 LoadedModel with the loader's keys, dtypes and layer
+    segments (the leading dense layer, then the MoE layers), drawn on the
+    card: N(0, 0.02) projections, router, experts (one resident copy, (n,
+    X, Fe, E) stacks) and the shared experts (one expert of twice the
+    width), ones for the norms."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f32 = torch.float32
+
+    def normal(shape, std=0.02):
+        return torch.empty(shape, dtype=dtype, device="cuda").normal_(0.0, std, generator=gen)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=f32, device="cuda")
+
+    E, H, Dk, Dr, R = cfg.n_embd, cfg.n_head, cfg.head_dim, cfg.rope_dim, cfg.kv_lora_rank
+    Dn, Dv, X, Fe, V = Dk - Dr, cfg.v_head_dim, cfg.n_expert, cfg.n_ff_exp, cfg.n_vocab
+    Fs = cfg.n_expert_shared * Fe
+
+    def attention(n):
+        return {"attn_norm_w": ones(n, E), "ffn_norm_w": ones(n, E), "kv_a_norm_w": ones(n, R),
+                "wq": normal((n, E, H * Dk)), "wkv_a": normal((n, E, R + Dr)),
+                "wk_b": normal((n, R, H, Dn)), "wv_b": normal((n, R, H, Dv)),
+                "wo": normal((n, H * Dv, E))}
+
+    lead, n_moe = cfg.n_dense_lead, cfg.n_layer - cfg.n_dense_lead
+    dense = {**attention(lead), "w_up": normal((lead, E, cfg.n_ff)),
+             "w_gate": normal((lead, E, cfg.n_ff)), "w_down": normal((lead, cfg.n_ff, E))}
+    moe = {**attention(n_moe), "w_router": normal((n_moe, E, X)),
+           "w_up_shexp": normal((n_moe, E, Fs)), "w_gate_shexp": normal((n_moe, E, Fs)),
+           "w_down_shexp": normal((n_moe, Fs, E))}
+    for name in ("up", "gate", "down"):
+        moe[f"w_{name}_exps"] = normal((n_moe, X, Fe, E))
+    params = {"tok_embd": normal((V, E)), "output_norm_w": ones(E), "output": normal((E, V)),
+              "layers": dense, "layer_segments": [dense, moe]}
+    return LoadedModel(config=cfg, params=params)
+
+
+def decisive_deepseek2(model, seed):
+    """The model with a selection-only router bias (router_bias, deepseek's
+    exp_probs_b) of MLA_ROUTE_BIAS on k random experts of each MoE layer (a
+    new MoE stack dict, every tensor shared): every token takes those k
+    experts, weighted by its own softmax, so a last-bit difference in the
+    stream moves no token to another expert."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    dense, moe = model.params["layer_segments"]
+    n, X = moe["w_router"].shape[0], model.config.n_expert
+    bias = torch.zeros((n, X), dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for il in range(n):
+        pick = torch.randperm(X, generator=gen, device="cuda")[:model.config.n_expert_used]
+        bias[il, pick] = MLA_ROUTE_BIAS
+    segs = [dense, {**moe, "router_bias": bias}]
+    return LoadedModel(config=model.config,
+                       params={**model.params, "layers": segs[0], "layer_segments": segs})
+
+
+def mla_f32_gate(prompt, steps: int = 8) -> dict:
+    """DeepSeek-V2-Lite widths cut to 4 layers (the dense one and 3 MoE), f32:
+    the fused mode (v1) against dense mode layer by layer (the dense
+    forward feeds each MoE layer's FFN input to the fused FFN too, whose
+    output must lie within MLA_GATE_TOL of the dense one's scale at every
+    MoE layer of the prompt and `steps` decode steps), and the two
+    forwards' greedy tokens equal."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import dense_ffn, make_forward
+    from sparkinfer_tpu_torch.ops import sparse_ffn as sf
+    from sparkinfer_tpu_torch.sparse.moe import make_moe_ffn, moe_layout
+
+    t0 = time.perf_counter()
+    cfg = deepseek_v2_lite_config(4)
+    model = random_deepseek2(cfg, torch.float32, SEED + 61)
+    dense, moe = model.params["layer_segments"]
+    segs = [dense, moe_layout(moe, cfg)]  # the row stores as views beside the stacks
+    params = {**model.params, "layers": segs[0], "layer_segments": segs}
+    plain = dense_ffn(cfg)
+    moe_dense, fused = make_moe_ffn(cfg, mode="dense"), make_moe_ffn(cfg, mode="pallas")
+    errs = []
+
+    def gate(lp, x):
+        if "w_router" not in lp:
+            return plain(lp, x)
+        want = moe_dense(lp, x)
+        errs.append(rel_gap(fused(lp, x), want))
+        return want
+
+    def kernel(lp, x):
+        return fused(lp, x) if "w_router" in lp else plain(lp, x)
+
+    n0 = sf.sparse_ffn_block.launches
+    toks = {name: greedy_tokens(make_forward(cfg, ffn_fn=f), params, cfg, prompt, steps)
+            for name, f in (("dense", gate), ("pallas", kernel))}
+    n_fwd = 3 * (steps + 1)
+    check(sf.sparse_ffn_block.launches - n0 == 2 * n_fwd and len(errs) == n_fwd,
+          f"5p gate: {sf.sparse_ffn_block.launches - n0} v1 launches, {len(errs)} layers")
+    worst = max(errs)
+    check(worst <= MLA_GATE_TOL, f"5p gate: a layer's fused FFN is {worst:.3e} of its scale off")
+    check(toks["dense"] == toks["pallas"], f"5p gate: greedy tokens differ {toks}")
+    row = {"layers": 4, "moe_layers": 3, "steps": steps, "layer_outputs": n_fwd,
+           "worst_rel_err": worst, "tol": MLA_GATE_TOL, "tokens": toks["dense"],
+           "seconds": time.perf_counter() - t0}
+    print("phase 5p, f32 gate (DeepSeek-V2-Lite widths, 4 layers):", json.dumps(row))
+    return row
+
+
+def mla_cache_rows(model, greedy, prompt) -> list:
+    """Engine(moe_mode="pallas") at max_seq 2048 and 32768: the latent
+    cache's bytes against those a per-head K/V cache of the same model
+    would take (n_head heads of k (qk_nope + qk_rope) and v (v_head) a
+    layer, in the cache's dtype), and the device ms of a decode step (one
+    replay's span) after 16 greedy tokens; MLA reads every slot of the
+    cache, masked or not, so the step grows with max_seq."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    cfg, out = model.config, []
+    for max_seq in (2048, 32768):
+        eng = Engine(model, max_seq=max_seq, sampler=greedy, device="cuda", moe_mode="pallas")
+        toks = run_generate(eng, prompt, 16)
+        cache = eng.cache
+        check(cache.k.shape[-2:] == (1, cfg.kv_lora_rank + cfg.rope_dim)
+              and cache.v.shape[-1] == 0, f"5p: cache shapes {cache.k.shape} {cache.v.shape}")
+        per_head = (cfg.n_layer * max_seq * cfg.n_head * (cfg.head_dim + cfg.v_head_dim)
+                    * cache.k.element_size())
+        step = eng.graphs.get(cache, 1, "decode", None)
+        row = {"max_seq": max_seq, "kv_bytes": kv_bytes(cache), "per_head_kv_bytes": per_head,
+               "bytes_per_token": kv_bytes(cache) // max_seq, "tok_s": eng.perf.decode_tps,
+               **replay_times(step), "tokens_first8": toks[:8]}
+        print("phase 5p, latent cache:", json.dumps(row))
+        out.append(row)
+        del eng, step, cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mla(greedy) -> dict:
+    """Phase 5p: the f32 gate, then DeepSeek-V2-Lite at full width and depth
+    in bf16: v1 at its shape against the plain version, the pallas and the
+    dense Engines (graph against eager, bit-equal), the latent cache at
+    max_seq 2048 and 32768, and the 4-slot Scheduler. Returns its summary,
+    with v1's main-path launches."""
+    import gc
+
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 5p: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free at its start")
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 60)
+    prompt = torch.randint(102400, (32,), generator=gen).tolist()
+    gate = mla_f32_gate(prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5p, f32 gate")
+    cfg = deepseek_v2_lite_config(27)
+    t1 = time.perf_counter()
+    model = random_deepseek2(cfg, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    segs = model.params["layer_segments"]
+    weights = sum(t.numel() for t in [model.params["tok_embd"], model.params["output"],
+                                      *segs[0].values(), *segs[1].values()])
+    print(f"model: DeepSeek-V2-Lite widths, L={cfg.n_layer} (1 dense + {cfg.n_layer - 1} MoE) "
+          f"E={cfg.n_embd} H={cfg.n_head} R={cfg.kv_lora_rank} Dr={cfg.rope_dim} "
+          f"Dk={cfg.head_dim} Dv={cfg.v_head_dim} X={cfg.n_expert} k={cfg.n_expert_used} "
+          f"Fe={cfg.n_ff_exp} shared={cfg.n_expert_shared} V={cfg.n_vocab}, bf16, {weights} "
+          f"weights built in {time.perf_counter() - t1:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    v1_rows = moe_v1_rows(LoadedModel(config=cfg, params={"layers": segs[1]}),
+                          path="DeepSeek-V2-Lite", Ns=(1, 32))
+    mark("phase 5p, v1 at the DeepSeek-V2-Lite shape")
+    engines = [moe_engine(f"DeepSeek-V2-Lite bf16 {mode}", model, greedy, prompt, 128, mode,
+                          phase="5p", eager_stream=True, max_seq=2048)
+               for mode in ("pallas", "dense")]
+    ratio = engines[0]["tok_s"] / engines[1]["tok_s"]
+    print("phase 5p, fused against dense decode:", json.dumps(
+        {"pallas_tok_s": engines[0]["tok_s"], "dense_tok_s": engines[1]["tok_s"],
+         "ratio": ratio}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5p, engines")
+    cache_rows = mla_cache_rows(model, greedy, prompt)
+    sched = swa_scheduler(decisive_deepseek2(model, SEED + 62), greedy, n_new=64, phase="5p",
+                          label="DeepSeek-V2-Lite Scheduler, dense MoE, latent cache")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5p, DeepSeek-V2-Lite")
+    return {"f32_gate": gate, "v1_deepseek_v2_lite": v1_rows, "engines": engines,
+            "pallas_over_dense": ratio, "latent_cache": cache_rows, "scheduler": sched,
+            "v1_launches": sum(r["launches"] for r in engines), "weights": weights,
+            "seconds": time.perf_counter() - t0}
+
+
+def mla_summary(mla) -> dict:
+    """Phase 5p's numbers in brief, for the end of the full run's output."""
+    keys = ("tok_s", "wall_ms_per_step", "device_ms_per_step", "v1_share_of_device",
+            "replay_span_ms", "prefill_ms", "peak_gib", "launches")
+    return {"f32_gate_worst": mla["f32_gate"]["worst_rel_err"],
+            "v1_deepseek_v2_lite": [{k: r[k] for k in ("N", "ms", "bound_ms", "plain_ms",
+                                                       "x_bound", "max_abs_err")}
+                                    for r in mla["v1_deepseek_v2_lite"]],
+            "engines": [{"path": r["path"], **{k: r[k] for k in keys}} for r in mla["engines"]],
+            "pallas_over_dense": mla["pallas_over_dense"],
+            "latent_cache": [{k: r[k] for k in ("max_seq", "kv_bytes", "per_head_kv_bytes",
+                                                "replay_span_ms", "tok_s")}
+                             for r in mla["latent_cache"]],
+            "scheduler": {k: mla["scheduler"][k] for k in (
+                "decode_tok_s", "ms_per_tick", "peak_gib", "streams_equal", "parted_at")},
+            "weights": mla["weights"], "seconds": mla["seconds"]}
+
+
+def phase_child(tag, flag) -> dict:
+    """Phase `tag` in a child process (`chip_smoke.py flag`), started before
+    this process builds any model: its output is passed through, its
+    summary read from its last line."""
+    proc = subprocess.Popen([sys.executable, __file__, flag], stdout=subprocess.PIPE, text=True)
     last = None
+    prefix = f"phase {tag} summary: "
     for line in proc.stdout:
         print(line, end="", flush=True)
-        if line.startswith("phase 5o summary: "):
+        if line.startswith(prefix):
             last = line
     check(proc.wait(timeout=900) == 0 and last is not None,
-          f"phase 5o: the child process exited with {proc.returncode}")
-    return json.loads(last[len("phase 5o summary: "):])
+          f"phase {tag}: the child process exited with {proc.returncode}")
+    return json.loads(last[len(prefix):])
 
 
 def kernel_line(name, source, replaces, launches, row, shape):
@@ -6012,9 +6292,9 @@ def kernel_line(name, source, replaces, launches, row, shape):
 
 
 def child_phase(tag, phase) -> int:
-    """`chip_smoke.py --moe-phase` (5k) or `--swa-phase` (5o): the phase
-    alone, in the child process the full run starts (the kernels built
-    already); its summary is the last line."""
+    """`chip_smoke.py --moe-phase` (5k), `--swa-phase` (5o) or `--mla-phase`
+    (5p): the phase alone, in the child process the full run starts (the
+    kernels built already); its summary is the last line."""
     import torch
 
     from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
@@ -6090,12 +6370,18 @@ def main(only: str | None = None) -> int:
     if only == "swa":
         print("phase 5o summary:", json.dumps(swa_summary(phase_swa(greedy))))
         return 0
+    if only == "mla":
+        print("phase 5p summary:", json.dumps(mla_summary(phase_mla(greedy))))
+        return 0
     # 5k. Qwen3-30B-A3B (61 GB of bf16 weights) in a child process, before
-    # this process builds any model; then 5o, gpt-oss-20b (42 GB), likewise
-    moe = moe_child()
+    # this process builds any model; then 5o, gpt-oss-20b (42 GB), and 5p,
+    # DeepSeek-V2-Lite (31 GB), likewise
+    moe = phase_child("5k", "--moe-phase")
     mark("phase 5k")
-    swa = swa_child()
+    swa = phase_child("5o", "--swa-phase")
     mark("phase 5o")
+    mla = phase_child("5p", "--mla-phase")
+    mark("phase 5p")
 
     # 3. f32 references on small inputs: kernel path == plain path
     phase_reference(SparseConfig, Engine, greedy)
@@ -6295,7 +6581,7 @@ def main(only: str | None = None) -> int:
     mark("phase 5i, entry point")
     # 5n. the paper's other sparse families: ReluFalcon-40B at full width,
     # OPT-6.7B and Qwen2-7B widths cut to 4 layers
-    fam = phase_families(greedy)
+    fam = phase_families(greedy, layers=FULL_RUN_FAMILY_L)
     mark("phase 5n")
     fl = fam["launches"]
 
@@ -6335,7 +6621,7 @@ def main(only: str | None = None) -> int:
         {**kernel_line("sparse_ffn_block", "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
                        "sparkinfer_tpu/ops/sparse_ffn_pallas.py:124",
                        l_v1 + moe["v1_launches"] + fl["sparse_ffn_block"]
-                       + swa["v1_launches"], row_rows["sparse_ffn_block"],
+                       + swa["v1_launches"] + mla["v1_launches"], row_rows["sparse_ffn_block"],
                        "N=1 C=12 G=128 E=4096 bf16 fatrelu, row stores"),
          **fam_rows("v1 falcon40b"),
          "moe": {"launches": moe["v1_launches"],
@@ -6347,7 +6633,13 @@ def main(only: str | None = None) -> int:
                          "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
                          "library_ms")},
                      "shape": "N=1 C=180 G=64 E=2880 bf16 swiglu_oai, up and gate biases, "
-                              "scale = router weights"}},
+                              "scale = router weights"},
+         "deepseek_v2_lite": {"launches": mla["v1_launches"],
+                              **{k: mla["v1_deepseek_v2_lite"][0][k] for k in (
+                                  "max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms")},
+                              "shape": "N=1 C=66 G=128 E=2048 bf16 silu, scale = routed "
+                                       "weights"}},
         # v2 runs on the bench path (SPIF_KERNEL_V2); v3, v4 and v5 on no
         # path of the package (only its TPU probes call them)
         *(kernel_line(name, "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
@@ -6389,6 +6681,7 @@ def main(only: str | None = None) -> int:
     print("phase 5m summary:", json.dumps(quant_summary(w8_row, tier13[1:], kq, emb)))
     print("phase 5n summary:", json.dumps(families_summary(fam)))
     print("phase 5o summary:", json.dumps(swa_summary(swa)))
+    print("phase 5p summary:", json.dumps(mla_summary(mla)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -6400,9 +6693,11 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--prefill-profile"]:
         sys.exit(prefill_only())
     if sys.argv[1:] == ["--moe-phase"]:
-        sys.exit(child_phase("5k", phase_moe))
+        sys.exit(child_phase("5k", lambda greedy: phase_moe(greedy, FULL_RUN_MOE_L)))
     if sys.argv[1:] == ["--swa-phase"]:
-        sys.exit(child_phase("5o", phase_swa))
+        sys.exit(child_phase("5o", lambda greedy: phase_swa(greedy, FULL_RUN_SWA_L)))
+    if sys.argv[1:] == ["--mla-phase"]:
+        sys.exit(child_phase("5p", phase_mla))
     sys.exit(main(only={"--tiered": "tiered", "--moe": "moe", "--runtime": "runtime",
-                        "--quant": "quant", "--families": "families", "--swa": "swa"}.get(
-                            " ".join(sys.argv[1:]))))
+                        "--quant": "quant", "--families": "families", "--swa": "swa",
+                        "--mla": "mla"}.get(" ".join(sys.argv[1:]))))

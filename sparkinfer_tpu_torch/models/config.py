@@ -3,8 +3,11 @@
 A copy of sparkinfer_tpu/models/config.py (pure Python and numpy), kept in
 the port so that it imports nothing of the JAX package. The registry lists
 every architecture the JAX package reads; the port's loader accepts the
-llama family, its MoE and qwen2, opt and falcon
-(models/transformer.py:check_supported).
+llama family, its MoE (mixtral, qwen3moe, gpt-oss), qwen2, opt and falcon,
+the gemma family and deepseek2 (models/transformer.py:check_supported).
+As in the JAX config, an MLA model (attention.kv_lora_rank > 0) gets
+n_head_kv = n_head whatever its GGUF says; its latent cache
+(runtime/kv_cache.py) does not read n_head_kv.
 
 The analogue of src/llama-arch.{h,cpp} + src/llama-hparams.*:
 a declarative per-arch trait table (norm type, activation, rope mode,

@@ -10,7 +10,10 @@ port keeps the up and gate expert stacks (and grovemoe's chunk experts) as
 (sparse/moe.py); they are transposed here. A JAX W8A8Tensor (after the
 tree map, an object with numpy `q` and `s` and no `kind`) becomes the
 port's W8A8Tensor, recognised by those attributes (the JAX class is never
-imported), its q laid out out-major and its scales kept in f32.
+imported), its q laid out out-major and its scales kept in f32. A model with
+layer segments (deepseek2) keeps them as the JAX loader does, a list of
+stacks under "layer_segments" with "layers" the first of them, and the
+expert stacks are transposed inside each.
 """
 
 from __future__ import annotations
@@ -57,4 +60,10 @@ def params_from_numpy(np_params: dict, device, dtype=None) -> dict:
             v = np.ascontiguousarray(np.swapaxes(v, -1, -2))
         return _tensor(v, device, dtype)
 
-    return {k: one(k, v) for k, v in np_params.items()}
+    segs = np_params.get("layer_segments")
+    out = {k: one(k, v) for k, v in np_params.items()
+           if k != "layer_segments" and not (segs is not None and k == "layers")}
+    if segs is not None:  # "layers" is the first segment, as in JAX
+        out["layer_segments"] = [params_from_numpy(s, device, dtype) for s in segs]
+        out["layers"] = out["layer_segments"][0]
+    return out

@@ -1,8 +1,8 @@
 """GGUF -> torch params, the port of sparkinfer_tpu/models/loader.py for the
 llama family (llama, mistral, prosparse_llama, bamboo), its MoE (llama
 with experts, mixtral, qwen3moe, gpt-oss), the paper's other sparse
-families (qwen2, opt, falcon) and the gemma family (gemma, gemma2,
-gemma3).
+families (qwen2, opt, falcon), the gemma family (gemma, gemma2, gemma3)
+and deepseek2.
 
 The params dict has the JAX loader's keys and orientations, so the two
 packages can be compared key for key: `x @ W` with W shaped (in, out),
@@ -51,7 +51,15 @@ and output biases, and gemma's sandwich norms (attn_post_norm as
 attn_post_norm_w, ffn_post_norm as ffn_post_norm_w); gemma's head is the
 tied embedding, as for any GGUF without output.weight.
 
-Later slices: MLA, layer segments.
+deepseek2 adds the MLA tensors as the JAX loader reads them: wq (V2-Lite's
+direct q) or wq_a, q_a_norm_w and wq_b (the q-lora); wkv_a (the latent and
+the rope key head, E x (R + Dr)); kv_a_norm_w; and attn_kv_b split into
+wk_b (R, H, Dn) and wv_b (R, H, Dv) for the absorbed attention (always
+dequantized: the split needs the dense weight); its wo is H*Dv wide. Layers
+whose tensors differ (its leading dense layers, then its MoE layers) are
+grouped into contiguous runs of the same tensor names, each stacked on its
+own, as the JAX loader's params["layer_segments"]; params["layers"] is the
+first of them, as there.
 """
 
 from __future__ import annotations
@@ -95,6 +103,10 @@ _LAYER_TENSORS = {
     "ffn_gate_chexps.weight": "w_gate_chexps", "ffn_down_chexps.weight": "w_down_chexps",
     "ffn_up_shexp.weight": "w_up_shexp", "ffn_gate_shexp.weight": "w_gate_shexp",
     "ffn_down_shexp.weight": "w_down_shexp", "ffn_gate_inp_shexp.weight": "w_gate_inp_shexp",
+    # deepseek2's multi-head latent attention
+    "attn_q_a.weight": "wq_a", "attn_q_a_norm.weight": "q_a_norm_w", "attn_q_b.weight": "wq_b",
+    "attn_kv_a_mqa.weight": "wkv_a", "attn_kv_a_norm.weight": "kv_a_norm_w",
+    "attn_kv_b.weight": "wk_b",
 }
 
 
@@ -218,6 +230,26 @@ def _add_moe(r: GGUFReader, p: str, E: int, add):
     add("w_gate_inp_shexp", None if gis is None else np.ascontiguousarray(gis.reshape(-1)))
 
 
+def _add_mla(r: GGUFReader, p: str, cfg: ModelConfig, lin, add):
+    """A layer's MLA tensors (models/loader.py:310-333 of the JAX package):
+    the q projection or the q-lora, the latent projection and its norm, and
+    attn_kv_b split into the key and value decompressors wk_b (R, H, Dn) and
+    wv_b (R, H, Dv)."""
+    E, H, Dk, R, Dr = cfg.n_embd, cfg.n_head, cfg.head_dim, cfg.kv_lora_rank, cfg.rope_dim
+    Dn, Dv = Dk - Dr, cfg.v_head_dim or Dk
+    if cfg.q_lora_rank > 0:
+        add("wq_a", lin(p + "attn_q_a.weight", E, cfg.q_lora_rank))
+        add("q_a_norm_w", _get(r, p + "attn_q_a_norm.weight"))
+        add("wq_b", lin(p + "attn_q_b.weight", cfg.q_lora_rank, H * Dk))
+    else:
+        add("wq", lin(p + "attn_q.weight", E, H * Dk))
+    add("wkv_a", lin(p + "attn_kv_a_mqa.weight", E, R + Dr))
+    add("kv_a_norm_w", _get(r, p + "attn_kv_a_norm.weight"))
+    wb = _linear(r, p + "attn_kv_b.weight", R, H * (Dn + Dv)).reshape(R, H, Dn + Dv)
+    add("wk_b", np.ascontiguousarray(wb[:, :, :Dn]))
+    add("wv_b", np.ascontiguousarray(wb[:, :, Dn:]))
+
+
 def load_model(path: str, dtype=torch.bfloat16, device=None,
                keep_quantized: bool = False, attn_w8a8: bool = False) -> LoadedModel:
     """Load a llama-family GGUF into stacked torch tensors on `device`
@@ -241,6 +273,22 @@ def load_model(path: str, dtype=torch.bfloat16, device=None,
 
 
 _ATTN = ("wq", "wk", "wv", "wo")
+
+
+def layer_runs(r: GGUFReader, L: int) -> list[tuple[int, int]]:
+    """Contiguous runs [start, end) of layers with the same tensor names: the
+    JAX loader's layer segments (one run where every layer is alike)."""
+    sigs = [set() for _ in range(L)]
+    for name in r.tensors:
+        if name.startswith("blk."):
+            _, i, rest = name.split(".", 2)
+            sigs[int(i)].add(rest)
+    runs, start = [], 0
+    for i in range(1, L + 1):
+        if i == L or sigs[i] != sigs[start]:
+            runs.append((start, i))
+            start = i
+    return runs
 # a reranker's classification head: GGUF name -> key
 _CLS_TENSORS = {"cls.weight": "cls_w", "cls.bias": "cls_b",
                 "cls.output.weight": "cls_out_w", "cls.output.bias": "cls_out_b"}
@@ -277,41 +325,46 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
             params[key] = _tensor(w, f32, device)
 
     max_rank = cfg.max_pred_rank
-    layers: dict[str, torch.Tensor] = {}
+    runs = layer_runs(r, L)
+    if len(runs) > 1 and cfg.has_predictors:
+        raise NotImplementedError("predictors over layer segments (layers whose tensors "
+                                  "differ) are not ported yet")
+    stacks: list[dict] = [{} for _ in runs]
+    where = {i: (si, i - s) for si, (s, e) in enumerate(runs) for i in range(s, e)}
 
     def add(i: int, key: str, arr):
+        si, j = where[i]  # layer i is layer j of its run's stacks
+        layers, n = stacks[si], runs[si][1] - runs[si][0]
         w8 = attn_w8a8 and key in _ATTN and arr is not None and not _is_quant(arr)
         if arr is None:
             if key in layers:
-                raise NotImplementedError(f"{key} missing in layer {i}: "
-                                          "heterogeneous layers are not ported yet")
+                raise ValueError(f"{key} missing in layer {i}, not in the others of its run")
             return
         if key not in layers:
-            if i > 0:
-                raise NotImplementedError(f"{key} missing before layer {i}: "
-                                          "heterogeneous layers are not ported yet")
+            if j > 0:
+                raise ValueError(f"{key} missing before layer {i} of its run")
             if w8:
-                layers[key] = W8A8Tensor.empty((L,) + arr.shape, device)
+                layers[key] = W8A8Tensor.empty((n,) + arr.shape, device)
             elif _is_quant(arr):
                 _, kind, qw, sc = arr
                 layers[key] = QuantTensor(
-                    torch.empty((L,) + qw.shape[::-1], dtype=_host(qw).dtype, device=device),
-                    torch.empty((L,) + sc.shape[::-1], dtype=f32, device=device), kind)
+                    torch.empty((n,) + qw.shape[::-1], dtype=_host(qw).dtype, device=device),
+                    torch.empty((n,) + sc.shape[::-1], dtype=f32, device=device), kind)
             else:
                 want = (f32 if ("norm" in key or key.startswith("b")
                                 or key in ("router_bias", "attn_sinks")) else dtype)
-                layers[key] = torch.empty((L,) + arr.shape, dtype=want, device=device)
+                layers[key] = torch.empty((n,) + arr.shape, dtype=want, device=device)
         dst = layers[key]
         if isinstance(dst, QuantTensor) != _is_quant(arr) or (
                 _is_quant(arr) and arr[1] != dst.kind):
             raise ValueError(f"{key}: mixed quant kinds across layers")
         if w8:  # quantized on the device from the weight in the model's dtype
-            dst[i] = W8A8Tensor.from_float(_tensor(arr, dtype, device))
+            dst[j] = W8A8Tensor.from_float(_tensor(arr, dtype, device))
         elif _is_quant(arr):  # to the device, then transposed there to IN-major
-            dst.q[i].copy_(_host(arr[2]).to(device).T)
-            dst.s[i].copy_(_host(arr[3]).to(device).T)
+            dst.q[j].copy_(_host(arr[2]).to(device).T)
+            dst.s[j].copy_(_host(arr[3]).to(device).T)
         else:
-            dst[i].copy_(_host(arr))
+            dst[j].copy_(_host(arr))
 
     for i in range(L):
         p = f"blk.{i}."
@@ -320,7 +373,10 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
         add(i, "attn_norm_b", _get(r, p + "attn_norm.bias"))
         add(i, "attn_norm2_w", _get(r, p + "attn_norm_2.weight"))
         add(i, "attn_norm2_b", _get(r, p + "attn_norm_2.bias"))
-        if tr.fused_qkv:
+        if cfg.kv_lora_rank > 0:  # deepseek2's MLA: latent projections replace wk/wv
+            _add_mla(r, p, cfg, _lin, lambda key, arr: add(i, key, arr))
+            qkv = ()  # _add_mla added the q projection
+        elif tr.fused_qkv:
             qkv = split_fused_qkv(_linear(r, p + "attn_qkv.weight", E, (H + 2 * Hkv) * D),
                                   _get(r, p + "attn_qkv.bias"), cfg)
         else:
@@ -332,7 +388,8 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
         add(i, "attn_q_norm_w", _get(r, p + "attn_q_norm.weight"))
         add(i, "attn_k_norm_w", _get(r, p + "attn_k_norm.weight"))
         add(i, "attn_sinks", _get(r, p + "attn_sinks.weight"))  # gpt-oss: a logit a head
-        add(i, "wo", _lin(p + "attn_output.weight", H * D, E))
+        add(i, "wo", _lin(p + "attn_output.weight", H * (cfg.v_head_dim or D)
+                          if cfg.kv_lora_rank > 0 else H * D, E))
         add(i, "bo", _get(r, p + "attn_output.bias"))
         # gemma's sandwich norms, after attention and after the FFN
         add(i, "attn_post_norm_w", _get(r, p + "attn_post_norm.weight"))
@@ -366,7 +423,7 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
             add(i, "pred_up_b", pub if pub is not None else np.zeros(max_rank, np.float32))
             add(i, "pred_down", pd)
             add(i, "pred_down_b", pdb if pdb is not None else np.zeros(F, np.float32))
-        elif "pred_up" in layers:
-            raise NotImplementedError(f"predictor missing in layer {i}")
-    params["layers"] = layers
+    params["layers"] = stacks[0]
+    if len(stacks) > 1:
+        params["layer_segments"] = stacks
     return params

@@ -16,7 +16,8 @@ store built from them (the v1 row stores w_*_rows (L, ng, G, E) and the v6
 flat stores w_*T_flat (L*ng, E, G) and w_down_flat (L*ng, G, E)), so the
 step graphs, which hold those tensors, read the merged weights at their
 next replay. Packed (Q4_0/Q8_0) weights, W8A8 attention (--attn-w8a8),
-Q8_0 stores and tiered hot stores cannot be merged and raise.
+Q8_0 stores and tiered hot stores cannot be merged and raise, as do
+adapters and control vectors over layer segments (deepseek2).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from ..gguf.reader import GGUFReader
 from ..ops.quant_matmul import W8A8Tensor, is_quantized
 from .config import ModelConfig
+from .transformer import one_stack
 
 # gguf tensor base name -> params key
 _TARGETS = {
@@ -102,6 +104,7 @@ def apply_lora(params: dict, cfg: ModelConfig, path: str, scale: float = 1.0) ->
     """Merge a LoRA adapter into (stacked) params: W' = W + s*(B@A)^T for
     the (in, out) weight orientation. Returns a new params dict (the merged
     weights new tensors, the rest shared)."""
+    one_stack(params, "a LoRA adapter")
     ad = load_lora(path)
     if not ad["deltas"]:
         raise ValueError(f"{path}: no LoRA tensors found")
@@ -137,6 +140,7 @@ def apply_control_vector(params: dict, cfg: ModelConfig, vectors: np.ndarray,
                          scale: float = 1.0) -> dict:
     """vectors (L, E): the per-layer residual bias (ref: llama_adapter_cvec),
     stored f32 under layers["cvec"] on the params' device."""
+    one_stack(params, "a control vector")
     dev = params["tok_embd"].device
     layers = dict(params["layers"])
     layers["cvec"] = torch.as_tensor(vectors * scale, dtype=torch.float32).to(dev)
@@ -197,6 +201,8 @@ class LoraMerger:
     dense weight."""
 
     def __init__(self, param_sets: list[dict], cfg: ModelConfig, paths: list[str]):
+        for ps in param_sets:
+            one_stack(ps, "a LoRA adapter")
         self.param_sets = param_sets
         self.adapters = []
         for p in paths:

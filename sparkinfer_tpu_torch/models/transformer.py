@@ -54,10 +54,26 @@ with cap * tanh(x / cap); the gemma family scales the embeddings by
 sqrt(n_embd) and wraps attention and FFN in sandwich post-norms
 (attn_post_norm, ffn_post_norm).
 
-MLA, layer segments, deepstack, ALiBi, post-norm-only blocks, partial
-rope, symmetric windows of non-causal encoders and the other MoE
-families' variants (deepseek2 segments, arctic's parallel MoE, qk norms
-after rope) come later.
+Model-level multipliers, as the JAX forward applies them to every arch:
+cfg.embd_scale on the embeddings (after gemma's sqrt scale, before learned
+positions), cfg.residual_scale on the attention output after its post-norm
+and, in a sequential block, on the FFN output after its post-norm (falcon's
+parallel block scales the attention output only, as JAX does),
+cfg.logit_scale on the f32 logits before the final softcap, each a scalar
+rounded to the tensor's dtype; the layers flagged in cfg.nope_layers skip
+rope on q and k (a Python branch a layer, fixed in a CUDA graph).
+
+deepseek2 (DeepSeek-V2, V2-Lite, V3): multi-head latent attention in the
+absorbed form of the JAX package (`attention_mla`: q direct or through the
+q-lora, the key decompressor folded into q, scores and context in the
+latent space) over the latent cache of `runtime/kv_cache.py` (one slot of
+kv_lora_rank + rope_dim a token, a zero-width v), and the JAX loader's
+layer segments: params["layer_segments"], the leading dense layers and the
+MoE layers as stacks of their own, walked in order (`layer_params`).
+
+Deepstack, ALiBi, post-norm-only blocks, partial rope, symmetric windows of
+non-causal encoders, the other MLA archs (minicpm3, plm) and the other MoE
+families' variants (arctic's parallel MoE, qk norms after rope) come later.
 """
 
 from __future__ import annotations
@@ -89,15 +105,18 @@ LLAMA_FAMILY = ("llama", "mistral", "prosparse_llama", "bamboo")
 SPARSE_FAMILIES = ("qwen2", "opt", "falcon")
 # sliding windows, softcaps, sandwich norms and gemma3's second rope base
 GEMMA_FAMILY = ("gemma", "gemma2", "gemma3")
-MOE_ARCHS = ("llama", "mixtral", "qwen3moe", "gpt-oss")  # the archs whose experts the port runs
+# the archs whose experts the port runs
+MOE_ARCHS = ("llama", "mixtral", "qwen3moe", "gpt-oss", "deepseek2")
 EXPERT_ONLY = ("mixtral", "qwen3moe", "gpt-oss")  # the archs it runs with experts only
+MLA_ARCHS = ("deepseek2",)  # multi-head latent attention over the latent cache
 
 
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError for a configuration the port cannot run yet,
     naming the feature before the arch."""
     tr = cfg.traits
-    for cond, what in ((cfg.kv_lora_rank, "MLA (multi-head latent attention)"),
+    for cond, what in ((cfg.kv_lora_rank and cfg.arch not in MLA_ARCHS,
+                        "MLA (multi-head latent attention) outside deepseek2"),
                        (cfg.n_head_arr or cfg.n_ff_arr, "per-layer head counts or FFN widths"),
                        (tr.qk_norm_after_rope, "q/k norms after rope"),
                        (tr.parallel_moe, "parallel MoE blocks"),
@@ -106,11 +125,11 @@ def check_supported(cfg: ModelConfig):
                        (cfg.clamp_kqv > 0.0, "clamped q/k/v (attention.clamp_kqv)")):
         if cond:
             raise NotImplementedError(f"{what} is not ported yet (arch {cfg.arch!r})")
-    archs = LLAMA_FAMILY + SPARSE_FAMILIES + GEMMA_FAMILY + EXPERT_ONLY
+    archs = LLAMA_FAMILY + SPARSE_FAMILIES + GEMMA_FAMILY + EXPERT_ONLY + MLA_ARCHS
     if cfg.arch not in archs:
         raise NotImplementedError(
             f"arch {cfg.arch!r} is not ported yet (the llama family, its MoE, the "
-            f"other sparse families and the gemma family: {', '.join(archs)})")
+            f"other sparse families, the gemma family and deepseek2: {', '.join(archs)})")
     if cfg.n_expert and cfg.arch not in MOE_ARCHS:
         raise NotImplementedError(f"experts of arch {cfg.arch!r} are not ported yet")
     if cfg.arch in EXPERT_ONLY and not (cfg.n_expert and cfg.n_expert_used):
@@ -129,6 +148,11 @@ def clamp_max_seq(cfg: ModelConfig, params: dict, max_seq: int) -> int:
         return max_seq
     print(f"max_seq {max_seq} cut to the model's {limit} learned positions", file=sys.stderr)
     return limit
+
+
+def _scalar(value: float, dtype) -> float:
+    """value rounded to dtype, as JAX's jnp.asarray(value, x.dtype)."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 def _norm(x: torch.Tensor, w: torch.Tensor, b, kind: str, eps: float) -> torch.Tensor:
@@ -242,7 +266,7 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
               kc: torch.Tensor, vc: torch.Tensor, rp: RopeParams,
               rope_cs: tuple[torch.Tensor, torch.Tensor],
               fresh_prefill: bool = False, window: int = 0,
-              ring_width: int = 0) -> torch.Tensor:
+              ring_width: int = 0, rope: bool = True) -> torch.Tensor:
     """x (B, T, E) already normed; positions (B, T); kc/vc one layer's cache
     (B, S, Hkv, D), written in place; rope_cs the rope tables of positions
     (ops/rope.py:rope_cos_sin) at this layer's rope params rp. window: the
@@ -250,7 +274,8 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
     iSWA ring (0: a full cache). fresh_prefill: the prompt starts at
     position 0, so every key is in this chunk and attention runs over the
     chunk (T x T) instead of the whole cache (T x S), where the model has
-    no window, no softcap and no sinks, as in the JAX forward."""
+    no window, no softcap and no sinks, as in the JAX forward. rope=False:
+    a NoPE layer (cfg.nope_layers), whose q and k skip rope."""
     B, T, _ = x.shape
     H, Hkv, D = cfg.n_head, cfg.n_head_kv, cfg.head_dim
     xq = w8a8_quantize(x) if isinstance(lp["wq"], W8A8Tensor) else None
@@ -263,8 +288,9 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
         v = v + lp["bv"].to(v.dtype).reshape(Hkv, D)
     if "attn_q_norm_w" in lp:
         q, k = _qk_norms(lp, q, k, cfg.norm_eps)
-    q = rotate(q, *rope_cs, rp)
-    k = rotate(k, *rope_cs, rp)
+    if rope:
+        q = rotate(q, *rope_cs, rp)
+        k = rotate(k, *rope_cs, rp)
     wpos = positions % ring_width if ring_width else positions
     write_layer(kc, k, wpos)
     write_layer(vc, v, wpos)
@@ -283,6 +309,42 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
     if "bo" in lp:
         out = out + lp["bo"].to(out.dtype)
     return out
+
+
+def attention_mla(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor,
+                  kc: torch.Tensor, rp: RopeParams,
+                  rope_cs: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Multi-head latent attention (deepseek2), the absorbed form of the JAX
+    package's attention_mla. x (B, T, E) already normed; kc one layer's
+    latent cache (B, S, 1, R + Dr), written in place at positions: each
+    token's normed latent c_kv (R) and its one roped key head k_pe (Dr).
+    Associated as JAX does: q_lat = q_nope . wk_b, scores = q_lat . c +
+    q_pe . k_pe (f32) scaled by Dk^-0.5, ctx = probs . c, out = ctx . wv_b,
+    so no per-head key or value is ever built. Always over the whole cache,
+    as in the JAX package (no chunk path)."""
+    B, T, _ = x.shape
+    eps, H, Dk, Dr, R = cfg.norm_eps, cfg.n_head, cfg.head_dim, cfg.rope_dim, cfg.kv_lora_rank
+    Dn, Dv = Dk - Dr, cfg.v_head_dim or Dk
+    if "wq_a" in lp:  # the q-lora (V2, V3)
+        q = mm(rms_norm(mm(x, lp["wq_a"]), lp["q_a_norm_w"], eps), lp["wq_b"])
+    else:  # V2-Lite: a direct q projection
+        q = mm(x, lp["wq"])
+    q = q.reshape(B, T, H, Dk)
+    q_nope, q_pe = q[..., :Dn], rotate(q[..., Dn:], *rope_cs, rp)
+    q_lat = torch.einsum("bthd,rhd->bthr", q_nope, lp["wk_b"].to(q.dtype))
+    kv_a = mm(x, lp["wkv_a"])  # (B, T, R + Dr)
+    c_kv = rms_norm(kv_a[..., :R], lp["kv_a_norm_w"], eps)
+    k_pe = rotate(kv_a[..., None, R:], *rope_cs, rp)[:, :, 0]
+    write_layer(kc, torch.cat([c_kv, k_pe], -1)[:, :, None], positions)
+    lat = read_layer(kc, q.dtype)[:, :, 0]  # (B, S, R + Dr)
+    c_all, pe_all = lat[..., :R], lat[..., R:]
+    scores = (torch.einsum("bthr,bsr->bhts", q_lat.float(), c_all.float())
+              + torch.einsum("bthd,bsd->bhts", q_pe.float(), pe_all.float())) * Dk ** -0.5
+    mask = _mask(positions, kc.shape[1], 0, 0)  # (B, T, S)
+    probs = torch.softmax(torch.where(mask[:, None], scores, NEG_INF), dim=-1).to(q.dtype)
+    ctx = torch.einsum("bhts,bsr->bthr", probs, c_all)  # the latent context
+    out = torch.einsum("bthr,rhd->bthd", ctx, lp["wv_b"].to(ctx.dtype))
+    return mm(out.reshape(B, T, H * Dv), lp["wo"])
 
 
 def lm_head(x: torch.Tensor, w) -> torch.Tensor:
@@ -350,6 +412,26 @@ def _layer_attention(cfg: ModelConfig, rp: RopeParams):
     return window, rope
 
 
+def layer_params(params: dict) -> list[dict]:
+    """Each layer's params: the slices of params["layers"], or of each stack
+    of params["layer_segments"] in order where the layers differ (deepseek2's
+    leading dense layers, then its MoE layers), as the JAX forward scans
+    them."""
+    out = []
+    for seg in params.get("layer_segments") or (params["layers"],):
+        parts = {k: v.unbind(0) for k, v in seg.items()}
+        out += [dict(zip(parts, vals)) for vals in zip(*parts.values())]
+    return out
+
+
+def one_stack(params: dict, what: str) -> None:
+    """Raise NotImplementedError where `what` rewrites params["layers"] and
+    the model keeps its layers in segments of different tensors."""
+    if params.get("layer_segments"):
+        raise NotImplementedError(f"{what} over layer segments (deepseek2's leading dense "
+                                  "layers) is not ported yet")
+
+
 def _layer_caches(cfg: ModelConfig, cache: KVCache) -> list[tuple]:
     """(k, v, ring width) of each layer: a full cache's layer, or the layer
     of its run in an iSWA cache, whose sliding runs are rings."""
@@ -390,6 +472,8 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
     window_of, rope_of = _layer_attention(cfg, rp)
     ropes = {rope_of(il) for il in range(cfg.n_layer)}
     final_cap = tr.final_logit_softcap
+    mla = cfg.kv_lora_rank > 0
+    nope = [bool(f) for f in cfg.nope_layers] if any(cfg.nope_layers) else [False] * cfg.n_layer
 
     def fwd(params: dict, tokens: torch.Tensor, positions: torch.Tensor,
             cache: KVCache, fstate=None) -> torch.Tensor:
@@ -398,31 +482,36 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                              "iSWA cache, as the JAX forward's carry branch takes none")
         x = params["tok_embd"][tokens]
         if tr.embd_scale_sqrt:  # gemma: sqrt(n_embd) rounded to x's dtype, as JAX's
-            x = x * torch.tensor(cfg.n_embd ** 0.5, dtype=x.dtype).item()
+            x = x * _scalar(cfg.n_embd ** 0.5, x.dtype)
+        if cfg.embd_scale != 1.0:  # granite/minicpm's embedding multiplier
+            x = x * _scalar(cfg.embd_scale, x.dtype)
         if tr.pos_embd:  # OPT's learned positions (HF offset 2)
             x = x + params["pos_embd"][positions + tr.pos_embd_offset]
-        layers = params["layers"]
         # loop-invariant flat (layer, group) sparse stores and predictor
         # stacks, addressed by the sparse FFN at row il * n_groups + group
         flat = params.get("sparse_flat")
         B, T = tokens.shape
         carry = ffn_carry_init(B, T, x.device) if ffn_carry_init else None
-        # shared by every layer: per-layer slices and the rope tables
-        per_layer = {k: v.unbind(0) for k, v in layers.items()}
+        # shared by every layer: the rope tables
         rope_cs = {r: rope_cos_sin(positions, r) for r in ropes}
-        for il, (kc, vc, ring_w) in enumerate(_layer_caches(cfg, cache)):
-            lp = {k: v[il] for k, v in per_layer.items()}
+        for il, (lp, (kc, vc, ring_w)) in enumerate(zip(layer_params(params),
+                                                         _layer_caches(cfg, cache))):
             if flat is not None:  # FlatQuantTensors bind the layer late
                 lp.update({k: (v.with_il(il) if isinstance(v, FlatQuantTensor) else v)
                            for k, v in flat.items()}, flat_il=il)
             h = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), kind, eps)
             rp_l = rope_of(il)
-            attn_out = attention(cfg, lp, h, positions, kc, vc, rp_l, rope_cs[rp_l],
-                                 fresh_prefill=fresh_prefill, window=window_of(il),
-                                 ring_width=ring_w)
+            if mla:
+                attn_out = attention_mla(cfg, lp, h, positions, kc, rp_l, rope_cs[rp_l])
+            else:
+                attn_out = attention(cfg, lp, h, positions, kc, vc, rp_l, rope_cs[rp_l],
+                                     fresh_prefill=fresh_prefill, window=window_of(il),
+                                     ring_width=ring_w, rope=not nope[il])
             if "attn_post_norm_w" in lp:  # gemma's sandwich norm
                 attn_out = _norm(attn_out, lp["attn_post_norm_w"],
                                  lp.get("attn_post_norm_b"), kind, eps)
+            if cfg.residual_scale != 1.0:  # granite's residual multiplier
+                attn_out = attn_out * _scalar(cfg.residual_scale, attn_out.dtype)
             if tr.parallel_blocks:  # falcon: the FFN reads the layer's input
                 h2 = (_norm(x, lp["attn_norm2_w"], lp.get("attn_norm2_b"), kind, eps)
                       if "attn_norm2_w" in lp else h)
@@ -435,16 +524,20 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                 y, carry = ffn(lp, h2, carry, il)
             else:
                 y = ffn(lp, h2)
-            if tr.parallel_blocks:
+            if tr.parallel_blocks:  # JAX scales the attention output only here
                 x = x + attn_out + y
             else:
                 if "ffn_post_norm_w" in lp:
                     y = _norm(y, lp["ffn_post_norm_w"], lp.get("ffn_post_norm_b"), kind, eps)
+                if cfg.residual_scale != 1.0:
+                    y = y * _scalar(cfg.residual_scale, y.dtype)
                 x = x + y
             if "cvec" in lp:  # control vector (llama_adapter_cvec)
                 x = x + lp["cvec"].to(x.dtype)
         x = _norm(x, params["output_norm_w"], params.get("output_norm_b"), kind, eps)
         logits = lm_head(x, params["output"])
+        if cfg.logit_scale != 1.0:  # cohere/granite's logit multiplier, on the f32 logits
+            logits = logits * cfg.logit_scale
         if final_cap > 0:  # gemma2: cap * tanh(logits / cap)
             logits = final_cap * torch.tanh(logits / final_cap)
         return (logits, x) if with_hidden else logits

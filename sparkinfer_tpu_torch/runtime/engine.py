@@ -19,12 +19,15 @@ CUDA graph; host mode, whose every layer calls the host library, runs it
 eagerly (the JAX Engine turns its fused decode off for tiering). A split file
 (`split`) reorders the neurons hot-first before the stores are built.
 
-A model with experts (llama-MoE, qwen3moe) decodes through its MoE FFN
-(`sparse/moe.py`) in `moe_mode` "dense" (plain torch over the gathered
-expert stacks, the default, as the JAX Engine's) or "pallas" (the v1 row
-kernel over views of the same stacks, `moe_layout`); routing, its top-k and
-the expansion of expert ids to row groups run on the device, inside the
-step's graph.
+A model with experts (llama-MoE, qwen3moe, gpt-oss, deepseek2) decodes
+through its MoE FFN (`sparse/moe.py`) in `moe_mode` "dense" (plain torch
+over the gathered expert stacks, the default, as the JAX Engine's) or
+"pallas" (the v1 row kernel over views of the same stacks, `moe_params`:
+the rows of every stack with experts, each of deepseek2's MoE segments as
+the JAX Engine lays them out); routing, its top-k and the expansion of
+expert ids to row groups run on the device, inside the step's graph.
+deepseek2's leading dense layers run the dense FFN in either mode, and
+its cache is the latent cache (`kv_cache.init_cache`).
 
 Sampling runs the static chain of the JAX Engine (`sampling.chain_sample`:
 penalties, top-k, typical, top-p, min-p, xtc, temperature, or mirostat v2)
@@ -209,6 +212,9 @@ class Engine:
                 self.device.index is not None and where.index != self.device.index):
             raise ValueError(f"model params lie on {where}, the engine runs on "
                              f"{self.device}: load_model(..., device=...) to match")
+        if self.cfg.kv_lora_rank > 0 and self_extend is not None and self_extend[0] > 1:
+            raise ValueError("self-extend rotates whole key heads: the MLA (multi-head latent "
+                             "attention) latent cache has no such path")
         self.max_seq = clamp_max_seq(self.cfg, model.params, max_seq)
         self.sampler_cfg = sc = sampler or SamplerConfig()
         if sc.mirostat not in (0, 2):
@@ -266,13 +272,10 @@ class Engine:
                         self.cfg, sparse, mode=sparse_decode_mode))
         else:
             if moe_mode == "pallas" and self.cfg.n_expert > 0:
-                from ..sparse.moe import moe_layout
+                from ..sparse.moe import moe_params
 
                 # the row stores are views: the experts stay resident once
-                layers = moe_layout(model.params["layers"], self.cfg)
-                for k in ("w_up_exps", "w_gate_exps", "w_down_exps"):
-                    layers.pop(k, None)
-                self.params = {**model.params, "layers": layers}
+                self.params = moe_params(model.params, self.cfg)
             self.fwd = make_forward(self.cfg, moe_mode=moe_mode)
             self.fwd_prefill = make_forward(self.cfg, fresh_prefill=True, moe_mode=moe_mode)
             self.fwd_decode = self.fwd

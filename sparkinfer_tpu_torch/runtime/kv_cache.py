@@ -5,7 +5,15 @@ position p lives at cache.k[:, b, p]. The JAX cache is functional (every
 write returns a new array); here writes go into the tensors in place, so
 the forward needs no copy of the cache, and a context shift (`shift_cache`)
 moves rows inside the same tensors, so a CUDA graph captured over the cache
-reads the shifted rows. The int8 and iSWA caches come later.
+reads the shifted rows. The int8 cache comes later.
+
+An MLA model (deepseek2, cfg.kv_lora_rank > 0) gets the JAX package's
+latent cache: k (L, B, S, 1, R + Dr), each token's normed latent c_kv and
+its one roped key head k_pe, and a zero-width v (L, B, S, 1, 0), since the
+values decompress from the same latent. Its context shift rotates only the
+k_pe tail (the JAX shift rotates the first rope_dim lanes of the slot, which
+are lanes of c_kv, and leaves k_pe as it was), by a pure rotation; it has
+no iSWA cache.
 """
 
 from __future__ import annotations
@@ -42,6 +50,10 @@ class KVCache(NamedTuple):
 def init_cache(cfg: "ModelConfig", batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> KVCache:
     shape = (cfg.n_layer, batch, max_seq, cfg.n_head_kv, cfg.head_dim)
+    if cfg.kv_lora_rank > 0:  # MLA: one latent slot a token, a zero-width v
+        shape = (cfg.n_layer, batch, max_seq, 1, cfg.kv_lora_rank + cfg.rope_dim)
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape[:-1] + (0,), dtype=dtype, device=device))
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -64,6 +76,9 @@ def init_cache_iswa(cfg: "ModelConfig", batch: int, max_seq: int, chunk: int = 6
     min(max_seq, sliding_window + chunk) slots, each full run max_seq.
     chunk is the longest forward the caller feeds: the keys a chunk writes
     must not overwrite keys its own earliest query still needs."""
+    if cfg.kv_lora_rank > 0:
+        raise ValueError("the iSWA cache takes no MLA (multi-head latent attention) model: "
+                         "the latent cache is a full cache, as in the JAX package")
     ring = min(max_seq, cfg.sliding_window + chunk)
     ks, vs = [], []
     for s, e, is_swa in swa_runs(cfg):
@@ -90,6 +105,15 @@ def require_full(cache: KVCache, what: str) -> None:
     if cache.iswa:
         raise ValueError(f"{what} needs a full KV cache: the iSWA cache (kv_iswa) has no "
                          "such path, as in the JAX package")
+
+
+def require_per_head(cache: KVCache, what: str) -> None:
+    """Raise ValueError where `what` rotates whole key heads and gets the MLA
+    latent cache (a zero-width v), whose slots are no such heads."""
+    require_full(cache, what)
+    if cache.v.shape[-1] == 0:
+        raise ValueError(f"{what} rotates whole key heads: the MLA (multi-head latent "
+                         "attention) latent cache has no such path")
 
 
 def cache_key(cache: KVCache) -> tuple:
@@ -131,13 +155,23 @@ def shift_cache(cache: KVCache, rp, keep: int, discard: int, n_past: int) -> KVC
     [keep+discard, n_past) down by `discard`, re-rotating K by -discard
     positions (RoPE is additive in the angle, so a constant rotation
     relabels the rows). Rows [n_past-discard, n_past) keep stale values that
-    the causal mask hides until they are written again. Returns `cache`."""
-    from ..ops.rope import apply_rope
+    the causal mask hides until they are written again. Over an MLA latent
+    cache (a zero-width v) only the last rp.dim lanes, k_pe, rotate, by a
+    pure rotation (no yarn magnitude), and c_kv moves unchanged. Returns
+    `cache`."""
+    from ..ops.rope import apply_rope, rope_cos_sin, rope_freqs, rotate
 
     require_full(cache, "the context shift")
     src, dst = slice(keep + discard, n_past), slice(keep, n_past - discard)
     seg = cache.k[:, :, src].float()
     pos = torch.full((seg.shape[2],), -discard, dtype=torch.long, device=seg.device)
+    if cache.v.shape[-1] == 0:  # the MLA latent cache: [c_kv; k_pe] a slot
+        cos, sin = rope_cos_sin(pos, rp)
+        mscale = rope_freqs(rp)[1]  # the shift undoes no yarn magnitude
+        tail = seg[..., -rp.dim:]
+        seg[..., -rp.dim:] = rotate(tail, cos / mscale, sin / mscale, rp)
+        cache.k[:, :, dst] = seg.to(cache.k.dtype)
+        return cache
     cache.k[:, :, dst] = apply_rope(seg, pos, rp).to(cache.k.dtype)
     cache.v[:, :, dst] = cache.v[:, :, src].clone()
     return cache

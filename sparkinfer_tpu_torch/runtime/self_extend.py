@@ -23,7 +23,10 @@ by bd = ga_w - ga_w/ga_n, keeping all rope angles within the model's
 trained context.
 
 An iSWA cache (kv_iswa) has no self-extend path, as in the JAX package:
-`self_extend_step` over one raises ValueError.
+`self_extend_step` over one raises ValueError. Nor has the MLA latent
+cache (deepseek2): the JAX re-rotation turns the first rope_dim lanes of
+each slot, which are lanes of the latent c_kv, so the port raises
+ValueError there too.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .kv_cache import require_full
+from .kv_cache import require_per_head
 
 
 @dataclass
@@ -106,7 +109,7 @@ def apply_to_cache(cache, rp, delta: np.ndarray):
 def self_extend_step(cache, rp, st: SelfExtendState, n_phys: int):
     """Advance the grouping frontier for n_phys consumed tokens and apply
     any needed re-rotation. Returns the (possibly updated) cache."""
-    require_full(cache, "self-extend")
+    require_per_head(cache, "self-extend")
     delta = advance(st, n_phys)
     if delta is None:
         return cache

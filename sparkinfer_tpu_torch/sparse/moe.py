@@ -20,9 +20,12 @@ orientation.)
 Routing follows llama.cpp's build_moe_ffn: softmax (default), sigmoid, or
 softmax over the k selected raw logits ("softmax_topk"), an optional
 selection-only bias (exp_probs_b), top-k renormalization (norm_topk_prob)
-and a routed scale (expert_weights_scale). The ranking is a stable
-descending sort, so exact ties keep the lower expert id first, as
-`lax.top_k` does; it runs on the device with no synchronization.
+and a routed scale (expert_weights_scale). Shared experts (qwen2moe's,
+with their sigmoid gate scalar; deepseek2's two, stored as one expert of
+twice the width, with none) are added to the routed output. The ranking
+is a stable descending sort, so exact ties keep the lower expert id
+first, as `lax.top_k` does; it runs on the device with no
+synchronization.
 
 Expert tiering (`moe_rows_layout`, `MoEColdStore`, `make_tiered_moe_ffn`)
 feeds the expert rows to the port's `init_tiered` / `Balancer`: hot experts'
@@ -85,6 +88,27 @@ def moe_layout(lp: dict, cfg: ModelConfig, group_size: int = 128) -> dict:
     if "w_gate_exps_b" in lp:
         out["moe_gate_b_rows"] = bias_rows(lp["w_gate_exps_b"])
     return out
+
+
+def moe_params(params: dict, cfg: ModelConfig, group_size: int = 128) -> dict:
+    """params with `moe_layout`'s row stores in every stack that holds
+    experts (params["layers"], or each of params["layer_segments"]: the
+    JAX Engine lays out each segment), the expert stacks themselves left
+    out of the new stacks (the rows are views of them); the model's own
+    params are not changed."""
+    def rows(lay):
+        if "w_up_exps" not in lay:
+            return lay
+        lay = moe_layout(lay, cfg, group_size)
+        for k in ("w_up_exps", "w_gate_exps", "w_down_exps"):
+            lay.pop(k, None)
+        return lay
+
+    segs = params.get("layer_segments")
+    if segs is None:
+        return {**params, "layers": rows(params["layers"])}
+    segs = [rows(s) for s in segs]
+    return {**params, "layers": segs[0], "layer_segments": segs}
 
 
 def route(cfg: ModelConfig, lp: dict, xt: torch.Tensor, norm_topk: bool | None = None):
@@ -330,6 +354,9 @@ def make_tiered_moe_ffn(cfg: ModelConfig, scfg, cold: MoEColdStore | None,
     together), `miss` counts the cold routed experts."""
     if mode not in TIERED_MODES:
         raise ValueError(f"tiered MoE mode {mode!r} (one of {TIERED_MODES})")
+    if cfg.n_dense_lead > 0:
+        raise NotImplementedError("expert tiering over layer segments (deepseek2's leading "
+                                  "dense layers) is not ported yet")
     if mode == "host" and cold is None:
         raise ValueError("mode='host' needs a MoEColdStore")
     E, k, L = cfg.n_embd, cfg.n_expert_used, cfg.n_layer

@@ -26,7 +26,9 @@ decoding over it lossless; a slot restore capturing nothing new; a LoRA
 re-merge reaching the graphs of the dense and v6 engines and of the v1
 Scheduler. The iSWA decode step (rings rebuilt from the static position
 buffer on the device) of a tiny gemma2 and of a tiny gpt-oss through v1,
-across ring wraps, bit-equal to the eager step.
+across ring wraps, bit-equal to the eager step. The MLA decode step of a
+tiny deepseek2 (latent cache, layer segments) in dense and "pallas" MoE
+mode, bit-equal to the eager step.
 """
 
 import os
@@ -41,6 +43,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from deepseek2_fixture import make_deepseek2  # noqa: E402
 from model_fixtures import make_tiny_llama  # noqa: E402
 from sparkinfer_tpu_torch.models.loader import LoadedModel, load_model  # noqa: E402
 from sparkinfer_tpu_torch.ops import quant_matmul as tqm  # noqa: E402
@@ -382,6 +385,29 @@ def test_iswa_graph_step_equals_the_eager_step(cuda, tmp_path, name, mode):
     assert [a.shape[2] for a in eager.new_cache().k] == [12, 64, 12, 64][:len(eager.cfg.swa_layers)]
     v1 = graphs.COUNTED.index(sparse_ffn_block)
     assert _per_step(eager)[v1] == (model.config.n_layer if mode == "pallas" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "pallas"])
+def test_mla_graph_step_equals_the_eager_step(cuda, tmp_path, mode):
+    """A tiny deepseek2 Engine (the q-lora, the latent cache, a leading dense
+    layer and two MoE layers in segments) in each moe_mode: the decode
+    graph's greedy stream and every step's logits bit-equal to the eager
+    step's, one capture, and in "pallas" mode v1 once an MoE layer a step."""
+    make_deepseek2(tmp_path / "ds.gguf", q_lora=24, seed=9)
+    model = load_model(str(tmp_path / "ds.gguf"), dtype=torch.float32, device="cuda")
+    kw = dict(max_seq=64, sampler=GREEDY, kv_dtype=torch.float32, device="cuda",
+              moe_mode=mode)
+    graph_eng, eager = Engine(model, **kw), Engine(model, cuda_graph=False, **kw)
+    runs = {label: _steps(eng, 8) for label, eng in (("eager", eager), ("graph", graph_eng))}
+    assert runs["graph"][0] == runs["eager"][0]
+    for got, want in zip(runs["graph"][1], runs["eager"][1]):
+        assert torch.equal(got, want)
+    assert graph_eng.graphs.captures == 1
+    cache = eager.new_cache()
+    assert cache.k.shape[-2:] == (1, 32 + 8) and cache.v.shape[-1] == 0
+    v1 = graphs.COUNTED.index(sparse_ffn_block)
+    assert _per_step(eager)[v1] == (2 if mode == "pallas" else 0)
 
 
 def _per_step(eng):

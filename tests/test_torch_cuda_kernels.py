@@ -1038,6 +1038,35 @@ def test_v1_gpt_oss_shape_bf16(cuda, gpt_oss_stores, N):
               1e-3, act="swiglu_oai", mask_mode="scale", **kw)
 
 
+@pytest.fixture(scope="module")
+def deepseek_v2_lite_stores():
+    """DeepSeek-V2-Lite's row stores of one MoE layer, bf16: 64 experts of
+    width 1408, 11 groups of 128 rows each (R = 704), E = 2048."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    return [(torch.randn((704, 128, 2048), generator=gen, device="cuda") * 0.05).bfloat16()
+            for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 32])
+def test_v1_deepseek_v2_lite_shape_bf16(cuda, deepseek_v2_lite_stores, N):
+    """The fused MoE FFN at DeepSeek-V2-Lite's shape: each token's 6 of 64
+    experts as 66 group rows (C = 66, G = 128, E = 2048), silu, the routed
+    weights (softmax, no top-k renormalization) as the scale mask, at
+    decode (N = 1) and prefill (N = 32)."""
+    gen = torch.Generator(device="cuda").manual_seed(46 + N)
+    k, ng_e, G = 6, 11, 128
+    logits = torch.randn((N, 64), generator=gen, device="cuda")
+    w, idx = torch.softmax(logits, -1).topk(k)
+    rows = (idx[:, :, None] * ng_e + torch.arange(ng_e, device="cuda")).reshape(N, -1).int()
+    scale = w[:, :, None, None].expand(N, k, ng_e, G).reshape(N, k * ng_e, G)
+    x = torch.randn((N, 2048), generator=gen, device="cuda").bfloat16()
+    _check_fn(sparse_ffn_block, sparse_ffn_block_plain, (x, rows, scale, *deepseek_v2_lite_stores),
+              1e-3, act="silu", mask_mode="scale")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,C,E,R,act,with_bu", FAMILY_SHAPES, ids=FAMILY_IDS)
 def test_v1_family_shapes_bf16(cuda, N, C, E, R, act, with_bu):

@@ -89,7 +89,7 @@ def _spm_vocab(wr, n_vocab):
 
 
 def make_family(path, kind, *, n_layer=2, n_vocab=V, rank=RANK, quant_type=None, seed=0,
-                with_vocab=False):
+                with_vocab=False, extra_kv=None):
     """Write a tiny GGUF of one family, with predictors (the last third of
     each layer's neurons never fires) and ffn_down stored transposed (F, E),
     as sparse GGUFs store it; predictors of rank `rank`. qwen2: q/k/v biases, gated FFN, RMS norms;
@@ -97,7 +97,8 @@ def make_family(path, kind, *, n_layer=2, n_vocab=V, rank=RANK, quant_type=None,
     n_ctx + 2 rows; falcon: LayerNorm biases, a fused attn_qkv (grouped
     per kv head where n_head_kv > 1), attn_norm_2 where n_head_kv > 1,
     ungated FFN without biases. quant_type "q8_0" stores the linears as
-    Q8_0 (norms, biases, predictors and embeddings stay F32)."""
+    Q8_0 (norms, biases, predictors and embeddings stay F32). extra_kv:
+    more `{arch}.` keys, name -> value."""
     arch, H, Hkv = FAMILIES[kind]
     D = E // H
     rng = np.random.default_rng(seed)
@@ -158,6 +159,8 @@ def make_family(path, kind, *, n_layer=2, n_vocab=V, rank=RANK, quant_type=None,
     wr.add_kv(f"{arch}.attention.{eps_key}", np.float32(1e-5))
     wr.add_kv(f"{arch}.rope.freq_base", np.float32(10000.0))
     wr.add_array(f"{arch}.pred_lora", np.full(n_layer, rank, np.uint32))
+    for key, val in (extra_kv or {}).items():
+        wr.add_kv(f"{arch}.{key}", val)
     for name, data in t.items():
         gt = GGMLType.F32
         if (quant_type and data.ndim == 2 and name.endswith(".weight") and "norm" not in name
@@ -333,6 +336,45 @@ def test_forward_matches_jax(ggufs, kind):
     got_pre, got_dec = _port_logits(tm, PROMPT, 77)
     _close(got_pre, ref_pre)
     _close(got_dec, ref_dec)
+
+
+# the model-level multipliers and NoPE layers that every arch's GGUF may
+# carry, each far from its no-op (llama: embeddings x12 put a wrong argmax
+# within reach; residual 0.22; logits halved; layer 1 of 2 without rope),
+# and falcon's parallel block, which scales the attention output only
+SCALE_CASES = {
+    "embedding_scale": ("llama", {"embedding_scale": np.float32(12.0)}),
+    "residual_scale": ("llama", {"residual_scale": np.float32(0.22)}),
+    "logit_scale": ("llama", {"logit_scale": np.float32(0.5)}),
+    "nope_layers": ("llama", {"nope_layers": np.asarray([0, 1], np.uint32)}),
+    "falcon_residual_scale": ("falcon40b", {"residual_scale": np.float32(0.22)}),
+}
+
+
+@pytest.mark.parametrize("case", list(SCALE_CASES))
+def test_scales_and_nope_layers_match_jax(tmp_path, case):
+    """embedding_scale, residual_scale, logit_scale and nope_layers in the
+    port's forward against the JAX forward, prefill and decode, f32, 1e-5;
+    and each moves the logits (a key the forward ignored would pass the
+    parity only if the JAX forward ignored it too)."""
+    kind, kv = SCALE_CASES[case]
+    path, plain = str(tmp_path / "scaled.gguf"), str(tmp_path / "plain.gguf")
+    if kind == "llama":
+        make_tiny_llama(path, extra_kv={f"llama.{k}": v for k, v in kv.items()})
+        make_tiny_llama(plain)
+    else:
+        make_family(path, kind, seed=5, extra_kv=kv)
+        make_family(plain, kind, seed=5)
+    jm, tm = _both(path)
+    key = case.replace("falcon_", "").replace("embedding_scale", "embd_scale")
+    assert getattr(tm.config, key) == getattr(jm.config, key) != getattr(
+        load_model(plain, dtype=torch.float32, device="cpu").config, key)
+    ref_pre, ref_dec = _jax_logits(jm, PROMPT, 77)
+    got_pre, got_dec = _port_logits(tm, PROMPT, 77)
+    _close(got_pre, ref_pre)
+    _close(got_dec, ref_dec)
+    base_pre, _ = _port_logits(load_model(plain, dtype=torch.float32, device="cpu"), PROMPT, 77)
+    assert np.abs(base_pre - ref_pre).max() > 1e-2 * np.abs(ref_pre).max()
 
 
 def test_opt_positions_are_offset_and_max_seq_is_cut(ggufs, capsys):

@@ -325,7 +325,7 @@ def test_iswa_refusals(models, tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(arch="deepseek2", kv_lora_rank=32, rope_dim=8), "MLA"),
+    (dict(arch="minicpm3", kv_lora_rank=32, rope_dim=8), "MLA"),
     (dict(arch="llama", n_head_arr=(4, 4)), "per-layer"),
     (dict(arch="llama", n_ff_arr=(96, 64)), "per-layer"),
     (dict(arch="hunyuan-dense"), "after rope"),
