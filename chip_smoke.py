@@ -109,7 +109,9 @@ sees no card or the package is missing. Phases, each of which fails the run:
        ms per step and peak memory;
        ProSparse-Llama-2-13B widths, Q8_0 (bench.py "13b" preset; random
        weights made and quantized on the card layer by layer, through the
-       ggml Q8_0 blocks a GGUF holds): v6q L, quant_matmul_2d 4L+1 and
+       ggml Q8_0 blocks a GGUF holds; the full run takes FULL_RUN_13B_L of
+       its 40 layers for 5c, 5d, 5h, 5i, 5j and 5m(a), and --quant,
+       --tiered and --prefill-profile all 40): v6q L, quant_matmul_2d 4L+1 and
        quant_matmul_flat 2(L+1) times per decode step, with v6q's device
        time and launches (2 kernels a call) and 6L+3 qmm_decode kernels in
        the profiled steps; a profiled 32-token prefill (device time of the
@@ -233,7 +235,7 @@ sees no card or the package is missing. Phases, each of which fails the run:
        -nps 2 --json. `python3 chip_smoke.py --runtime` runs phases 1, 2
        and 5l alone and prints no result.
      5m. the quantized formats and embeddings: (a) the JAX bench's
-       headline row at ProSparse-Llama-2-13B widths and depth (5c's
+       headline row at ProSparse-Llama-2-13B widths and 5c's depth (5c's
        draws): W8A8 attention (wq wk wv wo) and W8A8 predictor stacks,
        quantized a layer at a time by W8A8Tensor.from_float, over 5c's
        Q8_0 flat FFN stores (v6q) and Q8_0 head (quant_matmul_2d); the
@@ -246,7 +248,7 @@ sees no card or the package is missing. Phases, each of which fails the run:
        (the kernels W8A8 adds, by name), the share of its greedy tokens
        equal to 5d's stream, and one attention projection (5120x5120,
        N=1) by w8a8_linear, by the int8 product alone, by qmm_decode and by
-       the bf16 torch.matmul over the 40 layers' weights; then tiered
+       the bf16 torch.matmul over every layer's weights; then tiered
        fetch over 5j's 13B hot and cold stores, right after 5j's Q8_0
        drive, with W8A8 attention and predictor stacks (v6q L,
        quant_matmul_2d once and 6L int8 products a forward); (b) a GGUF at
@@ -306,7 +308,8 @@ sees no card or the package is missing. Phases, each of which fails the run:
        a direct q, kv_lora_rank 512, qk_nope 128, qk_rope 64, v_head 128,
        one dense layer of 10944, 64 experts of 1408, 6 used, softmax, no
        top-k renormalization, routed scale 1.0, 2 shared experts,
-       V=102400, yarn factor 40), random bf16 weights from SEED (31.4 GB),
+       V=102400, yarn factor 40), random bf16 weights from SEED (31.4 GB;
+       the full run takes FULL_RUN_MLA_L of the 27 layers, 27 with --mla),
        in a child process started after 5o's: an f32 gate at 4 layers
        (the fused FFN against dense mode layer by layer within 1e-4 of its
        scale, greedy tokens equal); v1 against its plain version at the
@@ -321,6 +324,35 @@ sees no card or the package is missing. Phases, each of which fails the run:
        4 requests of 32 + 64 tokens) against the Engine's streams (equal,
        or parted at a near-tie). `python3 chip_smoke.py --mla` runs phases
        1, 2 and 5p alone and prints no result.
+     5q. the llama-shaped and MoE archs (models/transformer.py,
+       sparse/moe.py) at full width and depth, in a child process started
+       after 5p's, random weights from SEED drawn on the card: Qwen3-8B
+       (Qwen/Qwen3-8B config.json: L=36, E=4096, 32 heads, 8 KV heads of
+       128, F=12288, V=151936, rope base 1e6, per-head q/k RMS norms, an
+       untied head) with Q8_0 attention, FFN and head (8.5 GB packed):
+       quant_matmul_2d against its plain version at its five shapes (4096 x
+       4096, 4096 x 1024, 4096 x 12288, 12288 x 4096, the head 4096 x
+       151936; N = 1 and 32; one kernel a call, as the profiled decode
+       step and prefill count); the dense
+       Engine (quant_matmul_2d 7L + 1 times a forward), 32 + 128 tokens,
+       the graph against an eager engine (streams equal, first decode
+       logits bit-equal), qmm_decode and qmm_prefill launches a step and a
+       prefill (profiled), and the step's bound (every packed weight and
+       the K/V read once at 3.35 TB/s); an f32 gate at 4 layers (each
+       packed product within 1e-4 of its plain version's scale, on the
+       plain path's inputs; the two paths' greedy tokens equal or parted at
+       a near-tie). Qwen1.5-MoE-A2.7B (Qwen/Qwen1.5-MoE-A2.7B config.json:
+       L=24, E=2048, 16 heads of 128, 60 experts of 1408, 4 used, no top-k
+       renormalization, a shared expert of 5632 with its sigmoid gate, qkv
+       biases, V=151936; 28.6 GB in bf16): v1 against its plain version at
+       C = 44, G = 128 (N = 1 and 32); the fused (v1 L times a forward) and
+       the dense Engines, 32 + 128 tokens, each a graph against an eager
+       engine (streams equal, first decode logits bit-equal); an f32 gate
+       at 4 layers (the fused FFN within 1e-4 of dense mode's, tokens
+       equal). Then 4-layer bf16 cuts of hunyuan-dense (q/k norms after
+       rope) and stablelm (LayerNorm, qkv biases, partial rope, per-head q/k
+       LayerNorms), graph against eager. `python3 chip_smoke.py --archs`
+       runs phases 1, 2 and 5q alone and prints no result.
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
@@ -353,13 +385,17 @@ PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_FLOP_S = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BF16_FLOP_S = 989e12  # H100 SXM, dense bf16 tensor cores
 N_SETS = 64  # cold row sets / distinct stores per kernel timing
-# depths the full run gives its largest earlier cells, so that with phase 5p
-# it keeps to the time the run took before 5p (and a host a third slower
-# stays inside the run's limit); each phase run alone (--moe, --swa,
-# --families) keeps its full depth or the depth that fits
-FULL_RUN_MOE_L = 12  # of Qwen3-30B-A3B's 48 layers (phase 5k)
-FULL_RUN_SWA_L = 8  # of gpt-oss-20b's 24 (phase 5o)
-FULL_RUN_FAMILY_L = 12  # of ReluFalcon-40B's 60, bf16 and Q8_0 (phase 5n(a), (b))
+# depths the full run gives its largest earlier cells, so that with phases
+# 5p and 5q and every eager stream decoded in full it keeps near the time
+# the run took before them (and a host a third slower stays inside the
+# run's limit); each phase run alone (--moe, --swa, --families, --mla,
+# --quant, --tiered) keeps its full depth or the depth that fits, and 5q
+# runs its two models at full depth in the full run too
+FULL_RUN_MOE_L = 8  # of Qwen3-30B-A3B's 48 layers (phase 5k)
+FULL_RUN_SWA_L = 6  # of gpt-oss-20b's 24 (phase 5o)
+FULL_RUN_FAMILY_L = 8  # of ReluFalcon-40B's 60, bf16 and Q8_0 (phase 5n(a), (b))
+FULL_RUN_MLA_L = 9  # of DeepSeek-V2-Lite's 27: the dense layer and 8 MoE layers (phase 5p)
+FULL_RUN_13B_L = 20  # of ProSparse-Llama-2-13B's 40 (phases 5c, 5d, 5h, 5i, 5j, 5m(a))
 # v7u rounds the hidden and W_down to bf16: each product within 2^-8, about
 # 2e-3 of the output's scale summed with random signs; a wrong row or mask
 # errs by the scale itself
@@ -1079,8 +1115,8 @@ def qmm_row(label, kernel, plain, stores, x, kind, per_call, flat_out=None):
 
 def phase_quant_matmul(params):
     """quant_matmul_2d and quant_matmul_flat against their plain versions at
-    the 13B shapes: the model's own stores where it has them (64 of its
-    160 attention matrices, the 40 layers of each predictor stack, its
+    the 13B shapes: the model's own stores where it has them (up to 64 of
+    its wq and wk matrices, the L layers of each predictor stack, its
     head), 64 random Q4_0 stores."""
     import torch
 
@@ -1715,16 +1751,17 @@ def profile_steps(label, step, steps: int = 8, retakes: int = 0):
     """Device time by kernel over `steps` calls of step() (torch.profiler),
     and the share of the window in which the device was busy. Returns the
     (kernel, ms, launches) rows over all steps and the window's wall ms.
-    The window opens with a few `spin_kernel`s (torch.cuda._sleep), a
-    synchronization and a pause, and closes with a pause, spin kernels and
-    a synchronization, all left out of the rows, as `kernels_per_call`'s
-    window does: late in the full run the profiler lost kernels at a
-    window's edge (1-3 of a 13B step's qmm_decode launches with one window
-    of 8 steps, 14 with a window a step, on the H100; 1 with the opening
-    guard alone), which the same window alone did not. A window that lost
-    any of its 16 guard kernels is an incomplete record: with retakes > 0
-    (for a step that may run again, such as a decode step) it is taken
-    again, up to `retakes` times, and the last window is returned."""
+    Late in a long process the profiler drops the first few device events
+    of a window, a count that grows with the process's age and holds
+    across retakes and pauses: on the H100 the full run's windows lost 1 to
+    8 guard kernels that opened them, after a pause of 50 ms as after one
+    of 200 ms, and once two of a 13B step's qmm_decode launches behind 8
+    guards. So the window opens with PROFILE_OPEN_GUARDS short
+    `spin_kernel`s (torch.cuda._sleep) and a synchronization, and closes
+    with 8 spin kernels and a synchronization, all left out of the rows. A
+    window that kept a guard at each edge lost no step's kernel; one that
+    did not is taken again, up to `retakes` times (for a step that may run
+    again, such as a decode step), and the last window is returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1732,39 +1769,42 @@ def profile_steps(label, step, steps: int = 8, retakes: int = 0):
     for attempt in range(retakes + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(8):
-                torch.cuda._sleep(100_000)
+            for _ in range(PROFILE_OPEN_GUARDS):
+                torch.cuda._sleep(1_000)
             torch.cuda.synchronize()
-            time.sleep(0.05)
             t0 = time.perf_counter()
             for _ in range(steps):
                 step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-            time.sleep(0.05)
             for _ in range(8):
-                torch.cuda._sleep(100_000)
+                torch.cuda._sleep(1_000)
             torch.cuda.synchronize()
         # device-side events only (kernels, copies), so no time counts twice,
         # summed by name from the profiler's raw events: its per-op tables
         # (key_averages) build an object for each of the eager steps' tens of
         # thousands of host events, which takes far longer than the window
-        device = {}
+        device, spins, first = {}, [], None
         for e in prof.profiler.kineto_results.events():
             if e.device_type() == DeviceType.CUDA:
+                if "spin_kernel" in e.name():
+                    spins.append(e.start_ns())
+                    continue
                 ms, n = device.get(e.name(), (0.0, 0))
                 device[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
-        guards = sum(n for k, (_, n) in device.items() if "spin_kernel" in k)
-        if guards == 16 or attempt == retakes:
+                first = e.start_ns() if first is None else min(first, e.start_ns())
+        opening = sum(first is not None and t < first for t in spins)
+        closing = len(spins) - opening
+        guards = (f"{opening} of {PROFILE_OPEN_GUARDS} + {closing} of 8 guard kernels "
+                  f"recorded")
+        if (opening and closing) or attempt == retakes:
             break
-        print(f"profile: {steps} {label}: {guards} of the 16 guard kernels recorded, "
-              f"the window taken again")
-    rows = [(k, ms, n) for k, (ms, n) in device.items() if "spin_kernel" not in k]
-    rows.sort(key=lambda r: -r[1])
+        print(f"profile: {steps} {label}: {guards}, the window taken again")
+    rows = sorted(((k, ms, n) for k, (ms, n) in device.items()), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     print(f"profile: {steps} {label}, wall {wall_ms / steps:.3f} ms/step, "
           f"device busy {busy / steps:.3f} ms/step ({100 * busy / wall_ms:.1f}%), "
-          f"{guards} of the 16 guard kernels recorded")
+          f"{guards}")
     for key, ms, count in rows[:12]:
         print(f"  {ms / steps:8.4f} ms/step  {count // steps:5d}/step  {key[:90]}")
     return rows, wall_ms
@@ -1982,7 +2022,7 @@ def profile_prefill(eng, prompt, steps: int = 4) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     rows, _ = profile_steps(f"{len(prompt)}-token prefills", lambda: eng.prefill(prompt, cache, st),
-                            steps)
+                            steps, retakes=2)
     qmm = [(k, ms, n) for k, ms, n in rows if "qmm_" in k]
     got = dict(tokens=len(prompt), wall_ms=wall_ms, prefill_tps=len(prompt) / wall_ms * 1e3,
                device_ms=sum(r[1] for r in rows) / steps,
@@ -1994,15 +2034,16 @@ def profile_prefill(eng, prompt, steps: int = 4) -> dict:
     return got
 
 
-def q8_13b_engine(greedy):
-    """ProSparse-Llama-2-13B widths, Q8_0, random weights made and quantized
-    on the card layer by layer, and its sparse engine."""
+def q8_13b_engine(greedy, L: int = 40):
+    """ProSparse-Llama-2-13B widths, L of its 40 layers, Q8_0, random
+    weights made and quantized on the card layer by layer, and its sparse
+    engine."""
     import torch
 
     from sparkinfer_tpu_torch.runtime.engine import Engine
     from sparkinfer_tpu_torch.sparse.config import SparseConfig
 
-    cfg = prosparse_config(40, 5120, 40, 13824, 32000, 1280)
+    cfg = prosparse_config(L, 5120, 40, 13824, 32000, 1280)
     scfg = SparseConfig(group_size=128, capacity_groups=16)  # 16 of 108 groups, 12.5%
     t0 = time.perf_counter()
     weights = Q8Weights(cfg, torch.bfloat16, "cuda", SEED)
@@ -2069,6 +2110,7 @@ def kernel_wrappers():
 PEAKS = {}  # peak device GiB of each main path, by label
 STREAMS = {}  # greedy tokens of each main path, by label
 PROFILES = {}  # phase 5h's profiled graph steps of each Engine path: (rows, steps), by label
+PROFILE_OPEN_GUARDS = 1024  # spin kernels that open a profile window (profile_steps)
 START = [time.perf_counter()]  # the run's start, reset by main
 
 
@@ -4322,8 +4364,8 @@ def attn_product_times(weights, attn) -> dict:
     """One attention projection at 13B, N = 1 (5120 x 5120): w8a8_linear
     (activation quantization, the int8 product, the scale epilogue), the
     int8 product alone, the Q8_0 decode kernel (qmm_decode) and the bf16
-    torch.matmul, each over the 40 layers' weights (more bytes than L2
-    holds) in one CUDA graph, with each one's bytes bound."""
+    torch.matmul, each over the model's L layers' weights (more bytes than
+    L2 holds at 20 or 40 layers) in one CUDA graph, with each one's bytes bound."""
     import torch
 
     from sparkinfer_tpu_torch.ops import quant_matmul as qm
@@ -4419,7 +4461,7 @@ def logits_gap(got, ref) -> dict:
 def phase_w8a8_13b(cfg, scfg, weights, model, greedy, prompt, n_new, q8_rows, q8_steps,
                    q8_logits):
     """Phase 5m(a): the JAX bench's headline configuration at ProSparse-
-    Llama-2-13B widths and depth: W8A8 attention and predictor stacks,
+    Llama-2-13B widths and the depth of `cfg`: W8A8 attention and predictor stacks,
     quantized a layer at a time from the seeded bf16 draws of `weights`,
     over the Q8_0 flat FFN stores (v6q) and Q8_0 head of `model` (phase 5c's,
     the same draws). The int8 product gates, the main path as a graph (exact
@@ -5482,20 +5524,24 @@ def phase_families(greedy, n_new: int = 32, layers: int = 60) -> dict:
     cfg8 = family_config("falcon40b", 8)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    m8 = FamilyWeights(cfg8, torch.bfloat16, "cuda", SEED).q8_sparse_model(scfg)
+    fw8 = FamilyWeights(cfg8, torch.bfloat16, "cuda", SEED)
+    m8 = fw8.q8_sparse_model(scfg)
     built8 = torch.cuda.memory_allocated() - base
     outside_q8 = (2 * cfg8.n_vocab * cfg8.n_embd + m8.params["output"].q.numel()
                   + 4 * m8.params["output"].s.numel())
     per_layer = (built8 - outside_q8) / 8
-    del m8
-    torch.cuda.empty_cache()
     L = min(layers, int((FAMILY_Q8_LIMIT - outside_q8 - FAMILY_HEADROOM) // per_layer))
     print(f"phase 5n: ReluFalcon-40B Q8_0 at 8 layers took {built8 / 2**30:.2f} GiB "
           f"({per_layer / 2**30:.3f} a layer): {L} layers fit under "
           f"{FAMILY_Q8_LIMIT / 2**30:.0f} GiB")
-    cfg = family_config("falcon40b", L)
-    fw = FamilyWeights(cfg, torch.bfloat16, "cuda", SEED)
-    model = fw.q8_sparse_model(scfg)
+    if L == 8:  # the measured model is the one to run (the same draws)
+        cfg, fw, model = cfg8, fw8, m8
+    else:
+        del m8, fw8
+        torch.cuda.empty_cache()
+        cfg = family_config("falcon40b", L)
+        fw = FamilyWeights(cfg, torch.bfloat16, "cuda", SEED)
+        model = fw.q8_sparse_model(scfg)
     print(f"phase 5n: ReluFalcon-40B Q8_0 at {L} layers, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
@@ -6191,9 +6237,10 @@ def mla_cache_rows(model, greedy, prompt) -> list:
     return out
 
 
-def phase_mla(greedy) -> dict:
+def phase_mla(greedy, L: int = 27) -> dict:
     """Phase 5p: the f32 gate, then DeepSeek-V2-Lite at full width and depth
-    in bf16: v1 at its shape against the plain version, the pallas and the
+    L (27; the full run's child takes FULL_RUN_MLA_L) in bf16: v1 at its
+    shape against the plain version, the pallas and the
     dense Engines (graph against eager, bit-equal), the latent cache at
     max_seq 2048 and 32768, and the 4-slot Scheduler. Returns its summary,
     with v1's main-path launches."""
@@ -6212,7 +6259,7 @@ def phase_mla(greedy) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     mark("phase 5p, f32 gate")
-    cfg = deepseek_v2_lite_config(27)
+    cfg = deepseek_v2_lite_config(L)
     t1 = time.perf_counter()
     model = random_deepseek2(cfg, torch.bfloat16, SEED)
     torch.cuda.synchronize()
@@ -6269,6 +6316,476 @@ def mla_summary(mla) -> dict:
             "weights": mla["weights"], "seconds": mla["seconds"]}
 
 
+# --- phase 5q: the llama-shaped and MoE archs at full width ------------------
+
+ARCH_GATE_TOL = 1e-4  # f32: a packed product, or a fused MoE FFN, of its plain counterpart's scale
+ARCH_TIE_TOL = 1e-2  # f32 greedy streams may part only where the top two logits lie this close
+
+
+def qwen3_8b_config(L):
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="qwen3", n_layer=L, n_embd=4096, n_head=32, n_head_kv=8,
+                       head_dim=128, n_ff=12288, n_vocab=151936, norm_eps=1e-6,
+                       rope_freq_base=1e6, n_ctx_train=40960)
+
+
+def qwen15_moe_config(L):
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="qwen2moe", n_layer=L, n_embd=2048, n_head=16, n_head_kv=16,
+                       head_dim=128, n_ff=5632, n_ff_exp=1408, n_vocab=151936, n_expert=60,
+                       n_expert_used=4, n_expert_shared=1, norm_topk_prob=False,
+                       norm_eps=1e-6, rope_freq_base=1e6, n_ctx_train=8192)
+
+
+def q8_qwen3(cfg, dtype, seed):
+    """Qwen3 as its Q8_0 GGUF loads with keep_quantized: Q8_0 wq, wk, wv, wo,
+    up, gate, down and head (Q8Weights' draws, packed as the loader packs
+    them), the embeddings in `dtype`, per-head q/k RMS norms 1 + N(0, 0.1)
+    and ones for the block norms, in f32."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.ops.quant_matmul import QuantTensor
+
+    w = Q8Weights(cfg, dtype, "cuda", seed)
+    L, E, V, D = cfg.n_layer, cfg.n_embd, cfg.n_vocab, cfg.head_dim
+    HD, KD = cfg.n_head * D, cfg.n_head_kv * D
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    layers = {"attn_norm_w": torch.ones((L, E), **f32), "ffn_norm_w": torch.ones((L, E), **f32),
+              "wq": w.packed_stack("wq", HD, E), "wk": w.packed_stack("wk", KD, E),
+              "wv": w.packed_stack("wv", KD, E), "wo": w.packed_stack("wo", E, HD),
+              "attn_q_norm_w": torch.randn((L, D), generator=gen, **f32).mul_(0.1).add_(1.0),
+              "attn_k_norm_w": torch.randn((L, D), generator=gen, **f32).mul_(0.1).add_(1.0),
+              **w.dense_ffn()}
+    q, s = w.pack(w.draw("output", 0, (V, E)))
+    params = {"tok_embd": w.draw("tok_embd", 0, (V, E)), "output_norm_w": torch.ones((E,), **f32),
+              "output": QuantTensor(q.contiguous(), s.contiguous(), "q8_0"), "layers": layers}
+    return LoadedModel(config=cfg, params=params)
+
+
+def random_qwen2moe(cfg, dtype, seed):
+    """Qwen1.5-MoE with the loader's keys, drawn on the card: N(0, 0.02)
+    projections, router, experts (the port's (L, X, Fe, E) stacks), shared
+    expert and its gate (ffn_gate_inp_shexp); q/k/v biases N(0, 0.1) and
+    ones for the norms in f32."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(shape, std=0.02, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="cuda").normal_(0.0, std, generator=gen)
+
+    L, E, H, Hkv, D = cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.n_head_kv, cfg.head_dim
+    X, Fe, Fs, V, f32 = cfg.n_expert, cfg.n_ff_exp, cfg.n_ff, cfg.n_vocab, torch.float32
+    ones = dict(dtype=f32, device="cuda")
+    layers = {"attn_norm_w": torch.ones((L, E), **ones), "ffn_norm_w": torch.ones((L, E), **ones),
+              "wq": normal((L, E, H * D)), "wk": normal((L, E, Hkv * D)),
+              "wv": normal((L, E, Hkv * D)), "wo": normal((L, H * D, E)),
+              "bq": normal((L, H * D), 0.1, f32), "bk": normal((L, Hkv * D), 0.1, f32),
+              "bv": normal((L, Hkv * D), 0.1, f32), "w_router": normal((L, E, X)),
+              "w_up_shexp": normal((L, E, Fs)), "w_gate_shexp": normal((L, E, Fs)),
+              "w_down_shexp": normal((L, Fs, E)), "w_gate_inp_shexp": normal((L, E))}
+    for name in ("up", "gate", "down"):
+        layers[f"w_{name}_exps"] = normal((L, X, Fe, E))
+    params = {"tok_embd": normal((V, E)), "output_norm_w": torch.ones((E,), **ones),
+              "output": normal((E, V)), "layers": layers}
+    return LoadedModel(config=cfg, params=params)
+
+
+def random_cut(cfg, seed, extra):
+    """A 4-layer cut drawn on the card in bf16 with the loader's keys: N(0,
+    0.02) projections and FFN, 1 + N(0, 0.1) norms (biases N(0, 0.1)) in f32,
+    and `extra(normal)`'s tensors."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(shape, std=0.02, dt=torch.bfloat16, mean=0.0):
+        return torch.empty(shape, dtype=dt, device="cuda").normal_(mean, std, generator=gen)
+
+    L, E, H, Hkv, D, F, V = (cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.n_head_kv, cfg.head_dim,
+                             cfg.n_ff, cfg.n_vocab)
+    f32 = torch.float32
+    layers = {"attn_norm_w": normal((L, E), 0.1, f32, 1.0),
+              "ffn_norm_w": normal((L, E), 0.1, f32, 1.0),
+              "wq": normal((L, E, H * D)), "wk": normal((L, E, Hkv * D)),
+              "wv": normal((L, E, Hkv * D)), "wo": normal((L, H * D, E)),
+              "w_up": normal((L, E, F)), "w_gate": normal((L, E, F)), "w_down": normal((L, F, E)),
+              **extra(normal)}
+    params = {"tok_embd": normal((V, E)), "output_norm_w": normal((E,), 0.1, f32, 1.0),
+              "output": normal((E, V)), "layers": layers}
+    if cfg.traits.norm == "ln":
+        params["output_norm_b"] = normal((E,), 0.1, f32)
+    return LoadedModel(config=cfg, params=params)
+
+
+def parted_at_a_tie(label, toks, ref_toks, ref_logits) -> dict:
+    """Two greedy streams, equal or parted where the reference's top two
+    logits lie within ARCH_TIE_TOL of its scale; fails otherwise."""
+    import torch
+
+    part = next((i for i, (a, b) in enumerate(zip(toks, ref_toks)) if a != b), None)
+    gap = None
+    if part is not None:
+        top2 = torch.topk(ref_logits[part].float(), 2).values
+        gap = ((top2[0] - top2[1]) / ref_logits[part].float().abs().max()).item()
+        check(gap <= ARCH_TIE_TOL, f"5q {label}: the streams part at step {part}, where the "
+                                   f"top two logits are {gap:.3e} of the scale apart")
+    return {"parted_at": part, "parted_gap": gap}
+
+
+def qwen3_f32_gate(prompt, steps: int = 8) -> dict:
+    """Qwen3-8B widths cut to 4 layers, f32, Q8_0: the plain path (every
+    packed product through quant_matmul_2d_plain, on the card) decodes
+    `steps` greedy tokens and feeds each product's input to the kernel too
+    (qmm_prefill at N = 32, qmm_decode at N = 1), whose output must lie
+    within ARCH_GATE_TOL of the plain one's scale; then the kernel path's
+    own greedy stream, equal to the plain path's or parted at a near-tie
+    (the products round their inputs to bf16, so a last-bit difference of
+    the f32 stream can move a rounding and cascade)."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.ops import quant_matmul as qm
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+
+    t0 = time.perf_counter()
+    cfg = qwen3_8b_config(4)
+    model = q8_qwen3(cfg, torch.float32, SEED + 71)
+    kernel, plain = qm.quant_matmul_2d, qm.quant_matmul_2d_plain
+    errs = []
+
+    def gate(x, qw, scales, *, kind):
+        want = plain(x, qw, scales, kind=kind)
+        errs.append(rel_gap(kernel(x, qw, scales, kind=kind), want))
+        return want
+
+    def run():
+        cache = init_cache(cfg, 1, len(prompt) + steps + 1, torch.float32, "cuda")
+        fwd, toks, rows = make_forward(cfg), [], []
+        with torch.inference_mode():
+            logits = fwd(model.params, torch.tensor([prompt], device="cuda"),
+                         torch.arange(len(prompt), device="cuda")[None], cache)
+            for i in range(steps + 1):
+                check(bool(torch.isfinite(logits).all()), "5q gate: non-finite logits")
+                rows.append(logits[0, -1].clone())
+                toks.append(int(logits[0, -1].argmax()))
+                if i < steps:
+                    logits = fwd(model.params, torch.tensor([[toks[-1]]], device="cuda"),
+                                 torch.tensor([[len(prompt) + i]], device="cuda"), cache)
+        return toks, rows
+
+    # the kernel counts its launches on the module's quant_matmul_2d: the
+    # gate's own counter while the gate stands in for it
+    gate.launches = 0
+    qm.quant_matmul_2d = gate
+    try:
+        plain_toks, plain_rows = run()
+    finally:
+        qm.quant_matmul_2d = kernel
+    n0 = kernel.launches
+    kernel_toks, kernel_rows = run()
+    n = per_fwd = 7 * cfg.n_layer + 1
+    n *= steps + 1
+    check(gate.launches == n and kernel.launches - n0 == n and len(errs) == n,
+          f"5q gate: {gate.launches} and {kernel.launches - n0} quant_matmul_2d launches, "
+          f"{len(errs)} products, want {n} each")
+    worst = max(errs)
+    check(worst <= ARCH_GATE_TOL, f"5q gate: a packed product is {worst:.3e} of its scale off")
+    row = {"layers": 4, "steps": steps, "products": len(errs), "worst_rel_err": worst,
+           "tol": ARCH_GATE_TOL, "first_logits_rel_gap": rel_gap(kernel_rows[0], plain_rows[0]),
+           **parted_at_a_tie("Qwen3-8B gate", kernel_toks, plain_toks, plain_rows),
+           "tokens": plain_toks, "seconds": time.perf_counter() - t0}
+    print("phase 5q, f32 gate (Qwen3-8B widths, 4 layers, Q8_0):", json.dumps(row))
+    return row
+
+
+def qwen3_qmm_rows(model, per_call: int) -> list:
+    """quant_matmul_2d against its plain version at the five Qwen3-8B
+    shapes (wq/wo 4096x4096, wk/wv 4096x1024, up/gate 4096x12288, down
+    12288x4096, the head 4096x151936), N = 1 (qmm_decode) and 32
+    (qmm_prefill), over the model's own stores (every layer's, so the
+    L2 stays cold). per_call: the kernels one call launches at these
+    shapes, which the profiled decode step and prefill count (one a
+    product: 7L + 1 qmm_decode, and as many qmm_prefill)."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops import quant_matmul as qm
+
+    lay, head = model.params["layers"], model.params["output"]
+    stores = {k: [(lay[k].q[il], lay[k].s[il]) for il in range(lay[k].q.shape[0])]
+              for k in ("wq", "wk", "w_up", "w_down")}
+    stores["head"] = [(head.q, head.s)]
+    shapes = {k: tuple(v[0][0].shape) for k, v in stores.items()}  # (IN, OUT)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    rows = []
+    for k, st in stores.items():
+        IN, OUT = shapes[k]
+        for N in (1, 32):
+            x = torch.randn((N, IN), generator=gen, device="cuda").to(torch.bfloat16)
+            row = qmm_row(f"quant_matmul_2d q8_0 {k} {IN}x{OUT} N={N}", qm.quant_matmul_2d,
+                          qm.quant_matmul_2d_plain, st, x, "q8_0", per_call)
+            rows.append({**row, "matrix": k, "N": N})
+    return rows
+
+
+def q8_step_bound(model, positions: float) -> dict:
+    """The least a Q8_0 decode step must move: every packed weight once
+    (int8 values and f32 scales), one embedding row, the K/V cache over
+    `positions` slots, read at the card's memory rate."""
+    from sparkinfer_tpu_torch.ops.quant_matmul import QuantTensor
+
+    cfg, p = model.config, model.params
+    packed = [t for t in [*p["layers"].values(), p["output"]] if isinstance(t, QuantTensor)]
+    w_bytes = sum(t.q.numel() * t.q.element_size() + t.s.numel() * t.s.element_size()
+                  for t in packed)
+    kv = 2 * cfg.n_layer * cfg.n_head_kv * cfg.head_dim * positions * 2
+    nbytes = w_bytes + kv + cfg.n_embd * 2
+    return {"weight_bytes": w_bytes, "kv_bytes": kv, "bytes": nbytes,
+            "bound_ms": nbytes / PEAK_BYTES_S * 1e3}
+
+
+def qwen3_phase(greedy, prompt, n_new: int = 128) -> dict:
+    """Qwen3-8B at full width and depth in Q8_0: the dense Engine's graph
+    decode (quant_matmul_2d 7L + 1 times a forward: the L q, k, v, o, up,
+    gate and down products and the head) against an eager engine
+    (graph_vs_eager: streams equal, first decode logits bit-equal) with its
+    timings, the profiled decode step (qmm_decode only) and 32-token
+    prefill (qmm_prefill only), the step's bound; then the packed linears
+    at its shapes."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    cfg = qwen3_8b_config(36)
+    t0 = time.perf_counter()
+    model = q8_qwen3(cfg, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    bound = q8_step_bound(model, len(prompt) + n_new / 2)
+    print(f"model: Qwen3-8B widths, L={cfg.n_layer} E={cfg.n_embd} H={cfg.n_head} "
+          f"Hkv={cfg.n_head_kv} D={cfg.head_dim} F={cfg.n_ff} V={cfg.n_vocab}, Q8_0 "
+          f"attention/FFN/head ({bound['weight_bytes']} bytes packed), built in "
+          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated")
+    per_fwd = 7 * cfg.n_layer + 1
+    label = "Qwen3-8B Q8_0 dense"
+    kw = dict(max_seq=1024, sampler=greedy, device="cuda")
+    eng = Engine(model, **kw)
+    launches = main_path(label, eng, prompt, n_new,
+                         lambda runs: {"quant_matmul_2d": per_fwd * (runs + 1)})
+    h = graph_vs_eager(label, eng, Engine(model, cuda_graph=False, **kw), prompt, n_new)
+    prof, steps = PROFILES[label]
+    qmm = [(k, ms, n) for k, ms, n in prof if "qmm_" in k]
+    check(sum(n for _, _, n in qmm) == per_fwd * steps
+          and all("qmm_decode" in k for k, _, _ in qmm),
+          f"5q {label}: the profiled steps launched {qmm}, want {per_fwd} qmm_decode a step")
+    pre = profile_prefill(eng, prompt)
+    check(pre["qmm_launches"] == per_fwd and all("qmm_prefill" in k for k in pre["qmm_kernels"]),
+          f"5q {label}: the profiled prefill launched {pre['qmm_kernels']}, want {per_fwd} "
+          f"qmm_prefill")
+    del eng
+    # one kernel a product at every shape: the profiles counted exactly one
+    # qmm_decode (a step) and one qmm_prefill (a prefill) for each of them
+    rows = qwen3_qmm_rows(model, per_call=1)
+    mark("phase 5q, quant_matmul_2d at the Qwen3-8B shapes")
+    row = {"path": label, "launches": launches["quant_matmul_2d"], **h["graph"],
+           "eager": h["eager"], **{k: h[k] for k in (
+               "replay_span_ms", "replay_launch_ms", "replay_sync_ms", "step_breakdown",
+               "capture_s", "graph_pool_bytes", "wall_speedup")},
+           "qmm_decode_per_step": sum(n for _, _, n in qmm) // steps,
+           "qmm_device_ms_per_step": sum(ms for _, ms, _ in qmm) / steps,
+           "qmm_prefill_per_prefill": pre["qmm_launches"], "prefill": pre,
+           "step_bound": bound, "x_bound": h["replay_span_ms"] / bound["bound_ms"],
+           "peak_gib": PEAKS[label]}
+    print("phase 5q, Qwen3-8B (graph decode; streams equal, first decode logits bit-equal):",
+          json.dumps(row))
+    return {"rows": rows, "engine": row}
+
+
+def qwen15_f32_gate(prompt, steps: int = 8) -> dict:
+    """Qwen1.5-MoE-A2.7B widths cut to 4 layers, f32: the dense-mode forward
+    feeds each layer's FFN input to the fused FFN (v1) too, whose output
+    must lie within ARCH_GATE_TOL of the dense one's scale at every layer of
+    the prompt and `steps` decode steps; the two modes' greedy tokens equal."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.ops import sparse_ffn as sf
+    from sparkinfer_tpu_torch.sparse.moe import make_moe_ffn, moe_layout
+
+    t0 = time.perf_counter()
+    cfg = qwen15_moe_config(4)
+    model = random_qwen2moe(cfg, torch.float32, SEED + 73)
+    params = {**model.params, "layers": moe_layout(model.params["layers"], cfg)}
+    dense, fused = make_moe_ffn(cfg, mode="dense"), make_moe_ffn(cfg, mode="pallas")
+    errs = []
+
+    def gate(lp, x):
+        want = dense(lp, x)
+        errs.append(rel_gap(fused(lp, x), want))
+        return want
+
+    n0 = sf.sparse_ffn_block.launches
+    toks = {name: greedy_tokens(make_forward(cfg, ffn_fn=f), params, cfg, prompt, steps)
+            for name, f in (("dense", gate), ("pallas", fused))}
+    n_fwd = 4 * (steps + 1)
+    check(sf.sparse_ffn_block.launches - n0 == 2 * n_fwd and len(errs) == n_fwd,
+          f"5q gate: {sf.sparse_ffn_block.launches - n0} v1 launches, {len(errs)} layers")
+    worst = max(errs)
+    check(worst <= ARCH_GATE_TOL, f"5q gate: a layer's fused FFN is {worst:.3e} of its scale off")
+    check(toks["dense"] == toks["pallas"], f"5q gate: greedy tokens differ {toks}")
+    row = {"layers": 4, "steps": steps, "layer_outputs": n_fwd, "worst_rel_err": worst,
+           "tol": ARCH_GATE_TOL, "tokens": toks["dense"], "seconds": time.perf_counter() - t0}
+    print("phase 5q, f32 gate (Qwen1.5-MoE-A2.7B widths, 4 layers):", json.dumps(row))
+    return row
+
+
+def qwen15_phase(greedy, prompt, n_new: int = 128) -> dict:
+    """Qwen1.5-MoE-A2.7B at full width and depth in bf16: v1 at its shape,
+    then the fused and the dense Engines, each a graph against an eager
+    engine (streams equal, first decode logits bit-equal)."""
+    import gc
+
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    cfg = qwen15_moe_config(24)
+    t0 = time.perf_counter()
+    model = random_qwen2moe(cfg, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    weights = sum(t.numel() for t in [model.params["tok_embd"], model.params["output"],
+                                      *model.params["layers"].values()])
+    print(f"model: Qwen1.5-MoE-A2.7B widths, L={cfg.n_layer} E={cfg.n_embd} H={cfg.n_head} "
+          f"X={cfg.n_expert} k={cfg.n_expert_used} Fe={cfg.n_ff_exp} shared={cfg.n_ff} "
+          f"V={cfg.n_vocab}, bf16, {weights} weights built in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    v1_rows = moe_v1_rows(LoadedModel(config=cfg, params={"layers": model.params["layers"]}),
+                          path="Qwen1.5-MoE-A2.7B", Ns=(1, 32))
+    mark("phase 5q, v1 at the Qwen1.5-MoE-A2.7B shape")
+    engines = [moe_engine(f"Qwen1.5-MoE-A2.7B bf16 {mode}", model, greedy, prompt, n_new, mode,
+                          phase="5q", eager_stream=True)
+               for mode in ("pallas", "dense")]
+    ratio = engines[0]["tok_s"] / engines[1]["tok_s"]
+    print("phase 5q, fused against dense decode:", json.dumps(
+        {"pallas_tok_s": engines[0]["tok_s"], "dense_tok_s": engines[1]["tok_s"], "ratio": ratio}))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"v1_rows": v1_rows, "engines": engines, "pallas_over_dense": ratio,
+            "weights": weights, "v1_launches": engines[0]["launches"]}
+
+
+def attention_order_cuts(greedy) -> list:
+    """4-layer cuts at small widths, bf16, for the two new attention orders,
+    each decode graph against an eager engine (streams equal, first decode
+    logits bit-equal): hunyuan-dense (per-head q/k RMS norms after rope) and
+    stablelm (LayerNorm blocks with biases, qkv biases, partial rope over 16
+    of 64 lanes, per-head q/k LayerNorms with an (H, D) affine and biases)."""
+    import dataclasses
+
+    import torch
+
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    f32 = torch.float32
+    cuts = {
+        "hunyuan-dense": (ModelConfig(arch="hunyuan-dense", n_layer=4, n_embd=2048, n_head=16,
+                                      n_head_kv=4, head_dim=128, n_ff=6144, n_vocab=32000,
+                                      norm_eps=1e-5, rope_freq_base=1e4),
+                          lambda normal: {"attn_q_norm_w": normal((4, 128), 0.1, f32, 1.0),
+                                          "attn_k_norm_w": normal((4, 128), 0.1, f32, 1.0)}),
+        "stablelm": (ModelConfig(arch="stablelm", n_layer=4, n_embd=2048, n_head=32, n_head_kv=8,
+                                 head_dim=64, rope_dim=16, n_ff=5632, n_vocab=32000,
+                                 norm_eps=1e-5, rope_freq_base=1e4),
+                     lambda normal: {"attn_norm_b": normal((4, 2048), 0.1, f32),
+                                     "ffn_norm_b": normal((4, 2048), 0.1, f32),
+                                     "bq": normal((4, 2048), 0.1, f32),
+                                     "bk": normal((4, 512), 0.1, f32),
+                                     "bv": normal((4, 512), 0.1, f32),
+                                     "attn_q_norm_w": normal((4, 32, 64), 0.1, f32, 1.0),
+                                     "attn_q_norm_b": normal((4, 32, 64), 0.1, f32),
+                                     "attn_k_norm_w": normal((4, 8, 64), 0.1, f32, 1.0),
+                                     "attn_k_norm_b": normal((4, 8, 64), 0.1, f32)}),
+    }
+    gen = torch.Generator().manual_seed(SEED + 74)
+    prompt = torch.randint(32000, (32,), generator=gen).tolist()
+    out = []
+    for i, (name, (cfg, extra)) in enumerate(cuts.items()):
+        model = random_cut(cfg, SEED + 75 + i, extra)
+        kw = dict(max_seq=1024, sampler=greedy, device="cuda")
+        row = graph_vs_eager(f"{name} cut bf16", Engine(model, **kw),
+                             Engine(model, cuda_graph=False, **kw), prompt, 64)
+        out.append({"arch": name, **{k: row[k] for k in ("replay_span_ms", "wall_speedup")},
+                    "graph_tok_s": row["graph"]["tok_s"], "eager_tok_s": row["eager"]["tok_s"]})
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_archs(greedy) -> dict:
+    """Phase 5q: Qwen3-8B in Q8_0 and Qwen1.5-MoE-A2.7B in bf16 at full width
+    and depth, their f32 gates at 4 layers, and the attention-order cuts.
+    Returns its summary, with the main paths' launches."""
+    import gc
+
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 5q: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free at its start")
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 70)
+    prompt = torch.randint(151936, (32,), generator=gen).tolist()
+    gates = {"qwen3_8b": qwen3_f32_gate(prompt)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5q, Qwen3-8B f32 gate")
+    qwen3 = qwen3_phase(greedy, prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5q, Qwen3-8B")
+    gates["qwen15_moe"] = qwen15_f32_gate(prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5q, Qwen1.5-MoE-A2.7B f32 gate")
+    moe = qwen15_phase(greedy, prompt)
+    mark("phase 5q, Qwen1.5-MoE-A2.7B")
+    cuts = attention_order_cuts(greedy)
+    mark("phase 5q, attention-order cuts")
+    return {"f32_gates": gates, "qwen3_8b": qwen3, "qwen15_moe": moe, "cuts": cuts,
+            "qmm_launches": qwen3["engine"]["launches"], "v1_launches": moe["v1_launches"],
+            "seconds": time.perf_counter() - t0}
+
+
+def archs_summary(a) -> dict:
+    """Phase 5q's numbers in brief, for the end of the full run's output."""
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")
+    moe_keys = ("tok_s", "wall_ms_per_step", "device_ms_per_step", "v1_share_of_device",
+                "replay_span_ms", "prefill_ms", "peak_gib", "launches")
+    q = a["qwen3_8b"]["engine"]
+    return {"f32_gates": {k: g["worst_rel_err"] for k, g in a["f32_gates"].items()},
+            "qwen3_8b_qmm": [{"shape": r["shape"], **{k: r[k] for k in keys}}
+                             for r in a["qwen3_8b"]["rows"]],
+            "qwen3_8b": {"bound_ms": q["step_bound"]["bound_ms"], **{k: q[k] for k in (
+                "tok_s", "wall_ms_per_step", "device_ms_per_step", "replay_span_ms",
+                "qmm_decode_per_step", "qmm_prefill_per_prefill", "x_bound", "peak_gib",
+                "launches")}},
+            "qwen15_v1": [{"N": r["N"], **{k: r[k] for k in keys}}
+                          for r in a["qwen15_moe"]["v1_rows"]],
+            "qwen15_engines": [{"path": r["path"], **{k: r[k] for k in moe_keys}}
+                               for r in a["qwen15_moe"]["engines"]],
+            "qwen15_pallas_over_dense": a["qwen15_moe"]["pallas_over_dense"],
+            "cuts": a["cuts"], "seconds": a["seconds"]}
+
+
 def phase_child(tag, flag) -> dict:
     """Phase `tag` in a child process (`chip_smoke.py flag`), started before
     this process builds any model: its output is passed through, its
@@ -6292,9 +6809,10 @@ def kernel_line(name, source, replaces, launches, row, shape):
 
 
 def child_phase(tag, phase) -> int:
-    """`chip_smoke.py --moe-phase` (5k), `--swa-phase` (5o) or `--mla-phase`
-    (5p): the phase alone, in the child process the full run starts (the
-    kernels built already); its summary is the last line."""
+    """`chip_smoke.py --moe-phase` (5k), `--swa-phase` (5o), `--mla-phase`
+    (5p) or `--archs-phase` (5q): the phase alone, in the child process the
+    full run starts (the kernels built already); its summary is the last
+    line."""
     import torch
 
     from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
@@ -6373,15 +6891,21 @@ def main(only: str | None = None) -> int:
     if only == "mla":
         print("phase 5p summary:", json.dumps(mla_summary(phase_mla(greedy))))
         return 0
+    if only == "archs":
+        print("phase 5q summary:", json.dumps(archs_summary(phase_archs(greedy))))
+        return 0
     # 5k. Qwen3-30B-A3B (61 GB of bf16 weights) in a child process, before
-    # this process builds any model; then 5o, gpt-oss-20b (42 GB), and 5p,
-    # DeepSeek-V2-Lite (31 GB), likewise
+    # this process builds any model; then 5o, gpt-oss-20b (42 GB), 5p,
+    # DeepSeek-V2-Lite (31 GB), and 5q, Qwen3-8B Q8_0 (8.5 GB) then
+    # Qwen1.5-MoE-A2.7B (28.6 GB), likewise
     moe = phase_child("5k", "--moe-phase")
     mark("phase 5k")
     swa = phase_child("5o", "--swa-phase")
     mark("phase 5o")
     mla = phase_child("5p", "--mla-phase")
     mark("phase 5p")
+    archs = phase_child("5q", "--archs-phase")
+    mark("phase 5q")
 
     # 3. f32 references on small inputs: kernel path == plain path
     phase_reference(SparseConfig, Engine, greedy)
@@ -6500,7 +7024,7 @@ def main(only: str | None = None) -> int:
     mark("7B paths")
 
     # 5c. the 13B-width Q8_0 model, made and quantized on the card
-    cfg, scfg, weights, model, sparse_eng = q8_13b_engine(greedy)
+    cfg, scfg, weights, model, sparse_eng = q8_13b_engine(greedy, FULL_RUN_13B_L)
     ng, C = scfg.n_groups(cfg.n_ff), scfg.capacity(cfg.n_ff)
 
     # 4b. v6q and the quant matmuls against their plain versions
@@ -6610,9 +7134,13 @@ def main(only: str | None = None) -> int:
         {**kernel_line("quant_matmul_2d", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
                        "sparkinfer_tpu/ops/quant_matmul.py:149",
                        l13["quant_matmul_2d"] + l_tier13["quant_matmul_2d"]
-                       + l_w8["quant_matmul_2d"] + fl["quant_matmul_2d"], q2d_row,
-                       q2d_row["shape"]),
-         **fam_rows("qmm head")},
+                       + l_w8["quant_matmul_2d"] + fl["quant_matmul_2d"]
+                       + archs["qmm_launches"], q2d_row, q2d_row["shape"]),
+         **fam_rows("qmm head"),
+         "qwen3_8b": {"launches": archs["qmm_launches"],
+                      "shapes": {r["shape"]: {f: r[f] for f in (
+                          "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms")} for r in archs["qwen3_8b"]["rows"]}}},
         {**kernel_line("quant_matmul_flat", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
                        "sparkinfer_tpu/ops/quant_matmul.py:243",
                        l13["quant_matmul_flat"] + l_tier13["quant_matmul_flat"]
@@ -6621,7 +7149,8 @@ def main(only: str | None = None) -> int:
         {**kernel_line("sparse_ffn_block", "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
                        "sparkinfer_tpu/ops/sparse_ffn_pallas.py:124",
                        l_v1 + moe["v1_launches"] + fl["sparse_ffn_block"]
-                       + swa["v1_launches"] + mla["v1_launches"], row_rows["sparse_ffn_block"],
+                       + swa["v1_launches"] + mla["v1_launches"] + archs["v1_launches"],
+                       row_rows["sparse_ffn_block"],
                        "N=1 C=12 G=128 E=4096 bf16 fatrelu, row stores"),
          **fam_rows("v1 falcon40b"),
          "moe": {"launches": moe["v1_launches"],
@@ -6639,7 +7168,12 @@ def main(only: str | None = None) -> int:
                                   "max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")},
                               "shape": "N=1 C=66 G=128 E=2048 bf16 silu, scale = routed "
-                                       "weights"}},
+                                       "weights"},
+         "qwen15_moe": {"launches": archs["v1_launches"],
+                        **{k: archs["qwen15_moe"]["v1_rows"][0][k] for k in (
+                            "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")},
+                        "shape": "N=1 C=44 G=128 E=2048 bf16 silu, scale = routed weights"}},
         # v2 runs on the bench path (SPIF_KERNEL_V2); v3, v4 and v5 on no
         # path of the package (only its TPU probes call them)
         *(kernel_line(name, "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
@@ -6682,6 +7216,7 @@ def main(only: str | None = None) -> int:
     print("phase 5n summary:", json.dumps(families_summary(fam)))
     print("phase 5o summary:", json.dumps(swa_summary(swa)))
     print("phase 5p summary:", json.dumps(mla_summary(mla)))
+    print("phase 5q summary:", json.dumps(archs_summary(archs)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -6697,7 +7232,9 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--swa-phase"]:
         sys.exit(child_phase("5o", lambda greedy: phase_swa(greedy, FULL_RUN_SWA_L)))
     if sys.argv[1:] == ["--mla-phase"]:
-        sys.exit(child_phase("5p", phase_mla))
+        sys.exit(child_phase("5p", lambda greedy: phase_mla(greedy, FULL_RUN_MLA_L)))
+    if sys.argv[1:] == ["--archs-phase"]:
+        sys.exit(child_phase("5q", phase_archs))
     sys.exit(main(only={"--tiered": "tiered", "--moe": "moe", "--runtime": "runtime",
                         "--quant": "quant", "--families": "families", "--swa": "swa",
-                        "--mla": "mla"}.get(" ".join(sys.argv[1:]))))
+                        "--mla": "mla", "--archs": "archs"}.get(" ".join(sys.argv[1:]))))

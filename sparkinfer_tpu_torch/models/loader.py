@@ -1,8 +1,11 @@
 """GGUF -> torch params, the port of sparkinfer_tpu/models/loader.py for the
-llama family (llama, mistral, prosparse_llama, bamboo), its MoE (llama
-with experts, mixtral, qwen3moe, gpt-oss), the paper's other sparse
-families (qwen2, opt, falcon), the gemma family (gemma, gemma2, gemma3)
-and deepseek2.
+llama family (llama, mistral, prosparse_llama, bamboo), the llama-shaped
+archs (qwen3, smollm, tinyllama, internlm2, xverse, baichuan, exaone,
+ernie4_5, seed_oss, smollm3, glm4, orion, stablelm, olmo, hunyuan-dense),
+the MoE archs (llama with experts, mixtral, qwen3moe, qwen2moe,
+hunyuan-moe, smallthinker, grovemoe, arctic, gpt-oss), the paper's other
+sparse families (qwen2, opt, falcon), the gemma family (gemma, gemma2,
+gemma3) and deepseek2.
 
 The params dict has the JAX loader's keys and orientations, so the two
 packages can be compared key for key: `x @ W` with W shaped (in, out),
@@ -28,9 +31,11 @@ A GGUF with `tokenizer.ggml.*` metadata gives the model its `Vocab`
 
 MoE: the router (ffn_gate_inp) as w_router (E, X), its bias, the expert
 stacks, their gpt-oss biases, the score-correction bias (exp_probs_b),
-grovemoe's chunk experts and the shared expert's tensors, and qwen3's q/k
-norms. Every expert stack is kept in one orientation, (X, Fe, E) a layer,
-the GGUF's own for up and gate (sparse/moe.py): the fused mode and expert
+grovemoe's chunk experts, the shared expert's tensors (qwen2moe's with its
+gate ffn_gate_inp_shexp, hunyuan-moe's without) and arctic's second norm
+ffn_norm_exps (ffn_norm_exps_w, over the layer's input). Every expert
+stack is kept in one orientation, (X, Fe, E) a layer, the GGUF's own for
+up and gate (sparse/moe.py): the fused mode and expert
 tiering read it as row stores through views, so the experts are resident
 once. The JAX loader keeps up and gate as (X, E, Fe); models/from_jax.py
 converts.
@@ -44,6 +49,12 @@ grouped falcon, plain [Q; K; V] for MQA or MHA. As in the JAX loader, a
 GGUF with a fused QKV loads dequantized whatever keep_quantized says (the
 split needs the dense weight); a parallel-block arch gets no all-ones FFN
 norm, since its FFN reads the attention norms.
+
+The q/k norms load as attn_q_norm_w / attn_k_norm_w with their biases
+attn_q_norm_b / attn_k_norm_b where the GGUF has them (stablelm's (H, D)
+per-head LayerNorm weights keep that shape); the post-norms carry their
+biases too (attn_post_norm_b, ffn_post_norm_b). An arch with no norm
+tensors (olmo's non-parametric LayerNorm) gets all-ones weights.
 
 The sliding-window archs add gpt-oss's attention sinks (attn_sinks, one
 logit a head, kept in f32 as the JAX loader keeps them) beside its q/k/v
@@ -93,8 +104,10 @@ _LAYER_TENSORS = {
     "ffn_pred_up.weight": "pred_up", "ffn_pred_up.bias": "pred_up_b",
     "ffn_pred_down.weight": "pred_down", "ffn_pred_down.bias": "pred_down_b",
     "attn_q_norm.weight": "attn_q_norm_w", "attn_k_norm.weight": "attn_k_norm_w",
+    "attn_q_norm.bias": "attn_q_norm_b", "attn_k_norm.bias": "attn_k_norm_b",
     "attn_sinks.weight": "attn_sinks", "attn_post_norm.weight": "attn_post_norm_w",
-    "ffn_post_norm.weight": "ffn_post_norm_w",
+    "attn_post_norm.bias": "attn_post_norm_b", "ffn_post_norm.weight": "ffn_post_norm_w",
+    "ffn_post_norm.bias": "ffn_post_norm_b", "ffn_norm_exps.weight": "ffn_norm_exps_w",
     "ffn_gate_inp.weight": "w_router", "ffn_gate_inp.bias": "w_router_b",
     "ffn_up_exps.weight": "w_up_exps", "ffn_gate_exps.weight": "w_gate_exps",
     "ffn_down_exps.weight": "w_down_exps", "ffn_up_exps.bias": "w_up_exps_b",
@@ -385,20 +398,24 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
                    *(_get(r, p + f"attn_{nm}.bias") for nm in "qkv"))
         for key, arr in zip(("wq", "wk", "wv", "bq", "bk", "bv"), qkv):
             add(i, key, arr)
-        add(i, "attn_q_norm_w", _get(r, p + "attn_q_norm.weight"))
-        add(i, "attn_k_norm_w", _get(r, p + "attn_k_norm.weight"))
+        # q/k norms: per head, full width or (H, D) affine, with their biases
+        for nm in ("q", "k"):
+            add(i, f"attn_{nm}_norm_w", _get(r, p + f"attn_{nm}_norm.weight"))
+            add(i, f"attn_{nm}_norm_b", _get(r, p + f"attn_{nm}_norm.bias"))
         add(i, "attn_sinks", _get(r, p + "attn_sinks.weight"))  # gpt-oss: a logit a head
         add(i, "wo", _lin(p + "attn_output.weight", H * (cfg.v_head_dim or D)
                           if cfg.kv_lora_rank > 0 else H * D, E))
         add(i, "bo", _get(r, p + "attn_output.bias"))
-        # gemma's sandwich norms, after attention and after the FFN
-        add(i, "attn_post_norm_w", _get(r, p + "attn_post_norm.weight"))
-        add(i, "ffn_post_norm_w", _get(r, p + "ffn_post_norm.weight"))
+        # sandwich post-norms (gemma, glm4), after attention and after the FFN
+        for nm in ("attn", "ffn"):
+            add(i, f"{nm}_post_norm_w", _get(r, p + f"{nm}_post_norm.weight"))
+            add(i, f"{nm}_post_norm_b", _get(r, p + f"{nm}_post_norm.bias"))
         fnw = _get(r, p + "ffn_norm.weight")
         if fnw is None and not tr.parallel_blocks:
             fnw = np.ones(E, np.float32)  # a non-parametric norm
         add(i, "ffn_norm_w", fnw)
         add(i, "ffn_norm_b", _get(r, p + "ffn_norm.bias"))
+        add(i, "ffn_norm_exps_w", _get(r, p + "ffn_norm_exps.weight"))  # arctic's MoE norm
         _add_moe(r, p, E, lambda key, arr: add(i, key, arr))
         add(i, "w_up", _lin(p + "ffn_up.weight", E, F))
         add(i, "b_up", _get(r, p + "ffn_up.bias"))

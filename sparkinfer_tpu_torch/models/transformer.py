@@ -1,7 +1,11 @@
 """Transformer forward, the port of sparkinfer_tpu/models/transformer.py:
-make_forward for the llama family, the other sparse families of the paper
-(qwen2, opt, falcon) and the Mixture-of-Experts FFN of llama-MoE (mixtral)
-and qwen3moe, with qwen3's per-head q/k norms.
+make_forward for the llama family and the llama-shaped archs that differ
+from it only in traits and tensors (qwen3, smollm, tinyllama, internlm2,
+xverse, baichuan, exaone, ernie4_5, seed_oss, smollm3, glm4, orion,
+stablelm, olmo, hunyuan-dense), the other sparse families of the paper
+(qwen2, opt, falcon), the gemma family, deepseek2, and the Mixture-of-Experts
+FFN of llama-MoE (mixtral), qwen3moe, qwen2moe, hunyuan-moe, smallthinker,
+grovemoe, arctic and gpt-oss.
 
 The block follows the arch's traits as the JAX body does: RMS or LayerNorm
 (`_norm`, with the norm biases of the "ln" archs, the output norm's too),
@@ -10,7 +14,17 @@ added to the token embeddings; rope mode "none"), and falcon's parallel
 block `x = x + attn(h) + ffn(h2)`, where h2 is attn_norm_2(x) when the
 layer has that second norm (Falcon-40B's new decoder architecture) and h
 otherwise (Falcon-7B). Biases on q/k/v, the output projection and the FFN
-are added where the params carry them.
+are added where the params carry them; q, k and v are then clamped to
+[-clamp_kqv, clamp_kqv] where the model sets it (olmo's, dbrx's clip_qkv).
+
+q/k norms (`_qk_norms`, attn_q_norm / attn_k_norm) take the arch's q/k norm
+kind (its body norm unless it names another) and their biases where the
+params carry them: per head when the weight is head_dim wide (qwen3,
+gemma3, hunyuan), over the full width otherwise, and as an (H, D) affine
+over stats of each head (stablelm's per-head LayerNorm). They
+run before rope, or after it where the arch says so (hunyuan). Partial rope
+(rope_dim < head_dim: stablelm, glm4) rotates the leading rope_dim lanes of
+each head and keeps the rest (ops/rope.py).
 
 A plain Python loop over layers takes the place of `lax.scan`; the KV cache
 is written in place. The FFN is pluggable as in the JAX package:
@@ -35,7 +49,11 @@ A model with experts (cfg.n_expert > 0) and no `ffn_fn` runs the MoE FFN of
 `sparse/moe.py` at every layer that carries a router (`w_router`), the dense
 FFN at any other, in `moe_mode` "dense" (plain torch over the gathered expert
 weights) or "pallas" (the v1 row kernel, `ops/sparse_ffn.py`, with the router
-weights as its scale mask), as the JAX forward dispatches them.
+weights as its scale mask), as the JAX forward dispatches them. Two MoE
+bodies differ: arctic keeps the dense FFN in the block and adds
+`moe(ffn_norm_exps(x_in))` of the layer's input x_in as a parallel
+residual; smallthinker routes on the raw layer input (`router_logits`, set
+before attention), as the JAX forward does.
 
 Attention is plain torch (matmul, mask, softmax), as the JAX CPU path
 computes it; the JAX package's TPU prefill uses JAX's library flash
@@ -52,7 +70,7 @@ sinks join the softmax as one more logit a head that carries no value;
 gemma2 caps the attention logits (before the mask) and the final logits
 with cap * tanh(x / cap); the gemma family scales the embeddings by
 sqrt(n_embd) and wraps attention and FFN in sandwich post-norms
-(attn_post_norm, ffn_post_norm).
+(attn_post_norm, ffn_post_norm; glm4 carries the same two).
 
 Model-level multipliers, as the JAX forward applies them to every arch:
 cfg.embd_scale on the embeddings (after gemma's sqrt scale, before learned
@@ -71,9 +89,10 @@ kv_lora_rank + rope_dim a token, a zero-width v), and the JAX loader's
 layer segments: params["layer_segments"], the leading dense layers and the
 MoE layers as stacks of their own, walked in order (`layer_params`).
 
-Deepstack, ALiBi, post-norm-only blocks, partial rope, symmetric windows of
-non-causal encoders, the other MLA archs (minicpm3, plm) and the other MoE
-families' variants (arctic's parallel MoE, qk norms after rope) come later.
+Deepstack, ALiBi (Baichuan-13B's too), post-norm-only blocks, per-layer
+widths, symmetric windows of non-causal encoders and the other MLA archs
+(minicpm3, plm) come later; `check_supported` names each feature it can
+see in the configuration, and refuses the rest by arch name.
 """
 
 from __future__ import annotations
@@ -101,13 +120,21 @@ from .config import ModelConfig
 NEG_INF = -1e30
 
 LLAMA_FAMILY = ("llama", "mistral", "prosparse_llama", "bamboo")
+# llama-shaped archs that differ from llama only in traits and tensors:
+# q/k norms (before or after rope), post-norms, partial rope, LayerNorm
+# blocks with biases, qkv biases, clamped q/k/v, NoPE layers
+LLAMA_SHAPED = ("qwen3", "smollm", "tinyllama", "internlm2", "xverse", "baichuan", "exaone",
+                "ernie4_5", "seed_oss", "smollm3", "glm4", "orion", "stablelm", "olmo",
+                "hunyuan-dense")
 # the paper's other sparse families (SparkInfer's build_sparse_ffn archs)
 SPARSE_FAMILIES = ("qwen2", "opt", "falcon")
 # sliding windows, softcaps, sandwich norms and gemma3's second rope base
 GEMMA_FAMILY = ("gemma", "gemma2", "gemma3")
+# the archs it runs with experts only
+EXPERT_ONLY = ("mixtral", "qwen3moe", "gpt-oss", "qwen2moe", "hunyuan-moe", "smallthinker",
+               "grovemoe", "arctic")
 # the archs whose experts the port runs
-MOE_ARCHS = ("llama", "mixtral", "qwen3moe", "gpt-oss", "deepseek2")
-EXPERT_ONLY = ("mixtral", "qwen3moe", "gpt-oss")  # the archs it runs with experts only
+MOE_ARCHS = ("llama", "deepseek2") + EXPERT_ONLY
 MLA_ARCHS = ("deepseek2",)  # multi-head latent attention over the latent cache
 
 
@@ -118,18 +145,21 @@ def check_supported(cfg: ModelConfig):
     for cond, what in ((cfg.kv_lora_rank and cfg.arch not in MLA_ARCHS,
                         "MLA (multi-head latent attention) outside deepseek2"),
                        (cfg.n_head_arr or cfg.n_ff_arr, "per-layer head counts or FFN widths"),
-                       (tr.qk_norm_after_rope, "q/k norms after rope"),
-                       (tr.parallel_moe, "parallel MoE blocks"),
+                       (tr.alibi, "ALiBi (attention linear biases)"),
+                       # llama.cpp's baichuan: 40 layers is Baichuan-13B, ALiBi and no rope
+                       (cfg.arch == "baichuan" and cfg.n_layer == 40,
+                        "ALiBi (attention linear biases) of Baichuan-13B"),
                        (cfg.sliding_window and tr.non_causal,
-                        "the symmetric sliding window of a non-causal encoder"),
-                       (cfg.clamp_kqv > 0.0, "clamped q/k/v (attention.clamp_kqv)")):
+                        "the symmetric sliding window of a non-causal encoder")):
         if cond:
             raise NotImplementedError(f"{what} is not ported yet (arch {cfg.arch!r})")
-    archs = LLAMA_FAMILY + SPARSE_FAMILIES + GEMMA_FAMILY + EXPERT_ONLY + MLA_ARCHS
+    archs = (LLAMA_FAMILY + LLAMA_SHAPED + SPARSE_FAMILIES + GEMMA_FAMILY + EXPERT_ONLY
+             + MLA_ARCHS)
     if cfg.arch not in archs:
         raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet (the llama family, its MoE, the "
-            f"other sparse families, the gemma family and deepseek2: {', '.join(archs)})")
+            f"arch {cfg.arch!r} is not ported yet (the llama family and the llama-shaped "
+            f"archs, the MoE archs, the other sparse families, the gemma family and "
+            f"deepseek2: {', '.join(archs)})")
     if cfg.n_expert and cfg.arch not in MOE_ARCHS:
         raise NotImplementedError(f"experts of arch {cfg.arch!r} are not ported yet")
     if cfg.arch in EXPERT_ONLY and not (cfg.n_expert and cfg.n_expert_used):
@@ -233,15 +263,26 @@ def _attend(q, k, v, H, Hkv, D, scale, mask, softcap: float = 0.0, sinks=None):
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D)
 
 
-def _qk_norms(lp: dict, q: torch.Tensor, k: torch.Tensor, eps: float):
-    """The q/k RMS norms before rope (qwen3's and gemma3's attn_q_norm /
-    attn_k_norm): per head when the weight is head_dim wide, over the full
-    width otherwise."""
+def _qk_norms(cfg: ModelConfig, lp: dict, q: torch.Tensor, k: torch.Tensor):
+    """The q/k norms (attn_q_norm / attn_k_norm, with their biases where the
+    params carry them) in the arch's q/k norm kind: per head when the weight
+    is head_dim wide, over the full width when it is H*D wide, and an (H, D)
+    affine over each head's unit-weight norm when it is 2-D (stablelm's
+    per-head LayerNorm), that product taken in f32 and rounded to q's dtype
+    once (the JAX package keeps it in f32; the same values in an f32 model)."""
     qw, kw = lp["attn_q_norm_w"], lp["attn_k_norm_w"]
+    qb, kb = lp.get("attn_q_norm_b"), lp.get("attn_k_norm_b")
+    kind, eps = cfg.traits.qk_norm_kind or cfg.traits.norm, cfg.norm_eps
+    if qw.dim() == 2:
+        ones = torch.ones(q.shape[-1], dtype=torch.float32, device=q.device)
+        nq, nk = _norm(q, ones, None, kind, eps) * qw, _norm(k, ones, None, kind, eps) * kw
+        if qb is not None:
+            nq, nk = nq + qb, nk + kb
+        return nq.to(q.dtype), nk.to(k.dtype)
     if qw.shape[-1] == q.shape[-1]:
-        return rms_norm(q, qw, eps), rms_norm(k, kw, eps)
-    return (rms_norm(q.flatten(-2), qw, eps).view(q.shape),
-            rms_norm(k.flatten(-2), kw, eps).view(k.shape))
+        return _norm(q, qw, qb, kind, eps), _norm(k, kw, kb, kind, eps)
+    return (_norm(q.flatten(-2), qw, qb, kind, eps).view(q.shape),
+            _norm(k.flatten(-2), kw, kb, kind, eps).view(k.shape))
 
 
 def _mask(positions: torch.Tensor, S: int, window: int, ring_width: int) -> torch.Tensor:
@@ -286,11 +327,17 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
         q = q + lp["bq"].to(q.dtype).reshape(H, D)
         k = k + lp["bk"].to(k.dtype).reshape(Hkv, D)
         v = v + lp["bv"].to(v.dtype).reshape(Hkv, D)
-    if "attn_q_norm_w" in lp:
-        q, k = _qk_norms(lp, q, k, cfg.norm_eps)
+    if cfg.clamp_kqv > 0.0:  # olmo's, dbrx's clip_qkv
+        c = cfg.clamp_kqv
+        q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
+    after_rope = cfg.traits.qk_norm_after_rope  # hunyuan: rope, then the norms
+    if "attn_q_norm_w" in lp and not after_rope:
+        q, k = _qk_norms(cfg, lp, q, k)
     if rope:
         q = rotate(q, *rope_cs, rp)
         k = rotate(k, *rope_cs, rp)
+    if "attn_q_norm_w" in lp and after_rope:
+        q, k = _qk_norms(cfg, lp, q, k)
     wpos = positions % ring_width if ring_width else positions
     write_layer(kc, k, wpos)
     write_layer(vc, v, wpos)
@@ -374,18 +421,23 @@ def lm_head(x: torch.Tensor, w) -> torch.Tensor:
     return out.reshape(x.shape[:-1] + (V,))
 
 
-def moe_or_dense_ffn(cfg: ModelConfig, moe_mode: str = "dense") -> Callable:
-    """The FFN of a model with experts: the MoE FFN at a layer with a router,
-    the dense FFN at any other (deepseek2-style leading dense layers).
-    moe_mode "pallas" reads the layers' `moe_layout` row stores."""
+def moe_or_dense_ffn(cfg: ModelConfig, moe_mode: str = "dense") -> tuple[Callable, Callable]:
+    """(ffn, moe): the FFN of a model with experts, the MoE FFN at a layer
+    with a router and the dense FFN at any other (deepseek2-style leading
+    dense layers) and at every layer of a parallel-MoE arch (arctic), whose
+    layers carry both and whose MoE `moe` the forward adds as a residual of
+    its own. moe_mode "pallas" reads the layers' `moe_layout` row stores."""
     from ..sparse.moe import make_moe_ffn
 
     moe, dense = make_moe_ffn(cfg, mode=moe_mode), dense_ffn(cfg)
+    parallel = cfg.traits.parallel_moe
 
     def ffn(lp: dict, x: torch.Tensor) -> torch.Tensor:
-        return moe(lp, x) if "w_router" in lp else dense(lp, x)
+        if "w_router" in lp and not (parallel and "w_up" in lp):
+            return moe(lp, x)
+        return dense(lp, x)
 
-    return ffn
+    return ffn, moe
 
 
 def _layer_attention(cfg: ModelConfig, rp: RopeParams):
@@ -460,14 +512,20 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
     JAX forward's carry branch scans the cache as one stacked array, which
     a tuple of runs is not, so it raises ValueError there."""
     check_supported(cfg)
+    eps, tr = cfg.norm_eps, cfg.traits
     if stateful_ffn and ffn_carry_init is not None:
         raise ValueError("a stateful FFN takes no cross-layer carry")
+    if tr.parallel_moe and ffn_fn is not None:
+        raise NotImplementedError("an FFN of its own (sparse, tiered) over arctic's parallel "
+                                  "MoE block is not ported yet")
+    moe_residual = None  # arctic: the MoE of the layer's input, a residual of its own
     if ffn_fn is None and cfg.n_expert > 0:
-        ffn = moe_or_dense_ffn(cfg, moe_mode)
+        ffn, moe = moe_or_dense_ffn(cfg, moe_mode)
+        if tr.parallel_moe:
+            moe_residual = moe
     else:
         ffn = ffn_fn or dense_ffn(cfg)
     rp = rope_params(cfg)
-    eps, tr = cfg.norm_eps, cfg.traits
     kind = tr.norm
     window_of, rope_of = _layer_attention(cfg, rp)
     ropes = {rope_of(il) for il in range(cfg.n_layer)}
@@ -499,6 +557,9 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
             if flat is not None:  # FlatQuantTensors bind the layer late
                 lp.update({k: (v.with_il(il) if isinstance(v, FlatQuantTensor) else v)
                            for k, v in flat.items()}, flat_il=il)
+            x_in = x  # the layer's input: arctic's MoE and smallthinker's router read it
+            if tr.moe_router_on_input and "w_router" in lp:  # routed before attention
+                lp["router_logits"] = x_in @ lp["w_router"].to(x_in.dtype)
             h = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), kind, eps)
             rp_l = rope_of(il)
             if mla:
@@ -532,6 +593,8 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                 if cfg.residual_scale != 1.0:
                     y = y * _scalar(cfg.residual_scale, y.dtype)
                 x = x + y
+            if moe_residual is not None and "ffn_norm_exps_w" in lp:
+                x = x + moe_residual(lp, _norm(x_in, lp["ffn_norm_exps_w"], None, kind, eps))
             if "cvec" in lp:  # control vector (llama_adapter_cvec)
                 x = x + lp["cvec"].to(x.dtype)
         x = _norm(x, params["output_norm_w"], params.get("output_norm_b"), kind, eps)

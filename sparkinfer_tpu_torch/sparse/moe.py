@@ -17,6 +17,13 @@ store of v1 and of the tiering machinery, so `moe_layout` and
 gate as (X, E, Fe); `models/from_jax.py` turns its params into this
 orientation.)
 
+grovemoe's chunk experts (of expert id // experts_per_group, on the routed
+output, scaled by expert_group_scale) run in both modes: gathered in
+"dense", a second row-kernel call over their own row stores in "pallas"
+(the JAX package's fused mode leaves them out). The fused mode takes the
+row kernel's activations only: smallthinker's reglu experts run in "dense",
+and "pallas" refuses them by name, as the JAX row kernel does.
+
 Routing follows llama.cpp's build_moe_ffn: softmax (default), sigmoid, or
 softmax over the k selected raw logits ("softmax_topk"), an optional
 selection-only bias (exp_probs_b), top-k renormalization (norm_topk_prob)
@@ -34,6 +41,9 @@ groups live in the flat hot store on the card, cold experts are dropped
 the DFR statistic is each group's routed frequency, so the balancer swaps
 whole experts. As the JAX package, no Engine option wires it: a caller
 builds `make_forward(cfg, ffn_fn=make_tiered_moe_ffn(...), stateful_ffn=True)`.
+It refuses, by name, what the JAX package's tiered FFN computes wrong or
+not at all: arctic's parallel MoE block, grovemoe's chunk experts and
+deepseek2's layer segments.
 """
 
 from __future__ import annotations
@@ -47,17 +57,17 @@ import torch.nn.functional as F
 
 from ..models.config import ModelConfig
 from ..ops.activations import act_fn
-from ..ops.sparse_ffn import sparse_ffn_block
+from ..ops.sparse_ffn import GATED_ACTS_V1, sparse_ffn_block
 from .tiering import DFRState, PinnedStaging, host_rows
 
 MODES = ("dense", "pallas")
 TIERED_MODES = ("drop", "host")
 
 
-def expert_groups(cfg: ModelConfig, group_size: int) -> tuple[int, int]:
-    """(G, ng_e): the group size, halved until it divides the expert width,
-    and the groups of one expert."""
-    Fe = cfg.n_ff_exp or cfg.n_ff
+def expert_groups(cfg: ModelConfig, group_size: int, width: int = 0) -> tuple[int, int]:
+    """(G, ng_e): the group size, halved until it divides the expert width
+    (`width`, or the model's expert width), and the groups of one expert."""
+    Fe = width or cfg.n_ff_exp or cfg.n_ff
     G = min(group_size, Fe)
     while Fe % G:
         G //= 2
@@ -68,12 +78,14 @@ def moe_layout(lp: dict, cfg: ModelConfig, group_size: int = 128) -> dict:
     """lp with the fused mode's row stores moe_up_rows / moe_gate_rows /
     moe_down_rows (..., X*ng_e, G, E), views of the expert stacks, and the
     gpt-oss up/gate biases as (..., X*ng_e, G) rows (the down bias is per
-    (expert, E) and is mixed outside the kernel)."""
+    (expert, E) and is mixed outside the kernel); grovemoe's chunk experts
+    as moe_up_ch_rows / moe_gate_ch_rows / moe_down_ch_rows, grouped by
+    their own width."""
     E, X = cfg.n_embd, cfg.n_expert
     G, ng_e = expert_groups(cfg, group_size)
 
-    def rows(w):  # (..., X, Fe, E) -> (..., X*ng_e, G, E)
-        return w.reshape(w.shape[:-3] + (X * ng_e, G, E))
+    def rows(w, g=G):  # (..., X, Fe, E) -> (..., X*Fe/g, g, E)
+        return w.reshape(w.shape[:-3] + (w.shape[-3] * w.shape[-2] // g, g, E))
 
     def bias_rows(b):  # (..., X, Fe) -> (..., X*ng_e, G)
         return b.reshape(b.shape[:-2] + (X * ng_e, G))
@@ -87,6 +99,10 @@ def moe_layout(lp: dict, cfg: ModelConfig, group_size: int = 128) -> dict:
         out["moe_up_b_rows"] = bias_rows(lp["w_up_exps_b"])
     if "w_gate_exps_b" in lp:
         out["moe_gate_b_rows"] = bias_rows(lp["w_gate_exps_b"])
+    if "w_up_chexps" in lp:
+        Gc = expert_groups(cfg, group_size, lp["w_up_chexps"].shape[-2])[0]
+        for nm in ("up", "gate", "down"):
+            out[f"moe_{nm}_ch_rows"] = rows(lp[f"w_{nm}_chexps"], Gc)
     return out
 
 
@@ -100,7 +116,8 @@ def moe_params(params: dict, cfg: ModelConfig, group_size: int = 128) -> dict:
         if "w_up_exps" not in lay:
             return lay
         lay = moe_layout(lay, cfg, group_size)
-        for k in ("w_up_exps", "w_gate_exps", "w_down_exps"):
+        for k in ("w_up_exps", "w_gate_exps", "w_down_exps", "w_up_chexps", "w_gate_chexps",
+                  "w_down_chexps"):
             lay.pop(k, None)
         return lay
 
@@ -178,6 +195,10 @@ def make_moe_ffn(cfg: ModelConfig, group_size: int = 128, mode: str = "pallas",
     G, ng_e = expert_groups(cfg, group_size)
     act = cfg.traits.act
     gated, actf = act_fn(act)
+    if mode == "pallas" and act not in GATED_ACTS_V1:  # as the JAX row kernel refuses it
+        raise NotImplementedError(f"the fused MoE mode with the {act} activation "
+                                  f"(smallthinker's experts) is not ported: the row kernel "
+                                  f"has no such activation; run moe_mode='dense'")
 
     def experts(xt, up_w, gate_w, down_w, up_b=None, gate_b=None):
         """Each token's k experts over the gathered stacks (N, k, Fe, E):
@@ -235,6 +256,18 @@ def make_moe_ffn(cfg: ModelConfig, group_size: int = 128, mode: str = "pallas",
         if "w_down_exps_b" in lp:  # per (expert, E): mixed with the router weights
             db = lp["w_down_exps_b"][idx.long()]  # (N, k, E)
             out = out + (db * w[..., None]).sum(1).to(out.dtype)
+        if "moe_up_ch_rows" in lp and cfg.n_group_experts > 0:
+            # grovemoe: the chunk experts of expert id // experts_per_group on
+            # the routed output, a second call of the row kernel (the JAX
+            # package's fused mode leaves them out; its dense mode has them)
+            Rc, Gc = lp["moe_up_ch_rows"].shape[-3:-1]
+            ng_c = Rc // (cfg.n_expert // cfg.n_group_experts)  # groups a chunk expert
+            crows = expert_rows(idx // cfg.n_group_experts, ng_c)
+            cscale = w[:, :, None, None].float().expand(N, k, ng_c, Gc).reshape(N, k * ng_c, Gc)
+            adj = sparse_ffn_block(out.to(xt.dtype), crows, cscale, lp["moe_up_ch_rows"],
+                                   lp["moe_gate_ch_rows"], lp["moe_down_ch_rows"], act=act,
+                                   mask_mode="scale")
+            out = out + cfg.expert_group_scale * adj
         if "w_up_shexp" in lp:
             out = out + _shared_expert(cfg, lp, xt, act).to(out.dtype)
         return out.reshape(B, T, E).to(x.dtype)
@@ -357,6 +390,14 @@ def make_tiered_moe_ffn(cfg: ModelConfig, scfg, cold: MoEColdStore | None,
     if cfg.n_dense_lead > 0:
         raise NotImplementedError("expert tiering over layer segments (deepseek2's leading "
                                   "dense layers) is not ported yet")
+    # the JAX package's tiered FFN computes neither: it would run arctic's
+    # MoE in place of its dense FFN and drop grovemoe's chunk experts
+    if cfg.traits.parallel_moe:
+        raise NotImplementedError("expert tiering of arctic's parallel MoE block is not "
+                                  "ported yet")
+    if cfg.n_group_experts > 0:
+        raise NotImplementedError("expert tiering with grovemoe's chunk experts is not "
+                                  "ported yet")
     if mode == "host" and cold is None:
         raise ValueError("mode='host' needs a MoEColdStore")
     E, k, L = cfg.n_embd, cfg.n_expert_used, cfg.n_layer

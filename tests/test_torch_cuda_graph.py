@@ -28,7 +28,8 @@ Scheduler. The iSWA decode step (rings rebuilt from the static position
 buffer on the device) of a tiny gemma2 and of a tiny gpt-oss through v1,
 across ring wraps, bit-equal to the eager step. The MLA decode step of a
 tiny deepseek2 (latent cache, layer segments) in dense and "pallas" MoE
-mode, bit-equal to the eager step.
+mode, bit-equal to the eager step. The same for a tiny qwen2moe and
+hunyuan-moe (tests/arch_fixture.py) in both modes.
 """
 
 import os
@@ -43,6 +44,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from arch_fixture import make_arch  # noqa: E402
 from deepseek2_fixture import make_deepseek2  # noqa: E402
 from model_fixtures import make_tiny_llama  # noqa: E402
 from sparkinfer_tpu_torch.models.loader import LoadedModel, load_model  # noqa: E402
@@ -328,6 +330,29 @@ def test_moe_graph_step_equals_the_eager_step(cuda, moe_gguf, mode):
     for name, eng in (("eager", eager), ("graph", graph_eng)):
         toks, logits = _steps(eng, 6)
         runs[name] = (toks, logits)
+    assert runs["graph"][0] == runs["eager"][0]
+    for got, want in zip(runs["graph"][1], runs["eager"][1]):
+        assert torch.equal(got, want)
+    assert graph_eng.graphs.captures == 1
+    v1 = graphs.COUNTED.index(sparse_ffn_block)
+    assert _per_step(eager)[v1] == (model.config.n_layer if mode == "pallas" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,mode", [("qwen2moe", "dense"), ("qwen2moe", "pallas"),
+                                       ("hunyuan-moe", "dense"), ("hunyuan-moe", "pallas")])
+def test_arch_graph_step_equals_the_eager_step(cuda, tmp_path, kind, mode):
+    """A qwen2moe (qkv biases, a shared expert with its sigmoid gate, no
+    top-k renormalization) and a hunyuan-moe (q/k norms after rope, an
+    ungated shared expert) of tests/arch_fixture.py in each moe_mode: the
+    decode graph's greedy stream and every step's logits bit-equal to the
+    eager step's, one capture, and v1 once a layer a step in "pallas"."""
+    make_arch(tmp_path / "m.gguf", kind, seed=7)
+    model = load_model(str(tmp_path / "m.gguf"), dtype=torch.float32, device="cuda")
+    kw = dict(max_seq=64, sampler=GREEDY, kv_dtype=torch.float32, device="cuda",
+              moe_mode=mode)
+    graph_eng, eager = Engine(model, **kw), Engine(model, cuda_graph=False, **kw)
+    runs = {label: _steps(eng, 8) for label, eng in (("eager", eager), ("graph", graph_eng))}
     assert runs["graph"][0] == runs["eager"][0]
     for got, want in zip(runs["graph"][1], runs["eager"][1]):
         assert torch.equal(got, want)

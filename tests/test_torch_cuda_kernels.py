@@ -669,6 +669,25 @@ def test_quant_matmul_falcon40b_shapes(cuda, N, IN, OUT):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 32])
+@pytest.mark.parametrize("IN,OUT", [(4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096),
+                                    (4096, 151936)],
+                         ids=["wq_wo", "wk_wv", "up_gate", "down", "head"])
+def test_quant_matmul_qwen3_8b_shapes(cuda, N, IN, OUT):
+    """Qwen3-8B's Q8_0 products: wq and wo (4096 x 4096), wk and wv (4096 x
+    1024), up and gate (4096 x 12288), down (12288 x 4096) and the head
+    (4096 x 151936), by qmm_decode at N = 1 and qmm_prefill at N = 32, bf16
+    x, against the plain version."""
+    q, s = _store("q8_0", IN, OUT, cuda, seed=IN + 3 * OUT + N)
+    x = torch.randn((N, IN), device=cuda).to(torch.bfloat16)
+    before = tqm.quant_matmul_2d.launches
+    got = tqm.quant_matmul_2d(x, q, s, kind="q8_0")
+    torch.cuda.synchronize()
+    assert tqm.quant_matmul_2d.launches == before + 1
+    _check_qmm(got, tqm.quant_matmul_2d_plain(x, q, s, kind="q8_0"), 1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N", [1, 16, 17, 32])
 @pytest.mark.parametrize("IN,OUT", [(5120, 5120), (5120, 1280), (1280, 13824), (64, 40)])
 def test_w8a8_linear(cuda, N, IN, OUT):
@@ -1064,6 +1083,34 @@ def test_v1_deepseek_v2_lite_shape_bf16(cuda, deepseek_v2_lite_stores, N):
     scale = w[:, :, None, None].expand(N, k, ng_e, G).reshape(N, k * ng_e, G)
     x = torch.randn((N, 2048), generator=gen, device="cuda").bfloat16()
     _check_fn(sparse_ffn_block, sparse_ffn_block_plain, (x, rows, scale, *deepseek_v2_lite_stores),
+              1e-3, act="silu", mask_mode="scale")
+
+
+@pytest.fixture(scope="module")
+def qwen15_moe_stores():
+    """Qwen1.5-MoE-A2.7B's row stores of one layer, bf16: 60 experts of
+    width 1408, 11 groups of 128 rows each (R = 660), E = 2048."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    return [(torch.randn((660, 128, 2048), generator=gen, device="cuda") * 0.05).bfloat16()
+            for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 32])
+def test_v1_qwen15_moe_shape_bf16(cuda, qwen15_moe_stores, N):
+    """The fused MoE FFN at Qwen1.5-MoE-A2.7B's shape: each token's 4 of 60
+    experts as 44 group rows (C = 44, G = 128, E = 2048), silu, the routed
+    weights (softmax, no top-k renormalization) as the scale mask, at
+    decode (N = 1) and prefill (N = 32)."""
+    gen = torch.Generator(device="cuda").manual_seed(48 + N)
+    k, ng_e, G = 4, 11, 128
+    w, idx = torch.softmax(torch.randn((N, 60), generator=gen, device="cuda"), -1).topk(k)
+    rows = (idx[:, :, None] * ng_e + torch.arange(ng_e, device="cuda")).reshape(N, -1).int()
+    scale = w[:, :, None, None].expand(N, k, ng_e, G).reshape(N, k * ng_e, G)
+    x = torch.randn((N, 2048), generator=gen, device="cuda").bfloat16()
+    _check_fn(sparse_ffn_block, sparse_ffn_block_plain, (x, rows, scale, *qwen15_moe_stores),
               1e-3, act="silu", mask_mode="scale")
 
 

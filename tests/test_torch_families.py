@@ -281,19 +281,31 @@ def test_keep_quantized_load_matches_jax(ggufs, kind):
                                .numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["gpt2", "bloom", "phi2", "stablelm", "starcoder", "mpt"])
+@pytest.mark.parametrize("arch", ["gpt2", "bloom", "phi2", "refact", "starcoder", "mpt"])
 def test_other_archs_stay_refused(tmp_path, arch):
     path = tmp_path / f"{arch}.gguf"
     make_tiny_llama(path, arch=arch)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ALiBi" if arch == "refact" else arch):
         load_model(str(path), dtype=torch.float32, device="cpu")
 
 
 def test_clamped_qkv_stays_refused(tmp_path):
+    """Clamped q/k/v (attention.clamp_kqv, olmo's and dbrx's clip_qkv) is
+    ported: on the fixture this test once refused, at a clamp that binds
+    (0.1; most q/k/v entries exceed it), the port's prefill and decode
+    logits within 1e-5 of the JAX forward's, and away from the unclamped
+    model's."""
     path = tmp_path / "clamped.gguf"
-    make_tiny_llama(path, extra_kv={"llama.attention.clamp_kqv": np.float32(8.0)})
-    with pytest.raises(NotImplementedError, match="clamp_kqv"):
-        load_model(str(path), dtype=torch.float32, device="cpu")
+    make_tiny_llama(path, extra_kv={"llama.attention.clamp_kqv": np.float32(0.1)})
+    jm, tm = _both(str(path))
+    assert tm.config.clamp_kqv == pytest.approx(0.1)
+    prompt, tok = [5, 9, 42, 7, 100, 3], 17
+    want, got = _jax_logits(jm, prompt, tok), _port_logits(tm, prompt, tok)
+    for g, w in zip(got, want):
+        _close(g, w)
+    free = _port_logits(dataclasses.replace(tm, config=dataclasses.replace(
+        tm.config, clamp_kqv=0.0)), prompt, tok)
+    assert np.abs(free[0] - got[0]).max() > 1e-3 * np.abs(got[0]).max()
 
 
 # ---------------------------------------------------------------------------

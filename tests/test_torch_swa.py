@@ -328,11 +328,12 @@ def test_iswa_refusals(models, tmp_path):
     (dict(arch="minicpm3", kv_lora_rank=32, rope_dim=8), "MLA"),
     (dict(arch="llama", n_head_arr=(4, 4)), "per-layer"),
     (dict(arch="llama", n_ff_arr=(96, 64)), "per-layer"),
-    (dict(arch="hunyuan-dense"), "after rope"),
-    (dict(arch="arctic", n_expert=4, n_expert_used=2), "parallel MoE"),
+    (dict(arch="plm", kv_lora_rank=32, rope_dim=8), "MLA"),
+    (dict(arch="refact"), "ALiBi"),
     (dict(arch="gemma-embedding", sliding_window=8), "non-causal"),
     (dict(arch="gemma3n", sliding_window=8), "gemma3n"),
     (dict(arch="gpt-oss"), "without experts"),
+    (dict(arch="baichuan", n_layer=40), "ALiBi .* of Baichuan-13B"),
 ])
 def test_check_supported_still_refuses(kw, match):
     cfg = ModelConfig(**{**dict(n_layer=2, n_embd=64, n_head=4, n_head_kv=2, n_ff=96,
