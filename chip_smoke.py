@@ -352,7 +352,47 @@ sees no card or the package is missing. Phases, each of which fails the run:
        equal). Then 4-layer bf16 cuts of hunyuan-dense (q/k norms after
        rope) and stablelm (LayerNorm, qkv biases, partial rope, per-head q/k
        LayerNorms), graph against eager. `python3 chip_smoke.py --archs`
-       runs phases 1, 2 and 5q alone and prints no result.
+       runs phases 1, 2 and 5q alone and prints no result; the full run
+       cuts Qwen3-8B to FULL_RUN_ARCHS_QWEN3_L layers and Qwen1.5-MoE to
+       FULL_RUN_ARCHS_MOE_L.
+     5r. the int8 KV cache (-ctk q8 -ctv q8: int8 codes and an f32 scale a
+       token and head, runtime/kv_cache.py) and a split cache (-ctk bf16
+       -ctv f32), in the main process over the 7B model's prepared stores:
+       an f32 gate (ProSparse-Llama-2-7B widths cut to 2 layers, the v6
+       path against the "gather" path, each over an int8 cache: first
+       decode logits within 1e-4 of their scale, streams equal, layer 0's
+       codes and scales bit-equal); the 7B bf16 sparse Engine (v6 32 times
+       a step) over an int8 cache, 32 + 32 tokens, its graph against an
+       eager engine (streams equal, first decode logits bit-equal), its
+       first logits and stream against the bf16 cache's; the caches' bytes
+       (int8 exactly 132/256 of bf16 at 4096 and 32768 slots) and a decode
+       step's device ms at max_seq 2048 and 32768, bf16 against int8; the
+       4-slot v1 Scheduler over an int8 cache (8 requests of 32 + 32
+       tokens), its graph ticks against eager ticks, then a context shift
+       of every slot and a slot saved, zeroed and restored, the first tick
+       after each bit-equal to the eager tick; the split cache's Engine,
+       graph against eager, 32 tokens. `python3 chip_smoke.py --kvq` runs
+       phases 1, 2 and 5r alone (on the 7B model's main path) and prints no
+       result.
+     5s. the last MLA archs, in a child process started after 5q's:
+       MiniCPM3-4B (openbmb/MiniCPM3-4B config.json: L=62, E=2560, 40
+       heads, q-lora 768, kv-lora 256, qk_nope 64, qk_rope 32, v_head 64,
+       F=6400, V=73448; embedding, residual and logit multipliers 12,
+       1.4/sqrt(62), 256/2560) with Q8_0 wq_a, wq_b, wkv_a, wo, FFN and
+       head drawn on the card (4.49 GB packed with f32 scales, the GGUF's
+       4.24 GB; the full run takes FULL_RUN_MLA_ARCHS_L of the 62 layers,
+       62 with --mla-archs): an f32 gate at 4 layers (each packed product
+       within 1e-4 of its plain version's scale); the dense Engine
+       (quant_matmul_2d 7L + 1 times a forward, 435 at 62 layers), 32 + 64
+       tokens, graph against eager, qmm_decode and qmm_prefill counted by
+       profiles; its latent cache at max_seq 32768 (L x 288 x 2 bytes a
+       token, 35,712 at 62 layers); quant_matmul_2d at its seven
+       shapes (the head's OUT of 73448 not 16-aligned), N = 1 and 32; then
+       4-layer cuts of plm (a direct q, an ungated relu² FFN, Q8_0, its
+       widths) and nemotron (E=2560, F=6400, LayerNorm with biases, rope
+       over half of each head, relu²), graph against eager. `python3
+       chip_smoke.py --mla-archs` runs phases 1, 2 and 5s alone and prints
+       no result.
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
@@ -361,9 +401,10 @@ The line before the last is {"kernels": [...]} (v1's entry counts its MoE
 launches too, and carries its MoE-shape timing under "moe", its
 gpt-oss-shape timing under "gpt_oss" and its DeepSeek-V2-Lite-shape
 timing under "deepseek_v2_lite"; v6's counts
-phase 5l's and 5m(b)'s and carries its N=6 and N=32 timings under
-"shapes"; v6q's and quant_matmul_2d's count 5m(a)'s); the last
-line is {"ok": true, "device": {...}}.
+phase 5l's, 5m(b)'s and 5r's and carries its N=6 and N=32 timings under
+"shapes"; v6q's and quant_matmul_2d's count 5m(a)'s, quant_matmul_2d's
+5q's and 5s's too, with their shapes' timings under "qwen3_8b" and
+"minicpm3_4b"); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --prefill-profile
 
@@ -375,8 +416,10 @@ checkout of another revision profiles that revision.
 from __future__ import annotations
 
 import json
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -385,17 +428,20 @@ PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_FLOP_S = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BF16_FLOP_S = 989e12  # H100 SXM, dense bf16 tensor cores
 N_SETS = 64  # cold row sets / distinct stores per kernel timing
-# depths the full run gives its largest earlier cells, so that with phases
-# 5p and 5q and every eager stream decoded in full it keeps near the time
-# the run took before them (and a host a third slower stays inside the
-# run's limit); each phase run alone (--moe, --swa, --families, --mla,
-# --quant, --tiered) keeps its full depth or the depth that fits, and 5q
-# runs its two models at full depth in the full run too
-FULL_RUN_MOE_L = 8  # of Qwen3-30B-A3B's 48 layers (phase 5k)
-FULL_RUN_SWA_L = 6  # of gpt-oss-20b's 24 (phase 5o)
-FULL_RUN_FAMILY_L = 8  # of ReluFalcon-40B's 60, bf16 and Q8_0 (phase 5n(a), (b))
-FULL_RUN_MLA_L = 9  # of DeepSeek-V2-Lite's 27: the dense layer and 8 MoE layers (phase 5p)
-FULL_RUN_13B_L = 20  # of ProSparse-Llama-2-13B's 40 (phases 5c, 5d, 5h, 5i, 5j, 5m(a))
+# depths the full run gives its largest cells, so that with phases 5p-5s
+# and every eager stream decoded in full it ends within 700 s on a host
+# whose eager 7B sparse steps take about 45 ms, and inside the run's limit
+# on a slower one (PERF.md); each phase run alone (--moe, --swa,
+# --families, --mla, --archs, --mla-archs, --quant, --tiered) keeps its
+# full depth or the depth that fits
+FULL_RUN_MOE_L = 4  # of Qwen3-30B-A3B's 48 layers (phase 5k)
+FULL_RUN_SWA_L = 4  # of gpt-oss-20b's 24 (phase 5o)
+FULL_RUN_FAMILY_L = 2  # of ReluFalcon-40B's 60, bf16 and Q8_0 (phase 5n(a), (b))
+FULL_RUN_MLA_L = 5  # of DeepSeek-V2-Lite's 27: the dense layer and 4 MoE layers (phase 5p)
+FULL_RUN_13B_L = 4  # of ProSparse-Llama-2-13B's 40 (phases 5c, 5d, 5h, 5i, 5j, 5m(a))
+FULL_RUN_ARCHS_QWEN3_L = 4  # of Qwen3-8B's 36 (phase 5q)
+FULL_RUN_ARCHS_MOE_L = 4  # of Qwen1.5-MoE-A2.7B's 24 (phase 5q)
+FULL_RUN_MLA_ARCHS_L = 4  # of MiniCPM3-4B's 62 (phase 5s)
 # v7u rounds the hidden and W_down to bf16: each product within 2^-8, about
 # 2e-3 of the output's scale summed with random signs; a wrong row or mask
 # errs by the scale itself
@@ -6441,8 +6487,18 @@ def parted_at_a_tie(label, toks, ref_toks, ref_logits) -> dict:
     return {"parted_at": part, "parted_gap": gap}
 
 
-def qwen3_f32_gate(prompt, steps: int = 8) -> dict:
-    """Qwen3-8B widths cut to 4 layers, f32, Q8_0: the plain path (every
+def packed_per_forward(model) -> int:
+    """The packed (QuantTensor) products of one forward: each layer's packed
+    projections and a packed head, one quant_matmul_2d call each."""
+    from sparkinfer_tpu_torch.ops.quant_matmul import QuantTensor
+
+    p = model.params
+    per_layer = sum(isinstance(t, QuantTensor) for t in p["layers"].values())
+    return per_layer * model.config.n_layer + isinstance(p["output"], QuantTensor)
+
+
+def q8_f32_gate(label, phase, model, prompt, steps: int = 8) -> dict:
+    """An f32 Q8_0 model (a cut of a few layers): the plain path (every
     packed product through quant_matmul_2d_plain, on the card) decodes
     `steps` greedy tokens and feeds each product's input to the kernel too
     (qmm_prefill at N = 32, qmm_decode at N = 1), whose output must lie
@@ -6457,8 +6513,7 @@ def qwen3_f32_gate(prompt, steps: int = 8) -> dict:
     from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
 
     t0 = time.perf_counter()
-    cfg = qwen3_8b_config(4)
-    model = q8_qwen3(cfg, torch.float32, SEED + 71)
+    cfg = model.config
     kernel, plain = qm.quant_matmul_2d, qm.quant_matmul_2d_plain
     errs = []
 
@@ -6474,7 +6529,7 @@ def qwen3_f32_gate(prompt, steps: int = 8) -> dict:
             logits = fwd(model.params, torch.tensor([prompt], device="cuda"),
                          torch.arange(len(prompt), device="cuda")[None], cache)
             for i in range(steps + 1):
-                check(bool(torch.isfinite(logits).all()), "5q gate: non-finite logits")
+                check(bool(torch.isfinite(logits).all()), f"{phase} gate: non-finite logits")
                 rows.append(logits[0, -1].clone())
                 toks.append(int(logits[0, -1].argmax()))
                 if i < steps:
@@ -6492,42 +6547,48 @@ def qwen3_f32_gate(prompt, steps: int = 8) -> dict:
         qm.quant_matmul_2d = kernel
     n0 = kernel.launches
     kernel_toks, kernel_rows = run()
-    n = per_fwd = 7 * cfg.n_layer + 1
-    n *= steps + 1
+    n = packed_per_forward(model) * (steps + 1)
     check(gate.launches == n and kernel.launches - n0 == n and len(errs) == n,
-          f"5q gate: {gate.launches} and {kernel.launches - n0} quant_matmul_2d launches, "
+          f"{phase} gate: {gate.launches} and {kernel.launches - n0} quant_matmul_2d launches, "
           f"{len(errs)} products, want {n} each")
     worst = max(errs)
-    check(worst <= ARCH_GATE_TOL, f"5q gate: a packed product is {worst:.3e} of its scale off")
-    row = {"layers": 4, "steps": steps, "products": len(errs), "worst_rel_err": worst,
+    check(worst <= ARCH_GATE_TOL, f"{phase} gate: a packed product is {worst:.3e} of its "
+                                  f"scale off")
+    row = {"layers": cfg.n_layer, "steps": steps, "products": len(errs), "worst_rel_err": worst,
            "tol": ARCH_GATE_TOL, "first_logits_rel_gap": rel_gap(kernel_rows[0], plain_rows[0]),
-           **parted_at_a_tie("Qwen3-8B gate", kernel_toks, plain_toks, plain_rows),
+           **parted_at_a_tie(f"{label} gate", kernel_toks, plain_toks, plain_rows),
            "tokens": plain_toks, "seconds": time.perf_counter() - t0}
-    print("phase 5q, f32 gate (Qwen3-8B widths, 4 layers, Q8_0):", json.dumps(row))
+    print(f"phase {phase}, f32 gate ({label}):", json.dumps(row))
     return row
 
 
-def qwen3_qmm_rows(model, per_call: int) -> list:
-    """quant_matmul_2d against its plain version at the five Qwen3-8B
-    shapes (wq/wo 4096x4096, wk/wv 4096x1024, up/gate 4096x12288, down
-    12288x4096, the head 4096x151936), N = 1 (qmm_decode) and 32
-    (qmm_prefill), over the model's own stores (every layer's, so the
-    L2 stays cold). per_call: the kernels one call launches at these
-    shapes, which the profiled decode step and prefill count (one a
-    product: 7L + 1 qmm_decode, and as many qmm_prefill)."""
+def qwen3_f32_gate(prompt, steps: int = 8) -> dict:
+    """Qwen3-8B widths cut to 4 layers, f32, Q8_0: q8_f32_gate."""
+    import torch
+
+    model = q8_qwen3(qwen3_8b_config(4), torch.float32, SEED + 71)
+    return q8_f32_gate("Qwen3-8B widths, 4 layers, Q8_0", "5q", model, prompt, steps)
+
+
+def q8_qmm_rows(model, keys, seed, per_call: int) -> list:
+    """quant_matmul_2d against its plain version at the shapes of the
+    model's packed stacks `keys` ("head": its packed head), N = 1
+    (qmm_decode) and 32 (qmm_prefill), over the model's own stores (every
+    layer's, so the L2 stays cold). per_call: the kernels one call launches
+    at these shapes, which the profiled decode step and prefill count (one
+    a product)."""
     import torch
 
     from sparkinfer_tpu_torch.ops import quant_matmul as qm
 
     lay, head = model.params["layers"], model.params["output"]
-    stores = {k: [(lay[k].q[il], lay[k].s[il]) for il in range(lay[k].q.shape[0])]
-              for k in ("wq", "wk", "w_up", "w_down")}
-    stores["head"] = [(head.q, head.s)]
-    shapes = {k: tuple(v[0][0].shape) for k, v in stores.items()}  # (IN, OUT)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    stores = {k: ([(head.q, head.s)] if k == "head" else
+                  [(lay[k].q[il], lay[k].s[il]) for il in range(lay[k].q.shape[0])])
+              for k in keys}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for k, st in stores.items():
-        IN, OUT = shapes[k]
+        IN, OUT = st[0][0].shape
         for N in (1, 32):
             x = torch.randn((N, IN), generator=gen, device="cuda").to(torch.bfloat16)
             row = qmm_row(f"quant_matmul_2d q8_0 {k} {IN}x{OUT} N={N}", qm.quant_matmul_2d,
@@ -6538,45 +6599,38 @@ def qwen3_qmm_rows(model, per_call: int) -> list:
 
 def q8_step_bound(model, positions: float) -> dict:
     """The least a Q8_0 decode step must move: every packed weight once
-    (int8 values and f32 scales), one embedding row, the K/V cache over
-    `positions` slots, read at the card's memory rate."""
+    (int8 values and f32 scales), the layers' other tensors (norms, MLA's
+    bf16 key and value decompressors) once, one embedding row, and the K/V
+    cache (MLA's latent cache) over `positions` slots, read at the card's
+    memory rate."""
     from sparkinfer_tpu_torch.ops.quant_matmul import QuantTensor
 
     cfg, p = model.config, model.params
-    packed = [t for t in [*p["layers"].values(), p["output"]] if isinstance(t, QuantTensor)]
+    tensors = [*p["layers"].values(), p["output"]]
+    packed = [t for t in tensors if isinstance(t, QuantTensor)]
     w_bytes = sum(t.q.numel() * t.q.element_size() + t.s.numel() * t.s.element_size()
                   for t in packed)
-    kv = 2 * cfg.n_layer * cfg.n_head_kv * cfg.head_dim * positions * 2
-    nbytes = w_bytes + kv + cfg.n_embd * 2
-    return {"weight_bytes": w_bytes, "kv_bytes": kv, "bytes": nbytes,
-            "bound_ms": nbytes / PEAK_BYTES_S * 1e3}
+    other = sum(t.numel() * t.element_size() for t in tensors if not isinstance(t, QuantTensor))
+    if cfg.kv_lora_rank:
+        kv = cfg.n_layer * (cfg.kv_lora_rank + cfg.rope_dim) * positions * 2
+    else:
+        kv = 2 * cfg.n_layer * cfg.n_head_kv * cfg.head_dim * positions * 2
+    nbytes = w_bytes + other + kv + cfg.n_embd * 2
+    return {"weight_bytes": w_bytes, "other_weight_bytes": other, "kv_bytes": kv,
+            "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_S * 1e3}
 
 
-def qwen3_phase(greedy, prompt, n_new: int = 128) -> dict:
-    """Qwen3-8B at full width and depth in Q8_0: the dense Engine's graph
-    decode (quant_matmul_2d 7L + 1 times a forward: the L q, k, v, o, up,
-    gate and down products and the head) against an eager engine
-    (graph_vs_eager: streams equal, first decode logits bit-equal) with its
-    timings, the profiled decode step (qmm_decode only) and 32-token
-    prefill (qmm_prefill only), the step's bound; then the packed linears
-    at its shapes."""
-    import torch
-
+def q8_dense_engine(label, phase, model, greedy, prompt, n_new, max_seq=1024) -> dict:
+    """The dense Engine of a Q8_0 model (packed_per_forward quant_matmul_2d
+    calls a forward) on its main path, its graph decode against an eager
+    engine (graph_vs_eager: streams equal, first decode logits bit-equal)
+    with its timings, the profiled decode steps (qmm_decode only, one a
+    product) and 32-token prefill (qmm_prefill only), and the step's bound."""
     from sparkinfer_tpu_torch.runtime.engine import Engine
 
-    cfg = qwen3_8b_config(36)
-    t0 = time.perf_counter()
-    model = q8_qwen3(cfg, torch.bfloat16, SEED)
-    torch.cuda.synchronize()
+    per_fwd = packed_per_forward(model)
     bound = q8_step_bound(model, len(prompt) + n_new / 2)
-    print(f"model: Qwen3-8B widths, L={cfg.n_layer} E={cfg.n_embd} H={cfg.n_head} "
-          f"Hkv={cfg.n_head_kv} D={cfg.head_dim} F={cfg.n_ff} V={cfg.n_vocab}, Q8_0 "
-          f"attention/FFN/head ({bound['weight_bytes']} bytes packed), built in "
-          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-          f"allocated")
-    per_fwd = 7 * cfg.n_layer + 1
-    label = "Qwen3-8B Q8_0 dense"
-    kw = dict(max_seq=1024, sampler=greedy, device="cuda")
+    kw = dict(max_seq=max_seq, sampler=greedy, device="cuda")
     eng = Engine(model, **kw)
     launches = main_path(label, eng, prompt, n_new,
                          lambda runs: {"quant_matmul_2d": per_fwd * (runs + 1)})
@@ -6585,25 +6639,43 @@ def qwen3_phase(greedy, prompt, n_new: int = 128) -> dict:
     qmm = [(k, ms, n) for k, ms, n in prof if "qmm_" in k]
     check(sum(n for _, _, n in qmm) == per_fwd * steps
           and all("qmm_decode" in k for k, _, _ in qmm),
-          f"5q {label}: the profiled steps launched {qmm}, want {per_fwd} qmm_decode a step")
+          f"{phase} {label}: the profiled steps launched {qmm}, want {per_fwd} qmm_decode a step")
     pre = profile_prefill(eng, prompt)
     check(pre["qmm_launches"] == per_fwd and all("qmm_prefill" in k for k in pre["qmm_kernels"]),
-          f"5q {label}: the profiled prefill launched {pre['qmm_kernels']}, want {per_fwd} "
+          f"{phase} {label}: the profiled prefill launched {pre['qmm_kernels']}, want {per_fwd} "
           f"qmm_prefill")
-    del eng
+    return {"path": label, "launches": launches["quant_matmul_2d"], **h["graph"],
+            "eager": h["eager"], **{k: h[k] for k in (
+                "replay_span_ms", "replay_launch_ms", "replay_sync_ms", "step_breakdown",
+                "capture_s", "graph_pool_bytes", "wall_speedup")},
+            "qmm_decode_per_step": sum(n for _, _, n in qmm) // steps,
+            "qmm_device_ms_per_step": sum(ms for _, ms, _ in qmm) / steps,
+            "qmm_prefill_per_prefill": pre["qmm_launches"], "prefill": pre,
+            "step_bound": bound, "x_bound": h["replay_span_ms"] / bound["bound_ms"],
+            "peak_gib": PEAKS[label]}
+
+
+def qwen3_phase(greedy, prompt, n_new: int = 128, L: int = 36) -> dict:
+    """Qwen3-8B at full width and depth L (36; the full run's child takes
+    FULL_RUN_ARCHS_QWEN3_L) in Q8_0: q8_dense_engine (quant_matmul_2d 7L + 1
+    times a forward: the L q, k, v, o, up, gate and down products and the
+    head); then the packed linears at its shapes."""
+    import torch
+
+    cfg = qwen3_8b_config(L)
+    t0 = time.perf_counter()
+    model = q8_qwen3(cfg, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    print(f"model: Qwen3-8B widths, L={cfg.n_layer} E={cfg.n_embd} H={cfg.n_head} "
+          f"Hkv={cfg.n_head_kv} D={cfg.head_dim} F={cfg.n_ff} V={cfg.n_vocab}, Q8_0 "
+          f"attention/FFN/head ({q8_step_bound(model, 0)['weight_bytes']} bytes packed), built "
+          f"in {time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated")
+    row = q8_dense_engine("Qwen3-8B Q8_0 dense", "5q", model, greedy, prompt, n_new)
     # one kernel a product at every shape: the profiles counted exactly one
     # qmm_decode (a step) and one qmm_prefill (a prefill) for each of them
-    rows = qwen3_qmm_rows(model, per_call=1)
+    rows = q8_qmm_rows(model, ("wq", "wk", "w_up", "w_down", "head"), SEED + 72, per_call=1)
     mark("phase 5q, quant_matmul_2d at the Qwen3-8B shapes")
-    row = {"path": label, "launches": launches["quant_matmul_2d"], **h["graph"],
-           "eager": h["eager"], **{k: h[k] for k in (
-               "replay_span_ms", "replay_launch_ms", "replay_sync_ms", "step_breakdown",
-               "capture_s", "graph_pool_bytes", "wall_speedup")},
-           "qmm_decode_per_step": sum(n for _, _, n in qmm) // steps,
-           "qmm_device_ms_per_step": sum(ms for _, ms, _ in qmm) / steps,
-           "qmm_prefill_per_prefill": pre["qmm_launches"], "prefill": pre,
-           "step_bound": bound, "x_bound": h["replay_span_ms"] / bound["bound_ms"],
-           "peak_gib": PEAKS[label]}
     print("phase 5q, Qwen3-8B (graph decode; streams equal, first decode logits bit-equal):",
           json.dumps(row))
     return {"rows": rows, "engine": row}
@@ -6647,17 +6719,18 @@ def qwen15_f32_gate(prompt, steps: int = 8) -> dict:
     return row
 
 
-def qwen15_phase(greedy, prompt, n_new: int = 128) -> dict:
-    """Qwen1.5-MoE-A2.7B at full width and depth in bf16: v1 at its shape,
-    then the fused and the dense Engines, each a graph against an eager
-    engine (streams equal, first decode logits bit-equal)."""
+def qwen15_phase(greedy, prompt, n_new: int = 128, L: int = 24) -> dict:
+    """Qwen1.5-MoE-A2.7B at full width and depth L (24; the full run's
+    child takes FULL_RUN_ARCHS_MOE_L) in bf16: v1 at its shape, then the
+    fused and the dense Engines, each a graph against an eager engine
+    (streams equal, first decode logits bit-equal)."""
     import gc
 
     import torch
 
     from sparkinfer_tpu_torch.models.loader import LoadedModel
 
-    cfg = qwen15_moe_config(24)
+    cfg = qwen15_moe_config(L)
     t0 = time.perf_counter()
     model = random_qwen2moe(cfg, torch.bfloat16, SEED)
     torch.cuda.synchronize()
@@ -6731,10 +6804,11 @@ def attention_order_cuts(greedy) -> list:
     return out
 
 
-def phase_archs(greedy) -> dict:
+def phase_archs(greedy, qwen3_L: int = 36, moe_L: int = 24) -> dict:
     """Phase 5q: Qwen3-8B in Q8_0 and Qwen1.5-MoE-A2.7B in bf16 at full width
-    and depth, their f32 gates at 4 layers, and the attention-order cuts.
-    Returns its summary, with the main paths' launches."""
+    and depth (the full run's child cuts both: FULL_RUN_ARCHS_*), their f32
+    gates at 4 layers, and the attention-order cuts. Returns its summary,
+    with the main paths' launches."""
     import gc
 
     import torch
@@ -6748,7 +6822,7 @@ def phase_archs(greedy) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     mark("phase 5q, Qwen3-8B f32 gate")
-    qwen3 = qwen3_phase(greedy, prompt)
+    qwen3 = qwen3_phase(greedy, prompt, L=qwen3_L)
     gc.collect()
     torch.cuda.empty_cache()
     mark("phase 5q, Qwen3-8B")
@@ -6756,7 +6830,7 @@ def phase_archs(greedy) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     mark("phase 5q, Qwen1.5-MoE-A2.7B f32 gate")
-    moe = qwen15_phase(greedy, prompt)
+    moe = qwen15_phase(greedy, prompt, L=moe_L)
     mark("phase 5q, Qwen1.5-MoE-A2.7B")
     cuts = attention_order_cuts(greedy)
     mark("phase 5q, attention-order cuts")
@@ -6784,6 +6858,512 @@ def archs_summary(a) -> dict:
                                for r in a["qwen15_moe"]["engines"]],
             "qwen15_pallas_over_dense": a["qwen15_moe"]["pallas_over_dense"],
             "cuts": a["cuts"], "seconds": a["seconds"]}
+
+
+# --- phase 5r: the int8 and split-dtype KV caches over the 7B sparse path ----
+
+KVQ_TOL = 1e-4  # f32: the kernel path's first decode logits against the plain path's, of their scale
+
+
+def kvq_f32_gate(greedy, prompt, steps: int = 16) -> dict:
+    """ProSparse-Llama-2-7B widths cut to 2 layers, f32, each Engine over an
+    int8 cache: the v6 kernel path against the plain "gather" path on the
+    card: first decode logits within KVQ_TOL of their scale, greedy streams
+    equal, and layer 0's int8 codes and scales bit-equal in the two caches
+    (its K and V come before any FFN; a later layer's may differ at a
+    rounding midpoint)."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.sparse.config import SparseConfig
+
+    t0 = time.perf_counter()
+    cfg, scfg = prosparse_config(2, 4096, 32, 11008, 32000, 1024), SparseConfig(128, 12)
+    model = random_model(cfg, torch.float32, "cuda", SEED + 91)
+    outs, caches = [], []
+    for mode in ("kernel", "gather"):
+        eng = Engine(model, max_seq=64, sampler=greedy, kv_dtype=torch.float32,
+                     kv_quantized=True, sparse=scfg, sparse_decode_mode=mode, device="cuda")
+        outs.append(first_decode_and_tokens(eng, prompt, steps))
+        caches.append(eng.cache)
+        del eng
+    check_pair("5r, int8 KV, 7B widths 2 layers, card kernel vs card gather", outs)
+    n = len(prompt) + steps - 1
+    layer0 = all(torch.equal(a[0, :, :n], b[0, :, :n]) for a, b in zip(*caches))
+    check(caches[0].quantized and layer0, "5r gate: layer 0's int8 codes or scales differ")
+    later = [int((a[1:, :, :n] != b[1:, :, :n]).sum()) for a, b in zip(*caches)]
+    row = {"layers": 2, "steps": steps, "first_logits_rel_gap": rel_gap(outs[0][0], outs[1][0]),
+           "tol": KVQ_TOL, "tokens": outs[0][1], "layer0_bit_equal": layer0,
+           "layer1_differing_k_v_kscale_vscale": later, "seconds": time.perf_counter() - t0}
+    print("phase 5r, f32 gate (int8 KV, 7B widths, 2 layers):", json.dumps(row))
+    del model, caches
+    torch.cuda.empty_cache()
+    return row
+
+
+def kvq_engine(pre, scfg, greedy, prompt, n_new, ref_label) -> dict:
+    """The 7B bf16 sparse Engine (v6) over an int8 cache, on the prepared
+    stores `pre` of the bf16-cache engine `ref_label`: its main path (v6 L
+    times a step), its graph against an eager engine (streams equal, first
+    decode logits bit-equal) with v6's launches a profiled step, its first
+    decode logits and stream against the bf16 cache's, and the dense
+    engines' first decode logits over the two caches."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    label, L = "7B bf16 sparse int8 KV", pre.config.n_layer
+    kw = dict(max_seq=1024, sampler=greedy, sparse=scfg, sparse_preprepared=True,
+              kv_quantized=True, device="cuda")
+    eng = Engine(pre, **kw)
+    launches = main_path(label, eng, prompt, n_new,
+                         lambda steps: {"sparse_ffn_block_v6": L * steps})
+    h = graph_vs_eager(label, eng, Engine(pre, cuda_graph=False, **kw), prompt, n_new)
+    rows, steps = PROFILES[label]
+    v6 = sum(n for k, _, n in rows if "v6_ffn" in k) // steps
+    check(v6 == L, f"5r: the profiled int8 step launched {v6} v6 kernels, want {L}")
+    check(eng.cache.quantized and eng.cache.k.dtype == torch.int8, "5r: not an int8 cache")
+    bf16 = Engine(pre, **{**kw, "kv_quantized": False})
+    gap = rel_gap(first_logits(eng, prompt)[1], first_logits(bf16, prompt)[1])
+    # the dense engines over the same weights: no predictor group to flip
+    dense = [first_logits(Engine(pre, max_seq=1024, sampler=greedy, kv_quantized=q,
+                                 device="cuda"), prompt)[1] for q in (True, False)]
+    ref = STREAMS[ref_label]
+    part = next((i for i, (a, b) in enumerate(zip(STREAMS[label], ref)) if a != b), None)
+    row = {"path": label, "launches": launches["sparse_ffn_block_v6"], "v6_per_step": v6,
+           **h["graph"], "eager": h["eager"], **{k: h[k] for k in (
+               "replay_span_ms", "replay_launch_ms", "replay_sync_ms", "capture_s",
+               "wall_speedup")},
+           "first_logits_rel_gap_vs_bf16_cache": gap, "streams_part_at_vs_bf16_cache": part,
+           "dense_first_logits_rel_gap_vs_bf16_cache": rel_gap(*dense),
+           "peak_gib": PEAKS[label]}
+    print("phase 5r, 7B int8 KV engine (graph decode; streams equal, first decode logits "
+          "bit-equal):", json.dumps(row))
+    return row
+
+
+def kvq_long_context(pre, scfg, greedy, prompt) -> list:
+    """The 7B sparse Engine over bf16 and int8 caches at max_seq 2048 and
+    32768: the caches' bytes (the int8 cache exactly (D + 4) / (2 D) of the
+    bf16 one's, 132/256 at D = 128; at 4096 slots too), and the device ms of
+    a decode step (one replay's span) after 16 greedy tokens. Attention
+    reads every slot, and the int8 cache dequantizes every slot a step in
+    plain torch, so its step grows faster with max_seq."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+
+    cfg, out = pre.config, []
+    D = cfg.head_dim
+    meta = [kv_bytes(init_cache(cfg, 1, 4096, torch.bfloat16, "meta", quantized=q))
+            for q in (True, False)]
+    check(meta[0] * 2 * D == meta[1] * (D + 4), f"5r: 4096-slot caches of {meta} bytes")
+    for max_seq in (2048, 32768):
+        pair = {}
+        for quant in (False, True):
+            eng = Engine(pre, max_seq=max_seq, sampler=greedy, sparse=scfg,
+                         sparse_preprepared=True, kv_quantized=quant, device="cuda")
+            toks = run_generate(eng, prompt, 16)
+            step = eng.graphs.get(eng.cache, 1, "decode", None)
+            pair[quant] = row = {"max_seq": max_seq, "kv": "int8" if quant else "bf16",
+                                 "kv_bytes": kv_bytes(eng.cache),
+                                 "bytes_per_token": kv_bytes(eng.cache) // max_seq,
+                                 "tok_s": eng.perf.decode_tps, **replay_times(step),
+                                 "tokens_first8": toks[:8]}
+            print("phase 5r, long context:", json.dumps(row))
+            out.append(row)
+            del eng, step
+            torch.cuda.empty_cache()
+        check(pair[True]["kv_bytes"] * 2 * D == pair[False]["kv_bytes"] * (D + 4),
+              f"5r: int8 {pair[True]['kv_bytes']} against bf16 {pair[False]['kv_bytes']} bytes")
+    return out
+
+
+def shift_slots(sched, keep: int, discard: int):
+    """A context shift of every slot of the Scheduler's cache, between
+    ticks (the running slots share one n_past): rows [keep, keep + discard)
+    dropped, the rest slid down and re-roped; the running slots' n_past and
+    token histories moved with them."""
+    from sparkinfer_tpu_torch.models.transformer import rope_params
+    from sparkinfer_tpu_torch.runtime.kv_cache import shift_cache
+
+    n_past = {s.n_past for s in sched.slots if s.running}
+    check(len(n_past) == 1, f"5r: the running slots stand at {n_past}")
+    shift_cache(sched.cache, rope_params(sched.cfg), keep, discard, n_past.pop())
+    for s in sched.slots:
+        if s.running:
+            s.n_past -= discard
+            s.cached_tokens = s.cached_tokens[:keep] + s.cached_tokens[keep + discard:]
+
+
+def running_logits(sched):
+    """The last tick's logits of the running slots (an idle slot steps over
+    whatever rows earlier requests left in it, which differ between two
+    Schedulers with other histories)."""
+    return sched.last_logits[[i for i, s in enumerate(sched.slots) if s.running]].clone()
+
+
+def kvq_rewrites(graph_sched, eager_sched, prompts, tmp) -> dict:
+    """Cache rewrites between ticks over the int8 cache, on a graph and an
+    eager Scheduler alike: 4 requests, a context shift of every slot after
+    24 ticks (keep 4, drop 32), then a slot saved, its rows zeroed and the
+    file restored into another slot, whose prefix a continuation reuses.
+    The first tick after each rewrite has the eager tick's logits bit for
+    bit in every running slot, the streams are equal, and the graph
+    Scheduler captures nothing."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.scheduler import Request
+
+    out = {}
+    for name, sched in (("graph", graph_sched), ("eager", eager_sched)):
+        fresh_slots(sched)
+        captures = sched.graphs.captures
+        reqs = [sched.submit(Request(prompt_tokens=p, max_new_tokens=48)) for p in prompts]
+        for _ in range(24):
+            sched.step()
+        shift_slots(sched, 4, 32)
+        sched.step()
+        logits = [running_logits(sched)]
+        sched.run_until_idle()
+        toks = [r.tokens() for r in reqs]
+        f = tmp / f"kvq_{name}.state"
+        n_bytes = sched.save_slot(0, str(f))
+        sched.slots[0].cached_tokens = []
+        for buf in sched.cache.buffers():
+            buf[:, 0].zero_()
+        info = sched.restore_slot(2, str(f))
+        sched.slot_similarity = 0.5  # to the restored slot, its prefix reused
+        cont = sched.submit(Request(prompt_tokens=sched.slots[2].cached_tokens + [5, 6],
+                                    max_new_tokens=16))
+        sched.step()
+        logits.append(running_logits(sched))
+        sched.run_until_idle()
+        sched.slot_similarity = 0.0
+        out[name] = (toks + [cont.tokens()], logits, sched.graphs.captures - captures)
+    (gt, gl, gc), (et, el, _) = out["graph"], out["eager"]
+    check(gt == et and all(len(t) == 48 for t in gt[:-1]),
+          "5r: the int8 Scheduler's graph streams differ from eager after a shift or restore")
+    bad = [what for what, a, b in zip(("shift", "restore"), gl, el) if not torch.equal(a, b)]
+    check(not bad and gc == 0, f"5r: the tick after the {bad} differs from eager's "
+                               f"({gc} captures)")
+    row = {"requests": len(prompts), "shift": {"keep": 4, "discard": 32},
+           "slot_file_bytes": n_bytes, "restored_n_past": info["n_past"],
+           "ticks_bit_equal": True, "streams_equal": True}
+    print("phase 5r, int8 Scheduler after a shift and a restore:", json.dumps(row))
+    return row
+
+
+def kvq_scheduler(row_pre, scfg, greedy, prompts, prompts_h, tmp) -> dict:
+    """The 4-slot v1 Scheduler (-ctk q8 -ctv q8) over the prepared row
+    stores `row_pre`: its main path (v1 L times a tick), its graph ticks
+    against eager ticks (streams equal, first tick's logits bit-equal), and
+    the shift and restore of kvq_rewrites."""
+    from sparkinfer_tpu_torch.runtime.scheduler import Scheduler
+
+    kw = dict(n_slots=4, max_seq=128, sampler=greedy, sparse=scfg, sparse_batch_max=4,
+              sparse_preprepared=True, kv_quantized=True, device="cuda")
+    sched, eager = Scheduler(row_pre, **kw), Scheduler(row_pre, cuda_graph=False, **kw)
+    launches = scheduler_path(sched, prompts, 32, label="7B bf16 int8 KV")
+    h = scheduler_graph_vs_eager(sched, eager, prompts_h, 24, label="7B bf16 int8 KV")
+    rewrites = kvq_rewrites(sched, eager, prompts_h[:4], tmp)
+    return {"v1_launches": launches, "graph_vs_eager": {k: h[k] for k in (
+        "graph", "eager", "replay_span_ms", "wall_speedup")}, "rewrites": rewrites}
+
+
+def phase_kvq(model, sparse_eng, sched, scfg, greedy, prompt, tmp) -> dict:
+    """Phase 5r: the f32 gate, then the int8 cache over the 7B sparse
+    Engine (the bf16-cache engine's prepared stores) and its long-context
+    bytes and steps, the 4-slot v1 Scheduler over the int8 cache (the
+    bf16-cache Scheduler's row stores), and a split cache (-ctk bf16 -ctv
+    f32): the Engine's graph stream against its eager step's. Returns its
+    summary, with v6's and v1's main-path launches."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    t0 = time.perf_counter()
+    cfg = model.config
+    gate = kvq_f32_gate(greedy, list(range(3, 40, 3)))
+    mark("phase 5r, f32 gate")
+    pre = LoadedModel(config=cfg, params=sparse_eng.params)
+    eng = kvq_engine(pre, scfg, greedy, prompt, 32, "7B bf16 sparse")
+    torch.cuda.empty_cache()
+    mark("phase 5r, 7B int8 engine")
+    long = kvq_long_context(pre, scfg, greedy, prompt)
+    mark("phase 5r, long context")
+    gen = torch.Generator().manual_seed(SEED + 92)
+    prompts = [torch.randint(cfg.n_vocab, (32,), generator=gen).tolist() for _ in range(8)]
+    prompts_h = [torch.randint(cfg.n_vocab, (32,), generator=gen).tolist() for _ in range(8)]
+    sch = kvq_scheduler(LoadedModel(config=cfg, params=sched.params), scfg, greedy, prompts,
+                        prompts_h, tmp)
+    torch.cuda.empty_cache()
+    mark("phase 5r, int8 Scheduler")
+    kw = dict(max_seq=1024, sampler=greedy, sparse=scfg, sparse_preprepared=True,
+              kv_dtype=torch.bfloat16, kv_dtype_v=torch.float32, device="cuda")
+    split_g, split_e = Engine(pre, **kw), Engine(pre, cuda_graph=False, **kw)
+    split = graph_eager_pair("split KV cache (bf16 K, f32 V)", split_g, split_e, prompt, 32)
+    check((split_g.cache.k.dtype, split_g.cache.v.dtype) == (torch.bfloat16, torch.float32),
+          "5r: the split cache's dtypes")
+    del split_g, split_e
+    torch.cuda.empty_cache()
+    print("phase 5r, split cache (-ctk bf16 -ctv f32; streams equal, every step's logits "
+          "bit-equal):", json.dumps(split))
+    mark("phase 5r")
+    return {"f32_gate": gate, "engine": eng, "long_context": long, "scheduler": sch,
+            "split": split, "v6_launches": eng["launches"],
+            "v1_launches": sch["v1_launches"], "seconds": time.perf_counter() - t0}
+
+
+def kvq_only(greedy) -> int:
+    """`chip_smoke.py --kvq`: phase 5r alone (after phases 1 and 2), on the
+    7B bf16 model, its sparse engine (its main path's stream is the bf16
+    cache's reference) and the 4-slot v1 Scheduler's row stores, as the full
+    run builds them; prints its summary and no result."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.runtime.scheduler import Scheduler
+    from sparkinfer_tpu_torch.sparse.config import SparseConfig
+
+    prompt = torch.randint(32000, (32,), generator=torch.Generator().manual_seed(SEED)).tolist()
+    cfg = prosparse_config(32, 4096, 32, 11008, 32000, 1024)
+    scfg = SparseConfig(group_size=128, capacity_groups=12)
+    model = random_model(cfg, torch.bfloat16, "cuda", SEED)
+    sparse_eng = Engine(model, max_seq=1024, sampler=greedy, sparse=scfg, device="cuda")
+    main_path("7B bf16 sparse", sparse_eng, prompt, 64,
+              lambda steps: {"sparse_ffn_block_v6": cfg.n_layer * steps})
+    sched = Scheduler(model, n_slots=4, max_seq=128, sampler=greedy, sparse=scfg,
+                      sparse_batch_max=4, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        kvq = phase_kvq(model, sparse_eng, sched, scfg, greedy, prompt, pathlib.Path(tmp))
+    print("phase 5r summary:", json.dumps(kvq_summary(kvq)))
+    return 0
+
+
+def kvq_summary(k) -> dict:
+    """Phase 5r's numbers in brief, for the end of the full run's output."""
+    e = k["engine"]
+    return {"f32_gate_first_logits_rel_gap": k["f32_gate"]["first_logits_rel_gap"],
+            "engine": {key: e[key] for key in (
+                "tok_s", "wall_ms_per_step", "device_ms_per_step", "replay_span_ms",
+                "v6_per_step", "first_logits_rel_gap_vs_bf16_cache",
+                "streams_part_at_vs_bf16_cache", "dense_first_logits_rel_gap_vs_bf16_cache",
+                "launches", "peak_gib")},
+            "long_context": [{key: r[key] for key in (
+                "max_seq", "kv", "kv_bytes", "bytes_per_token", "replay_span_ms", "tok_s")}
+                for r in k["long_context"]],
+            "scheduler": {"graph_tok_s": k["scheduler"]["graph_vs_eager"]["graph"]["tok_s"],
+                          "eager_tok_s": k["scheduler"]["graph_vs_eager"]["eager"]["tok_s"],
+                          "v1_launches": k["v1_launches"]},
+            "split": k["split"], "seconds": k["seconds"]}
+
+
+# --- phase 5s: MiniCPM3-4B in Q8_0, the plm and nemotron cuts ----------------
+
+MINICPM3_GGUF_PACKED = 4241742080  # its Q8_0 GGUF's linears: 34-byte blocks of 32 weights
+
+
+def minicpm3_4b_config(L):
+    """openbmb/MiniCPM3-4B's config.json: 62 layers, E=2560, 40 heads of
+    q/k 96 (64 + rope 32) and v 64, q-lora 768, kv-lora 256, F=6400,
+    V=73448; its multipliers as the GGUF keys the fault-7 port reads
+    (scale_emb 12, scale_depth 1.4 / sqrt(62), dim_model_base 256 / 2560);
+    its longrope rope_factors, which neither loader reads, left out."""
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    # n_head_kv = n_head: the JAX config's quirk under MLA; the latent cache ignores it
+    return ModelConfig(arch="minicpm3", n_layer=L, n_embd=2560, n_head=40, n_head_kv=40,
+                       head_dim=96, rope_dim=32, q_lora_rank=768, kv_lora_rank=256,
+                       v_head_dim=64, n_ff=6400, n_vocab=73448, norm_eps=1e-5,
+                       rope_freq_base=10000.0, n_ctx_train=32768, embd_scale=12.0,
+                       residual_scale=1.4 / 62 ** 0.5, logit_scale=256 / 2560)
+
+
+def q8_random(gen, shape):
+    """A Q8_0 QuantTensor (codes (..., IN, OUT), scales (..., IN/32, OUT))
+    drawn on the card: codes uniform in [-127, 127], scales 0.02/73.6 (1 +
+    N(0, 0.1)), weights of about N(0, 0.02)'s spread."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops.quant_matmul import QuantTensor
+
+    *lead, IN, OUT = shape
+    q = torch.empty(shape, dtype=torch.int8, device="cuda").random_(-127, 128, generator=gen)
+    s = torch.empty((*lead, IN // 32, OUT), device="cuda").normal_(1.0, 0.1, generator=gen)
+    return QuantTensor(q, s.abs_().mul_(0.02 / 73.6), "q8_0")
+
+
+def random_mla_q8(cfg, dtype, seed):
+    """A minicpm3 (the q-lora) or plm (a direct q, an ungated FFN) model as
+    its Q8_0 GGUF loads with keep_quantized: Q8_0 wq_a, wq_b (or wq),
+    wkv_a, wo, the FFN and the head, the key and value decompressors wk_b
+    and wv_b dense in `dtype` (the loader dequantizes them), the embeddings
+    in `dtype`, 1 + N(0, 0.1) norms in f32."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    L, E, H, Dk, Dr, R = (cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.head_dim, cfg.rope_dim,
+                          cfg.kv_lora_rank)
+    Dv, F, V, Qr = cfg.v_head_dim, cfg.n_ff, cfg.n_vocab, cfg.q_lora_rank
+
+    def norm(*shape):
+        return torch.empty(shape, device="cuda").normal_(1.0, 0.1, generator=gen)
+
+    def normal(shape):
+        return torch.empty(shape, dtype=dtype, device="cuda").normal_(0.0, 0.02, generator=gen)
+
+    layers = {"attn_norm_w": norm(L, E), "ffn_norm_w": norm(L, E), "kv_a_norm_w": norm(L, R),
+              "wkv_a": q8_random(gen, (L, E, R + Dr)), "wk_b": normal((L, R, H, Dk - Dr)),
+              "wv_b": normal((L, R, H, Dv)), "wo": q8_random(gen, (L, H * Dv, E)),
+              "w_up": q8_random(gen, (L, E, F)), "w_down": q8_random(gen, (L, F, E))}
+    if Qr:
+        layers.update(wq_a=q8_random(gen, (L, E, Qr)), q_a_norm_w=norm(L, Qr),
+                      wq_b=q8_random(gen, (L, Qr, H * Dk)))
+    else:
+        layers["wq"] = q8_random(gen, (L, E, H * Dk))
+    if cfg.traits.act != "relu2":
+        layers["w_gate"] = q8_random(gen, (L, E, F))
+    params = {"tok_embd": normal((V, E)), "output_norm_w": norm(E),
+              "output": q8_random(gen, (E, V)), "layers": layers}
+    return LoadedModel(config=cfg, params=params)
+
+
+def mla_arch_latent_cache(model, greedy, prompt) -> dict:
+    """The dense Engine at max_seq 32768 over the latent cache: its bytes, L
+    x (kv_lora_rank + rope_dim) x 2 a token (35,712 at MiniCPM3-4B's 62
+    layers), and the device ms of a decode step (one replay's span) after
+    16 greedy tokens."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    cfg = model.config
+    eng = Engine(model, max_seq=32768, sampler=greedy, device="cuda")
+    toks = run_generate(eng, prompt, 16)
+    per_token = cfg.n_layer * (cfg.kv_lora_rank + cfg.rope_dim) * 2
+    check(kv_bytes(eng.cache) == per_token * 32768,
+          f"5s: a latent cache of {kv_bytes(eng.cache)} bytes, want {per_token} a token")
+    step = eng.graphs.get(eng.cache, 1, "decode", None)
+    row = {"max_seq": 32768, "kv_bytes": kv_bytes(eng.cache), "bytes_per_token": per_token,
+           "tok_s": eng.perf.decode_tps, **replay_times(step), "tokens_first8": toks[:8]}
+    print("phase 5s, latent cache:", json.dumps(row))
+    del eng, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def mla_arch_cuts(greedy) -> list:
+    """4-layer cuts, each decode graph against an eager engine (streams
+    equal, first decode logits bit-equal): plm at MiniCPM3-4B's widths (a
+    direct q, an ungated relu² FFN, Q8_0) and nemotron at E=2560, F=6400
+    (32 heads over 8 KV heads of 80, LayerNorm with biases, rope over 40 of
+    80 lanes, relu², bf16)."""
+    import dataclasses
+
+    import torch
+
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    plm = dataclasses.replace(minicpm3_4b_config(4), arch="plm", q_lora_rank=0,
+                              embd_scale=1.0, residual_scale=1.0, logit_scale=1.0)
+    nemotron = ModelConfig(arch="nemotron", n_layer=4, n_embd=2560, n_head=32, n_head_kv=8,
+                           head_dim=80, rope_dim=40, n_ff=6400, n_vocab=32000, norm_eps=1e-5,
+                           rope_freq_base=10000.0)
+    f32 = torch.float32
+
+    def ln_biases(normal):
+        return {"attn_norm_b": normal((4, 2560), 0.1, f32),
+                "ffn_norm_b": normal((4, 2560), 0.1, f32)}
+
+    gen = torch.Generator().manual_seed(SEED + 84)
+    out = []
+    for i, (name, make) in enumerate((
+            ("plm", lambda: random_mla_q8(plm, torch.bfloat16, SEED + 85)),
+            ("nemotron", lambda: random_cut(nemotron, SEED + 86, ln_biases)))):
+        model = make()
+        if name == "nemotron":  # relu² is ungated: no gate projection
+            model.params["layers"].pop("w_gate")
+        prompt = torch.randint(model.config.n_vocab, (32,), generator=gen).tolist()
+        kw = dict(max_seq=1024, sampler=greedy, device="cuda")
+        row = graph_vs_eager(f"{name} cut", Engine(model, **kw),
+                             Engine(model, cuda_graph=False, **kw), prompt, 64)
+        out.append({"arch": name, **{k: row[k] for k in ("replay_span_ms", "wall_speedup")},
+                    "graph_tok_s": row["graph"]["tok_s"], "eager_tok_s": row["eager"]["tok_s"]})
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mla_archs(greedy, L: int = 62) -> dict:
+    """Phase 5s: the f32 gate at 4 layers, then MiniCPM3-4B at full width
+    and depth L in Q8_0 (q8_dense_engine: 7L + 1 quant_matmul_2d calls a
+    forward, wq_a, wq_b, wkv_a, wo, up, gate, down and the head), its
+    latent cache at max_seq 32768, quant_matmul_2d at its seven shapes
+    (the head's OUT of 73448 not 16-aligned), and the plm and nemotron
+    cuts. Returns its summary, with quant_matmul_2d's main-path launches."""
+    import gc
+
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 5s: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free at its start")
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 80)
+    prompt = torch.randint(73448, (32,), generator=gen).tolist()
+    gate = q8_f32_gate("MiniCPM3-4B widths, 4 layers, Q8_0", "5s",
+                       random_mla_q8(minicpm3_4b_config(4), torch.float32, SEED + 81), prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5s, f32 gate")
+    cfg = minicpm3_4b_config(L)
+    t1 = time.perf_counter()
+    model = random_mla_q8(cfg, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    packed = q8_step_bound(model, 0)["weight_bytes"]
+    print(f"model: MiniCPM3-4B widths, L={cfg.n_layer} E={cfg.n_embd} H={cfg.n_head} "
+          f"q_lora={cfg.q_lora_rank} kv_lora={cfg.kv_lora_rank} Dk={cfg.head_dim} "
+          f"Dr={cfg.rope_dim} Dv={cfg.v_head_dim} F={cfg.n_ff} V={cfg.n_vocab}, Q8_0 "
+          f"({packed} bytes packed with f32 scales; the GGUF's {MINICPM3_GGUF_PACKED} at 62 "
+          f"layers), built in {time.perf_counter() - t1:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    row = q8_dense_engine("MiniCPM3-4B Q8_0 dense", "5s", model, greedy, prompt, 64)
+    print("phase 5s, MiniCPM3-4B (graph decode; streams equal, first decode logits bit-equal):",
+          json.dumps(row))
+    mark("phase 5s, MiniCPM3-4B engine")
+    cache = mla_arch_latent_cache(model, greedy, prompt)
+    rows = q8_qmm_rows(model, ("wq_a", "wq_b", "wkv_a", "wo", "w_up", "w_down", "head"),
+                       SEED + 82, per_call=1)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5s, quant_matmul_2d at the MiniCPM3-4B shapes")
+    cuts = mla_arch_cuts(greedy)
+    mark("phase 5s, plm and nemotron cuts")
+    return {"f32_gate": gate, "engine": row, "latent_cache": cache, "rows": rows, "cuts": cuts,
+            "packed_bytes": packed, "qmm_launches": row["launches"],
+            "seconds": time.perf_counter() - t0}
+
+
+def mla_archs_summary(m) -> dict:
+    """Phase 5s's numbers in brief, for the end of the full run's output."""
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")
+    e = m["engine"]
+    return {"f32_gate_worst": m["f32_gate"]["worst_rel_err"],
+            "minicpm3_4b_qmm": [{"shape": r["shape"], **{k: r[k] for k in keys}}
+                                for r in m["rows"]],
+            "minicpm3_4b": {"bound_ms": e["step_bound"]["bound_ms"], **{k: e[k] for k in (
+                "tok_s", "wall_ms_per_step", "device_ms_per_step", "replay_span_ms",
+                "qmm_decode_per_step", "qmm_prefill_per_prefill", "x_bound", "peak_gib",
+                "launches")}},
+            "latent_cache": {k: m["latent_cache"][k] for k in (
+                "kv_bytes", "bytes_per_token", "replay_span_ms", "tok_s")},
+            "cuts": m["cuts"], "packed_bytes": m["packed_bytes"], "seconds": m["seconds"]}
 
 
 def phase_child(tag, flag) -> dict:
@@ -6894,6 +7474,11 @@ def main(only: str | None = None) -> int:
     if only == "archs":
         print("phase 5q summary:", json.dumps(archs_summary(phase_archs(greedy))))
         return 0
+    if only == "mla_archs":
+        print("phase 5s summary:", json.dumps(mla_archs_summary(phase_mla_archs(greedy))))
+        return 0
+    if only == "kvq":
+        return kvq_only(greedy)
     # 5k. Qwen3-30B-A3B (61 GB of bf16 weights) in a child process, before
     # this process builds any model; then 5o, gpt-oss-20b (42 GB), 5p,
     # DeepSeek-V2-Lite (31 GB), and 5q, Qwen3-8B Q8_0 (8.5 GB) then
@@ -6906,6 +7491,8 @@ def main(only: str | None = None) -> int:
     mark("phase 5p")
     archs = phase_child("5q", "--archs-phase")
     mark("phase 5q")
+    mla_archs = phase_child("5s", "--mla-archs-phase")
+    mark("phase 5s")
 
     # 3. f32 references on small inputs: kernel path == plain path
     phase_reference(SparseConfig, Engine, greedy)
@@ -6983,6 +7570,10 @@ def main(only: str | None = None) -> int:
     runtime = phase_runtime(model, scfg, sparse_eng, sched, prompt)
     torch.cuda.empty_cache()
     mark("phase 5l")
+    # 5r. the int8 and split-dtype KV caches over the same stores
+    with tempfile.TemporaryDirectory() as tmp:
+        kvq = phase_kvq(model, sparse_eng, sched, scfg, greedy, prompt, pathlib.Path(tmp))
+    torch.cuda.empty_cache()
 
     # 4d, 5f. v7u, and batched decode of every decode path at B = 1, 2, 4, 8 (the ticks at 16)
     v7u_row = phase_v7u(sparse_eng.params["sparse_flat"], L, scfg.n_groups(cfg.n_ff))
@@ -7118,7 +7709,8 @@ def main(only: str | None = None) -> int:
         {**kernel_line("sparse_ffn_block_v6", "sparkinfer_tpu_torch/csrc/sparse_ffn_v6.cu",
                        "sparkinfer_tpu/ops/sparse_ffn_pallas.py:564",
                        l7["sparse_ffn_block_v6"] + tier_v6 + runtime["v6_launches"]
-                       + kq["v6_launches"] + fl["sparse_ffn_block_v6"], v6_row,
+                       + kq["v6_launches"] + fl["sparse_ffn_block_v6"] + kvq["v6_launches"],
+                       v6_row,
                        "N=1 C=12 G=128 E=4096 bf16 fatrelu"),
          **fam_rows("v6 falcon40b", "v6 opt6.7b", "v6 qwen2-7b"),
          # the speculative verify (N = K+1) and the 32-token sparse prefill
@@ -7135,12 +7727,15 @@ def main(only: str | None = None) -> int:
                        "sparkinfer_tpu/ops/quant_matmul.py:149",
                        l13["quant_matmul_2d"] + l_tier13["quant_matmul_2d"]
                        + l_w8["quant_matmul_2d"] + fl["quant_matmul_2d"]
-                       + archs["qmm_launches"], q2d_row, q2d_row["shape"]),
+                       + archs["qmm_launches"] + mla_archs["qmm_launches"], q2d_row,
+                       q2d_row["shape"]),
          **fam_rows("qmm head"),
-         "qwen3_8b": {"launches": archs["qmm_launches"],
-                      "shapes": {r["shape"]: {f: r[f] for f in (
-                          "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
-                          "library_ms")} for r in archs["qwen3_8b"]["rows"]}}},
+         **{name: {"launches": a["qmm_launches"],
+                   "shapes": {r["shape"]: {f: r[f] for f in (
+                       "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")} for r in rows}}
+            for name, a, rows in (("qwen3_8b", archs, archs["qwen3_8b"]["rows"]),
+                                  ("minicpm3_4b", mla_archs, mla_archs["rows"]))}},
         {**kernel_line("quant_matmul_flat", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
                        "sparkinfer_tpu/ops/quant_matmul.py:243",
                        l13["quant_matmul_flat"] + l_tier13["quant_matmul_flat"]
@@ -7149,7 +7744,8 @@ def main(only: str | None = None) -> int:
         {**kernel_line("sparse_ffn_block", "sparkinfer_tpu_torch/csrc/sparse_ffn_v1.cu",
                        "sparkinfer_tpu/ops/sparse_ffn_pallas.py:124",
                        l_v1 + moe["v1_launches"] + fl["sparse_ffn_block"]
-                       + swa["v1_launches"] + mla["v1_launches"] + archs["v1_launches"],
+                       + swa["v1_launches"] + mla["v1_launches"] + archs["v1_launches"]
+                       + kvq["v1_launches"],
                        row_rows["sparse_ffn_block"],
                        "N=1 C=12 G=128 E=4096 bf16 fatrelu, row stores"),
          **fam_rows("v1 falcon40b"),
@@ -7217,6 +7813,8 @@ def main(only: str | None = None) -> int:
     print("phase 5o summary:", json.dumps(swa_summary(swa)))
     print("phase 5p summary:", json.dumps(mla_summary(mla)))
     print("phase 5q summary:", json.dumps(archs_summary(archs)))
+    print("phase 5r summary:", json.dumps(kvq_summary(kvq)))
+    print("phase 5s summary:", json.dumps(mla_archs_summary(mla_archs)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -7234,7 +7832,11 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--mla-phase"]:
         sys.exit(child_phase("5p", lambda greedy: phase_mla(greedy, FULL_RUN_MLA_L)))
     if sys.argv[1:] == ["--archs-phase"]:
-        sys.exit(child_phase("5q", phase_archs))
+        sys.exit(child_phase("5q", lambda greedy: phase_archs(
+            greedy, FULL_RUN_ARCHS_QWEN3_L, FULL_RUN_ARCHS_MOE_L)))
+    if sys.argv[1:] == ["--mla-archs-phase"]:
+        sys.exit(child_phase("5s", lambda greedy: phase_mla_archs(greedy, FULL_RUN_MLA_ARCHS_L)))
     sys.exit(main(only={"--tiered": "tiered", "--moe": "moe", "--runtime": "runtime",
                         "--quant": "quant", "--families": "families", "--swa": "swa",
-                        "--mla": "mla", "--archs": "archs"}.get(" ".join(sys.argv[1:]))))
+                        "--mla": "mla", "--archs": "archs", "--kvq": "kvq",
+                        "--mla-archs": "mla_archs"}.get(" ".join(sys.argv[1:]))))

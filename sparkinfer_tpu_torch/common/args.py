@@ -414,14 +414,6 @@ _UNPORTED = {
 
 def unported_flags(args) -> list[str]:
     """One message for each flag of `args` that needs a module the port
-    has not ported yet: the HF cache, and quantized or split-dtype KV
-    caches."""
-    out = [f"{flag} needs {mod}, which is not ported yet"
-           for dest, (flag, mod) in _UNPORTED.items() if getattr(args, dest, None)]
-    ctk = getattr(args, "cache_type_k", "bf16")
-    ctv = getattr(args, "cache_type_v", None)
-    if ctk in ("q8", "int8") or ctv in ("q8", "int8"):
-        out.append(f"-ctk/-ctv {ctk}/{ctv}: the quantized KV cache is not ported yet")
-    elif ctv is not None and ctv != ctk:
-        out.append(f"-ctk {ctk} -ctv {ctv}: a split-dtype KV cache is not ported yet")
-    return out
+    has not ported yet: the HF cache."""
+    return [f"{flag} needs {mod}, which is not ported yet"
+            for dest, (flag, mod) in _UNPORTED.items() if getattr(args, dest, None)]

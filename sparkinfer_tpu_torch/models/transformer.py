@@ -2,8 +2,9 @@
 make_forward for the llama family and the llama-shaped archs that differ
 from it only in traits and tensors (qwen3, smollm, tinyllama, internlm2,
 xverse, baichuan, exaone, ernie4_5, seed_oss, smollm3, glm4, orion,
-stablelm, olmo, hunyuan-dense), the other sparse families of the paper
-(qwen2, opt, falcon), the gemma family, deepseek2, and the Mixture-of-Experts
+stablelm, olmo, hunyuan-dense, arcee, nemotron), the other sparse families
+of the paper (qwen2, opt, falcon), the gemma family, the MLA archs
+(deepseek2, minicpm3, plm), and the Mixture-of-Experts
 FFN of llama-MoE (mixtral), qwen3moe, qwen2moe, hunyuan-moe, smallthinker,
 grovemoe, arctic and gpt-oss.
 
@@ -81,7 +82,8 @@ cfg.logit_scale on the f32 logits before the final softcap, each a scalar
 rounded to the tensor's dtype; the layers flagged in cfg.nope_layers skip
 rope on q and k (a Python branch a layer, fixed in a CUDA graph).
 
-deepseek2 (DeepSeek-V2, V2-Lite, V3): multi-head latent attention in the
+deepseek2 (DeepSeek-V2, V2-Lite, V3), minicpm3 (the q-lora, neox rope) and
+plm (a direct q, an ungated relu² FFN): multi-head latent attention in the
 absorbed form of the JAX package (`attention_mla`: q direct or through the
 q-lora, the key decompressor folded into q, scores and context in the
 latent space) over the latent cache of `runtime/kv_cache.py` (one slot of
@@ -90,9 +92,9 @@ layer segments: params["layer_segments"], the leading dense layers and the
 MoE layers as stacks of their own, walked in order (`layer_params`).
 
 Deepstack, ALiBi (Baichuan-13B's too), post-norm-only blocks, per-layer
-widths, symmetric windows of non-causal encoders and the other MLA archs
-(minicpm3, plm) come later; `check_supported` names each feature it can
-see in the configuration, and refuses the rest by arch name.
+widths, symmetric windows of non-causal encoders and MLA on any other arch
+come later; `check_supported` names each feature it can see in the
+configuration, and refuses the rest by arch name.
 """
 
 from __future__ import annotations
@@ -125,7 +127,7 @@ LLAMA_FAMILY = ("llama", "mistral", "prosparse_llama", "bamboo")
 # blocks with biases, qkv biases, clamped q/k/v, NoPE layers
 LLAMA_SHAPED = ("qwen3", "smollm", "tinyllama", "internlm2", "xverse", "baichuan", "exaone",
                 "ernie4_5", "seed_oss", "smollm3", "glm4", "orion", "stablelm", "olmo",
-                "hunyuan-dense")
+                "hunyuan-dense", "arcee", "nemotron")
 # the paper's other sparse families (SparkInfer's build_sparse_ffn archs)
 SPARSE_FAMILIES = ("qwen2", "opt", "falcon")
 # sliding windows, softcaps, sandwich norms and gemma3's second rope base
@@ -135,7 +137,8 @@ EXPERT_ONLY = ("mixtral", "qwen3moe", "gpt-oss", "qwen2moe", "hunyuan-moe", "sma
                "grovemoe", "arctic")
 # the archs whose experts the port runs
 MOE_ARCHS = ("llama", "deepseek2") + EXPERT_ONLY
-MLA_ARCHS = ("deepseek2",)  # multi-head latent attention over the latent cache
+# multi-head latent attention over the latent cache
+MLA_ARCHS = ("deepseek2", "minicpm3", "plm")
 
 
 def check_supported(cfg: ModelConfig):
@@ -143,7 +146,8 @@ def check_supported(cfg: ModelConfig):
     naming the feature before the arch."""
     tr = cfg.traits
     for cond, what in ((cfg.kv_lora_rank and cfg.arch not in MLA_ARCHS,
-                        "MLA (multi-head latent attention) outside deepseek2"),
+                        "MLA (multi-head latent attention) outside deepseek2, minicpm3 "
+                        "and plm"),
                        (cfg.n_head_arr or cfg.n_ff_arr, "per-layer head counts or FFN widths"),
                        (tr.alibi, "ALiBi (attention linear biases)"),
                        # llama.cpp's baichuan: 40 layers is Baichuan-13B, ALiBi and no rope
@@ -159,7 +163,7 @@ def check_supported(cfg: ModelConfig):
         raise NotImplementedError(
             f"arch {cfg.arch!r} is not ported yet (the llama family and the llama-shaped "
             f"archs, the MoE archs, the other sparse families, the gemma family and "
-            f"deepseek2: {', '.join(archs)})")
+            f"the MLA archs: {', '.join(archs)})")
     if cfg.n_expert and cfg.arch not in MOE_ARCHS:
         raise NotImplementedError(f"experts of arch {cfg.arch!r} are not ported yet")
     if cfg.arch in EXPERT_ONLY and not (cfg.n_expert and cfg.n_expert_used):
@@ -307,15 +311,19 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
               kc: torch.Tensor, vc: torch.Tensor, rp: RopeParams,
               rope_cs: tuple[torch.Tensor, torch.Tensor],
               fresh_prefill: bool = False, window: int = 0,
-              ring_width: int = 0, rope: bool = True) -> torch.Tensor:
+              ring_width: int = 0, rope: bool = True,
+              ks: torch.Tensor | None = None, vs: torch.Tensor | None = None) -> torch.Tensor:
     """x (B, T, E) already normed; positions (B, T); kc/vc one layer's cache
-    (B, S, Hkv, D), written in place; rope_cs the rope tables of positions
+    (B, S, Hkv, D), written in place, and ks/vs its (B, S, Hkv, 1) scales
+    where the cache is int8 (codes and scales written, reads dequantized
+    into q's dtype); rope_cs the rope tables of positions
     (ops/rope.py:rope_cos_sin) at this layer's rope params rp. window: the
     layer's sliding window (0: none); ring_width: the slots of the layer's
     iSWA ring (0: a full cache). fresh_prefill: the prompt starts at
     position 0, so every key is in this chunk and attention runs over the
     chunk (T x T) instead of the whole cache (T x S), where the model has
-    no window, no softcap and no sinks, as in the JAX forward. rope=False:
+    no window, no softcap and no sinks, as in the JAX forward (over the
+    chunk's own k and v, never their int8 codes). rope=False:
     a NoPE layer (cfg.nope_layers), whose q and k skip rope."""
     B, T, _ = x.shape
     H, Hkv, D = cfg.n_head, cfg.n_head_kv, cfg.head_dim
@@ -339,15 +347,15 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
     if "attn_q_norm_w" in lp and after_rope:
         q, k = _qk_norms(cfg, lp, q, k)
     wpos = positions % ring_width if ring_width else positions
-    write_layer(kc, k, wpos)
-    write_layer(vc, v, wpos)
+    write_layer(kc, ks, k, wpos)
+    write_layer(vc, vs, v, wpos)
     scale = cfg.attn_scale if cfg.attn_scale else D ** -0.5
     softcap, sinks = cfg.traits.attn_logit_softcap, lp.get("attn_sinks")
     if fresh_prefill and cfg.sliding_window <= 0 and softcap == 0.0 and sinks is None:
         out = _chunk_causal_attention(q, k, v, H, Hkv, D, scale)
     else:
-        keys = read_layer(kc, q.dtype)
-        vals = read_layer(vc, q.dtype)
+        keys = read_layer(kc, ks, q.dtype)
+        vals = read_layer(vc, vs, q.dtype)
         # a ring holds a sliding run: the model's window, as in the JAX forward
         mask = _mask(positions, kc.shape[1], cfg.sliding_window if ring_width else window,
                      ring_width)
@@ -382,8 +390,8 @@ def attention_mla(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.
     kv_a = mm(x, lp["wkv_a"])  # (B, T, R + Dr)
     c_kv = rms_norm(kv_a[..., :R], lp["kv_a_norm_w"], eps)
     k_pe = rotate(kv_a[..., None, R:], *rope_cs, rp)[:, :, 0]
-    write_layer(kc, torch.cat([c_kv, k_pe], -1)[:, :, None], positions)
-    lat = read_layer(kc, q.dtype)[:, :, 0]  # (B, S, R + Dr)
+    write_layer(kc, None, torch.cat([c_kv, k_pe], -1)[:, :, None], positions)
+    lat = read_layer(kc, None, q.dtype)[:, :, 0]  # (B, S, R + Dr)
     c_all, pe_all = lat[..., :R], lat[..., R:]
     scores = (torch.einsum("bthr,bsr->bhts", q_lat.float(), c_all.float())
               + torch.einsum("bthd,bsd->bhts", q_pe.float(), pe_all.float())) * Dk ** -0.5
@@ -485,14 +493,17 @@ def one_stack(params: dict, what: str) -> None:
 
 
 def _layer_caches(cfg: ModelConfig, cache: KVCache) -> list[tuple]:
-    """(k, v, ring width) of each layer: a full cache's layer, or the layer
-    of its run in an iSWA cache, whose sliding runs are rings."""
+    """(k, v, k scales, v scales, ring width) of each layer: a full cache's
+    layer (its scales None unless the cache is int8), or the layer of its
+    run in an iSWA cache, whose sliding runs are rings."""
     if not cache.iswa:
-        return [(cache.k[il], cache.v[il], 0) for il in range(cfg.n_layer)]
+        q = cache.quantized
+        return [(cache.k[il], cache.v[il], cache.k_scale[il] if q else None,
+                 cache.v_scale[il] if q else None, 0) for il in range(cfg.n_layer)]
     out = []
     for (s, e, is_swa), kr, vr in zip(swa_runs(cfg), cache.k, cache.v):
         rw = kr.shape[2] if is_swa else 0
-        out += [(kr[j], vr[j], rw) for j in range(e - s)]
+        out += [(kr[j], vr[j], None, None, rw) for j in range(e - s)]
     return out
 
 
@@ -552,8 +563,8 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
         carry = ffn_carry_init(B, T, x.device) if ffn_carry_init else None
         # shared by every layer: the rope tables
         rope_cs = {r: rope_cos_sin(positions, r) for r in ropes}
-        for il, (lp, (kc, vc, ring_w)) in enumerate(zip(layer_params(params),
-                                                         _layer_caches(cfg, cache))):
+        for il, (lp, (kc, vc, ks, vs, ring_w)) in enumerate(zip(layer_params(params),
+                                                                 _layer_caches(cfg, cache))):
             if flat is not None:  # FlatQuantTensors bind the layer late
                 lp.update({k: (v.with_il(il) if isinstance(v, FlatQuantTensor) else v)
                            for k, v in flat.items()}, flat_il=il)
@@ -567,7 +578,7 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
             else:
                 attn_out = attention(cfg, lp, h, positions, kc, vc, rp_l, rope_cs[rp_l],
                                      fresh_prefill=fresh_prefill, window=window_of(il),
-                                     ring_width=ring_w, rope=not nope[il])
+                                     ring_width=ring_w, rope=not nope[il], ks=ks, vs=vs)
             if "attn_post_norm_w" in lp:  # gemma's sandwich norm
                 attn_out = _norm(attn_out, lp["attn_post_norm_w"],
                                  lp.get("attn_post_norm_b"), kind, eps)

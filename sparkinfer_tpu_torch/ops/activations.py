@@ -3,8 +3,9 @@ sparkinfer_tpu/ops/activations.py:act_fn.
 
 ProSparse: fatrelu(gate) * up; Bamboo: relu(gate) * relu(up); ReLU models:
 relu(up); llama and the MoE families: silu(gate) * up; the MoE functions'
-other variants: gpt-oss's clamped swiglu, geglu, reglu and gelu. The rest of
-the JAX table (relu², xIELU, ...) comes with its families.
+other variants: gpt-oss's clamped swiglu, geglu, reglu and gelu; plm's,
+nemotron's and arcee's ungated relu². The rest of the JAX table (bitnet's
+relu2_glu, xIELU, ...) comes with its families.
 """
 
 from __future__ import annotations
@@ -42,6 +43,12 @@ def _relu(u):
     return u.clamp_min(0)
 
 
+def _relu2(u):
+    """relu(u)**2 (plm, nemotron, arcee: ggml_sqr(ggml_relu))."""
+    r = u.clamp_min(0)
+    return r * r
+
+
 def _gelu(u):
     return F.gelu(u.float(), approximate="tanh").to(u.dtype)
 
@@ -58,6 +65,7 @@ def act_fn(name: str, fatrelu_threshold: float = 0.0):
         "fatrelu": (True, lambda g, u: fatrelu(g, fatrelu_threshold) * u),
         "drelu": (True, _drelu),
         "relu": (False, _relu),
+        "relu2": (False, _relu2),
     }
     if name not in table:
         raise NotImplementedError(f"activation {name!r} is not ported yet")

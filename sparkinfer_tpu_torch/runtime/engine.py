@@ -67,7 +67,7 @@ from ..device import resolve_device
 from ..models.loader import LoadedModel
 from ..models.transformer import clamp_max_seq, make_forward
 from .graphs import StepGraphs, resolve_capture
-from .kv_cache import KVCache, init_cache, init_cache_iswa, ring_room
+from .kv_cache import KVCache, check_int8, init_cache, init_cache_iswa, ring_room
 from .sampling import (
     ChainState,
     SamplerConfig,
@@ -162,7 +162,13 @@ class Engine:
 
     kv_iswa=True: the iSWA dual cache (rings for the sliding layers), where
     the model has a sliding window; on a model without one it is a full
-    cache of one run, and the stream is the same."""
+    cache of one run, and the stream is the same.
+
+    kv_quantized=True: the int8 cache (-ctk q8 -ctv q8), whose codes and
+    scales the step's graph writes and reads in place; kv_dtype_v: V's
+    float dtype where it differs from kv_dtype (a split -ctv). The int8
+    cache takes no MLA model, no iSWA cache and no self-extend
+    (ValueError)."""
 
     GRAPHS = 4  # the decode-step graphs kept: the engine's cache and callers'
 
@@ -172,6 +178,8 @@ class Engine:
         max_seq: int = 2048,
         sampler: SamplerConfig | None = None,
         kv_dtype=torch.bfloat16,
+        kv_dtype_v=None,
+        kv_quantized: bool = False,
         sparse: "SparseConfig | None" = None,
         sparse_decode_mode: str = "kernel",
         sparse_drop_dense: bool = False,
@@ -199,6 +207,9 @@ class Engine:
         capture = resolve_capture(cuda_graph, self.device)
         if kv_iswa and self_extend is not None and self_extend[0] > 1:
             raise ValueError("self-extend needs a plain full-attention KV cache, not kv_iswa")
+        if kv_quantized and self_extend is not None and self_extend[0] > 1:
+            raise ValueError("self-extend rotates the float keys in place: the int8 KV cache "
+                             "(-ctk q8) has no such path, as in the JAX package")
         if kv_iswa and sparse is not None and sparse.hot_groups == 0 and sparse_pipelined:
             raise ValueError("the pipelined sparse FFN's cross-layer carry takes no iSWA "
                              "cache (kv_iswa), as in the JAX package")
@@ -219,7 +230,9 @@ class Engine:
         self.sampler_cfg = sc = sampler or SamplerConfig()
         if sc.mirostat not in (0, 2):
             raise ValueError(f"mirostat {sc.mirostat}: 0 (off) or 2 (v2)")
-        self.kv_dtype = kv_dtype
+        if kv_quantized:
+            check_int8(self.cfg, kv_iswa)
+        self.kv_dtype, self.kv_dtype_v, self.kv_quantized = kv_dtype, kv_dtype_v, kv_quantized
         self.params = model.params
         if sparse is not None:
             from ..sparse.ffn import (
@@ -349,8 +362,10 @@ class Engine:
     def new_cache(self) -> KVCache:
         if self.kv_iswa:  # a ring absorbs the longest forward, one prefill chunk
             return init_cache_iswa(self.cfg, 1, self.max_seq, chunk=self.prefill_chunk,
-                                   dtype=self.kv_dtype, device=self.device)
-        return init_cache(self.cfg, 1, self.max_seq, self.kv_dtype, self.device)
+                                   dtype=self.kv_dtype, device=self.device,
+                                   v_dtype=self.kv_dtype_v)
+        return init_cache(self.cfg, 1, self.max_seq, self.kv_dtype, self.device,
+                          self.kv_quantized, self.kv_dtype_v)
 
     def own_cache(self) -> KVCache:
         """The engine's own cache (`generate`'s and the drafters'), made once:

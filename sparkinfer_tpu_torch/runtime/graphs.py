@@ -14,7 +14,8 @@ first call; then it captures the step (capture does not run it) and replays
 it once. Every later run replays. The outputs are then tensors of the
 graph's private pool, overwritten by the next replay: a caller that keeps one
 clones it. Whatever the graph reads stays at one address: the params and
-stores, the KV cache and the static buffers. The fn holds its cache, so the
+stores, the KV cache (the int8 cache's codes and scales, each written and
+read in place) and the static buffers. The fn holds its cache, so the
 cache lives as long as its graph. A failure raises; nothing falls back to an
 eager step.
 
@@ -39,6 +40,7 @@ step updates them once, as an eager one does.
 
 from __future__ import annotations
 
+import gc
 import sys
 import threading
 import time
@@ -129,11 +131,18 @@ class StepGraph:
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         before = [w.launches for w in COUNTED]
+        # no garbage collection inside the capture: a collected cycle that
+        # holds a dead CUDA graph resets it there, which invalidates the
+        # capture (torch's graph context no longer collects before it)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
                 outputs = self.fn(self.tokens, self.positions)
             credits = tuple(w.launches - n for w, n in zip(COUNTED, before))
         finally:
+            if collecting:
+                gc.enable()
             for w, n in zip(COUNTED, before):
                 w.launches = n
         if rng is not None:
@@ -156,7 +165,7 @@ class StepGraph:
 class StepGraphs:
     """An owner's StepGraphs, keyed by what a graph bakes in: the KV cache's
     storage (every buffer's pointer and shape, an iSWA cache's runs too, and
-    its dtype), the batch, the tokens a row T and the
+    its dtypes), the batch, the tokens a row T and the
     forward. At most `limit` are kept, the least recently used dropped
     first."""
 

@@ -62,8 +62,12 @@ forward's default), as the JAX Scheduler does; there is no moe_mode here.
 history in the JAX package's state file format (`state_io.py`); a restore
 writes into the slot's rows of the shared cache in place (`slot_view`), so
 the tick's graph reads them, and the slot's cached prefix then serves a
-request that shares it. Quantized or split-dtype KV caches are not ported
-yet and raise NotImplementedError.
+request that shares it.
+
+kv_quantized=True gives the slots the int8 cache (-ctk q8 -ctv q8) and
+kv_dtype_v a V dtype of its own (a split -ctv), as the JAX Scheduler's: a
+slot's view, its prefill, its reused prefix and its state file carry the
+int8 cache's scales with its codes.
 """
 
 from __future__ import annotations
@@ -178,8 +182,6 @@ class Scheduler:
                                  "a CUDA graph cannot hold: cuda_graph=False")
             cuda_graph = False
         capture = resolve_capture(cuda_graph, self.device)
-        if kv_dtype_v is not None or kv_quantized:
-            raise NotImplementedError("quantized and split-dtype KV caches are not ported yet")
         self.cfg = model.config
         where = model.params["tok_embd"].device
         if where.type != self.device.type or (
@@ -237,7 +239,8 @@ class Scheduler:
         self.sparse_batch_max = (None if sparse is None or self.tiered
                                  else max(int(sparse_batch_max), 0))
         self.prefill_chunk = 1024  # ubatch size for long prompts, as the Engine's
-        self.cache: KVCache = init_cache(self.cfg, n_slots, max_seq, kv_dtype, self.device)
+        self.cache: KVCache = init_cache(self.cfg, n_slots, max_seq, kv_dtype, self.device,
+                                         kv_quantized, kv_dtype_v)
         self.graphs = StepGraphs(self.device, capture, limit=2)  # sparse and dense ticks
         self.slots = [SlotState() for _ in range(n_slots)]
         self.sstates = [init_state(self.sampler_cfg, i, self.device) for i in range(n_slots)]

@@ -13,9 +13,11 @@ package's four arrays; `s_key` is the threefry key of the generator's seed
 (PRNGKey(seed)), and the port adds `s_torch_gen`, its generator's exact
 state, which the JAX package ignores. A restore writes into the cache's and
 the sampler state's own tensors, in place: the step graphs captured over
-them read the restored rows. A quantized cache is not ported, and a file
-with int8 rows raises; an iSWA cache has no state file, as in the JAX
-package, and raises ValueError.
+them read the restored rows. An int8 cache's file holds its int8 k and v
+rows and their f32 k_scale and v_scale, with "quantized": true, as the JAX
+package writes it; a file restores only into a cache of its own kind (the
+JAX package would write int8 codes into a float cache). An iSWA cache has
+no state file, as in the JAX package, and raises ValueError.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from .kv_cache import KVCache, require_full
 from .sampling import ChainState, SamplerState
 
 STATE_MAGIC = "sparkinfer-state-v1"
-_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.float16: "float16"}
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.float16: "float16",
+                torch.int8: "int8"}
 
 
 def model_fingerprint(cfg) -> str:
@@ -51,8 +54,6 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 def _from_numpy(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     if a.dtype.kind == "V" and a.dtype.itemsize == 2:  # bfloat16 bits
         return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
-    if a.dtype == np.int8:
-        raise ValueError("the state holds an int8 (quantized) cache, which is not ported")
     return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
 
 
@@ -102,6 +103,9 @@ def save_state(path: str, cfg, cache: KVCache, n_past: int,
     require_full(cache, "a state file")
     arrays = {"k": _to_numpy(cache.k[:, slot, :n_past]),
               "v": _to_numpy(cache.v[:, slot, :n_past])}
+    if cache.quantized:
+        arrays["k_scale"] = _to_numpy(cache.k_scale[:, slot, :n_past])
+        arrays["v_scale"] = _to_numpy(cache.v_scale[:, slot, :n_past])
     if sstate is not None:
         arrays.update(_sampler_arrays(sstate, mirostat_tau))
     meta = {
@@ -110,7 +114,7 @@ def save_state(path: str, cfg, cache: KVCache, n_past: int,
         "n_past": int(n_past),
         "tokens": [int(t) for t in (tokens or [])],
         "kv_dtype": _DTYPE_NAMES.get(cache.k.dtype, str(cache.k.dtype)),
-        "quantized": False,
+        "quantized": cache.quantized,
     }
     buf = io.BytesIO()
     with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as z:
@@ -146,11 +150,16 @@ def load_state(path: str, cfg, cache: KVCache, slot: int = 0,
             if name.endswith(".npy")
         }
     n_past = int(meta["n_past"])
-    if meta.get("quantized"):
-        raise ValueError("the state holds an int8 (quantized) cache, which is not ported")
+    if bool(meta.get("quantized")) != cache.quantized:
+        kinds = ("a float", "an int8 (quantized)")
+        raise ValueError(f"the state holds {kinds[bool(meta.get('quantized'))]} KV cache, "
+                         f"the cache it restores into is {kinds[cache.quantized]} one")
     if n_past > cache.max_seq:
         raise ValueError(f"state n_past {n_past} exceeds cache max_seq {cache.max_seq}")
-    for big, name in ((cache.k, "k"), (cache.v, "v")):
+    names = ("k", "v", "k_scale", "v_scale") if cache.quantized else ("k", "v")
+    if any(n not in arrays for n in names):
+        raise ValueError("quantized cache but state has no scales")
+    for big, name in zip(cache.buffers(), names):
         big[:, slot, :n_past].copy_(_from_numpy(arrays[name], big.dtype))
     if sstate is not None and "s_key" in arrays:
         _restore_sampler(sstate, arrays)

@@ -10,9 +10,9 @@ store's budget), --cold-mode host|drop|fetch (default host),
 --reload-budget-mb and --swap-hysteresis; --lora / --lora-scaled merge
 adapters (rescaled by POST /lora-adapters), --slot-save-path holds the
 /slots/:id save files; --attn-w8a8 re-quantizes the attention projections
-to row-wise W8A8 at load. Flags whose modules are not ported yet (-hf,
--ctk/-ctv q8 or a split -ctv) fail with an error naming the
-module. The line "listening on http://HOST:PORT" gives the bound port, also
+to row-wise W8A8 at load; -ctk/-ctv q8 serve from the int8 KV cache, and
+a float -ctv of its own splits the cache. Flags whose modules are not
+ported yet (-hf) fail with an error naming the module. The line "listening on http://HOST:PORT" gives the bound port, also
 for --port 0.
 """
 
@@ -75,7 +75,9 @@ def main(argv=None) -> int:
             n_slots=args.n_slots,
             max_seq=args.ctx_size,
             model_name=args.alias,
-            kv_dtype=args.cache_type_k,
+            kv_dtype={"q8": "int8"}.get(args.cache_type_k, args.cache_type_k),
+            kv_dtype_v=({"q8": "int8"}.get(args.cache_type_v, args.cache_type_v)
+                        if args.cache_type_v else None),
             chat_template=args.chat_template,
             timeout=args.timeout,
             n_predict_default=args.n_predict_default,

@@ -65,7 +65,7 @@ class ServerConfig:
     n_slots: int = 4
     max_seq: int = 2048
     model_name: str = "sparkinfer-tpu"
-    kv_dtype: str = "bf16"  # "bf16" | "f32" ("int8" is not ported yet)
+    kv_dtype: str = "bf16"  # "bf16" | "f32" | "int8"
     kv_dtype_v: str | None = None  # -ctv: separate V dtype (None = kv_dtype)
     chat_template: str | None = None  # override; default = detect from GGUF
     timeout: float = 600.0  # -to: per-connection read/write timeout (s)

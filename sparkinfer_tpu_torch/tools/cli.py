@@ -12,7 +12,9 @@ cli scope):
   --mirostat --xtc-*), --keep (context shift), -gan/-gaw (self-extend),
   --draft-mode lookup|lookahead and --draft, --grammar/--grammar-file/-j
   (a 1-slot Scheduler), --lora/--lora-scaled and --control-vector*, -nps
-  with --json (bench mode), -i (chat REPL), --ignore-eos, -ctk f32|bf16,
+  with --json (bench mode), -i (chat REPL), --ignore-eos, -ctk/-ctv
+  f32|bf16|q8 (q8 both or neither: the int8 cache; a float -ctv of its own
+  splits the cache),
   -b (the prefill chunk), --moe-mode, and the SparkInfer sparse knobs
   (--sparse/--dense, --group-size, --capacity-groups, --hot-groups, -vb,
   --cold-mode, --split, --rebalance-every).
@@ -20,9 +22,8 @@ A GGUF without a vocabulary takes the prompt as space-separated token ids
 and prints ids. --attn-w8a8 re-quantizes the attention projections to
 row-wise W8A8 at load. --kv-iswa gives the Engine the iSWA dual cache
 (rings for the sliding-window layers of gpt-oss and the gemma family).
-Flags whose modules are not ported yet (-hf, -ctk/-ctv q8 or a split -ctv)
-and encoder-decoder models fail at startup with an error naming the
-module.
+Flags whose modules are not ported yet (-hf) and encoder-decoder models
+fail at startup with an error naming the module.
 """
 
 from __future__ import annotations
@@ -65,12 +66,14 @@ def make_engine(args, model):
     from ..common.args import kv_dtypes_from_args, sampler_from_args
     from ..runtime.engine import Engine
 
-    kv_dtype, _, _ = kv_dtypes_from_args(args)
+    kv_dtype, kv_dtype_v, kv_quant = kv_dtypes_from_args(args)
     eng = Engine(
         model,
         max_seq=args.ctx_size,
         sampler=sampler_from_args(args),
         kv_dtype=kv_dtype,
+        kv_dtype_v=kv_dtype_v,
+        kv_quantized=kv_quant,
         sparse=sparse_from_args(args, model),
         sparse_cold_mode=args.cold_mode or "host",
         split=args.split,
@@ -131,7 +134,8 @@ def grammar_main(args, model, gbnf: str) -> int:
     tk = build_tokenizer(model.vocab)
     sched = Scheduler(model, n_slots=1, max_seq=args.ctx_size,
                       sampler=sampler_from_args(args), tokenizer=tk,
-                      kv_dtype=kv_dtypes_from_args(args)[0],
+                      **dict(zip(("kv_dtype", "kv_dtype_v", "kv_quantized"),
+                                 kv_dtypes_from_args(args))),
                       sparse=sparse_from_args(args, model),
                       sparse_cold_mode=args.cold_mode or "host", split=args.split,
                       rebalance_every=args.rebalance_every, device=args.device)

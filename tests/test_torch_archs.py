@@ -1,11 +1,12 @@
 """The llama-shaped archs in the port against the JAX package, on the CPU:
 qwen3, smollm, tinyllama, internlm2, xverse, baichuan, exaone, ernie4_5,
-seed_oss, smollm3, glm4, orion, stablelm and olmo.
+seed_oss, smollm3, glm4, orion, stablelm, olmo, arcee and nemotron.
 
 Where transformers has the class (qwen3, stablelm with partial rope and with
 its per-head q/k LayerNorms, glm4 with post-norms, partial rope and qkv
 biases, olmo with clip_qkv, ernie4_5, seed_oss with qkv biases, smollm3 with
-its NoPE layers), a tiny checkpoint converted by the JAX package's
+its NoPE layers, arcee's ungated relu², nemotron's LayerNorm with biases,
+partial rope and relu²), a tiny checkpoint converted by the JAX package's
 tools/convert_hf.py (tests/arch_checks.py); the others from
 tests/arch_fixture.py (make_tiny_llama with each arch's own tensors and
 keys: orion's LayerNorm biases, stablelm's q/k LayerNorms with biases,
@@ -42,6 +43,11 @@ HF = {  # name -> (config class, model class, config keywords)
     "ernie4_5": ("Ernie4_5Config", "Ernie4_5ForCausalLM", {}),
     "seed_oss": ("SeedOssConfig", "SeedOssForCausalLM", dict(head_dim=16, attention_bias=True)),
     "smollm3": ("SmolLM3Config", "SmolLM3ForCausalLM", dict(num_hidden_layers=4, pad_token_id=0)),
+    # the ungated relu² FFN (AFM)
+    "arcee": ("ArceeConfig", "ArceeForCausalLM", dict(head_dim=16)),
+    # LayerNorm with biases (weights stored as w - 1), partial rope, relu²
+    "nemotron": ("NemotronConfig", "NemotronForCausalLM",
+                 dict(head_dim=16, partial_rotary_factor=0.5, norm_eps=1e-5)),
 }
 OWN = tuple(k for k in FIXTURE_KINDS if k not in ("clamped", "hunyuan-dense"))
 NAMES = tuple(HF) + OWN
@@ -89,7 +95,7 @@ def test_check_supported_admits_the_llama_shaped_archs():
                                     n_ff=96, n_vocab=ac.V, head_dim=16))
     assert {"qwen3", "smollm", "tinyllama", "internlm2", "xverse", "baichuan", "exaone",
             "ernie4_5", "seed_oss", "smollm3", "glm4", "orion", "stablelm",
-            "olmo"} <= set(LLAMA_SHAPED)
+            "olmo", "arcee", "nemotron"} <= set(LLAMA_SHAPED)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -106,15 +112,18 @@ def test_loader_matches_jax(models, name):
             "stablelm-qk": {"attn_q_norm_w", "attn_k_norm_w", "bq"},
             "stablelm-heads": {"attn_q_norm_b", "attn_k_norm_b"},
             "stablelm-width": {"attn_q_norm_b", "attn_k_norm_b"}, "seed_oss": {"bq", "bk"},
-            "orion": {"attn_norm_b", "ffn_norm_b"}}.get(name, set())
+            "orion": {"attn_norm_b", "ffn_norm_b"},
+            "nemotron": {"attn_norm_b", "ffn_norm_b"}}.get(name, set())
     assert want <= set(lay), want - set(lay)
     if name in ("stablelm-qk", "stablelm-heads"):
         assert lay["attn_q_norm_w"].shape == (2, 4, 16) and lay["attn_k_norm_w"].shape == (2, 2, 16)
     if name == "olmo":
         assert all(bool((lay[k] == 1).all()) for k in ("attn_norm_w", "ffn_norm_w"))
         assert pm.config.clamp_kqv == pytest.approx(0.1)
-    if name in ("stablelm", "stablelm-qk", "glm4"):
+    if name in ("stablelm", "stablelm-qk", "glm4", "nemotron"):
         assert pm.config.rope_dim < pm.config.head_dim
+    if name in ("arcee", "nemotron"):  # ungated relu²
+        assert "w_gate" not in lay and pm.config.traits.act == "relu2"
 
 
 @pytest.mark.parametrize("name", NAMES)

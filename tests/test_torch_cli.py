@@ -9,8 +9,9 @@ max_seq, the penalties and a LoRA adapter; bench mode; the sparse flags'
 plumbing (-vb, --spif-ms, group-size fallback, --cold-mode fetch); W8A8
 attention (--attn-w8a8, dense and sparse, and its refusal beside a LoRA
 adapter of the attention); --kv-iswa on a tiny gemma2 printing the stream
-of the full cache; and the flags whose modules are not ported fail at
-startup naming the module."""
+of the full cache; -ctk q8 -ctv q8 and a split -ctv printing the JAX CLI's
+stream; and the flags whose modules are not ported fail at startup naming
+the module."""
 
 import json
 
@@ -174,7 +175,16 @@ def test_unported_flags_fail_naming_the_module(files, capsys, flags, module):
     """Each flag whose module is not ported exits 2 naming it. --kv-iswa is
     ported now, and its case checks it runs instead: on a tiny gemma2 GGUF
     (window 8) with -b 4 (rings of 12 slots, wrapped by the 43 positions of
-    the run) it prints the tokens of the run without it."""
+    the run) it prints the tokens of the run without it. The int8 cache
+    (-ctk q8 -ctv q8) and a split cache (-ctv f32 beside the default bf16
+    K) are ported too: each prints the JAX CLI's stream on the same flags,
+    the int8 case through context shifts (-c 20)."""
+    if module in ("quantized KV", "split-dtype"):
+        extra = ["-c", "20"] if module == "quantized KV" else []
+        got, want = _both(capsys, ["-m", files["dense"], "-p", "5 9 42", "-n", "40",
+                                   "--temp", "0"] + extra + flags)
+        assert got == want and len(got.split()) == 40
+        return
     if flags == ["--kv-iswa"]:
         argv = ["-m", files["gemma2"], "-p", "5 9 42", "-c", "64", "-b", "4",
                 "--device", "cpu"] + BASE

@@ -773,6 +773,106 @@ def test_verify_graph_equals_its_eager_forward(cuda, gguf, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "v6"])
+def test_int8_graph_step_equals_the_eager_step(cuda, gguf, kind):
+    """The Engine over the int8 KV cache (codes and scales written and read
+    in place by the step): the decode graph's stream and every step's
+    logits bit-equal to the eager step's, past a context shift (max_seq 16,
+    keep 2), one capture."""
+    graph_eng, eager = _pair(gguf, kind, max_seq=16, kv_quantized=True)
+    runs = {name: _stream_logits(eng, PROMPT, 40, n_keep=2)
+            for name, eng in (("eager", eager), ("graph", graph_eng))}
+    assert runs["graph"][0] == runs["eager"][0] and len(runs["graph"][0]) == 40
+    for got, want in zip(runs["graph"][1], runs["eager"][1]):
+        assert torch.equal(got, want)
+    assert graph_eng.graphs.captures == 1 and graph_eng.cache.quantized
+    assert graph_eng.cache.k.dtype == torch.int8 and graph_eng.cache.k_scale.any()
+
+
+def shift_slots(sched, keep: int, discard: int):
+    """A context shift of every slot of the Scheduler's cache, between
+    ticks (the running slots share one n_past): rows [keep, keep + discard)
+    dropped, the rest slid down and re-roped; the running slots' n_past and
+    token histories moved with them."""
+    from sparkinfer_tpu_torch.models.transformer import rope_params
+    from sparkinfer_tpu_torch.runtime.kv_cache import shift_cache
+
+    n_past = {s.n_past for s in sched.slots if s.running}
+    assert len(n_past) == 1, n_past
+    shift_cache(sched.cache, rope_params(sched.cfg), keep, discard, n_past.pop())
+    for s in sched.slots:
+        if s.running:
+            s.n_past -= discard
+            s.cached_tokens = s.cached_tokens[:keep] + s.cached_tokens[keep + discard:]
+
+
+def _running_logits(sched):
+    """The last tick's logits of the running slots."""
+    return sched.last_logits[[i for i, s in enumerate(sched.slots) if s.running]].clone()
+
+
+@pytest.mark.cuda
+def test_int8_tick_after_a_shift_and_a_restore_equals_the_eager_tick(cuda, gguf, tmp_path):
+    """Two v1 Schedulers over int8 caches, one replaying its tick's graph,
+    one eager: the same requests, a context shift of both caches between
+    ticks, then a slot saved, zeroed and restored into another slot: the
+    first tick after each rewrite has the eager tick's logits bit for bit
+    in every running slot, and the streams are equal, with one capture."""
+    model = load_model(gguf, dtype=torch.float32, device="cuda")
+    kw = dict(n_slots=3, max_seq=32, sampler=GREEDY, sparse=SparseConfig(G, CAP),
+              sparse_batch_max=100, kv_quantized=True, device="cuda")
+    prompts = [[(7 * j + 3 * i) % 199 for i in range(6)] for j in range(3)]
+    out = {}
+    for name, cg in (("eager", False), ("graph", None)):
+        sched = Scheduler(model, cuda_graph=cg, **kw)
+        reqs = [sched.submit(Request(prompt_tokens=p, max_new_tokens=24)) for p in prompts]
+        for _ in range(14):
+            sched.step()
+        shift_slots(sched, 2, 12)
+        sched.step()
+        logits = [_running_logits(sched)]
+        sched.run_until_idle()
+        toks = [r.tokens() for r in reqs]
+        f = tmp_path / f"{name}.state"
+        sched.save_slot(0, str(f))
+        sched.slots[0].cached_tokens = []
+        for buf in sched.cache.buffers():
+            buf[:, 0].zero_()
+        sched.restore_slot(2, str(f))
+        sched.slot_similarity = 0.5  # to the restored slot, its prefix reused
+        cont = sched.submit(Request(prompt_tokens=sched.slots[2].cached_tokens + [5, 6],
+                                    max_new_tokens=6))
+        sched.step()
+        logits.append(_running_logits(sched))
+        sched.run_until_idle()
+        out[name] = (toks + [cont.tokens()], logits, sched.graphs.captures)
+    assert out["graph"][0] == out["eager"][0] and all(len(t) == 24 for t in out["graph"][0][:3])
+    for got, want in zip(out["graph"][1], out["eager"][1]):
+        assert torch.equal(got, want)
+    assert out["graph"][2] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm3", "plm"])
+def test_minicpm3_graph_step_equals_the_eager_step(cuda, tmp_path, arch):
+    """A tiny minicpm3 (the q-lora, neox rope, the embedding, residual and
+    logit multipliers) and plm (a direct q, an ungated relu² FFN) over the
+    latent cache: the decode graph's stream and every step's logits
+    bit-equal to the eager step's, one capture."""
+    from deepseek2_fixture import make_mla_arch
+
+    make_mla_arch(tmp_path / "m.gguf", arch, scales=arch == "minicpm3", seed=9)
+    model = load_model(str(tmp_path / "m.gguf"), dtype=torch.float32, device="cuda")
+    kw = dict(max_seq=64, sampler=GREEDY, kv_dtype=torch.float32, device="cuda")
+    graph_eng, eager = Engine(model, **kw), Engine(model, cuda_graph=False, **kw)
+    runs = {label: _steps(eng, 8) for label, eng in (("eager", eager), ("graph", graph_eng))}
+    assert runs["graph"][0] == runs["eager"][0]
+    for got, want in zip(runs["graph"][1], runs["eager"][1]):
+        assert torch.equal(got, want)
+    assert graph_eng.graphs.captures == 1 and graph_eng.cfg.kv_lora_rank == 32
+
+
+@pytest.mark.cuda
 def test_restore_slot_captures_nothing_new(cuda, gguf, tmp_path):
     """The v1 Scheduler: a slot saved, its rows zeroed, the file restored
     into another slot in place: the tick's graph serves the shared prefix

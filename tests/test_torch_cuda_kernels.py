@@ -688,6 +688,26 @@ def test_quant_matmul_qwen3_8b_shapes(cuda, N, IN, OUT):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 32])
+@pytest.mark.parametrize("IN,OUT", [(2560, 768), (768, 3840), (2560, 288), (2560, 2560),
+                                    (2560, 6400), (6400, 2560), (2560, 73448)],
+                         ids=["wq_a", "wq_b", "wkv_a", "wo", "up_gate", "down", "head"])
+def test_quant_matmul_minicpm3_4b_shapes(cuda, N, IN, OUT):
+    """MiniCPM3-4B's Q8_0 products: the q-lora (2560 x 768, 768 x 3840), the
+    latent and rope key (2560 x 288), wo (2560 x 2560), up and gate (2560 x
+    6400), down (6400 x 2560) and the head (2560 x 73448, an OUT that is
+    not 16-aligned: the element-at-a-time path), by qmm_decode at N = 1 and
+    qmm_prefill at N = 32, bf16 x, against the plain version."""
+    q, s = _store("q8_0", IN, OUT, cuda, seed=IN + 5 * OUT + N)
+    x = torch.randn((N, IN), device=cuda).to(torch.bfloat16)
+    before = tqm.quant_matmul_2d.launches
+    got = tqm.quant_matmul_2d(x, q, s, kind="q8_0")
+    torch.cuda.synchronize()
+    assert tqm.quant_matmul_2d.launches == before + 1
+    _check_qmm(got, tqm.quant_matmul_2d_plain(x, q, s, kind="q8_0"), 1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N", [1, 16, 17, 32])
 @pytest.mark.parametrize("IN,OUT", [(5120, 5120), (5120, 1280), (1280, 13824), (64, 40)])
 def test_w8a8_linear(cuda, N, IN, OUT):

@@ -364,7 +364,7 @@ def test_unported_paths_raise_naming_the_feature(ggufs, tmp_path):
         Engine(model, sparse=SparseConfig(16, 4), **kw)
     with pytest.raises(ValueError, match="predictor"):
         Scheduler(model, n_slots=2, sparse=SparseConfig(16, 4), **kw)
-    with pytest.raises(NotImplementedError, match="quantized"):
+    with pytest.raises(ValueError, match="int8 KV cache .* MLA"):
         Scheduler(model, n_slots=2, kv_quantized=True, **kw)
     with pytest.raises(NotImplementedError, match="control vector over layer segments"):
         apply_control_vector(model.params, cfg, np.zeros((3, E), np.float32))

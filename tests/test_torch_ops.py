@@ -69,7 +69,7 @@ def test_partial_rope_keeps_the_tail():
 
 
 @pytest.mark.parametrize("name", ["silu", "swiglu", "fatrelu", "drelu", "relu", "swiglu_oai",
-                                  "geglu", "reglu", "gelu"])
+                                  "geglu", "reglu", "gelu", "relu2"])
 def test_act_fn_matches_jax(name):
     rng = _rng(2)
     g = rng.standard_normal((4, 33)).astype(np.float32)
@@ -88,7 +88,7 @@ def test_act_fn_matches_jax(name):
 
 def test_act_fn_rejects_unported():
     with pytest.raises(NotImplementedError):
-        tact.act_fn("relu2")
+        tact.act_fn("relu2_glu")  # bitnet's; relu2 is ported
 
 
 @pytest.mark.parametrize("gtype", [GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.F16,
@@ -114,15 +114,25 @@ def test_dequantize_rejects_unported():
 
 
 def test_kv_write_read_matches_jax():
+    """The float write and read, and the int8 cache's (codes and scales,
+    the read dequantized), against the JAX package's, bit for bit."""
     rng = _rng(4)
     kc = rng.standard_normal((2, 8, 2, 4)).astype(np.float32)
     new = rng.standard_normal((2, 3, 2, 4)).astype(np.float32)
     pos = np.array([[0, 1, 2], [5, 6, 9]], np.int32)  # 9 clamps to slot 7
     ref, _ = jkv.write_layer(jnp.asarray(kc), None, jnp.asarray(new), jnp.asarray(pos))
     got = torch.from_numpy(kc.copy())
-    tkv.write_layer(got, torch.from_numpy(new), torch.from_numpy(pos))
-    np.testing.assert_array_equal(tkv.read_layer(got, torch.float32).numpy(),
+    tkv.write_layer(got, None, torch.from_numpy(new), torch.from_numpy(pos))
+    np.testing.assert_array_equal(tkv.read_layer(got, None, torch.float32).numpy(),
                                   np.asarray(ref))
+    q, sc = np.zeros((2, 8, 2, 4), np.int8), np.zeros((2, 8, 2, 1), np.float32)
+    rq, rs = jkv.write_layer(jnp.asarray(q), jnp.asarray(sc), jnp.asarray(new), jnp.asarray(pos))
+    tq, ts = torch.from_numpy(q.copy()), torch.from_numpy(sc.copy())
+    tkv.write_layer(tq, ts, torch.from_numpy(new), torch.from_numpy(pos))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(rq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(rs))
+    np.testing.assert_array_equal(tkv.read_layer(tq, ts, torch.float32).numpy(),
+                                  np.asarray(jkv.read_layer(rq, rs, jnp.float32)))
 
 
 @pytest.mark.parametrize("mask,arg", [("top_k", 5), ("top_p", 0.7), ("min_p", 0.05)])

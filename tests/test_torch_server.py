@@ -15,8 +15,8 @@ give the same status and body, with response ids and timestamps dropped:
 Port only: a sparse server (prosparse fixture, SparseConfig(8, 4),
 a crossover of 2 from SPIF_SPARSE_BATCH_MAX) streams what the port's "kernel" Scheduler gives;
 /embeddings and /rerank answer as the JAX server's; --attn-w8a8 serves the
-JAX server's streams; unported startup
-options and flags raise; the router loads a second model; Engine.generate_text
+JAX server's streams, and so do the int8 and split KV caches (options and
+flags); -hf raises; the router loads a second model; Engine.generate_text
 gives the JAX Engine's text; and `python -m sparkinfer_tpu_torch.server
 --device cpu` answers /health in a subprocess.
 """
@@ -260,18 +260,66 @@ def test_router_loads_a_second_model(servers):
     (dict(kv_dtype_v="f32"), "KV"),
 ])
 def test_unported_startup_options_raise(gguf, kw, match):
+    """The int8 KV cache (kv_dtype "int8") and a split cache (kv_dtype_v
+    "f32" beside bf16 K) are ported: each server's Scheduler holds that
+    cache and serves the JAX server's completion on the same option."""
     model = load_model(gguf, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        SparkServer(model, ServerConfig(port=0, device="cpu", **kw))
+    tsrv = SparkServer(model, ServerConfig(port=0, n_slots=1, max_seq=64, device="cpu", **kw),
+                       sampler=SamplerConfig(temp=0.0))
+    cache = tsrv.sched.cache
+    assert (cache.k.dtype, cache.v.dtype, cache.quantized) == (
+        (torch.int8, torch.int8, True) if "kv_dtype" in kw
+        else (torch.bfloat16, torch.float32, False)), match
+    jsrv = JaxServer(jax_load(gguf, dtype=jnp.float32),
+                     JaxServerConfig(port=0, n_slots=1, max_seq=64, **kw),
+                     sampler=JaxSampler(temp=0.0))
+    _same_completion(jsrv, tsrv)
+
+
+def _same_completion(jsrv, tsrv):
+    """One greedy completion from both servers: equal choices."""
+    jsrv.serve(block=False)
+    if tsrv._httpd is None:
+        tsrv.serve(block=False)
+    try:
+        body = {"prompt": "hello world", "max_tokens": 24, "temperature": 0}
+        (jc, jraw), (tc, traw) = (_call(s.port, "/v1/completions", body) for s in (jsrv, tsrv))
+        assert jc == tc == 200
+        got = _strip(json.loads(traw))["choices"]
+        assert got == _strip(json.loads(jraw))["choices"] and got[0]["text"]
+    finally:
+        jsrv.shutdown()
+        tsrv.shutdown()
 
 
 @pytest.mark.parametrize("flags,module", [
     (["-hf", "acme/tiny"], "tools/hf.py"),
     (["-ctk", "q8", "-ctv", "q8"], "quantized KV"), (["-ctv", "f32"], "split-dtype"),
 ])
-def test_unported_flags_fail_with_the_module(gguf, capsys, flags, module):
+def test_unported_flags_fail_with_the_module(gguf, capsys, monkeypatch, flags, module):
+    """-hf exits 2 naming its module. -ctk q8 -ctv q8 (the int8 cache) and
+    -ctv f32 (a split cache) are ported: the server they start (its loader
+    made to load f32) serves the JAX server's completion on the options
+    the JAX server's own flags map them to ("q8" to "int8")."""
+    from sparkinfer_tpu_torch.models import loader
     from sparkinfer_tpu_torch.server.__main__ import main
 
+    if module in ("quantized KV", "split-dtype"):
+        load, started = loader.load_model, []
+        monkeypatch.setattr(loader, "load_model",
+                            lambda path, **kw: load(path, **{**kw, "dtype": torch.float32}))
+        serve = SparkServer.serve
+        monkeypatch.setattr(SparkServer, "serve", lambda self, block=True: (
+            started.append(self), serve(self, block=False)))
+        assert main(["-m", gguf, "--device", "cpu", "--port", "0", "-np", "1", "-c", "64",
+                     "--temp", "0"] + flags) == 0
+        kw = (dict(kv_dtype="int8", kv_dtype_v="int8") if module == "quantized KV"
+              else dict(kv_dtype="bf16", kv_dtype_v="f32"))
+        jsrv = JaxServer(jax_load(gguf, dtype=jnp.float32),
+                         JaxServerConfig(port=0, n_slots=1, max_seq=64, **kw),
+                         sampler=JaxSampler(temp=0.0))
+        _same_completion(jsrv, started[0])
+        return
     with pytest.raises(SystemExit) as e:
         main(["-m", gguf, "--device", "cpu", "--port", "0"] + flags)
     assert e.value.code == 2

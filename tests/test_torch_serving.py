@@ -624,9 +624,9 @@ def test_slot_view_writes_in_place(llama_gguf):
 
 
 def test_unported_options_raise(llama_gguf, sparse_gguf):
-    for kw in (dict(kv_quantized=True), dict(kv_dtype_v=torch.bfloat16)):
-        with pytest.raises(NotImplementedError):
-            _sched(llama_gguf, **kw)
+    # the int8 and split KV caches are ported (tests/test_torch_kvq.py)
+    assert _sched(llama_gguf, kv_quantized=True).cache.k_scale.dtype == torch.float32
+    assert _sched(llama_gguf, kv_dtype_v=torch.bfloat16).cache.v.dtype == torch.bfloat16
     sched = _sched(llama_gguf)
     # grammars are ported (tests/test_torch_grammar.py); one needs the tokenizer
     with pytest.raises(ValueError, match="tokenizer"):

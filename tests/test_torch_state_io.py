@@ -4,7 +4,7 @@ model is refused, and the file format is the JAX package's, so a file saved
 by either package restores in the other (the JAX Engine's continuation from
 a port file and the port's from a JAX file equal the uninterrupted stream);
 the Scheduler's save_slot / restore_slot and the server's /slots routes.
-CPU, f32 caches (the quantized cache is not ported)."""
+CPU, f32 caches (the int8 cache's files: tests/test_torch_kvq.py)."""
 
 import json
 import urllib.request

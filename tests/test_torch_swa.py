@@ -325,10 +325,10 @@ def test_iswa_refusals(models, tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(arch="minicpm3", kv_lora_rank=32, rope_dim=8), "MLA"),
+    (dict(arch="llama", kv_lora_rank=32, rope_dim=8), "MLA"),  # minicpm3's is ported
     (dict(arch="llama", n_head_arr=(4, 4)), "per-layer"),
     (dict(arch="llama", n_ff_arr=(96, 64)), "per-layer"),
-    (dict(arch="plm", kv_lora_rank=32, rope_dim=8), "MLA"),
+    (dict(arch="qwen3", kv_lora_rank=32, rope_dim=8), "MLA"),  # plm's is ported
     (dict(arch="refact"), "ALiBi"),
     (dict(arch="gemma-embedding", sliding_window=8), "non-causal"),
     (dict(arch="gemma3n", sliding_window=8), "gemma3n"),
