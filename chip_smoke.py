@@ -393,6 +393,26 @@ sees no card or the package is missing. Phases, each of which fails the run:
        over half of each head, relu²), graph against eager. `python3
        chip_smoke.py --mla-archs` runs phases 1, 2 and 5s alone and prints
        no result.
+     5t. ALiBi and the GPT family, in a child process started after 5s's:
+       BLOOM-7b1 (bigscience/bloom-7b1 config.json: L=30, E=4096, 32 heads
+       of 128, F=16384, V=250880, LayerNorm eps 1e-5, the post-embedding
+       LayerNorm, biases everywhere, ALiBi, tied head) with Q8_0 wq, wk,
+       wv, wo, up and down drawn on the card (6.79 GB packed with f32
+       scales, the GGUF's 6.42 GB; the bf16 head, the embedding's
+       transpose, 2.06 GB; the full run takes FULL_RUN_GPT_L of the 30
+       layers, 30 with --gpt-archs): an f32 gate at 4 layers (each packed
+       product within 1e-4 of its plain version's scale); the dense Engine
+       (quant_matmul_2d 6L times a forward, 180 at 30 layers), 32 + 64
+       tokens, graph against eager, qmm_decode and qmm_prefill counted by
+       profiles, the replay against its bound; a replay's device ms at
+       max_seq 2048 and 16384 (491,520 bytes of K/V a token at 30 layers);
+       quant_matmul_2d at its three shapes, N = 1 and 32; then 2-layer
+       bf16 cuts at their config.json widths, graph against eager:
+       mosaicml/mpt-7b (ALiBi, no biases, tied head), EleutherAI/gpt-j-6b
+       (the parallel block, interleaved rope over 64 of 256 lanes, the
+       head bias) and bigcode/starcoder (MQA, 8192 learned positions).
+       `python3 chip_smoke.py --gpt-archs` runs phases 1, 2 and 5t alone
+       and prints no result.
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
@@ -403,8 +423,9 @@ gpt-oss-shape timing under "gpt_oss" and its DeepSeek-V2-Lite-shape
 timing under "deepseek_v2_lite"; v6's counts
 phase 5l's, 5m(b)'s and 5r's and carries its N=6 and N=32 timings under
 "shapes"; v6q's and quant_matmul_2d's count 5m(a)'s, quant_matmul_2d's
-5q's and 5s's too, with their shapes' timings under "qwen3_8b" and
-"minicpm3_4b"); the last line is {"ok": true, "device": {...}}.
+5q's, 5s's and 5t's too, with their shapes' timings under "qwen3_8b",
+"minicpm3_4b" and "bloom_7b1"); the last line is {"ok": true, "device":
+{...}}.
 
     python3 chip_smoke.py --prefill-profile
 
@@ -442,6 +463,7 @@ FULL_RUN_13B_L = 4  # of ProSparse-Llama-2-13B's 40 (phases 5c, 5d, 5h, 5i, 5j, 
 FULL_RUN_ARCHS_QWEN3_L = 4  # of Qwen3-8B's 36 (phase 5q)
 FULL_RUN_ARCHS_MOE_L = 4  # of Qwen1.5-MoE-A2.7B's 24 (phase 5q)
 FULL_RUN_MLA_ARCHS_L = 4  # of MiniCPM3-4B's 62 (phase 5s)
+FULL_RUN_GPT_L = 4  # of BLOOM-7b1's 30 (phase 5t)
 # v7u rounds the hidden and W_down to bf16: each product within 2^-8, about
 # 2e-3 of the output's scale summed with random signs; a wrong row or mask
 # errs by the scale itself
@@ -7366,6 +7388,212 @@ def mla_archs_summary(m) -> dict:
             "cuts": m["cuts"], "packed_bytes": m["packed_bytes"], "seconds": m["seconds"]}
 
 
+# --- phase 5t: ALiBi and the GPT family: BLOOM-7b1 in Q8_0, three cuts -------
+
+BLOOM_GGUF_PACKED = 6417285120  # its Q8_0 GGUF's linears at 30 layers: 34 bytes a 32 weights
+
+
+def bloom_7b1_config(L):
+    """bigscience/bloom-7b1's config.json: 30 layers, hidden 4096, 32 heads
+    of 128, the FFN 4 x 4096, vocab 250880, LayerNorm eps 1e-5, ALiBi (the
+    arch's trait), tied embeddings."""
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="bloom", n_layer=L, n_embd=4096, n_head=32, n_head_kv=32,
+                       head_dim=128, n_ff=16384, n_vocab=250880, norm_eps=1e-5,
+                       n_ctx_train=2048)
+
+
+def random_bloom_q8(cfg, dtype, seed):
+    """BLOOM as its Q8_0 GGUF loads with keep_quantized: Q8_0 wq, wk, wv, wo,
+    up and down (q8_random), the embedding in `dtype` and the tied head its
+    transpose (the loader's copy), 1 + N(0, 0.1) LayerNorm weights, the
+    post-embedding LayerNorm's too, and N(0, 0.02) biases on every norm,
+    q, k, v, o, up and down, in f32."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    L, E, F, V = cfg.n_layer, cfg.n_embd, cfg.n_ff, cfg.n_vocab
+
+    def f32(*shape, mean=0.0, std=0.02):
+        return torch.empty(shape, device="cuda").normal_(mean, std, generator=gen)
+
+    layers = {"attn_norm_w": f32(L, E, mean=1.0, std=0.1), "attn_norm_b": f32(L, E),
+              "ffn_norm_w": f32(L, E, mean=1.0, std=0.1), "ffn_norm_b": f32(L, E),
+              **{k: q8_random(gen, (L, E, E)) for k in ("wq", "wk", "wv", "wo")},
+              **{k: f32(L, E) for k in ("bq", "bk", "bv", "bo")},
+              "w_up": q8_random(gen, (L, E, F)), "b_up": f32(L, F),
+              "w_down": q8_random(gen, (L, F, E)), "b_down": f32(L, E)}
+    tok = torch.empty((V, E), dtype=dtype, device="cuda").normal_(0.0, 0.02, generator=gen)
+    params = {"tok_embd": tok, "tok_norm_w": f32(E, mean=1.0, std=0.1), "tok_norm_b": f32(E),
+              "output_norm_w": f32(E, mean=1.0, std=0.1), "output_norm_b": f32(E),
+              "output": tok.T.contiguous(), "layers": layers}
+    return LoadedModel(config=cfg, params=params)
+
+
+def bloom_long_context(model, greedy, prompt) -> list:
+    """The dense Engine at max_seq 2048 and 16384: its K/V bytes (L x 2 x E
+    x 2 a token, 491,520 at 30 layers) and the device ms of a decode step
+    (one replay's span over the whole cache: the plain attention and the
+    ALiBi term read every slot) after 16 greedy tokens."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    cfg = model.config
+    per_token = cfg.n_layer * 2 * cfg.n_head_kv * cfg.head_dim * 2
+    out = []
+    for max_seq in (2048, 16384):
+        eng = Engine(model, max_seq=max_seq, sampler=greedy, device="cuda")
+        toks = run_generate(eng, prompt, 16)
+        check(kv_bytes(eng.cache) == per_token * max_seq,
+              f"5t: a K/V cache of {kv_bytes(eng.cache)} bytes, want {per_token} a token")
+        step = eng.graphs.get(eng.cache, 1, "decode", None)
+        row = {"max_seq": max_seq, "kv_bytes": kv_bytes(eng.cache),
+               "bytes_per_token": per_token, "tok_s": eng.perf.decode_tps,
+               # the live rows (the step's bound), and every slot the plain
+               # attention reads
+               "bound_ms": q8_step_bound(model, len(prompt) + 16)["bound_ms"],
+               "bound_ms_every_slot": q8_step_bound(model, max_seq)["bound_ms"],
+               **replay_times(step), "tokens_first8": toks[:8]}
+        print("phase 5t, long context:", json.dumps(row))
+        out.append(row)
+        del eng, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def gpt_cuts(greedy) -> list:
+    """2-layer bf16 cuts at their config.json widths, each decode graph
+    against an eager engine (streams equal, first decode logits bit-equal):
+    mosaicml/mpt-7b (E=4096, 32 heads, F=16384, V=50432: ALiBi, LayerNorm
+    without biases, no biases, tied head), EleutherAI/gpt-j-6b (E=4096, 16
+    heads of 256, rope over 64 lanes interleaved, F=16384, V=50400: the
+    parallel block with one LayerNorm, FFN and head biases) and
+    bigcode/starcoder (E=6144, 48 heads over 1 KV head, F=24576, V=49152,
+    8192 learned positions, biases everywhere)."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    f32 = torch.float32
+    mpt = ModelConfig(arch="mpt", n_layer=2, n_embd=4096, n_head=32, n_head_kv=32, head_dim=128,
+                      n_ff=16384, n_vocab=50432, norm_eps=1e-5, n_ctx_train=2048)
+    gptj = ModelConfig(arch="gptj", n_layer=2, n_embd=4096, n_head=16, n_head_kv=16,
+                       head_dim=256, rope_dim=64, n_ff=16384, n_vocab=50400, norm_eps=1e-5,
+                       rope_freq_base=10000.0, n_ctx_train=2048)
+    starcoder = ModelConfig(arch="starcoder", n_layer=2, n_embd=6144, n_head=48, n_head_kv=1,
+                            head_dim=128, n_ff=24576, n_vocab=49152, norm_eps=1e-5,
+                            n_ctx_train=8192)
+
+    def gptj_extra(normal):
+        return {"attn_norm_b": normal((2, 4096), 0.1, f32), "b_up": normal((2, 16384), 0.02, f32),
+                "b_down": normal((2, 4096), 0.02, f32)}
+
+    def starcoder_extra(normal):
+        E, KD = 6144, 128
+        return {"attn_norm_b": normal((2, E), 0.1, f32), "ffn_norm_b": normal((2, E), 0.1, f32),
+                "bq": normal((2, E), 0.02, f32), "bk": normal((2, KD), 0.02, f32),
+                "bv": normal((2, KD), 0.02, f32), "bo": normal((2, E), 0.02, f32),
+                "b_up": normal((2, 24576), 0.02, f32), "b_down": normal((2, E), 0.02, f32)}
+
+    gen = torch.Generator().manual_seed(SEED + 94)
+    out = []
+    for name, cfg, extra in (("mpt", mpt, lambda normal: {}), ("gptj", gptj, gptj_extra),
+                             ("starcoder", starcoder, starcoder_extra)):
+        model = random_cut(cfg, SEED + 95 + len(out), extra)
+        p = model.params
+        p["layers"].pop("w_gate")  # gelu: no gate projection
+        if name == "mpt":  # LayerNorm weights alone, the head tied
+            p.pop("output_norm_b")
+            p["output"] = p["tok_embd"].T.contiguous()
+        cuda_gen = torch.Generator(device="cuda").manual_seed(SEED + 98 + len(out))
+        if name == "gptj":  # one LayerNorm feeds both branches; the head's bias
+            p["layers"].pop("ffn_norm_w")
+            p["output_b"] = torch.empty(cfg.n_vocab, device="cuda").normal_(
+                0.0, 0.1, generator=cuda_gen)
+        if name == "starcoder":
+            p["pos_embd"] = torch.empty((8192, cfg.n_embd), dtype=torch.bfloat16,
+                                        device="cuda").normal_(0.0, 0.02, generator=cuda_gen)
+        prompt = torch.randint(cfg.n_vocab, (32,), generator=gen).tolist()
+        kw = dict(max_seq=1024, sampler=greedy, device="cuda")
+        row = graph_vs_eager(f"{name} cut", Engine(model, **kw),
+                             Engine(model, cuda_graph=False, **kw), prompt, 64)
+        out.append({"arch": name, **{k: row[k] for k in ("replay_span_ms", "wall_speedup")},
+                    "graph_tok_s": row["graph"]["tok_s"], "eager_tok_s": row["eager"]["tok_s"]})
+        del model, p
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_gpt_archs(greedy, L: int = 30) -> dict:
+    """Phase 5t: the f32 gate at 4 layers, then BLOOM-7b1 at full width and
+    depth L in Q8_0 (q8_dense_engine: 6L quant_matmul_2d calls a forward,
+    wq, wk, wv, wo, up and down; the head bf16), its cache at max_seq 2048
+    and 16384, quant_matmul_2d at its three shapes, and the mpt, gpt-j and
+    starcoder cuts. Returns its summary, with quant_matmul_2d's main-path
+    launches."""
+    import gc
+
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 5t: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free at its start")
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 90)
+    prompt = torch.randint(250880, (32,), generator=gen).tolist()
+    gate = q8_f32_gate("BLOOM-7b1 widths, 4 layers, Q8_0", "5t",
+                       random_bloom_q8(bloom_7b1_config(4), torch.float32, SEED + 91), prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5t, f32 gate")
+    cfg = bloom_7b1_config(L)
+    t1 = time.perf_counter()
+    model = random_bloom_q8(cfg, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    packed = q8_step_bound(model, 0)["weight_bytes"]
+    print(f"model: BLOOM-7b1 widths, L={cfg.n_layer} E={cfg.n_embd} H={cfg.n_head} "
+          f"D={cfg.head_dim} F={cfg.n_ff} V={cfg.n_vocab}, ALiBi, Q8_0 attention/FFN "
+          f"({packed} bytes packed with f32 scales; the GGUF's {BLOOM_GGUF_PACKED} at 30 "
+          f"layers), tied bf16 head, built in {time.perf_counter() - t1:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    row = q8_dense_engine("BLOOM-7b1 Q8_0 dense", "5t", model, greedy, prompt, 64)
+    print("phase 5t, BLOOM-7b1 (graph decode; streams equal, first decode logits bit-equal):",
+          json.dumps(row))
+    mark("phase 5t, BLOOM-7b1 engine")
+    long_ctx = bloom_long_context(model, greedy, prompt)
+    rows = q8_qmm_rows(model, ("wq", "w_up", "w_down"), SEED + 92, per_call=1)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5t, long context and quant_matmul_2d at the BLOOM-7b1 shapes")
+    cuts = gpt_cuts(greedy)
+    mark("phase 5t, mpt, gpt-j and starcoder cuts")
+    return {"f32_gate": gate, "engine": row, "long_context": long_ctx, "rows": rows,
+            "cuts": cuts, "packed_bytes": packed, "qmm_launches": row["launches"],
+            "seconds": time.perf_counter() - t0}
+
+
+def gpt_archs_summary(g) -> dict:
+    """Phase 5t's numbers in brief, for the end of the full run's output."""
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")
+    e = g["engine"]
+    return {"f32_gate_worst": g["f32_gate"]["worst_rel_err"],
+            "bloom_7b1_qmm": [{"shape": r["shape"], **{k: r[k] for k in keys}}
+                              for r in g["rows"]],
+            "bloom_7b1": {"bound_ms": e["step_bound"]["bound_ms"], **{k: e[k] for k in (
+                "tok_s", "wall_ms_per_step", "device_ms_per_step", "replay_span_ms",
+                "qmm_decode_per_step", "qmm_prefill_per_prefill", "x_bound", "peak_gib",
+                "launches")}},
+            "long_context": [{k: r[k] for k in ("max_seq", "kv_bytes", "replay_span_ms",
+                                                "bound_ms", "bound_ms_every_slot", "tok_s")}
+                             for r in g["long_context"]],
+            "cuts": g["cuts"], "packed_bytes": g["packed_bytes"], "seconds": g["seconds"]}
+
+
 def phase_child(tag, flag) -> dict:
     """Phase `tag` in a child process (`chip_smoke.py flag`), started before
     this process builds any model: its output is passed through, its
@@ -7477,6 +7705,9 @@ def main(only: str | None = None) -> int:
     if only == "mla_archs":
         print("phase 5s summary:", json.dumps(mla_archs_summary(phase_mla_archs(greedy))))
         return 0
+    if only == "gpt_archs":
+        print("phase 5t summary:", json.dumps(gpt_archs_summary(phase_gpt_archs(greedy))))
+        return 0
     if only == "kvq":
         return kvq_only(greedy)
     # 5k. Qwen3-30B-A3B (61 GB of bf16 weights) in a child process, before
@@ -7493,6 +7724,8 @@ def main(only: str | None = None) -> int:
     mark("phase 5q")
     mla_archs = phase_child("5s", "--mla-archs-phase")
     mark("phase 5s")
+    gpt_archs = phase_child("5t", "--gpt-archs-phase")
+    mark("phase 5t")
 
     # 3. f32 references on small inputs: kernel path == plain path
     phase_reference(SparseConfig, Engine, greedy)
@@ -7727,15 +7960,16 @@ def main(only: str | None = None) -> int:
                        "sparkinfer_tpu/ops/quant_matmul.py:149",
                        l13["quant_matmul_2d"] + l_tier13["quant_matmul_2d"]
                        + l_w8["quant_matmul_2d"] + fl["quant_matmul_2d"]
-                       + archs["qmm_launches"] + mla_archs["qmm_launches"], q2d_row,
-                       q2d_row["shape"]),
+                       + archs["qmm_launches"] + mla_archs["qmm_launches"]
+                       + gpt_archs["qmm_launches"], q2d_row, q2d_row["shape"]),
          **fam_rows("qmm head"),
          **{name: {"launches": a["qmm_launches"],
                    "shapes": {r["shape"]: {f: r[f] for f in (
                        "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")} for r in rows}}
             for name, a, rows in (("qwen3_8b", archs, archs["qwen3_8b"]["rows"]),
-                                  ("minicpm3_4b", mla_archs, mla_archs["rows"]))}},
+                                  ("minicpm3_4b", mla_archs, mla_archs["rows"]),
+                                  ("bloom_7b1", gpt_archs, gpt_archs["rows"]))}},
         {**kernel_line("quant_matmul_flat", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
                        "sparkinfer_tpu/ops/quant_matmul.py:243",
                        l13["quant_matmul_flat"] + l_tier13["quant_matmul_flat"]
@@ -7815,6 +8049,7 @@ def main(only: str | None = None) -> int:
     print("phase 5q summary:", json.dumps(archs_summary(archs)))
     print("phase 5r summary:", json.dumps(kvq_summary(kvq)))
     print("phase 5s summary:", json.dumps(mla_archs_summary(mla_archs)))
+    print("phase 5t summary:", json.dumps(gpt_archs_summary(gpt_archs)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -7836,7 +8071,10 @@ if __name__ == "__main__":
             greedy, FULL_RUN_ARCHS_QWEN3_L, FULL_RUN_ARCHS_MOE_L)))
     if sys.argv[1:] == ["--mla-archs-phase"]:
         sys.exit(child_phase("5s", lambda greedy: phase_mla_archs(greedy, FULL_RUN_MLA_ARCHS_L)))
+    if sys.argv[1:] == ["--gpt-archs-phase"]:
+        sys.exit(child_phase("5t", lambda greedy: phase_gpt_archs(greedy, FULL_RUN_GPT_L)))
     sys.exit(main(only={"--tiered": "tiered", "--moe": "moe", "--runtime": "runtime",
                         "--quant": "quant", "--families": "families", "--swa": "swa",
                         "--mla": "mla", "--archs": "archs", "--kvq": "kvq",
-                        "--mla-archs": "mla_archs"}.get(" ".join(sys.argv[1:]))))
+                        "--mla-archs": "mla_archs",
+                        "--gpt-archs": "gpt_archs"}.get(" ".join(sys.argv[1:]))))

@@ -1,11 +1,9 @@
-"""GGUF -> torch params, the port of sparkinfer_tpu/models/loader.py for the
-llama family (llama, mistral, prosparse_llama, bamboo), the llama-shaped
-archs (qwen3, smollm, tinyllama, internlm2, xverse, baichuan, exaone,
-ernie4_5, seed_oss, smollm3, glm4, orion, stablelm, olmo, hunyuan-dense),
-the MoE archs (llama with experts, mixtral, qwen3moe, qwen2moe,
-hunyuan-moe, smallthinker, grovemoe, arctic, gpt-oss), the paper's other
-sparse families (qwen2, opt, falcon), the gemma family (gemma, gemma2,
-gemma3) and deepseek2.
+"""GGUF -> torch params, the port of sparkinfer_tpu/models/loader.py for
+every arch `models/transformer.py:check_supported` admits: the llama
+family, the llama-shaped archs, the MoE archs, the paper's other sparse
+families (qwen2, opt, falcon), the GPT family (gpt2, starcoder, codeshell,
+jais, refact, qwen, phi2, gptneox, bloom, mpt, gptj), the gemma family and
+the MLA archs (deepseek2, minicpm3, plm).
 
 The params dict has the JAX loader's keys and orientations, so the two
 packages can be compared key for key: `x @ W` with W shaped (in, out),
@@ -45,10 +43,15 @@ output_norm_b), falcon's second norm (attn_norm_2 as attn_norm2_w and
 attn_norm2_b), OPT's learned positions (position_embd as pos_embd, in the
 model's dtype) and falcon's fused attn_qkv, split into wq/wk/wv (and their
 biases) by `split_fused_qkv`: per kv group [q_0..q_{g-1}, k, v] for
-grouped falcon, plain [Q; K; V] for MQA or MHA. As in the JAX loader, a
-GGUF with a fused QKV loads dequantized whatever keep_quantized says (the
-split needs the dense weight); a parallel-block arch gets no all-ones FFN
-norm, since its FFN reads the attention norms.
+grouped falcon, plain [Q; K; V] for MQA or MHA and the concat archs (gpt2,
+starcoder, codeshell, jais, qwen). As in the JAX loader, a GGUF with a
+fused QKV loads dequantized whatever keep_quantized says (the split needs
+the dense weight), while the split Q/K/V that the JAX converter writes for
+bloom, mpt and gptneox stays packed; a parallel-block arch gets no all-ones
+FFN norm, since its FFN reads the attention norms. bloom's post-embedding
+LayerNorm (token_embd_norm) loads as tok_norm_w and tok_norm_b, the head
+bias of gptj and phi2 (output.bias) as output_b, all in f32; a tied head
+(bloom, mpt) is the embedding's transpose.
 
 The q/k norms load as attn_q_norm_w / attn_k_norm_w with their biases
 attn_q_norm_b / attn_k_norm_b where the GGUF has them (stablelm's (H, D)
@@ -319,6 +322,11 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
 
     tok = _get(r, "token_embd.weight")
     params: Params = {"tok_embd": _tensor(tok, dtype, device)}
+    for nm, key in (("token_embd_norm.weight", "tok_norm_w"),  # bloom's embedding LayerNorm
+                    ("token_embd_norm.bias", "tok_norm_b")):
+        w = _get(r, nm)
+        if w is not None:
+            params[key] = _tensor(w, f32, device)
     if tr.pos_embd:
         params["pos_embd"] = _tensor(_get(r, "position_embd.weight"), dtype, device)
     onw = _get(r, "output_norm.weight")
@@ -332,6 +340,9 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
         out_w = np.ascontiguousarray(tok.T)  # tied embeddings
     params["output"] = (QuantTensor.from_repack(out_w[2], out_w[3], out_w[1], device)
                         if _is_quant(out_w) else _tensor(out_w, dtype, device))
+    ob = _get(r, "output.bias")  # gptj's and phi2's head bias
+    if ob is not None:
+        params["output_b"] = _tensor(ob, f32, device)
     for nm, key in _CLS_TENSORS.items():  # rank pooling's head
         w = _get(r, nm)
         if w is not None:

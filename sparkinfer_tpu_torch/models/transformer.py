@@ -3,8 +3,9 @@ make_forward for the llama family and the llama-shaped archs that differ
 from it only in traits and tensors (qwen3, smollm, tinyllama, internlm2,
 xverse, baichuan, exaone, ernie4_5, seed_oss, smollm3, glm4, orion,
 stablelm, olmo, hunyuan-dense, arcee, nemotron), the other sparse families
-of the paper (qwen2, opt, falcon), the gemma family, the MLA archs
-(deepseek2, minicpm3, plm), and the Mixture-of-Experts
+of the paper (qwen2, opt, falcon), the GPT family (gpt2, starcoder,
+codeshell, jais, refact, qwen, phi2, gptneox, bloom, mpt, gptj), the gemma
+family, the MLA archs (deepseek2, minicpm3, plm), and the Mixture-of-Experts
 FFN of llama-MoE (mixtral), qwen3moe, qwen2moe, hunyuan-moe, smallthinker,
 grovemoe, arctic and gpt-oss.
 
@@ -91,10 +92,25 @@ kv_lora_rank + rope_dim a token, a zero-width v), and the JAX loader's
 layer segments: params["layer_segments"], the leading dense layers and the
 MoE layers as stacks of their own, walked in order (`layer_params`).
 
-Deepstack, ALiBi (Baichuan-13B's too), post-norm-only blocks, per-layer
-widths, symmetric windows of non-causal encoders and MLA on any other arch
-come later; `check_supported` names each feature it can see in the
-configuration, and refuses the rest by arch name.
+The GPT-family archs (gpt2, starcoder, codeshell, jais, refact, qwen,
+phi2, gptneox, bloom, mpt, gptj) run on the same block: fused QKV split at
+load, learned positions, LayerNorm with biases, the parallel block and
+partial rope. ALiBi (bloom, mpt, jais, refact) adds slope * (slot - query
+position) to the f32 scores after the softcap and before the mask, the
+slopes of `alibi_slopes` in an (Hkv, g) tensor built once per device at
+the forward's first call (eager: a CUDA graph's warm-up), so that no step
+copies host data; a fresh prefill then reads the cache, as in the JAX
+forward, which takes the chunk path only without ALiBi. bloom's
+post-embedding LayerNorm (tok_norm_w, tok_norm_b) follows the learned
+positions, and the head bias of gptj and phi2 (output_b, f32) joins the f32
+logits before logit_scale. ALiBi over an iSWA ring raises ValueError: the
+JAX ring branch computes no ALiBi term.
+
+Deepstack, Baichuan-13B (the JAX package ropes its 40-layer GGUF like the
+7B's), post-norm-only blocks, per-layer widths, symmetric windows of
+non-causal encoders and MLA on any other arch come later;
+`check_supported` names each feature it can see in the configuration, and
+refuses the rest by arch name.
 """
 
 from __future__ import annotations
@@ -130,6 +146,10 @@ LLAMA_SHAPED = ("qwen3", "smollm", "tinyllama", "internlm2", "xverse", "baichuan
                 "hunyuan-dense", "arcee", "nemotron")
 # the paper's other sparse families (SparkInfer's build_sparse_ffn archs)
 SPARSE_FAMILIES = ("qwen2", "opt", "falcon")
+# the GPT-family archs: fused QKV, learned positions, parallel blocks,
+# LayerNorm with biases, ALiBi (bloom, mpt, jais, refact), head biases
+GPT_FAMILY = ("gpt2", "starcoder", "codeshell", "jais", "refact", "qwen", "phi2", "gptneox",
+              "bloom", "mpt", "gptj")
 # sliding windows, softcaps, sandwich norms and gemma3's second rope base
 GEMMA_FAMILY = ("gemma", "gemma2", "gemma3")
 # the archs it runs with experts only
@@ -145,25 +165,27 @@ def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError for a configuration the port cannot run yet,
     naming the feature before the arch."""
     tr = cfg.traits
+    # llama.cpp's baichuan: 40 layers is Baichuan-13B, ALiBi and no rope; the
+    # JAX registry knows only the 7B rope variant and ropes it like the 7B
+    if cfg.arch == "baichuan" and cfg.n_layer == 40:
+        raise NotImplementedError(
+            "ALiBi (attention linear biases) of Baichuan-13B is not ported: the JAX package "
+            "ropes a 40-layer baichuan GGUF like the 7B's and has no ALiBi path for it")
     for cond, what in ((cfg.kv_lora_rank and cfg.arch not in MLA_ARCHS,
                         "MLA (multi-head latent attention) outside deepseek2, minicpm3 "
                         "and plm"),
                        (cfg.n_head_arr or cfg.n_ff_arr, "per-layer head counts or FFN widths"),
-                       (tr.alibi, "ALiBi (attention linear biases)"),
-                       # llama.cpp's baichuan: 40 layers is Baichuan-13B, ALiBi and no rope
-                       (cfg.arch == "baichuan" and cfg.n_layer == 40,
-                        "ALiBi (attention linear biases) of Baichuan-13B"),
                        (cfg.sliding_window and tr.non_causal,
                         "the symmetric sliding window of a non-causal encoder")):
         if cond:
             raise NotImplementedError(f"{what} is not ported yet (arch {cfg.arch!r})")
-    archs = (LLAMA_FAMILY + LLAMA_SHAPED + SPARSE_FAMILIES + GEMMA_FAMILY + EXPERT_ONLY
-             + MLA_ARCHS)
+    archs = (LLAMA_FAMILY + LLAMA_SHAPED + SPARSE_FAMILIES + GPT_FAMILY + GEMMA_FAMILY
+             + EXPERT_ONLY + MLA_ARCHS)
     if cfg.arch not in archs:
         raise NotImplementedError(
             f"arch {cfg.arch!r} is not ported yet (the llama family and the llama-shaped "
-            f"archs, the MoE archs, the other sparse families, the gemma family and "
-            f"the MLA archs: {', '.join(archs)})")
+            f"archs, the MoE archs, the other sparse families, the GPT family, the gemma "
+            f"family and the MLA archs: {', '.join(archs)})")
     if cfg.n_expert and cfg.arch not in MOE_ARCHS:
         raise NotImplementedError(f"experts of arch {cfg.arch!r} are not ported yet")
     if cfg.arch in EXPERT_ONLY and not (cfg.n_expert and cfg.n_expert_used):
@@ -213,6 +235,21 @@ def rope_params(cfg: ModelConfig) -> RopeParams:
     )
 
 
+def alibi_slopes(n_head: int) -> list[float]:
+    """ALiBi's per-head slopes (bloom, mpt, jais, refact), the JAX package's:
+    max bias 8, m0 = 2^(-8/n) over the largest power of two n <= n_head,
+    and for the heads past n the odd powers of m1 = 2^(-4/n)."""
+    import math
+
+    n = 2 ** math.floor(math.log2(n_head))
+    m0 = 2.0 ** (-8.0 / n)
+    slopes = [m0 ** (i + 1) for i in range(n)]
+    if n < n_head:
+        m1 = 2.0 ** (-4.0 / n)
+        slopes += [m1 ** (2 * i + 1) for i in range(n_head - n)]
+    return slopes[:n_head]
+
+
 def dense_ffn(cfg: ModelConfig):
     gated, f = act_fn(cfg.traits.act, cfg.fatrelu_threshold)
 
@@ -241,13 +278,14 @@ def _chunk_causal_attention(q, k, v, H, Hkv, D, scale):
     return _attend(q, k, v, H, Hkv, D, scale, mask)
 
 
-def _attend(q, k, v, H, Hkv, D, scale, mask, softcap: float = 0.0, sinks=None):
+def _attend(q, k, v, H, Hkv, D, scale, mask, softcap: float = 0.0, sinks=None, bias=None):
     """Grouped-query attention: q (B,T,H,D) over k/v (B,S,Hkv,D); mask
     broadcastable to (B,T,S), True where query t may see key s. Scores and
     softmax in f32 (the JAX einsum's preferred_element_type), probabilities
     back in q's dtype for the value product. softcap > 0 caps the scores
-    before the mask; sinks (H,) join the softmax after it, one logit a head
-    that carries no value."""
+    before the mask; bias (f32, broadcastable to (B,Hkv,g,T,S): ALiBi's) is
+    added after the cap, before the mask; sinks (H,) join the softmax after
+    it, one logit a head that carries no value."""
     B, T = q.shape[0], q.shape[1]
     g = H // Hkv
     qg = q.reshape(B, T, Hkv, g, D).permute(0, 2, 3, 1, 4).float()  # (B,Hkv,g,T,D)
@@ -255,6 +293,8 @@ def _attend(q, k, v, H, Hkv, D, scale, mask, softcap: float = 0.0, sinks=None):
     scores = (qg @ kt) * scale  # (B,Hkv,g,T,S)
     if softcap > 0.0:
         scores = softcap * torch.tanh(scores / softcap)
+    if bias is not None:
+        scores = scores + bias
     if mask.dim() == 2:
         mask = mask[None]
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
@@ -312,7 +352,8 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
               rope_cs: tuple[torch.Tensor, torch.Tensor],
               fresh_prefill: bool = False, window: int = 0,
               ring_width: int = 0, rope: bool = True,
-              ks: torch.Tensor | None = None, vs: torch.Tensor | None = None) -> torch.Tensor:
+              ks: torch.Tensor | None = None, vs: torch.Tensor | None = None,
+              alibi: torch.Tensor | None = None) -> torch.Tensor:
     """x (B, T, E) already normed; positions (B, T); kc/vc one layer's cache
     (B, S, Hkv, D), written in place, and ks/vs its (B, S, Hkv, 1) scales
     where the cache is int8 (codes and scales written, reads dequantized
@@ -322,11 +363,16 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
     iSWA ring (0: a full cache). fresh_prefill: the prompt starts at
     position 0, so every key is in this chunk and attention runs over the
     chunk (T x T) instead of the whole cache (T x S), where the model has
-    no window, no softcap and no sinks, as in the JAX forward (over the
-    chunk's own k and v, never their int8 codes). rope=False:
-    a NoPE layer (cfg.nope_layers), whose q and k skip rope."""
+    no window, no softcap, no sinks and no ALiBi, as in the JAX forward
+    (over the chunk's own k and v, never their int8 codes). rope=False:
+    a NoPE layer (cfg.nope_layers), whose q and k skip rope. alibi: the
+    (Hkv, g) f32 ALiBi slopes of an ALiBi arch, whose term slope * (slot -
+    query position) joins the scores; over a ring it raises ValueError."""
     B, T, _ = x.shape
     H, Hkv, D = cfg.n_head, cfg.n_head_kv, cfg.head_dim
+    if alibi is not None and ring_width:
+        raise ValueError(f"ALiBi over an iSWA ring cache (arch {cfg.arch!r}): the JAX "
+                         "package's ring branch computes no ALiBi term; use a full cache")
     xq = w8a8_quantize(x) if isinstance(lp["wq"], W8A8Tensor) else None
     q = mm(x, lp["wq"], xq).reshape(B, T, H, D)
     k = mm(x, lp["wk"], xq).reshape(B, T, Hkv, D)
@@ -351,15 +397,21 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
     write_layer(vc, vs, v, wpos)
     scale = cfg.attn_scale if cfg.attn_scale else D ** -0.5
     softcap, sinks = cfg.traits.attn_logit_softcap, lp.get("attn_sinks")
-    if fresh_prefill and cfg.sliding_window <= 0 and softcap == 0.0 and sinks is None:
+    if (fresh_prefill and cfg.sliding_window <= 0 and softcap == 0.0 and sinks is None
+            and alibi is None):
         out = _chunk_causal_attention(q, k, v, H, Hkv, D, scale)
     else:
         keys = read_layer(kc, ks, q.dtype)
         vals = read_layer(vc, vs, q.dtype)
+        S = kc.shape[1]
         # a ring holds a sliding run: the model's window, as in the JAX forward
-        mask = _mask(positions, kc.shape[1], cfg.sliding_window if ring_width else window,
-                     ring_width)
-        out = _attend(q, keys, vals, H, Hkv, D, scale, mask, softcap, sinks)
+        mask = _mask(positions, S, cfg.sliding_window if ring_width else window, ring_width)
+        bias = None
+        if alibi is not None:  # slope * (slot - query position), (B, Hkv, g, T, S)
+            rel = (torch.arange(S, device=positions.device)[None, None, :]
+                   - positions[:, :, None]).float()
+            bias = alibi[None, :, :, None, None] * rel[:, None, None]
+        out = _attend(q, keys, vals, H, Hkv, D, scale, mask, softcap, sinks, bias)
     out = mm(out.reshape(B, T, H * D), lp["wo"])
     if "bo" in lp:
         out = out + lp["bo"].to(out.dtype)
@@ -543,6 +595,17 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
     final_cap = tr.final_logit_softcap
     mla = cfg.kv_lora_rank > 0
     nope = [bool(f) for f in cfg.nope_layers] if any(cfg.nope_layers) else [False] * cfg.n_layer
+    alibi: dict[torch.device, torch.Tensor] = {}  # ALiBi's (Hkv, g) slopes, one a device
+
+    def alibi_of(device: torch.device) -> torch.Tensor | None:
+        """The slopes on `device`, built at its first (eager) call; a CUDA
+        graph's capture finds them built by its warm-up."""
+        if not tr.alibi:
+            return None
+        if device not in alibi:
+            alibi[device] = torch.tensor(alibi_slopes(cfg.n_head), dtype=torch.float32,
+                                         device=device).view(cfg.n_head_kv, -1)
+        return alibi[device]
 
     def fwd(params: dict, tokens: torch.Tensor, positions: torch.Tensor,
             cache: KVCache, fstate=None) -> torch.Tensor:
@@ -554,8 +617,11 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
             x = x * _scalar(cfg.n_embd ** 0.5, x.dtype)
         if cfg.embd_scale != 1.0:  # granite/minicpm's embedding multiplier
             x = x * _scalar(cfg.embd_scale, x.dtype)
-        if tr.pos_embd:  # OPT's learned positions (HF offset 2)
+        if tr.pos_embd:  # learned positions (OPT's at HF offset 2)
             x = x + params["pos_embd"][positions + tr.pos_embd_offset]
+        if "tok_norm_w" in params:  # bloom's post-embedding LayerNorm
+            x = _norm(x, params["tok_norm_w"], params.get("tok_norm_b"), kind, eps)
+        sl = alibi_of(x.device)
         # loop-invariant flat (layer, group) sparse stores and predictor
         # stacks, addressed by the sparse FFN at row il * n_groups + group
         flat = params.get("sparse_flat")
@@ -578,7 +644,8 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
             else:
                 attn_out = attention(cfg, lp, h, positions, kc, vc, rp_l, rope_cs[rp_l],
                                      fresh_prefill=fresh_prefill, window=window_of(il),
-                                     ring_width=ring_w, rope=not nope[il], ks=ks, vs=vs)
+                                     ring_width=ring_w, rope=not nope[il], ks=ks, vs=vs,
+                                     alibi=sl)
             if "attn_post_norm_w" in lp:  # gemma's sandwich norm
                 attn_out = _norm(attn_out, lp["attn_post_norm_w"],
                                  lp.get("attn_post_norm_b"), kind, eps)
@@ -610,6 +677,8 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                 x = x + lp["cvec"].to(x.dtype)
         x = _norm(x, params["output_norm_w"], params.get("output_norm_b"), kind, eps)
         logits = lm_head(x, params["output"])
+        if "output_b" in params:  # gptj's and phi2's head bias, f32
+            logits = logits + params["output_b"]
         if cfg.logit_scale != 1.0:  # cohere/granite's logit multiplier, on the f32 logits
             logits = logits * cfg.logit_scale
         if final_cap > 0:  # gemma2: cap * tanh(logits / cap)

@@ -38,10 +38,13 @@ Past max_seq, `generate` shifts the context (`kv_cache.shift_cache`: keep
 `n_keep` prompt tokens, drop half of the rest, re-rope the tail), and with
 `self_extend=(n, w)` it groups old positions instead (`self_extend.py`);
 both rewrite the cache's own tensors between steps, so the step's graph
-reads them. `sparse_prefill="sparse"` runs the prompt through the
-pipelined decode FFN (v6 at N = the prompt's length). `verify` runs K+1
-tokens through the decode forward in one step (a graph of its own, keyed on
-T), the speculative, lookup and lookahead drafters' check.
+reads them. Over an arch with no rope (ALiBi, learned positions) the shift
+moves K unrotated, as the JAX package's does, and self-extend raises
+ValueError: the JAX package has no path for it. `sparse_prefill="sparse"`
+runs the prompt through the pipelined decode FFN (v6 at N = the prompt's
+length). `verify` runs K+1 tokens through the decode forward in one step (a
+graph of its own, keyed on T), the speculative, lookup and lookahead
+drafters' check.
 
 kv_iswa=True gives the engine the iSWA dual cache (`kv_cache.init_cache_iswa`
 with chunk = prefill_chunk, made at the first generate): each run of
@@ -226,6 +229,11 @@ class Engine:
         if self.cfg.kv_lora_rank > 0 and self_extend is not None and self_extend[0] > 1:
             raise ValueError("self-extend rotates whole key heads: the MLA (multi-head latent "
                              "attention) latent cache has no such path")
+        if (self.cfg.traits.rope_mode == "none" and self_extend is not None
+                and self_extend[0] > 1):
+            raise ValueError(f"self-extend regroups rope angles: arch {self.cfg.arch!r} has no "
+                             "rope (ALiBi or learned positions), and the JAX package has no "
+                             "self-extend path for it")
         self.max_seq = clamp_max_seq(self.cfg, model.params, max_seq)
         self.sampler_cfg = sc = sampler or SamplerConfig()
         if sc.mirostat not in (0, 2):

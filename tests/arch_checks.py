@@ -83,22 +83,25 @@ def _init_skipping_no_bias(init):
 FAMILY_PATCHES = {"StableLmForCausalLM": _stablelm_qk, "OlmoForCausalLM": _olmo_clip}
 
 
-def hf_gguf(d, name, cfg_cls, cls, kw):
+def hf_gguf(d, name, cfg_cls, cls, kw, base=BASE, noise=("norm",)):
     """A tiny transformers checkpoint converted to an f32 GGUF: (path, the
-    checkpoint's f32 logits of PROMPT)."""
+    checkpoint's f32 logits of PROMPT). `base`: the config keywords under
+    kw; the parameters whose names hold one of `noise` get N(0, 0.1) added
+    (the norms, by default: away from their ones and zeros, so each
+    counts)."""
     import transformers as T
 
     torch.manual_seed(0)
-    cfg = getattr(T, cfg_cls)(**{**BASE, **kw})
+    cfg = getattr(T, cfg_cls)(**{**base, **kw})
     with pytest.MonkeyPatch.context() as mp:
         if cls == "StableLmForCausalLM":  # its init zeroes the bias its q/k norms lack
             mp.setattr(T.StableLmPreTrainedModel, "_init_weights", _init_skipping_no_bias(
                 T.StableLmPreTrainedModel._init_weights))
         hf = getattr(T, cls)(cfg).eval()
     gen = torch.Generator().manual_seed(1)
-    with torch.no_grad():  # norms away from their ones and zeros, so each counts
+    with torch.no_grad():
         for n, p in hf.named_parameters():
-            if "norm" in n:
+            if any(k in n for k in noise):
                 p.add_(0.1 * torch.randn(p.shape, generator=gen))
         ref = hf(torch.tensor([PROMPT])).logits[0].numpy()
     hf.save_pretrained(str(d / name), safe_serialization=True)

@@ -21,6 +21,17 @@ use it too).
   0.05) on the routed output;
   arctic: a dense FFN in the block (as wide as the experts, as Arctic's) and
   experts over ffn_norm_exps of the layer input as a parallel residual.
+
+The GPT-family kinds (GPT_KINDS), for the archs without a transformers
+class and for the card's tests:
+  refact: llama blocks under ALiBi (no rope), 4 heads over 2 KV heads;
+  jais: ALiBi, a fused [Q; K; V] with its bias (4 KV heads), LayerNorm with
+  biases, output and FFN biases, the gated silu FFN;
+  codeshell: the same fused QKV and biases with neox rope and gelu;
+  qwen: a fused QKV with its bias, RMS norms, neox rope;
+  bloom: ALiBi, the post-embedding LayerNorm (token_embd_norm), q/k/v,
+  output, norm and FFN biases, gelu (an untied head: make_tiny_llama
+  always writes one).
 """
 
 import numpy as np
@@ -32,6 +43,7 @@ E, H, HKV, D, FE, FS, X, K = 64, 4, 2, 16, 48, 64, 4, 2
 PLAIN = ("smollm", "tinyllama", "internlm2", "xverse", "baichuan", "exaone")
 KINDS = PLAIN + ("orion", "stablelm-heads", "stablelm-width", "clamped", "hunyuan-dense")
 MOE_KINDS = ("qwen2moe", "hunyuan-moe", "smallthinker", "grovemoe", "arctic")
+GPT_KINDS = ("refact", "jais", "codeshell", "qwen", "bloom")
 
 
 def _spec(kind: str, rng) -> tuple[str, dict]:
@@ -46,8 +58,25 @@ def _spec(kind: str, rng) -> tuple[str, dict]:
             out.update({f"blk.{i}.{k}": v for k, v in make().items()})
         return out
 
-    if kind in PLAIN:
+    if kind in PLAIN or kind == "refact":
         return kind, {}
+    if kind in ("jais", "codeshell", "qwen", "bloom"):
+        def layer():
+            t = {} if kind == "qwen" else {
+                "attn_norm.bias": w(E, s=0.1), "ffn_norm.bias": w(E, s=0.1),
+                "attn_output.bias": w(E), "ffn_up.bias": w(96), "ffn_down.bias": w(E)}
+            if kind == "bloom":
+                t.update({"attn_q.bias": w(H * D), "attn_k.bias": w(H * D),
+                          "attn_v.bias": w(H * D)})
+            return t
+
+        t = per_layer(layer)
+        if kind != "qwen":
+            t["output_norm.bias"] = w(E, s=0.1)
+        if kind == "bloom":
+            t.update({"token_embd_norm.weight": w(E, s=0.1, shift=1.0),
+                      "token_embd_norm.bias": w(E, s=0.1)})
+        return kind, dict(extra_tensors=t, n_head_kv=H, fused_qkv=kind != "bloom")
     if kind == "clamped":
         return "llama", dict(extra_kv={"llama.attention.clamp_kqv": np.float32(0.1)})
     if kind == "orion":

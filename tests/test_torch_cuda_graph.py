@@ -29,7 +29,10 @@ buffer on the device) of a tiny gemma2 and of a tiny gpt-oss through v1,
 across ring wraps, bit-equal to the eager step. The MLA decode step of a
 tiny deepseek2 (latent cache, layer segments) in dense and "pallas" MoE
 mode, bit-equal to the eager step. The same for a tiny qwen2moe and
-hunyuan-moe (tests/arch_fixture.py) in both modes.
+hunyuan-moe (tests/arch_fixture.py) in both modes, and for a tiny bloom
+(ALiBi, the post-embedding LayerNorm) in bf16 and in Q8_0 (its six packed
+linears through quant_matmul_2d), past a context shift, and its 2-slot
+Scheduler's tick.
 """
 
 import os
@@ -870,6 +873,57 @@ def test_minicpm3_graph_step_equals_the_eager_step(cuda, tmp_path, arch):
     for got, want in zip(runs["graph"][1], runs["eager"][1]):
         assert torch.equal(got, want)
     assert graph_eng.graphs.captures == 1 and graph_eng.cfg.kv_lora_rank == 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["bf16", "q8_0"])
+def test_alibi_graph_step_equals_the_eager_step(cuda, tmp_path, quant):
+    """The bloom fixture of tests/arch_fixture.py (ALiBi slopes built on the
+    card at the forward's first call, the warm-up's, never inside the
+    capture) in bf16, and in Q8_0 with its packed q, k, v, o, up, down and
+    head: the decode graph's stream and every step's logits bit-equal to
+    the eager step's, past a context shift (max_seq 16, keep 2), one
+    capture; in Q8_0 quant_matmul_2d seven times a step."""
+    q8 = quant == "q8_0"
+    make_arch(tmp_path / "m.gguf", "bloom", seed=7, quant_type="q8_0" if q8 else None)
+    model = load_model(str(tmp_path / "m.gguf"), dtype=torch.bfloat16, device="cuda",
+                       keep_quantized=q8)
+    assert model.config.traits.alibi and "tok_norm_w" in model.params
+    kw = dict(max_seq=16, sampler=GREEDY, device="cuda")
+    graph_eng, eager = Engine(model, **kw), Engine(model, cuda_graph=False, **kw)
+    runs = {name: _stream_logits(eng, PROMPT, 40, n_keep=2)
+            for name, eng in (("eager", eager), ("graph", graph_eng))}
+    assert runs["graph"][0] == runs["eager"][0] and len(runs["graph"][0]) == 40
+    for got, want in zip(runs["graph"][1], runs["eager"][1]):
+        assert torch.equal(got, want)
+    assert graph_eng.graphs.captures == 1
+    q2d = graphs.COUNTED.index(tqm.quant_matmul_2d)
+    assert _per_step(eager)[q2d] == (6 * model.config.n_layer + 1 if q8 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["bf16", "q8_0"])
+def test_alibi_graph_tick_equals_the_eager_tick(cuda, tmp_path, quant):
+    """The bloom fixture on a 2-slot dense Scheduler, four requests (two
+    queue): the graph tick's streams and first tick logits bit-equal to the
+    eager tick's, as many ticks, one capture."""
+    q8 = quant == "q8_0"
+    make_arch(tmp_path / "m.gguf", "bloom", seed=7, quant_type="q8_0" if q8 else None)
+    model = load_model(str(tmp_path / "m.gguf"), dtype=torch.bfloat16, device="cuda",
+                       keep_quantized=q8)
+    runs = {}
+    for name, cg in (("eager", False), ("graph", None)):
+        sched = Scheduler(model, n_slots=2, max_seq=64, sampler=GREEDY, device="cuda",
+                          cuda_graph=cg)
+        reqs = [sched.submit(Request(prompt_tokens=p, max_new_tokens=6)) for p in PROMPTS]
+        sched.step()
+        first = sched.last_logits.clone()
+        sched.run_until_idle()
+        runs[name] = ([r.tokens() for r in reqs], first,
+                      sched.metrics_snapshot()["n_decode_steps"], sched.graphs.captures)
+    assert runs["graph"][0] == runs["eager"][0] and all(len(t) == 6 for t in runs["graph"][0])
+    assert torch.equal(runs["graph"][1], runs["eager"][1])
+    assert runs["graph"][2] == runs["eager"][2] and runs["graph"][3] == 1
 
 
 @pytest.mark.cuda

@@ -708,6 +708,23 @@ def test_quant_matmul_minicpm3_4b_shapes(cuda, N, IN, OUT):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 32])
+@pytest.mark.parametrize("IN,OUT", [(4096, 4096), (4096, 16384), (16384, 4096)],
+                         ids=["qkvo", "up", "down"])
+def test_quant_matmul_bloom_7b1_shapes(cuda, N, IN, OUT):
+    """BLOOM-7b1's Q8_0 products: wq, wk, wv and wo (4096 x 4096), up (4096
+    x 16384) and down (16384 x 4096), by qmm_decode at N = 1 and
+    qmm_prefill at N = 32, bf16 x, against the plain version."""
+    q, s = _store("q8_0", IN, OUT, cuda, seed=IN + 7 * OUT + N)
+    x = torch.randn((N, IN), device=cuda).to(torch.bfloat16)
+    before = tqm.quant_matmul_2d.launches
+    got = tqm.quant_matmul_2d(x, q, s, kind="q8_0")
+    torch.cuda.synchronize()
+    assert tqm.quant_matmul_2d.launches == before + 1
+    _check_qmm(got, tqm.quant_matmul_2d_plain(x, q, s, kind="q8_0"), 1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N", [1, 16, 17, 32])
 @pytest.mark.parametrize("IN,OUT", [(5120, 5120), (5120, 1280), (1280, 13824), (64, 40)])
 def test_w8a8_linear(cuda, N, IN, OUT):

@@ -268,10 +268,10 @@ def test_unported_options_raise(gguf, tmp_path):
     pe = Engine(model, max_seq=6, sampler=SamplerConfig(temp=0.0), device="cpu")
     assert len(pe.generate(PROMPT, 8)) == 8
     assert pe.batch == 1
-    gpt2 = tmp_path / "gpt2.gguf"  # qwen2 is ported: an arch that is not
-    make_tiny_llama(gpt2, arch="gpt2")
-    with pytest.raises(NotImplementedError, match="gpt2"):
-        load_model(str(gpt2), device="cpu")
+    olmo2 = tmp_path / "olmo2.gguf"  # qwen2 and gpt2 are ported: an arch that is not
+    make_tiny_llama(olmo2, arch="olmo2")
+    with pytest.raises(NotImplementedError, match="olmo2"):
+        load_model(str(olmo2), device="cpu")
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

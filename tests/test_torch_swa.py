@@ -329,7 +329,10 @@ def test_iswa_refusals(models, tmp_path):
     (dict(arch="llama", n_head_arr=(4, 4)), "per-layer"),
     (dict(arch="llama", n_ff_arr=(96, 64)), "per-layer"),
     (dict(arch="qwen3", kv_lora_rank=32, rope_dim=8), "MLA"),  # plm's is ported
-    (dict(arch="refact"), "ALiBi"),
+    # Baichuan-13B at its published widths (the refact case this once held is
+    # ported); the small 40-layer cut below
+    (dict(arch="baichuan", n_layer=40, n_embd=5120, n_head=40, n_head_kv=40, head_dim=128,
+          n_ff=13696, n_vocab=64000), "ALiBi"),
     (dict(arch="gemma-embedding", sliding_window=8), "non-causal"),
     (dict(arch="gemma3n", sliding_window=8), "gemma3n"),
     (dict(arch="gpt-oss"), "without experts"),
