@@ -413,6 +413,31 @@ sees no card or the package is missing. Phases, each of which fails the run:
        head bias) and bigcode/starcoder (MQA, 8192 learned positions).
        `python3 chip_smoke.py --gpt-archs` runs phases 1, 2 and 5t alone
        and prints no result.
+     5u. Decoders with features of their own, in a child process started
+       after 5t's: OLMo-2-1124-7B (allenai/OLMo-2-1124-7B config.json:
+       L=32, E=4096, 32 heads of 128 (MHA), F=11008, V=100352, RMS eps
+       1e-6, rope theta 500000, an untied head; post-norms only and
+       full-width q/k norms) with Q8_0 wq, wk, wv, wo, up, gate, down and
+       head drawn on the card (7.75 GB packed with f32 scales, the GGUF's
+       7.32 GB; the full run takes FULL_RUN_FEATURE_L of the 32 layers, 32
+       with --feature-archs): an f32 gate at 4 layers (each packed product
+       within 1e-4 of its plain version's scale); the dense Engine
+       (quant_matmul_2d 7L + 1 times a forward, 225 at 32 layers), 32 + 64
+       tokens, graph against eager, qmm_decode and qmm_prefill counted by
+       profiles, the replay against its bound; a replay's device ms at
+       max_seq 2048 and 16384 (524,288 bytes of K/V a token at 32 layers);
+       quant_matmul_2d at its three new shapes (4096x11008, 11008x4096,
+       4096x100352), N = 1 and 32; apply_mrope over three equal streams
+       against neox rope at Qwen2-VL-7B's widths; then 2-layer bf16 cuts
+       at their config.json widths, graph against eager:
+       swiss-ai/Apertus-8B-2509 (xIELU), microsoft/bitnet-b1.58-2B-4T
+       (relu2_glu, sub-norms, tied head), facebook/chameleon-7b ((H, D)
+       LayerNorm q/k norms) and Qwen2-VL-7B-Instruct's text stack (qkv
+       biases, M-RoPE sections); and a 4-layer deci stack of synthetic
+       widths (KV heads 8, 4, 0, 8, FFN 14336, 11008, 14336, 8192: one
+       layer narrower than the cache, one attention-free), graph against
+       eager past a context shift. `python3 chip_smoke.py --feature-archs`
+       runs phases 1, 2 and 5u alone and prints no result.
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
@@ -423,8 +448,8 @@ gpt-oss-shape timing under "gpt_oss" and its DeepSeek-V2-Lite-shape
 timing under "deepseek_v2_lite"; v6's counts
 phase 5l's, 5m(b)'s and 5r's and carries its N=6 and N=32 timings under
 "shapes"; v6q's and quant_matmul_2d's count 5m(a)'s, quant_matmul_2d's
-5q's, 5s's and 5t's too, with their shapes' timings under "qwen3_8b",
-"minicpm3_4b" and "bloom_7b1"); the last line is {"ok": true, "device":
+5q's, 5s's, 5t's and 5u's too, with their shapes' timings under
+"qwen3_8b", "minicpm3_4b", "bloom_7b1" and "olmo2_7b"); the last line is {"ok": true, "device":
 {...}}.
 
     python3 chip_smoke.py --prefill-profile
@@ -454,7 +479,7 @@ N_SETS = 64  # cold row sets / distinct stores per kernel timing
 # whose eager 7B sparse steps take about 45 ms, and inside the run's limit
 # on a slower one (PERF.md); each phase run alone (--moe, --swa,
 # --families, --mla, --archs, --mla-archs, --quant, --tiered) keeps its
-# full depth or the depth that fits
+# full depth or the depth that fits (--gpt-archs, --feature-archs too)
 FULL_RUN_MOE_L = 4  # of Qwen3-30B-A3B's 48 layers (phase 5k)
 FULL_RUN_SWA_L = 4  # of gpt-oss-20b's 24 (phase 5o)
 FULL_RUN_FAMILY_L = 2  # of ReluFalcon-40B's 60, bf16 and Q8_0 (phase 5n(a), (b))
@@ -464,6 +489,7 @@ FULL_RUN_ARCHS_QWEN3_L = 4  # of Qwen3-8B's 36 (phase 5q)
 FULL_RUN_ARCHS_MOE_L = 4  # of Qwen1.5-MoE-A2.7B's 24 (phase 5q)
 FULL_RUN_MLA_ARCHS_L = 4  # of MiniCPM3-4B's 62 (phase 5s)
 FULL_RUN_GPT_L = 4  # of BLOOM-7b1's 30 (phase 5t)
+FULL_RUN_FEATURE_L = 4  # of OLMo-2-1124-7B's 32 (phase 5u)
 # v7u rounds the hidden and W_down to bf16: each product within 2^-8, about
 # 2e-3 of the output's scale summed with random signs; a wrong row or mask
 # errs by the scale itself
@@ -7594,6 +7620,320 @@ def gpt_archs_summary(g) -> dict:
             "cuts": g["cuts"], "packed_bytes": g["packed_bytes"], "seconds": g["seconds"]}
 
 
+# --- phase 5u: decoders with features of their own: OLMo-2-7B in Q8_0 and cuts --
+
+OLMO2_GGUF_PACKED = 7317487616  # its Q8_0 GGUF's linears and head at 32 layers: 34 bytes a 32 weights
+
+
+def olmo2_7b_config(L):
+    """allenai/OLMo-2-1124-7B's config.json: 32 layers, hidden 4096, 32 heads
+    of 128 (MHA), FFN 11008, vocab 100352, RMS eps 1e-6, rope theta 500000,
+    an untied head; post-norms only and full-width q/k norms (the arch's
+    blocks)."""
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="olmo2", n_layer=L, n_embd=4096, n_head=32, n_head_kv=32,
+                       head_dim=128, n_ff=11008, n_vocab=100352, norm_eps=1e-6,
+                       rope_freq_base=500000.0, n_ctx_train=4096)
+
+
+def random_olmo2_q8(cfg, dtype, seed):
+    """OLMo-2 as its Q8_0 GGUF loads with keep_quantized: Q8_0 wq, wk, wv, wo,
+    up, gate, down and head (q8_random), the embedding in `dtype`, and in
+    f32 1 + N(0, 0.1) post-norms (attn_post_norm, ffn_post_norm), full-width
+    q/k norms (H*D and Hkv*D wide) and output norm; no pre-norms."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    L, E, F, V = cfg.n_layer, cfg.n_embd, cfg.n_ff, cfg.n_vocab
+    HD, KD = cfg.n_head * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
+
+    def norm(*shape):
+        return torch.empty(shape, device="cuda").normal_(1.0, 0.1, generator=gen)
+
+    layers = {"attn_post_norm_w": norm(L, E), "ffn_post_norm_w": norm(L, E),
+              "attn_q_norm_w": norm(L, HD), "attn_k_norm_w": norm(L, KD),
+              "wq": q8_random(gen, (L, E, HD)), "wk": q8_random(gen, (L, E, KD)),
+              "wv": q8_random(gen, (L, E, KD)), "wo": q8_random(gen, (L, HD, E)),
+              "w_up": q8_random(gen, (L, E, F)), "w_gate": q8_random(gen, (L, E, F)),
+              "w_down": q8_random(gen, (L, F, E))}
+    tok = torch.empty((V, E), dtype=dtype, device="cuda").normal_(0.0, 0.02, generator=gen)
+    params = {"tok_embd": tok, "output_norm_w": norm(E), "output": q8_random(gen, (E, V)),
+              "layers": layers}
+    return LoadedModel(config=cfg, params=params)
+
+
+def olmo2_long_context(model, greedy, prompt) -> list:
+    """The dense Engine at max_seq 2048 and 16384: its K/V bytes (L x 2 x E
+    x 2 a token, 524,288 at 32 layers) and the device ms of a decode step
+    (one replay's span; the plain attention reads every slot) after 16
+    greedy tokens."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    cfg = model.config
+    per_token = cfg.n_layer * 2 * cfg.n_head_kv * cfg.head_dim * 2
+    out = []
+    for max_seq in (2048, 16384):
+        eng = Engine(model, max_seq=max_seq, sampler=greedy, device="cuda")
+        toks = run_generate(eng, prompt, 16)
+        check(kv_bytes(eng.cache) == per_token * max_seq,
+              f"5u: a K/V cache of {kv_bytes(eng.cache)} bytes, want {per_token} a token")
+        step = eng.graphs.get(eng.cache, 1, "decode", None)
+        row = {"max_seq": max_seq, "kv_bytes": kv_bytes(eng.cache),
+               "bytes_per_token": per_token, "tok_s": eng.perf.decode_tps,
+               "bound_ms": q8_step_bound(model, len(prompt) + 16)["bound_ms"],
+               "bound_ms_every_slot": q8_step_bound(model, max_seq)["bound_ms"],
+               **replay_times(step), "tokens_first8": toks[:8]}
+        print("phase 5u, long context:", json.dumps(row))
+        out.append(row)
+        del eng, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def mrope_on_the_card() -> dict:
+    """apply_mrope at Qwen2-VL-7B's text widths (28 heads of 128, sections
+    16, 24, 24) on the card: three equal position streams give apply_rope's
+    neox rotation bit for bit (f32), and distinct streams move it."""
+    import torch
+
+    from sparkinfer_tpu_torch.ops.rope import RopeParams, apply_mrope, apply_rope
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 101)
+    x = torch.randn((1, 32, 28, 128), generator=gen, device="cuda")
+    p = RopeParams(dim=128, mode="neox", freq_base=1e6)
+    pos = torch.arange(1000, 1032, device="cuda")[None]
+    same = apply_mrope(x, pos.expand(3, 1, 32), (16, 24, 24), p)
+    plain = apply_rope(x, pos, p)
+    check(torch.equal(same, plain), f"5u: M-RoPE over equal streams differs from neox rope by "
+                                    f"{(same - plain).abs().max().item():.3e}")
+    moved = apply_mrope(x, torch.stack([pos, pos // 2, pos % 7]), (16, 24, 24), p)
+    row = {"equal_streams_bit_equal": True,
+           "distinct_streams_max_diff": (moved - plain).abs().max().item()}
+    check(row["distinct_streams_max_diff"] > 1e-2, "5u: distinct M-RoPE streams moved nothing")
+    print("phase 5u, M-RoPE on the card:", json.dumps(row))
+    return row
+
+
+def feature_cuts(greedy) -> list:
+    """2-layer bf16 cuts at their config.json widths, each decode graph
+    against an eager engine (streams equal, first decode logits bit-equal):
+    swiss-ai/Apertus-8B-2509 (E=4096, 32 heads over 8, an ungated F=21504
+    under xIELU with per-layer coefficients, per-head q/k norms, V=131072),
+    microsoft/bitnet-b1.58-2B-4T (E=2560, 20 heads over 5, F=6912,
+    relu2_glu, both sub-norms, tied head, V=128256), facebook/chameleon-7b
+    (E=4096, 32 heads, F=11008, (H, D) LayerNorm q/k norms with biases,
+    V=65536) and Qwen/Qwen2-VL-7B-Instruct's text stack (E=3584, 28 heads
+    over 4, F=18944, qkv biases, M-RoPE sections 16, 24, 24, V=152064)."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    f32 = torch.float32
+    cuts = {
+        "apertus": ModelConfig(arch="apertus", n_layer=2, n_embd=4096, n_head=32, n_head_kv=8,
+                               head_dim=128, n_ff=21504, n_vocab=131072, norm_eps=1e-5,
+                               rope_freq_base=12e6, n_ctx_train=65536,
+                               xielu_alpha_p=(0.8, 0.7), xielu_alpha_n=(0.3, 0.4),
+                               xielu_beta=(0.5, 0.5), xielu_eps=(-1e-6, -1e-6)),
+        "bitnet": ModelConfig(arch="bitnet", n_layer=2, n_embd=2560, n_head=20, n_head_kv=5,
+                              head_dim=128, n_ff=6912, n_vocab=128256, norm_eps=1e-5,
+                              rope_freq_base=500000.0, n_ctx_train=4096),
+        "chameleon": ModelConfig(arch="chameleon", n_layer=2, n_embd=4096, n_head=32,
+                                 n_head_kv=32, head_dim=128, n_ff=11008, n_vocab=65536,
+                                 norm_eps=1e-5, rope_freq_base=10000.0, n_ctx_train=4096),
+        "qwen2vl": ModelConfig(arch="qwen2vl", n_layer=2, n_embd=3584, n_head=28, n_head_kv=4,
+                               head_dim=128, n_ff=18944, n_vocab=152064, norm_eps=1e-6,
+                               rope_freq_base=1e6, n_ctx_train=32768,
+                               mrope_sections=(16, 24, 24)),
+    }
+
+    def extra(name, cfg):
+        H, Hkv, D, F = cfg.n_head, cfg.n_head_kv, cfg.head_dim, cfg.n_ff
+
+        def make(normal):
+            if name == "apertus":
+                sp = torch.nn.functional.softplus
+                ap = torch.tensor(cfg.xielu_alpha_p, device="cuda")
+                an = torch.tensor(cfg.xielu_alpha_n, device="cuda")
+                return {"attn_q_norm_w": normal((2, D), 0.1, f32, 1.0),
+                        "attn_k_norm_w": normal((2, D), 0.1, f32, 1.0),
+                        "xielu_ap": sp(ap)[:, None], "xielu_an": (0.5 + sp(an))[:, None],
+                        "xielu_beta": torch.full((2, 1), 0.5, device="cuda"),
+                        "xielu_eps": torch.full((2, 1), -1e-6, device="cuda")}
+            if name == "bitnet":
+                return {"attn_sub_norm_w": normal((2, H * D), 0.1, f32, 1.0),
+                        "ffn_sub_norm_w": normal((2, F), 0.1, f32, 1.0)}
+            if name == "chameleon":
+                return {"attn_q_norm_w": normal((2, H, D), 0.1, f32, 1.0),
+                        "attn_q_norm_b": normal((2, H, D), 0.1, f32),
+                        "attn_k_norm_w": normal((2, Hkv, D), 0.1, f32, 1.0),
+                        "attn_k_norm_b": normal((2, Hkv, D), 0.1, f32)}
+            return {"bq": normal((2, H * D), 0.1, f32), "bk": normal((2, Hkv * D), 0.1, f32),
+                    "bv": normal((2, Hkv * D), 0.1, f32)}
+
+        return make
+
+    gen = torch.Generator().manual_seed(SEED + 102)
+    out = []
+    for i, (name, cfg) in enumerate(cuts.items()):
+        model = random_cut(cfg, SEED + 103 + i, extra(name, cfg))
+        p = model.params
+        if name == "apertus":  # ungated: xIELU of up alone
+            p["layers"].pop("w_gate")
+        if name == "bitnet":  # the tied head
+            p["output"] = p["tok_embd"].T.contiguous()
+        prompt = torch.randint(cfg.n_vocab, (32,), generator=gen).tolist()
+        kw = dict(max_seq=1024, sampler=greedy, device="cuda")
+        row = graph_vs_eager(f"{name} cut", Engine(model, **kw),
+                             Engine(model, cuda_graph=False, **kw), prompt, 64)
+        out.append({"arch": name, **{k: row[k] for k in ("replay_span_ms", "wall_speedup")},
+                    "graph_tok_s": row["graph"]["tok_s"], "eager_tok_s": row["eager"]["tok_s"]})
+        del model, p
+        torch.cuda.empty_cache()
+    return out
+
+
+def random_deci(seed):
+    """A 4-layer deci stack at E=4096, 32 heads of 128, with per-layer KV
+    heads (8, 4, 0, 8) and FFN widths (14336, 11008, 14336, 8192), layer 2
+    attention-free, V=128256 (synthetic widths in the shape of
+    Llama-3.1-Nemotron's NAS layers, not a published config): each layer a
+    segment of its own, as the loader stacks it, bf16, N(0, 0.02)
+    projections and 1 + N(0, 0.1) f32 norms."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    heads, kvs, ffs = (32, 32, 0, 32), (8, 4, 0, 8), (14336, 11008, 14336, 8192)
+    cfg = ModelConfig(arch="deci", n_layer=4, n_embd=4096, n_head=32, n_head_kv=8,
+                      n_head_arr=heads, n_head_kv_arr=kvs, n_ff=max(ffs), n_ff_arr=ffs,
+                      head_dim=128, n_vocab=128256, norm_eps=1e-5, rope_freq_base=500000.0,
+                      n_ctx_train=131072)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    E, D = cfg.n_embd, cfg.head_dim
+
+    def normal(shape, std=0.02, dt=torch.bfloat16, mean=0.0):
+        return torch.empty(shape, dtype=dt, device="cuda").normal_(mean, std, generator=gen)
+
+    segs = []
+    for H, Hkv, F in zip(heads, kvs, ffs):
+        seg = {"attn_norm_w": normal((1, E), 0.1, torch.float32, 1.0),
+               "ffn_norm_w": normal((1, E), 0.1, torch.float32, 1.0),
+               "w_up": normal((1, E, F)), "w_gate": normal((1, E, F)),
+               "w_down": normal((1, F, E))}
+        if H:
+            seg.update(wq=normal((1, E, H * D)), wk=normal((1, E, Hkv * D)),
+                       wv=normal((1, E, Hkv * D)), wo=normal((1, H * D, E)))
+        segs.append(seg)
+    params = {"tok_embd": normal((cfg.n_vocab, E)),
+              "output_norm_w": normal((E,), 0.1, torch.float32, 1.0),
+              "output": normal((E, cfg.n_vocab)), "layers": segs[0], "layer_segments": segs}
+    return LoadedModel(config=cfg, params=params)
+
+
+def deci_cut(greedy) -> dict:
+    """random_deci's stack, graph against eager past a context shift (max_seq
+    64: a 32-token prompt and 64 tokens): streams equal and first decode
+    logits bit-equal; its layer of 4 KV heads reads and writes the first 4
+    of the cache's 8 through a narrowed view, which the replayed graph must
+    write in place."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    model = random_deci(SEED + 107)
+    gen = torch.Generator().manual_seed(SEED + 108)
+    prompt = torch.randint(model.config.n_vocab, (32,), generator=gen).tolist()
+    kw = dict(max_seq=64, sampler=greedy, device="cuda")
+    graph_eng = Engine(model, **kw)
+    row = graph_vs_eager("deci cut, past a context shift", graph_eng,
+                         Engine(model, cuda_graph=False, **kw), prompt, 64)
+    k = graph_eng.cache.k  # (L, B, S, 8, D): the narrowed layer's heads 4-7 never written
+    check(not k[1, :, :, 4:].any() and bool(k[1, :, :, :4].any()) and not k[2].any(),
+          "5u deci: the narrowed layer wrote past its 4 KV heads, or the attention-free one "
+          "wrote at all")
+    del model, graph_eng
+    torch.cuda.empty_cache()
+    return {"arch": "deci", **{k: row[k] for k in ("replay_span_ms", "wall_speedup")},
+            "graph_tok_s": row["graph"]["tok_s"], "eager_tok_s": row["eager"]["tok_s"]}
+
+
+def phase_feature_archs(greedy, L: int = 32) -> dict:
+    """Phase 5u: the f32 gate at 4 layers, then OLMo-2-1124-7B at full width
+    and depth L in Q8_0 (q8_dense_engine: 7L + 1 quant_matmul_2d calls a
+    forward, wq, wk, wv, wo, up, gate, down and the head), its cache at
+    max_seq 2048 and 16384, quant_matmul_2d at its three new shapes, M-RoPE
+    on the card, the apertus, bitnet, chameleon and qwen2vl cuts and the
+    deci stack. Returns its summary, with quant_matmul_2d's main-path
+    launches."""
+    import gc
+
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 5u: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free at its start")
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 100)
+    prompt = torch.randint(100352, (32,), generator=gen).tolist()
+    gate = q8_f32_gate("OLMo-2-7B widths, 4 layers, Q8_0", "5u",
+                       random_olmo2_q8(olmo2_7b_config(4), torch.float32, SEED + 104), prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5u, f32 gate")
+    cfg = olmo2_7b_config(L)
+    t1 = time.perf_counter()
+    model = random_olmo2_q8(cfg, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    packed = q8_step_bound(model, 0)["weight_bytes"]
+    print(f"model: OLMo-2-1124-7B widths, L={cfg.n_layer} E={cfg.n_embd} H={cfg.n_head} "
+          f"D={cfg.head_dim} F={cfg.n_ff} V={cfg.n_vocab}, post-norms only, Q8_0 "
+          f"attention/FFN/head ({packed} bytes packed with f32 scales; the GGUF's "
+          f"{OLMO2_GGUF_PACKED} at 32 layers), built in {time.perf_counter() - t1:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    row = q8_dense_engine("OLMo-2-7B Q8_0 dense", "5u", model, greedy, prompt, 64)
+    print("phase 5u, OLMo-2-7B (graph decode; streams equal, first decode logits bit-equal):",
+          json.dumps(row))
+    mark("phase 5u, OLMo-2-7B engine")
+    long_ctx = olmo2_long_context(model, greedy, prompt)
+    rows = q8_qmm_rows(model, ("w_up", "w_down", "head"), SEED + 105, per_call=1)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5u, long context and quant_matmul_2d at the OLMo-2-7B shapes")
+    mrope = mrope_on_the_card()
+    cuts = feature_cuts(greedy)
+    cuts.append(deci_cut(greedy))
+    mark("phase 5u, apertus, bitnet, chameleon, qwen2vl and deci cuts")
+    return {"f32_gate": gate, "engine": row, "long_context": long_ctx, "rows": rows,
+            "mrope": mrope, "cuts": cuts, "packed_bytes": packed,
+            "qmm_launches": row["launches"], "seconds": time.perf_counter() - t0}
+
+
+def feature_archs_summary(g) -> dict:
+    """Phase 5u's numbers in brief, for the end of the full run's output."""
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")
+    e = g["engine"]
+    return {"f32_gate_worst": g["f32_gate"]["worst_rel_err"],
+            "olmo2_7b_qmm": [{"shape": r["shape"], **{k: r[k] for k in keys}}
+                             for r in g["rows"]],
+            "olmo2_7b": {"bound_ms": e["step_bound"]["bound_ms"], **{k: e[k] for k in (
+                "tok_s", "wall_ms_per_step", "device_ms_per_step", "replay_span_ms",
+                "qmm_decode_per_step", "qmm_prefill_per_prefill", "x_bound", "peak_gib",
+                "launches")}},
+            "long_context": [{k: r[k] for k in ("max_seq", "kv_bytes", "replay_span_ms",
+                                                "bound_ms", "bound_ms_every_slot", "tok_s")}
+                             for r in g["long_context"]],
+            "mrope": g["mrope"], "cuts": g["cuts"], "packed_bytes": g["packed_bytes"],
+            "seconds": g["seconds"]}
+
+
 def phase_child(tag, flag) -> dict:
     """Phase `tag` in a child process (`chip_smoke.py flag`), started before
     this process builds any model: its output is passed through, its
@@ -7708,6 +8048,9 @@ def main(only: str | None = None) -> int:
     if only == "gpt_archs":
         print("phase 5t summary:", json.dumps(gpt_archs_summary(phase_gpt_archs(greedy))))
         return 0
+    if only == "feature_archs":
+        print("phase 5u summary:", json.dumps(feature_archs_summary(phase_feature_archs(greedy))))
+        return 0
     if only == "kvq":
         return kvq_only(greedy)
     # 5k. Qwen3-30B-A3B (61 GB of bf16 weights) in a child process, before
@@ -7726,6 +8069,8 @@ def main(only: str | None = None) -> int:
     mark("phase 5s")
     gpt_archs = phase_child("5t", "--gpt-archs-phase")
     mark("phase 5t")
+    feature_archs = phase_child("5u", "--feature-archs-phase")
+    mark("phase 5u")
 
     # 3. f32 references on small inputs: kernel path == plain path
     phase_reference(SparseConfig, Engine, greedy)
@@ -7961,7 +8306,8 @@ def main(only: str | None = None) -> int:
                        l13["quant_matmul_2d"] + l_tier13["quant_matmul_2d"]
                        + l_w8["quant_matmul_2d"] + fl["quant_matmul_2d"]
                        + archs["qmm_launches"] + mla_archs["qmm_launches"]
-                       + gpt_archs["qmm_launches"], q2d_row, q2d_row["shape"]),
+                       + gpt_archs["qmm_launches"] + feature_archs["qmm_launches"], q2d_row,
+                       q2d_row["shape"]),
          **fam_rows("qmm head"),
          **{name: {"launches": a["qmm_launches"],
                    "shapes": {r["shape"]: {f: r[f] for f in (
@@ -7969,7 +8315,8 @@ def main(only: str | None = None) -> int:
                        "library_ms")} for r in rows}}
             for name, a, rows in (("qwen3_8b", archs, archs["qwen3_8b"]["rows"]),
                                   ("minicpm3_4b", mla_archs, mla_archs["rows"]),
-                                  ("bloom_7b1", gpt_archs, gpt_archs["rows"]))}},
+                                  ("bloom_7b1", gpt_archs, gpt_archs["rows"]),
+                                  ("olmo2_7b", feature_archs, feature_archs["rows"]))}},
         {**kernel_line("quant_matmul_flat", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
                        "sparkinfer_tpu/ops/quant_matmul.py:243",
                        l13["quant_matmul_flat"] + l_tier13["quant_matmul_flat"]
@@ -8050,6 +8397,7 @@ def main(only: str | None = None) -> int:
     print("phase 5r summary:", json.dumps(kvq_summary(kvq)))
     print("phase 5s summary:", json.dumps(mla_archs_summary(mla_archs)))
     print("phase 5t summary:", json.dumps(gpt_archs_summary(gpt_archs)))
+    print("phase 5u summary:", json.dumps(feature_archs_summary(feature_archs)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -8073,8 +8421,12 @@ if __name__ == "__main__":
         sys.exit(child_phase("5s", lambda greedy: phase_mla_archs(greedy, FULL_RUN_MLA_ARCHS_L)))
     if sys.argv[1:] == ["--gpt-archs-phase"]:
         sys.exit(child_phase("5t", lambda greedy: phase_gpt_archs(greedy, FULL_RUN_GPT_L)))
+    if sys.argv[1:] == ["--feature-archs-phase"]:
+        sys.exit(child_phase("5u", lambda greedy: phase_feature_archs(greedy,
+                                                                      FULL_RUN_FEATURE_L)))
     sys.exit(main(only={"--tiered": "tiered", "--moe": "moe", "--runtime": "runtime",
                         "--quant": "quant", "--families": "families", "--swa": "swa",
                         "--mla": "mla", "--archs": "archs", "--kvq": "kvq",
                         "--mla-archs": "mla_archs",
-                        "--gpt-archs": "gpt_archs"}.get(" ".join(sys.argv[1:]))))
+                        "--gpt-archs": "gpt_archs",
+                        "--feature-archs": "feature_archs"}.get(" ".join(sys.argv[1:]))))

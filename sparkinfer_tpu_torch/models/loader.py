@@ -2,8 +2,9 @@
 every arch `models/transformer.py:check_supported` admits: the llama
 family, the llama-shaped archs, the MoE archs, the paper's other sparse
 families (qwen2, opt, falcon), the GPT family (gpt2, starcoder, codeshell,
-jais, refact, qwen, phi2, gptneox, bloom, mpt, gptj), the gemma family and
-the MLA archs (deepseek2, minicpm3, plm).
+jais, refact, qwen, phi2, gptneox, bloom, mpt, gptj), the feature archs
+(olmo2, olmo3, apertus, bitnet, deci, openelm, chameleon, qwen2vl,
+qwen3vl), the gemma family and the MLA archs (deepseek2, minicpm3, plm).
 
 The params dict has the JAX loader's keys and orientations, so the two
 packages can be compared key for key: `x @ W` with W shaped (in, out),
@@ -57,7 +58,18 @@ The q/k norms load as attn_q_norm_w / attn_k_norm_w with their biases
 attn_q_norm_b / attn_k_norm_b where the GGUF has them (stablelm's (H, D)
 per-head LayerNorm weights keep that shape); the post-norms carry their
 biases too (attn_post_norm_b, ffn_post_norm_b). An arch with no norm
-tensors (olmo's non-parametric LayerNorm) gets all-ones weights.
+tensors (olmo's non-parametric LayerNorm) gets all-ones weights, except
+where the layer has the matching post-norm (olmo2, olmo3: attention and
+FFN read the raw stream, as in the JAX loader). bitnet's sub-norms load as
+attn_sub_norm_w and ffn_sub_norm_w, apertus's xIELU coefficients as f32
+(1,) tensors a layer, xielu_ap = softplus(alpha_p), xielu_an = beta +
+softplus(alpha_n), xielu_beta and xielu_eps (defaults 0.5 and -1e-6). A
+NAS stack (deci, openelm) reads each layer at its own head counts and FFN
+width (`layer_widths`); a layer of 0 heads has no attention tensors; runs
+split on those widths too (`layer_runs`), so openelm's layers of other
+widths stack apart, where the JAX loader, which splits on names alone,
+fails. A fused attn_qkv on an arch whose q/k/v the port reads split (the
+upstream openelm GGUFs) raises NotImplementedError.
 
 The sliding-window archs add gpt-oss's attention sinks (attn_sinks, one
 logit a head, kept in f32 as the JAX loader keeps them) beside its q/k/v
@@ -123,6 +135,8 @@ _LAYER_TENSORS = {
     "attn_q_a.weight": "wq_a", "attn_q_a_norm.weight": "q_a_norm_w", "attn_q_b.weight": "wq_b",
     "attn_kv_a_mqa.weight": "wkv_a", "attn_kv_a_norm.weight": "kv_a_norm_w",
     "attn_kv_b.weight": "wk_b",
+    # bitnet's sub-norms, before wo and before the down product
+    "attn_sub_norm.weight": "attn_sub_norm_w", "ffn_sub_norm.weight": "ffn_sub_norm_w",
 }
 
 
@@ -217,6 +231,11 @@ def _check_supported(r: GGUFReader, cfg: ModelConfig):
     for name in r.tensors:
         if name.startswith("blk.") and name.split(".", 2)[2] not in _LAYER_TENSORS:
             raise NotImplementedError(f"tensor {name} is not read by the port yet")
+        if name.endswith(".attn_qkv.weight") and not cfg.traits.fused_qkv:
+            # openelm's upstream GGUFs fuse q/k/v a layer; the JAX package
+            # reads the converter's split q/k/v only
+            raise NotImplementedError(f"a fused attn_qkv ({name}) on arch {cfg.arch!r}, whose "
+                                      "q/k/v the port reads split, as the JAX package does")
 
 
 def _add_moe(r: GGUFReader, p: str, E: int, add):
@@ -291,10 +310,23 @@ def load_model(path: str, dtype=torch.bfloat16, device=None,
 _ATTN = ("wq", "wk", "wv", "wo")
 
 
-def layer_runs(r: GGUFReader, L: int) -> list[tuple[int, int]]:
-    """Contiguous runs [start, end) of layers with the same tensor names: the
-    JAX loader's layer segments (one run where every layer is alike)."""
-    sigs = [set() for _ in range(L)]
+def layer_widths(cfg: ModelConfig) -> list[tuple[int, int, int]]:
+    """(H_i, Hkv_i, F_i) of each layer: the per-layer head counts and FFN
+    widths of a NAS stack (deci, openelm; H_i == 0 an attention-free layer),
+    else the model's own."""
+    return [(cfg.n_head_arr[i] if cfg.n_head_arr else cfg.n_head,
+             cfg.n_head_kv_arr[i] if cfg.n_head_kv_arr else cfg.n_head_kv,
+             cfg.n_ff_arr[i] if cfg.n_ff_arr else cfg.n_ff) for i in range(cfg.n_layer)]
+
+
+def layer_runs(r: GGUFReader, widths: list[tuple]) -> list[tuple[int, int]]:
+    """Contiguous runs [start, end) of layers with the same tensor names and
+    the same widths (layer_widths): the JAX loader's layer segments (one run
+    where every layer is alike). The JAX loader splits on names alone, so it
+    cannot stack a run whose widths differ (openelm's layers); the port
+    stacks each width on its own."""
+    L = len(widths)
+    sigs = [{widths[i]} for i in range(L)]
     for name in r.tensors:
         if name.startswith("blk."):
             _, i, rest = name.split(".", 2)
@@ -349,7 +381,8 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
             params[key] = _tensor(w, f32, device)
 
     max_rank = cfg.max_pred_rank
-    runs = layer_runs(r, L)
+    widths = layer_widths(cfg)
+    runs = layer_runs(r, widths)
     if len(runs) > 1 and cfg.has_predictors:
         raise NotImplementedError("predictors over layer segments (layers whose tensors "
                                   "differ) are not ported yet")
@@ -375,7 +408,7 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
                     torch.empty((n,) + qw.shape[::-1], dtype=_host(qw).dtype, device=device),
                     torch.empty((n,) + sc.shape[::-1], dtype=f32, device=device), kind)
             else:
-                want = (f32 if ("norm" in key or key.startswith("b")
+                want = (f32 if ("norm" in key or key.startswith(("b", "xielu"))
                                 or key in ("router_bias", "attn_sinks")) else dtype)
                 layers[key] = torch.empty((n,) + arr.shape, dtype=want, device=device)
         dst = layers[key]
@@ -392,8 +425,11 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
 
     for i in range(L):
         p = f"blk.{i}."
+        H_i, Hkv_i, F_i = widths[i]
         anw = _get(r, p + "attn_norm.weight")
-        add(i, "attn_norm_w", anw if anw is not None else np.ones(E, np.float32))
+        if anw is None and p + "attn_post_norm.weight" not in r.tensors:
+            anw = np.ones(E, np.float32)  # olmo's non-parametric norm; olmo2 has none
+        add(i, "attn_norm_w", anw)
         add(i, "attn_norm_b", _get(r, p + "attn_norm.bias"))
         add(i, "attn_norm2_w", _get(r, p + "attn_norm_2.weight"))
         add(i, "attn_norm2_b", _get(r, p + "attn_norm_2.bias"))
@@ -404,8 +440,9 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
             qkv = split_fused_qkv(_linear(r, p + "attn_qkv.weight", E, (H + 2 * Hkv) * D),
                                   _get(r, p + "attn_qkv.bias"), cfg)
         else:
-            qkv = (_lin(p + "attn_q.weight", E, H * D), _lin(p + "attn_k.weight", E, Hkv * D),
-                   _lin(p + "attn_v.weight", E, Hkv * D),
+            qkv = (_lin(p + "attn_q.weight", E, H_i * D),
+                   _lin(p + "attn_k.weight", E, Hkv_i * D),
+                   _lin(p + "attn_v.weight", E, Hkv_i * D),
                    *(_get(r, p + f"attn_{nm}.bias") for nm in "qkv"))
         for key, arr in zip(("wq", "wk", "wv", "bq", "bk", "bv"), qkv):
             add(i, key, arr)
@@ -415,24 +452,35 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
             add(i, f"attn_{nm}_norm_b", _get(r, p + f"attn_{nm}_norm.bias"))
         add(i, "attn_sinks", _get(r, p + "attn_sinks.weight"))  # gpt-oss: a logit a head
         add(i, "wo", _lin(p + "attn_output.weight", H * (cfg.v_head_dim or D)
-                          if cfg.kv_lora_rank > 0 else H * D, E))
+                          if cfg.kv_lora_rank > 0 else H_i * D, E))
         add(i, "bo", _get(r, p + "attn_output.bias"))
+        for nm in ("attn", "ffn"):  # bitnet's sub-norms
+            add(i, f"{nm}_sub_norm_w", _get(r, p + f"{nm}_sub_norm.weight"))
+        if cfg.xielu_alpha_p:  # apertus's xIELU coefficients, through softplus here
+            b = cfg.xielu_beta[i] if cfg.xielu_beta else 0.5
+            add(i, "xielu_ap", np.logaddexp(0.0, np.float32(cfg.xielu_alpha_p[i]))[None]
+                .astype(np.float32))
+            add(i, "xielu_an", (b + np.logaddexp(0.0, np.float32(cfg.xielu_alpha_n[i])))[None]
+                .astype(np.float32))
+            add(i, "xielu_beta", np.asarray([b], np.float32))
+            add(i, "xielu_eps", np.asarray([cfg.xielu_eps[i] if cfg.xielu_eps else -1e-6],
+                                           np.float32))
         # sandwich post-norms (gemma, glm4), after attention and after the FFN
         for nm in ("attn", "ffn"):
             add(i, f"{nm}_post_norm_w", _get(r, p + f"{nm}_post_norm.weight"))
             add(i, f"{nm}_post_norm_b", _get(r, p + f"{nm}_post_norm.bias"))
         fnw = _get(r, p + "ffn_norm.weight")
-        if fnw is None and not tr.parallel_blocks:
-            fnw = np.ones(E, np.float32)  # a non-parametric norm
+        if fnw is None and not tr.parallel_blocks and p + "ffn_post_norm.weight" not in r.tensors:
+            fnw = np.ones(E, np.float32)  # a non-parametric norm (not olmo2's post-norm)
         add(i, "ffn_norm_w", fnw)
         add(i, "ffn_norm_b", _get(r, p + "ffn_norm.bias"))
         add(i, "ffn_norm_exps_w", _get(r, p + "ffn_norm_exps.weight"))  # arctic's MoE norm
         _add_moe(r, p, E, lambda key, arr: add(i, key, arr))
-        add(i, "w_up", _lin(p + "ffn_up.weight", E, F))
+        add(i, "w_up", _lin(p + "ffn_up.weight", E, F_i))
         add(i, "b_up", _get(r, p + "ffn_up.bias"))
-        add(i, "w_gate", _lin(p + "ffn_gate.weight", E, F))
+        add(i, "w_gate", _lin(p + "ffn_gate.weight", E, F_i))
         # ffn_down: sparse GGUFs store it transposed; _linear canonicalizes
-        add(i, "w_down", _lin(p + "ffn_down.weight", F, E))
+        add(i, "w_down", _lin(p + "ffn_down.weight", F_i, E))
         add(i, "b_down", _get(r, p + "ffn_down.bias"))
         # predictor (low-rank ReLU MLP), zero-padded to the max rank
         pu = _linear(r, p + "ffn_pred_up.weight", E,

@@ -4,10 +4,11 @@ from it only in traits and tensors (qwen3, smollm, tinyllama, internlm2,
 xverse, baichuan, exaone, ernie4_5, seed_oss, smollm3, glm4, orion,
 stablelm, olmo, hunyuan-dense, arcee, nemotron), the other sparse families
 of the paper (qwen2, opt, falcon), the GPT family (gpt2, starcoder,
-codeshell, jais, refact, qwen, phi2, gptneox, bloom, mpt, gptj), the gemma
-family, the MLA archs (deepseek2, minicpm3, plm), and the Mixture-of-Experts
-FFN of llama-MoE (mixtral), qwen3moe, qwen2moe, hunyuan-moe, smallthinker,
-grovemoe, arctic and gpt-oss.
+codeshell, jais, refact, qwen, phi2, gptneox, bloom, mpt, gptj), the
+feature archs (olmo2, olmo3, apertus, bitnet, deci, openelm, chameleon,
+qwen2vl, qwen3vl), the gemma family, the MLA archs (deepseek2, minicpm3,
+plm), and the Mixture-of-Experts FFN of llama-MoE (mixtral), qwen3moe,
+qwen2moe, hunyuan-moe, smallthinker, grovemoe, arctic and gpt-oss.
 
 The block follows the arch's traits as the JAX body does: RMS or LayerNorm
 (`_norm`, with the norm biases of the "ln" archs, the output norm's too),
@@ -106,11 +107,27 @@ positions, and the head bias of gptj and phi2 (output_b, f32) joins the f32
 logits before logit_scale. ALiBi over an iSWA ring raises ValueError: the
 JAX ring branch computes no ALiBi term.
 
+The feature archs: a layer runs its pre-norms only where it has them
+(olmo2's and olmo3's blocks carry post-norms alone, after attention and
+after the FFN); apertus's FFN is xIELU of the up product with the layer's
+own coefficients (`ops/activations.py:xielu`); bitnet norms the attention
+output before wo and the FFN's hidden before the down product (its
+sub-norms) under relu2_glu; deci's and openelm's layers take their head
+counts from their weights (the cache holds the most KV heads, a narrower
+layer uses its first ones through a view, in place) and deci's
+attention-free layer replaces the stream with ffn(ffn_norm(h)) + h, h its
+attn_norm(x), as the JAX forward and llama.cpp's deci graph compute it;
+chameleon is its (H, D) LayerNorm q/k norms. `fwd(..., mrope_pos=(3, B,
+T))` ropes q and k with M-RoPE over three position streams (qwen2vl's
+sections, qwen3vl's interleaved layout) while the cache is written at
+`positions`; without it a qwen2vl ropes as neox, which M-RoPE over equal
+streams is. The iSWA cache over layer segments raises ValueError: the JAX
+iSWA branch scans the first segment alone.
+
 Deepstack, Baichuan-13B (the JAX package ropes its 40-layer GGUF like the
-7B's), post-norm-only blocks, per-layer widths, symmetric windows of
-non-causal encoders and MLA on any other arch come later;
-`check_supported` names each feature it can see in the configuration, and
-refuses the rest by arch name.
+7B's), the post-sum norms and symmetric windows of non-causal encoders and
+MLA on any other arch come later; `check_supported` names each feature it
+can see in the configuration, and refuses the rest by arch name.
 """
 
 from __future__ import annotations
@@ -121,7 +138,7 @@ from typing import Callable
 
 import torch
 
-from ..ops.activations import act_fn
+from ..ops.activations import act_fn, xielu
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.quant_matmul import (
     FlatQuantTensor,
@@ -131,7 +148,7 @@ from ..ops.quant_matmul import (
     w8a8_quantize,
 )
 from ..ops.quant_matmul import quant_linear as mm
-from ..ops.rope import RopeParams, rope_cos_sin, rotate
+from ..ops.rope import RopeParams, mrope_cos_sin, rope_cos_sin, rotate
 from ..runtime.kv_cache import KVCache, read_layer, swa_runs, write_layer
 from .config import ModelConfig
 
@@ -150,6 +167,13 @@ SPARSE_FAMILIES = ("qwen2", "opt", "falcon")
 # LayerNorm with biases, ALiBi (bloom, mpt, jais, refact), head biases
 GPT_FAMILY = ("gpt2", "starcoder", "codeshell", "jais", "refact", "qwen", "phi2", "gptneox",
               "bloom", "mpt", "gptj")
+# decoders with features of their own: post-norm-only blocks (olmo2, olmo3),
+# xIELU (apertus), bitnet's relu2_glu and sub-norms, per-layer widths (deci,
+# openelm), chameleon's text path, M-RoPE (qwen2vl, qwen3vl)
+FEATURE_ARCHS = ("olmo2", "olmo3", "apertus", "bitnet", "deci", "openelm", "chameleon",
+                 "qwen2vl", "qwen3vl")
+# the NAS stacks, whose head counts and FFN widths may differ by layer
+NAS_ARCHS = ("deci", "openelm")
 # sliding windows, softcaps, sandwich norms and gemma3's second rope base
 GEMMA_FAMILY = ("gemma", "gemma2", "gemma3")
 # the archs it runs with experts only
@@ -174,18 +198,19 @@ def check_supported(cfg: ModelConfig):
     for cond, what in ((cfg.kv_lora_rank and cfg.arch not in MLA_ARCHS,
                         "MLA (multi-head latent attention) outside deepseek2, minicpm3 "
                         "and plm"),
-                       (cfg.n_head_arr or cfg.n_ff_arr, "per-layer head counts or FFN widths"),
+                       ((cfg.n_head_arr or cfg.n_ff_arr) and cfg.arch not in NAS_ARCHS,
+                        "per-layer head counts or FFN widths outside deci and openelm"),
                        (cfg.sliding_window and tr.non_causal,
                         "the symmetric sliding window of a non-causal encoder")):
         if cond:
             raise NotImplementedError(f"{what} is not ported yet (arch {cfg.arch!r})")
-    archs = (LLAMA_FAMILY + LLAMA_SHAPED + SPARSE_FAMILIES + GPT_FAMILY + GEMMA_FAMILY
-             + EXPERT_ONLY + MLA_ARCHS)
+    archs = (LLAMA_FAMILY + LLAMA_SHAPED + SPARSE_FAMILIES + GPT_FAMILY + FEATURE_ARCHS
+             + GEMMA_FAMILY + EXPERT_ONLY + MLA_ARCHS)
     if cfg.arch not in archs:
         raise NotImplementedError(
             f"arch {cfg.arch!r} is not ported yet (the llama family and the llama-shaped "
-            f"archs, the MoE archs, the other sparse families, the GPT family, the gemma "
-            f"family and the MLA archs: {', '.join(archs)})")
+            f"archs, the MoE archs, the other sparse families, the GPT family, the "
+            f"feature archs, the gemma family and the MLA archs: {', '.join(archs)})")
     if cfg.n_expert and cfg.arch not in MOE_ARCHS:
         raise NotImplementedError(f"experts of arch {cfg.arch!r} are not ported yet")
     if cfg.arch in EXPERT_ONLY and not (cfg.n_expert and cfg.n_expert_used):
@@ -257,12 +282,17 @@ def dense_ffn(cfg: ModelConfig):
         up = mm(x, lp["w_up"])
         if "b_up" in lp:
             up = up + lp["b_up"].to(up.dtype)
-        if gated and "w_gate" in lp:
+        if "xielu_ap" in lp:  # apertus: xIELU with the layer's own coefficients
+            hidden = xielu(up, lp["xielu_ap"], lp["xielu_an"], lp["xielu_beta"],
+                           lp["xielu_eps"])
+        elif gated and "w_gate" in lp:
             hidden = f(mm(x, lp["w_gate"]), up)
         elif gated:  # gated act but no gate projection: act on up alone
             hidden = f(up, torch.ones_like(up))
         else:
             hidden = f(up)
+        if "ffn_sub_norm_w" in lp:  # bitnet's norm before the down product
+            hidden = _norm(hidden, lp["ffn_sub_norm_w"], None, cfg.traits.norm, cfg.norm_eps)
         out = mm(hidden, lp["w_down"])
         if "b_down" in lp:
             out = out + lp["b_down"].to(out.dtype)
@@ -367,9 +397,21 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
     (over the chunk's own k and v, never their int8 codes). rope=False:
     a NoPE layer (cfg.nope_layers), whose q and k skip rope. alibi: the
     (Hkv, g) f32 ALiBi slopes of an ALiBi arch, whose term slope * (slot -
-    query position) joins the scores; over a ring it raises ValueError."""
+    query position) joins the scores; over a ring it raises ValueError.
+
+    A NAS stack (deci, openelm: per-layer head counts) takes the layer's H
+    and Hkv from its weights' widths, and a layer with fewer KV heads than
+    the cache holds reads and writes the cache's first Hkv heads through a
+    narrowed view, in place (the JAX forward slices them off and joins them
+    back). bitnet's attn_sub_norm runs before wo."""
     B, T, _ = x.shape
     H, Hkv, D = cfg.n_head, cfg.n_head_kv, cfg.head_dim
+    if cfg.n_head_arr or cfg.n_head_kv_arr:
+        H, Hkv = lp["wq"].shape[-1] // D, lp["wk"].shape[-1] // D
+        if kc.shape[2] != Hkv:
+            kc, vc = kc[:, :, :Hkv], vc[:, :, :Hkv]
+            if ks is not None:
+                ks, vs = ks[:, :, :Hkv], vs[:, :, :Hkv]
     if alibi is not None and ring_width:
         raise ValueError(f"ALiBi over an iSWA ring cache (arch {cfg.arch!r}): the JAX "
                          "package's ring branch computes no ALiBi term; use a full cache")
@@ -412,7 +454,10 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
                    - positions[:, :, None]).float()
             bias = alibi[None, :, :, None, None] * rel[:, None, None]
         out = _attend(q, keys, vals, H, Hkv, D, scale, mask, softcap, sinks, bias)
-    out = mm(out.reshape(B, T, H * D), lp["wo"])
+    out = out.reshape(B, T, H * D)
+    if "attn_sub_norm_w" in lp:  # bitnet's norm before wo
+        out = _norm(out, lp["attn_sub_norm_w"], None, cfg.traits.norm, cfg.norm_eps)
+    out = mm(out, lp["wo"])
     if "bo" in lp:
         out = out + lp["bo"].to(out.dtype)
     return out
@@ -540,8 +585,9 @@ def one_stack(params: dict, what: str) -> None:
     """Raise NotImplementedError where `what` rewrites params["layers"] and
     the model keeps its layers in segments of different tensors."""
     if params.get("layer_segments"):
-        raise NotImplementedError(f"{what} over layer segments (deepseek2's leading dense "
-                                  "layers) is not ported yet")
+        raise NotImplementedError(f"{what} over layer segments (layers whose tensors or "
+                                  "widths differ: deepseek2's leading dense layers, the "
+                                  "per-layer widths of deci and openelm) is not ported yet")
 
 
 def _layer_caches(cfg: ModelConfig, cache: KVCache) -> list[tuple]:
@@ -595,6 +641,7 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
     final_cap = tr.final_logit_softcap
     mla = cfg.kv_lora_rank > 0
     nope = [bool(f) for f in cfg.nope_layers] if any(cfg.nope_layers) else [False] * cfg.n_layer
+    nas = bool(cfg.n_head_arr)  # a NAS stack, whose attention-free layers carry no wq
     alibi: dict[torch.device, torch.Tensor] = {}  # ALiBi's (Hkv, g) slopes, one a device
 
     def alibi_of(device: torch.device) -> torch.Tensor | None:
@@ -608,7 +655,14 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
         return alibi[device]
 
     def fwd(params: dict, tokens: torch.Tensor, positions: torch.Tensor,
-            cache: KVCache, fstate=None) -> torch.Tensor:
+            cache: KVCache, fstate=None, mrope_pos: torch.Tensor | None = None) -> torch.Tensor:
+        if mrope_pos is not None and not cfg.mrope_sections:
+            raise ValueError(f"M-RoPE positions for arch {cfg.arch!r}, which has no "
+                             "rope.dimension_sections")
+        if cache.iswa and params.get("layer_segments"):
+            raise ValueError("the iSWA cache over layer segments (layers whose tensors or "
+                             "widths differ, as deci's): the JAX forward's iSWA branch scans "
+                             "params['layers'] alone, the first segment")
         if ffn_carry_init is not None and cache.iswa:
             raise ValueError("the cross-layer FFN carry (the pipelined sparse FFN) takes no "
                              "iSWA cache, as the JAX forward's carry branch takes none")
@@ -627,8 +681,13 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
         flat = params.get("sparse_flat")
         B, T = tokens.shape
         carry = ffn_carry_init(B, T, x.device) if ffn_carry_init else None
-        # shared by every layer: the rope tables
-        rope_cs = {r: rope_cos_sin(positions, r) for r in ropes}
+        # shared by every layer: the rope tables, or M-RoPE's of the three
+        # position streams (the cache is still written at `positions`)
+        if mrope_pos is None:
+            rope_cs = {r: rope_cos_sin(positions, r) for r in ropes}
+        else:
+            rope_cs = {r: mrope_cos_sin(mrope_pos, cfg.mrope_sections, r, cfg.mrope_interleaved)
+                       for r in ropes}
         for il, (lp, (kc, vc, ks, vs, ring_w)) in enumerate(zip(layer_params(params),
                                                                  _layer_caches(cfg, cache))):
             if flat is not None:  # FlatQuantTensors bind the layer late
@@ -637,12 +696,30 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
             x_in = x  # the layer's input: arctic's MoE and smallthinker's router read it
             if tr.moe_router_on_input and "w_router" in lp:  # routed before attention
                 lp["router_logits"] = x_in @ lp["w_router"].to(x_in.dtype)
-            h = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), kind, eps)
+            # the pre-norm where the layer has one (olmo2's blocks have post-norms only)
+            h = (_norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), kind, eps)
+                 if "attn_norm_w" in lp else x)
+            if nas and "wq" not in lp:
+                # deci's attention-free layer: its output replaces the stream,
+                # ffn(ffn_norm(h)) + h, as the JAX forward and llama.cpp's deci
+                # graph compute it (no residual on x, no control vector)
+                h2 = (_norm(h, lp["ffn_norm_w"], lp.get("ffn_norm_b"), kind, eps)
+                      if "ffn_norm_w" in lp else h)
+                if stateful_ffn:
+                    y = ffn(lp, h2, fstate, il)
+                elif ffn_carry_init is not None:
+                    y, carry = ffn(lp, h2, carry, il)
+                else:
+                    y = ffn(lp, h2)
+                x = h + y
+                continue
             rp_l = rope_of(il)
+            if mrope_pos is not None:  # M-RoPE rotates in the neox layout
+                rp_l = dataclasses.replace(rp_l, mode="neox")
             if mla:
-                attn_out = attention_mla(cfg, lp, h, positions, kc, rp_l, rope_cs[rp_l])
+                attn_out = attention_mla(cfg, lp, h, positions, kc, rp_l, rope_cs[rope_of(il)])
             else:
-                attn_out = attention(cfg, lp, h, positions, kc, vc, rp_l, rope_cs[rp_l],
+                attn_out = attention(cfg, lp, h, positions, kc, vc, rp_l, rope_cs[rope_of(il)],
                                      fresh_prefill=fresh_prefill, window=window_of(il),
                                      ring_width=ring_w, rope=not nope[il], ks=ks, vs=vs,
                                      alibi=sl)
@@ -656,7 +733,8 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                       if "attn_norm2_w" in lp else h)
             else:
                 x = x + attn_out
-                h2 = _norm(x, lp["ffn_norm_w"], lp.get("ffn_norm_b"), kind, eps)
+                h2 = (_norm(x, lp["ffn_norm_w"], lp.get("ffn_norm_b"), kind, eps)
+                      if "ffn_norm_w" in lp else x)
             if stateful_ffn:
                 y = ffn(lp, h2, fstate, il)
             elif ffn_carry_init is not None:

@@ -4,8 +4,9 @@ sparkinfer_tpu/ops/activations.py:act_fn.
 ProSparse: fatrelu(gate) * up; Bamboo: relu(gate) * relu(up); ReLU models:
 relu(up); llama and the MoE families: silu(gate) * up; the MoE functions'
 other variants: gpt-oss's clamped swiglu, geglu, reglu and gelu; plm's,
-nemotron's and arcee's ungated relu². The rest of the JAX table (bitnet's
-relu2_glu, xIELU, ...) comes with its families.
+nemotron's and arcee's ungated relu²; bitnet's gated relu², relu(gate)² *
+up. `xielu` is apertus's activation with per-layer coefficients, which the
+FFN calls itself. The erf gelu of the bert encoders comes with them.
 """
 
 from __future__ import annotations
@@ -49,6 +50,25 @@ def _relu2(u):
     return r * r
 
 
+def _relu2_glu(g, u):
+    """relu(gate)**2 * up (bitnet b1.58)."""
+    r = g.clamp_min(0)
+    return r * r * u
+
+
+def xielu(x: torch.Tensor, alpha_p: torch.Tensor, alpha_n: torch.Tensor, beta: torch.Tensor,
+          eps: torch.Tensor) -> torch.Tensor:
+    """xIELU (apertus), in f32 and back in x's dtype: a_p * x^2 + beta * x
+    for x > 0, else (expm1(min(x, eps)) - x) * a_n + beta * x. The
+    coefficients are f32 tensors (one a layer, broadcast) that the loader
+    has already passed through softplus."""
+    xf = x.float()
+    b = beta.float()
+    pos = alpha_p.float() * xf * xf + b * xf
+    neg = (torch.expm1(torch.minimum(xf, eps.float())) - xf) * alpha_n.float() + b * xf
+    return torch.where(xf > 0, pos, neg).to(x.dtype)
+
+
 def _gelu(u):
     return F.gelu(u.float(), approximate="tanh").to(u.dtype)
 
@@ -66,6 +86,7 @@ def act_fn(name: str, fatrelu_threshold: float = 0.0):
         "drelu": (True, _drelu),
         "relu": (False, _relu),
         "relu2": (False, _relu2),
+        "relu2_glu": (True, _relu2_glu),
     }
     if name not in table:
         raise NotImplementedError(f"activation {name!r} is not ported yet")

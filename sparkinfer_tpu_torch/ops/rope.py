@@ -5,7 +5,10 @@ Two layouts, matching ggml_rope modes:
     weights (the HF->GGUF converter permutes Q/K so this layout applies);
   - "neox": rotate split halves (x[i], x[i+d/2]), qwen2/falcon/gpt-neox.
 
-Linear and YaRN frequency scaling as in the JAX package. M-RoPE comes later.
+Linear and YaRN frequency scaling as in the JAX package, and qwen2vl's and
+qwen3vl's multimodal rope (M-RoPE, `apply_mrope`): three position streams
+(temporal, height, width), each rotating its own section of the rotary
+half-dims in the neox layout.
 """
 
 from __future__ import annotations
@@ -62,6 +65,40 @@ def rope_cos_sin(positions: torch.Tensor, p: RopeParams) -> tuple[torch.Tensor, 
     theta = positions[..., None].float() * inv_freq  # (..., seq, half)
     return ((torch.cos(theta) * mscale)[..., :, None, :],
             (torch.sin(theta) * mscale)[..., :, None, :])
+
+
+def mrope_cos_sin(pos3: torch.Tensor, sections: tuple[int, ...], p: RopeParams,
+                  interleaved: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE's cos and sin tables (B, T, 1, half) for the three position
+    streams pos3 (3, B, T): half-dim k takes its angle from stream sel[k].
+    Plain: the streams' sections side by side (sum(sections) == half).
+    interleaved=True, qwen3vl's layout: stream 0 everywhere, then stream 1
+    at dims 1, 4, 7, ... and stream 2 at dims 2, 5, 8, ... within
+    3 * their sections. sel is computed on the device, so nothing is copied
+    from the host."""
+    inv_freq, mscale = rope_freqs(p, pos3.device)
+    half = p.dim // 2
+    k = torch.arange(half, device=pos3.device)
+    if interleaved:
+        sel = torch.zeros(half, dtype=torch.long, device=pos3.device)
+        for stream in (1, 2):
+            sel = torch.where((k % 3 == stream) & (k < 3 * sections[stream]), stream, sel)
+    else:
+        if sum(sections) != half:
+            raise ValueError(f"M-RoPE sections {sections} do not cover {half} half-dims")
+        sel = (k >= sections[0]).long() + (k >= sections[0] + sections[1]).long()
+    theta3 = pos3[..., None].float() * inv_freq  # (3, B, T, half)
+    theta = theta3[sel, :, :, k].permute(1, 2, 0)  # theta3[sel[k], b, t, k] -> (B, T, half)
+    return ((torch.cos(theta) * mscale)[..., :, None, :],
+            (torch.sin(theta) * mscale)[..., :, None, :])
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, sections: tuple[int, ...], p: RopeParams,
+                interleaved: bool = False) -> torch.Tensor:
+    """x (B, T, H, D) rotated in the neox layout by mrope_cos_sin's tables;
+    with three equal streams, neox rope at those positions."""
+    return rotate(x, *mrope_cos_sin(pos3, sections, p, interleaved),
+                  dataclasses.replace(p, mode="neox"))
 
 
 def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,

@@ -66,10 +66,16 @@ class KVCache(NamedTuple):
 
 def check_int8(cfg: "ModelConfig", iswa: bool = False) -> None:
     """Raise ValueError where an int8 cache cannot hold the model's keys:
-    the MLA latent cache (the JAX package asserts) and the iSWA cache (the
-    JAX package's drops the int8 codes silently)."""
+    the MLA latent cache (the JAX package asserts), the iSWA cache (the
+    JAX package's drops the int8 codes silently) and a NAS stack whose
+    attention layers hold different KV head counts (deci: the JAX forward
+    narrows a layer's codes to its heads but not their scales, and fails)."""
     for cond, what in ((cfg.kv_lora_rank > 0,
                         "MLA (multi-head latent attention) latent cache, as in the JAX package"),
+                       (len({h for h in cfg.n_head_kv_arr if h}) > 1,
+                        "model whose layers hold different KV head counts (a NAS stack such "
+                        "as deci): the JAX package's int8 cache fails on a layer narrower "
+                        "than the cache"),
                        (iswa, "iSWA (sliding-window ring) cache: the JAX package's iSWA "
                               "cache has no int8 codes")):
         if cond:

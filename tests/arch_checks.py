@@ -83,12 +83,13 @@ def _init_skipping_no_bias(init):
 FAMILY_PATCHES = {"StableLmForCausalLM": _stablelm_qk, "OlmoForCausalLM": _olmo_clip}
 
 
-def hf_gguf(d, name, cfg_cls, cls, kw, base=BASE, noise=("norm",)):
+def hf_gguf(d, name, cfg_cls, cls, kw, base=BASE, noise=("norm",), f32=False):
     """A tiny transformers checkpoint converted to an f32 GGUF: (path, the
     checkpoint's f32 logits of PROMPT). `base`: the config keywords under
     kw; the parameters whose names hold one of `noise` get N(0, 0.1) added
     (the norms, by default: away from their ones and zeros, so each
-    counts)."""
+    counts). f32=True casts the model to f32 first (a class that keeps some
+    parameters in bf16, as Apertus's xIELU)."""
     import transformers as T
 
     torch.manual_seed(0)
@@ -98,6 +99,8 @@ def hf_gguf(d, name, cfg_cls, cls, kw, base=BASE, noise=("norm",)):
             mp.setattr(T.StableLmPreTrainedModel, "_init_weights", _init_skipping_no_bias(
                 T.StableLmPreTrainedModel._init_weights))
         hf = getattr(T, cls)(cfg).eval()
+    if f32:
+        hf = hf.float()
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for n, p in hf.named_parameters():

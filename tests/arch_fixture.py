@@ -32,6 +32,11 @@ class and for the card's tests:
   bloom: ALiBi, the post-embedding LayerNorm (token_embd_norm), q/k/v,
   output, norm and FFN biases, gelu (an untied head: make_tiny_llama
   always writes one).
+
+`make_feature` writes the kinds of FEATURES for the decoders with features
+of their own: olmo2's post-norm-only blocks, apertus's xIELU, bitnet's
+sub-norms, and the NAS stacks of deci and openelm (per-layer head counts
+and FFN widths, deci's attention-free layer).
 """
 
 import numpy as np
@@ -136,6 +141,105 @@ def _spec(kind: str, rng) -> tuple[str, dict]:
 
         return "arctic", dict(moe, extra_tensors=per_layer(layer))
     raise ValueError(kind)
+
+
+# the feature kinds: name -> (arch, per-layer head counts, KV head counts,
+# FFN widths); make_feature writes each
+FEATURES = {"olmo2": ("olmo2", (4, 4), (2, 2), (96, 96)),
+            "apertus": ("apertus", (4, 4), (2, 2), (96, 96)),
+            "bitnet": ("bitnet", (4, 4), (2, 2), (96, 96)),
+            # an attention-free layer between layers of 2 and 1 KV heads
+            "deci": ("deci", (4, 0, 4), (2, 0, 1), (96, 48, 96)),
+            "openelm": ("openelm", (4, 4, 4), (2, 2, 2), (96, 96, 96)),
+            # widths that change between layers of the same tensors
+            "openelm-widths": ("openelm", (4, 4, 2), (2, 2, 1), (96, 96, 64))}
+
+
+def make_feature(path, kind: str, seed: int = 0, quant_type: str | None = None,
+                 n_vocab: int = 199) -> str:
+    """Write the feature kind `kind` (FEATURES) at E=64, head_dim 16; norms
+    1 + N(0, 0.1) (biases N(0, 0.1)), weights N(0, 0.08), Q8_0 with
+    quant_type "q8_0"; returns its GGUF arch.
+
+      olmo2: post-norms only (attn_post_norm, ffn_post_norm, no pre-norms)
+      and full-width q/k RMS norms (H*D and Hkv*D wide);
+      apertus: an ungated xIELU FFN with per-layer coefficients
+      (xielu_alpha_p, xielu_alpha_n, xielu_beta, xielu_eps) and per-head q/k
+      norms;
+      bitnet: relu2_glu with both sub-norms (attn_sub_norm H*D wide,
+      ffn_sub_norm F wide) and a tied head;
+      deci, openelm, openelm-widths: the NAS stacks, whose head counts, KV
+      head counts and FFN widths are per-layer arrays (a layer of 0 heads is
+      deci's attention-free layer, with no attention tensors); openelm's
+      layers carry per-head q/k RMS norms and its head is tied."""
+    from sparkinfer_tpu_torch.gguf.constants import GGMLType
+    from sparkinfer_tpu_torch.gguf.writer import GGUFWriter
+
+    arch, heads, kvs, ffs = FEATURES[kind]
+    rng = np.random.default_rng(2000 + seed)
+
+    def w(*shape, s=0.08, shift=0.0):
+        return (shift + s * rng.standard_normal(shape)).astype(np.float32)
+
+    L, f32 = len(heads), GGMLType.F32
+    qt = GGMLType.Q8_0 if quant_type == "q8_0" else f32
+    nas = arch in ("deci", "openelm")
+    wr = GGUFWriter(str(path), arch)
+    for k, v in (("block_count", L), ("embedding_length", E), ("vocab_size", n_vocab),
+                 ("context_length", 256), ("attention.key_length", D),
+                 ("rope.dimension_count", D)):
+        wr.add_kv(f"{arch}.{k}", np.uint32(v))
+    for k, v in (("attention.head_count", heads), ("attention.head_count_kv", kvs),
+                 ("feed_forward_length", ffs)):
+        if nas:
+            wr.add_array(f"{arch}.{k}", np.asarray(v, np.uint32))
+        else:
+            wr.add_kv(f"{arch}.{k}", np.uint32(v[0]))
+    wr.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", np.float32(1e-5))
+    wr.add_kv(f"{arch}.rope.freq_base", np.float32(10000.0))
+    if arch == "apertus":  # raw coefficients: the loader applies softplus
+        for k, v in (("xielu_alpha_p", w(L, s=0.5, shift=0.8)),
+                     ("xielu_alpha_n", w(L, s=0.5, shift=0.3)),
+                     ("xielu_beta", w(L, s=0.1, shift=0.5)), ("xielu_eps", w(L, s=1e-4))):
+            wr.add_array(f"{arch}.{k}", v)
+
+    def lin(name, *shape):
+        wr.add_tensor(name, w(*shape), qt)
+
+    def norm(name, *shape):
+        wr.add_tensor(name, w(*shape, s=0.1, shift=1.0), f32)
+
+    wr.add_tensor("token_embd.weight", w(n_vocab, E), f32)
+    norm("output_norm.weight", E)
+    if arch not in ("openelm", "bitnet"):  # openelm and bitnet tie their heads
+        lin("output.weight", n_vocab, E)
+    for i in range(L):
+        p = f"blk.{i}."
+        if arch != "olmo2":
+            norm(p + "attn_norm.weight", E)
+            norm(p + "ffn_norm.weight", E)
+        if heads[i]:
+            lin(p + "attn_q.weight", heads[i] * D, E)
+            lin(p + "attn_k.weight", kvs[i] * D, E)
+            lin(p + "attn_v.weight", kvs[i] * D, E)
+            lin(p + "attn_output.weight", E, heads[i] * D)
+        if arch in ("openelm", "apertus"):
+            norm(p + "attn_q_norm.weight", D)
+            norm(p + "attn_k_norm.weight", D)
+        if arch == "olmo2":
+            norm(p + "attn_q_norm.weight", heads[i] * D)
+            norm(p + "attn_k_norm.weight", kvs[i] * D)
+            norm(p + "attn_post_norm.weight", E)
+            norm(p + "ffn_post_norm.weight", E)
+        if arch == "bitnet":
+            norm(p + "attn_sub_norm.weight", heads[i] * D)
+            norm(p + "ffn_sub_norm.weight", ffs[i])
+        lin(p + "ffn_up.weight", ffs[i], E)
+        if arch != "apertus":
+            lin(p + "ffn_gate.weight", ffs[i], E)
+        lin(p + "ffn_down.weight", E, ffs[i])
+    wr.write()
+    return arch
 
 
 def make_arch(path, kind: str, seed: int = 0, **kw) -> str:

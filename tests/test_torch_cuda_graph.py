@@ -32,7 +32,10 @@ mode, bit-equal to the eager step. The same for a tiny qwen2moe and
 hunyuan-moe (tests/arch_fixture.py) in both modes, and for a tiny bloom
 (ALiBi, the post-embedding LayerNorm) in bf16 and in Q8_0 (its six packed
 linears through quant_matmul_2d), past a context shift, and its 2-slot
-Scheduler's tick.
+Scheduler's tick. The same for tests/arch_fixture.py:make_feature's olmo2
+(post-norms only) in bf16 and in Q8_0, apertus (xIELU), and deci (a layer
+of 1 KV head under a cache of 2, written through a narrowed view, and an
+attention-free layer).
 """
 
 import os
@@ -47,7 +50,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from arch_fixture import make_arch  # noqa: E402
+from arch_fixture import make_arch, make_feature  # noqa: E402
 from deepseek2_fixture import make_deepseek2  # noqa: E402
 from model_fixtures import make_tiny_llama  # noqa: E402
 from sparkinfer_tpu_torch.models.loader import LoadedModel, load_model  # noqa: E402
@@ -924,6 +927,56 @@ def test_alibi_graph_tick_equals_the_eager_tick(cuda, tmp_path, quant):
     assert runs["graph"][0] == runs["eager"][0] and all(len(t) == 6 for t in runs["graph"][0])
     assert torch.equal(runs["graph"][1], runs["eager"][1])
     assert runs["graph"][2] == runs["eager"][2] and runs["graph"][3] == 1
+
+
+def _graph_against_eager(model, n=40, **gen_kw):
+    """A decode graph's stream and every step's logits against an eager
+    engine's, bit for bit, past a context shift (max_seq 16, keep 2): the
+    graph engine, after its one capture."""
+    kw = dict(max_seq=16, sampler=GREEDY, device="cuda")
+    graph_eng, eager = Engine(model, **kw), Engine(model, cuda_graph=False, **kw)
+    runs = {name: _stream_logits(eng, PROMPT, n, n_keep=2, **gen_kw)
+            for name, eng in (("eager", eager), ("graph", graph_eng))}
+    assert runs["graph"][0] == runs["eager"][0] and len(runs["graph"][0]) == n
+    for got, want in zip(runs["graph"][1], runs["eager"][1]):
+        assert torch.equal(got, want)
+    assert graph_eng.graphs.captures == 1
+    return graph_eng, eager
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,quant", [("olmo2", "bf16"), ("olmo2", "q8_0"),
+                                        ("apertus", "bf16")])
+def test_feature_graph_step_equals_the_eager_step(cuda, tmp_path, kind, quant):
+    """olmo2's post-norm-only blocks (bf16, and Q8_0 with its q, k, v, o, up,
+    gate, down and head packed: quant_matmul_2d 7L + 1 times a step) and
+    apertus's xIELU: the decode graph's stream and every step's logits
+    bit-equal to the eager step's, past a context shift, one capture."""
+    q8 = quant == "q8_0"
+    make_feature(tmp_path / "m.gguf", kind, seed=7, quant_type="q8_0" if q8 else None)
+    model = load_model(str(tmp_path / "m.gguf"), dtype=torch.bfloat16, device="cuda",
+                       keep_quantized=q8)
+    lay = model.params["layers"]
+    assert ("attn_norm_w" in lay) == (kind != "olmo2") and ("xielu_ap" in lay) == (
+        kind == "apertus")
+    _, eager = _graph_against_eager(model)
+    q2d = graphs.COUNTED.index(tqm.quant_matmul_2d)
+    assert _per_step(eager)[q2d] == (7 * model.config.n_layer + 1 if q8 else 0)
+
+
+@pytest.mark.cuda
+def test_deci_graph_step_equals_the_eager_step(cuda, tmp_path):
+    """deci's NAS stack (layers of 2, 0 and 1 KV heads over a cache of 2,
+    three layer segments) in bf16: the decode graph's stream and every
+    step's logits bit-equal to the eager step's past a context shift, one
+    capture; the replayed narrowed layer wrote its one head in place and
+    left the cache's second head zero, the attention-free layer nothing."""
+    make_feature(tmp_path / "m.gguf", "deci", seed=7)
+    model = load_model(str(tmp_path / "m.gguf"), dtype=torch.bfloat16, device="cuda")
+    assert len(model.params["layer_segments"]) == 3
+    graph_eng, _ = _graph_against_eager(model)
+    k = graph_eng.cache.k
+    assert bool(k[2, :, :, 0].any()) and not k[2, :, :, 1].any() and not k[1].any()
 
 
 @pytest.mark.cuda

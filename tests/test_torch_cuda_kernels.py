@@ -725,6 +725,23 @@ def test_quant_matmul_bloom_7b1_shapes(cuda, N, IN, OUT):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 32])
+@pytest.mark.parametrize("IN,OUT", [(4096, 11008), (11008, 4096), (4096, 100352)],
+                         ids=["up", "down", "head"])
+def test_quant_matmul_olmo2_7b_shapes(cuda, N, IN, OUT):
+    """OLMo-2-1124-7B's new Q8_0 products: up and gate (4096 x 11008), down
+    (11008 x 4096) and the head (4096 x 100352), by qmm_decode at N = 1 and
+    qmm_prefill at N = 32, bf16 x, against the plain version."""
+    q, s = _store("q8_0", IN, OUT, cuda, seed=IN + 7 * OUT + N)
+    x = torch.randn((N, IN), device=cuda).to(torch.bfloat16)
+    before = tqm.quant_matmul_2d.launches
+    got = tqm.quant_matmul_2d(x, q, s, kind="q8_0")
+    torch.cuda.synchronize()
+    assert tqm.quant_matmul_2d.launches == before + 1
+    _check_qmm(got, tqm.quant_matmul_2d_plain(x, q, s, kind="q8_0"), 1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N", [1, 16, 17, 32])
 @pytest.mark.parametrize("IN,OUT", [(5120, 5120), (5120, 1280), (1280, 13824), (64, 40)])
 def test_w8a8_linear(cuda, N, IN, OUT):

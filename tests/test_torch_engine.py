@@ -268,10 +268,10 @@ def test_unported_options_raise(gguf, tmp_path):
     pe = Engine(model, max_seq=6, sampler=SamplerConfig(temp=0.0), device="cpu")
     assert len(pe.generate(PROMPT, 8)) == 8
     assert pe.batch == 1
-    olmo2 = tmp_path / "olmo2.gguf"  # qwen2 and gpt2 are ported: an arch that is not
-    make_tiny_llama(olmo2, arch="olmo2")
-    with pytest.raises(NotImplementedError, match="olmo2"):
-        load_model(str(olmo2), device="cpu")
+    mamba = tmp_path / "mamba.gguf"  # qwen2, gpt2 and olmo2 are ported: an arch that is not
+    make_tiny_llama(mamba, arch="mamba")
+    with pytest.raises(NotImplementedError, match="mamba"):
+        load_model(str(mamba), device="cpu")
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

@@ -281,14 +281,18 @@ def test_keep_quantized_load_matches_jax(ggufs, kind):
                                .numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["bert", "olmo2", "chameleon", "apertus", "bitnet", "deci"])
+@pytest.mark.parametrize("arch", ["bert", "neo-bert", "gemma-embedding", "mamba", "t5", "llama"])
 def test_other_archs_stay_refused(tmp_path, arch):
-    """Archs the port still refuses at load, each by name; deci by its
-    per-layer FFN widths (a feed_forward_length array), which it names
-    first. (The GPT-family archs this test once held are ported:
-    tests/test_torch_gpt_archs.py.)"""
+    """Archs and features the port still refuses at load, each by name: the
+    non-causal encoders (bert, neo-bert; gemma-embedding by its symmetric
+    window, which it names first), the recurrent and encoder-decoder
+    modules (mamba, t5), and per-layer FFN widths (a feed_forward_length
+    array) on an arch other than deci and openelm. (The GPT-family archs and
+    the feature archs this test once held are ported:
+    tests/test_torch_gpt_archs.py, tests/test_torch_feature_archs.py.)"""
     path = tmp_path / f"{arch}.gguf"
-    if arch == "deci":  # the header alone: the refusal comes before any tensor is read
+    match = {"gemma-embedding": "symmetric sliding window", "llama": "per-layer"}.get(arch, arch)
+    if arch == "llama":  # the header alone: the refusal comes before any tensor is read
         wr = GGUFWriter(str(path), arch)
         for k, v in (("block_count", 2), ("embedding_length", E), ("attention.head_count", 4),
                      ("attention.head_count_kv", 2), ("vocab_size", 199),
@@ -297,9 +301,11 @@ def test_other_archs_stay_refused(tmp_path, arch):
         wr.add_array(f"{arch}.feed_forward_length", np.array([96, 64], np.uint32))
         wr.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", np.float32(1e-5))
         wr.write()
+    elif arch == "gemma-embedding":
+        make_tiny_llama(path, arch=arch, extra_kv={f"{arch}.attention.sliding_window": 8})
     else:
         make_tiny_llama(path, arch=arch)
-    with pytest.raises(NotImplementedError, match="per-layer" if arch == "deci" else arch):
+    with pytest.raises(NotImplementedError, match=match):
         load_model(str(path), dtype=torch.float32, device="cpu")
 
 
