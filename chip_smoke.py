@@ -80,8 +80,11 @@ sees no card or the package is missing. Phases, each of which fails the run:
      warm-up is one more step forward, counted), all logits finite, a
      profile of a few decode steps (torch.profiler, which sees the kernels
      inside the graphs: the independent count) and peak memory:
-       ProSparse-Llama-2-7B widths, bf16 (bench.py "7b" preset scales),
-       sparse greedy generate of 64 tokens from a 32-token prompt: v6
+       ProSparse-Llama-2-7B widths, bf16 (bench.py "7b" preset scales; the
+       full run takes FULL_RUN_7B_L of the 32 layers for every 7B path of
+       phases 4 and 5, 32 with --7b-paths, which runs phases 1, 2 and
+       those paths alone and prints no result), sparse greedy generate of
+       64 tokens from a 32-token prompt: v6
        n_layer times per decode step, with v6's device time and launches (1
        kernel a call) and the f32 copies' in the profiled steps;
        the Scheduler at the same widths: 8 greedy requests (32-token
@@ -438,6 +441,36 @@ sees no card or the package is missing. Phases, each of which fails the run:
        layer narrower than the cache, one attention-free), graph against
        eager past a context shift. `python3 chip_smoke.py --feature-archs`
        runs phases 1, 2 and 5u alone and prints no result.
+     5v. The non-causal encoders and the trait decoders, in a child
+       process started after 5u's, at full width and depth: BAAI/
+       bge-large-en-v1.5 (config.json: BertModel, L=24, E=1024, 16 heads,
+       F=4096, V=30522, 512 learned positions, 2 token types, erf gelu,
+       LayerNorm eps 1e-12, CLS pooling) with Q8_0 wq, wk, wv, wo, up and
+       down drawn on the card, a synthetic WordPiece vocabulary of V
+       pieces and a seeded cls/cls.output head: an f32 gate, layer by
+       layer (each layer of the kernel path and of the plain path fed the
+       plain path's input: each packed product within 1e-4 of its plain
+       version's scale, each layer's hidden states within
+       ENCODER_GATE_TOL, at four seeds and 512, 512, 32 and 4 tokens); the
+       Embedder at 1, 4, 32, 128 and 512 tokens with quant_matmul_2d 144
+       times a forward (6 a layer), qmm_decode at N <= 4 and qmm_prefill
+       above counted by profiles, wall and device ms; quant_matmul_2d at
+       its three shapes, N = 1, 32 and 512; SparkServer's /v1/embeddings
+       bit-equal to the Embedder, /v1/rerank within an f32 rounding bound
+       of the head in f64, a completion answered with the error that names
+       the arch; google/embeddinggemma-300m (gemma-embedding: 24 layers,
+       E=768, 3 heads over 1 of 256, F=1152, V=262144, window 512 over
+       five of six layers) and chandar-lab/NeoBERT (28 layers, E=768, 12
+       heads, swiglu F=2048, V=30522) in bf16, 600 and 512 tokens, the
+       symmetric band binding, and 2-layer f32 cuts on the card against
+       the CPU; then 2-layer bf16 cuts of the 15g trait archs, graph
+       against eager: ibm-granite/granite-3.1-8b-instruct, openbmb/
+       MiniCPM-2B, bigcode/starcoder2-7b, CohereForAI/c4ai-command-r-v01,
+       microsoft/Phi-3-mini-4k-instruct, pfnet/plamo-13b and a
+       pangu-embedded stack of synthetic widths (not a published config).
+       The widths are the named config.json's as recalled.
+       `python3 chip_smoke.py --encoders` runs phases 1, 2 and 5v alone
+       and prints no result.
      (At bf16 and random weights, decode is chaotic: a last-bit difference
      can flip a later group selection, so the full-size runs are checked
      for finiteness and counts, and agreement is checked in f32, phase 3.)
@@ -448,9 +481,9 @@ gpt-oss-shape timing under "gpt_oss" and its DeepSeek-V2-Lite-shape
 timing under "deepseek_v2_lite"; v6's counts
 phase 5l's, 5m(b)'s and 5r's and carries its N=6 and N=32 timings under
 "shapes"; v6q's and quant_matmul_2d's count 5m(a)'s, quant_matmul_2d's
-5q's, 5s's, 5t's and 5u's too, with their shapes' timings under
-"qwen3_8b", "minicpm3_4b", "bloom_7b1" and "olmo2_7b"); the last line is {"ok": true, "device":
-{...}}.
+5q's, 5s's, 5t's, 5u's and 5v's too, with their shapes' timings under
+"qwen3_8b", "minicpm3_4b", "bloom_7b1", "olmo2_7b" and "bge_large"); the
+last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --prefill-profile
 
@@ -490,6 +523,10 @@ FULL_RUN_ARCHS_MOE_L = 4  # of Qwen1.5-MoE-A2.7B's 24 (phase 5q)
 FULL_RUN_MLA_ARCHS_L = 4  # of MiniCPM3-4B's 62 (phase 5s)
 FULL_RUN_GPT_L = 4  # of BLOOM-7b1's 30 (phase 5t)
 FULL_RUN_FEATURE_L = 4  # of OLMo-2-1124-7B's 32 (phase 5u)
+# of ProSparse-Llama-2-7B's 32 (phases 4a, 4c-4e, 5b, 5e-5j, 5l, 5m(c), 5r;
+# --7b-paths keeps 32): an eager 7B step costs host time a layer, so this
+# depth pays for phase 5v; every stream keeps its length
+FULL_RUN_7B_L = 8
 # v7u rounds the hidden and W_down to bf16: each product within 2^-8, about
 # 2e-3 of the output's scale summed with random signs; a wrong row or mask
 # errs by the scale itself
@@ -6618,10 +6655,10 @@ def qwen3_f32_gate(prompt, steps: int = 8) -> dict:
     return q8_f32_gate("Qwen3-8B widths, 4 layers, Q8_0", "5q", model, prompt, steps)
 
 
-def q8_qmm_rows(model, keys, seed, per_call: int) -> list:
+def q8_qmm_rows(model, keys, seed, per_call: int, Ns=(1, 32)) -> list:
     """quant_matmul_2d against its plain version at the shapes of the
-    model's packed stacks `keys` ("head": its packed head), N = 1
-    (qmm_decode) and 32 (qmm_prefill), over the model's own stores (every
+    model's packed stacks `keys` ("head": its packed head), at each N of Ns
+    (1: qmm_decode; 32, 512: qmm_prefill), over the model's own stores (every
     layer's, so the L2 stays cold). per_call: the kernels one call launches
     at these shapes, which the profiled decode step and prefill count (one
     a product)."""
@@ -6637,7 +6674,7 @@ def q8_qmm_rows(model, keys, seed, per_call: int) -> list:
     rows = []
     for k, st in stores.items():
         IN, OUT = st[0][0].shape
-        for N in (1, 32):
+        for N in Ns:
             x = torch.randn((N, IN), generator=gen, device="cuda").to(torch.bfloat16)
             row = qmm_row(f"quant_matmul_2d q8_0 {k} {IN}x{OUT} N={N}", qm.quant_matmul_2d,
                           qm.quant_matmul_2d_plain, st, x, "q8_0", per_call)
@@ -7934,6 +7971,642 @@ def feature_archs_summary(g) -> dict:
             "seconds": g["seconds"]}
 
 
+# --- phase 5v: the non-causal encoders (bge-large-en-v1.5 Q8_0, EmbeddingGemma,
+# NeoBERT) and 15g's trait decoders ---------------------------------------------
+
+# f32: a layer's hidden states through the kernels against the plain path's,
+# both fed the plain path's input, of their scale. Both round each packed
+# product's input to bf16, so where an f32 input differs in a last bit a
+# rounding lands apart: on the plain path alone, noise of 1e-7 on a
+# bge-large layer's input moves its output by 5.5e-4 of the scale (CPU)
+ENCODER_GATE_TOL = 2e-3
+ENCODER_LENGTHS = (1, 4, 32, 128, 512)
+# the gate's inputs: (seed, tokens), qmm_prefill at 512 and 32, qmm_decode at 4
+ENCODER_GATE_INPUTS = ((SEED + 112, 512), (SEED + 113, 512), (SEED + 114, 32),
+                       (SEED + 115, 4))
+
+
+def bge_large_config(L: int = 24):
+    """BAAI/bge-large-en-v1.5's config.json: BertModel, 24 layers, hidden
+    1024, 16 heads of 64, FFN 4096, vocab 30522, 512 learned positions,
+    type vocab 2, gelu (erf), LayerNorm eps 1e-12; CLS pooling (its
+    sentence-transformers pooling config)."""
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="bert", n_layer=L, n_embd=1024, n_head=16, n_head_kv=16,
+                       head_dim=64, n_ff=4096, n_vocab=30522, norm_eps=1e-12, n_ctx_train=512)
+
+
+def random_bert_q8(cfg, dtype, seed):
+    """bert as its Q8_0 GGUF loads with keep_quantized: Q8_0 wq, wk, wv, wo,
+    up and down (q8_random), the embeddings (tokens, 512 positions, 2 token
+    types) in `dtype` and the tied head the token embedding's transpose (a
+    view: the Embedder reads no head), 1 + N(0, 0.1) LayerNorm weights (the
+    embedding LayerNorm's and each layer's two post-sum norms) with N(0,
+    0.02) biases, N(0, 0.02) biases on q, k, v, o, up and down, in f32; and
+    a seeded reranker head (cls_w, cls_b, cls_out_w, cls_out_b), f32."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    L, E, F, V = cfg.n_layer, cfg.n_embd, cfg.n_ff, cfg.n_vocab
+
+    def f32(*shape, mean=0.0, std=0.02):
+        return torch.empty(shape, device="cuda").normal_(mean, std, generator=gen)
+
+    def emb(*shape):
+        return torch.empty(shape, dtype=dtype, device="cuda").normal_(0.0, 0.02, generator=gen)
+
+    layers = {"attn_norm_w": f32(L, E, mean=1.0, std=0.1), "attn_norm_b": f32(L, E),
+              "ffn_norm_w": f32(L, E, mean=1.0, std=0.1), "ffn_norm_b": f32(L, E),
+              **{k: q8_random(gen, (L, E, E)) for k in ("wq", "wk", "wv", "wo")},
+              **{k: f32(L, E) for k in ("bq", "bk", "bv", "bo")},
+              "w_up": q8_random(gen, (L, E, F)), "b_up": f32(L, F),
+              "w_down": q8_random(gen, (L, F, E)), "b_down": f32(L, E)}
+    tok = emb(V, E)
+    params = {"tok_embd": tok, "pos_embd": emb(cfg.n_ctx_train, E), "type_embd": emb(2, E),
+              "tok_norm_w": f32(E, mean=1.0, std=0.1), "tok_norm_b": f32(E), "output": tok.T,
+              "layers": layers, "cls_w": f32(E, E, std=0.03), "cls_b": f32(E),
+              "cls_out_w": f32(1, E, std=0.05), "cls_out_b": f32(1)}
+    return LoadedModel(config=cfg, params=params)
+
+
+def wpm_vocab(n_vocab: int, seed: int):
+    """A WordPiece Vocab of n_vocab pieces in bert-base-uncased's layout:
+    [PAD] 0, [unused0-98] 1-99, [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103,
+    then the letters, digits and punctuation, their ## continuations, and
+    whole words and ## suffixes of 2-9 letters made from the seed; [CLS]
+    the bos and [SEP] the eos and separator, both added."""
+    import numpy as np
+
+    from sparkinfer_tpu_torch.tokenizer import Vocab
+
+    rng = np.random.default_rng(seed)
+    chars = list("abcdefghijklmnopqrstuvwxyz0123456789.,!?'")
+    tokens = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+              + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + chars + ["##" + c for c in chars])
+    seen = set(tokens)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(tokens) < n_vocab:
+        piece = "".join(rng.choice(letters, size=int(rng.integers(2, 10))))
+        piece = piece if rng.random() < 0.7 else "##" + piece
+        if piece not in seen:
+            seen.add(piece)
+            tokens.append(piece)
+    types = np.full(n_vocab, 1, np.int32)  # NORMAL
+    types[[0, 101, 102, 103]] = 3  # CONTROL
+    types[100] = 2  # UNKNOWN
+    return Vocab(model="bert", pre="default", tokens=tokens, token_types=types, scores=None,
+                 merges=None, bos_id=101, eos_id=102, unk_id=100, pad_id=0, sep_id=102,
+                 add_bos=True, add_eos=True, add_space_prefix=False)
+
+
+def wpm_texts(vocab, gen, lengths):
+    """Texts of whole vocabulary words that tokenize to `lengths` tokens each,
+    [CLS] and [SEP] included."""
+    import torch
+
+    words = [t for t in vocab.tokens[104 + 2 * 41:] if not t.startswith("##")]
+    return [" ".join(words[i] for i in torch.randint(len(words), (n - 2,), generator=gen))
+            for n in lengths]
+
+
+def encoder_layer_model(model, il, stream):
+    """Layer il of a bert alone, fed `stream` (T, E): a 1-layer model whose
+    token embedding is the stream (token t its row t) and whose positions,
+    token types and embedding norm add nothing, so that its forward over
+    tokens 0..T-1 is layer il of the port's forward on that input (its
+    post-sum norms close it; bert has no final norm)."""
+    import dataclasses
+
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.ops.quant_matmul import QuantTensor
+
+    T, E = stream.shape
+    layers = {k: (QuantTensor(v.q[il:il + 1], v.s[il:il + 1], v.kind)
+                  if isinstance(v, QuantTensor) else v[il:il + 1])
+              for k, v in model.params["layers"].items()}
+    zeros = torch.zeros((T, E), device=stream.device)
+    params = {"tok_embd": stream, "pos_embd": zeros, "type_embd": zeros[:2],
+              "output": stream.T, "layers": layers}
+    return LoadedModel(config=dataclasses.replace(model.config, n_layer=1), params=params)
+
+
+def encoder_hidden(model, ids) -> "torch.Tensor":
+    """The port's forward's hidden states (T, E) of ids on the card, f32."""
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+
+    fwd = make_forward(model.config, with_hidden=True, fresh_prefill=True, head=False)
+    with torch.inference_mode():
+        return fwd(model.params, torch.tensor([ids], device="cuda"),
+                   torch.arange(len(ids), device="cuda")[None],
+                   init_cache(model.config, 1, max(len(ids), 8), torch.float32, "cuda"))[1][0]
+
+
+def bge_f32_gate() -> dict:
+    """bge-large-en-v1.5 at full width and depth in f32 with Q8_0 linears,
+    layer by layer at each ENCODER_GATE_INPUTS input: the plain path
+    (every packed product through quant_matmul_2d_plain, on the card) runs
+    each layer on its own previous layer's output (encoder_layer_model,
+    from the embeddings of a 0-layer forward) and feeds each product's
+    input to the kernel too (within ARCH_GATE_TOL of the plain output's
+    scale); the kernel path runs each layer on the same plain input, and
+    its output must lie within ENCODER_GATE_TOL of the plain layer's scale.
+    Whole forwards are no gate: both paths round each product's input to
+    bf16, an input a last f32 bit apart can round apart, and 24 post-sum
+    layers of random weights carry such a difference on; the two whole
+    forwards' gap is printed."""
+    import dataclasses
+
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.ops import quant_matmul as qm
+
+    t0 = time.perf_counter()
+    model = random_bert_q8(bge_large_config(), torch.float32, SEED + 111)
+    L, V = model.config.n_layer, model.config.n_vocab
+    kernel, plain = qm.quant_matmul_2d, qm.quant_matmul_2d_plain
+    errs, rows = [], []
+
+    def gate(x, qw, scales, *, kind):
+        want = plain(x, qw, scales, kind=kind)
+        errs.append(rel_gap(kernel(x, qw, scales, kind=kind), want))
+        return want
+
+    embed_only = LoadedModel(config=dataclasses.replace(model.config, n_layer=0), params={
+        **model.params, "layers": {k: v[:0] for k, v in model.params["layers"].items()
+                                   if not isinstance(v, qm.QuantTensor)}})
+    for seed, n in ENCODER_GATE_INPUTS:
+        ids = torch.randint(104, V, (n,), generator=torch.Generator().manual_seed(seed))
+        ids = [101] + ids.tolist()[: n - 2] + [102] if n > 2 else ids.tolist()
+        stream = encoder_hidden(embed_only, ids)
+        gaps, n0 = [], kernel.launches
+        gate.launches = 0
+        for il in range(L):
+            layer_ids = list(range(n))
+            got = encoder_hidden(encoder_layer_model(model, il, stream), layer_ids)
+            qm.quant_matmul_2d = gate
+            try:
+                want = encoder_hidden(encoder_layer_model(model, il, stream), layer_ids)
+            finally:
+                qm.quant_matmul_2d = kernel
+            check(bool(torch.isfinite(got).all()), f"5v gate: non-finite states at layer {il}")
+            gaps.append(rel_gap(got, want))
+            stream = want
+        check(gate.launches == kernel.launches - n0 == 6 * L,
+              f"5v gate: {gate.launches} and {kernel.launches - n0} quant_matmul_2d launches, "
+              f"want {6 * L} (6 a layer) each")
+        final = rel_gap(encoder_hidden(model, ids), stream)
+        rows.append({"seed": seed, "tokens": n, "worst_layer_rel_gap": max(gaps),
+                     "worst_layer": gaps.index(max(gaps)), "whole_forward_rel_gap": final})
+    worst_product, worst_layer = max(errs), max(r["worst_layer_rel_gap"] for r in rows)
+    out = {"layers": L, "products": len(errs), "worst_product_rel_err": worst_product,
+           "product_tol": ARCH_GATE_TOL, "worst_layer_rel_gap": worst_layer,
+           "layer_tol": ENCODER_GATE_TOL, "inputs": rows, "seconds": time.perf_counter() - t0}
+    print("phase 5v, f32 gate (bge-large-en-v1.5 widths and depth, Q8_0, layer by layer):",
+          json.dumps(out))
+    check(worst_product <= ARCH_GATE_TOL,
+          f"5v gate: a packed product is {worst_product:.3e} of its scale off")
+    check(worst_layer <= ENCODER_GATE_TOL,
+          f"5v gate: a layer's hidden states are {worst_layer:.3e} of their scale off")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def embed_bound(model, n: int) -> dict:
+    """The least one n-token forward of a Q8_0 encoder takes: its packed
+    weights read once (int8 values and f32 scales) against its products'
+    and attention's bf16 operations (2 N a packed weight, 4 N^2 E a layer)."""
+    from sparkinfer_tpu_torch.ops.quant_matmul import QuantTensor
+
+    cfg, lay = model.config, model.params["layers"]
+    packed = [t for t in lay.values() if isinstance(t, QuantTensor)]
+    w_bytes = sum(t.q.numel() + t.s.numel() * 4 for t in packed)
+    flops = 2 * n * sum(t.q.numel() for t in packed) + 4 * n * n * cfg.n_embd * cfg.n_layer
+    ms, by = bound(w_bytes, flops, PEAK_BF16_FLOP_S)
+    return {"bound_ms": ms, "bound_by": by, "weight_bytes": w_bytes, "flops": flops}
+
+
+def bge_embedder(model, gen) -> dict:
+    """The Embedder (CLS pooling) over bge-large on its main path: each
+    ENCODER_LENGTHS input embedded once with every launch count set to 0
+    just before and read just after (quant_matmul_2d 144 times a forward,
+    no other kernel), a profile of each length's forward (qmm_decode at N
+    <= 4, qmm_prefill above, 144 a forward), and its wall ms (median of 7,
+    host pooling included), device ms and bound."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.embeddings import Embedder
+
+    cfg = model.config
+    per_fwd, V = 6 * cfg.n_layer, cfg.n_vocab
+    emb = Embedder(model, max_seq=512, pooling="cls", device="cuda")
+    inputs = {n: [101] + torch.randint(104, V, (n,), generator=gen).tolist()[: n - 2]
+              + [102] if n > 2 else torch.randint(104, V, (n,), generator=gen).tolist()
+              for n in ENCODER_LENGTHS}
+    emb.embed_tokens([inputs[512]])  # warm
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    vecs = emb.embed_tokens([inputs[n] for n in ENCODER_LENGTHS])
+    launches = {name: w.launches for name, w in wrappers.items()}
+    want = per_fwd * len(ENCODER_LENGTHS)
+    check(launches["quant_matmul_2d"] == want
+          and sum(launches.values()) == want,
+          f"5v: the Embedder launched {launches}, want quant_matmul_2d {want} alone")
+    check(vecs.shape == (len(ENCODER_LENGTHS), cfg.n_embd) and np_isfinite(vecs),
+          f"5v: CLS vectors of shape {vecs.shape}, or not finite")
+    rows = []
+    for n in ENCODER_LENGTHS:
+        ids = inputs[n]
+        times = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            emb.embed_tokens([ids])
+            times.append(1e3 * (time.perf_counter() - t0))
+        prof, _ = profile_steps(f"{n}-token bge-large forwards", lambda: emb.hidden(ids), 2)
+        qmm = [(k, ms, c) for k, ms, c in prof if "qmm_" in k]
+        kind = "qmm_decode" if n <= 4 else "qmm_prefill"
+        check(sum(c for _, _, c in qmm) == 2 * per_fwd and all(kind in k for k, _, _ in qmm),
+              f"5v: a profiled {n}-token forward launched {qmm}, want {per_fwd} {kind} a "
+              f"forward")
+        row = {"tokens": n, "wall_ms": sorted(times)[3], "wall_ms_all": times,
+               "device_ms": sum(ms for _, ms, _ in prof) / 2,
+               "qmm_ms": sum(ms for _, ms, _ in qmm) / 2, "qmm_kernel": kind,
+               "qmm_per_forward": sum(c for _, _, c in qmm) // 2, **embed_bound(model, n)}
+        print("phase 5v, bge-large embedding:", json.dumps(row))
+        rows.append(row)
+    return {"launches": launches["quant_matmul_2d"], "rows": rows}
+
+
+def np_isfinite(a) -> bool:
+    import numpy as np
+
+    return bool(np.isfinite(a).all())
+
+
+def rank_bound(p, h) -> tuple[float, float]:
+    """(the f64 head's score of hidden state h, the bound an f32 evaluation
+    in any summation order keeps to it): each of the two products' E-term
+    dot products within (E + 1) 2^-24 of its terms' sizes, tanh within two
+    f32 ulps, the first product's error carried through tanh (slope <= 1)
+    and the second's weights."""
+    import numpy as np
+
+    u = 2.0**-24
+    w1, b1, w2, b2 = (p[k].double().cpu().numpy() for k in ("cls_w", "cls_b", "cls_out_w",
+                                                            "cls_out_b"))
+    E = len(h)
+    pre = w1 @ h + b1
+    t = np.tanh(pre)
+    e1 = (E + 1) * u * (np.abs(w1) @ np.abs(h) + np.abs(b1)) + 2 * u * np.abs(t)
+    score = float((w2 @ t + b2)[0])
+    e2 = float((np.abs(w2) @ e1)[0] + (E + 1) * u * (np.abs(w2) @ np.abs(t) + np.abs(b2))[0])
+    return score, e2
+
+
+def bge_serving(model, gen) -> dict:
+    """SparkServer over bge-large (one slot, max_seq 512, the Scheduler
+    built and idle): /v1/embeddings of inputs of 16 to 510 tokens bit-equal
+    to the Embedder called directly on each input, /v1/rerank's scores
+    within rank_bound of the head in f64 over the first token's hidden
+    state of a forward of its own, and a completion answered with the
+    error that names the arch."""
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.runtime.embeddings import Embedder
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+    from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
+    from sparkinfer_tpu_torch.server import ServerConfig, SparkServer
+
+    cfg = model.config
+    model.vocab = wpm_vocab(cfg.n_vocab, SEED + 116)
+    srv = SparkServer(model, ServerConfig(port=0, n_slots=1, max_seq=512),
+                      sampler=SamplerConfig(temp=0.0))
+    try:
+        srv.serve(block=False)
+        texts = wpm_texts(model.vocab, gen, (16, 32, 64, 128, 256, 510))
+        toks = [srv.tokenizer.encode(t, add_special=True) for t in texts]
+        check([len(t) for t in toks] == [16, 32, 64, 128, 256, 510]
+              and all(t[0] == 101 and t[-1] == 102 and 100 not in t for t in toks),
+              f"5v: the WordPiece inputs tokenized to {[len(t) for t in toks]} tokens, or "
+              "without [CLS] ... [SEP], or with [UNK]")
+        r = http(srv.port, "/v1/embeddings", {"input": texts})
+        vecs = [np.asarray(d["embedding"], np.float32) for d in r["body"]["data"]]
+        emb = Embedder(model, max_seq=512, device="cuda")
+        for i, ids in enumerate(toks):
+            check(np.array_equal(vecs[i], emb.embed_tokens([ids])[0]),
+                  f"5v: HTTP embedding {i} ({len(ids)} tokens) differs from the direct one")
+        query, docs = texts[0], texts[:5]
+        rr = http(srv.port, "/v1/rerank", {"query": query, "documents": docs})
+        q_ids = srv.tokenizer.encode(query, add_special=False)
+        fwd = make_forward(cfg, with_hidden=True, fresh_prefill=True, head=False)
+        worst = 0.0
+        for res in rr["body"]["results"]:
+            ids = [101] + q_ids + [102] + srv.tokenizer.encode(
+                docs[res["index"]], add_special=False) + [102]
+            with torch.inference_mode():
+                _, hid = fwd(model.params, torch.tensor([ids], device="cuda"),
+                             torch.arange(len(ids), device="cuda")[None],
+                             init_cache(cfg, 1, len(ids), torch.float32, "cuda"))
+            want, tol = rank_bound(model.params, hid[0, 0].double().cpu().numpy())
+            err = abs(res["relevance_score"] - want)
+            check(err <= tol, f"5v: rerank score {res['relevance_score']} lies {err:.3e} from "
+                              f"the f64 head's {want}, past its bound {tol:.3e}")
+            worst = max(worst, err / tol)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/v1/completions",
+            data=json.dumps({"prompt": texts[0], "max_tokens": 4}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = (e.code, json.loads(e.read())["error"])
+        check(refused is not None and refused[0] == 400 and "'bert'" in refused[1],
+              f"5v: a completion over bert was answered {refused}, want a 400 naming 'bert'")
+        out = {"inputs": len(texts), "tokens": [len(t) for t in toks],
+               "http_equal_direct": True, "documents": len(docs),
+               "rerank_worst_err_of_bound": worst, "completion_refused": refused[1],
+               "http_embeddings_e2e_ms": r["e2e_ms"], "http_rerank_e2e_ms": rr["e2e_ms"]}
+    finally:
+        srv.shutdown()
+        model.vocab = None
+    print("phase 5v, bge-large server:", json.dumps(out))
+    return out
+
+
+def embeddinggemma_config(L: int = 24):
+    """google/embeddinggemma-300m's config.json: 24 layers, hidden 768, 3
+    heads over 1 KV head of 256, FFN 1152 (geglu), vocab 262144, a sliding
+    window of 512 on five layers of six (the band |key - query| <= 256 of
+    the arch), rope theta 1e6 on its full layers and 10000 on its sliding
+    ones, RMS eps 1e-6."""
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="gemma-embedding", n_layer=L, n_embd=768, n_head=3, n_head_kv=1,
+                       head_dim=256, n_ff=1152, n_vocab=262144, norm_eps=1e-6,
+                       rope_freq_base=1e6, rope_freq_base_swa=10000.0, sliding_window=512,
+                       n_ctx_train=2048)
+
+
+def neobert_config(L: int = 28):
+    """chandar-lab/NeoBERT's config.json: 28 layers, hidden 768, 12 heads of
+    64, vocab 30522, RMS eps 1e-5, rope theta 10000, a swiglu FFN whose
+    intermediate_size 3072 the model takes as 2/3 of it, rounded up to a
+    multiple of 8: 2048."""
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="neo-bert", n_layer=L, n_embd=768, n_head=12, n_head_kv=12,
+                       head_dim=64, n_ff=2048, n_vocab=30522, norm_eps=1e-5,
+                       rope_freq_base=10000.0, n_ctx_train=4096)
+
+
+def encoder_extra(cfg):
+    """gemma-embedding's per-head q/k norms and sandwich post-norms; neo-bert
+    needs nothing past random_cut's llama tensors."""
+    import torch
+
+    def make(normal):
+        if cfg.arch != "gemma-embedding":
+            return {}
+        L, E, D, f32 = cfg.n_layer, cfg.n_embd, cfg.head_dim, torch.float32
+        return {"attn_q_norm_w": normal((L, D), 0.1, f32, 1.0),
+                "attn_k_norm_w": normal((L, D), 0.1, f32, 1.0),
+                "attn_post_norm_w": normal((L, E), 0.1, f32, 1.0),
+                "ffn_post_norm_w": normal((L, E), 0.1, f32, 1.0)}
+
+    return make
+
+
+def bf16_encoder(label, cfg, seed, n_tokens) -> dict:
+    """An encoder at full width and depth in bf16 (random_cut's draws), the
+    Embedder's mean vectors of an n_tokens input: finite, its wall ms
+    (median of 5) and device ms; for a windowed arch, the hidden states
+    against the same weights without the window, which the band must move;
+    then a 2-layer f32 cut of the same widths, the card's hidden states
+    against the CPU's within 1e-4 of their scale."""
+    import dataclasses
+
+    import torch
+
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.runtime.embeddings import Embedder
+
+    model = random_cut(cfg, seed, encoder_extra(cfg))
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(cfg.n_vocab, (n_tokens,), generator=gen).tolist()
+    emb = Embedder(model, max_seq=4096, device="cuda")
+    vec = emb.embed_tokens([ids])
+    check(vec.shape == (1, cfg.n_embd) and np_isfinite(vec),
+          f"5v {label}: a vector of shape {vec.shape}, or not finite")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb.embed_tokens([ids])
+        times.append(1e3 * (time.perf_counter() - t0))
+    prof, _ = profile_steps(f"{n_tokens}-token {label} forwards", lambda: emb.hidden(ids), 2)
+    row = {"arch": cfg.arch, "layers": cfg.n_layer, "tokens": n_tokens,
+           "wall_ms": sorted(times)[2], "device_ms": sum(ms for _, ms, _ in prof) / 2}
+    if cfg.sliding_window:
+        unbanded = LoadedModel(config=dataclasses.replace(cfg, sliding_window=0),
+                               params=model.params)
+        gap = rel_gap(torch.from_numpy(Embedder(unbanded, max_seq=4096, device="cuda")
+                                       .hidden(ids)), torch.from_numpy(emb.hidden(ids)))
+        check(gap > 1e-2, f"5v {label}: the symmetric band moved the hidden states by "
+                          f"{gap:.3e} of their scale only")
+        row["band_moved_rel"] = gap
+    del model, emb
+    torch.cuda.empty_cache()
+    cut = random_cut(dataclasses.replace(cfg, n_layer=2), seed + 1,
+                     encoder_extra(dataclasses.replace(cfg, n_layer=2)))
+    f32 = {k: (v.float() if torch.is_floating_point(v) else v)
+           for k, v in cut.params.items() if k != "layers"}
+    f32["layers"] = {k: v.float() for k, v in cut.params["layers"].items()}
+    small = ids[:min(n_tokens, 300)]
+    card = Embedder(LoadedModel(config=cut.config, params=f32), device="cuda",
+                    max_seq=4096).hidden(small)
+    host = Embedder(LoadedModel(config=cut.config, params=to_device(f32, "cpu")), device="cpu",
+                    max_seq=4096).hidden(small)
+    gap = rel_gap(torch.from_numpy(card), torch.from_numpy(host))
+    check(gap <= 1e-4, f"5v {label}: the 2-layer f32 cut on the card is {gap:.3e} of its scale "
+                       "from the CPU's")
+    row.update(f32_cut_tokens=len(small), f32_cut_card_vs_cpu=gap)
+    print(f"phase 5v, {label}:", json.dumps(row))
+    del cut, f32
+    torch.cuda.empty_cache()
+    return row
+
+
+def trait_cut_configs() -> dict:
+    """The 15g trait archs at their config.json widths (as recalled), cut to
+    2 layers; the multipliers and windows as the JAX converter writes them.
+    pangu-embedded's is a stack of synthetic widths (not a published
+    config)."""
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+
+    def cfg(arch, E, H, Hkv, D, F, V, **kw):
+        return ModelConfig(arch=arch, n_layer=2, n_embd=E, n_head=H, n_head_kv=Hkv,
+                           head_dim=D, n_ff=F, n_vocab=V, **kw)
+
+    return {
+        # ibm-granite/granite-3.1-8b-instruct: 40 layers, the four multipliers, tied
+        "granite": cfg("granite", 4096, 32, 8, 128, 12800, 49155, norm_eps=1e-5,
+                       rope_freq_base=1e7, n_ctx_train=131072, embd_scale=12.0,
+                       residual_scale=0.22, attn_scale=0.0078125, logit_scale=1 / 16),
+        # openbmb/MiniCPM-2B: 40 layers, scale_emb 12, scale_depth 1.4, dim_model_base 256, tied
+        "minicpm": cfg("minicpm", 2304, 36, 36, 64, 5760, 122753, norm_eps=1e-5,
+                       n_ctx_train=4096, embd_scale=12.0, residual_scale=1.4 / 40 ** 0.5,
+                       logit_scale=256 / 2304),
+        # bigcode/starcoder2-7b: 32 layers, biases, the ungated gelu, window 4096
+        "starcoder2": cfg("starcoder2", 4608, 36, 4, 128, 18432, 49152, norm_eps=1e-5,
+                          rope_freq_base=1e6, n_ctx_train=16384, sliding_window=4096),
+        # CohereForAI/c4ai-command-r-v01: 40 layers, one bias-less LayerNorm a block, tied
+        "command-r": cfg("command-r", 8192, 64, 64, 128, 22528, 256000, norm_eps=1e-5,
+                         rope_freq_base=8e6, n_ctx_train=131072, logit_scale=0.0625),
+        # microsoft/Phi-3-mini-4k-instruct: 32 layers, window 2047
+        "phi3": cfg("phi3", 3072, 32, 32, 96, 8192, 32064, norm_eps=1e-5, n_ctx_train=4096,
+                    sliding_window=2047),
+        # pfnet/plamo-13b: 40 layers, 40 heads sharing 5 KV heads (n_shared_head 8)
+        "plamo": cfg("plamo", 5120, 40, 5, 128, 13824, 50432, norm_eps=1e-6,
+                     n_ctx_train=4096),
+        # pangu-embedded: synthetic widths, not a published config
+        "pangu-embedded": cfg("pangu-embedded", 4096, 32, 8, 128, 12800, 153600,
+                              norm_eps=1e-5, n_ctx_train=32768),
+    }
+
+
+def trait_cuts(greedy) -> list:
+    """Each trait_cut_configs cut in bf16, graph against eager (streams equal,
+    first decode logits bit-equal), a 32-token prompt and 64 tokens, every
+    stream decoded in full: granite's multipliers, minicpm's, starcoder2's
+    LayerNorm and FFN biases without a gate, command-r's and plamo's
+    parallel blocks (no FFN norm; command-r's LayerNorm without biases),
+    phi3's split projections under its window, pangu-embedded's q/k/v and
+    output biases; granite, minicpm and command-r tie their heads."""
+    import torch
+
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+
+    f32 = torch.float32
+
+    def extra(name, cfg):
+        H, Hkv, D, E, F = cfg.n_head, cfg.n_head_kv, cfg.head_dim, cfg.n_embd, cfg.n_ff
+
+        def make(normal):
+            if name in ("starcoder2", "pangu-embedded"):
+                out = {"bq": normal((2, H * D), 0.1, f32), "bk": normal((2, Hkv * D), 0.1, f32),
+                       "bv": normal((2, Hkv * D), 0.1, f32), "bo": normal((2, E), 0.1, f32)}
+                if name == "starcoder2":
+                    out.update(attn_norm_b=normal((2, E), 0.1, f32),
+                               ffn_norm_b=normal((2, E), 0.1, f32),
+                               b_up=normal((2, F), 0.1, f32), b_down=normal((2, E), 0.1, f32))
+                return out
+            return {}
+
+        return make
+
+    gen = torch.Generator().manual_seed(SEED + 120)
+    out = []
+    for i, (name, cfg) in enumerate(trait_cut_configs().items()):
+        model = random_cut(cfg, SEED + 121 + i, extra(name, cfg))
+        p = model.params
+        if name == "starcoder2":  # the ungated FFN
+            p["layers"].pop("w_gate")
+        if name in ("command-r", "plamo"):  # one pre-norm under the parallel block
+            p["layers"].pop("ffn_norm_w")
+        if name == "command-r":  # a LayerNorm without biases
+            p.pop("output_norm_b")
+        if name in ("granite", "minicpm", "command-r"):  # tied heads
+            p["output"] = p["tok_embd"].T.contiguous()
+        prompt = torch.randint(cfg.n_vocab, (32,), generator=gen).tolist()
+        kw = dict(max_seq=1024, sampler=greedy, device="cuda")
+        row = graph_vs_eager(f"{name} cut", Engine(model, **kw),
+                             Engine(model, cuda_graph=False, **kw), prompt, 64)
+        out.append({"arch": name, **{k: row[k] for k in ("replay_span_ms", "wall_speedup")},
+                    "graph_tok_s": row["graph"]["tok_s"], "eager_tok_s": row["eager"]["tok_s"]})
+        del model, p
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_encoders(greedy) -> dict:
+    """Phase 5v: bge-large-en-v1.5 Q8_0 at full width and depth (the f32
+    gate, the Embedder's main path and timings, quant_matmul_2d at its three
+    shapes, N = 1, 32 and 512, the server's routes), EmbeddingGemma and
+    NeoBERT in bf16, then the 15g trait cuts. Returns its summary, with
+    quant_matmul_2d's main-path launches."""
+    import gc
+
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 5v: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free at its start")
+    t0 = time.perf_counter()
+    gate = bge_f32_gate()
+    mark("phase 5v, f32 gate")
+    cfg = bge_large_config()
+    t1 = time.perf_counter()
+    model = random_bert_q8(cfg, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    packed = embed_bound(model, 0)["weight_bytes"]
+    print(f"model: bge-large-en-v1.5 widths, L={cfg.n_layer} E={cfg.n_embd} H={cfg.n_head} "
+          f"D={cfg.head_dim} F={cfg.n_ff} V={cfg.n_vocab}, 512 positions, post-sum "
+          f"LayerNorms, Q8_0 attention/FFN ({packed} bytes packed with f32 scales), built in "
+          f"{time.perf_counter() - t1:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated")
+    gen = torch.Generator().manual_seed(SEED + 117)
+    embed = bge_embedder(model, gen)
+    mark("phase 5v, bge-large Embedder")
+    rows = q8_qmm_rows(model, ("wq", "w_up", "w_down"), SEED + 118, per_call=1,
+                       Ns=(1, 32, 512))
+    serving = bge_serving(model, gen)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5v, quant_matmul_2d at the bge-large shapes and the server")
+    gemma = bf16_encoder("EmbeddingGemma-300m", embeddinggemma_config(), SEED + 130, 600)
+    neobert = bf16_encoder("NeoBERT", neobert_config(), SEED + 131, 512)
+    mark("phase 5v, EmbeddingGemma and NeoBERT")
+    cuts = trait_cuts(greedy)
+    mark("phase 5v, the 15g trait cuts")
+    return {"f32_gate": gate, "embed": embed, "rows": rows, "serving": serving,
+            "encoders": [gemma, neobert], "cuts": cuts, "packed_bytes": packed,
+            "qmm_launches": embed["launches"], "seconds": time.perf_counter() - t0}
+
+
+def encoders_summary(g) -> dict:
+    """Phase 5v's numbers in brief, for the end of the full run's output."""
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")
+    return {"f32_gate": {k: g["f32_gate"][k] for k in (
+                "worst_product_rel_err", "product_tol", "worst_layer_rel_gap", "layer_tol")},
+            "bge_large_qmm": [{"shape": r["shape"], **{k: r[k] for k in keys}}
+                              for r in g["rows"]],
+            "bge_large_embed": [{k: r[k] for k in ("tokens", "wall_ms", "device_ms", "qmm_ms",
+                                                   "qmm_kernel", "bound_ms", "bound_by")}
+                                for r in g["embed"]["rows"]],
+            "serving": {k: g["serving"][k] for k in (
+                "http_equal_direct", "rerank_worst_err_of_bound", "completion_refused",
+                "http_embeddings_e2e_ms", "http_rerank_e2e_ms")},
+            "encoders": g["encoders"], "cuts": g["cuts"], "packed_bytes": g["packed_bytes"],
+            "qmm_launches": g["qmm_launches"], "seconds": g["seconds"]}
+
+
 def phase_child(tag, flag) -> dict:
     """Phase `tag` in a child process (`chip_smoke.py flag`), started before
     this process builds any model: its output is passed through, its
@@ -7974,115 +8647,35 @@ def child_phase(tag, phase) -> int:
     return 0
 
 
-def main(only: str | None = None) -> int:
+SEVEN_B_KEYS = ("v6_row", "v6_shapes", "l7", "h5", "ratios", "row_rows", "row_per_call", "l_v1",
+                "runtime", "kvq", "v7u_row", "l_v7u", "crossover", "batched", "l_srv", "srv7",
+                "mask_ms", "emb", "l_v2", "tier_gate", "tier_rows", "tier_sched", "dense_peak",
+                "tier_v6")
+
+
+def seven_b_paths(greedy, prompt, n_new, L: int = 32) -> dict:
+    """Phases 4a, 4c-4e, 5b, 5e-5j, 5l, 5m(c) and 5r over the
+    ProSparse-Llama-2-7B-width bf16 model at depth L (32; the full run takes
+    FULL_RUN_7B_L): its sparse and dense engines, the Scheduler, the
+    runtime and the CLI, the int8 cache, v7u and batched decode, the
+    server and embeddings, sparkinfer-bench and tiering. Returns the values
+    SEVEN_B_KEYS names, which the `kernels` line and the summaries read."""
+    import pathlib
+    import tempfile
+
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no CUDA device; nothing to run", file=sys.stderr)
-        return 1
-    from sparkinfer_tpu_torch import native
     from sparkinfer_tpu_torch.models.loader import LoadedModel
-    from sparkinfer_tpu_torch.ops import _build
     from sparkinfer_tpu_torch.ops.sparse_ffn import (
         sparse_ffn_block_v6,
         sparse_ffn_block_v6_plain,
     )
     from sparkinfer_tpu_torch.runtime.engine import Engine
-    from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
     from sparkinfer_tpu_torch.runtime.scheduler import Scheduler
     from sparkinfer_tpu_torch.sparse.config import SparseConfig
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = START[0] = time.perf_counter()
-
-    # 1. device
-    kind = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"device: {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
-    print(smi)
-
-    # 2. build, every source at once (and the tiered FFN's host library)
-    t0 = time.perf_counter()
-    native.library()
-    print(f"build: the host library (csrc/spark_host.cpp, g++) in "
-          f"{time.perf_counter() - t0:.2f} s; _Float16 {native.has_f16()}, "
-          f"{native.num_threads()} threads")
-    if only == "tiered":
-        return tiered_phases(greedy_cfg=SamplerConfig(temp=0.0))
-    for name, (lib, secs, log) in _build.build_all(
-            ["sparse_ffn_v6", "sparse_ffn_v6q", "quant_matmul", "sparse_ffn_v1",
-             "sparse_ffn_v7u"]).items():
-        if not log:
-            print(f"build: {name} -> {lib.name} was already built")
-            continue
-        print(f"build: {name} -> {lib.name} in {secs:.2f} s; ptxas:")
-        print("\n".join("  " + ln for ln in log.splitlines() if "ptxas info" in ln
-                        and ("Used" in ln or "entry" in ln)))
-
-    greedy = SamplerConfig(temp=0.0)
-    if only == "moe":
-        print("phase 5k summary:", json.dumps(phase_moe(greedy)))
-        return 0
-    if only == "runtime":
-        return runtime_phase_only(greedy)
-    if only == "quant":
-        return quant_phases(greedy)
-    if only == "families":
-        return families_only(greedy)
-    if only == "swa":
-        print("phase 5o summary:", json.dumps(swa_summary(phase_swa(greedy))))
-        return 0
-    if only == "mla":
-        print("phase 5p summary:", json.dumps(mla_summary(phase_mla(greedy))))
-        return 0
-    if only == "archs":
-        print("phase 5q summary:", json.dumps(archs_summary(phase_archs(greedy))))
-        return 0
-    if only == "mla_archs":
-        print("phase 5s summary:", json.dumps(mla_archs_summary(phase_mla_archs(greedy))))
-        return 0
-    if only == "gpt_archs":
-        print("phase 5t summary:", json.dumps(gpt_archs_summary(phase_gpt_archs(greedy))))
-        return 0
-    if only == "feature_archs":
-        print("phase 5u summary:", json.dumps(feature_archs_summary(phase_feature_archs(greedy))))
-        return 0
-    if only == "kvq":
-        return kvq_only(greedy)
-    # 5k. Qwen3-30B-A3B (61 GB of bf16 weights) in a child process, before
-    # this process builds any model; then 5o, gpt-oss-20b (42 GB), 5p,
-    # DeepSeek-V2-Lite (31 GB), and 5q, Qwen3-8B Q8_0 (8.5 GB) then
-    # Qwen1.5-MoE-A2.7B (28.6 GB), likewise
-    moe = phase_child("5k", "--moe-phase")
-    mark("phase 5k")
-    swa = phase_child("5o", "--swa-phase")
-    mark("phase 5o")
-    mla = phase_child("5p", "--mla-phase")
-    mark("phase 5p")
-    archs = phase_child("5q", "--archs-phase")
-    mark("phase 5q")
-    mla_archs = phase_child("5s", "--mla-archs-phase")
-    mark("phase 5s")
-    gpt_archs = phase_child("5t", "--gpt-archs-phase")
-    mark("phase 5t")
-    feature_archs = phase_child("5u", "--feature-archs-phase")
-    mark("phase 5u")
-
-    # 3. f32 references on small inputs: kernel path == plain path
-    phase_reference(SparseConfig, Engine, greedy)
-    phase_serving_reference(SparseConfig, greedy)
-    phase_bench_reference(SparseConfig)
-    mark("phases 1-3")
-
-    n_new = 64
-    prompt = torch.randint(32000, (32,), generator=torch.Generator().manual_seed(SEED)).tolist()
-
     # 5a. the 7B-width bf16 model and its sparse engine (its flat stores serve phase 4)
-    cfg = prosparse_config(32, 4096, 32, 11008, 32000, 1024)
+    cfg = prosparse_config(L, 4096, 32, 11008, 32000, 1024)
     scfg = SparseConfig(group_size=128, capacity_groups=12)  # 12 of 86 groups, 12.5%
     t0 = time.perf_counter()
     model = random_model(cfg, torch.bfloat16, "cuda", SEED)
@@ -8191,6 +8784,154 @@ def main(only: str | None = None) -> int:
     del model
     torch.cuda.empty_cache()
     mark("7B paths")
+
+    out = locals()
+    return {k: out[k] for k in SEVEN_B_KEYS}
+
+
+def seven_b_paths_only(greedy) -> int:
+    """`chip_smoke.py --7b-paths`: seven_b_paths at all 32 layers alone
+    (after phases 1 and 2), with the summaries of the phases it runs."""
+    import torch
+
+    prompt = torch.randint(32000, (32,), generator=torch.Generator().manual_seed(SEED)).tolist()
+    s7 = seven_b_paths(greedy, prompt, 64, 32)
+    print("phase 5h summary (7B):", json.dumps({"graph_vs_eager": [
+        {"path": r["path"], **{f"{k}_{m}": r[k][m] for k in ("graph", "eager")
+                               for m in r["graph"]}} for r in s7["h5"]],
+        "sparse_dense": s7["ratios"]}))
+    print("phase 5i summary (7B):", json.dumps({
+        "crossover": s7["crossover"], "server_7b": {k: s7["srv7"][k] for k in SERVER_KEYS},
+        "server_7b_v1_launches": s7["l_srv"], "grammar_mask_ms_per_tick": s7["mask_ms"]}))
+    print("phase 5l summary:", json.dumps(runtime_summary(s7["runtime"])))
+    print("phase 5m(c) summary:", json.dumps(s7["emb"]))
+    print("phase 5r summary:", json.dumps(kvq_summary(s7["kvq"])))
+    print("7B launches:", json.dumps({"sparse_ffn_block_v6": s7["l7"]["sparse_ffn_block_v6"],
+                                      "sparse_ffn_block": s7["l_v1"],
+                                      "sparse_ffn_block_v7u": s7["l_v7u"],
+                                      "sparse_ffn_block_v2": s7["l_v2"]}))
+    print(f"total {time.perf_counter() - START[0]:.1f} s")
+    return 0
+
+
+def main(only: str | None = None) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; nothing to run", file=sys.stderr)
+        return 1
+    from sparkinfer_tpu_torch import native
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.ops import _build
+    from sparkinfer_tpu_torch.ops.sparse_ffn import (
+        sparse_ffn_block_v6,
+        sparse_ffn_block_v6_plain,
+    )
+    from sparkinfer_tpu_torch.runtime.engine import Engine
+    from sparkinfer_tpu_torch.runtime.sampling import SamplerConfig
+    from sparkinfer_tpu_torch.runtime.scheduler import Scheduler
+    from sparkinfer_tpu_torch.sparse.config import SparseConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = START[0] = time.perf_counter()
+
+    # 1. device
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"device: {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
+    print(smi)
+
+    # 2. build, every source at once (and the tiered FFN's host library)
+    t0 = time.perf_counter()
+    native.library()
+    print(f"build: the host library (csrc/spark_host.cpp, g++) in "
+          f"{time.perf_counter() - t0:.2f} s; _Float16 {native.has_f16()}, "
+          f"{native.num_threads()} threads")
+    if only == "tiered":
+        return tiered_phases(greedy_cfg=SamplerConfig(temp=0.0))
+    for name, (lib, secs, log) in _build.build_all(
+            ["sparse_ffn_v6", "sparse_ffn_v6q", "quant_matmul", "sparse_ffn_v1",
+             "sparse_ffn_v7u"]).items():
+        if not log:
+            print(f"build: {name} -> {lib.name} was already built")
+            continue
+        print(f"build: {name} -> {lib.name} in {secs:.2f} s; ptxas:")
+        print("\n".join("  " + ln for ln in log.splitlines() if "ptxas info" in ln
+                        and ("Used" in ln or "entry" in ln)))
+
+    greedy = SamplerConfig(temp=0.0)
+    if only == "moe":
+        print("phase 5k summary:", json.dumps(phase_moe(greedy)))
+        return 0
+    if only == "runtime":
+        return runtime_phase_only(greedy)
+    if only == "quant":
+        return quant_phases(greedy)
+    if only == "families":
+        return families_only(greedy)
+    if only == "swa":
+        print("phase 5o summary:", json.dumps(swa_summary(phase_swa(greedy))))
+        return 0
+    if only == "mla":
+        print("phase 5p summary:", json.dumps(mla_summary(phase_mla(greedy))))
+        return 0
+    if only == "archs":
+        print("phase 5q summary:", json.dumps(archs_summary(phase_archs(greedy))))
+        return 0
+    if only == "mla_archs":
+        print("phase 5s summary:", json.dumps(mla_archs_summary(phase_mla_archs(greedy))))
+        return 0
+    if only == "gpt_archs":
+        print("phase 5t summary:", json.dumps(gpt_archs_summary(phase_gpt_archs(greedy))))
+        return 0
+    if only == "feature_archs":
+        print("phase 5u summary:", json.dumps(feature_archs_summary(phase_feature_archs(greedy))))
+        return 0
+    if only == "kvq":
+        return kvq_only(greedy)
+    if only == "encoders":
+        print("phase 5v summary:", json.dumps(encoders_summary(phase_encoders(greedy))))
+        return 0
+    if only == "7b_paths":
+        return seven_b_paths_only(greedy)
+    # 5k. Qwen3-30B-A3B (61 GB of bf16 weights) in a child process, before
+    # this process builds any model; then 5o, gpt-oss-20b (42 GB), 5p,
+    # DeepSeek-V2-Lite (31 GB), and 5q, Qwen3-8B Q8_0 (8.5 GB) then
+    # Qwen1.5-MoE-A2.7B (28.6 GB), likewise
+    moe = phase_child("5k", "--moe-phase")
+    mark("phase 5k")
+    swa = phase_child("5o", "--swa-phase")
+    mark("phase 5o")
+    mla = phase_child("5p", "--mla-phase")
+    mark("phase 5p")
+    archs = phase_child("5q", "--archs-phase")
+    mark("phase 5q")
+    mla_archs = phase_child("5s", "--mla-archs-phase")
+    mark("phase 5s")
+    gpt_archs = phase_child("5t", "--gpt-archs-phase")
+    mark("phase 5t")
+    feature_archs = phase_child("5u", "--feature-archs-phase")
+    mark("phase 5u")
+    encoders = phase_child("5v", "--encoders-phase")
+    mark("phase 5v")
+
+    # 3. f32 references on small inputs: kernel path == plain path
+    phase_reference(SparseConfig, Engine, greedy)
+    phase_serving_reference(SparseConfig, greedy)
+    phase_bench_reference(SparseConfig)
+    mark("phases 1-3")
+
+    n_new = 64
+    prompt = torch.randint(32000, (32,), generator=torch.Generator().manual_seed(SEED)).tolist()
+
+    s7 = seven_b_paths(greedy, prompt, n_new, FULL_RUN_7B_L)
+    (v6_row, v6_shapes, l7, h5, ratios, row_rows, row_per_call, l_v1, runtime, kvq, v7u_row,
+     l_v7u, crossover, batched, l_srv, srv7, mask_ms, emb, l_v2, tier_gate, tier_rows,
+     tier_sched, dense_peak, tier_v6) = (s7[k] for k in SEVEN_B_KEYS)
 
     # 5c. the 13B-width Q8_0 model, made and quantized on the card
     cfg, scfg, weights, model, sparse_eng = q8_13b_engine(greedy, FULL_RUN_13B_L)
@@ -8306,8 +9047,8 @@ def main(only: str | None = None) -> int:
                        l13["quant_matmul_2d"] + l_tier13["quant_matmul_2d"]
                        + l_w8["quant_matmul_2d"] + fl["quant_matmul_2d"]
                        + archs["qmm_launches"] + mla_archs["qmm_launches"]
-                       + gpt_archs["qmm_launches"] + feature_archs["qmm_launches"], q2d_row,
-                       q2d_row["shape"]),
+                       + gpt_archs["qmm_launches"] + feature_archs["qmm_launches"]
+                       + encoders["qmm_launches"], q2d_row, q2d_row["shape"]),
          **fam_rows("qmm head"),
          **{name: {"launches": a["qmm_launches"],
                    "shapes": {r["shape"]: {f: r[f] for f in (
@@ -8316,7 +9057,8 @@ def main(only: str | None = None) -> int:
             for name, a, rows in (("qwen3_8b", archs, archs["qwen3_8b"]["rows"]),
                                   ("minicpm3_4b", mla_archs, mla_archs["rows"]),
                                   ("bloom_7b1", gpt_archs, gpt_archs["rows"]),
-                                  ("olmo2_7b", feature_archs, feature_archs["rows"]))}},
+                                  ("olmo2_7b", feature_archs, feature_archs["rows"]),
+                                  ("bge_large", encoders, encoders["rows"]))}},
         {**kernel_line("quant_matmul_flat", "sparkinfer_tpu_torch/csrc/quant_matmul.cu",
                        "sparkinfer_tpu/ops/quant_matmul.py:243",
                        l13["quant_matmul_flat"] + l_tier13["quant_matmul_flat"]
@@ -8398,6 +9140,7 @@ def main(only: str | None = None) -> int:
     print("phase 5s summary:", json.dumps(mla_archs_summary(mla_archs)))
     print("phase 5t summary:", json.dumps(gpt_archs_summary(gpt_archs)))
     print("phase 5u summary:", json.dumps(feature_archs_summary(feature_archs)))
+    print("phase 5v summary:", json.dumps(encoders_summary(encoders)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -8424,9 +9167,12 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--feature-archs-phase"]:
         sys.exit(child_phase("5u", lambda greedy: phase_feature_archs(greedy,
                                                                       FULL_RUN_FEATURE_L)))
+    if sys.argv[1:] == ["--encoders-phase"]:
+        sys.exit(child_phase("5v", phase_encoders))
     sys.exit(main(only={"--tiered": "tiered", "--moe": "moe", "--runtime": "runtime",
                         "--quant": "quant", "--families": "families", "--swa": "swa",
                         "--mla": "mla", "--archs": "archs", "--kvq": "kvq",
                         "--mla-archs": "mla_archs",
                         "--gpt-archs": "gpt_archs",
-                        "--feature-archs": "feature_archs"}.get(" ".join(sys.argv[1:]))))
+                        "--feature-archs": "feature_archs", "--encoders": "encoders",
+                        "--7b-paths": "7b_paths"}.get(" ".join(sys.argv[1:]))))

@@ -2,7 +2,7 @@
 
 A copy of sparkinfer_tpu/models/config.py (pure Python and numpy), kept in
 the port so that it imports nothing of the JAX package. The registry lists
-every architecture the JAX package reads; the port's loader accepts 58 of
+every architecture the JAX package reads; the port's loader accepts 68 of
 them (models/transformer.py:check_supported): the llama family (llama,
 mistral, prosparse_llama, bamboo); the llama-shaped archs (qwen3, smollm,
 tinyllama, internlm2, xverse, baichuan, exaone, ernie4_5, seed_oss,
@@ -12,8 +12,10 @@ smallthinker, grovemoe, arctic, gpt-oss); the paper's other sparse families
 (qwen2, opt, falcon); the GPT family (gpt2, starcoder, codeshell, jais,
 refact, qwen, phi2, gptneox, bloom, mpt, gptj); the feature archs (olmo2,
 olmo3, apertus, bitnet, deci, openelm, chameleon, qwen2vl, qwen3vl); the
-gemma family (gemma, gemma2, gemma3); and the MLA archs (deepseek2,
-minicpm3, plm).
+trait archs (granite, minicpm, pangu-embedded, plamo, starcoder2,
+command-r, phi3); the gemma family (gemma, gemma2, gemma3); the MLA archs
+(deepseek2, minicpm3, plm); and the non-causal encoders (bert, neo-bert,
+gemma-embedding).
 As in the JAX config, an MLA model (attention.kv_lora_rank > 0) gets
 n_head_kv = n_head whatever its GGUF says; its latent cache
 (runtime/kv_cache.py) does not read n_head_kv.

@@ -4,7 +4,11 @@ family, the llama-shaped archs, the MoE archs, the paper's other sparse
 families (qwen2, opt, falcon), the GPT family (gpt2, starcoder, codeshell,
 jais, refact, qwen, phi2, gptneox, bloom, mpt, gptj), the feature archs
 (olmo2, olmo3, apertus, bitnet, deci, openelm, chameleon, qwen2vl,
-qwen3vl), the gemma family and the MLA archs (deepseek2, minicpm3, plm).
+qwen3vl), the trait archs (granite, minicpm, pangu-embedded, plamo,
+starcoder2, command-r, phi3: the llama loader's tensors and keys; phi3's
+q/k/v and gate/up as the JAX converter splits them), the gemma family, the
+MLA archs (deepseek2, minicpm3, plm) and the non-causal encoders (bert,
+neo-bert, gemma-embedding).
 
 The params dict has the JAX loader's keys and orientations, so the two
 packages can be compared key for key: `x @ W` with W shaped (in, out),
@@ -77,6 +81,15 @@ and output biases, and gemma's sandwich norms (attn_post_norm as
 attn_post_norm_w, ffn_post_norm as ffn_post_norm_w); gemma's head is the
 tied embedding, as for any GGUF without output.weight.
 
+bert adds its token types (token_types as type_embd, in the model's dtype),
+its embedding LayerNorm (token_embd_norm, as bloom's) and its post-sum
+LayerNorms: attn_output_norm in the attn_norm slot and layer_output_norm
+in the ffn_norm slot, with their biases, as the JAX loader places them. A
+post-sum encoder gets no final norm (its last block normed the stream),
+where any other arch without output_norm gets an all-ones one; olmo2's
+post-norm-only blocks (attn_post_norm, ffn_post_norm) are another trait.
+neo-bert and gemma-embedding read the llama and gemma3 tensors.
+
 deepseek2 adds the MLA tensors as the JAX loader reads them: wq (V2-Lite's
 direct q) or wq_a, q_a_norm_w and wq_b (the q-lora); wkv_a (the latent and
 the rope key head, E x (R + Dr)); kv_a_norm_w; and attn_kv_b split into
@@ -137,6 +150,9 @@ _LAYER_TENSORS = {
     "attn_kv_b.weight": "wk_b",
     # bitnet's sub-norms, before wo and before the down product
     "attn_sub_norm.weight": "attn_sub_norm_w", "ffn_sub_norm.weight": "ffn_sub_norm_w",
+    # bert's post-sum norms, in the attn_norm and ffn_norm slots
+    "attn_output_norm.weight": "attn_norm_w", "attn_output_norm.bias": "attn_norm_b",
+    "layer_output_norm.weight": "ffn_norm_w", "layer_output_norm.bias": "ffn_norm_b",
 }
 
 
@@ -361,12 +377,17 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
             params[key] = _tensor(w, f32, device)
     if tr.pos_embd:
         params["pos_embd"] = _tensor(_get(r, "position_embd.weight"), dtype, device)
+    tte = _get(r, "token_types.weight")  # bert's segment embeddings
+    if tte is not None:
+        params["type_embd"] = _tensor(tte, dtype, device)
     onw = _get(r, "output_norm.weight")
-    params["output_norm_w"] = _tensor(
-        onw if onw is not None else np.ones(E, np.float32), f32, device)
-    onb = _get(r, "output_norm.bias")
-    if onb is not None:
-        params["output_norm_b"] = _tensor(onb, f32, device)
+    if onw is None and not tr.post_norm:
+        onw = np.ones(E, np.float32)  # olmo's non-parametric final norm
+    if onw is not None:  # a post-sum encoder (bert) has none: its last block normed the stream
+        params["output_norm_w"] = _tensor(onw, f32, device)
+        onb = _get(r, "output_norm.bias")
+        if onb is not None:
+            params["output_norm_b"] = _tensor(onb, f32, device)
     out_w = _lin("output.weight", E, cfg.n_vocab)
     if out_w is None:
         out_w = np.ascontiguousarray(tok.T)  # tied embeddings
@@ -426,11 +447,14 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
     for i in range(L):
         p = f"blk.{i}."
         H_i, Hkv_i, F_i = widths[i]
-        anw = _get(r, p + "attn_norm.weight")
-        if anw is None and p + "attn_post_norm.weight" not in r.tensors:
+        # bert's post-sum norms ride the attn_norm and ffn_norm slots
+        attn_n, ffn_n = (("attn_output_norm", "layer_output_norm") if tr.post_norm
+                         else ("attn_norm", "ffn_norm"))
+        anw = _get(r, p + attn_n + ".weight")
+        if anw is None and not tr.post_norm and p + "attn_post_norm.weight" not in r.tensors:
             anw = np.ones(E, np.float32)  # olmo's non-parametric norm; olmo2 has none
         add(i, "attn_norm_w", anw)
-        add(i, "attn_norm_b", _get(r, p + "attn_norm.bias"))
+        add(i, "attn_norm_b", _get(r, p + attn_n + ".bias"))
         add(i, "attn_norm2_w", _get(r, p + "attn_norm_2.weight"))
         add(i, "attn_norm2_b", _get(r, p + "attn_norm_2.bias"))
         if cfg.kv_lora_rank > 0:  # deepseek2's MLA: latent projections replace wk/wv
@@ -469,11 +493,12 @@ def _load_params(r: GGUFReader, cfg: ModelConfig, dtype, device,
         for nm in ("attn", "ffn"):
             add(i, f"{nm}_post_norm_w", _get(r, p + f"{nm}_post_norm.weight"))
             add(i, f"{nm}_post_norm_b", _get(r, p + f"{nm}_post_norm.bias"))
-        fnw = _get(r, p + "ffn_norm.weight")
-        if fnw is None and not tr.parallel_blocks and p + "ffn_post_norm.weight" not in r.tensors:
+        fnw = _get(r, p + ffn_n + ".weight")
+        if (fnw is None and not tr.parallel_blocks and not tr.post_norm
+                and p + "ffn_post_norm.weight" not in r.tensors):
             fnw = np.ones(E, np.float32)  # a non-parametric norm (not olmo2's post-norm)
         add(i, "ffn_norm_w", fnw)
-        add(i, "ffn_norm_b", _get(r, p + "ffn_norm.bias"))
+        add(i, "ffn_norm_b", _get(r, p + ffn_n + ".bias"))
         add(i, "ffn_norm_exps_w", _get(r, p + "ffn_norm_exps.weight"))  # arctic's MoE norm
         _add_moe(r, p, E, lambda key, arr: add(i, key, arr))
         add(i, "w_up", _lin(p + "ffn_up.weight", E, F_i))

@@ -6,9 +6,12 @@ stablelm, olmo, hunyuan-dense, arcee, nemotron), the other sparse families
 of the paper (qwen2, opt, falcon), the GPT family (gpt2, starcoder,
 codeshell, jais, refact, qwen, phi2, gptneox, bloom, mpt, gptj), the
 feature archs (olmo2, olmo3, apertus, bitnet, deci, openelm, chameleon,
-qwen2vl, qwen3vl), the gemma family, the MLA archs (deepseek2, minicpm3,
-plm), and the Mixture-of-Experts FFN of llama-MoE (mixtral), qwen3moe,
-qwen2moe, hunyuan-moe, smallthinker, grovemoe, arctic and gpt-oss.
+qwen2vl, qwen3vl), the trait archs (granite, minicpm, pangu-embedded,
+plamo, starcoder2, command-r, phi3), the gemma family, the MLA archs
+(deepseek2, minicpm3, plm), the non-causal encoders (bert, neo-bert,
+gemma-embedding), and the Mixture-of-Experts FFN of llama-MoE (mixtral),
+qwen3moe, qwen2moe, hunyuan-moe, smallthinker, grovemoe, arctic and
+gpt-oss.
 
 The block follows the arch's traits as the JAX body does: RMS or LayerNorm
 (`_norm`, with the norm biases of the "ln" archs, the output norm's too),
@@ -124,10 +127,22 @@ sections, qwen3vl's interleaved layout) while the cache is written at
 streams is. The iSWA cache over layer segments raises ValueError: the JAX
 iSWA branch scans the first segment alone.
 
+The non-causal encoders (bert, neo-bert, gemma-embedding): attention runs
+over the chunk both ways (`_chunk_attention` with positions, the JAX
+condition: every forward of a non-causal arch without a softcap, sinks or
+ALiBi), a key at position -1 (a pad) hidden from every query, and on
+gemma-embedding's sliding layers the symmetric band |key pos - query pos|
+<= sliding_window // 2; bert adds token type 0 (params["type_embd"]) after
+the learned positions, reads its raw stream into attention (no pre-norm)
+and closes each block with LayerNorms over the residual sums, x = LN(x +
+attn), then x = LN(x + ffn(x)) (its post-sum norms ride the attn_norm and
+ffn_norm slots), with no final norm. They embed (runtime/embeddings.py)
+and never decode: `check_decoder` refuses generation over them by name.
+
 Deepstack, Baichuan-13B (the JAX package ropes its 40-layer GGUF like the
-7B's), the post-sum norms and symmetric windows of non-causal encoders and
-MLA on any other arch come later; `check_supported` names each feature it
-can see in the configuration, and refuses the rest by arch name.
+7B's) and MLA on any other arch come later; `check_supported` names each
+feature it can see in the configuration, and refuses the rest by arch
+name.
 """
 
 from __future__ import annotations
@@ -174,6 +189,16 @@ FEATURE_ARCHS = ("olmo2", "olmo3", "apertus", "bitnet", "deci", "openelm", "cham
                  "qwen2vl", "qwen3vl")
 # the NAS stacks, whose head counts and FFN widths may differ by layer
 NAS_ARCHS = ("deci", "openelm")
+# decoders on traits the port has: the fault-7 multipliers (granite,
+# minicpm), qkv and output biases (pangu-embedded), a parallel block under
+# one pre-norm (plamo; command-r's under a bias-less LayerNorm, with
+# logit_scale), LayerNorm with biases and an ungated gelu (starcoder2),
+# phi3's q/k/v and gate/up as the JAX converter splits them
+TRAIT_ARCHS = ("granite", "minicpm", "pangu-embedded", "plamo", "starcoder2", "command-r",
+               "phi3")
+# the non-causal encoders: bidirectional attention over the chunk, bert's
+# post-sum LayerNorms and token types, gemma-embedding's symmetric window
+ENCODER_ARCHS = ("bert", "neo-bert", "gemma-embedding")
 # sliding windows, softcaps, sandwich norms and gemma3's second rope base
 GEMMA_FAMILY = ("gemma", "gemma2", "gemma3")
 # the archs it runs with experts only
@@ -199,22 +224,31 @@ def check_supported(cfg: ModelConfig):
                         "MLA (multi-head latent attention) outside deepseek2, minicpm3 "
                         "and plm"),
                        ((cfg.n_head_arr or cfg.n_ff_arr) and cfg.arch not in NAS_ARCHS,
-                        "per-layer head counts or FFN widths outside deci and openelm"),
-                       (cfg.sliding_window and tr.non_causal,
-                        "the symmetric sliding window of a non-causal encoder")):
+                        "per-layer head counts or FFN widths outside deci and openelm")):
         if cond:
             raise NotImplementedError(f"{what} is not ported yet (arch {cfg.arch!r})")
     archs = (LLAMA_FAMILY + LLAMA_SHAPED + SPARSE_FAMILIES + GPT_FAMILY + FEATURE_ARCHS
-             + GEMMA_FAMILY + EXPERT_ONLY + MLA_ARCHS)
+             + TRAIT_ARCHS + GEMMA_FAMILY + EXPERT_ONLY + MLA_ARCHS + ENCODER_ARCHS)
     if cfg.arch not in archs:
         raise NotImplementedError(
             f"arch {cfg.arch!r} is not ported yet (the llama family and the llama-shaped "
             f"archs, the MoE archs, the other sparse families, the GPT family, the "
-            f"feature archs, the gemma family and the MLA archs: {', '.join(archs)})")
+            f"feature and trait archs, the gemma family, the MLA archs and the non-causal "
+            f"encoders: {', '.join(archs)})")
     if cfg.n_expert and cfg.arch not in MOE_ARCHS:
         raise NotImplementedError(f"experts of arch {cfg.arch!r} are not ported yet")
     if cfg.arch in EXPERT_ONLY and not (cfg.n_expert and cfg.n_expert_used):
         raise NotImplementedError(f"arch {cfg.arch!r} without experts is not ported")
+
+
+def check_decoder(cfg: ModelConfig, what: str):
+    """Raise ValueError naming the arch where `what` (generation, a
+    request) would decode over a non-causal encoder: each token would
+    attend to keys after it, so the tokens would mean nothing (the JAX
+    Engine and Scheduler decode such a model all the same)."""
+    if cfg.traits.non_causal:
+        raise ValueError(f"{what} over arch {cfg.arch!r}: a non-causal encoder decodes "
+                         "nothing; it serves /v1/embeddings and /v1/rerank (runtime/embeddings.py)")
 
 
 def clamp_max_seq(cfg: ModelConfig, params: dict, max_seq: int) -> int:
@@ -301,10 +335,21 @@ def dense_ffn(cfg: ModelConfig):
     return ffn
 
 
-def _chunk_causal_attention(q, k, v, H, Hkv, D, scale):
-    """q (B,T,H,D), k/v (B,T,Hkv,D) -> (B,T,H,D), causal within the chunk."""
-    T = q.shape[1]
-    mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+def _chunk_attention(q, k, v, H, Hkv, D, scale, positions=None, window: int = 0):
+    """q (B,T,H,D), k/v (B,T,Hkv,D) -> (B,T,H,D) over the chunk alone:
+    causal without `positions`; with them bidirectional (a non-causal
+    encoder), every key at position -1 (a pad) hidden from every query, and
+    window > 0 a symmetric band |key pos - query pos| <= window // 2
+    (gemma-embedding's sliding layers), as the JAX forward's pair mask."""
+    if positions is None:
+        T = q.shape[1]
+        mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    else:
+        mask = (positions >= 0)[:, None, :]  # (B, 1, T): the keys that are no pad
+        if window > 0:
+            half = window // 2
+            diff = positions[:, None, :] - positions[:, :, None]  # key - query, (B, T, T)
+            mask = mask & (diff >= -half) & (diff <= half)
     return _attend(q, k, v, H, Hkv, D, scale, mask)
 
 
@@ -439,9 +484,10 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
     write_layer(vc, vs, v, wpos)
     scale = cfg.attn_scale if cfg.attn_scale else D ** -0.5
     softcap, sinks = cfg.traits.attn_logit_softcap, lp.get("attn_sinks")
-    if (fresh_prefill and cfg.sliding_window <= 0 and softcap == 0.0 and sinks is None
-            and alibi is None):
-        out = _chunk_causal_attention(q, k, v, H, Hkv, D, scale)
+    causal = not cfg.traits.non_causal  # an encoder attends over its chunk both ways
+    if ((fresh_prefill or not causal) and (cfg.sliding_window <= 0 or not causal)
+            and softcap == 0.0 and sinks is None and alibi is None):
+        out = _chunk_attention(q, k, v, H, Hkv, D, scale, None if causal else positions, window)
     else:
         keys = read_layer(kc, ks, q.dtype)
         vals = read_layer(vc, vs, q.dtype)
@@ -609,14 +655,15 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                  fresh_prefill: bool = False,
                  ffn_carry_init: Callable | None = None,
                  stateful_ffn: bool = False, moe_mode: str = "dense",
-                 with_hidden: bool = False) -> Callable:
+                 with_hidden: bool = False, head: bool = True) -> Callable:
     """fwd(params, tokens (B,T), positions (B,T), cache[, fstate]) -> logits
     f32 (B, T, V); the cache is updated in place, and with stateful_ffn the
     FFN's state `fstate` too. `positions` are the absolute sequence
     positions of `tokens`. Without ffn_fn a model with experts runs its MoE
     FFN in `moe_mode` ("dense" or "pallas"). with_hidden=True returns
     (logits, hidden): hidden (B, T, E) the final-normed stream the head
-    reads, in the model's dtype (the pooled input of runtime/embeddings).
+    reads, in the model's dtype (the pooled input of runtime/embeddings);
+    head=False leaves the head out and returns (None, hidden).
     The cache may be an iSWA dual cache, except in the carry form: the
     JAX forward's carry branch scans the cache as one stacked array, which
     a tuple of runs is not, so it raises ValueError there."""
@@ -673,6 +720,8 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
             x = x * _scalar(cfg.embd_scale, x.dtype)
         if tr.pos_embd:  # learned positions (OPT's at HF offset 2)
             x = x + params["pos_embd"][positions + tr.pos_embd_offset]
+        if "type_embd" in params:  # bert's token type (segment) 0, as the JAX forward
+            x = x + params["type_embd"][0].to(x.dtype)
         if "tok_norm_w" in params:  # bloom's post-embedding LayerNorm
             x = _norm(x, params["tok_norm_w"], params.get("tok_norm_b"), kind, eps)
         sl = alibi_of(x.device)
@@ -696,9 +745,10 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
             x_in = x  # the layer's input: arctic's MoE and smallthinker's router read it
             if tr.moe_router_on_input and "w_router" in lp:  # routed before attention
                 lp["router_logits"] = x_in @ lp["w_router"].to(x_in.dtype)
-            # the pre-norm where the layer has one (olmo2's blocks have post-norms only)
+            # the pre-norm where the layer has one (olmo2's blocks have post-norms
+            # only; bert's attn_norm slot holds its post-sum norm)
             h = (_norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), kind, eps)
-                 if "attn_norm_w" in lp else x)
+                 if "attn_norm_w" in lp and not tr.post_norm else x)
             if nas and "wq" not in lp:
                 # deci's attention-free layer: its output replaces the stream,
                 # ffn(ffn_norm(h)) + h, as the JAX forward and llama.cpp's deci
@@ -731,6 +781,8 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
             if tr.parallel_blocks:  # falcon: the FFN reads the layer's input
                 h2 = (_norm(x, lp["attn_norm2_w"], lp.get("attn_norm2_b"), kind, eps)
                       if "attn_norm2_w" in lp else h)
+            elif tr.post_norm:  # bert: a LayerNorm over each residual sum
+                x = h2 = _norm(x + attn_out, lp["attn_norm_w"], lp.get("attn_norm_b"), kind, eps)
             else:
                 x = x + attn_out
                 h2 = (_norm(x, lp["ffn_norm_w"], lp.get("ffn_norm_b"), kind, eps)
@@ -743,6 +795,8 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                 y = ffn(lp, h2)
             if tr.parallel_blocks:  # JAX scales the attention output only here
                 x = x + attn_out + y
+            elif tr.post_norm:
+                x = _norm(x + y, lp["ffn_norm_w"], lp.get("ffn_norm_b"), kind, eps)
             else:
                 if "ffn_post_norm_w" in lp:
                     y = _norm(y, lp["ffn_post_norm_w"], lp.get("ffn_post_norm_b"), kind, eps)
@@ -753,7 +807,10 @@ def make_forward(cfg: ModelConfig, ffn_fn: Callable | None = None,
                 x = x + moe_residual(lp, _norm(x_in, lp["ffn_norm_exps_w"], None, kind, eps))
             if "cvec" in lp:  # control vector (llama_adapter_cvec)
                 x = x + lp["cvec"].to(x.dtype)
-        x = _norm(x, params["output_norm_w"], params.get("output_norm_b"), kind, eps)
+        if "output_norm_w" in params:  # bert's last block normed the stream already
+            x = _norm(x, params["output_norm_w"], params.get("output_norm_b"), kind, eps)
+        if not head:
+            return None, x
         logits = lm_head(x, params["output"])
         if "output_b" in params:  # gptj's and phi2's head bias, f32
             logits = logits + params["output_b"]

@@ -5,8 +5,8 @@ ProSparse: fatrelu(gate) * up; Bamboo: relu(gate) * relu(up); ReLU models:
 relu(up); llama and the MoE families: silu(gate) * up; the MoE functions'
 other variants: gpt-oss's clamped swiglu, geglu, reglu and gelu; plm's,
 nemotron's and arcee's ungated relu²; bitnet's gated relu², relu(gate)² *
-up. `xielu` is apertus's activation with per-layer coefficients, which the
-FFN calls itself. The erf gelu of the bert encoders comes with them.
+up; the bert encoders' exact (erf) gelu. `xielu` is apertus's activation
+with per-layer coefficients, which the FFN calls itself.
 """
 
 from __future__ import annotations
@@ -73,6 +73,11 @@ def _gelu(u):
     return F.gelu(u.float(), approximate="tanh").to(u.dtype)
 
 
+def _gelu_erf(u):
+    """Exact (erf) GELU of the bert encoders, in f32 and back in u's dtype."""
+    return F.gelu(u.float(), approximate="none").to(u.dtype)
+
+
 def act_fn(name: str, fatrelu_threshold: float = 0.0):
     """Returns (gated, fn). gated=True -> fn(gate, up); else fn(up)."""
     table = {
@@ -82,6 +87,7 @@ def act_fn(name: str, fatrelu_threshold: float = 0.0):
         "geglu": (True, _gelu_gate),
         "reglu": (True, lambda g, u: g.clamp_min(0) * u),
         "gelu": (False, _gelu),
+        "gelu_erf": (False, _gelu_erf),
         "fatrelu": (True, lambda g, u: fatrelu(g, fatrelu_threshold) * u),
         "drelu": (True, _drelu),
         "relu": (False, _relu),

@@ -2,15 +2,20 @@
 sparkinfer_tpu/runtime/embeddings.py (ref: tools/server /embeddings and
 examples/embedding; the pooling modes mirror llama_pooling_type).
 
-Each input runs one prompt forward (`make_forward(with_hidden=True)`) on
-the model's device over a fresh cache of its own length, and is pooled on
-the host from the final-normed hidden states in f32: "mean", "last",
+Each input runs one prompt forward (`make_forward(with_hidden=True,
+head=False)`: the hidden states alone, no logits) on the model's device
+over a fresh cache of its own length, and is pooled on the host from the
+final-normed hidden states in f32 (a non-causal encoder's, bert's,
+neo-bert's or gemma-embedding's, from bidirectional attention over the
+input; bert's from its last post-sum norm): "mean", "last",
 "cls" (the first token), "none" (every token's vector) or "rank" (a
 reranker's classification head on the first token, computed in f32 as
 the JAX Embedder computes it, one score, never normalized). Unlike the
 JAX Embedder, an input is not padded to a length bucket: the forward runs
 at its own length, so an input's vector does not depend on the inputs
-beside it.
+beside it (the JAX Embedder hides an encoder's pads at position -1, which
+gives the same vector). An input is cut to max_seq, which a model with
+learned positions caps at their count (bert's 512).
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ class Embedder:
         self.max_seq = clamp_max_seq(self.cfg, model.params, max_seq)
         self.pooling = pooling
         self.device = resolve_device(device)
-        self._fwd = make_forward(self.cfg, with_hidden=True, fresh_prefill=True)
+        self._fwd = make_forward(self.cfg, with_hidden=True, fresh_prefill=True, head=False)
 
     @torch.inference_mode()
     def hidden(self, ids: list[int]) -> np.ndarray:

@@ -68,7 +68,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.loader import LoadedModel
-from ..models.transformer import clamp_max_seq, make_forward
+from ..models.transformer import check_decoder, clamp_max_seq, make_forward
 from .graphs import StepGraphs, resolve_capture
 from .kv_cache import KVCache, check_int8, init_cache, init_cache_iswa, ring_room
 from .sampling import (
@@ -221,6 +221,7 @@ class Engine:
             raise ValueError(f"sparse_prefill {sparse_prefill!r} (dense or sparse)")
         self.model = model
         self.cfg = model.config
+        check_decoder(self.cfg, "the Engine's generation")
         where = model.params["tok_embd"].device
         if where.type != self.device.type or (
                 self.device.index is not None and where.index != self.device.index):

@@ -85,7 +85,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.transformer import clamp_max_seq, make_forward
+from ..models.transformer import check_decoder, clamp_max_seq, make_forward
 from .graphs import StepGraphs, resolve_capture
 from .kv_cache import KVCache, init_cache, slot_view
 from .sampling import (
@@ -346,6 +346,7 @@ class Scheduler:
 
     # --- public API ---------------------------------------------------------
     def submit(self, req: Request) -> Request:
+        check_decoder(self.cfg, "a generation request")
         if req.grammar is not None and (self.tokenizer is None or self.vocab is None):
             raise ValueError("a grammar needs the Scheduler's tokenizer and the model's vocab")
         req.id = next(self._req_ids)

@@ -16,7 +16,10 @@ Endpoints (reference parity set):
 Streaming via SSE (`stream: true`). The server runs on the card unless
 `ServerConfig.device` says otherwise. /embeddings and /rerank run the
 model's forward (runtime/embeddings.py) on the handler's thread between
-the Scheduler's ticks.
+the Scheduler's ticks. A non-causal encoder (bert, neo-bert,
+gemma-embedding) is served by those two routes alone: its Scheduler is
+built but idle, and a completion, chat or infill request is answered 400
+with the error that names the arch (`Scheduler.submit`).
 LoRA adapters (`ServerConfig.lora`) are merged at startup and re-merged at
 new scales by POST /lora-adapters, in place (`models/lora.LoraMerger`: the
 dense weights and the Scheduler's row stores, which its tick graphs read),

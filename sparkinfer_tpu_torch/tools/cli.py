@@ -23,7 +23,8 @@ and prints ids. --attn-w8a8 re-quantizes the attention projections to
 row-wise W8A8 at load. --kv-iswa gives the Engine the iSWA dual cache
 (rings for the sliding-window layers of gpt-oss and the gemma family).
 Flags whose modules are not ported yet (-hf) and encoder-decoder models
-fail at startup with an error naming the module.
+fail at startup with an error naming the module; a non-causal encoder
+(bert, neo-bert, gemma-embedding) raises ValueError naming the arch.
 """
 
 from __future__ import annotations
@@ -224,12 +225,14 @@ def _check_model(ap, path: str):
     """Fail at startup, naming the module, on a model the port cannot run."""
     from ..gguf.reader import GGUFReader
     from ..models.config import ModelConfig
+    from ..models.transformer import check_decoder
 
     with GGUFReader(path) as r:
         cfg = ModelConfig.from_gguf(r)
     if cfg.traits.enc_dec:
         ap.error(f"{cfg.arch} is an encoder-decoder model: it needs runtime/seq2seq.py "
                  "(Seq2SeqEngine), which is not ported yet")
+    check_decoder(cfg, "generation")
 
 
 def main(argv=None) -> int:

@@ -37,6 +37,28 @@ class and for the card's tests:
 of their own: olmo2's post-norm-only blocks, apertus's xIELU, bitnet's
 sub-norms, and the NAS stacks of deci and openelm (per-layer head counts
 and FFN widths, deci's attention-free layer).
+
+The trait kinds (TRAIT_KINDS), the decoders of traits the port has:
+  granite: the fault-7 multipliers (embedding, residual, attention and
+  logit scales);
+  minicpm: embedding, residual and logit scales;
+  pangu-embedded: q/k/v and output biases, neox rope;
+  plamo: the parallel block under one RMS pre-norm, neox rope;
+  starcoder2: LayerNorm with biases, q/k/v, output and FFN biases, the
+  ungated gelu;
+  command-r: the parallel block under one bias-less LayerNorm, logit_scale
+  (make_tiny_llama writes an ffn_norm and an ffn_gate a layer, which the
+  parallel blocks and the ungated FFN leave unread, in both packages);
+  phi3: q/k/v and gate/up as the JAX converter splits them.
+
+`make_encoder` writes the non-causal encoders (ENCODER_KINDS): bert
+(learned positions, token types, the embedding LayerNorm, the post-sum
+LayerNorms attn_output_norm and layer_output_norm with biases, q/k/v,
+output and FFN biases, the erf gelu, no final norm, a tied head; with
+`with_vocab` a WordPiece vocabulary, with `cls_head` a reranker's
+cls/cls.output head), neo-bert (RMS pre-norms, rope, swiglu) and
+gemma-embedding (per-head q/k norms, sandwich post-norms, a sliding window
+of 8 over 6 layers, the last full).
 """
 
 import numpy as np
@@ -49,6 +71,13 @@ PLAIN = ("smollm", "tinyllama", "internlm2", "xverse", "baichuan", "exaone")
 KINDS = PLAIN + ("orion", "stablelm-heads", "stablelm-width", "clamped", "hunyuan-dense")
 MOE_KINDS = ("qwen2moe", "hunyuan-moe", "smallthinker", "grovemoe", "arctic")
 GPT_KINDS = ("refact", "jais", "codeshell", "qwen", "bloom")
+TRAIT_KINDS = ("granite", "minicpm", "pangu-embedded", "plamo", "starcoder2", "command-r",
+               "phi3")
+ENCODER_KINDS = ("bert", "neo-bert", "gemma-embedding")
+# bert's WordPiece pieces past its five specials ([PAD] [UNK] [CLS] [SEP] [MASK])
+WPM_PIECES = ("hello", "world", "the", "a", "query", "doc", "##s", "##ing", "##ed", "do",
+              "##n", "'", "t", "!", ".", "what", "is", "rerank", "##er", "embed", "##ding",
+              "text", "one", "two", "three", "?", ",")
 
 
 def _spec(kind: str, rng) -> tuple[str, dict]:
@@ -63,8 +92,44 @@ def _spec(kind: str, rng) -> tuple[str, dict]:
             out.update({f"blk.{i}.{k}": v for k, v in make().items()})
         return out
 
-    if kind in PLAIN or kind == "refact":
+    if kind in PLAIN or kind in ("refact", "phi3", "neo-bert"):
         return kind, {}
+    if kind == "granite":
+        return kind, {"extra_kv": {"granite.embedding_scale": np.float32(12.0),
+                                   "granite.residual_scale": np.float32(0.22),
+                                   "granite.attention.scale": np.float32(0.015625),
+                                   "granite.logit_scale": np.float32(1 / 8)}}
+    if kind == "minicpm":  # scale_emb 12, scale_depth 1.4 / sqrt(2), 1 / (E / 32)
+        return kind, {"extra_kv": {"minicpm.embedding_scale": np.float32(12.0),
+                                   "minicpm.residual_scale": np.float32(1.4 / np.sqrt(2)),
+                                   "minicpm.logit_scale": np.float32(0.5)}}
+    if kind == "pangu-embedded":
+        return kind, {"extra_tensors": per_layer(lambda: {
+            "attn_q.bias": w(H * D), "attn_k.bias": w(HKV * D), "attn_v.bias": w(HKV * D),
+            "attn_output.bias": w(E)})}
+    if kind == "plamo":
+        return kind, {}
+    if kind == "command-r":
+        return kind, {"extra_kv": {"command-r.logit_scale": np.float32(0.0625)}}
+    if kind == "starcoder2":
+        t = per_layer(lambda: {
+            "attn_norm.bias": w(E, s=0.1), "ffn_norm.bias": w(E, s=0.1),
+            "attn_q.bias": w(H * D), "attn_k.bias": w(HKV * D), "attn_v.bias": w(HKV * D),
+            "attn_output.bias": w(E), "ffn_up.bias": w(96), "ffn_down.bias": w(E)})
+        t["output_norm.bias"] = w(E, s=0.1)
+        return kind, {"extra_tensors": t}
+    if kind == "gemma-embedding":
+        def layer():
+            return {"attn_q_norm.weight": w(D, s=0.1, shift=1.0),
+                    "attn_k_norm.weight": w(D, s=0.1, shift=1.0),
+                    "attn_post_norm.weight": w(E, s=0.1, shift=1.0),
+                    "ffn_post_norm.weight": w(E, s=0.1, shift=1.0)}
+
+        t = {}
+        for i in range(6):
+            t.update({f"blk.{i}.{k}": v for k, v in layer().items()})
+        return kind, {"n_layer": 6, "extra_tensors": t,
+                      "extra_kv": {"gemma-embedding.attention.sliding_window": np.uint32(8)}}
     if kind in ("jais", "codeshell", "qwen", "bloom"):
         def layer():
             t = {} if kind == "qwen" else {
@@ -247,3 +312,77 @@ def make_arch(path, kind: str, seed: int = 0, **kw) -> str:
     arch, spec = _spec(kind, np.random.default_rng(1000 + seed))
     make_tiny_llama(path, arch=arch, seed=seed, **{**spec, **kw})
     return arch
+
+
+def make_encoder(path, kind: str, seed: int = 0, quant_type: str | None = None,
+                 with_vocab: bool = False, cls_head: bool = False, n_layer: int = 2,
+                 n_pos: int = 64) -> str:
+    """Write the encoder kind `kind` (ENCODER_KINDS); returns its arch.
+    neo-bert and gemma-embedding through make_arch; bert here at E=64, 4
+    heads of 16, F=96, n_pos learned positions, 2 token types: weights
+    N(0, 0.08), biases and embeddings N(0, 0.05), LayerNorm weights
+    1 + N(0, 0.1) and biases N(0, 0.1), eps 1e-12, Q8_0 linears with
+    quant_type "q8_0"; a WordPiece vocabulary of the specials and
+    WPM_PIECES ([CLS] the bos, [SEP] the eos and separator, both added)
+    padded with unused pieces to 120, else a vocabulary size of 120 alone."""
+    if kind != "bert":
+        return make_arch(path, kind, seed=seed, **({"quant_type": quant_type}
+                                                   if quant_type else {}))
+    from sparkinfer_tpu_torch.gguf.constants import GGMLType
+    from sparkinfer_tpu_torch.gguf.writer import GGUFWriter
+
+    rng = np.random.default_rng(3000 + seed)
+    V, F, f32 = 120, 96, GGMLType.F32
+    qt = GGMLType.Q8_0 if quant_type == "q8_0" else f32
+
+    def w(*shape, s=0.08, shift=0.0):
+        return (shift + s * rng.standard_normal(shape)).astype(np.float32)
+
+    wr = GGUFWriter(str(path), "bert")
+    for k, v in (("block_count", n_layer), ("embedding_length", E), ("vocab_size", V),
+                 ("context_length", n_pos), ("attention.head_count", H),
+                 ("feed_forward_length", F)):
+        wr.add_kv(f"bert.{k}", np.uint32(v))
+    wr.add_kv("bert.attention.layer_norm_epsilon", np.float32(1e-12))
+    if with_vocab:
+        tokens = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *WPM_PIECES]
+        tokens += [f"[unused{i}]" for i in range(V - len(tokens))]
+        types = np.ones(V, np.int32)  # NORMAL
+        types[[0, 2, 3, 4]] = 3  # CONTROL
+        types[1] = 2  # UNKNOWN
+        wr.add_kv("tokenizer.ggml.model", "bert")
+        wr.add_array("tokenizer.ggml.tokens", tokens)
+        wr.add_array("tokenizer.ggml.token_type", types)
+        for k, v in (("bos_token_id", 2), ("eos_token_id", 3), ("unknown_token_id", 1),
+                     ("seperator_token_id", 3), ("padding_token_id", 0)):
+            wr.add_kv(f"tokenizer.ggml.{k}", np.uint32(v))
+        wr.add_kv("tokenizer.ggml.add_bos_token", True)
+        wr.add_kv("tokenizer.ggml.add_eos_token", True)
+
+    def norm(name):
+        wr.add_tensor(name + ".weight", w(E, s=0.1, shift=1.0), f32)
+        wr.add_tensor(name + ".bias", w(E, s=0.1), f32)
+
+    def lin(name, out_dim, in_dim):
+        wr.add_tensor(name + ".weight", w(out_dim, in_dim), qt)
+        wr.add_tensor(name + ".bias", w(out_dim, s=0.05), f32)
+
+    wr.add_tensor("token_embd.weight", w(V, E, s=0.05), f32)
+    wr.add_tensor("token_types.weight", w(2, E, s=0.05), f32)
+    wr.add_tensor("position_embd.weight", w(n_pos, E, s=0.05), f32)
+    norm("token_embd_norm")
+    for i in range(n_layer):
+        p = f"blk.{i}."
+        for nm in ("attn_q", "attn_k", "attn_v", "attn_output"):
+            lin(p + nm, E, E)
+        norm(p + "attn_output_norm")
+        lin(p + "ffn_up", F, E)
+        lin(p + "ffn_down", E, F)
+        norm(p + "layer_output_norm")
+    if cls_head:
+        wr.add_tensor("cls.weight", w(E, E, s=0.2), f32)
+        wr.add_tensor("cls.bias", w(E, s=0.1), f32)
+        wr.add_tensor("cls.output.weight", w(1, E, s=0.5), f32)
+        wr.add_tensor("cls.output.bias", np.array([0.25], np.float32), f32)
+    wr.write()
+    return "bert"

@@ -35,7 +35,12 @@ linears through quant_matmul_2d), past a context shift, and its 2-slot
 Scheduler's tick. The same for tests/arch_fixture.py:make_feature's olmo2
 (post-norms only) in bf16 and in Q8_0, apertus (xIELU), and deci (a layer
 of 1 KV head under a cache of 2, written through a narrowed view, and an
-attention-free layer).
+attention-free layer). The same for each of 15g's trait archs
+(tests/arch_fixture.py TRAIT_KINDS: granite, minicpm, pangu-embedded,
+plamo, starcoder2, command-r, phi3) in bf16. The non-causal encoders
+(tests/arch_fixture.py:make_encoder: bert in Q8_0, neo-bert and
+gemma-embedding in f32): the Embedder's hidden states on the card against
+the CPU's.
 """
 
 import os
@@ -50,7 +55,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from arch_fixture import make_arch, make_feature  # noqa: E402
+from arch_fixture import (  # noqa: E402
+    ENCODER_KINDS,
+    TRAIT_KINDS,
+    make_arch,
+    make_encoder,
+    make_feature,
+)
 from deepseek2_fixture import make_deepseek2  # noqa: E402
 from model_fixtures import make_tiny_llama  # noqa: E402
 from sparkinfer_tpu_torch.models.loader import LoadedModel, load_model  # noqa: E402
@@ -1064,3 +1075,45 @@ def test_lora_remerge_reaches_the_graphs(cuda, gguf, tmp_path, kind):
         slot.cached_tokens = []
     assert go() == base
     assert live.graphs.captures == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", TRAIT_KINDS)
+def test_trait_graph_step_equals_the_eager_step(cuda, tmp_path, kind):
+    """The 15g trait archs in bf16 (granite's and minicpm's multipliers,
+    pangu-embedded's biases, plamo's and command-r's parallel blocks,
+    starcoder2's LayerNorm and FFN biases, phi3): the decode graph's stream
+    and every step's logits bit-equal to the eager step's, past a context
+    shift, one capture."""
+    make_arch(tmp_path / "m.gguf", kind, seed=7)
+    model = load_model(str(tmp_path / "m.gguf"), dtype=torch.bfloat16, device="cuda")
+    assert model.config.arch == kind
+    _graph_against_eager(model)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ENCODER_KINDS)
+def test_encoder_embedder_on_the_card(cuda, tmp_path, kind):
+    """The non-causal encoders' Embedder on the card against the CPU's, 40
+    tokens (past gemma-embedding's half window of 4): bert in Q8_0 through
+    quant_matmul_2d (qmm_prefill, 6 launches a layer) within 1e-3 of the
+    plain CPU path's scale (both round the products' inputs to bf16), the
+    f32 neo-bert and gemma-embedding within 1e-4; generation refused by
+    name."""
+    from sparkinfer_tpu_torch.runtime.embeddings import Embedder
+
+    q8 = kind == "bert"
+    make_encoder(tmp_path / "m.gguf", kind, seed=7, quant_type="q8_0" if q8 else None)
+    ids = [int(t) for t in np.random.default_rng(3).integers(5, 110, 40)]
+    got, want = (Embedder(load_model(str(tmp_path / "m.gguf"), dtype=torch.float32, device=d,
+                                     keep_quantized=q8), device=d).hidden(ids)
+                 for d in ("cuda", "cpu"))
+    before = tqm.quant_matmul_2d.launches
+    model = load_model(str(tmp_path / "m.gguf"), dtype=torch.float32, device="cuda",
+                       keep_quantized=q8)
+    Embedder(model, device="cuda").hidden(ids)
+    assert tqm.quant_matmul_2d.launches - before == (12 if q8 else 0)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= (1e-3 if q8 else 1e-4), err
+    with pytest.raises(ValueError, match=f"'{kind}'"):
+        Engine(model, max_seq=64, device="cuda")

@@ -742,6 +742,79 @@ def test_quant_matmul_olmo2_7b_shapes(cuda, N, IN, OUT):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 4, 32, 512])
+@pytest.mark.parametrize("IN,OUT", [(1024, 1024), (1024, 4096), (4096, 1024)],
+                         ids=["qkvo", "up", "down"])
+def test_quant_matmul_bge_large_shapes(cuda, N, IN, OUT):
+    """bge-large-en-v1.5's Q8_0 products: q, k, v and o (1024 x 1024), up
+    (1024 x 4096) and down (4096 x 1024), by qmm_decode at N = 1 and 4 and
+    qmm_prefill at N = 32 and 512 (a 512-token embedding), bf16 x, against
+    the plain version."""
+    q, s = _store("q8_0", IN, OUT, cuda, seed=IN + 7 * OUT + N)
+    x = torch.randn((N, IN), device=cuda).to(torch.bfloat16)
+    before = tqm.quant_matmul_2d.launches
+    got = tqm.quant_matmul_2d(x, q, s, kind="q8_0")
+    torch.cuda.synchronize()
+    assert tqm.quant_matmul_2d.launches == before + 1
+    _check_qmm(got, tqm.quant_matmul_2d_plain(x, q, s, kind="q8_0"), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 4, 32, 512])
+def test_bge_large_q8_forward(cuda, monkeypatch, N):
+    """A bert at bge-large-en-v1.5's widths (E=1024, 16 heads of 64,
+    F=4096, 512 positions), 2 layers, f32 with Q8_0 q, k, v, o, up and
+    down: the hidden states of an N-token forward through the kernels
+    (qmm_decode at N <= 4, qmm_prefill above; 12 launches) against the
+    plain path's (every product through quant_matmul_2d_plain), within 1e-3
+    of their scale (both round the products' inputs to bf16, and an f32
+    input a last bit apart can round apart)."""
+    from sparkinfer_tpu_torch.models.config import ModelConfig
+    from sparkinfer_tpu_torch.models.loader import LoadedModel
+    from sparkinfer_tpu_torch.models.transformer import make_forward
+    from sparkinfer_tpu_torch.runtime.kv_cache import init_cache
+
+    L, E, F, V = 2, 1024, 4096, 30522
+    cfg = ModelConfig(arch="bert", n_layer=L, n_embd=E, n_head=16, n_head_kv=16, head_dim=64,
+                      n_ff=F, n_vocab=V, norm_eps=1e-12, n_ctx_train=512)
+    gen = torch.Generator(device=cuda).manual_seed(N)
+
+    def normal(*shape, mean=0.0, std=0.02):
+        return torch.empty(shape, device=cuda).normal_(mean, std, generator=gen)
+
+    def packed(IN, OUT):
+        q = torch.randint(-127, 128, (L, IN, OUT), generator=gen, device=cuda).to(torch.int8)
+        return tqm.QuantTensor(q, normal(L, IN // 32, OUT, mean=2.7e-4, std=2.7e-5), "q8_0")
+
+    layers = {"attn_norm_w": normal(L, E, mean=1.0, std=0.1), "attn_norm_b": normal(L, E),
+              "ffn_norm_w": normal(L, E, mean=1.0, std=0.1), "ffn_norm_b": normal(L, E),
+              **{k: packed(E, E) for k in ("wq", "wk", "wv", "wo")},
+              **{k: normal(L, E) for k in ("bq", "bk", "bv", "bo")},
+              "w_up": packed(E, F), "b_up": normal(L, F), "w_down": packed(F, E),
+              "b_down": normal(L, E)}
+    tok = normal(V, E)
+    model = LoadedModel(config=cfg, params={
+        "tok_embd": tok, "pos_embd": normal(512, E), "type_embd": normal(2, E),
+        "tok_norm_w": normal(E, mean=1.0, std=0.1), "tok_norm_b": normal(E), "output": tok.T,
+        "layers": layers})
+    ids = torch.randint(V, (1, N), generator=gen, device=cuda)
+    fwd = make_forward(cfg, with_hidden=True, fresh_prefill=True, head=False)
+
+    def hidden():
+        with torch.inference_mode():
+            return fwd(model.params, ids, torch.arange(N, device=cuda)[None],
+                       init_cache(cfg, 1, max(N, 8), torch.float32, cuda))[1]
+
+    before = tqm.quant_matmul_2d.launches
+    got = hidden()
+    assert tqm.quant_matmul_2d.launches - before == 6 * L
+    monkeypatch.setattr(tqm, "quant_matmul_2d", tqm.quant_matmul_2d_plain)
+    want = hidden()
+    assert bool(torch.isfinite(got).all()) and got.shape == (1, N, E)
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N", [1, 16, 17, 32])
 @pytest.mark.parametrize("IN,OUT", [(5120, 5120), (5120, 1280), (1280, 13824), (64, 40)])
 def test_w8a8_linear(cuda, N, IN, OUT):

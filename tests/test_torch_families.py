@@ -281,17 +281,17 @@ def test_keep_quantized_load_matches_jax(ggufs, kind):
                                .numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["bert", "neo-bert", "gemma-embedding", "mamba", "t5", "llama"])
+@pytest.mark.parametrize("arch", ["cohere2", "olmoe", "rwkv6", "mamba", "t5", "llama"])
 def test_other_archs_stay_refused(tmp_path, arch):
-    """Archs and features the port still refuses at load, each by name: the
-    non-causal encoders (bert, neo-bert; gemma-embedding by its symmetric
-    window, which it names first), the recurrent and encoder-decoder
-    modules (mamba, t5), and per-layer FFN widths (a feed_forward_length
-    array) on an arch other than deci and openelm. (The GPT-family archs and
-    the feature archs this test once held are ported:
-    tests/test_torch_gpt_archs.py, tests/test_torch_feature_archs.py.)"""
+    """Archs and features the port still refuses at load, each by name:
+    cohere2 (15g's iSWA group), olmoe (an MoE arch not ported), the
+    recurrent and encoder-decoder modules (rwkv6, mamba, t5), and per-layer
+    FFN widths (a feed_forward_length array) on an arch other than deci and
+    openelm. (The GPT-family archs, the feature archs and the non-causal
+    encoders this test once held are ported: tests/test_torch_gpt_archs.py,
+    tests/test_torch_feature_archs.py, tests/test_torch_encoders.py.)"""
     path = tmp_path / f"{arch}.gguf"
-    match = {"gemma-embedding": "symmetric sliding window", "llama": "per-layer"}.get(arch, arch)
+    match = {"llama": "per-layer"}.get(arch, arch)
     if arch == "llama":  # the header alone: the refusal comes before any tensor is read
         wr = GGUFWriter(str(path), arch)
         for k, v in (("block_count", 2), ("embedding_length", E), ("attention.head_count", 4),
@@ -301,8 +301,8 @@ def test_other_archs_stay_refused(tmp_path, arch):
         wr.add_array(f"{arch}.feed_forward_length", np.array([96, 64], np.uint32))
         wr.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", np.float32(1e-5))
         wr.write()
-    elif arch == "gemma-embedding":
-        make_tiny_llama(path, arch=arch, extra_kv={f"{arch}.attention.sliding_window": 8})
+    elif arch == "olmoe":
+        make_tiny_llama(path, arch=arch, n_expert=4, n_expert_used=2)
     else:
         make_tiny_llama(path, arch=arch)
     with pytest.raises(NotImplementedError, match=match):
